@@ -7,18 +7,23 @@ Phases (any failure exits non-zero before the result lines):
 1. require ``torch.cuda.is_available()``; print the card's name and power
    limit as ``nvidia-smi`` reports them;
 2. build the CUDA library from ``licv_vqa_tpu_torch/csrc`` (nvcc, sm_90a)
-   and print the build time;
-3. hold each kernel against its plain PyTorch version on the same bf16
-   inputs at the main path's shapes, printing the max-abs error (limit
-   ``REL_TOL`` times the plain output's max-abs) and two times for each:
-   the device time per call (the sum of the device-kernel intervals that
-   ``torch.profiler`` records over many calls, divided by the calls) and
-   the host-clocked time per call (CUDA events around back-to-back calls,
-   median of several runs; launch costs included).  The ICV injection at
-   (1, 512, 4096), (1, 64, 4096) and (3, 1, 4096) for each shift layout,
-   the flash-attention forward at (1, S, 32, 128) for S = 384, 512 and
-   2048 with left padding;
-4. the main path at Idefics-9B FULL width (32 layers, d=4096, ViT-H, 6-layer
+   and print the build time (the Triton kernels compile at first launch);
+3. hold each kernel against its plain PyTorch version on the same inputs
+   at the main paths' shapes, printing the error (max-abs over the plain
+   output's max-abs, limit ``REL_TOL``), the device time per call of the
+   kernel, its plain version and, where one PyTorch call computes the same
+   function, that call (the sum of the device-kernel intervals
+   ``torch.profiler`` records over many calls, divided by the calls), the
+   host-clocked time per call (CUDA events, launch costs included) and the
+   bound: the larger of the bytes the function must move over 3.35 TB/s
+   and its operations over the peak rate for their type (989 TFLOP/s bf16
+   tensor cores, 67 TFLOP/s f32).  Cases: the ICV injection forward at
+   (1, 512, 4096), (1, 64, 4096) and (3, 1, 4096) and its backward at
+   (2, 64, 4096) and (1, 512, 4096) bf16, each for every shift layout; the
+   flash-attention forward at (1, S, 32, 128) for S = 384, 512 and 2048
+   with left padding; the masked temperature-KL forward and backward at
+   (128, 32000) and (512, 32000) f32 with a partial mask;
+4. the eval path at Idefics-9B FULL width (32 layers, d=4096, ViT-H, 6-layer
    perceiver, 8 cross-attention blocks; random bf16 weights made on the card
    from a seed, ~18 GB), through the runner entry points the CLI calls
    (``icv_inference`` / ``icl_inference``) with the CLI's composed config and
@@ -28,18 +33,37 @@ Phases (any failure exits non-zero before the result lines):
    launch counts are zeroed before and read after each; the ICV count must
    equal 32 x forward passes and the flash count 32 x questions.  Prints
    per-question latency, peak memory, and checks the answers: decoded
-   strings scored by the port CLI's VQA accuracy, and the full-width ICL prefill
-   logits with the flash kernel against the plain attention path;
-5. one ``{"kernels": [...]}`` line;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   strings scored by the port CLI's VQA accuracy, and the full-width ICL
+   prefill logits with the flash kernel against the plain attention path;
+5. the training path at Idefics-9B full width, through the port's train
+   CLI (``licv_vqa_tpu_torch.cli.train.main``) on a synthetic VQAv2 split
+   written to a temporary directory: ``trainer=debug`` (4 micro-steps, 2
+   optimizer steps), bs=2, 32-shot teacher prompts (>= 256 tokens, so the
+   teacher runs the flash kernel), ``kl_impl=pallas``.  Every kernel count
+   must equal what the structure predicts per micro-step: KL forward 1, KL
+   backward 1, ICV backward 32, flash forward 32 (the teacher), ICV forward
+   3·32 − 8 = 88 (the student's forward, the per-group recompute up to each
+   group's last layer, the per-layer recompute; ``remat_mode=both``).  The
+   losses must be finite and the artifact must carry the reference keys and
+   load through the port.  Prints ms per micro-step and peak memory.  Then,
+   on one batch with the same weights and ICV: the (icv, alpha) gradients
+   of the kernel path (flash, ICV and KL kernels) against the plain path
+   (plain attention, plain injection, ``kl_impl=xla``), rel. L2 within
+   ``REL_L2_TOL``, and the KL with the bf16-rounded LM head against an f32
+   head;
+6. one ``{"kernels": [...]}`` line;
+7. the last line: ``{"ok": true, "device": {...}}``.
 
-The port CLI itself is held against ``inference.py`` by
-``tests/test_torch_cli.py``.
+The port CLIs themselves are held against ``inference.py`` and ``train.py``
+by the CPU tests (``tests/test_torch_cli.py``, ``tests/test_torch_train*.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,18 +72,24 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-# kernel vs plain, bf16 in/out and f32 math on both sides: max-abs error
-# <= REL_TOL * max|plain|.  One bf16 ulp is at most 2^-7 of a value, so this
-# allows about 2.5 ulps at the largest output; a kernel with a wrong mask or
-# a wrong shift row reads far above it (PERF.md, Findings).
+# kernel vs plain: max-abs error <= REL_TOL * max|plain|, per output.  For
+# bf16 outputs one ulp is at most 2^-7 of a value, so this allows about 2.5
+# ulps at the largest output; a kernel with a wrong mask, a wrong shift row
+# or a wrong gradient term reads far above it (PERF.md, Findings).  The f32
+# KL kernels read far below it.
 REL_TOL = 2e-2
-# whole-model check: 32 bf16 layers amplify the kernels' rounding
+# whole-model checks: 32 bf16 layers amplify the kernels' rounding
 # differences (the plain attention rounds probabilities to bf16 before P·V)
 REL_L2_TOL = 0.1
 N_ICV_Q = 4
 N_ICL_Q = 2
 ICL_SHOTS = 32
 MAX_NEW = 5
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+TRAIN_BS = 2
+TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
+KL_EPS = 1e-6
 
 
 def log(msg: str) -> None:
@@ -117,73 +147,166 @@ def device_ms(fn, calls: int) -> float:
     return us / calls / 1e3
 
 
+@dataclasses.dataclass
+class Case:
+    """One kernel-vs-plain case: the calls, and the work the bound counts."""
+
+    name: str
+    label: str
+    kernel: object
+    plain: object
+    bytes_moved: float  # each input read once, each output written once
+    ops: float
+    op_type: str  # key of PEAK_OPS
+    library: object = None  # one PyTorch call computing the same function
+    calls: int = 20
+
+    def bound(self) -> tuple[float, str]:
+        t_bytes = self.bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = self.ops / PEAK_OPS[self.op_type] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_cases(dev):
-    """The kernel-vs-plain cases at the main path's shapes, from a seed:
-    ``(kernel name, label, kernel call, plain call)``."""
+    """The kernel-vs-plain cases at the main paths' shapes, from a seed."""
     import torch
+    import torch.nn.functional as F
 
     from licv_vqa_tpu_torch.models import layers as L
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
+    from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
+    from licv_vqa_tpu_torch.ops.icv_inject import (
+        icv_inject,
+        icv_inject_backward,
+        icv_inject_backward_reference,
+        icv_inject_reference,
+    )
 
     g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def layouts(b, s, d):
+        return (("row", (d,)), ("batch", (b, d)), ("batch1", (b, 1, d)), ("per_pos", (b, s, d)))
+
     for (b, s, d) in ((1, 512, 4096), (1, 64, 4096), (3, 1, 4096)):
-        h = torch.randn((b, s, d), generator=g, device=dev).to(torch.bfloat16)
-        layouts = (("row", (d,)), ("batch", (b, d)), ("batch1", (b, 1, d)), ("per_pos", (b, s, d)))
-        for layout, vshape in layouts:
-            v = (torch.randn(vshape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
-            yield (
+        h = randn((b, s, d))
+        for layout, vshape in layouts(b, s, d):
+            v = randn(vshape, 0.5)
+            n = b * s * d
+            yield Case(
                 "icv_inject", f"({b},{s},{d}) shift={layout}",
                 lambda h=h, v=v: icv_inject(h, v),
                 lambda h=h, v=v: icv_inject_reference(h, v),
+                bytes_moved=2 * n * 2 + v.numel() * 2, ops=8 * n, op_type="f32", calls=50,
+            )
+    for (b, s, d) in ((2, 64, 4096), (1, 512, 4096)):
+        h, gout = randn((b, s, d)), randn((b, s, d))
+        for layout, vshape in layouts(b, s, d):
+            v = randn(vshape, 0.5)
+            n = b * s * d
+            yield Case(
+                "icv_inject_bwd", f"({b},{s},{d}) shift={layout}",
+                lambda h=h, v=v, gout=gout: icv_inject_backward(h, v, gout),
+                lambda h=h, v=v, gout=gout: icv_inject_backward_reference(h, v, gout),
+                # h, g read (bf16), dh written (bf16), ds written (f32)
+                bytes_moved=n * (2 + 2 + 2 + 4) + v.numel() * 2, ops=16 * n,
+                op_type="f32", calls=50,
             )
     for s, pad in ((384, 57), (512, 39), (2048, 301)):
-        q, k, v = (
-            torch.randn((1, s, 32, 128), generator=g, device=dev).to(torch.bfloat16)
-            for _ in range(3)
-        )
+        q, k, v = (randn((1, s, 32, 128)) for _ in range(3))
         valid = torch.ones((1, s), dtype=torch.int32, device=dev)
         valid[:, :pad] = 0  # left padding, as the decode prompts are
-        yield (
+        mask = L.segment_causal_mask(valid)
+        # the causal half: QK^T and PV over the s(s+1)/2 visible pairs
+        flops = 4 * 32 * 128 * s * (s + 1) / 2
+        yield Case(
             "flash_attention_fwd", f"(1,{s},32,128) left pad {pad}",
             lambda q=q, k=k, v=v, valid=valid: L.flash_attention(q, k, v, valid),
             lambda q=q, k=k, v=v, valid=valid: L.flash_attention_reference(q, k, v, valid),
+            bytes_moved=4 * q.numel() * 2 + valid.numel() * 4, ops=flops, op_type="bf16",
+            library=lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask
+            ),
+            calls=5,
+        )
+    for n in (128, 512):
+        v_sz = 32000
+        stu, tea = randn((n, v_sz), 3.0, torch.float32), randn((n, v_sz), 3.0, torch.float32)
+        w = (torch.rand((n,), generator=g, device=dev) < 0.7).float()
+        gw = w / w.sum()  # the masked mean's per-row cotangent
+        _, lse_s, lse_t = K.rowwise_kl_reference(stu, tea, KL_EPS)
+        elems = n * v_sz
+        yield Case(
+            "masked_kl_fwd", f"({n},{v_sz}) f32",
+            lambda stu=stu, tea=tea: K.rowwise_kl_forward(stu, tea, KL_EPS),
+            lambda stu=stu, tea=tea: K.rowwise_kl_reference(stu, tea, KL_EPS),
+            bytes_moved=2 * elems * 4 + 3 * n * 4, ops=17 * elems, op_type="f32",
+        )
+        yield Case(
+            "masked_kl_bwd", f"({n},{v_sz}) f32",
+            lambda stu=stu, tea=tea, a=lse_s, b=lse_t, gw=gw: K.rowwise_kl_backward(
+                stu, tea, a, b, gw, KL_EPS),
+            lambda stu=stu, tea=tea, a=lse_s, b=lse_t, gw=gw: K.rowwise_kl_backward_reference(
+                stu, tea, a, b, gw, KL_EPS),
+            bytes_moved=4 * elems * 4 + 3 * n * 4, ops=30 * elems, op_type="f32",
         )
 
 
 def compare(kernel, plain) -> tuple[float, float]:
-    """``(max-abs error, max|plain|)`` of one kernel call against its plain
-    version on the same inputs; a non-finite kernel output raises."""
+    """``(max-abs error, worst error ratio)`` of one kernel call against its
+    plain version on the same inputs, over every output; the ratio is each
+    output's max-abs error over that output's max|plain|.  A non-finite
+    kernel output raises."""
     import torch
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    if not torch.isfinite(got).all():
-        raise AssertionError("non-finite kernel output")
-    return (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, ratio = 0.0, 0.0
+    for a, b in zip(got, want, strict=True):
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite kernel output")
+        e = (a.float() - b.float()).abs().max().item()
+        err = max(err, e)
+        ratio = max(ratio, e / max(b.float().abs().max().item(), 1e-30))
+    return err, ratio
 
 
-# the main path's most frequent call of each kernel: the ICV injection at a
-# beam step (32 per step), the flash forward at the 32-shot prefill (512)
-MAIN_SHAPE = {"icv_inject": "(3,1,4096) shift=row", "flash_attention_fwd": "(1,512,32,128)"}
+# the main paths' most frequent call of each kernel: the ICV injection at a
+# beam step (32 per step), the flash forward at the 32-shot prefill (512),
+# the ICV backward and the KL at the training student (bs=2, 64 tokens)
+MAIN_SHAPE = {
+    "icv_inject": "(3,1,4096) shift=row",
+    "flash_attention_fwd": "(1,512,32,128)",
+    "icv_inject_bwd": "(2,64,4096) shift=row",
+    "masked_kl_fwd": "(128,32000)",
+    "masked_kl_bwd": "(128,32000)",
+}
 
 
 def check_kernels(dev) -> dict:
     """Phase 3.  Returns per-kernel summaries for the kernels line."""
     out = {}
-    for name, label, kernel, plain in kernel_cases(dev):
-        err, ref_max = compare(kernel, plain)
-        calls = 50 if name == "icv_inject" else 5
-        dev_ms, dev_plain = device_ms(kernel, calls), device_ms(plain, calls)
-        ev_ms, ev_plain = time_ms(kernel, inner=calls), time_ms(plain, inner=calls)
-        log(f"{name} {label}: max_abs={err:.3e} (max|plain| {ref_max:.3e}, "
-            f"ratio {err / ref_max:.3e}); device {dev_ms:.5f} ms vs plain {dev_plain:.5f} ms; "
-            f"host-clocked {ev_ms:.4f} ms vs plain {ev_plain:.4f} ms")
-        if not err <= REL_TOL * ref_max:
-            raise AssertionError(f"{name} {label} disagrees: {err} > {REL_TOL} x {ref_max}")
-        row = out.setdefault(name, dict(max_abs_err=0.0))
+    for c in kernel_cases(dev):
+        err, ratio = compare(c.kernel, c.plain)
+        dev_ms, dev_plain = device_ms(c.kernel, c.calls), device_ms(c.plain, c.calls)
+        lib_ms = device_ms(c.library, c.calls) if c.library is not None else None
+        ev_ms, ev_plain = time_ms(c.kernel, inner=c.calls), time_ms(c.plain, inner=c.calls)
+        bound_ms, bound_by = c.bound()
+        lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "none"
+        log(f"{c.name} {c.label}: max_abs={err:.3e} (ratio to max|plain| {ratio:.3e}); "
+            f"device {dev_ms:.5f} ms, plain {dev_plain:.5f} ms, library {lib}, "
+            f"bound {bound_ms:.5f} ms ({bound_by}); host-clocked {ev_ms:.4f} ms vs plain "
+            f"{ev_plain:.4f} ms")
+        if not ratio <= REL_TOL:
+            raise AssertionError(f"{c.name} {c.label} disagrees: ratio {ratio} > {REL_TOL}")
+        row = out.setdefault(c.name, dict(max_abs_err=0.0))
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if label.startswith(MAIN_SHAPE[name]):
-            row.update(ms=dev_ms, plain_ms=dev_plain)
+        if c.label.startswith(MAIN_SHAPE[c.name]):
+            row.update(ms=dev_ms, plain_ms=dev_plain, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
     return out
 
 
@@ -209,11 +332,35 @@ def synthetic_vqa(n: int, offset: int, seed: int):
     return rows
 
 
+def write_vqa_split(root: Path, img_root: Path, split: str, n: int, seed: int) -> None:
+    """A VQAv2 split on disk (question, annotation and JPEG files), as
+    ``tests/test_cli_e2e.py`` writes one."""
+    from PIL import Image
+
+    img_root.mkdir(parents=True, exist_ok=True)
+    root.mkdir(parents=True, exist_ok=True)
+    rows = synthetic_vqa(n, 100, seed)
+    for r in rows:
+        Image.fromarray(r["image"]).save(img_root / f"COCO_{split}_{r['image_id']:012d}.jpg")
+    questions = [{k: r[k] for k in ("question_id", "image_id", "question")} for r in rows]
+    anns = [
+        {k: r[k] for k in ("question_id", "image_id", "question_type", "answer_type", "answers")}
+        | {"multiple_choice_answer": r["answer"]}
+        for r in rows
+    ]
+    (root / f"v2_OpenEnded_mscoco_{split}_questions.json").write_text(
+        json.dumps({"questions": questions}))
+    (root / f"v2_mscoco_{split}_annotations.json").write_text(json.dumps({"annotations": anns}))
+    if split == "val2014":
+        (root / "v2_mscoco_val2014_annotations_subdata.json").write_text(
+            json.dumps({"annotations": anns}))
+
+
 def vqa_accuracy(results: dict, rows: list, tmp: Path, tag: str) -> float:
     """The port CLI's VQA scoring over question and annotation files made
     from ``rows``."""
-    from licv_vqa_tpu.metrics import vqa_postprocess
     from licv_vqa_tpu_torch.cli.inference import evaluate_vqa
+    from licv_vqa_tpu_torch.metrics import vqa_postprocess
 
     ques = tmp / f"{tag}_questions.json"
     anns = tmp / f"{tag}_annotations.json"
@@ -229,24 +376,35 @@ def vqa_accuracy(results: dict, rows: list, tmp: Path, tag: str) -> float:
     return float(acc["overall"])
 
 
-def main_path(dev, tmp: Path) -> dict:
-    """Phase 4.  Returns the launch counts of the main path."""
-    import dataclasses
+def set_env(tmp: Path) -> None:
+    tmp.mkdir(parents=True, exist_ok=True)
+    for key in ("RESULT_DIR", "MODEL_CPK_DIR", "VQAV2_PATH", "COCO_PATH", "OKVQA_PATH"):
+        os.environ[key] = str(tmp / key.lower())
 
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main_path(dev, tmp: Path) -> dict:
+    """Phase 4.  Returns the launch counts of the eval path."""
     import torch
 
-    from licv_vqa_tpu.api import init_prompt_manager
-    from licv_vqa_tpu.data.processor import CLIP_MEAN, CLIP_STD
-    from licv_vqa_tpu.utils import compose
+    from licv_vqa_tpu_torch.api import init_prompt_manager
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
     from licv_vqa_tpu_torch.infer.runner import icl_inference, icv_inference
     from licv_vqa_tpu_torch.models import idefics as I
     from licv_vqa_tpu_torch.models import layers as L
     from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize, build_model
     from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
     from licv_vqa_tpu_torch.train.checkpoint import load_icv_checkpoint
+    from licv_vqa_tpu_torch.utils import compose
 
-    for key in ("RESULT_DIR", "MODEL_CPK_DIR", "VQAV2_PATH", "COCO_PATH", "OKVQA_PATH"):
-        os.environ[key] = str(tmp / key.lower())
+    set_env(tmp)
     cfg = compose(str(REPO / "config"), "inference", [
         "lmm=idefics-9B", "device=cuda", "run_name=chip_smoke", "bs=1",
         f"generate_kwargs.max_new_tokens={MAX_NEW}", "generate_kwargs.num_beams=3",
@@ -258,9 +416,7 @@ def main_path(dev, tmp: Path) -> dict:
     t0 = time.perf_counter()
     bundle = build_model(cfg, device=dev)  # no weights on disk: random init
     torch.cuda.synchronize()
-    n_params = sum(
-        x.numel() for x in _leaves(bundle.params)
-    )
+    n_params = sum(x.numel() for x in _leaves(bundle.params))
     log(f"model: Idefics-9B full width, {n_params / 1e9:.3f} B params bf16, "
         f"built in {time.perf_counter() - t0:.1f} s")
     t = bundle.model_cfg.text
@@ -363,8 +519,8 @@ def main_path(dev, tmp: Path) -> dict:
         mc = dataclasses.replace(
             bundle.model_cfg, text=dataclasses.replace(t, attention_impl=impl)
         )
-        bind = _wrap_pixel_normalize(
-            I.make_idefics_forward_fns(mc, bundle.eos_token_id), CLIP_MEAN, CLIP_STD
+        _, bind = _wrap_pixel_normalize(
+            *I.make_idefics_forward_fns(mc, bundle.eos_token_id), CLIP_MEAN, CLIP_STD
         )
         with torch.inference_mode():
             fwd = bind(bundle.params, px, pv, ids, None, s_icl + 1)
@@ -384,12 +540,219 @@ def main_path(dev, tmp: Path) -> dict:
     }
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def _counters():
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_backward
+
+    return {
+        "icv_inject": icv_inject,
+        "icv_inject_bwd": icv_inject_backward,
+        "flash_attention_fwd": L.flash_attention,
+        "masked_kl_fwd": K.rowwise_kl_forward,
+        "masked_kl_bwd": K.rowwise_kl_backward,
+    }
+
+
+def free_device_memory() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+TRAIN_ARGS = [
+    "lmm=idefics-9B", "trainer=debug", f"data_cfg.bs={TRAIN_BS}",
+    f"data_cfg.task.datasets.few_shot_num={ICL_SHOTS}", "icv_module.kl_impl=pallas",
+    "icv_module.icv_encoder.alpha_init_value=0.5", "data_cfg.task.datasets.max_train_size=-1",
+    "trainer.log_every_n_steps=1", "run_name=chip_smoke", "device=cuda",
+]
+
+
+def training_path(dev, tmp: Path) -> dict:
+    """Phase 5, the train CLI.  Returns the launch counts of the run."""
+    import torch
+
+    from licv_vqa_tpu_torch.cli.train import main as train_main
+    from licv_vqa_tpu_torch.train.checkpoint import load_icv_checkpoint
+
+    set_env(tmp)
+    vqa, coco = tmp / "vqav2_path", tmp / "coco_path" / "mscoco2014"
+    write_vqa_split(vqa, coco / "train2014", "train2014", 2 * TRAIN_BS * TRAIN_MICRO, seed=3)
+    write_vqa_split(vqa, coco / "val2014", "val2014", 4, seed=4)
+
+    batch = _collated_batch(TRAIN_ARGS)
+    s_tea = batch["inputs"]["input_ids"].shape[1]
+    s_stu = batch["query_inputs"]["input_ids"].shape[1]
+    log(f"training batch: student {s_stu} tokens, teacher {s_tea} tokens "
+        f"({int(batch['inputs']['attention_mask'].sum(1).min())}+ real), "
+        f"{batch['inputs']['pixel_values'].shape[1]} teacher images per row")
+    if s_tea < 256:
+        raise AssertionError(f"teacher prompt {s_tea} < 256: the flash gate is not reached")
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run_dir = train_main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    rows = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows]
+    step_s = rows[-1].get("step_time_mean_s")
+    log(f"train CLI: {len(rows)} micro-steps in {wall:.1f} s (model build and data included); "
+        f"{step_s * 1e3:.1f} ms per micro-step (mean of steps 2-{len(rows)}, trainer's "
+        f"StepTimer); peak device memory {peak:.2f} GiB; losses {losses}; "
+        f"grad norms {[r['grad_norm'] for r in rows]}")
+    if len(rows) != TRAIN_MICRO or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training: {len(rows)} steps, losses {losses}")
+    want = {
+        "masked_kl_fwd": 1, "masked_kl_bwd": 1, "icv_inject_bwd": 32,
+        "flash_attention_fwd": 32, "icv_inject": 3 * 32 - 8,
+    }
+    for k, per_step in want.items():
+        log(f"  {k} launches {counts[k]} (want {per_step} x {TRAIN_MICRO} micro-steps)")
+        if counts[k] != per_step * TRAIN_MICRO:
+            raise AssertionError(f"{k}: {counts[k]} launches != {per_step} x {TRAIN_MICRO}")
+
+    state = torch.load(run_dir / "icv_cpk.pth", weights_only=False)
+    keys = {"icv_encoder.icv", "icv_encoder.alpha", "use_sigmoid", "lmm_args"}
+    if not keys <= set(state) or state["icv_encoder.icv"].shape != (1, 32, 4096):
+        raise AssertionError(f"icv_cpk.pth: keys {sorted(state)}")
+    loaded = load_icv_checkpoint(run_dir, device=dev)
+    if not (torch.isfinite(loaded["icv"]).all() and loaded["alpha"].shape == (32,)):
+        raise AssertionError("icv_cpk.pth does not load back")
+    log(f"icv_cpk.pth keys {sorted(state)}, lmm_args.total_layers "
+        f"{state['lmm_args'].get('total_layers')}, loaded back through the port")
+    return counts
+
+
+def _collated_batch(args, proc=None):
+    """One training batch as the train CLI collates it (host numpy), with
+    ``proc`` or the processor the registry builds when no tokenizer is on
+    disk."""
+    from licv_vqa_tpu_torch.api import init_prompt_manager, init_train_dataset
+    from licv_vqa_tpu_torch.data.collator import collate_icv_batch
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD, ImageTransform, PromptProcessor
+    from licv_vqa_tpu_torch.data.tokenizer import WhitespaceTokenizer
+    from licv_vqa_tpu_torch.utils import compose
+
+    cfg = compose(str(REPO / "config"), "train", args)
+    ds = init_train_dataset(cfg, init_prompt_manager(cfg), seed=int(cfg.seed))
+    if proc is None:
+        proc = PromptProcessor(
+            WhitespaceTokenizer(), ImageTransform(224, CLIP_MEAN, CLIP_STD),
+            family="idefics", max_length=2048,
+        )
+    proc.padding_side = "right"
+    return collate_icv_batch([ds[i] for i in range(TRAIN_BS)], proc)
+
+
+def _icv_inject_reordered(h, shift):
+    """The plain injection with its scale ordered as the kernel orders it,
+    √Σh² · rsqrt(Σs²) for √Σh² / √Σs²: the same function, rounded otherwise."""
+    import torch
+
+    if h.ndim == 3 and shift.ndim == 2 and shift.shape[0] > 1:
+        shift = shift[:, None, :]
+    hf = h.float()
+    sf = hf + shift.float()
+    scale = torch.sqrt(torch.sum(hf * hf, -1, keepdim=True)) * torch.rsqrt(
+        torch.sum(sf * sf, -1, keepdim=True))
+    return (sf * scale).to(h.dtype)
+
+
+def gradient_check(dev) -> None:
+    """Phase 5, second part: the (icv, alpha) gradients of the kernel path
+    against the plain path at full width, on one batch."""
+    import torch
+
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
+    from licv_vqa_tpu_torch.icv.encoder import GlobalICVEncoder
+    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn
+    from licv_vqa_tpu_torch.models import decoder as Dm
+    from licv_vqa_tpu_torch.models import idefics as I
+    from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize, build_model
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
+    from licv_vqa_tpu_torch.ops.kl import aligned_teacher_gather, answer_region_mask, masked_kl_divergence
+    from licv_vqa_tpu_torch.train.trainer import batch_to_device
+    from licv_vqa_tpu_torch.utils import compose
+
+    cfg = compose(str(REPO / "config"), "train", TRAIN_ARGS)
+    bundle = build_model(cfg, device=dev)
+    batch = batch_to_device(_collated_batch(TRAIN_ARGS, bundle.processor), dev)
+    mc = bundle.model_cfg
+    xla = dataclasses.replace(mc, text=dataclasses.replace(mc.text, attention_impl="xla"))
+    plain_fwd, _ = _wrap_pixel_normalize(
+        *I.make_idefics_forward_fns(xla, bundle.eos_token_id), CLIP_MEAN, CLIP_STD
+    )
+    enc = GlobalICVEncoder(
+        bundle.hidden_size, bundle.n_layers, alpha_init_value=0.5, use_sigmoid=True,
+        generator=torch.Generator().manual_seed(0), device=dev,
+    )
+    temperature = torch.tensor(1.0, device=dev)
+    grads, times = {}, {}
+    # "no_flash": the ICV and KL kernels with the plain attention, which
+    # splits the gap between the two paths into its sources; "reordered":
+    # the plain path with one f32 reordering inside the injection, which
+    # reads how far bf16 rounding alone moves these gradients
+    inject = {"plain": icv_inject_reference, "reordered": _icv_inject_reordered}
+    for path in ("kernel", "plain", "kernel", "plain", "no_flash", "reordered"):
+        fwd = bundle.train_forward if path == "kernel" else plain_fwd
+        mcfg = ICVModuleConfig(kl_impl="xla" if path in inject else "pallas")
+        # a plain injection: its autograd, in place of the two kernels
+        Dm.icv_inject = inject.get(path, icv_inject)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = icv_loss_fn(
+                enc, temperature, bundle.params, batch, fwd, mcfg, bundle.pad_token_id,
+                bundle.head_fn,
+            )
+            g = torch.autograd.grad(loss, (enc.icv, enc.alpha))
+            torch.cuda.synchronize()
+            times[path] = time.perf_counter() - t0
+        finally:
+            Dm.icv_inject = icv_inject
+        grads[path] = (float(loss.detach()), g)
+
+    def rel_l2(path):
+        return [((a - b).norm() / b.norm()).item() for a, b in zip(grads[path][1], grads["plain"][1])]
+
+    (rel_icv, rel_alpha), (nf_icv, nf_alpha) = rel_l2("kernel"), rel_l2("no_flash")
+    ro_icv, ro_alpha = rel_l2("reordered")
+    lk, lp = grads["kernel"][0], grads["plain"][0]
+    log(f"full-width gradients, kernel path vs plain path (one batch, same weights and ICV): "
+        f"loss {lk:.6e} vs {lp:.6e}; rel_l2 d_icv {rel_icv:.4e}, d_alpha {rel_alpha:.4e} "
+        f"(limit {REL_L2_TOL}); with the plain attention in the kernel path (ICV and KL "
+        f"kernels only): loss {grads['no_flash'][0]:.6e}, rel_l2 d_icv {nf_icv:.4e}, "
+        f"d_alpha {nf_alpha:.4e}; the plain path with the injection's scale reordered: "
+        f"loss {grads['reordered'][0]:.6e}, rel_l2 d_icv {ro_icv:.4e}, d_alpha "
+        f"{ro_alpha:.4e}; loss+backward {times['kernel'] * 1e3:.1f} ms kernel path, "
+        f"{times['plain'] * 1e3:.1f} ms plain path (second run of each)")
+    if not (math.isfinite(lk) and max(rel_icv, rel_alpha, nf_icv, nf_alpha) <= REL_L2_TOL):
+        raise AssertionError("kernel-path gradients disagree with the plain path")
+
+    # the bf16-rounded LM head (the port's) against an f32 head, same hidden states
+    q, tea = batch["query_inputs"], batch["inputs"]
+    with torch.no_grad():
+        hs = bundle.train_forward(bundle.params, q, enc.scaled_icv(), return_hidden=True)
+        ht = aligned_teacher_gather(
+            bundle.train_forward(bundle.params, tea, None, return_hidden=True),
+            batch["in_context_length"], batch["query_x_length"], hs.shape[1],
+        )
+        mask = answer_region_mask(q["input_ids"], batch["query_x_length"], bundle.pad_token_id)
+        w32 = bundle.params["lm_head"].float()
+        kl_bf16 = masked_kl_divergence(
+            bundle.head_fn(bundle.params, hs), bundle.head_fn(bundle.params, ht), mask, 1.0)
+        kl_f32 = masked_kl_divergence(hs.float() @ w32, ht.float() @ w32, mask, 1.0)
+    log(f"KL with the bf16-rounded head {kl_bf16.item():.6e} vs an f32 head "
+        f"{kl_f32.item():.6e} (rel diff {abs(kl_bf16.item() / kl_f32.item() - 1):.3e})")
 
 
 def main() -> int:
@@ -401,6 +764,7 @@ def main() -> int:
     # the port's modules: importing them fails outside a checkout
     from licv_vqa_tpu_torch import csrc
 
+    os.chdir(REPO)  # the CLIs compose ``config/`` from the working directory
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     log(f"card: {gpu_name_and_power()}")
@@ -418,30 +782,50 @@ def main() -> int:
 
     summary = check_kernels(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        counts = main_path(dev, Path(tmp))
+        counts = main_path(dev, Path(tmp) / "eval")
+        free_device_memory()  # phase 4's model goes before phase 5 builds its own
+        counts_train = training_path(dev, Path(tmp) / "train")
+        free_device_memory()
+        gradient_check(dev)
 
-    kernels = [
-        {
-            "name": "icv_inject",
-            "route": "triton",
-            "source": "licv_vqa_tpu_torch/ops/icv_inject.py",
-            "replaces": "licv_vqa_tpu/ops/icv_inject.py:56",
-            "launches": counts["icv_inject"],
-            "max_abs_err": summary["icv_inject"]["max_abs_err"],
-            "ms": summary["icv_inject"]["ms"],
-            "plain_ms": summary["icv_inject"]["plain_ms"],
-        },
-        {
-            "name": "flash_attention_fwd",
-            "route": "cuda",
-            "source": "licv_vqa_tpu_torch/csrc/flash_attn_fwd.cu",
-            "replaces": "licv_vqa_tpu/models/layers.py:148",
-            "launches": counts["flash_attention_fwd"],
-            "max_abs_err": summary["flash_attention_fwd"]["max_abs_err"],
-            "ms": summary["flash_attention_fwd"]["ms"],
-            "plain_ms": summary["flash_attention_fwd"]["plain_ms"],
-        },
-    ]
+    sources = {
+        "icv_inject": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
+                       "licv_vqa_tpu/ops/icv_inject.py:56"),
+        "flash_attention_fwd": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_fwd.cu",
+                                "licv_vqa_tpu/models/layers.py:148"),
+        "masked_kl": ("triton", "licv_vqa_tpu_torch/ops/masked_kl_kernel.py",
+                      "licv_vqa_tpu/ops/masked_kl_kernel.py:128"),
+        "icv_inject_bwd": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
+                           "licv_vqa_tpu/ops/icv_inject.py:113"),
+    }
+    launches = {
+        "icv_inject": counts["icv_inject"] + counts_train["icv_inject"],
+        "flash_attention_fwd": counts["flash_attention_fwd"] + counts_train["flash_attention_fwd"],
+        "icv_inject_bwd": counts_train["icv_inject_bwd"],
+    }
+    kernels = []
+    for name, (route, source, replaces) in sources.items():
+        if name == "masked_kl":
+            # one kernel pair behind one autograd Function: the row sums fwd + bwd
+            f, b = summary["masked_kl_fwd"], summary["masked_kl_bwd"]
+            row = {
+                "launches": counts_train["masked_kl_fwd"] + counts_train["masked_kl_bwd"],
+                "max_abs_err": max(f["max_abs_err"], b["max_abs_err"]),
+                "ms": f["ms"] + b["ms"], "plain_ms": f["plain_ms"] + b["plain_ms"],
+                "bound_ms": f["bound_ms"] + b["bound_ms"], "bound_by": "bytes",
+                "library_ms": None,
+                "fwd": {"launches": counts_train["masked_kl_fwd"], "ms": f["ms"],
+                        "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"]},
+                "bwd": {"launches": counts_train["masked_kl_bwd"], "ms": b["ms"],
+                        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"]},
+            }
+        else:
+            s = summary[name]
+            row = {"launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                   "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                   "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
+        kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
+                        **row})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was never launched on the main path")

@@ -9,8 +9,8 @@ Examples:
     python inference_torch.py lmm=tiny-idefics test_icl=true device=cpu
 """
 
-from licv_vqa_tpu.utils import load_dotenv
 from licv_vqa_tpu_torch.cli.inference import main
+from licv_vqa_tpu_torch.utils import load_dotenv
 
 if __name__ == "__main__":
     load_dotenv()

@@ -27,13 +27,12 @@ from pathlib import Path
 
 import torch
 
-from licv_vqa_tpu.api import init_dataset, init_prompt_manager
-from licv_vqa_tpu.metrics import compute_cider, compute_vqa_accuracy
-from licv_vqa_tpu.utils import compose, get_icv_cpk_path, get_inference_paths, get_logger
-
+from ..api import init_dataset, init_prompt_manager
 from ..infer.runner import icl_inference, icv_inference
+from ..metrics import compute_cider, compute_vqa_accuracy
 from ..models.registry import build_model
 from ..train.checkpoint import load_icv_checkpoint
+from ..utils import compose, get_icv_cpk_path, get_inference_paths, get_logger
 
 logger = get_logger("inference_torch_cli")
 

@@ -1,0 +1,115 @@
+"""ICV training CLI of the port (counterpart of ``train.py``).
+
+Same contract as the JAX CLI: ``key=val`` overrides against
+``config/train.yaml``; the run directory
+``result_dir/model_cpk/<dataset>/<model>/<run_name>``; an existing
+``icv_cpk.pth`` (or the reference's ``icv_cpk.bin``) there exits early;
+``metrics.jsonl`` and the final ``icv_cpk.pth`` are written there, step
+checkpoints under ``steps/``.
+
+``device`` selects the torch device as in the inference CLI: ``cuda`` by
+default (the shared config's ``tpu``/``gpu`` mean the accelerator), ``cpu``
+for tests.  The mesh strategies, more than one device and
+``data_cfg.loader=grain`` are not ported and raise.
+
+Examples:
+    python train_torch.py run_name=vqav2_idefics9b icv_module.icv_lr=1e-3
+    python train_torch.py lmm=tiny-idefics trainer=debug data_cfg.bs=2 device=cpu
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..api import init_prompt_manager, init_train_dataset
+from ..data.collator import collate_icv_batch
+from ..icv.encoder import GlobalICVEncoder
+from ..icv.module import ICVModuleConfig
+from ..models.registry import build_model
+from ..train.loader import DataLoader
+from ..train.trainer import Trainer, TrainerConfig
+from ..utils import compose, get_icv_cpk_path, get_logger
+from .inference import resolve_device
+
+logger = get_logger("train_torch_cli")
+
+
+def main(argv: list[str] | None = None) -> Path:
+    cfg = compose("config", "train", list(sys.argv[1:] if argv is None else argv))
+    device = resolve_device(cfg.get("device"))
+    seed = int(cfg.seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+    model_name = str(cfg.lmm.name).split("/")[-1]
+    save_path = get_icv_cpk_path(
+        result_dir=cfg.result_dir, model_name=model_name,
+        dataset_name=cfg.data_cfg.task.datasets.name, run_name=cfg.run_name,
+    )
+    # the reference checks icv_cpk.bin but writes icv_cpk.pth: both count
+    for marker in ("icv_cpk.pth", "icv_cpk.bin"):
+        if (save_path / marker).exists():
+            logger.info("%s exists — exiting", save_path / marker)
+            return save_path
+    if str(cfg.data_cfg.get("loader", "threads")) != "threads":
+        raise NotImplementedError(
+            "data_cfg.loader=grain is not ported to licv_vqa_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 16)"
+        )
+    trainer_cfg = TrainerConfig.from_config(cfg.trainer)
+    trainer_cfg.check_ported()
+    if cfg.get("wandb", False):
+        logger.warning("wandb is not wired in the port — metrics.jsonl only")
+
+    bundle = build_model(cfg, device=device)
+    prompt_manager = init_prompt_manager(cfg)
+    train_ds = init_train_dataset(cfg, prompt_manager, seed=seed)
+    bundle.processor.padding_side = "right"  # reference icv_datamodule.py:22
+    loader = DataLoader(
+        train_ds,
+        batch_size=int(cfg.data_cfg.bs),
+        collate_fn=functools.partial(collate_icv_batch, processor=bundle.processor),
+        shuffle=True,
+        seed=seed,
+        num_workers=int(cfg.data_cfg.num_workers),
+    )
+
+    enc_cfg = cfg.icv_module.icv_encoder
+    use_sigmoid = bool(enc_cfg.get("use_sigmoid", False))
+    encoder = GlobalICVEncoder(
+        lmm_hidden_dim=bundle.hidden_size,
+        lmm_layers=bundle.n_layers,
+        alpha_learnable=bool(enc_cfg.get("alpha_learnable", True)),
+        alpha_init_value=float(enc_cfg.get("alpha_init_value", 0.0)),
+        use_sigmoid=use_sigmoid,
+        generator=torch.Generator().manual_seed(0),
+        device=device,
+    )
+
+    save_path.mkdir(parents=True, exist_ok=True)
+    metrics_path = save_path / "metrics.jsonl"
+
+    def metrics_hook(step: int, m: dict) -> None:
+        with open(metrics_path, "a") as f:
+            f.write(json.dumps({"step": step, "time": time.time(), **m}) + "\n")
+
+    trainer = Trainer(
+        trainer_cfg,
+        ICVModuleConfig.from_config(cfg.icv_module, cfg.trainer),
+        encoder,
+        bundle.train_forward,
+        bundle.params,
+        pad_token_id=bundle.pad_token_id,
+        metrics_hook=metrics_hook,
+        head_fn=bundle.head_fn,
+    )
+    trainer.fit(loader, run_dir=save_path, lmm_args=cfg.lmm.to_dict(), use_sigmoid=use_sigmoid)
+    logger.info("training complete: %s", save_path)
+    return save_path

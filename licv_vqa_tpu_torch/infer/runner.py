@@ -15,9 +15,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from licv_vqa_tpu.data.prompt import PromptManager
-from licv_vqa_tpu.utils.log import get_logger
-
+from ..data.prompt import PromptManager
+from ..utils.log import get_logger
 from .decode import beam_generate, greedy_generate
 
 logger = get_logger("infer")

@@ -11,8 +11,9 @@ As in JAX (and HF ``IdeficsForVisionText2Text``):
   zeroed for tokens with no preceding image;
 - per-head-dim RMSNorm on q/k in the gated cross-attention only.
 
-Only the cached (prefill + decode) forward is ported; the grouped no-cache
-train forward belongs to the training slice (ROADMAP Queue 1 item 8).
+Both forwards are ported: the cached one (prefill + decode) and the
+grouped no-cache train forward, which checkpoints for the backward where
+JAX's ``jax.checkpoint`` sits (``IdeficsConfig.remat_mode``).
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import BLOCK_OUTPUT, DecoderConfig, PerceiverConfig, VisionConfig
 from .decoder import (
+    _positions_from_mask,
     decode_cache_view,
     decoder_layer,
     init_kv_cache,
@@ -47,6 +50,12 @@ class IdeficsConfig:
     additional_vocab_size: int = 2
     image_token_id: int = 32001  # <image> in the extended vocab
     use_resampler: bool = True
+    # train-forward recompute structure (JAX ``remat_mode``): "both" =
+    # checkpoint each group of (cross-attention block + ``interval`` layers)
+    # and, inside it, each layer; "inner" = each layer; "outer" = each
+    # group; "none" = no recompute.  The cross-attention block is
+    # checkpointed under every mode but "none".
+    remat_mode: str = "both"
 
     @classmethod
     def idefics_9b(cls, dtype=torch.bfloat16) -> "IdeficsConfig":
@@ -295,18 +304,26 @@ def idefics_forward(
     attention_mask: torch.Tensor,  # (B, s)
     image_latents: torch.Tensor,  # (B0, N_img·n_lat, De) from encode_images
     image_attn_onehot: torch.Tensor,  # (B, s, N_img) incl. pixel_valid masking
-    cache: dict,
-    positions: torch.Tensor,
+    cache: Optional[dict] = None,
+    positions: Optional[torch.Tensor] = None,
     icv_scaled=None,  # (L, D) rows, ((L, D) rows, [L] host flags), or None
     prefill_flash: Optional[torch.Tensor] = None,
     xattn_kv: Optional[tuple] = None,  # precomputed (G, B, Nk, nh, dh) k/v
     last_logit_only: bool = False,  # decode prefill: skip S-1 lm_head rows
+    remat: bool = False,  # train forward: recompute per cfg.remat_mode
+    return_hidden: bool = False,  # train forward: post-norm hidden, no head
 ):
-    """Cached forward: writes this block's K/V into ``cache`` in place and
-    returns ``(logits f32 (B, s|1, V), cache)``.  ``prefill_flash`` (the
-    attention mask) marks a prefill into an EMPTY cache, which enables the
-    flash kernel.  With ``xattn_kv``, ``image_latents`` only sets the
-    latent count per image and may have any batch size."""
+    """Returns ``(logits f32 (B, s|1, V), cache)``.
+
+    With a ``cache``: writes this block's K/V into it in place.
+    ``prefill_flash`` (the attention mask) marks a prefill into an EMPTY
+    cache, which enables the flash kernel.  With ``xattn_kv``,
+    ``image_latents`` only sets the latent count per image and may have any
+    batch size.
+
+    Without one: the grouped train forward (JAX :508-577), ``cache`` comes
+    back None; ``return_hidden`` gives the post-norm hidden states in place
+    of the logits."""
     t = cfg.text
     interval = cfg.cross_layer_interval
     n_groups = t.n_layers // interval
@@ -315,9 +332,6 @@ def idefics_forward(
     # out-of-range ids clamp, as JAX gathers do
     ids = torch.clamp(input_ids, 0, params["embed"].shape[0] - 1).long()
     h = params["embed"][ids].to(t.dtype)
-    index = cache["index"]
-    mask, _, _ = decode_cache_view(cache, positions, attention_mask, s)
-    cos, sin = L.rope_cos_sin(positions, t.head_dim, t.rope_theta)
 
     # cross-attention mask: the per-image one-hot spread over its latents
     n_lat = image_latents.shape[1] // image_attn_onehot.shape[-1]
@@ -326,6 +340,19 @@ def idefics_forward(
     xmask = xmask[:, None, :, :]  # (B, 1, s, Nk)
 
     icv = _cast_icv(icv_scaled, t.dtype)
+    if cache is None:
+        h = _grouped_train_forward(
+            cfg, params, h, attention_mask, image_latents, xmask, gate, icv,
+            cfg.remat_mode if remat and torch.is_grad_enabled() else "none",
+        )
+        h = L.rms_norm(params["final_norm"], h, t.norm_eps)
+        if return_hidden:
+            return h, None
+        return logits_from_hidden(t, params, h), None
+
+    index = cache["index"]
+    mask, _, _ = decode_cache_view(cache, positions, attention_mask, s)
+    cos, sin = L.rope_cos_sin(positions, t.head_dim, t.rope_theta)
     for li in range(t.n_layers):
         if li % interval == 0 and li // interval < n_groups:
             g = li // interval
@@ -334,14 +361,8 @@ def idefics_forward(
                 cfg, L.layer_slice(params["xattn"], g), h, image_latents, xmask,
                 gate, kv=kv_g,
             )
-        if icv is None:
-            icv_arg = None
-        elif isinstance(icv, tuple):
-            icv_arg = (icv[0][li], icv[1][li])
-        else:
-            icv_arg = icv[li]
         h = decoder_layer(
-            t, L.layer_slice(params["layers"], li), h, cos, sin, mask, icv_arg,
+            t, L.layer_slice(params["layers"], li), h, cos, sin, mask, _icv_row(icv, li),
             kv_write=(cache["k"][li], cache["v"][li], index),
             flash_valid=prefill_flash,
         )
@@ -354,8 +375,76 @@ def idefics_forward(
     return logits_from_hidden(t, params, h), cache
 
 
+def _icv_row(icv, li: int):
+    """Layer ``li``'s ICV argument: a row, a ``(row, host flag)`` pair, or
+    None."""
+    if icv is None:
+        return None
+    if isinstance(icv, tuple):
+        return icv[0][li], icv[1][li]
+    return icv[li]
+
+
+def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask, gate, icv, mode):
+    """The no-cache decoder stack as JAX's grouped scan: per group, one
+    gated cross-attention block then ``interval`` decoder layers.
+    ``torch.utils.checkpoint`` stands where ``jax.checkpoint`` does.  The
+    flash branch is gated on the attention mask as the JAX train forward
+    gates it; the kernel has no backward, so it is reached only without
+    gradients (the teacher) or raises."""
+    t = cfg.text
+    interval = cfg.cross_layer_interval
+    n_groups = t.n_layers // interval
+    if n_groups * interval != t.n_layers:
+        raise ValueError(
+            f"idefics train forward needs n_layers ({t.n_layers}) divisible by "
+            f"cross_layer_interval ({interval}): layers run in groups"
+        )
+    if mode == "policy":
+        raise NotImplementedError(
+            "remat_mode=policy (save the weight matmuls, recompute the rest) is "
+            "not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 8)"
+        )
+    if mode not in ("both", "inner", "outer", "none"):
+        raise ValueError(f"remat_mode must be both|inner|outer|none|policy, got {mode!r}")
+    positions = _positions_from_mask(attention_mask)
+    mask = L.causal_mask(positions, positions, attention_mask.bool())
+    cos, sin = L.rope_cos_sin(positions, t.head_dim, t.rope_theta)
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def group_body(h, g):
+        xp = L.layer_slice(params["xattn"], g)
+
+        def xattn_fn(hh):
+            return gated_xattn_block(cfg, xp, hh, image_latents, xmask, gate)
+
+        h = xattn_fn(h) if mode == "none" else run(xattn_fn, h)
+        for li in range(g * interval, (g + 1) * interval):
+            p_l = L.layer_slice(params["layers"], li)
+
+            def layer_fn(hh, icv_arg, p_l=p_l):
+                return decoder_layer(
+                    t, p_l, hh, cos, sin, mask, icv_arg, flash_valid=attention_mask
+                )
+
+            icv_arg = _icv_row(icv, li)
+            h = run(layer_fn, h, icv_arg) if mode in ("both", "inner") else layer_fn(h, icv_arg)
+        return h
+
+    for g in range(n_groups):
+        h = run(group_body, h, g) if mode in ("both", "outer") else group_body(h, g)
+    return h
+
+
 def make_idefics_forward_fns(cfg: IdeficsConfig, eos_token_id: int):
-    """``bind_images`` of ``make_idefics_forward_fns`` (idefics.py:615-668).
+    """``(train_forward, bind_images)``, as JAX's ``make_idefics_forward_fns``
+    (idefics.py:580-668).
+
+    ``train_forward(params, inputs, icv_scaled, return_hidden=False)`` runs
+    the no-cache forward over a batch dict (``input_ids``,
+    ``attention_mask``, ``pixel_values``, ``pixel_valid``) with recompute on.
 
     ``bind_images(params, pixel_values, pixel_valid, prompt_ids, icv_scaled,
     max_len)`` encodes the images once and returns
@@ -363,6 +452,19 @@ def make_idefics_forward_fns(cfg: IdeficsConfig, eos_token_id: int):
     decode loops: ``cache=None`` is the prefill (a fresh cache of
     ``max_len`` columns); later calls decode against the returned cache,
     whose batch may be beam-expanded (a multiple of the prompt batch)."""
+
+    def train_forward(params, inputs, icv_scaled, return_hidden=False):
+        latents = encode_images(cfg, params, inputs["pixel_values"])
+        onehot = image_attention_onehot(
+            inputs["input_ids"], cfg.image_token_id, eos_token_id,
+            inputs["pixel_values"].shape[1],
+        )
+        onehot = onehot * inputs["pixel_valid"][:, None, :].float()
+        out, _ = idefics_forward(
+            cfg, params, inputs["input_ids"], inputs["attention_mask"], latents, onehot,
+            icv_scaled=icv_scaled, remat=True, return_hidden=return_hidden,
+        )
+        return out
 
     def bind_images(params, pixel_values, pixel_valid, prompt_ids, icv_scaled, max_len):
         latents = encode_images(cfg, params, pixel_values)
@@ -400,4 +502,4 @@ def make_idefics_forward_fns(cfg: IdeficsConfig, eos_token_id: int):
 
         return forward_fn
 
-    return bind_images
+    return train_forward, bind_images

@@ -159,6 +159,14 @@ def _check_flash_operand(name: str, x: torch.Tensor, shape: tuple) -> None:
 def _flash_attention_cuda(q, k, v, valid, scale) -> torch.Tensor:
     from ..csrc import load_library
 
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        # the kernel writes a fresh tensor through ctypes: its output has no
+        # grad_fn, and a backward would skip attention without a word
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has a forward only; its backward "
+            "(dq, dk, dv) is not ported yet (ROADMAP.md Queue 2 item 2). Run "
+            "under torch.no_grad(), or with attention_impl=xla for a gradient"
+        )
     b, s, h, dh = q.shape
     if dh != _FLASH_HEAD_DIM:
         raise ValueError(f"flash_attention kernel supports head_dim=128, got {dh}")

@@ -16,12 +16,12 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from licv_vqa_tpu.data.processor import CLIP_MEAN, CLIP_STD, ImageTransform, PromptProcessor
-from licv_vqa_tpu.data.tokenizer import WhitespaceTokenizer, load_hf_tokenizer
-from licv_vqa_tpu.utils.config import InterpolationError
-from licv_vqa_tpu.utils.log import get_logger
-
+from ..data.processor import CLIP_MEAN, CLIP_STD, ImageTransform, PromptProcessor
+from ..data.tokenizer import WhitespaceTokenizer, load_hf_tokenizer
+from ..utils.config import InterpolationError
+from ..utils.log import get_logger
 from .convert import convert_idefics
+from .decoder import logits_from_hidden
 from .idefics import IdeficsConfig, init_idefics_params, make_idefics_forward_fns
 
 logger = get_logger("models")
@@ -34,6 +34,7 @@ class ModelBundle:
     params: Any
     tokenizer: Any
     processor: PromptProcessor
+    train_forward: Callable  # (params, inputs, icv_scaled, return_hidden=False) -> logits
     bind_decode: Callable  # (params, pixels, valid, prompt_ids, icv, max_len) -> fwd_fn
     hidden_size: int
     n_layers: int  # ICV rows the checkpoint carries (K for subset layers)
@@ -41,6 +42,10 @@ class ModelBundle:
     # subset-layer intervention (lmm.intervention_layer int/list): the K
     # decoder layers the K ICV rows map to; None when the ICV covers every layer
     intervention_layers: Optional[list] = None
+    # (params, hidden (B, S, D)) -> logits (B, S, V) f32: the LM head alone,
+    # for the teacher path that gathers the student-aligned window of the
+    # hidden states before the (D, V) projection (icv_loss_fn)
+    head_fn: Optional[Callable] = None
 
     @property
     def pad_token_id(self) -> int:
@@ -51,7 +56,7 @@ class ModelBundle:
         return self.tokenizer.eos_token_id
 
 
-def _wrap_pixel_normalize(bind_decode, mean, std):
+def _wrap_pixel_normalize(train_forward, bind_decode, mean, std):
     """Normalise RAW uint8 pixels on the device (the processor emits uint8)."""
 
     def norm(pixels: torch.Tensor) -> torch.Tensor:
@@ -61,10 +66,14 @@ def _wrap_pixel_normalize(bind_decode, mean, std):
         inv_std = 1.0 / torch.tensor(std, dtype=torch.float32, device=pixels.device)
         return (pixels.float() * (1.0 / 255.0) - m) * inv_std
 
+    def tf(model_params, inputs, icv_scaled, **kw):
+        inputs = dict(inputs, pixel_values=norm(inputs["pixel_values"]))
+        return train_forward(model_params, inputs, icv_scaled, **kw)
+
     def bd(model_params, pixels, valid, ids, icv_scaled, max_len):
         return bind_decode(model_params, norm(pixels), valid, ids, icv_scaled, max_len)
 
-    return bd
+    return tf, bd
 
 
 def _max_length(cfg, default: int) -> int:
@@ -75,7 +84,7 @@ def _max_length(cfg, default: int) -> int:
     return default
 
 
-def _wrap_intervention(cfg, n_layers: int, bind_decode):
+def _wrap_intervention(cfg, n_layers: int, train_forward, bind_decode):
     """The reference's ``intervention_layer`` semantics (int/list/-1,
     icv_intervention.py:39-42): the checkpoint owns K = len(layers) rows; the
     model receives (L, D) rows plus per-layer host flags."""
@@ -87,7 +96,12 @@ def _wrap_intervention(cfg, n_layers: int, bind_decode):
         intervention = raw if isinstance(raw, (int, list)) else list(raw)
     layers = prepare_intervention_layers(intervention, n_layers)
     if layers == list(range(n_layers)):
-        return bind_decode, n_layers, None
+        return train_forward, bind_decode, n_layers, None
+
+    def tf(model_params, inputs, icv_scaled, **kw):
+        return train_forward(
+            model_params, inputs, expand_icv_to_layers(icv_scaled, layers, n_layers), **kw
+        )
 
     def bd(model_params, pixels, valid, ids, icv_scaled, max_len):
         return bind_decode(
@@ -95,7 +109,7 @@ def _wrap_intervention(cfg, n_layers: int, bind_decode):
             expand_icv_to_layers(icv_scaled, layers, n_layers), max_len,
         )
 
-    return bd, len(layers), layers
+    return tf, bd, len(layers), layers
 
 
 def _load_hf_weights(model_dir: Path) -> Optional[dict]:
@@ -162,10 +176,10 @@ def _idefics_bundle(cfg, model_cfg: IdeficsConfig, name: str, device) -> ModelBu
     if isinstance(tokenizer, WhitespaceTokenizer):
         model_cfg = dataclasses.replace(model_cfg, image_token_id=processor.image_token_id)
 
-    bind = make_idefics_forward_fns(model_cfg, tokenizer.eos_token_id)
-    bind = _wrap_pixel_normalize(bind, CLIP_MEAN, CLIP_STD)
-    bind, n_icv_layers, icv_layer_ids = _wrap_intervention(
-        cfg, model_cfg.text.n_layers, bind
+    train_fwd, bind = make_idefics_forward_fns(model_cfg, tokenizer.eos_token_id)
+    train_fwd, bind = _wrap_pixel_normalize(train_fwd, bind, CLIP_MEAN, CLIP_STD)
+    train_fwd, bind, n_icv_layers, icv_layer_ids = _wrap_intervention(
+        cfg, model_cfg.text.n_layers, train_fwd, bind
     )
     return ModelBundle(
         name=name,
@@ -173,16 +187,19 @@ def _idefics_bundle(cfg, model_cfg: IdeficsConfig, name: str, device) -> ModelBu
         params=params,
         tokenizer=tokenizer,
         processor=processor,
+        train_forward=train_fwd,
         bind_decode=bind,
         hidden_size=model_cfg.text.d_model,
         n_layers=n_icv_layers,
         device=torch.device(device),
         intervention_layers=icv_layer_ids,
+        head_fn=lambda p, h, _t=model_cfg.text: logits_from_hidden(_t, p, h),
     )
 
 
 def _apply_lmm_options(cfg, model_cfg: IdeficsConfig) -> IdeficsConfig:
-    """Honor ``lmm.attention_impl`` (xla|flash).  ``lmm.kv_cache=int8``,
+    """Honor ``lmm.attention_impl`` (xla|flash) and ``lmm.remat_mode``
+    (both|inner|outer; policy raises in the train forward).  ``lmm.kv_cache=int8``,
     ``lmm.w8a8_prefill`` and ``lmm.quantize`` are not ported: the config
     raises naming their ROADMAP item."""
     impl = cfg.lmm.get("attention_impl")
@@ -191,6 +208,9 @@ def _apply_lmm_options(cfg, model_cfg: IdeficsConfig) -> IdeficsConfig:
     text = model_cfg.text
     if impl in ("xla", "flash"):
         text = dataclasses.replace(text, attention_impl=impl)
+    rm = cfg.lmm.get("remat_mode")
+    if rm is not None:
+        model_cfg = dataclasses.replace(model_cfg, remat_mode=str(rm))
     if kvc not in (None, "bf16") or a8:
         text = dataclasses.replace(
             text, kv_cache_dtype=kvc or "bf16", w8a8_prefill=a8

@@ -1,3 +1,3 @@
-from .checkpoint import ICV_CPK_NAME, load_icv_checkpoint
+from .checkpoint import ICV_CPK_NAME, StepCheckpointer, load_icv_checkpoint, save_icv_checkpoint
 
-__all__ = ["ICV_CPK_NAME", "load_icv_checkpoint"]
+__all__ = ["ICV_CPK_NAME", "StepCheckpointer", "load_icv_checkpoint", "save_icv_checkpoint"]

@@ -54,6 +54,7 @@ def env(tmp_path, monkeypatch):
     # model's 110 ids, so every generated id decodes to a word and equal
     # predictions mean equal tokens
     from licv_vqa_tpu.data.tokenizer import WhitespaceTokenizer
+    from licv_vqa_tpu_torch.data.tokenizer import WhitespaceTokenizer as PortTokenizer
 
     seed_tok = WhitespaceTokenizer()
     seed_tok.encode("Provide an answer to the question. Use the image to answer.\n")
@@ -63,10 +64,11 @@ def env(tmp_path, monkeypatch):
             seed_tok.encode(f"Question:What thing {i}? Short answer:")
     words = seed_tok._id_to_tok[len(WhitespaceTokenizer.SPECIALS):]
     words += [f"w{i}" for i in range(110 - len(seed_tok._id_to_tok))]
-    init = WhitespaceTokenizer.__init__
-    monkeypatch.setattr(
-        WhitespaceTokenizer, "__init__", lambda self, vocab=(): init(self, vocab or words)
-    )
+    for cls in (WhitespaceTokenizer, PortTokenizer):  # the port has its own copy
+        monkeypatch.setattr(
+            cls, "__init__",
+            lambda self, vocab=(), _init=cls.__init__: _init(self, vocab or words),
+        )
 
     model_dir = tmp_path / "cpk" / MODEL
     model_dir.mkdir(parents=True)

@@ -32,7 +32,7 @@ def _decode(kind, eos, min_new=0, lp=0.0):
     jf = jx_idefics.make_idefics_forward_fns(jcfg, eos)[1](
         jparams, jnp.asarray(pixels), jnp.asarray(valid), jnp.asarray(ids), jicv, max_len
     )
-    pf = pt_idefics.make_idefics_forward_fns(pcfg, eos)(
+    pf = pt_idefics.make_idefics_forward_fns(pcfg, eos)[1](
         pparams, torch.from_numpy(pixels), torch.from_numpy(valid),
         torch.from_numpy(ids), picv, max_len,
     )

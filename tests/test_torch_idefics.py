@@ -70,7 +70,7 @@ def run_both(ids, mask, pixels, valid, jicv, picv, steps=1, seed=0):
     list of (jax logits, port logits) per call."""
     jcfg, jparams, pcfg, pparams = tiny_pair(seed)
     jbind = jx_idefics.make_idefics_forward_fns(jcfg, EOS)[1]
-    pbind = pt_idefics.make_idefics_forward_fns(pcfg, EOS)
+    pbind = pt_idefics.make_idefics_forward_fns(pcfg, EOS)[1]
     max_len = ids.shape[1] + steps + 1
     jf = jbind(jparams, jnp.asarray(pixels), jnp.asarray(valid), jnp.asarray(ids), jicv, max_len)
     pf = pbind(
@@ -129,7 +129,7 @@ def test_icv_rows_reach_the_injection_cast_like_jax(subset, monkeypatch):
     _, jparams, _, _ = tiny_pair()
     pcfg = pt_idefics.IdeficsConfig.tiny(dtype=torch.bfloat16)
     pparams = params_from_jax(jax.tree.map(np.asarray, jparams), torch.bfloat16)
-    bind = pt_idefics.make_idefics_forward_fns(pcfg, EOS)
+    bind = pt_idefics.make_idefics_forward_fns(pcfg, EOS)[1]
     fwd = bind(
         pparams, torch.from_numpy(pixels), torch.from_numpy(valid),
         torch.from_numpy(ids), picv, ids.shape[1] + 2,
