@@ -10,7 +10,8 @@ Phases (any failure exits non-zero before the result lines):
    and print the build time (the Triton kernels compile at first launch);
 3. hold each kernel against its plain PyTorch version on the same inputs
    at the main paths' shapes, printing the error (max-abs over the plain
-   output's max-abs, limit ``REL_TOL``), the device time per call of the
+   output's max-abs, limit ``REL_TOL`` for bf16 outputs and ``F32_REL_TOL``
+   for the f32 KL outputs), the device time per call of the
    kernel, its plain version and, where one PyTorch call computes the same
    function, that call (the sum of the device-kernel intervals
    ``torch.profiler`` records over many calls, divided by the calls), the
@@ -18,8 +19,10 @@ Phases (any failure exits non-zero before the result lines):
    bound: the larger of the bytes the function must move over 3.35 TB/s
    and its operations over the peak rate for their type (989 TFLOP/s bf16
    tensor cores, 67 TFLOP/s f32).  Cases: the ICV injection forward at
-   (1, 512, 4096), (1, 64, 4096) and (3, 1, 4096) and its backward at
-   (2, 64, 4096) and (1, 512, 4096) bf16, each for every shift layout; the
+   (1, 512, 4096), (1, 64, 4096) and (3, 1, 4096) and its backward (the
+   kernel and the reduction of its per-row shift gradient, as autograd runs
+   them) at (2, 64, 4096) and (1, 512, 4096) bf16, each for every shift
+   layout; the
    flash-attention forward at (1, S, 32, 128) for S = 384, 512 and 2048
    with left padding; the masked temperature-KL forward and backward at
    (128, 32000) and (512, 32000) f32 with a partial mask;
@@ -49,8 +52,9 @@ Phases (any failure exits non-zero before the result lines):
    on one batch with the same weights and ICV: the (icv, alpha) gradients
    of the kernel path (flash, ICV and KL kernels) against the plain path
    (plain attention, plain injection, ``kl_impl=xla``), rel. L2 within
-   ``REL_L2_TOL``, and the KL with the bf16-rounded LM head against an f32
-   head;
+   ``REL_L2_TOL``; and where the time of the kernel path's loss and
+   backward goes (its wall, the teacher forward alone, and over one
+   profiled pass the device busy share and the device time by kernel);
 6. one ``{"kernels": [...]}`` line;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -75,11 +79,15 @@ REPO = Path(__file__).resolve().parent
 # kernel vs plain: max-abs error <= REL_TOL * max|plain|, per output.  For
 # bf16 outputs one ulp is at most 2^-7 of a value, so this allows about 2.5
 # ulps at the largest output; a kernel with a wrong mask, a wrong shift row
-# or a wrong gradient term reads far above it (PERF.md, Findings).  The f32
-# KL kernels read far below it.
+# or a wrong gradient term reads far above it (PERF.md, Findings).
 REL_TOL = 2e-2
-# whole-model checks: 32 bf16 layers amplify the kernels' rounding
-# differences (the plain attention rounds probabilities to bf16 before P·V)
+# the f32 KL outputs differ from their plain versions by summation order
+# only (about 1e-6); a kernel that rounded through bf16 reads above this
+F32_REL_TOL = 1e-4
+# whole-model checks, rel. L2: 32 bf16 layers amplify any reordering of the
+# rounding (the plain attention rounds probabilities to bf16 before P·V), so
+# the sound kernel path reads several 1e-2 here.  A sanity bound on the
+# whole path; phase 3 is the kernels' correctness check (PERF.md, Findings)
 REL_L2_TOL = 0.1
 N_ICV_Q = 4
 N_ICL_Q = 2
@@ -127,22 +135,28 @@ def time_ms(fn, reps: int = 5, inner: int = 20) -> float:
 def device_ms(fn, calls: int) -> float:
     """Device time per call of ``fn``: the sum of the device-kernel
     intervals ``torch.profiler`` records over ``calls`` calls, divided by
-    ``calls``.  Host launch gaps between kernels are not counted."""
+    ``calls``.  Host launch gaps between kernels are not counted.  A
+    profiling session now and then records no device activity at all; it
+    is repeated, up to three sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(
-        e.time_range.end - e.time_range.start
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if us <= 0:
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(
+            e.time_range.end - e.time_range.start
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+        )
+        if us > 0:
+            break
+        log(f"  torch.profiler recorded no device time (session {attempt + 1} of 3)")
+    else:
         raise RuntimeError("torch.profiler recorded no device time")
     return us / calls / 1e3
 
@@ -160,6 +174,7 @@ class Case:
     op_type: str  # key of PEAK_OPS
     library: object = None  # one PyTorch call computing the same function
     calls: int = 20
+    tol: float = REL_TOL  # error ratio limit against the plain version
 
     def bound(self) -> tuple[float, str]:
         t_bytes = self.bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -209,8 +224,10 @@ def kernel_cases(dev):
                 "icv_inject_bwd", f"({b},{s},{d}) shift={layout}",
                 lambda h=h, v=v, gout=gout: icv_inject_backward(h, v, gout),
                 lambda h=h, v=v, gout=gout: icv_inject_backward_reference(h, v, gout),
-                # h, g read (bf16), dh written (bf16), ds written (f32)
-                bytes_moved=n * (2 + 2 + 2 + 4) + v.numel() * 2, ops=16 * n,
+                # h and g read, dh written, the shift read and its gradient
+                # written (all bf16); the kernel's per-row f32 ds is not the
+                # function's and is not counted
+                bytes_moved=n * (2 + 2 + 2) + 2 * v.numel() * 2, ops=16 * n,
                 op_type="f32", calls=50,
             )
     for s, pad in ((384, 57), (512, 39), (2048, 301)):
@@ -242,6 +259,7 @@ def kernel_cases(dev):
             lambda stu=stu, tea=tea: K.rowwise_kl_forward(stu, tea, KL_EPS),
             lambda stu=stu, tea=tea: K.rowwise_kl_reference(stu, tea, KL_EPS),
             bytes_moved=2 * elems * 4 + 3 * n * 4, ops=17 * elems, op_type="f32",
+            tol=F32_REL_TOL,
         )
         yield Case(
             "masked_kl_bwd", f"({n},{v_sz}) f32",
@@ -250,6 +268,7 @@ def kernel_cases(dev):
             lambda stu=stu, tea=tea, a=lse_s, b=lse_t, gw=gw: K.rowwise_kl_backward_reference(
                 stu, tea, a, b, gw, KL_EPS),
             bytes_moved=4 * elems * 4 + 3 * n * 4, ops=30 * elems, op_type="f32",
+            tol=F32_REL_TOL,
         )
 
 
@@ -300,8 +319,8 @@ def check_kernels(dev) -> dict:
             f"device {dev_ms:.5f} ms, plain {dev_plain:.5f} ms, library {lib}, "
             f"bound {bound_ms:.5f} ms ({bound_by}); host-clocked {ev_ms:.4f} ms vs plain "
             f"{ev_plain:.4f} ms")
-        if not ratio <= REL_TOL:
-            raise AssertionError(f"{c.name} {c.label} disagrees: ratio {ratio} > {REL_TOL}")
+        if not ratio <= c.tol:
+            raise AssertionError(f"{c.name} {c.label} disagrees: ratio {ratio} > {c.tol}")
         row = out.setdefault(c.name, dict(max_abs_err=0.0))
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if c.label.startswith(MAIN_SHAPE[c.name]):
@@ -570,6 +589,15 @@ TRAIN_ARGS = [
 ]
 
 
+def write_training_split(tmp: Path) -> None:
+    """The synthetic VQAv2 train and val splits under ``tmp``, with the
+    config's paths pointed there."""
+    set_env(tmp)
+    vqa, coco = tmp / "vqav2_path", tmp / "coco_path" / "mscoco2014"
+    write_vqa_split(vqa, coco / "train2014", "train2014", 2 * TRAIN_BS * TRAIN_MICRO, seed=3)
+    write_vqa_split(vqa, coco / "val2014", "val2014", 4, seed=4)
+
+
 def training_path(dev, tmp: Path) -> dict:
     """Phase 5, the train CLI.  Returns the launch counts of the run."""
     import torch
@@ -577,11 +605,7 @@ def training_path(dev, tmp: Path) -> dict:
     from licv_vqa_tpu_torch.cli.train import main as train_main
     from licv_vqa_tpu_torch.train.checkpoint import load_icv_checkpoint
 
-    set_env(tmp)
-    vqa, coco = tmp / "vqav2_path", tmp / "coco_path" / "mscoco2014"
-    write_vqa_split(vqa, coco / "train2014", "train2014", 2 * TRAIN_BS * TRAIN_MICRO, seed=3)
-    write_vqa_split(vqa, coco / "val2014", "val2014", 4, seed=4)
-
+    write_training_split(tmp)
     batch = _collated_batch(TRAIN_ARGS)
     s_tea = batch["inputs"]["input_ids"].shape[1]
     s_stu = batch["query_inputs"]["input_ids"].shape[1]
@@ -653,106 +677,141 @@ def _collated_batch(args, proc=None):
     return collate_icv_batch([ds[i] for i in range(TRAIN_BS)], proc)
 
 
-def _icv_inject_reordered(h, shift):
-    """The plain injection with its scale ordered as the kernel orders it,
-    √Σh² · rsqrt(Σs²) for √Σh² / √Σs²: the same function, rounded otherwise."""
-    import torch
+@dataclasses.dataclass
+class TrainInputs:
+    """What the gradient check and the profile share: the full-width model,
+    the plain path's forward, one collated batch and a seeded encoder."""
 
-    if h.ndim == 3 and shift.ndim == 2 and shift.shape[0] > 1:
-        shift = shift[:, None, :]
-    hf = h.float()
-    sf = hf + shift.float()
-    scale = torch.sqrt(torch.sum(hf * hf, -1, keepdim=True)) * torch.rsqrt(
-        torch.sum(sf * sf, -1, keepdim=True))
-    return (sf * scale).to(h.dtype)
+    bundle: object
+    plain_forward: object
+    batch: dict
+    encoder: object
+    temperature: object
 
 
-def gradient_check(dev) -> None:
-    """Phase 5, second part: the (icv, alpha) gradients of the kernel path
-    against the plain path at full width, on one batch."""
+def training_inputs(dev) -> TrainInputs:
+    """Built on the split ``write_training_split`` wrote."""
     import torch
 
     from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
     from licv_vqa_tpu_torch.icv.encoder import GlobalICVEncoder
-    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn
-    from licv_vqa_tpu_torch.models import decoder as Dm
     from licv_vqa_tpu_torch.models import idefics as I
     from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize, build_model
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
-    from licv_vqa_tpu_torch.ops.kl import aligned_teacher_gather, answer_region_mask, masked_kl_divergence
     from licv_vqa_tpu_torch.train.trainer import batch_to_device
     from licv_vqa_tpu_torch.utils import compose
 
-    cfg = compose(str(REPO / "config"), "train", TRAIN_ARGS)
-    bundle = build_model(cfg, device=dev)
-    batch = batch_to_device(_collated_batch(TRAIN_ARGS, bundle.processor), dev)
+    bundle = build_model(compose(str(REPO / "config"), "train", TRAIN_ARGS), device=dev)
     mc = bundle.model_cfg
     xla = dataclasses.replace(mc, text=dataclasses.replace(mc.text, attention_impl="xla"))
-    plain_fwd, _ = _wrap_pixel_normalize(
+    plain_forward, _ = _wrap_pixel_normalize(
         *I.make_idefics_forward_fns(xla, bundle.eos_token_id), CLIP_MEAN, CLIP_STD
     )
-    enc = GlobalICVEncoder(
+    encoder = GlobalICVEncoder(
         bundle.hidden_size, bundle.n_layers, alpha_init_value=0.5, use_sigmoid=True,
         generator=torch.Generator().manual_seed(0), device=dev,
     )
-    temperature = torch.tensor(1.0, device=dev)
-    grads, times = {}, {}
-    # "no_flash": the ICV and KL kernels with the plain attention, which
-    # splits the gap between the two paths into its sources; "reordered":
-    # the plain path with one f32 reordering inside the injection, which
-    # reads how far bf16 rounding alone moves these gradients
-    inject = {"plain": icv_inject_reference, "reordered": _icv_inject_reordered}
-    for path in ("kernel", "plain", "kernel", "plain", "no_flash", "reordered"):
-        fwd = bundle.train_forward if path == "kernel" else plain_fwd
-        mcfg = ICVModuleConfig(kl_impl="xla" if path in inject else "pallas")
-        # a plain injection: its autograd, in place of the two kernels
-        Dm.icv_inject = inject.get(path, icv_inject)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss, _ = icv_loss_fn(
-                enc, temperature, bundle.params, batch, fwd, mcfg, bundle.pad_token_id,
-                bundle.head_fn,
-            )
-            g = torch.autograd.grad(loss, (enc.icv, enc.alpha))
-            torch.cuda.synchronize()
-            times[path] = time.perf_counter() - t0
-        finally:
-            Dm.icv_inject = icv_inject
-        grads[path] = (float(loss.detach()), g)
+    return TrainInputs(
+        bundle, plain_forward, batch_to_device(_collated_batch(TRAIN_ARGS, bundle.processor), dev),
+        encoder, torch.tensor(1.0, device=dev),
+    )
 
-    def rel_l2(path):
-        return [((a - b).norm() / b.norm()).item() for a, b in zip(grads[path][1], grads["plain"][1])]
 
-    (rel_icv, rel_alpha), (nf_icv, nf_alpha) = rel_l2("kernel"), rel_l2("no_flash")
-    ro_icv, ro_alpha = rel_l2("reordered")
-    lk, lp = grads["kernel"][0], grads["plain"][0]
-    log(f"full-width gradients, kernel path vs plain path (one batch, same weights and ICV): "
-        f"loss {lk:.6e} vs {lp:.6e}; rel_l2 d_icv {rel_icv:.4e}, d_alpha {rel_alpha:.4e} "
-        f"(limit {REL_L2_TOL}); with the plain attention in the kernel path (ICV and KL "
-        f"kernels only): loss {grads['no_flash'][0]:.6e}, rel_l2 d_icv {nf_icv:.4e}, "
-        f"d_alpha {nf_alpha:.4e}; the plain path with the injection's scale reordered: "
-        f"loss {grads['reordered'][0]:.6e}, rel_l2 d_icv {ro_icv:.4e}, d_alpha "
-        f"{ro_alpha:.4e}; loss+backward {times['kernel'] * 1e3:.1f} ms kernel path, "
-        f"{times['plain'] * 1e3:.1f} ms plain path (second run of each)")
-    if not (math.isfinite(lk) and max(rel_icv, rel_alpha, nf_icv, nf_alpha) <= REL_L2_TOL):
-        raise AssertionError("kernel-path gradients disagree with the plain path")
+def loss_and_grads(m: TrainInputs, path: str):
+    """``(loss, (d_icv, d_alpha))`` of one batch on the kernel path (flash,
+    ICV and KL kernels) or the plain path (plain attention, the plain
+    injection differentiated by autograd, ``kl_impl=xla``)."""
+    import torch
 
-    # the bf16-rounded LM head (the port's) against an f32 head, same hidden states
-    q, tea = batch["query_inputs"], batch["inputs"]
-    with torch.no_grad():
-        hs = bundle.train_forward(bundle.params, q, enc.scaled_icv(), return_hidden=True)
-        ht = aligned_teacher_gather(
-            bundle.train_forward(bundle.params, tea, None, return_hidden=True),
-            batch["in_context_length"], batch["query_x_length"], hs.shape[1],
+    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn
+    from licv_vqa_tpu_torch.models import decoder as Dm
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
+
+    kernel = path == "kernel"
+    b = m.bundle
+    Dm.icv_inject = icv_inject if kernel else icv_inject_reference
+    try:
+        loss, _ = icv_loss_fn(
+            m.encoder, m.temperature, b.params, m.batch,
+            b.train_forward if kernel else m.plain_forward,
+            ICVModuleConfig(kl_impl="pallas" if kernel else "xla"), b.pad_token_id, b.head_fn,
         )
-        mask = answer_region_mask(q["input_ids"], batch["query_x_length"], bundle.pad_token_id)
-        w32 = bundle.params["lm_head"].float()
-        kl_bf16 = masked_kl_divergence(
-            bundle.head_fn(bundle.params, hs), bundle.head_fn(bundle.params, ht), mask, 1.0)
-        kl_f32 = masked_kl_divergence(hs.float() @ w32, ht.float() @ w32, mask, 1.0)
-    log(f"KL with the bf16-rounded head {kl_bf16.item():.6e} vs an f32 head "
-        f"{kl_f32.item():.6e} (rel diff {abs(kl_bf16.item() / kl_f32.item() - 1):.3e})")
+        grads = torch.autograd.grad(loss, (m.encoder.icv, m.encoder.alpha))
+    finally:
+        Dm.icv_inject = icv_inject
+    return loss.detach(), grads
+
+
+def gradient_check(m: TrainInputs) -> dict:
+    """Phase 5, second part: the (icv, alpha) gradients of the kernel path
+    against the plain path at full width, on one batch with the same
+    weights and ICV."""
+    (lk, gk), (lp, gp) = loss_and_grads(m, "kernel"), loss_and_grads(m, "plain")
+    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(gk, gp, strict=True)]
+    out = {"loss_kernel": lk.item(), "loss_plain": lp.item(),
+           "rel_l2_icv": rel[0], "rel_l2_alpha": rel[1]}
+    log(f"full-width gradients, kernel path vs plain path (one batch, same weights and ICV): "
+        f"loss {out['loss_kernel']:.6e} vs {out['loss_plain']:.6e}; rel_l2 d_icv "
+        f"{rel[0]:.4e}, d_alpha {rel[1]:.4e} (limit {REL_L2_TOL})")
+    return out
+
+
+def busy_ms(events) -> float:
+    """Length of the union of the device intervals (µs in, ms out)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def profile_training(m: TrainInputs) -> None:
+    """Phase 5, last part: where the time of the kernel path's loss and
+    backward (a micro-step without the optimizer update) goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def step():
+        loss_and_grads(m, "kernel")
+
+    def teacher():
+        with torch.no_grad():
+            m.bundle.train_forward(m.bundle.params, m.batch["inputs"], None, return_hidden=True)
+
+    walls = [wall_ms(step) for _ in range(2)]
+    t_teacher = wall_ms(teacher)
+    for _ in range(3):  # a session now and then records no device activity
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = wall_ms(step)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device time")
+    busy = busy_ms(events)
+    total = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    log(f"kernel-path loss+backward: {walls[0]:.1f}, {walls[1]:.1f} ms unprofiled; teacher "
+        f"forward alone {t_teacher:.1f} ms; profiled {wall:.1f} ms wall, {len(events)} device "
+        f"kernels, device busy {busy:.1f} ms ({100 * busy / wall:.1f}% of the wall)")
+    by_name: dict = {}
+    for e in events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    log("  device time by kernel (top 12; ms, share of the summed device time, launches):")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ms:9.3f}  {100 * ms / total:5.1f}%  {n:6d}  {name[:100]}")
 
 
 def main() -> int:
@@ -786,7 +845,12 @@ def main() -> int:
         free_device_memory()  # phase 4's model goes before phase 5 builds its own
         counts_train = training_path(dev, Path(tmp) / "train")
         free_device_memory()
-        gradient_check(dev)
+        m = training_inputs(dev)
+        grad = gradient_check(m)
+        if not (math.isfinite(grad["loss_kernel"])
+                and max(grad["rel_l2_icv"], grad["rel_l2_alpha"]) <= REL_L2_TOL):
+            raise AssertionError("kernel-path gradients disagree with the plain path")
+        profile_training(m)
 
     sources = {
         "icv_inject": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",

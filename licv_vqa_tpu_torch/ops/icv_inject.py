@@ -27,8 +27,11 @@ intermediates in eager PyTorch).  Per row, with r = ‖h‖/‖s‖ and gs = g·
 ``ds = r·(g − s·gs/‖s‖²)`` and ``dh = ds + (gs/‖s‖)·h/‖h‖``.  Memory bounds
 it too: it reads h, g and the shift row once and writes dh (h's dtype) and
 the per-row ds (f32), with the three row sums (Σh², Σs², Σg·s) reduced from
-the one read.  The reduction of ds to the shift's shape stays outside the
-kernel, as ``_reduce_to_shape`` does in JAX.
+the one read.  The wrapper then reduces ds to the shift's shape, as
+``_reduce_to_shape`` does in JAX.  That per-row f32 ds is written and read
+back only because the reduction is a second launch: the function itself
+moves h, g and dh (6 bytes per bf16 element) plus the shift and its
+gradient, and folding the reduction into the kernel is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -80,8 +83,8 @@ def reduce_shift_grad(ds: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
 def icv_inject_backward_reference(
     h: torch.Tensor, shift: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain backward, JAX ``_bwd`` written out: ``(dh in h's dtype, ds
-    per row (B, S, D) f32)``."""
+    """Plain backward, JAX ``_bwd`` written out: ``(dh in h's dtype, the
+    shift's gradient in its shape and dtype)``."""
     hf = h.float()
     sf = hf + _per_row_shift(h, shift).float()
     gf = g.float()
@@ -91,7 +94,7 @@ def icv_inject_backward_reference(
     gs = torch.sum(gf * sf, dim=-1, keepdim=True)
     ds = r * (gf - sf * (gs / (n_s * n_s)))
     dh = ds + (gs / n_s) * (hf / n_h)
-    return dh.to(h.dtype), ds
+    return dh.to(h.dtype), reduce_shift_grad(ds, shift)
 
 
 @functools.cache
@@ -171,8 +174,8 @@ def _icv_inject_triton(h: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
 def icv_inject_backward(
     h: torch.Tensor, shift: torch.Tensor, g: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(dh, ds per row)``: the Triton kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """``(dh, the shift's gradient)``: the Triton kernel, then the reduction
+    of its per-row ds, for CUDA tensors; the plain version for CPU tensors."""
     if h.device.type == "cpu":
         return icv_inject_backward_reference(h, shift, g)
     if h.ndim != 3 or g.shape != h.shape:
@@ -181,18 +184,18 @@ def icv_inject_backward(
             f"{tuple(h.shape)} and {tuple(g.shape)}"
         )
     b, s, d = h.shape
-    shift = _per_row_shift(h, shift)
+    rows = _per_row_shift(h, shift)
     h, g = h.contiguous(), g.contiguous()
     dh = torch.empty_like(h)
     ds = torch.empty(h.shape, dtype=torch.float32, device=h.device)
     triton, _, kernel = _triton_kernel()
     block_d = triton.next_power_of_2(d)
     kernel[(b * s,)](
-        h, shift, g, dh, ds, s, d, shift.stride(0), shift.stride(1),
+        h, rows, g, dh, ds, s, d, rows.stride(0), rows.stride(1),
         BLOCK_D=block_d, num_warps=_num_warps(block_d),
     )
     icv_inject_backward.launches += 1
-    return dh, ds
+    return dh, reduce_shift_grad(ds, shift)
 
 
 icv_inject_backward.launches = 0  # kernel launches (CUDA tensors only)
@@ -210,8 +213,7 @@ class _ICVInject(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, shift = ctx.saved_tensors
-        dh, ds = icv_inject_backward(h, shift, g)
-        return dh, reduce_shift_grad(ds, shift)
+        return icv_inject_backward(h, shift, g)
 
 
 def icv_inject(h: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,11 @@ kernels); skipped without one.  Run on the H100 with
 (``-o addopts=""`` drops the repository's xdist defaults).
 Tolerance: f32 math on both sides, so the two differ by output rounding
 (bf16 outputs) and summation order.  The limit scales with the output:
-max-abs error ≤ 2e-2 · max|plain| (one bf16 ulp is at most 2^-7 of a value,
-so this allows about 2.5 ulps at the largest output; the f32 KL outputs
-read far below it).
+max-abs error ≤ 2e-2 · max|plain| for bf16 outputs (one bf16 ulp is at most
+2^-7 of a value, so this allows about 2.5 ulps at the largest output) and
+≤ 1e-4 · max|plain| for the f32 KL outputs, which differ only by summation
+order (they read about 1e-6): a KL kernel that rounded through bf16 reads
+above it.
 """
 
 import pytest
@@ -25,11 +27,12 @@ from licv_vqa_tpu_torch.ops.icv_inject import (
 
 pytestmark = pytest.mark.cuda
 REL_TOL = 2e-2
+F32_REL_TOL = 1e-4
 
 
-def _assert_close(got: torch.Tensor, want: torch.Tensor) -> None:
+def _assert_close(got: torch.Tensor, want: torch.Tensor, tol: float = REL_TOL) -> None:
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= REL_TOL * want.float().abs().max().item(), err
+    assert err <= tol * want.float().abs().max().item(), err
 
 
 @pytest.fixture()
@@ -123,13 +126,13 @@ def test_icv_inject_backward_kernel_matches_plain(dev, shape, layout):
     vshape = {"row": (d,), "batch": (b, d), "batch1": (b, 1, d), "per_pos": shape}[layout]
     v = (torch.randn(vshape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
     before = icv_inject_backward.launches
-    dh, ds = icv_inject_backward(h, v, gout)
+    dh, dv = icv_inject_backward(h, v, gout)
     torch.cuda.synchronize()
     assert icv_inject_backward.launches == before + 1
-    want_dh, want_ds = icv_inject_backward_reference(h, v, gout)
-    assert dh.dtype == torch.bfloat16 and ds.dtype == torch.float32 and ds.shape == shape
+    want_dh, want_dv = icv_inject_backward_reference(h, v, gout)
+    assert dh.dtype == torch.bfloat16 and dv.dtype == torch.bfloat16 and dv.shape == vshape
     _assert_close(dh, want_dh)
-    _assert_close(ds, want_ds)
+    _assert_close(dv, want_dv)
 
 
 def test_icv_inject_autograd_launches_both_kernels(dev):
@@ -162,13 +165,13 @@ def test_masked_kl_kernels_match_plain(dev, n, v):
     got = K.rowwise_kl_forward(stu, tea, 1e-6)
     want = K.rowwise_kl_reference(stu, tea, 1e-6)
     for a, b in zip(got, want):
-        _assert_close(a, b)
+        _assert_close(a, b, F32_REL_TOL)
     dgot = K.rowwise_kl_backward(stu, tea, got[1], got[2], gw, 1e-6)
     dwant = K.rowwise_kl_backward_reference(stu, tea, want[1], want[2], gw, 1e-6)
     torch.cuda.synchronize()
     assert (K.rowwise_kl_forward.launches, K.rowwise_kl_backward.launches) == (f0 + 1, b0 + 1)
     for a, b in zip(dgot, dwant):
-        _assert_close(a, b)
+        _assert_close(a, b, F32_REL_TOL)
 
 
 def test_masked_kl_divergence_pallas_matches_xla_with_gradients(dev):
@@ -188,4 +191,4 @@ def test_masked_kl_divergence_pallas_matches_xla_with_gradients(dev):
         val = masked_kl_divergence(stu, tea, mask, t, 1e-6, impl=impl)
         out[impl] = (val.detach(), *torch.autograd.grad(val, (stu, tea, t)))
     for a, b in zip(out["pallas"], out["xla"]):
-        _assert_close(a, b)
+        _assert_close(a, b, F32_REL_TOL)
