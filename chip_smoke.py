@@ -6,8 +6,9 @@ Phases (any failure exits non-zero before the result lines):
 
 1. require ``torch.cuda.is_available()``; print the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. build the CUDA library from ``licv_vqa_tpu_torch/csrc`` (nvcc, sm_90a)
-   and print the build time (the Triton kernels compile at first launch);
+2. build the CUDA libraries from ``licv_vqa_tpu_torch/csrc`` (one nvcc per
+   source, sm_90a, all started together) and print the build times (the
+   Triton kernels compile at first launch);
 3. hold each kernel against its plain PyTorch version on the same inputs
    at the main paths' shapes, printing the error (max-abs over the plain
    output's max-abs, limit ``REL_TOL`` for bf16 outputs and ``F32_REL_TOL``
@@ -25,7 +26,12 @@ Phases (any failure exits non-zero before the result lines):
    layout; the
    flash-attention forward at (1, S, 32, 128) for S = 384, 512 and 2048
    with left padding; the masked temperature-KL forward and backward at
-   (128, 32000) and (512, 32000) f32 with a partial mask;
+   (128, 32000) and (512, 32000) f32 with a partial mask; the int8 and
+   int4 decode matmuls at ``QUANT_SHAPES`` (a beam step's projections, a
+   64-row block) and the int8 one at ``HEAD_SHAPES``, with
+   ``torch._weight_int8pack_mm`` as the int8 library call where this torch
+   runs it on the card, and the bf16 matmul with the dense weight printed
+   beside as a note;
 4. the eval path at Idefics-9B FULL width (32 layers, d=4096, ViT-H, 6-layer
    perceiver, 8 cross-attention blocks; random bf16 weights made on the card
    from a seed, ~18 GB), through the runner entry points the CLI calls
@@ -55,8 +61,20 @@ Phases (any failure exits non-zero before the result lines):
    ``REL_L2_TOL``; and where the time of the kernel path's loss and
    backward goes (its wall, the teacher forward alone, and over one
    profiled pass the device busy share and the device time by kernel);
-6. one ``{"kernels": [...]}`` line;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. the weight-quantized eval at full width, quantized on the card by the
+   registry, through the runner entry points as in phase 4 (``QUANT_RUNS``):
+   A, int8 weights with the int8 head, the int8 KV cache, w8a8 prefill and
+   the int8 vision tower, ``test_icv`` then ``test_icl``; B, int4 weights
+   (bf16 head), ``test_icv``.  The int8 and int4 kernel counts are zeroed
+   before and read after each path and must equal
+   ``predicted_quantized_launches`` (derived from ``qdot``'s routes), the
+   ICV count 32 x forwards.  Prints ms per question, peak memory and a
+   profile of one ``test_icv`` question (device busy share, device time by
+   kernel), and holds the test_icv prompt's prefill and first-step logits
+   through the kernels against the same weights through their plain
+   versions (rel. L2 within ``REL_L2_TOL``, the same argmax);
+7. one ``{"kernels": [...]}`` line;
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 The port CLIs themselves are held against ``inference.py`` and ``train.py``
 by the CPU tests (``tests/test_torch_cli.py``, ``tests/test_torch_train*.py``).
@@ -73,6 +91,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -98,6 +117,7 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 TRAIN_BS = 2
 TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
 KL_EPS = 1e-6
+CUDA_SOURCES = ("flash_attn_fwd.cu", "int8_matmul.cu", "int4_matmul.cu")
 
 
 def log(msg: str) -> None:
@@ -175,6 +195,9 @@ class Case:
     library: object = None  # one PyTorch call computing the same function
     calls: int = 20
     tol: float = REL_TOL  # error ratio limit against the plain version
+    # a call that is not the same function, timed and printed as a note: the
+    # bf16 matmul with a dense weight, which the quantized bytes save against
+    dense: object = None
 
     def bound(self) -> tuple[float, str]:
         t_bytes = self.bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -272,6 +295,73 @@ def kernel_cases(dev):
         )
 
 
+    yield from quantized_cases(dev)
+
+
+# the quantized decode matmuls' cases: ((M, K, N), output dtype).  A beam
+# step's projections (3 rows: wq/wk/wv/wo with bf16 outputs, the MLP's
+# gate/up and down with f32 outputs) and a 64-row prefill block, for both
+# kernels; the int8 head (int8 in both modes) at a 32000-word vocabulary
+# and at Idefics-9B's 32000 + 2 added tokens, whose rows take 2-byte loads
+QUANT_SHAPES = (
+    ((3, 4096, 4096), "bf16"), ((3, 4096, 11008), "f32"), ((3, 11008, 4096), "f32"),
+    ((64, 4096, 4096), "bf16"),
+)
+HEAD_SHAPES = (((3, 4096, 32000), "f32"), ((3, 4096, 32002), "f32"))
+INT4_GROUP = 64
+
+
+def quantized_cases(dev):
+    """The int8 and int4 kernels against their plain versions.  Inputs are
+    made on first use, on ``dev``: a random bf16 weight quantized as the
+    registry does, and bf16 activations."""
+    import functools
+
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int4_matmul as I4
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+    from licv_vqa_tpu_torch.ops import quantize as Q
+
+    for mode, shapes in (("int8", QUANT_SHAPES + HEAD_SHAPES), ("int4", QUANT_SHAPES)):
+        for (m, k, n), out in shapes:
+            odt = torch.float32 if out == "f32" else torch.bfloat16
+
+            @functools.cache
+            def inputs(m=m, k=k, n=n, mode=mode):
+                g = torch.Generator(device=dev).manual_seed(m + k + n)
+                w = (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+                if mode == "int8":
+                    leaf = Q.quantize_array(w)
+                    # _weight_int8pack_mm's layout: (N, K) int8, (N,) scales
+                    return dict(x=x, dense=w, args=(leaf["q"], leaf["s"]),
+                                w_nk=leaf["q"].t().contiguous(),
+                                sc=leaf["s"].reshape(-1).to(x.dtype))
+                leaf = Q.quantize_array_int4(w, INT4_GROUP)
+                return dict(x=x, dense=w, args=(
+                    leaf["q4"], leaf["s"].reshape(k // INT4_GROUP, n), INT4_GROUP))
+
+            ob = 4 if out == "f32" else 2
+            if mode == "int8":
+                wrapper, plain = I8.int8_matmul, I8.int8_matmul_reference
+                w_bytes = k * n + n * 4  # int8 plane, f32 column scales
+                library = lambda i=inputs: torch._weight_int8pack_mm(
+                    i()["x"], i()["w_nk"], i()["sc"])
+            else:
+                wrapper, plain = I4.int4_matmul, I4.int4_matmul_reference
+                w_bytes = k * n // 2 + (k // INT4_GROUP) * n * 2  # packed nibbles, bf16 scales
+                library = None  # no single PyTorch call reads this layout
+            yield Case(
+                f"{mode}_matmul", f"({m},{k},{n}) {out} out",
+                lambda i=inputs, f=wrapper, o=odt: f(i()["x"], *i()["args"], o),
+                lambda i=inputs, f=plain, o=odt: f(i()["x"], *i()["args"], o),
+                bytes_moved=m * k * 2 + w_bytes + m * n * ob, ops=2 * m * k * n,
+                op_type="bf16", library=library,
+                dense=lambda i=inputs: i()["x"] @ i()["dense"],
+            )
+
+
 def compare(kernel, plain) -> tuple[float, float]:
     """``(max-abs error, worst error ratio)`` of one kernel call against its
     plain version on the same inputs, over every output; the ratio is each
@@ -302,7 +392,26 @@ MAIN_SHAPE = {
     "icv_inject_bwd": "(2,64,4096) shift=row",
     "masked_kl_fwd": "(128,32000)",
     "masked_kl_bwd": "(128,32000)",
+    # a beam step's wq/wk/wv/wo (the most frequent quantized call)
+    "int8_matmul": "(3,4096,4096)",
+    "int4_matmul": "(3,4096,4096)",
 }
+
+
+def library_ms(c: Case) -> tuple:
+    """``(ms, text)`` of the case's library call, or ``(None, reason)`` when
+    there is none or this torch does not run it on the card."""
+    import torch
+
+    if c.library is None:
+        return None, "none"
+    try:
+        c.library()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as err:
+        return None, f"none ({str(err).strip().splitlines()[0][:120]})"
+    ms = device_ms(c.library, c.calls)
+    return ms, f"{ms:.5f} ms"
 
 
 def check_kernels(dev) -> dict:
@@ -311,14 +420,15 @@ def check_kernels(dev) -> dict:
     for c in kernel_cases(dev):
         err, ratio = compare(c.kernel, c.plain)
         dev_ms, dev_plain = device_ms(c.kernel, c.calls), device_ms(c.plain, c.calls)
-        lib_ms = device_ms(c.library, c.calls) if c.library is not None else None
+        lib_ms, lib = library_ms(c)
         ev_ms, ev_plain = time_ms(c.kernel, inner=c.calls), time_ms(c.plain, inner=c.calls)
         bound_ms, bound_by = c.bound()
-        lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "none"
+        note = (f"; note: bf16 matmul with the dense weight {device_ms(c.dense, c.calls):.5f} ms"
+                if c.dense is not None else "")
         log(f"{c.name} {c.label}: max_abs={err:.3e} (ratio to max|plain| {ratio:.3e}); "
             f"device {dev_ms:.5f} ms, plain {dev_plain:.5f} ms, library {lib}, "
             f"bound {bound_ms:.5f} ms ({bound_by}); host-clocked {ev_ms:.4f} ms vs plain "
-            f"{ev_plain:.4f} ms")
+            f"{ev_plain:.4f} ms{note}")
         if not ratio <= c.tol:
             raise AssertionError(f"{c.name} {c.label} disagrees: ratio {ratio} > {c.tol}")
         row = out.setdefault(c.name, dict(max_abs_err=0.0))
@@ -409,37 +519,48 @@ def _leaves(tree):
         yield tree
 
 
-def main_path(dev, tmp: Path) -> dict:
-    """Phase 4.  Returns the launch counts of the eval path."""
+@dataclasses.dataclass
+class EvalSetup:
+    """A full-width model and the eval inputs phases 4 and 6 share."""
+
+    bundle: object
+    gen_kwargs: dict
+    instruction: str
+    pm: object
+    icv_scaled: object
+    val: list
+    train: list
+    shots: list
+
+
+def eval_setup(dev, tmp: Path, extra_args: list, lmm: str = "idefics-9B") -> EvalSetup:
+    """The CLI's composed config with ``extra_args``, the model the registry
+    builds from it (random weights), a random ICV read back from an
+    ``icv_cpk.pth`` in the reference layout, and the synthetic rows."""
     import torch
 
     from licv_vqa_tpu_torch.api import init_prompt_manager
-    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
-    from licv_vqa_tpu_torch.infer.runner import icl_inference, icv_inference
-    from licv_vqa_tpu_torch.models import idefics as I
-    from licv_vqa_tpu_torch.models import layers as L
-    from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize, build_model
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+    from licv_vqa_tpu_torch.models.registry import build_model
     from licv_vqa_tpu_torch.train.checkpoint import load_icv_checkpoint
     from licv_vqa_tpu_torch.utils import compose
 
     set_env(tmp)
     cfg = compose(str(REPO / "config"), "inference", [
-        "lmm=idefics-9B", "device=cuda", "run_name=chip_smoke", "bs=1",
+        f"lmm={lmm}", f"device={dev.type}", "run_name=chip_smoke", "bs=1",
         f"generate_kwargs.max_new_tokens={MAX_NEW}", "generate_kwargs.num_beams=3",
-        "generate_kwargs.length_penalty=0.0",
+        "generate_kwargs.length_penalty=0.0", *extra_args,
     ])
-    gen_kwargs = cfg.generate_kwargs.to_dict()
-    instruction = str(cfg.prompt.instruction)
-
     t0 = time.perf_counter()
     bundle = build_model(cfg, device=dev)  # no weights on disk: random init
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(bundle.params))
-    log(f"model: Idefics-9B full width, {n_params / 1e9:.3f} B params bf16, "
+    n_bytes = sum(x.numel() * x.element_size() for x in _leaves(bundle.params))
+    log(f"model: {lmm} {' '.join(extra_args) or 'bf16'}: "
+        f"{n_params / 1e9:.3f} B stored elements, {n_bytes / 2**30:.2f} GiB, "
         f"built in {time.perf_counter() - t0:.1f} s")
     t = bundle.model_cfg.text
-    if (t.n_layers, t.d_model, bundle.model_cfg.vision.d_model) != (32, 4096, 1280):
+    if lmm == "idefics-9B" and (t.n_layers, t.d_model, bundle.model_cfg.vision.d_model) != (
+            32, 4096, 1280):
         raise AssertionError(f"not full width: {t}")
 
     # a random ICV written in the reference artifact layout, read back by the port
@@ -453,19 +574,48 @@ def main_path(dev, tmp: Path) -> dict:
         "lmm_args": {"total_layers": t.n_layers, "intervention_layer": -1},
     }, cpk)
     loaded = load_icv_checkpoint(cpk.parent, device=dev)
-    icv_scaled = loaded["alpha"][:, None] * loaded["icv"]
+    return EvalSetup(
+        bundle=bundle, gen_kwargs=cfg.generate_kwargs.to_dict(),
+        instruction=str(cfg.prompt.instruction), pm=init_prompt_manager(cfg),
+        icv_scaled=loaded["alpha"][:, None] * loaded["icv"],
+        val=synthetic_vqa(N_ICV_Q + 1, 100, seed=1),
+        train=synthetic_vqa(ICL_SHOTS + 8, 500, seed=2),
+        shots=[list(range(i, i + ICL_SHOTS)) for i in range(N_ICL_Q + 1)],
+    )
 
-    pm = init_prompt_manager(cfg)
-    val = synthetic_vqa(N_ICV_Q + 1, 100, seed=1)
-    train = synthetic_vqa(ICL_SHOTS + 8, 500, seed=2)
-    shots = [list(range(i, i + ICL_SHOTS)) for i in range(N_ICL_Q + 1)]
+
+def icl_prompt(e: EvalSetup, q: int, shots: list) -> list:
+    p = [e.instruction]
+    for si in shots:
+        p += [e.train[si]["image"], e.pm.gen_ice_text_with_label(e.train[si], add_sep_token=True)]
+    return p + [e.val[q]["image"], e.pm.gen_query_text_without_label(e.val[q])]
+
+
+def icv_prompt(e: EvalSetup, q: int) -> list:
+    """The zero-shot prompt as ``icv_inference`` builds it."""
+    p = [e.instruction] if e.instruction else []
+    return p + [e.val[q]["image"], e.pm.gen_query_text_without_label(e.val[q])]
+
+
+def main_path(dev, tmp: Path) -> dict:
+    """Phase 4.  Returns the launch counts of the eval path."""
+    import torch
+
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
+    from licv_vqa_tpu_torch.infer.runner import icl_inference, icv_inference
+    from licv_vqa_tpu_torch.models import idefics as I
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    e = eval_setup(dev, tmp, [])
+    bundle, gen_kwargs, instruction, pm = e.bundle, e.gen_kwargs, e.instruction, e.pm
+    icv_scaled, val, train, shots = e.icv_scaled, e.val, e.train, e.shots
+    t = bundle.model_cfg.text
 
     # ICL prompt length (the flash gate needs >= 256 tokens)
-    p = [instruction]
-    for si in shots[0]:
-        p += [train[si]["image"], pm.gen_ice_text_with_label(train[si], add_sep_token=True)]
-    p += [val[0]["image"], pm.gen_query_text_without_label(val[0])]
-    enc = bundle.processor.prepare_input([p], padding=True, padding_side="left")
+    enc = bundle.processor.prepare_input(
+        [icl_prompt(e, 0, shots[0])], padding=True, padding_side="left")
     s_icl = enc["input_ids"].shape[1]
     log(f"test_icl prompt: {int(enc['attention_mask'].sum())} tokens, padded to {s_icl}, "
         f"{enc['pixel_values'].shape[1]} images")
@@ -557,6 +707,219 @@ def main_path(dev, tmp: Path) -> dict:
         "icv_inject": counts["icv_inject", "test_icv"] + counts["icv_inject", "test_icl"],
         "flash_attention_fwd": counts["flash", "test_icv"] + counts["flash", "test_icl"],
     }
+
+
+# phase 6's two runs: (mode, the lmm options, the eval paths run)
+QUANT_RUNS = (
+    # A: every quantized option composed (tests/test_quantize.py:110-129)
+    ("int8", ["lmm.quantize=int8", "lmm.quantize_head=true", "lmm.kv_cache=int8",
+              "lmm.w8a8_prefill=true", "lmm.quantize_vision=true"], ("icv", "icl")),
+    # B: the head left bf16, so this run launches only the int4 kernel
+    ("int4", ["lmm.quantize=int4"], ("icv",)),
+)
+
+
+def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: int,
+                                 n_img: int, beams: int, max_new: int) -> dict:
+    """Launches of the int8 and int4 kernels in ONE generate (bs prompts of
+    ``s_prompt`` tokens with ``n_img`` images each), derived from the code's
+    routes.  A matmul launches a kernel iff its weight is quantized and the
+    call has at most ``KERNEL_MAX_ROWS`` rows (``ops/int8_matmul.py::qdot``),
+    except that an int8 weight takes w8a8 under ``lmm.w8a8_prefill`` in a
+    block of at least ``W8A8_MIN_TOKENS`` tokens (the vision tower never:
+    ``idefics.encode_images``), and an int4 weight needs K/2 % G == 0.
+    Per forward: 7 projections per decoder layer (wq wk wv wo, gate up:
+    K = d_model; down: K = d_ff) and 5 per cross-attention block with its
+    bound K/V (wq wo gate up, down), one block per ``cross_layer_interval``
+    layers.  The prefill has bs·s_prompt rows and s_prompt tokens; each of
+    the max_new − 1 beam steps has bs·beams rows and 1 token (the last
+    token needs no forward).  The bind-time K/V (wk wv per block) has
+    bs·n_img·n_latents rows and n_img·n_latents tokens.  The int8 head
+    (``quantize_head``, int8 in either mode) has bs rows at the prefill (its
+    last position) and bs·beams per step.  The int8 tower
+    (``quantize_vision``) runs 6 projections per layer on bs·n_img·n_patches
+    rows; the perceiver 4 per block on its latents (bs·n_img·n_latents rows,
+    n_latents tokens) and 2 on latents and patches together."""
+    from licv_vqa_tpu_torch.models.decoder import W8A8_MIN_TOKENS
+    from licv_vqa_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
+    from licv_vqa_tpu_torch.ops.quantize import _int4_group
+
+    a8 = "lmm.w8a8_prefill=true" in opts
+
+    def takes(rows: int, tokens, k: int, int8: bool) -> int:
+        """1 if one matmul of ``rows`` rows, a block of ``tokens`` tokens
+        (None: never w8a8) and ``k`` in-features launches a kernel."""
+        if rows > KERNEL_MAX_ROWS:
+            return 0
+        if int8:
+            return int(not (a8 and tokens is not None and tokens >= W8A8_MIN_TOKENS))
+        return int((k // 2) % _int4_group(k) == 0)
+
+    t, v, p = mc.text, mc.vision, mc.perceiver
+    groups = t.n_layers // mc.cross_layer_interval
+    int8 = mode == "int8"
+
+    def stacks(rows: int, tokens: int) -> int:
+        d, f = (takes(rows, tokens, k, int8) for k in (t.d_model, t.d_ff))
+        return t.n_layers * (6 * d + f) + groups * (4 * d + f)
+
+    n_k = n_img * p.n_latents
+    n = (stacks(bs * s_prompt, s_prompt) + (max_new - 1) * stacks(bs * beams, 1)
+         + 2 * groups * takes(bs * n_k, n_k, p.d_model, int8))
+    out = {"int8_matmul": n if int8 else 0, "int4_matmul": 0 if int8 else n}
+    if "lmm.quantize_head=true" in opts:
+        out["int8_matmul"] += (takes(bs, 1, t.d_model, True)
+                               + (max_new - 1) * takes(bs * beams, 1, t.d_model, True))
+    if "lmm.quantize_vision=true" in opts:
+        imgs, lat, np_ = bs * n_img, p.n_latents, v.n_patches
+        out["int8_matmul"] += (
+            v.n_layers * 6 * takes(imgs * np_, None, v.d_model, True)
+            + p.n_layers * (4 * takes(imgs * lat, lat, p.d_model, True)
+                            + 2 * takes(imgs * (lat + np_), lat + np_, p.d_model, True))
+        )
+    return out
+
+
+def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
+                   lmm: str = "idefics-9B") -> dict:
+    """Phase 6, one run: the weight-quantized eval at full width through the
+    runner entry points.  Returns the launch counts of the run."""
+    import torch
+
+    from licv_vqa_tpu_torch.infer.runner import icl_inference, icv_inference
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import int4_matmul as I4
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    e = eval_setup(dev, tmp, opts, lmm)
+    b = e.bundle
+    n_layers = b.model_cfg.text.n_layers
+    counters = {"int8_matmul": I8.int8_matmul, "int4_matmul": I4.int4_matmul,
+                "icv_inject": icv_inject, "flash_attention_fwd": L.flash_attention}
+    beams = int(e.gen_kwargs["num_beams"])
+    runs = {
+        "icv": (lambda rows: icv_inference(rows, b, e.pm, 1, e.gen_kwargs, e.instruction,
+                                           e.icv_scaled, progress=False),
+                lambda q: icv_prompt(e, q), N_ICV_Q),
+        "icl": (lambda rows, shots=None: icl_inference(
+                    e.train, rows, shots, b, e.pm, 1, e.gen_kwargs, e.instruction, progress=False),
+                lambda q: icl_prompt(e, q, e.shots[q]), N_ICL_Q),
+    }
+    # warm-up on one question of each path
+    runs["icv"][0](e.val[:1])
+    if "icl" in paths:
+        runs["icl"][0](e.val[:1], e.shots[:1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = dict.fromkeys(counters, 0)
+    for path in paths:
+        run, prompt, n_q = runs[path]
+        want = dict.fromkeys(("int8_matmul", "int4_matmul"), 0)
+        for q in range(1, 1 + n_q):
+            enc = b.processor.prepare_input([prompt(q)], padding=True, padding_side="left")
+            for k, v in predicted_quantized_launches(
+                b.model_cfg, mode, opts, 1, enc["input_ids"].shape[1],
+                enc["pixel_values"].shape[1], beams, MAX_NEW,
+            ).items():
+                want[k] += v
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rows = e.val[1 : 1 + n_q]
+        res = run(rows) if path == "icv" else run(rows, e.shots[1 : 1 + n_q])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n_q
+        counts = {k: fn.launches for k, fn in counters.items()}
+        log(f"{mode} test_{path}: {n_q} questions, {dt * 1e3:.1f} ms/question; launches "
+            f"{counts} (int8/int4 predicted {want}); predictions "
+            f"{[r['prediction'] for r in res.values()]}, VQA accuracy "
+            f"{vqa_accuracy(res, rows, tmp, f'{mode}_{path}'):.2f} (random weights)")
+        for k, v in want.items():
+            if counts[k] != v:
+                raise AssertionError(f"{mode} test_{path}: {k} launched {counts[k]} != {v}")
+        if path == "icv" and counts["icv_inject"] != n_layers * n_q * MAX_NEW:
+            raise AssertionError("icv_inject launch count != 32 x forward passes")
+        if len(res) != n_q or not all(isinstance(r["prediction"], str) for r in res.values()):
+            raise AssertionError(f"{mode} test_{path}: malformed results {res}")
+        for k in total:
+            total[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"{mode}: peak device memory over the runs {peak:.2f} GiB (the bf16 build's is phase 4's)")
+    if dev.type == "cuda":
+        profile_question(lambda: runs["icv"][0](e.val[1:2]), f"{mode} test_icv")
+    kernel_vs_plain_logits(e, mode)
+    return total
+
+
+def profile_question(fn, tag: str, top: int = 6) -> None:
+    """One warm question under ``torch.profiler``: its wall, the device's
+    busy share of it and the device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a session now and then records no device activity
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device time")
+    busy = busy_ms(events)
+    total = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    log(f"{tag}, one question profiled: {wall:.1f} ms wall, {len(events)} device kernels, "
+        f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}% of the wall)")
+    by_name: dict = {}
+    for e in events:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {ms:9.3f}  {100 * ms / total:5.1f}%  {n:6d}  {name[:90]}")
+
+
+def kernel_vs_plain_logits(e: EvalSetup, mode: str) -> None:
+    """The test_icv prompt's prefill logits and one greedy step's, through
+    the quantized kernels against the same weights through the kernels'
+    plain versions (the wrappers swapped for them in ``qdot``)."""
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int4_matmul as I4
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    b = e.bundle
+    dev = b.device
+    enc = b.processor.prepare_input([icv_prompt(e, 1)], padding=True, padding_side="left")
+    ids, mask, px, pv = (torch.from_numpy(enc[k]).to(dev) for k in (
+        "input_ids", "attention_mask", "pixel_values", "pixel_valid"))
+    pos = torch.clamp(torch.cumsum(mask, -1) - 1, min=0)
+    out = {}
+    kernels = (I8.int8_matmul, I4.int4_matmul)
+    for path in ("kernel", "plain"):
+        if path == "plain":
+            I8.int8_matmul, I4.int4_matmul = I8.int8_matmul_reference, I4.int4_matmul_reference
+        try:
+            with torch.inference_mode():
+                fwd = b.bind_decode(b.params, px, pv, ids, e.icv_scaled, ids.shape[1] + 2)
+                pre, cache = fwd(ids, mask, pos, None)
+                tok = pre[:, -1].argmax(-1)[:, None].to(ids.dtype)
+                step, _ = fwd(tok, torch.ones_like(tok), pos[:, -1:] + 1, cache)
+            out[path] = (pre[:, -1].float(), step[:, -1].float())
+        finally:
+            I8.int8_matmul, I4.int4_matmul = kernels
+    for i, what in enumerate(("prefill", "step")):
+        a, p = out["kernel"][i], out["plain"][i]
+        rel = ((a - p).norm() / p.norm()).item()
+        same = a.argmax().item() == p.argmax().item()
+        log(f"{mode} full-width {what} logits, kernel path vs plain path (same quantized "
+            f"weights): max_abs={(a - p).abs().max().item():.4e}, rel_l2={rel:.4e}, argmax "
+            f"{'agrees' if same else 'differs'}")
+        if not (torch.isfinite(a).all() and rel <= REL_L2_TOL and same):
+            raise AssertionError(f"{mode} {what} logits: kernel path disagrees with plain path")
 
 
 def _counters():
@@ -830,19 +1193,23 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    lib, secs, nvcc_log = csrc.build("flash_attn_fwd.cu")
-    if nvcc_log:
-        log(f"built {lib.relative_to(REPO)} with nvcc in {secs:.1f} s")
-    else:
-        log(f"found {lib.relative_to(REPO)} (built earlier from the same source)")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  nvcc: {line.strip()}")
+    # one nvcc per CUDA source, all started together
+    with ThreadPoolExecutor() as pool:
+        builds = list(pool.map(csrc.build, CUDA_SOURCES))
+    for (lib, secs, nvcc_log) in builds:
+        if nvcc_log:
+            log(f"built {lib.relative_to(REPO)} with nvcc in {secs:.1f} s")
+        else:
+            log(f"found {lib.relative_to(REPO)} (built earlier from the same source)")
+        for line in nvcc_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  nvcc: {line.strip()}")
 
     summary = check_kernels(dev)
+    free_device_memory()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts = main_path(dev, Path(tmp) / "eval")
-        free_device_memory()  # phase 4's model goes before phase 5 builds its own
+        free_device_memory()  # each phase's model goes before the next builds its own
         counts_train = training_path(dev, Path(tmp) / "train")
         free_device_memory()
         m = training_inputs(dev)
@@ -851,6 +1218,14 @@ def main() -> int:
                 and max(grad["rel_l2_icv"], grad["rel_l2_alpha"]) <= REL_L2_TOL):
             raise AssertionError("kernel-path gradients disagree with the plain path")
         profile_training(m)
+        del m
+        free_device_memory()
+        counts_q = dict.fromkeys(("int8_matmul", "int4_matmul", "icv_inject",
+                                  "flash_attention_fwd"), 0)
+        for mode, opts, paths in QUANT_RUNS:
+            for k, v in quantized_path(dev, Path(tmp) / mode, mode, opts, paths).items():
+                counts_q[k] += v
+            free_device_memory()
 
     sources = {
         "icv_inject": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
@@ -861,11 +1236,18 @@ def main() -> int:
                       "licv_vqa_tpu/ops/masked_kl_kernel.py:128"),
         "icv_inject_bwd": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
                            "licv_vqa_tpu/ops/icv_inject.py:113"),
+        "int8_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/int8_matmul.cu",
+                        "licv_vqa_tpu/ops/int8_matmul.py:67"),
+        "int4_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/int4_matmul.cu",
+                        "licv_vqa_tpu/ops/int4_matmul.py:134"),
     }
     launches = {
-        "icv_inject": counts["icv_inject"] + counts_train["icv_inject"],
-        "flash_attention_fwd": counts["flash_attention_fwd"] + counts_train["flash_attention_fwd"],
+        "icv_inject": counts["icv_inject"] + counts_q["icv_inject"] + counts_train["icv_inject"],
+        "flash_attention_fwd": (counts["flash_attention_fwd"] + counts_q["flash_attention_fwd"]
+                                + counts_train["flash_attention_fwd"]),
         "icv_inject_bwd": counts_train["icv_inject_bwd"],
+        "int8_matmul": counts_q["int8_matmul"],
+        "int4_matmul": counts_q["int4_matmul"],
     }
     kernels = []
     for name, (route, source, replaces) in sources.items():

@@ -3,9 +3,9 @@
 Each ``*.cu`` here has a plain C interface.  ``load_library`` compiles one
 with ``nvcc`` for ``sm_90a`` into a shared library under ``_build/`` (listed
 in ``.gitignore``) on first use and loads it with ``ctypes``.  The library's
-file name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing is built or loaded at
-import time.
+file name carries a hash of the source, the shared ``*.cuh`` headers and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded.  Nothing is built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -46,7 +46,9 @@ def build(source: str) -> tuple[Path, float, str]:
     """Compile ``csrc/<source>`` if its library is missing.  Returns
     ``(library path, seconds spent building (0.0 if it existed), nvcc log)``."""
     src = SRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers are part of every source's build
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib, 0.0, ""

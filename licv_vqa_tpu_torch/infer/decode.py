@@ -89,14 +89,23 @@ def greedy_generate(
 # ---------------------------------------------------------------------------
 
 
+def _kv_leaves(x) -> list:
+    """The tensors of one K or V cache: itself, or an int8 cache's q and s."""
+    return [x["q"], x["s"]] if isinstance(x, dict) else [x]
+
+
 def _cache_map_batch(cache, fn: Callable):
-    """Apply fn(leaf, batch_axis) to every batched cache leaf."""
+    """Apply fn(leaf, batch_axis) to every batched cache leaf (the int8
+    cache's ``{"q", "s"}`` leaves included)."""
     if cache is None:
         return None
     out = dict(cache)
     for key in cache:
-        if key in ("k", "v"):
-            out[key] = fn(cache[key], 1)  # (L, B, ...)
+        if key in ("k", "v"):  # (L, B, ...)
+            x = cache[key]
+            out[key] = (
+                {name: fn(leaf, 1) for name, leaf in x.items()} if isinstance(x, dict) else fn(x, 1)
+            )
         elif key != "index":
             out[key] = fn(cache[key], 0)  # (B, ...)
     return out
@@ -112,8 +121,8 @@ def _beam_gather_cache(cache: dict, flat_sel: torch.Tensor, prompt_len: int) -> 
     only the decoded tail is gathered (~max_new rows instead of the whole
     cache)."""
     for key in ("k", "v"):
-        x = cache[key]  # (L, B·K, S, KV, Dh)
-        x[:, :, prompt_len:] = x[:, flat_sel, prompt_len:]
+        for x in _kv_leaves(cache[key]):  # (L, B·K, S, KV, Dh|1)
+            x[:, :, prompt_len:] = x[:, flat_sel, prompt_len:]
     for key in ("pos", "valid"):
         x = cache[key]  # (B·K, S)
         x[:, prompt_len:] = x[flat_sel, prompt_len:]

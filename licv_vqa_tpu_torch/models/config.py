@@ -47,7 +47,9 @@ class DecoderConfig:
     # flash-attention kernel (layers.flash_attention_usable); "xla" keeps
     # every attention on the plain path (the name is the JAX config's).
     attention_impl: str = "flash"
+    # "int8": the KV cache holds {"q", "s"} leaves (decoder.init_kv_cache)
     kv_cache_dtype: str = "bf16"
+    # w8a8 for blocks of >= decoder.W8A8_MIN_TOKENS tokens (int8 leaves only)
     w8a8_prefill: bool = False
 
     def __post_init__(self):
@@ -61,13 +63,8 @@ class DecoderConfig:
                 f"norm_type={self.norm_type!r}/activation={self.activation!r}",
                 "Queue 1 item 11 (OpenFlamingo)",
             )
-        if self.kv_cache_dtype != "bf16":
-            raise _not_ported(
-                f"kv_cache_dtype={self.kv_cache_dtype!r}",
-                "Queue 1 item 9 (Quantization)",
-            )
-        if self.w8a8_prefill:
-            raise _not_ported("w8a8_prefill", "Queue 1 item 9 (Quantization)")
+        if self.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_cache_dtype must be bf16|int8, got {self.kv_cache_dtype!r}")
         if self.attention_impl not in ("flash", "xla"):
             raise ValueError(f"attention_impl must be flash|xla, got {self.attention_impl!r}")
 

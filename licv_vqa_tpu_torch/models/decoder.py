@@ -12,6 +12,13 @@ bulk-writes after the layer scan (``decoder.py:224-336``).  The port writes
 each layer's new rows into its cache first (``apply_kv_rows``) and then
 attends the written prefix.  The two are equal in exact arithmetic: the
 masked-out incoming columns hold exactly the local keys.
+
+With the int8 cache (``kv_cache_dtype="int8"``, ``{"q", "s"}`` leaves) the
+layer writes the quantized rows and attends the dequantized prefix, so this
+step's own keys and values are their int8 round trip, which is what JAX's
+local block attends (``decoder.py:399-402``).  Projections go through
+``ops.int8_matmul.qdot``, so weights may be quantized leaves; blocks of at
+least ``W8A8_MIN_TOKENS`` tokens take w8a8 under ``cfg.w8a8_prefill``.
 """
 
 from __future__ import annotations
@@ -21,8 +28,15 @@ from typing import Optional
 import torch
 
 from ..ops.icv_inject import icv_inject
+from ..ops.int8_matmul import qdot
+from ..ops.quantize import dequantize_kv, quantize_kv_rows
 from . import layers as L
 from .config import BLOCK_OUTPUT, MLP_OUTPUT, DecoderConfig
+
+# w8a8 (``cfg.w8a8_prefill``) applies only to blocks of at least this many
+# tokens (JAX decoder.py:33): prefill and bind matmuls; decode steps (s=1)
+# keep the weight-only routes
+W8A8_MIN_TOKENS = 16
 
 # ---------------------------------------------------------------------------
 # Parameter init
@@ -61,13 +75,24 @@ def init_layer_params(
 
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, device) -> dict:
-    """bf16 (``cfg.dtype``) cache.  ``index`` (the next column to write) is a
-    host int: decode advances all rows in lockstep, and keeping it on the host
-    means the loop never reads a device value back."""
+    """``cfg.dtype`` cache, or with ``kv_cache_dtype="int8"`` ``{"q": int8,
+    "s": f32 (..., 1)}`` leaves (one scale per token and head).  ``index``
+    (the next column to write) is a host int: decode advances all rows in
+    lockstep, and keeping it on the host means the loop never reads a
+    device value back."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+
+    def kv():
+        if cfg.kv_cache_dtype == "int8":
+            return {
+                "q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "s": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            }
+        return torch.zeros(shape, dtype=cfg.dtype, device=device)
+
     return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "k": kv(),
+        "v": kv(),
         "pos": torch.zeros((batch, max_len), dtype=torch.int32, device=device),
         "valid": torch.zeros((batch, max_len), dtype=torch.bool, device=device),
         "index": 0,
@@ -97,24 +122,31 @@ def decode_cache_view(
     return mask, cache_pos, cache_valid
 
 
-def apply_kv_rows(
-    k_cache_l: torch.Tensor,  # (B, S, KV, Dh): one layer's cache
-    v_cache_l: torch.Tensor,
-    k_rows: torch.Tensor,  # (B, s, KV, Dh): this step's rows
-    v_rows: torch.Tensor,
-    index: int,
-) -> None:
-    """Write one layer's new K/V rows into its cache in place at ``index``
-    (JAX bulk-writes all layers after the scan, ``decoder.py:170``)."""
-    s = k_rows.shape[1]
-    k_cache_l[:, index : index + s] = k_rows
-    v_cache_l[:, index : index + s] = v_rows
+def apply_kv_rows(k_cache_l, v_cache_l, k_rows, v_rows, index: int) -> None:
+    """Write one layer's new K/V rows (B, s, KV, Dh) into its cache (B, S,
+    KV, Dh) in place at ``index`` (JAX bulk-writes all layers after the
+    scan, ``decoder.py:170``); int8 caches take ``{"q", "s"}`` rows."""
+    for cache_l, rows in ((k_cache_l, k_rows), (v_cache_l, v_rows)):
+        if isinstance(cache_l, dict):
+            for key in ("q", "s"):
+                cache_l[key][:, index : index + rows[key].shape[1]] = rows[key]
+        else:
+            cache_l[:, index : index + rows.shape[1]] = rows
+
+
+def _kv_prefix(cache_l, end: int, dtype) -> torch.Tensor:
+    """Rows ``[0, end)`` of one layer's cache, dequantized for an int8 cache
+    (JAX folds the same per-(token, head) scales into the scores and
+    probabilities, ``_kv_operand`` :201)."""
+    if isinstance(cache_l, dict):
+        return dequantize_kv(cache_l["q"][:, :end], cache_l["s"][:, :end], dtype)
+    return cache_l[:, :end]
 
 
 def _cached_attention(
     q: torch.Tensor,  # (B, s, H, Dh)
-    k_cache_l: torch.Tensor,  # (B, S, KV, Dh), rows [0, end) written
-    v_cache_l: torch.Tensor,
+    k_cache_l,  # (B, S, KV, Dh) or an int8 {"q", "s"} leaf, rows [0, end) written
+    v_cache_l,
     mask: torch.Tensor,  # (B, 1, s, S) from decode_cache_view
     end: int,
     logit_softcap=None,
@@ -122,11 +154,13 @@ def _cached_attention(
     """Attention over the written cache prefix ``[0, end)``.  Columns past
     ``end`` are masked in JAX's full-width mask, so dropping them changes
     nothing but the work."""
-    n_rep = q.shape[2] // k_cache_l.shape[2]
+    k = _kv_prefix(k_cache_l, end, q.dtype)
+    v = _kv_prefix(v_cache_l, end, q.dtype)
+    n_rep = q.shape[2] // k.shape[2]
     return L.dot_product_attention(
         q,
-        L.repeat_kv(k_cache_l[:, :end], n_rep),
-        L.repeat_kv(v_cache_l[:, :end], n_rep),
+        L.repeat_kv(k, n_rep),
+        L.repeat_kv(v, n_rep),
         mask=mask[..., :end],
         logit_softcap=logit_softcap,
     )
@@ -153,20 +187,32 @@ def decoder_layer(
     flash kernel attends the local keys and ignores the cache mask."""
     b, s, d = h.shape
     nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # a token-count gate: prefill and bind blocks run w8a8, decode steps
+    # keep the weight-only routes
+    a8 = cfg.w8a8_prefill and s >= W8A8_MIN_TOKENS
 
     x = _norm(cfg, p["ln1"], h)
-    q = (x @ p["attn"]["wq"]).reshape(b, s, nh, dh)
-    k = (x @ p["attn"]["wk"]).reshape(b, s, nkv, dh)
-    v = (x @ p["attn"]["wv"]).reshape(b, s, nkv, dh)
+    q = qdot(x, p["attn"]["wq"], a8=a8).reshape(b, s, nh, dh)
+    k = qdot(x, p["attn"]["wk"], a8=a8).reshape(b, s, nkv, dh)
+    v = qdot(x, p["attn"]["wv"], a8=a8).reshape(b, s, nkv, dh)
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     if "q_norm" in p["attn"]:  # idefics qk_layer_norms: per-head-dim RMSNorm
         q = L.rms_norm(p["attn"]["q_norm"], q, cfg.norm_eps)
         k = L.rms_norm(p["attn"]["k_norm"], k, cfg.norm_eps)
 
+    k_local, v_local = k, v
     if kv_write is not None:
         k_cache, v_cache, index = kv_write
-        apply_kv_rows(k_cache, v_cache, k, v, index)
+        if isinstance(k_cache, dict):  # int8 cache: write the quantized rows
+            kq, ks = quantize_kv_rows(k)
+            vq, vs = quantize_kv_rows(v)
+            apply_kv_rows(k_cache, v_cache, {"q": kq, "s": ks}, {"q": vq, "s": vs}, index)
+            # this step attends the round trip that later steps read back
+            k_local = dequantize_kv(kq, ks, h.dtype)
+            v_local = dequantize_kv(vq, vs, h.dtype)
+        else:
+            apply_kv_rows(k_cache, v_cache, k, v, index)
     use_flash = (
         flash_valid is not None
         and cfg.attn_logit_softcap is None
@@ -174,7 +220,7 @@ def decoder_layer(
     )
     if use_flash:
         attn = L.flash_attention(
-            q, L.repeat_kv(k, nh // nkv), L.repeat_kv(v, nh // nkv), flash_valid
+            q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid
         )
     elif kv_write is not None:
         attn = _cached_attention(
@@ -185,9 +231,9 @@ def decoder_layer(
             q, L.repeat_kv(k, nh // nkv), L.repeat_kv(v, nh // nkv),
             mask=mask, logit_softcap=cfg.attn_logit_softcap,
         )
-    h = h + (attn.reshape(b, s, nh * dh) @ p["attn"]["wo"]).to(h.dtype)
+    h = h + qdot(attn.reshape(b, s, nh * dh), p["attn"]["wo"], a8=a8).to(h.dtype)
 
-    mlp = L.swiglu_mlp(p["mlp"], _norm(cfg, p["ln2"], h))
+    mlp = L.swiglu_mlp(p["mlp"], _norm(cfg, p["ln2"], h), a8=a8)
     if icv_row is not None and cfg.injection_site == MLP_OUTPUT:
         mlp = _apply_icv(mlp, icv_row)
     h = h + mlp
@@ -214,7 +260,8 @@ def _positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 def logits_from_hidden(cfg: DecoderConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
-    """Hidden → vocab logits (f32)."""
+    """Hidden → vocab logits (f32).  ``params["lm_head"]`` may be an int8
+    leaf (``lmm.quantize_head``); tied embeddings keep the bf16 table."""
     if cfg.tie_embeddings:
         return (h @ params["embed"].T).float()
-    return (h @ params["lm_head"]).float()
+    return qdot(h, params["lm_head"], preferred_element_type=torch.float32)

@@ -24,9 +24,11 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.int8_matmul import qdot
 from . import layers as L
 from .config import BLOCK_OUTPUT, DecoderConfig, PerceiverConfig, VisionConfig
 from .decoder import (
+    W8A8_MIN_TOKENS,
     _positions_from_mask,
     decode_cache_view,
     decoder_layer,
@@ -213,12 +215,17 @@ def last_image_onehot(
 def encode_images(
     cfg: IdeficsConfig, params: dict, pixel_values: torch.Tensor
 ) -> torch.Tensor:
-    """(B, N_img, H, W, 3) → image latents (B, N_img·n_lat, De)."""
+    """(B, N_img, H, W, 3) → image latents (B, N_img·n_lat, De).  Under
+    ``w8a8_prefill`` the perceiver takes w8a8 and the tower does not (JAX
+    measured the tower's per-row activation quantization costing more than
+    it saves, idefics.py:267-273); a quantized tower stays weight-only."""
     b, n_img = pixel_values.shape[:2]
     flat = pixel_values.reshape((b * n_img,) + tuple(pixel_values.shape[2:]))
-    feats = vision_forward(cfg.vision, params["vision"], flat)
+    feats = vision_forward(cfg.vision, params["vision"], flat, a8=False)
     if cfg.use_resampler:
-        feats = perceiver_forward(cfg.perceiver, params["perceiver"], feats)
+        feats = perceiver_forward(
+            cfg.perceiver, params["perceiver"], feats, a8=cfg.text.w8a8_prefill
+        )
     return feats.reshape(b, n_img * feats.shape[1], feats.shape[2])
 
 
@@ -239,24 +246,26 @@ def gated_xattn_block(
     t = cfg.text
     b, s, d = h.shape
     nh, dh = t.n_heads, t.head_dim
+    a8 = t.w8a8_prefill and s >= W8A8_MIN_TOKENS  # token-count gates
     x = L.rms_norm(p["ln1"], h, t.norm_eps)
-    q = (x @ p["attn"]["wq"]).reshape(b, s, nh, dh)
+    q = qdot(x, p["attn"]["wq"], a8=a8).reshape(b, s, nh, dh)
     if "q_norm" in p["attn"]:
         q = L.rms_norm(p["attn"]["q_norm"], q, t.norm_eps)
     if kv is not None:
         k, v = kv  # decode-invariant image K/V, k_norm applied at bind time
     else:
-        k = (image_latents @ p["attn"]["wk"]).reshape(b, -1, nh, dh)
-        v = (image_latents @ p["attn"]["wv"]).reshape(b, -1, nh, dh)
+        a8_img = t.w8a8_prefill and image_latents.shape[1] >= W8A8_MIN_TOKENS
+        k = qdot(image_latents, p["attn"]["wk"], a8=a8_img).reshape(b, -1, nh, dh)
+        v = qdot(image_latents, p["attn"]["wv"], a8=a8_img).reshape(b, -1, nh, dh)
         if "k_norm" in p["attn"]:
             k = L.rms_norm(p["attn"]["k_norm"], k, t.norm_eps)
     # a token before the first <image> has a fully masked row: the softmax
     # over finfo.min scores is uniform (finite) and the gate zeroes it
     attn = L.dot_product_attention(q, k, v, mask=img_mask)
-    attn = (attn.reshape(b, s, nh * dh) @ p["attn"]["wo"]).to(h.dtype)
+    attn = qdot(attn.reshape(b, s, nh * dh), p["attn"]["wo"], a8=a8).to(h.dtype)
     attn = attn * gate[:, :, None].to(attn.dtype)
     h = h + torch.tanh(p["alpha_xattn"]).to(h.dtype) * attn
-    mlp = L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], h, t.norm_eps))
+    mlp = L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], h, t.norm_eps), a8=a8)
     return h + torch.tanh(p["alpha_dense"]).to(h.dtype) * mlp
 
 
@@ -269,13 +278,15 @@ def precompute_xattn_kv(
     t = cfg.text
     b, n_k = image_latents.shape[:2]
     nh, dh = t.n_heads, t.head_dim
-    attn = params["xattn"]["attn"]
+    a8 = t.w8a8_prefill and n_k >= W8A8_MIN_TOKENS
     ks, vs = [], []
-    for g in range(attn["wk"].shape[0]):
-        k = (image_latents @ attn["wk"][g]).reshape(b, n_k, nh, dh)
-        v = (image_latents @ attn["wv"][g]).reshape(b, n_k, nh, dh)
+    n_groups = t.n_layers // cfg.cross_layer_interval
+    for g in range(n_groups):
+        attn = L.layer_slice(params["xattn"]["attn"], g)
+        k = qdot(image_latents, attn["wk"], a8=a8).reshape(b, n_k, nh, dh)
+        v = qdot(image_latents, attn["wv"], a8=a8).reshape(b, n_k, nh, dh)
         if "k_norm" in attn:
-            k = L.rms_norm(attn["k_norm"][g], k, t.norm_eps)
+            k = L.rms_norm(attn["k_norm"], k, t.norm_eps)
         ks.append(k.to(t.dtype))
         vs.append(v.to(t.dtype))
     return torch.stack(ks), torch.stack(vs)
@@ -363,7 +374,7 @@ def idefics_forward(
             )
         h = decoder_layer(
             t, L.layer_slice(params["layers"], li), h, cos, sin, mask, _icv_row(icv, li),
-            kv_write=(cache["k"][li], cache["v"][li], index),
+            kv_write=(L.layer_slice(cache["k"], li), L.layer_slice(cache["v"], li), index),
             flash_valid=prefill_flash,
         )
     cache["index"] = index + s

@@ -20,6 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.int8_matmul import qdot
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -252,19 +254,20 @@ def causal_mask(
 # ---------------------------------------------------------------------------
 
 
-def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    gate = (x @ p["w_gate"]).float()
-    up = (x @ p["w_up"]).float()
+def swiglu_mlp(p: dict, x: torch.Tensor, a8: bool = False) -> torch.Tensor:
+    """Weights may be quantized leaves (``ops.int8_matmul.qdot``)."""
+    gate = qdot(x, p["w_gate"], preferred_element_type=torch.float32, a8=a8)
+    up = qdot(x, p["w_up"], preferred_element_type=torch.float32, a8=a8)
     h = (F.silu(gate) * up).to(x.dtype)
-    return (h @ p["w_down"]).to(x.dtype)
+    return qdot(h, p["w_down"], preferred_element_type=torch.float32, a8=a8).to(x.dtype)
 
 
-def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = (x @ p["w_up"]).float()
+def gelu_mlp(p: dict, x: torch.Tensor, a8: bool = False) -> torch.Tensor:
+    h = qdot(x, p["w_up"], preferred_element_type=torch.float32, a8=a8)
     if "b_up" in p:
         h = h + p["b_up"].float()
     h = F.gelu(h, approximate="none").to(x.dtype)
-    out = (h @ p["w_down"]).float()
+    out = qdot(h, p["w_down"], preferred_element_type=torch.float32, a8=a8)
     if "b_down" in p:
         out = out + p["b_down"].float()
     return out.to(x.dtype)

@@ -19,6 +19,7 @@ import torch
 from ..data.processor import CLIP_MEAN, CLIP_STD, ImageTransform, PromptProcessor
 from ..data.tokenizer import WhitespaceTokenizer, load_hf_tokenizer
 from ..utils.config import InterpolationError
+from ..ops.quantize import quantize_array, quantize_layer_stack
 from ..utils.log import get_logger
 from .convert import convert_idefics
 from .decoder import logits_from_hidden
@@ -198,30 +199,54 @@ def _idefics_bundle(cfg, model_cfg: IdeficsConfig, name: str, device) -> ModelBu
 
 
 def _apply_lmm_options(cfg, model_cfg: IdeficsConfig) -> IdeficsConfig:
-    """Honor ``lmm.attention_impl`` (xla|flash) and ``lmm.remat_mode``
-    (both|inner|outer; policy raises in the train forward).  ``lmm.kv_cache=int8``,
-    ``lmm.w8a8_prefill`` and ``lmm.quantize`` are not ported: the config
-    raises naming their ROADMAP item."""
+    """Honor ``lmm.attention_impl`` (xla|flash), ``lmm.remat_mode``
+    (both|inner|outer; policy raises in the train forward), ``lmm.kv_cache``
+    (bf16|int8) and ``lmm.w8a8_prefill`` on the model config (JAX
+    ``_apply_attention_impl``, registry.py:446-475)."""
     impl = cfg.lmm.get("attention_impl")
-    kvc = cfg.lmm.get("kv_cache")
-    a8 = bool(cfg.lmm.get("w8a8_prefill", False))
     text = model_cfg.text
     if impl in ("xla", "flash"):
         text = dataclasses.replace(text, attention_impl=impl)
     rm = cfg.lmm.get("remat_mode")
     if rm is not None:
         model_cfg = dataclasses.replace(model_cfg, remat_mode=str(rm))
-    if kvc not in (None, "bf16") or a8:
-        text = dataclasses.replace(
-            text, kv_cache_dtype=kvc or "bf16", w8a8_prefill=a8
-        )
-    q = str(cfg.lmm.get("quantize", "none"))
-    if q != "none":
-        raise NotImplementedError(
-            f"lmm.quantize={q} is not ported to licv_vqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 9 (Quantization))"
-        )
+    kvc = cfg.lmm.get("kv_cache")
+    if kvc is not None:
+        text = dataclasses.replace(text, kv_cache_dtype=str(kvc))
+    if bool(cfg.lmm.get("w8a8_prefill", False)):
+        # int8-activation prefill/bind matmuls; a no-op on unquantized leaves
+        text = dataclasses.replace(text, w8a8_prefill=True)
     return dataclasses.replace(model_cfg, text=text)
+
+
+def _maybe_quantize(cfg, bundle: ModelBundle) -> ModelBundle:
+    """``lmm.quantize=int8|int4``: weight-only quantization of the decoder
+    and cross-attention stacks, on the device the params live on (JAX
+    registry.py:372-443).  ``lmm.quantize_head`` makes the (D, V) head int8
+    whatever the stack mode (tied embeddings keep the table);
+    ``lmm.quantize_vision`` makes the vision tower and the perceiver int8.
+    Embeddings, norms, biases and latents stay as they are."""
+    q = str(cfg.lmm.get("quantize", "none"))
+    if q == "none":
+        return bundle
+    if q not in ("int8", "int4"):
+        raise ValueError(f"lmm.quantize must be none|int8|int4, got {q!r}")
+    p = bundle.params
+    p["layers"] = quantize_layer_stack(p["layers"], mode=q)
+    p["xattn"] = quantize_layer_stack(p["xattn"], mode=q)
+    logger.info("%s weight-only quantization applied to decoder stacks", q)
+    if bool(cfg.lmm.get("quantize_head", False)):
+        if bundle.model_cfg.text.tie_embeddings:
+            logger.warning("quantize_head ignored: tied embeddings (the table also "
+                           "serves the input gather)")
+        else:
+            p["lm_head"] = quantize_array(p["lm_head"])
+            logger.info("int8 weight-only quantization applied to lm_head")
+    if bool(cfg.lmm.get("quantize_vision", False)):
+        p["vision"]["layers"] = quantize_layer_stack(p["vision"]["layers"])
+        p["perceiver"]["blocks"] = quantize_layer_stack(p["perceiver"]["blocks"])
+        logger.info("int8 weight-only quantization applied to vision tower (+perceiver)")
+    return bundle
 
 
 def build_model(cfg, device="cuda") -> ModelBundle:
@@ -243,4 +268,5 @@ def build_model(cfg, device="cuda") -> ModelBundle:
         )
     else:
         raise ValueError(f"unknown lmm name: {name}")
-    return _idefics_bundle(cfg, _apply_lmm_options(cfg, model_cfg), name, device)
+    bundle = _idefics_bundle(cfg, _apply_lmm_options(cfg, model_cfg), name, device)
+    return _maybe_quantize(cfg, bundle)

@@ -15,8 +15,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.int8_matmul import qdot
 from . import layers as L
 from .config import VisionConfig
+from .decoder import W8A8_MIN_TOKENS
 
 
 def init_vision_params(generator: torch.Generator, cfg: VisionConfig, device) -> dict:
@@ -70,30 +72,33 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def _vit_layer(cfg: VisionConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+def _vit_layer(cfg: VisionConfig, p: dict, h: torch.Tensor, a8: bool = False) -> torch.Tensor:
     b, s, d = h.shape
     nh, dh = cfg.n_heads, d // cfg.n_heads
     x = L.layer_norm(p["ln1"]["w"], p["ln1"]["b"], h, cfg.norm_eps)
     a = p["attn"]
-    q = (x @ a["wq"] + a["bq"]).reshape(b, s, nh, dh)
-    k = (x @ a["wk"] + a["bk"]).reshape(b, s, nh, dh)
-    v = (x @ a["wv"] + a["bv"]).reshape(b, s, nh, dh)
+    q = (qdot(x, a["wq"], a8=a8) + a["bq"]).reshape(b, s, nh, dh)
+    k = (qdot(x, a["wk"], a8=a8) + a["bk"]).reshape(b, s, nh, dh)
+    v = (qdot(x, a["wv"], a8=a8) + a["bv"]).reshape(b, s, nh, dh)
     attn = L.dot_product_attention(q, k, v)
-    h = h + (attn.reshape(b, s, d) @ a["wo"] + a["bo"]).to(h.dtype)
+    h = h + (qdot(attn.reshape(b, s, d), a["wo"], a8=a8) + a["bo"]).to(h.dtype)
 
     x2 = L.layer_norm(p["ln2"]["w"], p["ln2"]["b"], h, cfg.norm_eps)
     m = p["mlp"]
-    z = (x2 @ m["w1"] + m["b1"]).float()
+    z = (qdot(x2, m["w1"], a8=a8) + m["b1"]).float()
     if cfg.activation == "quick_gelu":  # OpenAI CLIP: x·σ(1.702x)
         z = z * torch.sigmoid(1.702 * z)
     else:
         z = F.gelu(z, approximate="tanh" if cfg.activation == "gelu_tanh" else "none")
     z = z.to(h.dtype)
-    return h + (z @ m["w2"] + m["b2"]).to(h.dtype)
+    return h + (qdot(z, m["w2"], a8=a8) + m["b2"]).to(h.dtype)
 
 
-def vision_forward(cfg: VisionConfig, params: dict, pixels: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) float → last_hidden_state (B, N, D)."""
+def vision_forward(
+    cfg: VisionConfig, params: dict, pixels: torch.Tensor, a8: bool = False
+) -> torch.Tensor:
+    """(B, H, W, 3) float → last_hidden_state (B, N, D).  ``a8``: w8a8 for
+    int8-quantized layers, gated on the token count as in JAX."""
     x = patchify(pixels.to(cfg.dtype), cfg.patch_size)
     h = x @ params["patch_embed"]
     cls = params["class_embed"][None, None, :].expand(h.shape[0], 1, h.shape[-1])
@@ -101,9 +106,10 @@ def vision_forward(cfg: VisionConfig, params: dict, pixels: torch.Tensor) -> tor
     h = h + params["pos_embed"][None, : h.shape[1], :]
     if cfg.use_pre_norm:
         h = L.layer_norm(params["pre_ln"]["w"], params["pre_ln"]["b"], h, cfg.norm_eps)
+    a8 = a8 and h.shape[1] >= W8A8_MIN_TOKENS
     layers = params["layers"]
     for i in range(cfg.n_layers):
-        h = _vit_layer(cfg, L.layer_slice(layers, i), h)
+        h = _vit_layer(cfg, L.layer_slice(layers, i), h, a8=a8)
     if cfg.use_post_norm:
         h = L.layer_norm(params["post_ln"]["w"], params["post_ln"]["b"], h, cfg.norm_eps)
     return h

@@ -10,14 +10,17 @@ max-abs error ≤ 2e-2 · max|plain| for bf16 outputs (one bf16 ulp is at most
 2^-7 of a value, so this allows about 2.5 ulps at the largest output) and
 ≤ 1e-4 · max|plain| for the f32 KL outputs, which differ only by summation
 order (they read about 1e-6): a KL kernel that rounded through bf16 reads
-above it.
+above it.  The quantized matmuls' f32 outputs are held to the same 1e-4.
 """
 
 import pytest
 import torch
 
 from licv_vqa_tpu_torch.models import layers as PL
+from licv_vqa_tpu_torch.ops import int4_matmul as I4
+from licv_vqa_tpu_torch.ops import int8_matmul as I8
 from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
+from licv_vqa_tpu_torch.ops import quantize as Q
 from licv_vqa_tpu_torch.ops.icv_inject import (
     icv_inject,
     icv_inject_backward,
@@ -192,3 +195,86 @@ def test_masked_kl_divergence_pallas_matches_xla_with_gradients(dev):
         out[impl] = (val.detach(), *torch.autograd.grad(val, (stu, tea, t)))
     for a, b in zip(out["pallas"], out["xla"]):
         _assert_close(a, b, F32_REL_TOL)
+
+
+def _weights(dev, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+
+
+def _acts(dev, m, k, seed):
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    return torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n,out_dtype", [
+    (3, 4096, 4096, torch.bfloat16), (3, 4096, 11008, torch.bfloat16),
+    (3, 11008, 4096, torch.bfloat16), (64, 4096, 4096, torch.bfloat16),
+    (3, 4096, 32002, torch.float32), (1, 4096, 32000, torch.float32),
+    (5, 96, 130, torch.bfloat16), (7, 100, 33, torch.float32), (17, 1280, 1536, torch.bfloat16),
+    # more than 8 rows: the tensor-core kernel, with ragged K (scalar
+    # staging), N and rows
+    (9, 100, 33, torch.float32), (40, 4096, 32002, torch.float32), (65, 256, 72, torch.bfloat16),
+])
+def test_int8_kernel_matches_plain(dev, m, k, n, out_dtype):
+    leaf = Q.quantize_array(_weights(dev, k, n, 7))
+    x = _acts(dev, m, k, 7)
+    before = I8.int8_matmul.launches
+    got = I8.int8_matmul(x, leaf["q"], leaf["s"], out_dtype)
+    torch.cuda.synchronize()
+    assert I8.int8_matmul.launches == before + 1
+    want = I8.int8_matmul_reference(x, leaf["q"], leaf["s"], out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    _assert_close(got, want, REL_TOL if out_dtype == torch.bfloat16 else F32_REL_TOL)
+
+
+@pytest.mark.parametrize("m,k,n,g,out_dtype", [
+    (3, 4096, 4096, 64, torch.bfloat16), (3, 4096, 11008, 64, torch.bfloat16),
+    (3, 11008, 4096, 64, torch.bfloat16), (64, 4096, 4096, 64, torch.bfloat16),
+    (2, 256, 40, 32, torch.float32), (3, 512, 36, 64, torch.float32),
+    (3, 128, 6, 64, torch.bfloat16),
+    # more than 8 rows: the tensor-core kernel (G = 16, 32, 64), and the
+    # CUDA-core one where G is no multiple of 16
+    (20, 96, 40, 16, torch.float32), (64, 512, 36, 32, torch.bfloat16),
+    (33, 200, 24, 20, torch.float32), (64, 11008, 4096, 64, torch.float32),
+])
+def test_int4_kernel_matches_plain(dev, m, k, n, g, out_dtype):
+    leaf = Q.quantize_array_int4(_weights(dev, k, n, 8), group=g)
+    x = _acts(dev, m, k, 8)
+    s = leaf["s"].reshape(k // g, n)
+    before = I4.int4_matmul.launches
+    got = I4.int4_matmul(x, leaf["q4"], s, g, out_dtype)
+    torch.cuda.synchronize()
+    assert I4.int4_matmul.launches == before + 1
+    want = I4.int4_matmul_reference(x, leaf["q4"], s, g, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    _assert_close(got, want, REL_TOL if out_dtype == torch.bfloat16 else F32_REL_TOL)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_qdot_kernel_route_and_activation_backward(dev, mode):
+    """A decode-shaped ``qdot`` on the card launches the kernel, and its
+    activation gradient is ``gy @ W^T`` with the dequantized weight."""
+    w = _weights(dev, 512, 256, 9)
+    leaf = Q.quantize_array(w) if mode == "int8" else Q.quantize_array_int4(w)
+    counter = I8.int8_matmul if mode == "int8" else I4.int4_matmul
+    x = _acts(dev, 6, 512, 9).reshape(2, 3, 512).requires_grad_()
+    before = counter.launches
+    y = I8.qdot(x, leaf, preferred_element_type=torch.float32)
+    (gx,) = torch.autograd.grad(y.sum(), x)
+    assert counter.launches == before + 1 and y.shape == (2, 3, 256)
+    wdq = Q.dequantize_tree(leaf, torch.float32)
+    _assert_close(y, x.detach().float() @ wdq, F32_REL_TOL)
+    _assert_close(gx, (torch.ones((2, 3, 256), device=dev) @ wdq.T).to(gx.dtype))
+
+
+@pytest.mark.parametrize("m", [3, 20, 64])
+def test_w8a8_integer_product_on_card_is_exact(dev, m):
+    """The card's int8 x int8 -> int32 product (``torch._int_mm``, rows
+    padded past 16) equals the exact product."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    xq = torch.randint(-127, 128, (m, 4096), generator=g, device=dev, dtype=torch.int8)
+    q = torch.randint(-127, 128, (4096, 1536), generator=g, device=dev, dtype=torch.int8)
+    got = I8._int_product(xq, q)
+    want = (xq.cpu().double() @ q.cpu().double()).float()
+    assert torch.equal(got.cpu(), want)

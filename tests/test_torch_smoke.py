@@ -34,7 +34,7 @@ def cases():
 
 @pytest.mark.parametrize("name", list(T.MUTATIONS))
 def test_mutation_line_is_in_its_kernel_once(name):
-    path, line, broken, _ = T.MUTATIONS[name]
+    path, line, broken = T.MUTATIONS[name][:3]
     assert line != broken
     assert (REPO / path).read_text().count(line) == 1
 
@@ -68,3 +68,72 @@ def test_busy_ms_is_the_union_of_device_intervals():
     events = [ev(20, 30), ev(0, 10), ev(5, 15), ev(15, 16)]
     assert C.busy_ms(events) == pytest.approx(0.026)  # µs 0-16 and 20-30
     assert C.busy_ms([]) == 0.0
+
+
+def test_quantized_cases_bound_the_functions_bytes(cases):
+    """int8: activations, the int8 plane, f32 column scales, the output;
+    int4: the packed nibbles and bf16 group scales (G=64) in its place."""
+    m, k, n = 3, 4096, 4096
+    c8 = cases["int8_matmul", "(3,4096,4096) bf16 out"]
+    c4 = cases["int4_matmul", "(3,4096,4096) bf16 out"]
+    assert c8.bytes_moved == m * k * 2 + k * n + n * 4 + m * n * 2
+    assert c4.bytes_moved == m * k * 2 + k * n // 2 + (k // 64) * n * 2 + m * n * 2
+    for c in (c8, c4):
+        ms, by = c.bound()
+        assert by == "bytes" and ms == pytest.approx(c.bytes_moved / C.HBM_BYTES_PER_S * 1e3)
+    for n in (32000, 32002):
+        head = cases["int8_matmul", f"(3,4096,{n}) f32 out"]
+        assert head.bytes_moved == m * k * 2 + k * n + n * 4 + m * n * 4
+        assert ("int4_matmul", f"(3,4096,{n}) f32 out") not in cases  # the head is int8 only
+
+
+def test_quantized_launch_prediction_at_full_width():
+    """Per question at Idefics-9B width (bs=1, beam-3, 5 new tokens): run A
+    (w8a8 prefill) launches the int8 kernel at the 4 beam steps (32 layers x
+    7 + 8 blocks x 5) and for the head at every forward; run B (int4, bf16
+    head) also at the 64-row prefill and the bind-time K/V."""
+    from licv_vqa_tpu_torch.models.idefics import IdeficsConfig
+
+    mc = IdeficsConfig.idefics_9b()
+    (_, opts_a, _), (_, opts_b, _) = C.QUANT_RUNS
+    step = 32 * 7 + 8 * 5
+    for s_prompt, n_img in ((64, 1), (512, 33)):
+        got = C.predicted_quantized_launches(mc, "int8", opts_a, 1, s_prompt, n_img, 3, 5)
+        assert got == {"int8_matmul": 4 * step + 5, "int4_matmul": 0}
+    got = C.predicted_quantized_launches(mc, "int4", opts_b, 1, 64, 1, 3, 5)
+    assert got == {"int8_matmul": 0, "int4_matmul": step + 4 * step + 2 * 8}
+
+
+def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypatch):
+    """Phase 6 on the CPU at tiny size, with the kernel wrappers counted
+    where ``qdot`` calls them: every run's counts equal
+    ``predicted_quantized_launches`` (the phase checks it and raises)."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.ops import int4_matmul as I4
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+
+    def counting(fn):
+        def wrapper(*a, **k):
+            wrapper.launches += 1
+            return fn(*a, **k)
+        wrapper.launches = 0
+        return wrapper
+
+    for mod, name in ((I8, "int8_matmul"), (I4, "int4_matmul"), (iv, "icv_inject")):
+        monkeypatch.setattr(mod, name, counting(getattr(mod, name)))
+    monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
+    for name in ("synchronize", "reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    for key in ("RESULT_DIR", "MODEL_CPK_DIR", "VQAV2_PATH", "COCO_PATH", "OKVQA_PATH"):
+        monkeypatch.setenv(key, str(tmp_path))  # restored after; the phase sets its own
+    monkeypatch.setattr(C, "N_ICV_Q", 2)
+    monkeypatch.setattr(C, "N_ICL_Q", 1)
+    monkeypatch.chdir(REPO)
+    for mode, opts, paths in C.QUANT_RUNS:
+        got = C.quantized_path(torch.device("cpu"), tmp_path / mode, mode, opts, paths,
+                               lmm="tiny-idefics")
+        assert got[f"{mode}_matmul"] > 0 and got["icv_inject"] == 4 * 2 * C.MAX_NEW

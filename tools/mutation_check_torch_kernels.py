@@ -1,12 +1,13 @@
 #!/usr/bin/env python
-"""Broken copies of the port's training kernels, read by ``chip_smoke.py``'s
-own checks: where a wrong kernel lands against their limits.
+"""Broken copies of the port's kernels, read by ``chip_smoke.py``'s own
+checks: where a wrong kernel lands against their limits.
 
 Each mutation is applied to a copy of the tree in a temporary directory
 (never to the checkout), and the kernel-vs-plain error ratio (max-abs error
-over the plain output's max-abs, worst output) of every ICV-backward and
-masked-KL case of ``chip_smoke.kernel_cases`` is printed from that copy,
-beside the case's limit.  For the ICV-backward mutation, the full-width
+over the plain output's max-abs, worst output) of every case of the broken
+kernel in ``chip_smoke.kernel_cases`` is printed from that copy, beside the
+case's limit (a CUDA source is rebuilt from the copy).  For the
+ICV-backward mutation, the full-width
 gradient check (``chip_smoke.gradient_check``, Idefics-9B with random
 weights, ~18 GB on the card) is run from the copy too, against
 ``chip_smoke.REL_L2_TOL``.  Needs an NVIDIA GPU.  Run from the repository
@@ -24,20 +25,35 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 ICV = "licv_vqa_tpu_torch/ops/icv_inject.py"
 KL = "licv_vqa_tpu_torch/ops/masked_kl_kernel.py"
-# name: (file, the kernel's line, its broken form, run the gradient check)
+INT8 = "licv_vqa_tpu_torch/csrc/int8_matmul.cu"
+INT4 = "licv_vqa_tpu_torch/csrc/int4_matmul.cu"
+KL_CASES = ("masked_kl_fwd", "masked_kl_bwd")
+# name: (file, the kernel's line, its broken form, the cases that read it,
+# run the gradient check)
 MUTATIONS = {
     "icv_bwd_no_norm_term": (
-        ICV, "        dh = ds + (gs / n_s) * (h / n_h)\n", "        dh = ds\n", True),
+        ICV, "        dh = ds + (gs / n_s) * (h / n_h)\n", "        dh = ds\n",
+        ("icv_inject_bwd",), True),
     "kl_bwd_no_q_term": (
-        KL, "ds = g * (p * c - q * (p / (p + eps)))", "ds = g * (p * c)", False),
-    "kl_bwd_no_mean_a": (KL, "dt = g * (q * (a - ea))", "dt = g * (q * a)", False),
+        KL, "ds = g * (p * c - q * (p / (p + eps)))", "ds = g * (p * c)", KL_CASES, False),
+    "kl_bwd_no_mean_a": (KL, "dt = g * (q * (a - ea))", "dt = g * (q * a)", KL_CASES, False),
     "kl_fwd_max_never_updated": (
-        KL, "            m_s = ms_new\n", "            m_s = m_s\n", False),
+        KL, "            m_s = ms_new\n", "            m_s = m_s\n", KL_CASES, False),
+    "int8_no_column_scale": (
+        INT8, "  __device__ __forceinline__ float scale(int n) const { return s[n]; }\n",
+        "  __device__ __forceinline__ float scale(int n) const { return 1.f; }\n",
+        ("int8_matmul",), False),
+    "int4_planes_swapped": (
+        INT4, "  static constexpr int kLoPlane = 0;\n", "  static constexpr int kLoPlane = 1;\n",
+        ("int4_matmul",), False),
+    "int4_low_nibble_unbiased": (
+        INT4, "  static constexpr float kLoMagic = 8388616.f;\n",
+        "  static constexpr float kLoMagic = 8388608.f;\n", ("int4_matmul",), False),
 }
 PROBE = """
-import torch, chip_smoke as C
+import sys, torch, chip_smoke as C
 for c in C.kernel_cases(torch.device("cuda")):
-    if c.name in ("icv_inject_bwd", "masked_kl_fwd", "masked_kl_bwd"):
+    if c.name in sys.argv[1:]:
         try:
             _, ratio = C.compare(c.kernel, c.plain)
             print(f"  {c.name} {c.label}: ratio {ratio:.3e} (limit {c.tol})", flush=True)
@@ -56,7 +72,7 @@ print(f"  full-width gradient check: {r} (limit {C.REL_L2_TOL})", flush=True)
 
 def main() -> int:
     with tempfile.TemporaryDirectory(prefix="mutation_check_") as tmp:
-        for name, (path, line, broken, gradient) in MUTATIONS.items():
+        for name, (path, line, broken, cases, gradient) in MUTATIONS.items():
             dst = Path(tmp) / name
             shutil.copytree(REPO, dst, ignore=shutil.ignore_patterns(
                 ".git", "_archive", "*_out", "_build", "__pycache__"))
@@ -67,7 +83,7 @@ def main() -> int:
             f.write_text(text.replace(line, broken))
             print(name, flush=True)
             for probe in (PROBE, GRADIENT_PROBE) if gradient else (PROBE,):
-                r = subprocess.run([sys.executable, "-c", probe], cwd=dst, text=True,
+                r = subprocess.run([sys.executable, "-c", probe, *cases], cwd=dst, text=True,
                                    capture_output=True, timeout=600)
                 print(r.stdout, end="", flush=True)
                 if r.returncode:
