@@ -12,7 +12,8 @@ Phases (any failure exits non-zero before the result lines):
 3. hold each kernel against its plain PyTorch version on the same inputs
    at the main paths' shapes, printing the error (max-abs over the plain
    output's max-abs, limit ``REL_TOL`` for bf16 outputs and ``F32_REL_TOL``
-   for the f32 KL outputs), the device time per call of the
+   for the f32 outputs: the KL's and the quantized matmuls'), the device
+   time per call of the
    kernel, its plain version and, where one PyTorch call computes the same
    function, that call (the sum of the device-kernel intervals
    ``torch.profiler`` records over many calls, divided by the calls), the
@@ -28,7 +29,9 @@ Phases (any failure exits non-zero before the result lines):
    with left padding; the masked temperature-KL forward and backward at
    (128, 32000) and (512, 32000) f32 with a partial mask; the int8 and
    int4 decode matmuls at ``QUANT_SHAPES`` (a beam step's projections, a
-   64-row block) and the int8 one at ``HEAD_SHAPES``, with
+   64-row block), the int8 one at ``HEAD_SHAPES`` (the head at a beam step
+   and at prefill) and the int4 one at ``INT4_PREFILL_SHAPES`` (run B's
+   64-row prefill MLP and bind-time K/V), with
    ``torch._weight_int8pack_mm`` as the int8 library call where this torch
    runs it on the card, and the bf16 matmul with the dense weight printed
    beside as a note;
@@ -100,8 +103,9 @@ REPO = Path(__file__).resolve().parent
 # ulps at the largest output; a kernel with a wrong mask, a wrong shift row
 # or a wrong gradient term reads far above it (PERF.md, Findings).
 REL_TOL = 2e-2
-# the f32 KL outputs differ from their plain versions by summation order
-# only (about 1e-6); a kernel that rounded through bf16 reads above this
+# the f32 outputs (the KL kernels', the quantized matmuls') differ from
+# their plain versions by summation order only (about 1e-6); a kernel that
+# rounded through bf16 reads above this
 F32_REL_TOL = 1e-4
 # whole-model checks, rel. L2: 32 bf16 layers amplify any reordering of the
 # rounding (the plain attention rounds probabilities to bf16 before P·V), so
@@ -302,12 +306,18 @@ def kernel_cases(dev):
 # step's projections (3 rows: wq/wk/wv/wo with bf16 outputs, the MLP's
 # gate/up and down with f32 outputs) and a 64-row prefill block, for both
 # kernels; the int8 head (int8 in both modes) at a 32000-word vocabulary
-# and at Idefics-9B's 32000 + 2 added tokens, whose rows take 2-byte loads
+# and at Idefics-9B's 32000 + 2 added tokens, whose rows take 2-byte loads,
+# at a beam step and at prefill (run A, one row); run B's 64-row prefill
+# MLP and its bind-time cross-attention K/V (64 latents of the perceiver's
+# 1280 features)
 QUANT_SHAPES = (
     ((3, 4096, 4096), "bf16"), ((3, 4096, 11008), "f32"), ((3, 11008, 4096), "f32"),
     ((64, 4096, 4096), "bf16"),
 )
-HEAD_SHAPES = (((3, 4096, 32000), "f32"), ((3, 4096, 32002), "f32"))
+HEAD_SHAPES = (((3, 4096, 32000), "f32"), ((3, 4096, 32002), "f32"), ((1, 4096, 32002), "f32"))
+INT4_PREFILL_SHAPES = (
+    ((64, 4096, 11008), "f32"), ((64, 11008, 4096), "f32"), ((64, 1280, 4096), "bf16"),
+)
 INT4_GROUP = 64
 
 
@@ -323,7 +333,8 @@ def quantized_cases(dev):
     from licv_vqa_tpu_torch.ops import int8_matmul as I8
     from licv_vqa_tpu_torch.ops import quantize as Q
 
-    for mode, shapes in (("int8", QUANT_SHAPES + HEAD_SHAPES), ("int4", QUANT_SHAPES)):
+    for mode, shapes in (("int8", QUANT_SHAPES + HEAD_SHAPES),
+                         ("int4", QUANT_SHAPES + INT4_PREFILL_SHAPES)):
         for (m, k, n), out in shapes:
             odt = torch.float32 if out == "f32" else torch.bfloat16
 
@@ -358,6 +369,9 @@ def quantized_cases(dev):
                 lambda i=inputs, f=plain, o=odt: f(i()["x"], *i()["args"], o),
                 bytes_moved=m * k * 2 + w_bytes + m * n * ob, ops=2 * m * k * n,
                 op_type="bf16", library=library,
+                # f32 outputs differ from the plain version by summation
+                # order only; one rounded through bf16 reads above 1e-4
+                tol=F32_REL_TOL if out == "f32" else REL_TOL,
                 dense=lambda i=inputs: i()["x"] @ i()["dense"],
             )
 

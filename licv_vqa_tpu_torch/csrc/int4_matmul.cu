@@ -35,7 +35,6 @@ using namespace quant;
 
 struct Int4Op {
   static constexpr int kPlanes = 2;  // a packed row feeds in-features i and i + K/2
-  static constexpr bool kGroupScaled = true;
   // the activation plane the low nibbles multiply (in-features i < K/2)
   static constexpr int kLoPlane = 0;
   // 2^23 + 8: a nibble brought to q + 8 in 0..15 reads 2^23 + q + 8 in the
@@ -61,26 +60,8 @@ struct Int4Op {
     return packed + static_cast<long long>(k) * N;
   }
 
-  // the group scales are applied per weight (or per k16 step)
+  // the group scales are applied per weight
   __device__ __forceinline__ float scale(int) const { return 1.f; }
-
-  // one packed byte's weight of activation plane `plane`, as a float
-  __device__ __forceinline__ float nibble(int plane, uint32_t b) const {
-    return plane == kLoPlane ? __uint_as_float(kMagic | (b & 15u)) - kLoMagic
-                             : __uint_as_float(kMagic | (((b >> 4) & 15u) ^ 8u)) - kHiMagic;
-  }
-
-  // the tensor-core path's B fragment: two bytes' weights of one plane as
-  // bf16x2 (exact: 4-bit integers)
-  __device__ __forceinline__ uint32_t pack(int plane, uint32_t b0, uint32_t b1) const {
-    return pack_bf16x2(nibble(plane, b0), nibble(plane, b1));
-  }
-
-  // the scale of packed row k's group in plane `plane`, column n
-  __device__ __forceinline__ float group_scale(int plane, int k, int n) const {
-    const int g = k / G + (plane == kLoPlane ? 0 : groups_lo);
-    return __bfloat162float(s[static_cast<long long>(g) * N + n]);
-  }
 
   // acc[m][j] += x[m, k] * w[k, n0 + j] + x[m, k + K/2] * w[k + K/2, n0 + j],
   // four packed bytes of a word at a time
@@ -120,22 +101,18 @@ struct Int4Op {
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  `mma` picks the tensor-core
-// kernel (for more than 8 rows; G a multiple of 16); `vec` is the widest of
-// 16 (tensor-core kernel only), 8, 4, 2, 1 bytes that divides N and
-// packed's address; `splits` blocks share each tile's K/2 packed rows
-// (rows_per_split each); with splits > 1, `partial` is an f32 (splits, M,
-// N) scratch and `tickets` a zeroed int per (column tile, row chunk), both
-// from the wrapper (the kernel leaves the tickets at zero).  Launches on
-// `stream`, does not synchronise, allocates nothing, and returns
-// cudaGetLastError().
+// Plain C entry point (loaded with ctypes).  `vec` is the widest of 8, 4,
+// 2, 1 bytes that divides N and packed's address; `splits` blocks share
+// each tile's K/2 packed rows (rows_per_split each); with splits > 1,
+// `partial` is an f32 (splits, M, N) scratch from the wrapper, summed into
+// `out` by a second kernel on the same stream.  Launches on `stream`, does
+// not synchronise, allocates nothing, and returns cudaGetLastError().
 extern "C" int int4_matmul_bf16(const void* x, const void* packed, const void* s, void* out,
-                                void* partial, void* tickets, int M, int K, int N, int G,
-                                int vec, int splits, int rows_per_split, int out_f32, int mma,
-                                void* stream) {
+                                void* partial, int M, int K, int N, int G, int vec, int splits,
+                                int rows_per_split, int out_f32, void* stream) {
   const Int4Op op{static_cast<const uint8_t*>(packed), static_cast<const __nv_bfloat16*>(s),
                   N, K / 2, G, K / 2 / G};
   const Problem p{static_cast<const __nv_bfloat16*>(x), out, static_cast<float*>(partial),
-                  static_cast<int*>(tickets), M, K, N, K / 2, rows_per_split, splits, out_f32};
-  return launch(op, p, vec, mma != 0, static_cast<cudaStream_t>(stream));
+                  M, K, N, K / 2, rows_per_split, splits, out_f32};
+  return launch(op, p, vec, static_cast<cudaStream_t>(stream));
 }

@@ -26,7 +26,6 @@ using namespace quant;
 
 struct Int8Op {
   static constexpr int kPlanes = 1;  // one activation per weight row
-  static constexpr bool kGroupScaled = false;
   const int8_t* q;
   const float* s;
   int N;
@@ -42,18 +41,9 @@ struct Int8Op {
   // the per-column scale, applied once to each column's sum
   __device__ __forceinline__ float scale(int n) const { return s[n]; }
 
-  // one weight byte as a float: flipping its sign bit biases it to v + 128,
-  // then 2^23 + 128 is subtracted
-  static __device__ __forceinline__ float widen(uint32_t b) {
-    return __uint_as_float(kMagic | (b ^ 0x80u)) - 8388736.f;
-  }
-
-  // the tensor-core path's B fragment: two weight bytes as bf16x2 (exact)
-  __device__ __forceinline__ uint32_t pack(int, uint32_t b0, uint32_t b1) const {
-    return pack_bf16x2(widen(b0), widen(b1));
-  }
-
-  // acc[m][j] += x[m, k] * q[k, n0 + j], four bytes of a word at a time
+  // acc[m][j] += x[m, k] * q[k, n0 + j], four bytes of a word at a time:
+  // flipping each byte's sign bit biases it to v + 128, then 2^23 + 128 is
+  // subtracted
   template <int VEC, int MT>
   __device__ __forceinline__ void accumulate(const uint32_t* raw, int, int,
                                              const float (&xs)[kPlanes][MT][kChunk], int r,
@@ -74,20 +64,17 @@ struct Int8Op {
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  `mma` picks the tensor-core
-// kernel (for more than 8 rows); `vec` is the widest of 16 (tensor-core
-// kernel only), 8, 4, 2, 1 bytes that divides N and q's address; `splits`
-// blocks share each tile's K rows (rows_per_split each); with splits > 1,
-// `partial` is an f32 (splits, M, N) scratch and `tickets` a zeroed int per
-// (column tile, row chunk), both from the wrapper (the kernel leaves the
-// tickets at zero).  Launches on `stream`, does not synchronise, allocates
-// nothing, and returns cudaGetLastError().
+// Plain C entry point (loaded with ctypes).  `vec` is the widest of 8, 4,
+// 2, 1 bytes that divides N and q's address; `splits` blocks share each
+// tile's K rows (rows_per_split each); with splits > 1, `partial` is an f32
+// (splits, M, N) scratch from the wrapper, summed into `out` by a second
+// kernel on the same stream.  Launches on `stream`, does not synchronise,
+// allocates nothing, and returns cudaGetLastError().
 extern "C" int int8_matmul_bf16(const void* x, const void* q, const void* s, void* out,
-                                void* partial, void* tickets, int M, int K, int N, int vec,
-                                int splits, int rows_per_split, int out_f32, int mma,
-                                void* stream) {
+                                void* partial, int M, int K, int N, int vec, int splits,
+                                int rows_per_split, int out_f32, void* stream) {
   const Int8Op op{static_cast<const int8_t*>(q), static_cast<const float*>(s), N, 0};
   const Problem p{static_cast<const __nv_bfloat16*>(x), out, static_cast<float*>(partial),
-                  static_cast<int*>(tickets), M, K, N, K, rows_per_split, splits, out_f32};
-  return launch(op, p, vec, mma != 0, static_cast<cudaStream_t>(stream));
+                  M, K, N, K, rows_per_split, splits, out_f32};
+  return launch(op, p, vec, static_cast<cudaStream_t>(stream));
 }

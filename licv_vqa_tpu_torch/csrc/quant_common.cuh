@@ -18,9 +18,9 @@
 // - the activations of a chunk of rows are staged in shared memory as f32
 //   and read by broadcast; every weight byte is read from device memory
 //   once per row chunk and widened in registers; accumulation is f32;
-// - the split-K partial sums meet in one launch: every block writes its
-//   partial tile, and the last block of a tile to finish (an atomic ticket
-//   per tile, reset by that block) sums them into the output.
+// - with split-K, every block writes its partial tile to the caller's
+//   (splits, M, N) f32 scratch and a second small kernel, launched right
+//   after on the same stream, sums the partials into the output.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,17 +43,11 @@ __device__ __forceinline__ float magic_byte(uint32_t w, int j) {
   return __uint_as_float(__byte_perm(w, kMagic, 0x7440 | j));
 }
 
-// VEC (1, 2, 4, 8 or 16) bytes at p, VEC-byte aligned, as 32-bit words
-// (byte j of the run is byte j % 4 of word j / 4)
+// VEC (1, 2, 4 or 8) bytes at p, VEC-byte aligned, as 32-bit words (byte j
+// of the run is byte j % 4 of word j / 4)
 template <int VEC>
 __device__ __forceinline__ void load_raw(const uint8_t* p, uint32_t* w) {
-  if constexpr (VEC == 16) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  } else if constexpr (VEC == 8) {
+  if constexpr (VEC == 8) {
     const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
     w[0] = v.x;
     w[1] = v.y;
@@ -78,7 +72,6 @@ struct Problem {
   const __nv_bfloat16* x;  // (M, K) activations
   void* out;               // (M, N), bf16 or f32
   float* partial;          // (splits, M, N) scratch when splits > 1
-  int* tickets;            // one zeroed int per (column tile, row chunk)
   int M, K, N;
   int rows;                // weight rows (K for int8, K / 2 packed rows for int4)
   int rows_per_split, splits, out_f32;
@@ -93,7 +86,6 @@ qmm_kernel(const Op op, const Problem p) {
   // column (lane, j) of the tile at [m][j][lane]: a warp's stores are
   // consecutive words, free of bank conflicts
   __shared__ float red_s[MT][VEC][32];
-  __shared__ int last_s;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -167,263 +159,46 @@ qmm_kernel(const Op op, const Problem p) {
       p.partial[blockIdx.z * mn + o] = v;
     }
   }
-  if (p.splits == 1) return;
-
-  // split-K: the last block of this tile to finish sums the partials
-  __threadfence();
-  __syncthreads();
-  const int ticket = blockIdx.y * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0) last_s = atomicAdd(&p.tickets[ticket], 1) == p.splits - 1;
-  __syncthreads();
-  if (!last_s) return;
-  for (int i = threadIdx.x; i < MT * kTileN; i += kThreads) {
-    const int m = i / kTileN;
-    const int n = blockIdx.x * kTileN + i % kTileN;
-    if (m >= mt || n >= p.N) continue;
-    const long long o = static_cast<long long>(m0 + m) * p.N + n;
-    float v = 0.f;
-    for (int sp = 0; sp < p.splits; ++sp) v += __ldcg(&p.partial[sp * mn + o]);
-    store_out(p.out, o, v, p.out_f32);
-  }
-  if (threadIdx.x == 0) p.tickets[ticket] = 0;  // ready for the next launch
 }
 
-// ---------------------------------------------------------------------------
-// The tensor-core variant, for calls of more than 8 activation rows (a
-// prefill block, the bind-time K/V): the CUDA-core kernel above re-reads
-// the weight once per 8 rows and spends an FMA per weight and row, so at
-// 64 rows it is bound by its arithmetic.  Here a block of 4 warps owns 64
-// activation rows (4 m16 tiles) and 64 output columns (each warp two n8
-// tiles); per chunk of 64 weight rows it stages the activations (bf16) and
-// the weight bytes in shared memory, and each warp widens its columns'
-// bytes into bf16 B fragments (exact: |q| <= 127) and issues
-// mma.sync.m16n8k16 with f32 accumulators.  Ops with group scales (int4)
-// accumulate each k16 step apart and scale it into the sums.  The split-K
-// epilogue is the CUDA-core kernel's.
-// ---------------------------------------------------------------------------
+// out[i] = sum over the splits of partial[split, i], i over the M * N outputs
+__global__ void splitk_reduce(const float* __restrict__ partial, void* out, long long mn,
+                              int splits, int out_f32) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < mn;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float v = 0.f;
+    for (int sp = 0; sp < splits; ++sp) v += partial[sp * mn + i];
+    store_out(out, i, v, out_f32);
+  }
+}
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRows = 64;               // activation rows per block
-constexpr int kMmaCols = 16 * kMmaWarps;   // output columns per block
-constexpr int kMmaChunk = 64;              // weight rows per staged chunk
-constexpr int kXStride = kMmaChunk + 8;    // bf16 per staged row: conflict-free A loads
-constexpr int kWStride = kMmaCols + 16;    // bytes per staged row: conflict-free B loads
-
-// VEC bytes of w (as load_raw returned them) to shared memory at p
-template <int VEC>
-__device__ __forceinline__ void store_raw(uint8_t* p, const uint32_t* w) {
-  if constexpr (VEC == 16) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else if constexpr (VEC == 8) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  } else if constexpr (VEC == 4) {
-    *reinterpret_cast<uint32_t*>(p) = w[0];
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(w[0]);
+// Launch with the VEC the wrapper picked and the activation rows per block
+// M needs; with split-K, the reduction follows on the same stream
+template <class Op, int VEC>
+int launch_vec(const Op& op, const Problem& p, cudaStream_t stream) {
+  constexpr int kTileN = 32 * VEC;
+  const int mt = p.M <= 4 ? 4 : 8;
+  const dim3 grid((p.N + kTileN - 1) / kTileN, (p.M + mt - 1) / mt, p.splits);
+  if (mt == 4) {
+    qmm_kernel<Op, VEC, 4><<<grid, kThreads, 0, stream>>>(op, p);
   } else {
-    *p = static_cast<uint8_t>(w[0]);
+    qmm_kernel<Op, VEC, 8><<<grid, kThreads, 0, stream>>>(op, p);
   }
-}
-
-// two floats as a bf16x2 register (the first in the low half)
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d += a @ b for one m16n8k16 tile (bf16 in, f32 accumulators)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <class Op, int VEC>
-__global__ void __launch_bounds__(kMmaThreads)
-qmm_mma_kernel(const Op op, const Problem p) {
-  __shared__ __align__(16) __nv_bfloat16 x_s[Op::kPlanes][kMmaRows][kXStride];
-  __shared__ __align__(16) uint8_t w_s[kMmaChunk][kWStride];
-  __shared__ int last_s;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // the fragments' row (A, C) or column (B) in its tile
-  const int t = lane % 4;  // and the pair of k (A, B) or columns (C) in it
-  const int n_base = blockIdx.x * kMmaCols;
-  const int m0 = blockIdx.y * kMmaRows;
-  const int mt = min(kMmaRows, p.M - m0);
-  const int m_tiles = (mt + 15) / 16;
-  const int k_begin = blockIdx.z * p.rows_per_split;
-  const int k_end = min(p.rows, k_begin + p.rows_per_split);
-  // 8 activations at a time when a whole run of 8 is in or out of range
-  const bool x_vec = p.K % 16 == 0;
-
-  float acc[4][2][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-  for (int kc = k_begin; kc < k_end; kc += kMmaChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    const int run = x_vec ? 8 : 1;
-    for (int i = threadIdx.x; i < Op::kPlanes * kMmaRows * kMmaChunk / run; i += kMmaThreads) {
-      const int plane = i / (kMmaRows * kMmaChunk / run);
-      const int m = (i / (kMmaChunk / run)) % kMmaRows;
-      const int kk = (i % (kMmaChunk / run)) * run;
-      const long long src = static_cast<long long>(m0 + m) * p.K + plane * op.plane_offset + kc + kk;
-      const bool in = m < mt && kc + kk < k_end;
-      if (x_vec) {
-        *reinterpret_cast<uint4*>(&x_s[plane][m][kk]) =
-            in ? __ldg(reinterpret_cast<const uint4*>(p.x + src)) : make_uint4(0, 0, 0, 0);
-      } else {
-        x_s[plane][m][kk] = in ? p.x[src] : __float2bfloat16_rn(0.f);
-      }
-    }
-    for (int i = threadIdx.x; i < kMmaChunk * (kMmaCols / VEC); i += kMmaThreads) {
-      const int r = i / (kMmaCols / VEC);
-      const int c = (i % (kMmaCols / VEC)) * VEC;
-      uint32_t w[(VEC + 3) / 4] = {};
-      if (kc + r < k_end && n_base + c < p.N) load_raw<VEC>(op.row(kc + r) + n_base + c, w);
-      store_raw<VEC>(&w_s[r][c], w);
-    }
-    __syncthreads();
-
-    for (int ks = 0; ks < kMmaChunk && kc + ks < k_end; ks += 16) {
-#pragma unroll
-      for (int plane = 0; plane < Op::kPlanes; ++plane) {
-        uint32_t b[2][2];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int col = warp * 16 + nt * 8 + g;
-          b[nt][0] = op.pack(plane, w_s[ks + 2 * t][col], w_s[ks + 2 * t + 1][col]);
-          b[nt][1] = op.pack(plane, w_s[ks + 2 * t + 8][col], w_s[ks + 2 * t + 9][col]);
-        }
-        float part[4][2][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          if (mi >= m_tiles) break;
-          const int row = mi * 16 + g;
-          const uint32_t a[4] = {
-              *reinterpret_cast<const uint32_t*>(&x_s[plane][row][ks + 2 * t]),
-              *reinterpret_cast<const uint32_t*>(&x_s[plane][row + 8][ks + 2 * t]),
-              *reinterpret_cast<const uint32_t*>(&x_s[plane][row][ks + 2 * t + 8]),
-              *reinterpret_cast<const uint32_t*>(&x_s[plane][row + 8][ks + 2 * t + 8]),
-          };
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            if constexpr (Op::kGroupScaled) {
-              mma_bf16(part[mi][nt], a, b[nt][0], b[nt][1]);
-            } else {
-              mma_bf16(acc[mi][nt], a, b[nt][0], b[nt][1]);
-            }
-          }
-        }
-        if constexpr (Op::kGroupScaled) {
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            const int col = n_base + warp * 16 + nt * 8 + 2 * t;
-            const float s0 = col < p.N ? op.group_scale(plane, kc + ks, col) : 0.f;
-            const float s1 = col + 1 < p.N ? op.group_scale(plane, kc + ks, col + 1) : 0.f;
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) {
-              acc[mi][nt][0] = fmaf(part[mi][nt][0], s0, acc[mi][nt][0]);
-              acc[mi][nt][1] = fmaf(part[mi][nt][1], s1, acc[mi][nt][1]);
-              acc[mi][nt][2] = fmaf(part[mi][nt][2], s0, acc[mi][nt][2]);
-              acc[mi][nt][3] = fmaf(part[mi][nt][3], s1, acc[mi][nt][3]);
-            }
-          }
-        }
-      }
-    }
+  if (p.splits > 1) {
+    const long long mn = static_cast<long long>(p.M) * p.N;
+    const int blocks = static_cast<int>(min((mn + 255) / 256, 4096LL));
+    splitk_reduce<<<blocks, 256, 0, stream>>>(p.partial, p.out, mn, p.splits, p.out_f32);
   }
-
-  // C fragments: c0, c1 at (row g, columns 2t, 2t + 1), c2, c3 at row g + 8
-  const long long mn = static_cast<long long>(p.M) * p.N;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int m = mi * 16 + g + (c >= 2 ? 8 : 0);
-        const int n = n_base + warp * 16 + nt * 8 + 2 * t + (c & 1);
-        if (m >= mt || n >= p.N) continue;
-        const long long o = static_cast<long long>(m0 + m) * p.N + n;
-        const float v = acc[mi][nt][c] * op.scale(n);
-        if (p.splits == 1) {
-          store_out(p.out, o, v, p.out_f32);
-        } else {
-          p.partial[blockIdx.z * mn + o] = v;
-        }
-      }
-    }
-  }
-  if (p.splits == 1) return;
-
-  // split-K: the last block of this tile to finish sums the partials
-  __threadfence();
-  __syncthreads();
-  const int ticket = blockIdx.y * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0) last_s = atomicAdd(&p.tickets[ticket], 1) == p.splits - 1;
-  __syncthreads();
-  if (!last_s) return;
-  for (int i = threadIdx.x; i < kMmaRows * kMmaCols; i += kMmaThreads) {
-    const int m = i / kMmaCols;
-    const int n = n_base + i % kMmaCols;
-    if (m >= mt || n >= p.N) continue;
-    const long long o = static_cast<long long>(m0 + m) * p.N + n;
-    float v = 0.f;
-    for (int sp = 0; sp < p.splits; ++sp) v += __ldcg(&p.partial[sp * mn + o]);
-    store_out(p.out, o, v, p.out_f32);
-  }
-  if (threadIdx.x == 0) p.tickets[ticket] = 0;  // ready for the next launch
-}
-
-// Launch with the VEC the wrapper picked: the tensor-core kernel (64 rows
-// and 64 columns a block) when `mma`, else the CUDA-core one with the
-// activation rows per block M needs
-template <class Op, int VEC>
-int launch_vec(const Op& op, const Problem& p, bool mma, cudaStream_t stream) {
-  if (mma) {
-    const dim3 grid((p.N + kMmaCols - 1) / kMmaCols, (p.M + kMmaRows - 1) / kMmaRows, p.splits);
-    qmm_mma_kernel<Op, VEC><<<grid, kMmaThreads, 0, stream>>>(op, p);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if constexpr (VEC <= 8) {
-    constexpr int kTileN = 32 * VEC;
-    const int mt = p.M <= 4 ? 4 : 8;
-    const dim3 grid((p.N + kTileN - 1) / kTileN, (p.M + mt - 1) / mt, p.splits);
-    if (mt == 4) {
-      qmm_kernel<Op, VEC, 4><<<grid, kThreads, 0, stream>>>(op, p);
-    } else {
-      qmm_kernel<Op, VEC, 8><<<grid, kThreads, 0, stream>>>(op, p);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Op>
-int launch(const Op& op, const Problem& p, int vec, bool mma, cudaStream_t stream) {
+int launch(const Op& op, const Problem& p, int vec, cudaStream_t stream) {
   switch (vec) {
-    case 16: return launch_vec<Op, 16>(op, p, mma, stream);
-    case 8: return launch_vec<Op, 8>(op, p, mma, stream);
-    case 4: return launch_vec<Op, 4>(op, p, mma, stream);
-    case 2: return launch_vec<Op, 2>(op, p, mma, stream);
-    case 1: return launch_vec<Op, 1>(op, p, mma, stream);
+    case 8: return launch_vec<Op, 8>(op, p, stream);
+    case 4: return launch_vec<Op, 4>(op, p, stream);
+    case 2: return launch_vec<Op, 2>(op, p, stream);
+    case 1: return launch_vec<Op, 1>(op, p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

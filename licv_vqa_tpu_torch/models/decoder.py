@@ -14,15 +14,18 @@ attends the written prefix.  The two are equal in exact arithmetic: the
 masked-out incoming columns hold exactly the local keys.
 
 With the int8 cache (``kv_cache_dtype="int8"``, ``{"q", "s"}`` leaves) the
-layer writes the quantized rows and attends the dequantized prefix, so this
-step's own keys and values are their int8 round trip, which is what JAX's
-local block attends (``decoder.py:399-402``).  Projections go through
+layer writes the quantized rows and, as JAX does, attends the earlier rows
+as their int8 planes with the per-(token, head) scales applied to the f32
+scores and to the probabilities (``_int8_cached_attention``), and this
+step's own keys and values as their int8 round trip in the compute dtype
+(``decoder.py:399-402``).  Projections go through
 ``ops.int8_matmul.qdot``, so weights may be quantized leaves; blocks of at
 least ``W8A8_MIN_TOKENS`` tokens take w8a8 under ``cfg.w8a8_prefill``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -134,19 +137,10 @@ def apply_kv_rows(k_cache_l, v_cache_l, k_rows, v_rows, index: int) -> None:
             cache_l[:, index : index + rows.shape[1]] = rows
 
 
-def _kv_prefix(cache_l, end: int, dtype) -> torch.Tensor:
-    """Rows ``[0, end)`` of one layer's cache, dequantized for an int8 cache
-    (JAX folds the same per-(token, head) scales into the scores and
-    probabilities, ``_kv_operand`` :201)."""
-    if isinstance(cache_l, dict):
-        return dequantize_kv(cache_l["q"][:, :end], cache_l["s"][:, :end], dtype)
-    return cache_l[:, :end]
-
-
 def _cached_attention(
     q: torch.Tensor,  # (B, s, H, Dh)
-    k_cache_l,  # (B, S, KV, Dh) or an int8 {"q", "s"} leaf, rows [0, end) written
-    v_cache_l,
+    k_cache_l: torch.Tensor,  # (B, S, KV, Dh), rows [0, end) written
+    v_cache_l: torch.Tensor,
     mask: torch.Tensor,  # (B, 1, s, S) from decode_cache_view
     end: int,
     logit_softcap=None,
@@ -154,16 +148,54 @@ def _cached_attention(
     """Attention over the written cache prefix ``[0, end)``.  Columns past
     ``end`` are masked in JAX's full-width mask, so dropping them changes
     nothing but the work."""
-    k = _kv_prefix(k_cache_l, end, q.dtype)
-    v = _kv_prefix(v_cache_l, end, q.dtype)
-    n_rep = q.shape[2] // k.shape[2]
+    n_rep = q.shape[2] // k_cache_l.shape[2]
     return L.dot_product_attention(
         q,
-        L.repeat_kv(k, n_rep),
-        L.repeat_kv(v, n_rep),
+        L.repeat_kv(k_cache_l[:, :end], n_rep),
+        L.repeat_kv(v_cache_l[:, :end], n_rep),
         mask=mask[..., :end],
         logit_softcap=logit_softcap,
     )
+
+
+def _int8_cached_attention(
+    q: torch.Tensor,  # (B, s, H, Dh)
+    k_cache_l: dict,  # int8 {"q", "s"} leaves, rows [0, index) from earlier steps
+    v_cache_l: dict,
+    k_local: torch.Tensor,  # (B, s, KV, Dh): this step's int8 round trip
+    v_local: torch.Tensor,
+    mask: torch.Tensor,  # (B, 1, s, S) from decode_cache_view
+    index: int,
+    logit_softcap=None,
+) -> torch.Tensor:
+    """JAX's split softmax over (earlier rows ∥ this step's rows) for the
+    int8 cache (``decoder.py:201-330``): the earlier rows stay int8 planes
+    and their per-(token, head) f32 scales multiply the f32 scores (K) and
+    the probabilities before they are rounded to the compute dtype (V)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    n_rep = q.shape[2] // k_local.shape[2]
+
+    def plane(c):
+        return L.repeat_kv(c["q"][:, :index], n_rep).float()
+
+    def col_scale(c):  # (B, index, KV, 1) -> (B, H, 1, index)
+        return L.repeat_kv(c["s"][:, :index], n_rep)[..., 0].transpose(1, 2)[:, :, None, :]
+
+    qf = q.float()
+    scores = torch.cat([
+        torch.einsum("bqhd,bkhd->bhqk", qf, plane(k_cache_l)) * scale * col_scale(k_cache_l),
+        torch.einsum("bqhd,bkhd->bhqk", qf, L.repeat_kv(k_local, n_rep).float()) * scale,
+    ], dim=-1)
+    if logit_softcap:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    scores = scores.masked_fill(~mask[..., : index + q.shape[1]], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    p_cache = (probs[..., :index] * col_scale(v_cache_l)).to(q.dtype).float()
+    p_local = probs[..., index:].to(v_local.dtype).float()
+    out = torch.einsum("bhqk,bkhd->bqhd", p_cache, plane(v_cache_l)) + torch.einsum(
+        "bhqk,bkhd->bqhd", p_local, L.repeat_kv(v_local, n_rep).float()
+    )
+    return out.to(q.dtype)
 
 
 def _norm(cfg: DecoderConfig, w, x):
@@ -221,6 +253,10 @@ def decoder_layer(
     if use_flash:
         attn = L.flash_attention(
             q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid
+        )
+    elif kv_write is not None and isinstance(k_cache, dict):
+        attn = _int8_cached_attention(
+            q, k_cache, v_cache, k_local, v_local, mask, index, cfg.attn_logit_softcap
         )
     elif kv_write is not None:
         attn = _cached_attention(

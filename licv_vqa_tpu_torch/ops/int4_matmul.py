@@ -53,9 +53,7 @@ def int4_matmul(x, packed, s, group: int, out_dtype=None) -> torch.Tensor:
         raise ValueError(f"int4_matmul: x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
                          f"s {tuple(s.shape)}, G={group} do not agree")
     x = x.to(torch.bfloat16).contiguous()
-    # the tensor-core kernel scales each k16 step by its group's scales
-    out = _launch("int4_matmul_bf16", "int4_matmul.cu", x, packed, s, out_dtype, k2, (group,),
-                  mma_ok=group % 16 == 0)
+    out = _launch("int4_matmul_bf16", "int4_matmul.cu", x, packed, s, out_dtype, k2, (group,))
     int4_matmul.launches += 1
     return out
 

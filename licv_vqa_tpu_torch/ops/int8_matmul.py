@@ -38,14 +38,9 @@ from .quantize import dequantize_int4, is_quantized4_leaf, is_quantized_leaf
 # decode-shaped calls (beam rows, prefill blocks and bind K/V of at most
 # this many rows) take the kernels
 KERNEL_MAX_ROWS = 64
-# the kernels' weight rows per split come in whole batches of loads
-# (csrc/quant_common.cuh: 8 warps x 8 rows, and the tensor-core kernel's
-# chunks of 64)
+# the kernels' weight rows a block's warps take per batch of loads
+# (csrc/quant_common.cuh: 8 warps x 8 rows in flight)
 _ROW_BATCH = 64
-# calls of more rows than this take the tensor-core kernel, whose block
-# owns 64 activation rows and 64 columns
-_MMA_MIN_ROWS = 9
-_MMA_TILE = 64
 
 
 # ---------------------------------------------------------------------------
@@ -53,31 +48,25 @@ _MMA_TILE = 64
 # ---------------------------------------------------------------------------
 
 
-def _vec_width(n: int, w: torch.Tensor, widest: int) -> int:
-    """Bytes per weight load: the widest power of two up to ``widest`` that
-    divides the row length ``n`` and the weight's address."""
-    v = widest
-    while v > 1 and (n % v or w.data_ptr() % v):
-        v //= 2
-    return v
+def _vec_width(n: int, w: torch.Tensor) -> int:
+    """Bytes per weight load: the widest of 8, 4, 2, 1 that divides the row
+    length ``n`` and the weight's address."""
+    for v in (8, 4, 2, 1):
+        if n % v == 0 and w.data_ptr() % v == 0:
+            return v
+    return 1
 
 
-def _kernel_shape(m: int, n: int, w: torch.Tensor, mma_ok: bool) -> tuple:
-    """``(mma, vec, tile columns, tile rows)``: the tensor-core kernel for
-    more than 8 rows (when the op allows it), else the CUDA-core one with
-    32 lanes of ``vec`` columns and 4 or 8 activation rows a block."""
-    if mma_ok and m >= _MMA_MIN_ROWS:
-        return True, _vec_width(n, w, 16), _MMA_TILE, _MMA_TILE
-    vec = _vec_width(n, w, 8)
-    return False, vec, 32 * vec, 4 if m <= 4 else 8
+def _rows_m(m: int) -> int:
+    """Activation rows per block (the kernel's MT)."""
+    return 4 if m <= 4 else 8
 
 
-def _launch_plan(m: int, rows: int, n: int, tile_n: int, tile_m: int,
-                 n_sm: int) -> tuple[int, int]:
+def _launch_plan(m: int, rows: int, n: int, vec: int, n_sm: int) -> tuple[int, int]:
     """``(splits, rows_per_split)``: enough split-K blocks that the grid
     holds about two blocks per SM, each with whole batches of 64 weight
-    rows."""
-    blocks = math.ceil(n / tile_n) * math.ceil(m / tile_m)
+    rows (a group of 64 int4 rows then never straddles a batch)."""
+    blocks = math.ceil(n / (32 * vec)) * math.ceil(m / _rows_m(m))
     splits = max(1, min(math.ceil(2 * n_sm / blocks), math.ceil(rows / _ROW_BATCH)))
     per = math.ceil(math.ceil(rows / splits) / _ROW_BATCH) * _ROW_BATCH
     return math.ceil(rows / per), per
@@ -88,47 +77,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_TICKETS: dict = {}
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 ticket per (column tile, row chunk) for the split-K
-    epilogue, kept per device: each launch leaves its tickets at zero, so
-    launches share them safely as long as they run one after another (one
-    stream, as the port's paths do)."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = _TICKETS[device] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-    return t
-
-
-def _launch(fn_name: str, source: str, x, w, s, out_dtype, rows: int, extra: tuple,
-            mma_ok: bool = True):
-    """Allocate the output (and the split-K scratch), launch, raise on a
-    launch error.  ``extra`` holds the C arguments between N and vec."""
+def _launch(fn_name: str, source: str, x, w, s, out_dtype, rows: int, extra: tuple):
+    """Allocate the output (and this launch's split-K scratch), launch, raise
+    on a launch error.  ``extra`` holds the C arguments between N and vec."""
     from ..csrc import load_library
 
     m, k = x.shape
     n = w.shape[1]
-    if x.data_ptr() % 16:  # the tensor-core kernel stages x 16 bytes at a time
-        x = x.clone()
-    mma, vec, tile_n, tile_m = _kernel_shape(m, n, w, mma_ok)
-    splits, per = _launch_plan(m, rows, n, tile_n, tile_m, _sm_count(x.device.index or 0))
+    vec = _vec_width(n, w)
+    splits, per = _launch_plan(m, rows, n, vec, _sm_count(x.device.index or 0))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    partial = tickets = None
+    partial = None
     if splits > 1:
         partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-        tickets = _tickets(x.device, math.ceil(n / tile_n) * math.ceil(m / tile_m))
     fn = getattr(load_library(source), fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * (3 + len(extra) + 5) + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * (3 + len(extra) + 4) + [ctypes.c_void_p]
     )
     err = fn(
         x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        tickets.data_ptr() if tickets is not None else None,
-        m, k, n, *extra, vec, splits, per, int(out_dtype == torch.float32), int(mma),
+        m, k, n, *extra, vec, splits, per, int(out_dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

@@ -212,9 +212,10 @@ def _acts(dev, m, k, seed):
     (3, 11008, 4096, torch.bfloat16), (64, 4096, 4096, torch.bfloat16),
     (3, 4096, 32002, torch.float32), (1, 4096, 32000, torch.float32),
     (5, 96, 130, torch.bfloat16), (7, 100, 33, torch.float32), (17, 1280, 1536, torch.bfloat16),
-    # more than 8 rows: the tensor-core kernel, with ragged K (scalar
-    # staging), N and rows
+    # more than 8 rows: several blocks of 8 activation rows, with ragged K,
+    # N and rows
     (9, 100, 33, torch.float32), (40, 4096, 32002, torch.float32), (65, 256, 72, torch.bfloat16),
+    (1, 4096, 32002, torch.float32), (64, 1280, 4096, torch.bfloat16),
 ])
 def test_int8_kernel_matches_plain(dev, m, k, n, out_dtype):
     leaf = Q.quantize_array(_weights(dev, k, n, 7))
@@ -233,10 +234,11 @@ def test_int8_kernel_matches_plain(dev, m, k, n, out_dtype):
     (3, 11008, 4096, 64, torch.bfloat16), (64, 4096, 4096, 64, torch.bfloat16),
     (2, 256, 40, 32, torch.float32), (3, 512, 36, 64, torch.float32),
     (3, 128, 6, 64, torch.bfloat16),
-    # more than 8 rows: the tensor-core kernel (G = 16, 32, 64), and the
-    # CUDA-core one where G is no multiple of 16
+    # more than 8 rows: several blocks of 8 activation rows (G = 16, 20,
+    # 32, 64), the run-B prefill MLP and the bind-time K/V among them
     (20, 96, 40, 16, torch.float32), (64, 512, 36, 32, torch.bfloat16),
     (33, 200, 24, 20, torch.float32), (64, 11008, 4096, 64, torch.float32),
+    (64, 4096, 11008, 64, torch.float32), (64, 1280, 4096, 64, torch.bfloat16),
 ])
 def test_int4_kernel_matches_plain(dev, m, k, n, g, out_dtype):
     leaf = Q.quantize_array_int4(_weights(dev, k, n, 8), group=g)

@@ -243,21 +243,18 @@ def test_activation_backward_matches_jax_grad(mode, a8, m):
 def test_launch_plan_covers_every_row_once():
     """The split-K plan: at least a block per SM at decode shapes (about
     two), whole batches of 64 rows per split, every weight row in exactly
-    one split; more than 8 rows take the tensor-core kernel's 64 x 64
-    tiles."""
+    one split; blocks of 4 activation rows up to 4 rows, else 8."""
     w = torch.empty(64, dtype=torch.int8)
     for m, rows, n in [(3, 4096, 4096), (3, 11008, 4096), (64, 4096, 4096), (3, 4096, 32002),
                        (3, 2048, 11008), (1, 40, 33), (64, 2048, 4096), (17, 1280, 1536)]:
-        mma, vec, tile_n, tile_m = PI8._kernel_shape(m, n, w, True)
-        want = (64, 64) if mma else (32 * vec, 4 if m <= 4 else 8)
-        assert mma == (m > 8) and (tile_n, tile_m) == want
-        splits, per = PI8._launch_plan(m, rows, n, tile_n, tile_m, 132)
+        vec = PI8._vec_width(n, w)
+        assert PI8._rows_m(m) == (4 if m <= 4 else 8)
+        splits, per = PI8._launch_plan(m, rows, n, vec, 132)
         assert per % 64 == 0 and (splits - 1) * per < rows <= splits * per
-        blocks = -(-n // tile_n) * -(-m // tile_m) * splits
+        blocks = -(-n // (32 * vec)) * -(-m // PI8._rows_m(m)) * splits
         assert blocks >= 132 or splits == -(-rows // 64), (m, rows, n, blocks)
-    assert PI8._kernel_shape(64, 4096, w, False)[:2] == (False, 8)  # int4 with G % 16 != 0
-    assert PI8._vec_width(4096, w, 16) == 16 and PI8._vec_width(4096, w, 8) == 8
-    assert PI8._vec_width(32002, w, 16) == 2 and PI8._vec_width(33, w, 8) == 1
+    assert PI8._vec_width(4096, w) == 8 and PI8._vec_width(11008, w) == 8
+    assert PI8._vec_width(32002, w) == 2 and PI8._vec_width(33, w) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -367,3 +364,47 @@ def test_kv8_flash_prefill_attends_the_int8_round_trip(monkeypatch):
     torch.testing.assert_close(k, PQ.dequantize_kv(kq, ks, torch.float32), rtol=0, atol=1e-6)
     # the cache holds exactly those rows
     np.testing.assert_array_equal(cache["k"]["q"][0, :, :s].numpy(), kq.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,softcap", [(1, None), (3, None), (1, 30.0)])
+def test_int8_cache_attention_matches_jax(dtype, s, softcap):
+    """The int8 cache's attention against JAX ``_cached_attention``: earlier
+    rows as int8 planes with their per-(token, head) scales on the f32
+    scores and the probabilities, this step's rows as their round trip in
+    the compute dtype; GQA (4 query heads on 2 KV heads).  f32: 1e-5; bf16
+    outputs: 2e-3 of max|ref| (they read 0; attending the prefix
+    dequantized to bf16 instead reads 4e-3 to 6e-3)."""
+    from licv_vqa_tpu.models.decoder import _cached_attention as jx_cached_attention
+
+    b, h, kv, dh, S, index = 2, 4, 2, 16, 12, 5
+    rng = np.random.default_rng(12)
+    q = rng.normal(size=(b, s, h, dh)).astype(np.float32)
+    kq, ks, vq, vs = (np.array(a) for key in "kv" for a in JQ.quantize_kv_rows(
+        jnp.asarray(rng.normal(size=(b, S, kv, dh)), jnp.float32)))
+    k_loc, v_loc = (rng.normal(size=(b, s, kv, dh)).astype(np.float32) for _ in "kv")
+    mask = np.zeros((b, 1, s, S), bool)
+    for i in range(b):
+        for qi in range(s):
+            mask[i, 0, qi, i : index] = True  # earlier rows, some left padding
+            mask[i, 0, qi, index : index + qi + 1] = True  # causal local block
+    jdt = jnp.dtype(dtype)
+    jlocal = [JQ.dequantize_kv(*JQ.quantize_kv_rows(jnp.asarray(a)), jdt) for a in (k_loc, v_loc)]
+    want = jx_cached_attention(
+        jnp.asarray(q, jdt), {"q": jnp.asarray(kq), "s": jnp.asarray(ks)},
+        {"q": jnp.asarray(vq), "s": jnp.asarray(vs)},
+        *(jnp.repeat(a, h // kv, axis=2) for a in jlocal),
+        jnp.asarray(mask), None, jnp.asarray(index, jnp.int32), logit_softcap=softcap,
+    )
+    tdt = getattr(torch, dtype)
+    plocal = [PQ.dequantize_kv(*PQ.quantize_kv_rows(torch.from_numpy(a)), tdt)
+              for a in (k_loc, v_loc)]
+    got = PD._int8_cached_attention(
+        torch.from_numpy(q).to(tdt), {"q": torch.from_numpy(kq), "s": torch.from_numpy(ks)},
+        {"q": torch.from_numpy(vq), "s": torch.from_numpy(vs)}, *plocal,
+        torch.from_numpy(mask), index, softcap,
+    )
+    assert got.dtype == tdt and got.shape == (b, s, h, dh)
+    w = np.asarray(want.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - w).max()
+    assert err <= (1e-5 if dtype == "float32" else 2e-3 * np.abs(w).max()), err

@@ -53,10 +53,11 @@ def test_icv_backward_bound_counts_the_functions_bytes(cases, layout, vnumel):
 
 
 def test_each_case_is_held_to_its_outputs_limit(cases):
-    """The f32 KL outputs to ``F32_REL_TOL``, the bf16 outputs to ``REL_TOL``."""
+    """The f32 outputs (the KL's, the quantized matmuls') to ``F32_REL_TOL``,
+    the bf16 outputs to ``REL_TOL``."""
     for (name, label), c in cases.items():
-        want = C.F32_REL_TOL if name.startswith("masked_kl") else C.REL_TOL
-        assert c.tol == want, (name, label)
+        f32 = name.startswith("masked_kl") or label.endswith("f32 out")
+        assert c.tol == (C.F32_REL_TOL if f32 else C.REL_TOL), (name, label)
     assert C.F32_REL_TOL < C.REL_TOL
     assert {name for name, _ in cases} == set(C.MAIN_SHAPE)
 
@@ -85,6 +86,23 @@ def test_quantized_cases_bound_the_functions_bytes(cases):
         head = cases["int8_matmul", f"(3,4096,{n}) f32 out"]
         assert head.bytes_moved == m * k * 2 + k * n + n * 4 + m * n * 4
         assert ("int4_matmul", f"(3,4096,{n}) f32 out") not in cases  # the head is int8 only
+
+
+@pytest.mark.parametrize("name,label", [
+    # a beam step's projections and MLP, for both kernels
+    ("int8_matmul", "(3,4096,4096) bf16 out"), ("int8_matmul", "(3,4096,11008) f32 out"),
+    ("int8_matmul", "(3,11008,4096) f32 out"), ("int4_matmul", "(3,4096,4096) bf16 out"),
+    ("int4_matmul", "(3,4096,11008) f32 out"), ("int4_matmul", "(3,11008,4096) f32 out"),
+    # the int8 head at a beam step and at run A's prefill
+    ("int8_matmul", "(3,4096,32002) f32 out"), ("int8_matmul", "(1,4096,32002) f32 out"),
+    # run B's 64-row prefill: attention, MLP, and the bind-time K/V
+    ("int4_matmul", "(64,4096,4096) bf16 out"), ("int4_matmul", "(64,4096,11008) f32 out"),
+    ("int4_matmul", "(64,11008,4096) f32 out"), ("int4_matmul", "(64,1280,4096) bf16 out"),
+])
+def test_quantized_cases_cover_the_main_paths_shapes(cases, name, label):
+    """Phase 3 holds each quantized kernel against its plain version at
+    every shape the quantized runs launch it with."""
+    assert (name, label) in cases
 
 
 def test_quantized_launch_prediction_at_full_width():
