@@ -34,7 +34,11 @@ Phases (any failure exits non-zero before the result lines):
    64-row prefill MLP and bind-time K/V), with
    ``torch._weight_int8pack_mm`` as the int8 library call where this torch
    runs it on the card, and the bf16 matmul with the dense weight printed
-   beside as a note;
+   beside as a note; the bidirectional flash attention at ``BIDIR_SHAPES``
+   (the SigLIP tower, H=16, Dh=72: one 980x980 image, one 640x480 image
+   padded to 672x560, a 32-shot prompt's 33 images), every row compared,
+   with ``F.scaled_dot_product_attention`` under the segment mask as the
+   library call;
 4. the eval path at Idefics-9B FULL width (32 layers, d=4096, ViT-H, 6-layer
    perceiver, 8 cross-attention blocks; random bf16 weights made on the card
    from a seed, ~18 GB), through the runner entry points the CLI calls
@@ -76,8 +80,27 @@ Phases (any failure exits non-zero before the result lines):
    kernel), and holds the test_icv prompt's prefill and first-step logits
    through the kernels against the same weights through their plain
    versions (rel. L2 within ``REL_L2_TOL``, the same argmax);
-7. one ``{"kernels": [...]}`` line;
-8. the last line: ``{"ok": true, "device": {...}}``.
+7. the Idefics2-8B-base eval at full width (32 Mistral layers, d=4096, GQA
+   8, d_ff 14336; 27 SigLIP layers at d=1152; a 3-layer perceiver; random
+   bf16 weights made on the card, ~17 GB), built through the registry and
+   driven through the runner entry points as in phase 4, with in-memory
+   uint8 images of COCO's common sizes (``COCO_SIZES``) that the NaViT
+   processor resizes and pads: ``test_icv`` (4 questions at 640x480, the
+   ICV of an ``icv_cpk.pth`` whose ``layer_format`` names the MLP site),
+   then ``test_icl`` (2 questions, 32 shots).  The counts of the
+   bidirectional flash, the causal flash and the ICV kernels are zeroed
+   before and read after each path and must equal
+   ``predicted_idefics2_launches`` (the tower's kernel at its 27 layers in
+   every bind; the causal one at the 32 layers of test_icl's prefills;
+   the ICV at the 32 layers of every test_icv forward).  Prints ms per
+   question, peak memory and one profiled question per path, then holds
+   the test_icv prompt's and an 8-shot prompt's prefill logits through the
+   kernels against the plain path (rel. L2 within ``REL_L2_TOL``) and both
+   against the plain path in f32 (the kernel path no farther from it than
+   ``F32_DRIFT_RATIO`` times the plain path; the same argmax, or a tie at
+   bf16's resolution: ``idefics2_kernel_vs_plain_logits``);
+8. one ``{"kernels": [...]}`` line;
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 The port CLIs themselves are held against ``inference.py`` and ``train.py``
 by the CPU tests (``tests/test_torch_cli.py``, ``tests/test_torch_train*.py``).
@@ -112,6 +135,11 @@ F32_REL_TOL = 1e-4
 # the sound kernel path reads several 1e-2 here.  A sanity bound on the
 # whole path; phase 3 is the kernels' correctness check (PERF.md, Findings)
 REL_L2_TOL = 0.1
+# phase 7: the kernel path's rel. L2 distance to the same weights run in
+# f32 over the plain path's.  Rounding alone puts the two bf16 paths about
+# equally far (PERF.md, Findings); a kernel with a wrong mask or rule adds its
+# error on top
+F32_DRIFT_RATIO = 1.25
 N_ICV_Q = 4
 N_ICL_Q = 2
 ICL_SHOTS = 32
@@ -121,7 +149,7 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 TRAIN_BS = 2
 TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
 KL_EPS = 1e-6
-CUDA_SOURCES = ("flash_attn_fwd.cu", "int8_matmul.cu", "int4_matmul.cu")
+CUDA_SOURCES = ("flash_attn_fwd.cu", "int8_matmul.cu", "int4_matmul.cu", "flash_attn_bidir.cu")
 
 
 def log(msg: str) -> None:
@@ -274,6 +302,25 @@ def kernel_cases(dev):
             ),
             calls=5,
         )
+    for b, s, grids in BIDIR_SHAPES:
+        q, k, v = (randn((b, s, 16, 72)) for _ in range(3))
+        valid = navit_valid(b, s, grids, dev)
+        mask = L.segment_bidir_mask(valid)
+        n_real = valid.sum(dim=1).double()
+        # the visible pairs: real rows attend the real keys, invalid rows the
+        # invalid ones (QK^T and PV)
+        pairs = float((n_real ** 2 + (s - n_real) ** 2).sum())
+        yield Case(
+            "flash_attention_bidir", f"({b},{s},16,72) {bidir_label(s, grids)}",
+            lambda q=q, k=k, v=v, valid=valid: L.flash_attention_bidir(q, k, v, valid),
+            lambda q=q, k=k, v=v, valid=valid: L.flash_attention_bidir_reference(q, k, v, valid),
+            bytes_moved=4 * q.numel() * 2 + valid.numel() * 4, ops=4 * 16 * 72 * pairs,
+            op_type="bf16",
+            library=lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask
+            ),
+            calls=3 if b > 1 else 5,
+        )
     for n in (128, 512):
         v_sz = 32000
         stu, tea = randn((n, v_sz), 3.0, torch.float32), randn((n, v_sz), 3.0, torch.float32)
@@ -300,6 +347,41 @@ def kernel_cases(dev):
 
 
     yield from quantized_cases(dev)
+
+
+# the SigLIP tower's attention (H=16, Dh=72) in phase 7: (B, S, the valid
+# (rows, cols) of each image's patch grid, cycled; None = every patch real).
+# One 980x980 image (70x70 patches); one 640x480 image padded to 672x560
+# (48x40 patches, 34x45 valid); a 32-shot prompt's 33 images of 640x480,
+# 640x427 and 500x378 (the 378-pixel minimum), all padded to 672x560
+BIDIR_SHAPES = (
+    (1, 4900, None),
+    (1, 1920, ((34, 45),)),
+    (33, 1920, ((34, 45), (30, 45), (27, 35))),
+)
+BIDIR_GRID_W = 48  # 672 / 14: the padded grid's columns at S = 1920
+
+
+def navit_valid(b: int, s: int, grids, dev):
+    """(B, S) int32 patch validity: each image fills the top-left rows x
+    cols of the padded 40x48 grid, as the NaViT processor pads it."""
+    import torch
+
+    valid = torch.ones((b, s), dtype=torch.int32, device=dev)
+    if grids is not None:
+        gw = BIDIR_GRID_W
+        for i in range(b):
+            rows, cols = grids[i % len(grids)]
+            grid = torch.zeros((s // gw, gw), dtype=torch.int32, device=dev)
+            grid[:rows, :cols] = 1
+            valid[i] = grid.reshape(-1)
+    return valid
+
+
+def bidir_label(s: int, grids) -> str:
+    if grids is None:
+        return "all valid"
+    return "valid " + ",".join(f"{r}x{c}" for r, c in grids) + f" of {s // BIDIR_GRID_W}x{BIDIR_GRID_W}"
 
 
 # the quantized decode matmuls' cases: ((M, K, N), output dtype).  A beam
@@ -409,6 +491,9 @@ MAIN_SHAPE = {
     # a beam step's wq/wk/wv/wo (the most frequent quantized call)
     "int8_matmul": "(3,4096,4096)",
     "int4_matmul": "(3,4096,4096)",
+    # the tower at a test_icv bind (one 640x480 image), phase 7's most
+    # frequent call
+    "flash_attention_bidir": "(1,1920,16,72)",
 }
 
 
@@ -453,8 +538,9 @@ def check_kernels(dev) -> dict:
     return out
 
 
-def synthetic_vqa(n: int, offset: int, seed: int):
-    """In-memory VQA rows with 224x224 uint8 images."""
+def synthetic_vqa(n: int, offset: int, seed: int, sizes=((224, 224),)):
+    """In-memory VQA rows with uint8 images of the (width, height) ``sizes``,
+    cycled."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -462,10 +548,11 @@ def synthetic_vqa(n: int, offset: int, seed: int):
     rows = []
     for i in range(n):
         ans = answers[i % len(answers)]
+        w, h = sizes[i % len(sizes)]
         rows.append({
             "question_id": offset + i,
             "image_id": offset + 1000 + i,
-            "image": rng.integers(0, 255, size=(224, 224, 3), dtype=np.uint8),
+            "image": rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8),
             "question": f"What is the color of thing {i}?",
             "answer": ans,
             "answers": [{"answer": ans, "answer_id": j + 1} for j in range(10)],
@@ -573,9 +660,10 @@ def eval_setup(dev, tmp: Path, extra_args: list, lmm: str = "idefics-9B") -> Eva
         f"{n_params / 1e9:.3f} B stored elements, {n_bytes / 2**30:.2f} GiB, "
         f"built in {time.perf_counter() - t0:.1f} s")
     t = bundle.model_cfg.text
-    if lmm == "idefics-9B" and (t.n_layers, t.d_model, bundle.model_cfg.vision.d_model) != (
-            32, 4096, 1280):
-        raise AssertionError(f"not full width: {t}")
+    full = {"idefics-9B": (32, 4096, 1280, 32), "idefics2-8B-base": (32, 4096, 1152, 27)}
+    v = bundle.model_cfg.vision
+    if lmm in full and (t.n_layers, t.d_model, v.d_model, v.n_layers) != full[lmm]:
+        raise AssertionError(f"not full width: {t} {v}")
 
     # a random ICV written in the reference artifact layout, read back by the port
     g = torch.Generator().manual_seed(0)
@@ -585,7 +673,8 @@ def eval_setup(dev, tmp: Path, extra_args: list, lmm: str = "idefics-9B") -> Eva
         "icv_encoder.icv": torch.randn((1, t.n_layers, t.d_model), generator=g) * 0.05,
         "icv_encoder.alpha": torch.full((1, t.n_layers), 0.5),
         "use_sigmoid": False,
-        "lmm_args": {"total_layers": t.n_layers, "intervention_layer": -1},
+        "lmm_args": {"total_layers": t.n_layers, "intervention_layer": -1,
+                     "layer_format": str(cfg.lmm.layer_format)},
     }, cpk)
     loaded = load_icv_checkpoint(cpk.parent, device=dev)
     return EvalSetup(
@@ -609,6 +698,22 @@ def icv_prompt(e: EvalSetup, q: int) -> list:
     """The zero-shot prompt as ``icv_inference`` builds it."""
     p = [e.instruction] if e.instruction else []
     return p + [e.val[q]["image"], e.pm.gen_query_text_without_label(e.val[q])]
+
+
+def eval_runs(e: EvalSetup) -> dict:
+    """path -> (run(rows[, shots]) through the runner entry point, the
+    prompt of question q, the number of questions timed)."""
+    from licv_vqa_tpu_torch.infer.runner import icl_inference, icv_inference
+
+    b = e.bundle
+    return {
+        "icv": (lambda rows: icv_inference(rows, b, e.pm, 1, e.gen_kwargs, e.instruction,
+                                           e.icv_scaled, progress=False),
+                lambda q: icv_prompt(e, q), N_ICV_Q),
+        "icl": (lambda rows, shots=None: icl_inference(
+                    e.train, rows, shots, b, e.pm, 1, e.gen_kwargs, e.instruction, progress=False),
+                lambda q: icl_prompt(e, q, e.shots[q]), N_ICL_Q),
+    }
 
 
 def main_path(dev, tmp: Path) -> dict:
@@ -800,7 +905,6 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     runner entry points.  Returns the launch counts of the run."""
     import torch
 
-    from licv_vqa_tpu_torch.infer.runner import icl_inference, icv_inference
     from licv_vqa_tpu_torch.models import layers as L
     from licv_vqa_tpu_torch.ops import int4_matmul as I4
     from licv_vqa_tpu_torch.ops import int8_matmul as I8
@@ -812,14 +916,7 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     counters = {"int8_matmul": I8.int8_matmul, "int4_matmul": I4.int4_matmul,
                 "icv_inject": icv_inject, "flash_attention_fwd": L.flash_attention}
     beams = int(e.gen_kwargs["num_beams"])
-    runs = {
-        "icv": (lambda rows: icv_inference(rows, b, e.pm, 1, e.gen_kwargs, e.instruction,
-                                           e.icv_scaled, progress=False),
-                lambda q: icv_prompt(e, q), N_ICV_Q),
-        "icl": (lambda rows, shots=None: icl_inference(
-                    e.train, rows, shots, b, e.pm, 1, e.gen_kwargs, e.instruction, progress=False),
-                lambda q: icl_prompt(e, q, e.shots[q]), N_ICL_Q),
-    }
+    runs = eval_runs(e)
     # warm-up on one question of each path
     runs["icv"][0](e.val[:1])
     if "icl" in paths:
@@ -934,6 +1031,193 @@ def kernel_vs_plain_logits(e: EvalSetup, mode: str) -> None:
             f"{'agrees' if same else 'differs'}")
         if not (torch.isfinite(a).all() and rel <= REL_L2_TOL and same):
             raise AssertionError(f"{mode} {what} logits: kernel path disagrees with plain path")
+
+
+# phase 7: COCO's common (width, height): the test_icv query is 640x480,
+# the 32 shots of test_icl cycle all three; the kernel-vs-plain logits use
+# an 8-shot prompt (the plain tower's scores fit there)
+COCO_SIZES = ((640, 480), (640, 427), (500, 375))
+IDEFICS2_CHECK_SHOTS = 8
+
+
+def predicted_idefics2_launches(mc, s_prompt: int, n_patches: int, with_icv: bool,
+                                dev) -> dict:
+    """Launches in ONE bs=1 question (one bind, a prefill of ``s_prompt``
+    tokens, MAX_NEW - 1 beam steps): the tower's flash kernel at every
+    vision layer when ``layers.flash_bidir_usable`` holds for the bind's
+    ``n_patches`` (always at full width: every NaViT image is at least
+    1024 patches); the causal flash kernel at every decoder layer of the
+    prefill when ``layers.flash_attention_usable`` holds (>= 256 tokens:
+    test_icl's prompt, not test_icv's); the ICV injection at every decoder
+    layer of every forward when the ICV is on."""
+    from licv_vqa_tpu_torch.models import layers as L
+
+    t = mc.text
+    return {
+        "flash_attention_bidir": mc.vision.n_layers * L.flash_bidir_usable(n_patches, dev),
+        "flash_attention_fwd": t.n_layers * L.flash_attention_usable(
+            t, s_prompt, t.head_dim, dev),
+        "icv_inject": t.n_layers * MAX_NEW if with_icv else 0,
+    }
+
+
+def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
+    """Phase 7: the Idefics2 eval at full width through the runner entry
+    points, test_icv then test_icl.  Returns the launch counts of the run."""
+    import torch
+
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    e = eval_setup(dev, tmp, [], lmm)
+    e.val = synthetic_vqa(N_ICV_Q + 1, 100, seed=1, sizes=COCO_SIZES[:1])
+    e.train = synthetic_vqa(ICL_SHOTS + 8, 500, seed=2, sizes=COCO_SIZES)
+    b = e.bundle
+    fmt = torch.load(tmp / "icv_cpk" / "icv_cpk.pth", weights_only=False)["lmm_args"]
+    if not fmt["layer_format"].endswith(".mlp"):
+        raise AssertionError(f"icv_cpk.pth layer_format {fmt['layer_format']}: not the MLP site")
+    counters = {"flash_attention_bidir": L.flash_attention_bidir,
+                "flash_attention_fwd": L.flash_attention, "icv_inject": icv_inject}
+    runs = eval_runs(e)
+    runs["icv"][0](e.val[:1])  # warm-up (Triton specialisations, libraries, allocator)
+    runs["icl"][0](e.val[:1], e.shots[:1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = dict.fromkeys(counters, 0)
+    patch = b.model_cfg.vision.patch_size
+    for path in ("icv", "icl"):
+        run, prompt, n_q = runs[path]
+        want = dict.fromkeys(counters, 0)
+        for q in range(1, 1 + n_q):
+            enc = b.processor.prepare_input([prompt(q)], padding=True, padding_side="left")
+            hh, ww = enc["pixel_values"].shape[2:4]
+            for k, v in predicted_idefics2_launches(
+                b.model_cfg, enc["input_ids"].shape[1], (hh // patch) * (ww // patch),
+                path == "icv", dev,
+            ).items():
+                want[k] += v
+            if q == 1:
+                log(f"idefics2 test_{path} prompt: {int(enc['attention_mask'].sum())} tokens, "
+                    f"padded to {enc['input_ids'].shape[1]}, {enc['pixel_values'].shape[1]} "
+                    f"images padded to {ww}x{hh} ({(hh // patch) * (ww // patch)} patches), "
+                    f"{int(enc['pixel_attention_mask'].sum()) if 'pixel_attention_mask' in enc else 'all'} "
+                    "real pixels")
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rows = e.val[1 : 1 + n_q]
+        res = run(rows) if path == "icv" else run(rows, e.shots[1 : 1 + n_q])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n_q
+        counts = {k: fn.launches for k, fn in counters.items()}
+        log(f"idefics2 test_{path}: {n_q} questions, {dt * 1e3:.1f} ms/question; launches "
+            f"{counts} (predicted {want}); predictions {[r['prediction'] for r in res.values()]}, "
+            f"VQA accuracy {vqa_accuracy(res, rows, tmp, f'idefics2_{path}'):.2f} (random weights)")
+        if counts != want:
+            raise AssertionError(f"idefics2 test_{path}: launches {counts} != {want}")
+        if len(res) != n_q or not all(isinstance(r["prediction"], str) for r in res.values()):
+            raise AssertionError(f"idefics2 test_{path}: malformed results {res}")
+        for k in total:
+            total[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"idefics2: peak device memory over both paths {peak:.2f} GiB")
+    if dev.type == "cuda":
+        profile_question(lambda: runs["icv"][0](e.val[1:2]), "idefics2 test_icv")
+        profile_question(lambda: runs["icl"][0](e.val[1:2], e.shots[1:2]),
+                         f"idefics2 test_icl ({ICL_SHOTS}-shot)")
+    idefics2_kernel_vs_plain_logits(e)
+    return total
+
+
+def idefics2_kernel_vs_plain_logits(e: EvalSetup) -> None:
+    """The test_icv prompt's and an 8-shot ICL prompt's prefill logits
+    through the kernels (the tower's and the decoder's flash, the ICV
+    injection) against the same weights through their plain versions
+    (``LICV_VIT_FLASH=0``, ``attention_impl=xla``, the plain injection), and
+    both against the plain path with the weights in f32.
+
+    At random init two bf16 paths differ by rounding amplified through 59
+    layers (rel. L2 5e-2 to 8e-2, each path alike from the f32 one), and the
+    top two logits can lie closer than that, so the argmax alone can flip
+    on a sound kernel (PERF.md, Findings).  The checks: kernel vs plain within
+    ``REL_L2_TOL``; the kernel path no farther from the f32 path than
+    ``F32_DRIFT_RATIO`` times the plain path is; the same argmax, or, where
+    the two bf16 paths pick different tokens, tokens whose f32 logits lie
+    within the kernel-vs-plain max-abs difference (a tie at bf16's
+    resolution)."""
+    import torch
+
+    from licv_vqa_tpu_torch.data.processor import SIGLIP_MEAN, SIGLIP_STD
+    from licv_vqa_tpu_torch.models import decoder as Dm
+    from licv_vqa_tpu_torch.models.idefics2 import make_idefics2_forward_fns
+    from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
+
+    b = e.bundle
+    mc = b.model_cfg
+
+    def plain_bind(cfg):
+        return _wrap_pixel_normalize(
+            *make_idefics2_forward_fns(cfg, b.eos_token_id), SIGLIP_MEAN, SIGLIP_STD
+        )[1]
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return tree.float() if tree.is_floating_point() else tree
+
+    xla_text = dataclasses.replace(mc.text, attention_impl="xla")
+    f32_cfg = dataclasses.replace(
+        mc, text=dataclasses.replace(xla_text, dtype=torch.float32),
+        vision=dataclasses.replace(mc.vision, dtype=torch.float32),
+        perceiver=dataclasses.replace(mc.perceiver, dtype=torch.float32),
+    )
+    paths = (("kernel", b.bind_decode, b.params),
+             ("plain", plain_bind(dataclasses.replace(mc, text=xla_text)), b.params),
+             ("f32", plain_bind(f32_cfg), f32(b.params)))
+    checks = (("test_icv", icv_prompt(e, 1), e.icv_scaled),
+              (f"{IDEFICS2_CHECK_SHOTS}-shot ICL", icl_prompt(e, 1, e.shots[1][:IDEFICS2_CHECK_SHOTS]),
+               None))
+    for tag, prompt, icv in checks:
+        enc = b.processor.prepare_input([prompt], padding=True, padding_side="left")
+        ids, mask, px, pv = (torch.from_numpy(enc[k]).to(b.device) for k in (
+            "input_ids", "attention_mask", "pixel_values", "pixel_valid"))
+        kw = {k: torch.from_numpy(enc[k]).to(b.device) for k in ("pixel_attention_mask",)
+              if k in enc}  # NaViT at full width; the tiny configs keep squares
+        pos = torch.clamp(torch.cumsum(mask, -1) - 1, min=0)
+        out = {}
+        for path, bind, params in paths:
+            if path != "kernel":
+                os.environ["LICV_VIT_FLASH"] = "0"
+                Dm.icv_inject = icv_inject_reference
+            try:
+                with torch.inference_mode():
+                    fwd = bind(params, px, pv, ids, icv, ids.shape[1] + 1, **kw)
+                    out[path] = fwd(ids, mask, pos, None)[0][:, -1].float()
+            finally:
+                os.environ.pop("LICV_VIT_FLASH", None)
+                Dm.icv_inject = icv_inject
+            free_device_memory()
+        a, p, g = out["kernel"], out["plain"], out["f32"]
+
+        def rel(x, y):
+            return ((x - y).norm() / y.norm()).item()
+
+        diff = (a - p).abs().max().item()
+        ta, tp = a.argmax().item(), p.argmax().item()
+        tie = abs((g[0, ta] - g[0, tp]).item())
+        top2 = g[0].topk(2).values
+        log(f"idefics2 full-width {tag} prefill logits ({ids.shape[1]} tokens, "
+            f"{px.shape[1]} images): kernel vs plain max_abs={diff:.4e}, rel_l2={rel(a, p):.4e}; "
+            f"rel_l2 to the f32 path: kernel {rel(a, g):.4e}, plain {rel(p, g):.4e}; argmax "
+            f"kernel {ta}, plain {tp}, f32 {g.argmax().item()} (f32 top-2 gap "
+            f"{(top2[0] - top2[1]).item():.4e}; f32 gap between the two picks {tie:.4e})")
+        ok = (torch.isfinite(a).all() and rel(a, p) <= REL_L2_TOL
+              and rel(a, g) <= F32_DRIFT_RATIO * rel(p, g) and (ta == tp or tie <= diff))
+        if not ok:
+            raise AssertionError(f"idefics2 {tag} logits: kernel path disagrees with plain path")
+    del paths
+    free_device_memory()
 
 
 def _counters():
@@ -1240,6 +1524,8 @@ def main() -> int:
             for k, v in quantized_path(dev, Path(tmp) / mode, mode, opts, paths).items():
                 counts_q[k] += v
             free_device_memory()
+        counts_i2 = idefics2_path(dev, Path(tmp) / "idefics2")
+        free_device_memory()
 
     sources = {
         "icv_inject": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
@@ -1254,11 +1540,16 @@ def main() -> int:
                         "licv_vqa_tpu/ops/int8_matmul.py:67"),
         "int4_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/int4_matmul.cu",
                         "licv_vqa_tpu/ops/int4_matmul.py:134"),
+        "flash_attention_bidir": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu",
+                                  "licv_vqa_tpu/models/layers.py:233"),
     }
     launches = {
-        "icv_inject": counts["icv_inject"] + counts_q["icv_inject"] + counts_train["icv_inject"],
+        "icv_inject": (counts["icv_inject"] + counts_q["icv_inject"] + counts_train["icv_inject"]
+                       + counts_i2["icv_inject"]),
         "flash_attention_fwd": (counts["flash_attention_fwd"] + counts_q["flash_attention_fwd"]
-                                + counts_train["flash_attention_fwd"]),
+                                + counts_train["flash_attention_fwd"]
+                                + counts_i2["flash_attention_fwd"]),
+        "flash_attention_bidir": counts_i2["flash_attention_bidir"],
         "icv_inject_bwd": counts_train["icv_inject_bwd"],
         "int8_matmul": counts_q["int8_matmul"],
         "int4_matmul": counts_q["int4_matmul"],

@@ -34,8 +34,10 @@ def _chunked(seq, n):
 
 
 def make_generate_fn(bundle, generate_kwargs: dict) -> Callable:
-    """One generate over (params, ids, mask, pixels, valid, icv).  The KV
-    cache length follows the (bucketed) prompt length of each call."""
+    """One generate over (params, ids, mask, pixels, valid, icv) and, for
+    NaViT variable resolution (Idefics2), the ``pixel_attention_mask`` the
+    processor emits.  The KV cache length follows the (bucketed) prompt
+    length of each call."""
     max_new = int(generate_kwargs.get("max_new_tokens", 5))
     min_new = int(generate_kwargs.get("min_new_tokens", 0))
     num_beams = int(generate_kwargs.get("num_beams", 1))
@@ -48,10 +50,16 @@ def make_generate_fn(bundle, generate_kwargs: dict) -> Callable:
     eos, pad = bundle.eos_token_id, bundle.pad_token_id
 
     @torch.inference_mode()
-    def gen(params, input_ids, attention_mask, pixels, pixel_valid, icv_scaled):
+    def gen(params, input_ids, attention_mask, pixels, pixel_valid, icv_scaled,
+            pixel_attention_mask=None):
+        bind_kw = (
+            {"pixel_attention_mask": pixel_attention_mask}
+            if pixel_attention_mask is not None
+            else {}
+        )
         fwd = bundle.bind_decode(
             params, pixels, pixel_valid, input_ids, icv_scaled,
-            input_ids.shape[1] + max_new + 1,
+            input_ids.shape[1] + max_new + 1, **bind_kw,
         )
         if num_beams > 1:
             return beam_generate(
@@ -77,7 +85,11 @@ def _dispatch_generate(bundle, gen_fn: Callable, prompts: list[list], icv_scaled
         torch.from_numpy(np.asarray(enc[key])).to(dev)
         for key in ("input_ids", "attention_mask", "pixel_values", "pixel_valid")
     )
-    out = gen_fn(bundle.params, ids, mask, px, pv, icv_scaled)
+    extra = {}
+    if "pixel_attention_mask" in enc:  # NaViT variable resolution
+        extra["pixel_attention_mask"] = torch.from_numpy(
+            np.asarray(enc["pixel_attention_mask"])).to(dev)
+    out = gen_fn(bundle.params, ids, mask, px, pv, icv_scaled, **extra)
     return out, len(prompts), enc["input_ids"].shape[1]
 
 

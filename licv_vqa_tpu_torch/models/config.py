@@ -75,7 +75,7 @@ class DecoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VisionConfig:
-    """CLIP-family ViT encoder."""
+    """CLIP/SigLIP-family ViT encoder."""
 
     image_size: int = 224
     patch_size: int = 14
@@ -84,17 +84,12 @@ class VisionConfig:
     n_heads: int = 16
     d_ff: int = 5120
     norm_eps: float = 1e-5
-    use_class_token: bool = True
-    use_pre_norm: bool = True
-    use_post_norm: bool = False
+    use_class_token: bool = True  # CLIP yes, SigLIP no
+    use_pre_norm: bool = True  # CLIP pre-layernorm on the embeddings
+    use_post_norm: bool = False  # SigLIP post-layernorm on the sequence
+    patch_bias: bool = False  # SigLIP's patch conv has a bias, CLIP's not
     activation: str = "gelu"  # "gelu" | "gelu_tanh" | "quick_gelu"
     dtype: torch.dtype = torch.bfloat16
-
-    def __post_init__(self):
-        if not self.use_class_token:
-            raise _not_ported(
-                "SigLIP / NaViT vision towers", "Queue 1 item 10 (Idefics2)"
-            )
 
     @property
     def n_patches(self) -> int:
@@ -104,7 +99,8 @@ class VisionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PerceiverConfig:
-    """Perceiver resampler (Idefics-9B)."""
+    """Perceiver resampler (Idefics-9B; Idefics2 has its own,
+    ``idefics2.Idefics2PerceiverCfg``)."""
 
     n_latents: int = 64
     n_layers: int = 6

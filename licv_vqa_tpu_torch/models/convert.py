@@ -1,9 +1,11 @@
-"""HF checkpoint → port params, Idefics family
-(counterpart of ``licv_vqa_tpu/models/convert.py::convert_idefics``, :92-255).
+"""HF checkpoint → port params, Idefics and Idefics2 families
+(counterpart of ``licv_vqa_tpu/models/convert.py``: ``convert_llama`` :36,
+``convert_idefics`` :172, ``convert_siglip_vision`` :256 and
+``convert_idefics2`` :296).
 
 Input is any mapping of HF parameter names to tensors or arrays (a torch
 ``state_dict``, safetensors shards); output is the layer-stacked param dict
-the port's Idefics forward consumes, in the JAX layout.  HF ``nn.Linear``
+the port's forwards consume, in the JAX layout.  HF ``nn.Linear``
 stores (out, in); the port stores (in, out), hence the transposes.  The JAX
 converter itself cannot be imported here: its module pulls in jax.
 """
@@ -38,42 +40,141 @@ def _cast_tree(tree, dtype: torch.dtype, device):
     return x.contiguous().to(device)
 
 
-def convert_idefics_vision(sd: Mapping, cfg, prefix: str) -> dict:
-    n = cfg.n_layers
-    lp = prefix + "encoder.layers.{i}."
-    conv = _t(sd[prefix + "embeddings.patch_embedding.weight"])  # (D, C, P, P)
+def _decoder_layers(sd: Mapping, lp: str, n: int) -> dict:
+    """One LLaMA/Mistral layer stack; ``lp`` formats ``{i}``."""
     return {
-        "patch_embed": conv.permute(2, 3, 1, 0).reshape(-1, conv.shape[0]),
+        "attn": {
+            "wq": _stack(sd, lp + "self_attn.q_proj.weight", n, True),
+            "wk": _stack(sd, lp + "self_attn.k_proj.weight", n, True),
+            "wv": _stack(sd, lp + "self_attn.v_proj.weight", n, True),
+            "wo": _stack(sd, lp + "self_attn.o_proj.weight", n, True),
+        },
+        "mlp": {
+            "w_gate": _stack(sd, lp + "mlp.gate_proj.weight", n, True),
+            "w_up": _stack(sd, lp + "mlp.up_proj.weight", n, True),
+            "w_down": _stack(sd, lp + "mlp.down_proj.weight", n, True),
+        },
+        "ln1": _stack(sd, lp + "input_layernorm.weight", n),
+        "ln2": _stack(sd, lp + "post_attention_layernorm.weight", n),
+    }
+
+
+def convert_llama(
+    sd: Mapping, cfg, prefix: str = "model.", dtype: Optional[torch.dtype] = None,
+    device="cpu",
+) -> dict:
+    """LLaMA/Mistral-family state dict → decoder params (``embed``,
+    ``layers``, ``final_norm``, ``lm_head`` unless tied); the text backbone
+    inside Idefics2 given ``prefix="model.text_model."``.  ``cfg`` is a
+    ``config.DecoderConfig``."""
+    params = {
+        "embed": _t(sd[prefix + "embed_tokens.weight"]),
+        "layers": _decoder_layers(sd, prefix + "layers.{i}.", cfg.n_layers),
+        "final_norm": _t(sd[prefix + "norm.weight"]),
+    }
+    if not cfg.tie_embeddings:
+        head_key = "lm_head.weight"
+        if head_key not in sd:  # a head nested under the prefix
+            head_key = prefix + "lm_head.weight"
+        params["lm_head"] = _t(sd[head_key]).T
+    return _cast_tree(params, dtype or cfg.dtype, device)
+
+
+def _vit_layers(sd: Mapping, lp: str, n: int) -> dict:
+    """One CLIP/SigLIP encoder layer stack; ``lp`` formats ``{i}``."""
+    return {
+        "ln1": {
+            "w": _stack(sd, lp + "layer_norm1.weight", n),
+            "b": _stack(sd, lp + "layer_norm1.bias", n),
+        },
+        "ln2": {
+            "w": _stack(sd, lp + "layer_norm2.weight", n),
+            "b": _stack(sd, lp + "layer_norm2.bias", n),
+        },
+        "attn": {
+            "wq": _stack(sd, lp + "self_attn.q_proj.weight", n, True),
+            "bq": _stack(sd, lp + "self_attn.q_proj.bias", n),
+            "wk": _stack(sd, lp + "self_attn.k_proj.weight", n, True),
+            "bk": _stack(sd, lp + "self_attn.k_proj.bias", n),
+            "wv": _stack(sd, lp + "self_attn.v_proj.weight", n, True),
+            "bv": _stack(sd, lp + "self_attn.v_proj.bias", n),
+            "wo": _stack(sd, lp + "self_attn.out_proj.weight", n, True),
+            "bo": _stack(sd, lp + "self_attn.out_proj.bias", n),
+        },
+        "mlp": {
+            "w1": _stack(sd, lp + "mlp.fc1.weight", n, True),
+            "b1": _stack(sd, lp + "mlp.fc1.bias", n),
+            "w2": _stack(sd, lp + "mlp.fc2.weight", n, True),
+            "b2": _stack(sd, lp + "mlp.fc2.bias", n),
+        },
+    }
+
+
+def _patch_embed(sd: Mapping, prefix: str) -> torch.Tensor:
+    conv = _t(sd[prefix + "embeddings.patch_embedding.weight"])  # (D, C, P, P)
+    return conv.permute(2, 3, 1, 0).reshape(-1, conv.shape[0])
+
+
+def convert_siglip_vision(sd: Mapping, cfg, prefix: str) -> dict:
+    """SigLIP tower (Idefics2): biased patch conv, no class token, a
+    post-layernorm on the sequence."""
+    return {
+        "patch_embed": _patch_embed(sd, prefix),
+        "patch_bias": _t(sd[prefix + "embeddings.patch_embedding.bias"]),
+        "pos_embed": _t(sd[prefix + "embeddings.position_embedding.weight"]),
+        "post_ln": _ln(sd, prefix + "post_layernorm."),
+        "layers": _vit_layers(sd, prefix + "encoder.layers.{i}.", cfg.n_layers),
+    }
+
+
+def convert_idefics2(
+    sd: Mapping, cfg, dtype: Optional[torch.dtype] = None, device="cpu"
+) -> dict:
+    """``Idefics2ForConditionalGeneration`` state dict → port params.
+    ``cfg`` is a ``licv_vqa_tpu_torch.models.idefics2.Idefics2Config``."""
+    dtype = dtype or cfg.text.dtype
+    pp = "model.connector.perceiver_resampler."
+    n = cfg.perceiver.n_layers
+    lp = pp + "layers.{i}."
+    perceiver = {
+        "latents": _t(sd[pp + "latents"]),
+        "layers": {
+            "lat_norm": _stack(sd, lp + "input_latents_norm.weight", n),
+            "ctx_norm": _stack(sd, lp + "input_context_norm.weight", n),
+            "wq": _stack(sd, lp + "self_attn.q_proj.weight", n, True),
+            "wk": _stack(sd, lp + "self_attn.k_proj.weight", n, True),
+            "wv": _stack(sd, lp + "self_attn.v_proj.weight", n, True),
+            "wo": _stack(sd, lp + "self_attn.o_proj.weight", n, True),
+            "post_norm": _stack(sd, lp + "post_attention_layernorm.weight", n),
+            "mlp": {
+                "w_gate": _stack(sd, lp + "mlp.gate_proj.weight", n, True),
+                "w_up": _stack(sd, lp + "mlp.up_proj.weight", n, True),
+                "w_down": _stack(sd, lp + "mlp.down_proj.weight", n, True),
+            },
+        },
+        "final_norm": _t(sd[pp + "norm.weight"]),
+    }
+    cp = "model.connector.modality_projection."
+    connector = {k: _t(sd[cp + f"{k[2:]}_proj.weight"]).T for k in ("w_gate", "w_up", "w_down")}
+    extra = {
+        "vision": convert_siglip_vision(sd, cfg.vision, "model.vision_model."),
+        "connector": connector,
+        "perceiver": perceiver,
+    }
+    return {
+        **convert_llama(sd, cfg.text, prefix="model.text_model.", dtype=dtype, device=device),
+        **_cast_tree(extra, dtype, device),
+    }
+
+
+def convert_idefics_vision(sd: Mapping, cfg, prefix: str) -> dict:
+    return {
+        "patch_embed": _patch_embed(sd, prefix),
         "class_embed": _t(sd[prefix + "embeddings.class_embedding"]),
         "pos_embed": _t(sd[prefix + "embeddings.position_embedding.weight"]),
         "pre_ln": _ln(sd, prefix + "pre_layrnorm."),  # (sic — HF key)
         "post_ln": _ln(sd, prefix + "post_layernorm."),
-        "layers": {
-            "ln1": {
-                "w": _stack(sd, lp + "layer_norm1.weight", n),
-                "b": _stack(sd, lp + "layer_norm1.bias", n),
-            },
-            "ln2": {
-                "w": _stack(sd, lp + "layer_norm2.weight", n),
-                "b": _stack(sd, lp + "layer_norm2.bias", n),
-            },
-            "attn": {
-                "wq": _stack(sd, lp + "self_attn.q_proj.weight", n, True),
-                "bq": _stack(sd, lp + "self_attn.q_proj.bias", n),
-                "wk": _stack(sd, lp + "self_attn.k_proj.weight", n, True),
-                "bk": _stack(sd, lp + "self_attn.k_proj.bias", n),
-                "wv": _stack(sd, lp + "self_attn.v_proj.weight", n, True),
-                "bv": _stack(sd, lp + "self_attn.v_proj.bias", n),
-                "wo": _stack(sd, lp + "self_attn.out_proj.weight", n, True),
-                "bo": _stack(sd, lp + "self_attn.out_proj.bias", n),
-            },
-            "mlp": {
-                "w1": _stack(sd, lp + "mlp.fc1.weight", n, True),
-                "b1": _stack(sd, lp + "mlp.fc1.bias", n),
-                "w2": _stack(sd, lp + "mlp.fc2.weight", n, True),
-                "b2": _stack(sd, lp + "mlp.fc2.bias", n),
-            },
-        },
+        "layers": _vit_layers(sd, prefix + "encoder.layers.{i}.", cfg.n_layers),
     }
 
 
@@ -144,21 +245,7 @@ def convert_idefics(
     if "lm_head.additional_fc.weight" in sd:
         head = torch.cat([head, _t(sd["lm_head.additional_fc.weight"])])
 
-    layers = {
-        "attn": {
-            "wq": _stack(sd, lp + "self_attn.q_proj.weight", n, True),
-            "wk": _stack(sd, lp + "self_attn.k_proj.weight", n, True),
-            "wv": _stack(sd, lp + "self_attn.v_proj.weight", n, True),
-            "wo": _stack(sd, lp + "self_attn.o_proj.weight", n, True),
-        },
-        "mlp": {
-            "w_gate": _stack(sd, lp + "mlp.gate_proj.weight", n, True),
-            "w_up": _stack(sd, lp + "mlp.up_proj.weight", n, True),
-            "w_down": _stack(sd, lp + "mlp.down_proj.weight", n, True),
-        },
-        "ln1": _stack(sd, lp + "input_layernorm.weight", n),
-        "ln2": _stack(sd, lp + "post_attention_layernorm.weight", n),
-    }
+    layers = _decoder_layers(sd, lp, n)
     if "model.layers.0.self_attn.q_layer_norm.weight" in sd:
         layers["attn"]["q_norm"] = _stack(sd, lp + "self_attn.q_layer_norm.weight", n)
         layers["attn"]["k_norm"] = _stack(sd, lp + "self_attn.k_layer_norm.weight", n)

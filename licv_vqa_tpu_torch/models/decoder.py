@@ -29,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.icv_inject import icv_inject
 from ..ops.int8_matmul import qdot
@@ -70,6 +71,21 @@ def init_layer_params(
         "ln2": ones(d),
         "mlp": {"w_gate": w(d, f), "w_up": w(d, f), "w_down": w(f, d)},
     }
+
+
+def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig, device) -> dict:
+    """Embedding, stacked layers, final norm and (untied) head, as JAX's
+    ``init_decoder_params`` (decoder.py:77-88)."""
+    params = {
+        "embed": L.dense_init(generator, (cfg.vocab_size, cfg.d_model), cfg.dtype, device),
+        "layers": init_layer_params(generator, cfg, cfg.n_layers, device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(
+            generator, (cfg.d_model, cfg.vocab_size), cfg.dtype, device
+        )
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -301,3 +317,108 @@ def logits_from_hidden(cfg: DecoderConfig, params: dict, h: torch.Tensor) -> tor
     if cfg.tie_embeddings:
         return (h @ params["embed"].T).float()
     return qdot(h, params["lm_head"], preferred_element_type=torch.float32)
+
+
+def _icv_row(icv, li: int):
+    """Layer ``li``'s ICV argument: a row, a ``(row, host flag)`` pair, or
+    None."""
+    if icv is None:
+        return None
+    if isinstance(icv, tuple):
+        return icv[0][li], icv[1][li]
+    return icv[li]
+
+
+def cast_icv(icv_scaled, dtype):
+    """ICV rows in the model's compute dtype, as JAX casts the floating
+    leaves; subset-layer flags stay host bools."""
+    if icv_scaled is None:
+        return None
+    if isinstance(icv_scaled, tuple):
+        rows, flags = icv_scaled
+        return rows.to(dtype), list(flags)
+    return icv_scaled.to(dtype)
+
+
+def forward_hidden(
+    cfg: DecoderConfig,
+    params: dict,
+    inputs_embeds: torch.Tensor,  # (B, S, D)
+    attention_mask: torch.Tensor,  # (B, S) 1 = real token
+    icv_scaled=None,  # (L, D) rows, ((L, D) rows, [L] host flags), or None
+    cache: Optional[dict] = None,
+    positions: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    prefill_flash: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """The stacked decoder (JAX ``forward_hidden``, decoder.py:728-820);
+    returns ``(post-norm hidden (B, S, D), cache or None)``.
+
+    Without a cache: the causal mask from ``attention_mask``, which also
+    gates the flash branch (a self-contained block); ``remat`` checkpoints
+    each layer for the backward (``jax.checkpoint(body)``, :795-796), when
+    autograd is recording.  With one: this block's K/V are written into it
+    in place at ``cache["index"]``, and ``prefill_flash`` (the attention
+    mask) marks a prefill into an EMPTY cache, which enables the flash
+    kernel."""
+    icv = cast_icv(icv_scaled, cfg.dtype)
+    h = inputs_embeds
+    s = h.shape[1]
+    if cache is None:
+        if positions is None:
+            positions = _positions_from_mask(attention_mask)
+        mask = L.causal_mask(positions, positions, attention_mask.bool())
+        flash_valid, index = attention_mask, None
+    else:
+        if positions is None:
+            raise ValueError("positions required when decoding with a cache")
+        index = cache["index"]
+        mask, _, _ = decode_cache_view(cache, positions, attention_mask, s)
+        flash_valid = prefill_flash
+    cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    remat = remat and cache is None and torch.is_grad_enabled()
+    for li in range(cfg.n_layers):
+        p_l = L.layer_slice(params["layers"], li)
+        kv_write = None
+        if cache is not None:
+            kv_write = (L.layer_slice(cache["k"], li), L.layer_slice(cache["v"], li), index)
+
+        def layer_fn(hh, icv_arg, p_l=p_l, kv_write=kv_write):
+            return decoder_layer(
+                cfg, p_l, hh, cos, sin, mask, icv_arg, kv_write=kv_write,
+                flash_valid=flash_valid,
+            )
+
+        icv_arg = _icv_row(icv, li)
+        if remat:
+            h = checkpoint(layer_fn, h, icv_arg, use_reentrant=False)
+        else:
+            h = layer_fn(h, icv_arg)
+    if cache is not None:
+        cache["index"] = index + s
+    return _norm(cfg, params["final_norm"], h), cache
+
+
+def causal_lm_forward(
+    cfg: DecoderConfig,
+    params: dict,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    icv_scaled=None,
+    cache: Optional[dict] = None,
+    positions: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    prefill_flash: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
+):
+    """Text-only causal LM (JAX decoder.py:841-870): returns ``(logits f32
+    (B, S, V), cache)``, or the post-norm hidden in place of the logits."""
+    ids = torch.clamp(input_ids, 0, params["embed"].shape[0] - 1).long()
+    h, cache = forward_hidden(
+        cfg, params, params["embed"][ids].to(cfg.dtype), attention_mask,
+        icv_scaled=icv_scaled, cache=cache, positions=positions, remat=remat,
+        prefill_flash=prefill_flash,
+    )
+    if return_hidden:
+        return h, cache
+    return logits_from_hidden(cfg, params, h), cache

@@ -29,7 +29,9 @@ from . import layers as L
 from .config import BLOCK_OUTPUT, DecoderConfig, PerceiverConfig, VisionConfig
 from .decoder import (
     W8A8_MIN_TOKENS,
+    _icv_row,
     _positions_from_mask,
+    cast_icv,
     decode_cache_view,
     decoder_layer,
     init_kv_cache,
@@ -297,17 +299,6 @@ def precompute_xattn_kv(
 # ---------------------------------------------------------------------------
 
 
-def _cast_icv(icv_scaled, dtype):
-    """ICV rows in the model's compute dtype, as JAX casts the floating
-    leaves (idefics.py:424-434); subset-layer flags stay host bools."""
-    if icv_scaled is None:
-        return None
-    if isinstance(icv_scaled, tuple):
-        rows, flags = icv_scaled
-        return rows.to(dtype), list(flags)
-    return icv_scaled.to(dtype)
-
-
 def idefics_forward(
     cfg: IdeficsConfig,
     params: dict,
@@ -350,7 +341,7 @@ def idefics_forward(
     gate = torch.any(xmask, dim=-1).float()  # (B, s)
     xmask = xmask[:, None, :, :]  # (B, 1, s, Nk)
 
-    icv = _cast_icv(icv_scaled, t.dtype)
+    icv = cast_icv(icv_scaled, t.dtype)  # as JAX casts it (idefics.py:424-434)
     if cache is None:
         h = _grouped_train_forward(
             cfg, params, h, attention_mask, image_latents, xmask, gate, icv,
@@ -384,16 +375,6 @@ def idefics_forward(
         # continuation point
         h = h[:, -1:, :]
     return logits_from_hidden(t, params, h), cache
-
-
-def _icv_row(icv, li: int):
-    """Layer ``li``'s ICV argument: a row, a ``(row, host flag)`` pair, or
-    None."""
-    if icv is None:
-        return None
-    if isinstance(icv, tuple):
-        return icv[0][li], icv[1][li]
-    return icv[li]
 
 
 def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask, gate, icv, mode):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional
 
 import torch
@@ -234,6 +235,117 @@ def flash_attention_usable(cfg, q_len: int, head_dim: int, device: torch.device)
         and torch.device(device).type == "cuda"
         and q_len >= 256
         and head_dim == _FLASH_HEAD_DIM
+    )
+
+
+def segment_bidir_mask(valid: torch.Tensor) -> torch.Tensor:
+    """(B, 1, S, S) mask of the bidirectional flash rule: key k is visible
+    to query q iff ``valid[k] == valid[q]`` (the JAX call's segment ids,
+    real=2 and invalid=1, layers.py:261-265), with no causal bound."""
+    seg = valid.to(torch.int32)
+    return (seg[:, None, :] == seg[:, :, None])[:, None]
+
+
+def flash_attention_bidir_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of ``flash_attention_bidir``: ``dot_product_attention``
+    under the segment mask (no mask when every key is real)."""
+    mask = None if valid is None else segment_bidir_mask(valid)
+    return dot_product_attention(q, k, v, mask=mask, scale=scale)
+
+
+# the head dims the bidirectional kernel is built for: SigLIP-SO400M's
+# 1152/16 (the OpenFlamingo slice adds CLIP's 64 and 80)
+_FLASH_BIDIR_HEAD_DIMS = (72,)
+
+
+def _flash_attention_bidir_cuda(q, k, v, valid, scale) -> torch.Tensor:
+    from ..csrc import load_library
+
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        # as the causal kernel: a ctypes output has no grad_fn
+        raise RuntimeError(
+            "flash_attention_bidir: the CUDA kernel has a forward only (the "
+            "vision towers are frozen). Run under torch.no_grad(), or with "
+            "LICV_VIT_FLASH=0 for a gradient"
+        )
+    b, s, h, dh = q.shape
+    if dh not in _FLASH_BIDIR_HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention_bidir kernel supports head_dim in {_FLASH_BIDIR_HEAD_DIMS}, got {dh}"
+        )
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"flash_attention_bidir: {name} is on {x.device}, q on {q.device}")
+        _check_flash_operand(name, x, (b, s, h, dh))
+    valid_ptr = None  # every key real
+    if valid is not None:
+        if tuple(valid.shape) != (b, s):
+            raise ValueError(
+                f"flash_attention_bidir: valid has shape {tuple(valid.shape)}, want {(b, s)}"
+            )
+        valid = valid.to(device=q.device, dtype=torch.int32).contiguous()
+        valid_ptr = valid.data_ptr()
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    fn = load_library("flash_attn_bidir.cu").flash_attn_bidir_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, out.data_ptr(),
+        b, s, h, dh, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bidir_bf16 launch failed: cudaError {err}")
+    flash_attention_bidir.launches += 1
+    return out
+
+
+def flash_attention_bidir(
+    q: torch.Tensor,  # (B, S, H, Dh)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,  # (B, S) 1 = real; None = all real
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Bidirectional flash attention for the vision towers (counterpart of
+    ``flash_attention_bidir_tpu``).
+
+    CUDA tensors launch the hand-written kernel ``csrc/flash_attn_bidir.cu``
+    (bf16, head_dim 72) or raise; CPU tensors take the plain version
+    ``flash_attention_bidir_reference``.  Key k is visible to query q iff
+    ``valid[k] == valid[q]``, so real tokens never attend invalid ones and
+    every row sees itself.  Outputs at invalid positions are garbage by
+    contract, as on the TPU (every consumer masks them: the Idefics2
+    perceiver's ``kv_mask``).  They differ from JAX's there: JAX pads S to a
+    multiple of 128 with keys of the invalid segment (a Mosaic block rule,
+    layers.py:256-260), the kernel masks its ragged tail instead."""
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    if q.device.type == "cpu":
+        return flash_attention_bidir_reference(q, k, v, valid, scale)
+    return _flash_attention_bidir_cuda(q, k, v, valid, scale)
+
+
+flash_attention_bidir.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def flash_bidir_usable(s: int, device: torch.device) -> bool:
+    """Gate of the vision towers' flash branch (JAX ``flash_bidir_usable``,
+    layers.py:215-230, with a CUDA device in place of a TPU): long
+    sequences only (``s >= 1024``: every Idefics2 NaViT image), and
+    ``LICV_VIT_FLASH=0`` turns the branch off."""
+    return (
+        torch.device(device).type == "cuda"
+        and s >= 1024
+        and os.environ.get("LICV_VIT_FLASH", "1") != "0"
     )
 
 

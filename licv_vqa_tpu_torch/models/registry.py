@@ -1,11 +1,12 @@
 """Model registry: config group ``lmm`` → a runnable model bundle
-(counterpart of ``licv_vqa_tpu/models/registry.py``, Idefics part).
+(counterpart of ``licv_vqa_tpu/models/registry.py``, Idefics and Idefics2
+parts).
 
 Weight resolution is the JAX package's: HF ``*.safetensors`` shards (or
 ``pytorch_model*.bin``) under ``{model_cpk_dir}/{model_name}``, converted by
-``convert.convert_idefics``; when absent, parameters are randomly
-initialised on the device with a loud warning, and the tokenizer falls back
-to ``WhitespaceTokenizer``.
+``convert.convert_idefics`` / ``convert.convert_idefics2``; when absent,
+parameters are randomly initialised on the device with a loud warning, and
+the tokenizer falls back to ``WhitespaceTokenizer``.
 """
 
 from __future__ import annotations
@@ -16,14 +17,22 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..data.processor import CLIP_MEAN, CLIP_STD, ImageTransform, PromptProcessor
+from ..data.processor import (
+    CLIP_MEAN,
+    CLIP_STD,
+    SIGLIP_MEAN,
+    SIGLIP_STD,
+    ImageTransform,
+    PromptProcessor,
+)
 from ..data.tokenizer import WhitespaceTokenizer, load_hf_tokenizer
 from ..utils.config import InterpolationError
 from ..ops.quantize import quantize_array, quantize_layer_stack
 from ..utils.log import get_logger
-from .convert import convert_idefics
+from .convert import convert_idefics, convert_idefics2
 from .decoder import logits_from_hidden
 from .idefics import IdeficsConfig, init_idefics_params, make_idefics_forward_fns
+from .idefics2 import Idefics2Config, init_idefics2_params, make_idefics2_forward_fns
 
 logger = get_logger("models")
 
@@ -36,7 +45,9 @@ class ModelBundle:
     tokenizer: Any
     processor: PromptProcessor
     train_forward: Callable  # (params, inputs, icv_scaled, return_hidden=False) -> logits
-    bind_decode: Callable  # (params, pixels, valid, prompt_ids, icv, max_len) -> fwd_fn
+    # (params, pixels, valid, prompt_ids, icv, max_len, **kw) -> fwd_fn; kw:
+    # Idefics2's NaViT ``pixel_attention_mask``
+    bind_decode: Callable
     hidden_size: int
     n_layers: int  # ICV rows the checkpoint carries (K for subset layers)
     device: torch.device
@@ -71,8 +82,8 @@ def _wrap_pixel_normalize(train_forward, bind_decode, mean, std):
         inputs = dict(inputs, pixel_values=norm(inputs["pixel_values"]))
         return train_forward(model_params, inputs, icv_scaled, **kw)
 
-    def bd(model_params, pixels, valid, ids, icv_scaled, max_len):
-        return bind_decode(model_params, norm(pixels), valid, ids, icv_scaled, max_len)
+    def bd(model_params, pixels, valid, ids, icv_scaled, max_len, **kw):
+        return bind_decode(model_params, norm(pixels), valid, ids, icv_scaled, max_len, **kw)
 
     return tf, bd
 
@@ -104,10 +115,10 @@ def _wrap_intervention(cfg, n_layers: int, train_forward, bind_decode):
             model_params, inputs, expand_icv_to_layers(icv_scaled, layers, n_layers), **kw
         )
 
-    def bd(model_params, pixels, valid, ids, icv_scaled, max_len):
+    def bd(model_params, pixels, valid, ids, icv_scaled, max_len, **kw):
         return bind_decode(
             model_params, pixels, valid, ids,
-            expand_icv_to_layers(icv_scaled, layers, n_layers), max_len,
+            expand_icv_to_layers(icv_scaled, layers, n_layers), max_len, **kw,
         )
 
     return tf, bd, len(layers), layers
@@ -142,43 +153,72 @@ def _resolve_tokenizer(model_dir: Optional[Path]):
     return WhitespaceTokenizer()
 
 
-def _idefics_bundle(cfg, model_cfg: IdeficsConfig, name: str, device) -> ModelBundle:
-    model_dir = None
+def _model_dir(cfg) -> Optional[Path]:
     if cfg is not None and "model_cpk_dir" in cfg:
         try:
-            model_dir = Path(str(cfg.model_cpk_dir)) / str(cfg.lmm.model_name)
+            return Path(str(cfg.model_cpk_dir)) / str(cfg.lmm.model_name)
         except InterpolationError:  # MODEL_CPK_DIR unset: no weights to find
-            model_dir = None
+            return None
+    return None
 
+
+def _family_bundle(cfg, model_cfg, name: str, device) -> ModelBundle:
+    """Idefics (``IdeficsConfig``) or Idefics2 (``Idefics2Config``): the
+    weights, tokenizer and processor, and the wrapped forwards (JAX
+    ``_idefics_bundle`` :172 and ``_idefics2_bundle`` :233)."""
+    idefics2 = isinstance(model_cfg, Idefics2Config)
+    family = "idefics2" if idefics2 else "idefics"
+    model_dir = _model_dir(cfg)
     sd = _load_hf_weights(model_dir) if model_dir and model_dir.exists() else None
     if sd is not None:
-        params = convert_idefics(sd, model_cfg, device=device)
-        logger.info("loaded idefics weights from %s", model_dir)
+        convert = convert_idefics2 if idefics2 else convert_idefics
+        params = convert(sd, model_cfg, device=device)
+        logger.info("loaded %s weights from %s", family, model_dir)
     else:
         logger.warning(
-            "idefics weights not found under %s — RANDOM INIT (%s)",
-            model_dir, model_cfg.text.dtype,
+            "%s weights not found under %s — RANDOM INIT (%s)",
+            family, model_dir, model_cfg.text.dtype,
         )
         gen = torch.Generator(device=device).manual_seed(0)
-        params = init_idefics_params(gen, model_cfg, device)
+        init = init_idefics2_params if idefics2 else init_idefics_params
+        params = init(gen, model_cfg, device)
 
     tokenizer = _resolve_tokenizer(model_dir)
     # keep the processor's image token in sync with the model config
     tok_img = tokenizer.token_id("<image>")
     if tok_img is not None and tok_img >= 0 and sd is not None:
         model_cfg = dataclasses.replace(model_cfg, image_token_id=tok_img)
-    processor = PromptProcessor(
-        tokenizer,
-        ImageTransform(model_cfg.vision.image_size, CLIP_MEAN, CLIP_STD),
-        family="idefics",
-        max_length=_max_length(cfg, default=2048),  # LLaMA-7B context
-    )
+    if idefics2:
+        # full-width towers take NaViT variable resolution (an aspect-
+        # preserving resize into [378, 980] and a pixel_attention_mask, the
+        # HF processor's defaults); the tiny configs keep fixed squares
+        processor = PromptProcessor(
+            tokenizer,
+            ImageTransform(
+                model_cfg.vision.image_size, SIGLIP_MEAN, SIGLIP_STD,
+                variable_resolution=model_cfg.vision.image_size >= 378,
+            ),
+            family="idefics2",
+            image_seq_len=model_cfg.image_seq_len,
+            # Mistral-7B's long context: 64 inline tokens an image put a
+            # 32-shot teacher view at thousands of tokens
+            max_length=_max_length(cfg, default=8192),
+        )
+        mean, std, make_fns = SIGLIP_MEAN, SIGLIP_STD, make_idefics2_forward_fns
+    else:
+        processor = PromptProcessor(
+            tokenizer,
+            ImageTransform(model_cfg.vision.image_size, CLIP_MEAN, CLIP_STD),
+            family="idefics",
+            max_length=_max_length(cfg, default=2048),  # LLaMA-7B context
+        )
+        mean, std, make_fns = CLIP_MEAN, CLIP_STD, make_idefics_forward_fns
     # make the whitespace-tokenizer smoke path self-consistent
     if isinstance(tokenizer, WhitespaceTokenizer):
         model_cfg = dataclasses.replace(model_cfg, image_token_id=processor.image_token_id)
 
-    train_fwd, bind = make_idefics_forward_fns(model_cfg, tokenizer.eos_token_id)
-    train_fwd, bind = _wrap_pixel_normalize(train_fwd, bind, CLIP_MEAN, CLIP_STD)
+    train_fwd, bind = make_fns(model_cfg, tokenizer.eos_token_id)
+    train_fwd, bind = _wrap_pixel_normalize(train_fwd, bind, mean, std)
     train_fwd, bind, n_icv_layers, icv_layer_ids = _wrap_intervention(
         cfg, model_cfg.text.n_layers, train_fwd, bind
     )
@@ -198,17 +238,18 @@ def _idefics_bundle(cfg, model_cfg: IdeficsConfig, name: str, device) -> ModelBu
     )
 
 
-def _apply_lmm_options(cfg, model_cfg: IdeficsConfig) -> IdeficsConfig:
+def _apply_lmm_options(cfg, model_cfg):
     """Honor ``lmm.attention_impl`` (xla|flash), ``lmm.remat_mode``
-    (both|inner|outer; policy raises in the train forward), ``lmm.kv_cache``
+    (both|inner|outer; policy raises in the train forward; only configs
+    that have the field, as JAX does: Idefics2's has none), ``lmm.kv_cache``
     (bf16|int8) and ``lmm.w8a8_prefill`` on the model config (JAX
-    ``_apply_attention_impl``, registry.py:446-475)."""
+    ``_apply_attention_impl``, registry.py:446-487)."""
     impl = cfg.lmm.get("attention_impl")
     text = model_cfg.text
     if impl in ("xla", "flash"):
         text = dataclasses.replace(text, attention_impl=impl)
     rm = cfg.lmm.get("remat_mode")
-    if rm is not None:
+    if rm is not None and hasattr(model_cfg, "remat_mode"):
         model_cfg = dataclasses.replace(model_cfg, remat_mode=str(rm))
     kvc = cfg.lmm.get("kv_cache")
     if kvc is not None:
@@ -221,11 +262,13 @@ def _apply_lmm_options(cfg, model_cfg: IdeficsConfig) -> IdeficsConfig:
 
 def _maybe_quantize(cfg, bundle: ModelBundle) -> ModelBundle:
     """``lmm.quantize=int8|int4``: weight-only quantization of the decoder
-    and cross-attention stacks, on the device the params live on (JAX
-    registry.py:372-443).  ``lmm.quantize_head`` makes the (D, V) head int8
-    whatever the stack mode (tied embeddings keep the table);
-    ``lmm.quantize_vision`` makes the vision tower and the perceiver int8.
-    Embeddings, norms, biases and latents stay as they are."""
+    and (where the family has them) cross-attention stacks, on the device
+    the params live on (JAX registry.py:372-443).  ``lmm.quantize_head``
+    makes the (D, V) head int8 whatever the stack mode (tied embeddings keep
+    the table); ``lmm.quantize_vision`` makes the vision tower, the
+    perceiver (Idefics' ``blocks``, Idefics2's ``layers``) and Idefics2's
+    connector int8.  Embeddings, norms, biases and latents stay as they
+    are."""
     q = str(cfg.lmm.get("quantize", "none"))
     if q == "none":
         return bundle
@@ -233,7 +276,8 @@ def _maybe_quantize(cfg, bundle: ModelBundle) -> ModelBundle:
         raise ValueError(f"lmm.quantize must be none|int8|int4, got {q!r}")
     p = bundle.params
     p["layers"] = quantize_layer_stack(p["layers"], mode=q)
-    p["xattn"] = quantize_layer_stack(p["xattn"], mode=q)
+    if "xattn" in p:
+        p["xattn"] = quantize_layer_stack(p["xattn"], mode=q)
     logger.info("%s weight-only quantization applied to decoder stacks", q)
     if bool(cfg.lmm.get("quantize_head", False)):
         if bundle.model_cfg.text.tie_embeddings:
@@ -244,8 +288,14 @@ def _maybe_quantize(cfg, bundle: ModelBundle) -> ModelBundle:
             logger.info("int8 weight-only quantization applied to lm_head")
     if bool(cfg.lmm.get("quantize_vision", False)):
         p["vision"]["layers"] = quantize_layer_stack(p["vision"]["layers"])
-        p["perceiver"]["blocks"] = quantize_layer_stack(p["perceiver"]["blocks"])
-        logger.info("int8 weight-only quantization applied to vision tower (+perceiver)")
+        per = p.get("perceiver", {})
+        for key in ("blocks", "layers"):  # Idefics / Idefics2
+            if key in per:
+                per[key] = quantize_layer_stack(per[key])
+        if "connector" in p:
+            p["connector"] = quantize_layer_stack(p["connector"])
+        logger.info("int8 weight-only quantization applied to vision tower "
+                    "(+perceiver/connector)")
     return bundle
 
 
@@ -256,11 +306,10 @@ def build_model(cfg, device="cuda") -> ModelBundle:
         model_cfg = IdeficsConfig.idefics_9b()
     elif name == "tiny-idefics":
         model_cfg = IdeficsConfig.tiny(dtype=torch.float32)
-    elif name in ("idefics2-8b-base", "tiny-idefics2"):
-        raise NotImplementedError(
-            f"lmm {name} is not ported to licv_vqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 10 (Idefics2))"
-        )
+    elif name == "idefics2-8b-base":
+        model_cfg = Idefics2Config.idefics2_8b()
+    elif name == "tiny-idefics2":
+        model_cfg = Idefics2Config.tiny(dtype=torch.float32)
     elif "flamingo" in name.lower():
         raise NotImplementedError(
             f"lmm {name} is not ported to licv_vqa_tpu_torch yet "
@@ -268,5 +317,5 @@ def build_model(cfg, device="cuda") -> ModelBundle:
         )
     else:
         raise ValueError(f"unknown lmm name: {name}")
-    bundle = _idefics_bundle(cfg, _apply_lmm_options(cfg, model_cfg), name, device)
+    bundle = _family_bundle(cfg, _apply_lmm_options(cfg, model_cfg), name, device)
     return _maybe_quantize(cfg, bundle)

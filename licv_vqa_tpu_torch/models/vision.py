@@ -1,13 +1,21 @@
-"""CLIP-style ViT vision tower, Idefics-9B's OpenCLIP ViT-H/14
-(counterpart of ``licv_vqa_tpu/models/vision.py``).
+"""ViT vision towers (counterpart of ``licv_vqa_tpu/models/vision.py``):
+Idefics-9B's OpenCLIP ViT-H/14 and Idefics2's SigLIP-SO400M with NaViT
+variable resolution.
 
 Patchify is a reshape plus one matmul (a stride == kernel convolution is
 exactly that).  Pre-LN encoder, biased projections, GELU MLP, as HF
-``IdeficsVisionTransformer``.  Returns ``last_hidden_state`` (no post
-layernorm), which the perceiver consumes.  Attention is the plain
-``dot_product_attention`` (JAX's default branch at ViT-H's s=257); the
-NaViT tower and the opt-in ``vit_attention`` / ``flash_bidir`` kernels are
-not ported here (ROADMAP Queue 2).
+``IdeficsVisionTransformer`` / ``Idefics2VisionTransformer``.  CLIP towers
+prepend a class token and add learned positions; SigLIP towers have a
+biased patch conv, no class token, NaViT bucketized position ids and a
+patch mask for batch-padded images, and a post-layernorm.
+
+Attention: sequences of at least 1024 patches on the card (every Idefics2
+image) take the bidirectional flash kernel (``layers.flash_attention_bidir``,
+``csrc/flash_attn_bidir.cu``), as JAX takes its Pallas kernel; the rest take
+the plain ``dot_product_attention`` with the key mask (JAX's default
+branch, ViT-H's s=257).  JAX's opt-in fused short-sequence kernel
+(``LICV_VIT_FUSED_ATTN=1``, CLIP towers only) is not ported yet (ROADMAP
+Queue 2, the OpenFlamingo slice).
 """
 
 from __future__ import annotations
@@ -58,7 +66,10 @@ def init_vision_params(generator: torch.Generator, cfg: VisionConfig, device) ->
     }
     if cfg.use_pre_norm:
         params["pre_ln"] = ln()
-    params["class_embed"] = w(d)
+    if cfg.use_class_token:
+        params["class_embed"] = w(d)
+    if cfg.patch_bias:
+        params["patch_bias"] = zeros(d)
     return params
 
 
@@ -72,7 +83,11 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def _vit_layer(cfg: VisionConfig, p: dict, h: torch.Tensor, a8: bool = False) -> torch.Tensor:
+def _vit_layer(
+    cfg: VisionConfig, p: dict, h: torch.Tensor, mask=None, valid=None, a8: bool = False
+) -> torch.Tensor:
+    """``mask``: (B, 1, 1, S) key mask of the plain branch; ``valid``: the
+    same patch validity (B, S) for the flash kernel's segment rule."""
     b, s, d = h.shape
     nh, dh = cfg.n_heads, d // cfg.n_heads
     x = L.layer_norm(p["ln1"]["w"], p["ln1"]["b"], h, cfg.norm_eps)
@@ -80,7 +95,14 @@ def _vit_layer(cfg: VisionConfig, p: dict, h: torch.Tensor, a8: bool = False) ->
     q = (qdot(x, a["wq"], a8=a8) + a["bq"]).reshape(b, s, nh, dh)
     k = (qdot(x, a["wk"], a8=a8) + a["bk"]).reshape(b, s, nh, dh)
     v = (qdot(x, a["wv"], a8=a8) + a["bv"]).reshape(b, s, nh, dh)
-    attn = L.dot_product_attention(q, k, v)
+    if L.flash_bidir_usable(s, h.device):
+        # never builds the (B, H, S, S) f32 scores (7.8 GB a layer for a
+        # 32-shot prompt's 33 images of 1920 patches); invalid rows differ
+        # from the plain branch's and are consumed by nothing (the
+        # perceiver's kv_mask drops them)
+        attn = L.flash_attention_bidir(q, k, v, valid=valid)
+    else:
+        attn = L.dot_product_attention(q, k, v, mask=mask)
     h = h + (qdot(attn.reshape(b, s, d), a["wo"], a8=a8) + a["bo"]).to(h.dtype)
 
     x2 = L.layer_norm(p["ln2"]["w"], p["ln2"]["b"], h, cfg.norm_eps)
@@ -94,22 +116,72 @@ def _vit_layer(cfg: VisionConfig, p: dict, h: torch.Tensor, a8: bool = False) ->
     return h + (qdot(z, m["w2"], a8=a8) + m["b2"]).to(h.dtype)
 
 
-def vision_forward(
-    cfg: VisionConfig, params: dict, pixels: torch.Tensor, a8: bool = False
+def navit_position_ids(
+    grid_h: int, grid_w: int, table_side: int, patch_mask: torch.Tensor
 ) -> torch.Tensor:
-    """(B, H, W, 3) float → last_hidden_state (B, N, D).  ``a8``: w8a8 for
-    int8-quantized layers, gated on the token count as in JAX."""
+    """NaViT bucketized position ids (HF ``Idefics2VisionEmbeddings``): each
+    image fills the top-left ``nb_h × nb_w`` rectangle of the padded grid,
+    and its patches map to the fixed ``table_side²``-entry table by
+    bucketizing fractional coordinates.  ``patch_mask``: (B, gh, gw) bool.
+    Returns (B, gh·gw) int64; invalid patches get 0 (they are masked out of
+    attention).  The f32 arithmetic is JAX's (vision.py:129-157), so the
+    buckets agree at exact boundaries too."""
+    dev = patch_mask.device
+    nb_h = patch_mask[:, :, 0].to(torch.int32).sum(dim=1)  # (B,)
+    nb_w = patch_mask[:, 0, :].to(torch.int32).sum(dim=1)
+    eps = torch.tensor(1.0 - 1e-6, dtype=torch.float32)
+
+    def frac(n: int, nb: torch.Tensor) -> torch.Tensor:
+        ar = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
+        return ar / torch.clamp(nb, min=1)[:, None].to(torch.float32) * eps.to(dev)
+
+    # torch.bucketize(v, arange(1/S, 1, 1/S), right=True) == floor(v·S)
+    bh = torch.clamp(torch.floor(frac(grid_h, nb_h) * table_side).long(), 0, table_side - 1)
+    bw = torch.clamp(torch.floor(frac(grid_w, nb_w) * table_side).long(), 0, table_side - 1)
+    pos = (bh[:, :, None] * table_side + bw[:, None, :]).reshape(patch_mask.shape[0], -1)
+    return torch.where(patch_mask.reshape(patch_mask.shape[0], -1), pos, torch.zeros_like(pos))
+
+
+def vision_forward(
+    cfg: VisionConfig,
+    params: dict,
+    pixels: torch.Tensor,
+    patch_mask: torch.Tensor = None,  # (B, gh, gw) bool, NaViT variable resolution
+    a8: bool = False,
+) -> torch.Tensor:
+    """(B, H, W, 3) float → last_hidden_state (B, N, D).
+
+    SigLIP-family towers (no class token) take NaViT position ids, so H×W
+    may differ from ``cfg.image_size`` (the position table's reference
+    size, 980 for Idefics2).  ``patch_mask`` marks the valid patches of
+    batch-padded images; the others are masked out of attention as keys.
+    ``a8``: w8a8 for int8-quantized layers, gated on the token count as in
+    JAX."""
+    b, hh, ww, _ = pixels.shape
     x = patchify(pixels.to(cfg.dtype), cfg.patch_size)
     h = x @ params["patch_embed"]
-    cls = params["class_embed"][None, None, :].expand(h.shape[0], 1, h.shape[-1])
-    h = torch.cat([cls, h], dim=1)
-    h = h + params["pos_embed"][None, : h.shape[1], :]
+    if "patch_bias" in params:
+        h = h + params["patch_bias"]
+    mask = valid = None
+    if cfg.use_class_token:
+        cls = params["class_embed"][None, None, :].expand(h.shape[0], 1, h.shape[-1])
+        h = torch.cat([cls, h], dim=1)
+        h = h + params["pos_embed"][None, : h.shape[1], :]
+    else:
+        gh, gw = hh // cfg.patch_size, ww // cfg.patch_size
+        if patch_mask is None:
+            patch_mask = torch.ones((b, gh, gw), dtype=torch.bool, device=h.device)
+        patch_mask = patch_mask.bool()
+        pos_ids = navit_position_ids(gh, gw, cfg.image_size // cfg.patch_size, patch_mask)
+        h = h + params["pos_embed"][pos_ids]
+        valid = patch_mask.reshape(b, -1)
+        mask = valid[:, None, None, :]  # mask the keys of padded patches
     if cfg.use_pre_norm:
         h = L.layer_norm(params["pre_ln"]["w"], params["pre_ln"]["b"], h, cfg.norm_eps)
     a8 = a8 and h.shape[1] >= W8A8_MIN_TOKENS
     layers = params["layers"]
     for i in range(cfg.n_layers):
-        h = _vit_layer(cfg, L.layer_slice(layers, i), h, a8=a8)
+        h = _vit_layer(cfg, L.layer_slice(layers, i), h, mask=mask, valid=valid, a8=a8)
     if cfg.use_post_norm:
         h = L.layer_norm(params["post_ln"]["w"], params["post_ln"]["b"], h, cfg.norm_eps)
     return h

@@ -4,6 +4,8 @@ Needs an NVIDIA GPU (nvcc for the CUDA library, triton for the Triton
 kernels); skipped without one.  Run on the H100 with
 ``python -m pytest tests/test_torch_kernels.py -o addopts="" -m cuda``
 (``-o addopts=""`` drops the repository's xdist defaults).
+The bidirectional flash kernel is held at ``chip_smoke.py`` phase 3's
+shapes (the SigLIP tower's H=16, Dh=72) and at a ragged one.
 Tolerance: f32 math on both sides, so the two differ by output rounding
 (bf16 outputs) and summation order.  The limit scales with the output:
 max-abs error ≤ 2e-2 · max|plain| for bf16 outputs (one bf16 ulp is at most
@@ -115,6 +117,61 @@ def test_flash_kernel_refuses_inputs_that_require_grad(dev):
         PL.flash_attention(x, x, x, valid)
     with torch.no_grad():  # the teacher's case
         assert torch.isfinite(PL.flash_attention(x, x, x, valid)).all()
+
+
+def _navit_valid(b, s, grids, dev, grid_w):
+    """(B, S) patch validity: image i fills the top-left rows x cols of a
+    padded (S / grid_w) x grid_w grid (grids cycled)."""
+    valid = torch.ones((b, s), dtype=torch.int32, device=dev)
+    for i in range(b):
+        rows, cols = grids[i % len(grids)]
+        grid = torch.zeros((s // grid_w, grid_w), dtype=torch.int32, device=dev)
+        grid[:rows, :cols] = 1
+        valid[i] = grid.reshape(-1)
+    return valid
+
+
+@pytest.mark.parametrize("b,s,grids,grid_w", [
+    # chip_smoke.py phase 3's shapes: one 980x980 image; one 640x480 image
+    # padded to 672x560; a 32-shot prompt's 33 images
+    (1, 4900, None, None), (1, 1920, ((34, 45),), 48),
+    (33, 1920, ((34, 45), (30, 45), (27, 35)), 48),
+    # a ragged tail (S not a multiple of the 64-key tile), and no mask
+    (2, 1100, ((20, 30), (15, 55)), 55), (3, 1000, None, None),
+])
+def test_flash_bidir_kernel_matches_plain(dev, b, s, grids, grid_w):
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (
+        torch.randn((b, s, 16, 72), generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(3)
+    )
+    valid = None if grids is None else _navit_valid(b, s, grids, dev, grid_w)
+    before = PL.flash_attention_bidir.launches
+    got = PL.flash_attention_bidir(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert PL.flash_attention_bidir.launches == before + 1
+    want = PL.flash_attention_bidir_reference(q, k, v, valid)
+    assert torch.isfinite(got).all()  # invalid rows too: each sees itself
+    _assert_close(got, want)
+
+
+def test_flash_bidir_kernel_takes_strided_views(dev):
+    """q/k/v as views into one fused (B, S, 3, H, Dh) buffer, no copies."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    qkv = torch.randn((2, 1024, 3, 16, 72), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    valid = _navit_valid(2, 1024, ((10, 30),), dev, grid_w=32)
+    _assert_close(PL.flash_attention_bidir(q, k, v, valid),
+                  PL.flash_attention_bidir_reference(q, k, v, valid))
+
+
+def test_flash_bidir_kernel_rejects_other_head_dims_and_grad(dev):
+    x = torch.zeros((1, 1024, 16, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        PL.flash_attention_bidir(x, x, x)
+    y = torch.zeros((1, 1024, 16, 72), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        PL.flash_attention_bidir(y, y, y)
 
 
 @pytest.mark.parametrize("shape,layout", [

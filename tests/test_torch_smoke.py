@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s checks as written, read on the CPU: the work each
 kernel case's bound counts, the limit each case is held to, the device-busy
-union the training profile reports, and the kernel lines that
+union the training profile reports, the launch counts phases 6 and 7
+predict (rehearsed at tiny size), and the kernel lines that
 ``tools/mutation_check_torch_kernels.py`` breaks (so a change to a kernel
 cannot silently leave the mutation check with nothing to break)."""
 
@@ -60,6 +61,43 @@ def test_each_case_is_held_to_its_outputs_limit(cases):
         assert c.tol == (C.F32_REL_TOL if f32 else C.REL_TOL), (name, label)
     assert C.F32_REL_TOL < C.REL_TOL
     assert {name for name, _ in cases} == set(C.MAIN_SHAPE)
+
+
+def test_bidir_cases_cover_phase_7_and_bound_the_visible_pairs(cases):
+    """The tower's three shapes; bytes: q, k, v read and the output written
+    (bf16) and the int32 validity; operations: QK^T and PV over the pairs
+    the segment rule leaves visible, bound by operations at these sizes."""
+    labels = {label for name, label in cases if name == "flash_attention_bidir"}
+    assert labels == {
+        "(1,4900,16,72) all valid",
+        "(1,1920,16,72) valid 34x45 of 40x48",
+        "(33,1920,16,72) valid 34x45,30x45,27x35 of 40x48",
+    }
+    c = cases["flash_attention_bidir", "(1,1920,16,72) valid 34x45 of 40x48"]
+    n = 1920 * 16 * 72
+    assert c.bytes_moved == 4 * n * 2 + 1920 * 4
+    assert c.ops == 4 * 16 * 72 * (1530 ** 2 + 390 ** 2)
+    full = cases["flash_attention_bidir", "(1,4900,16,72) all valid"]
+    assert full.ops == 4 * 16 * 72 * 4900 ** 2
+    for case in (c, full):
+        ms, by = case.bound()
+        assert by == "operations" and ms == pytest.approx(case.ops / 989e12 * 1e3)
+
+
+def test_idefics2_launch_prediction_at_full_width():
+    """Per bs=1 question at Idefics2-8B width on the card: the tower's
+    kernel at its 27 layers (a 640x480 image is 40x48 = 1920 patches); the
+    causal kernel at the 32 layers of a prefill of >= 256 tokens only; the
+    ICV at the 32 layers of each of the 5 forwards."""
+    from licv_vqa_tpu_torch.models.idefics2 import Idefics2Config
+
+    mc, cuda = Idefics2Config.idefics2_8b(), torch.device("cuda")
+    icv = C.predicted_idefics2_launches(mc, 128, 1920, True, cuda)
+    assert icv == {"flash_attention_bidir": 27, "flash_attention_fwd": 0, "icv_inject": 160}
+    icl = C.predicted_idefics2_launches(mc, 2752, 1920, False, cuda)
+    assert icl == {"flash_attention_bidir": 27, "flash_attention_fwd": 32, "icv_inject": 0}
+    assert C.predicted_idefics2_launches(mc, 2752, 1920, False, torch.device("cpu")) == dict.fromkeys(
+        icl, 0)
 
 
 def test_busy_ms_is_the_union_of_device_intervals():
@@ -122,6 +160,51 @@ def test_quantized_launch_prediction_at_full_width():
     assert got == {"int8_matmul": 0, "int4_matmul": step + 4 * step + 2 * 8}
 
 
+def _counting(fn):
+    def wrapper(*a, **k):
+        wrapper.launches += 1
+        return fn(*a, **k)
+    wrapper.launches = 0
+    return wrapper
+
+
+def _stub_cuda(monkeypatch, tmp_path):
+    for name in ("synchronize", "reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    for key in ("RESULT_DIR", "MODEL_CPK_DIR", "VQAV2_PATH", "COCO_PATH", "OKVQA_PATH"):
+        monkeypatch.setenv(key, str(tmp_path))  # restored after; the phase sets its own
+    monkeypatch.setattr(C, "N_ICV_Q", 2)
+    monkeypatch.setattr(C, "N_ICL_Q", 1)
+    monkeypatch.chdir(REPO)
+
+
+def test_idefics2_phase_counts_match_prediction_on_tiny_idefics2(tmp_path, monkeypatch):
+    """Phase 7 on the CPU at tiny size: the two flash gates take the CPU
+    (the tower's at any length, the causal one at >= 256 tokens, as on the
+    card), the wrappers are counted where the model calls them, and every
+    path's counts equal ``predicted_idefics2_launches`` (the phase checks it
+    and raises): the tower's kernel in each bind, the causal one in the
+    32-shot prefills, the ICV in every test_icv forward."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.models import layers as PL
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    for mod, name in ((PL, "flash_attention_bidir"), (PL, "flash_attention"),
+                      (iv, "icv_inject")):
+        monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
+    monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
+    monkeypatch.setattr(PL, "flash_bidir_usable", lambda s, device: True)
+    monkeypatch.setattr(PL, "flash_attention_usable", lambda cfg, s, dh, device: s >= 256)
+    _stub_cuda(monkeypatch, tmp_path)
+    got = C.idefics2_path(torch.device("cpu"), tmp_path / "idefics2", lmm="tiny-idefics2")
+    # 2 test_icv and 1 test_icl questions: a bind each, 2 vision layers,
+    # 4 decoder layers, 5 forwards a question
+    assert got == {"flash_attention_bidir": 2 * 3, "flash_attention_fwd": 4 * 1,
+                   "icv_inject": 4 * 2 * C.MAX_NEW}
+
+
 def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypatch):
     """Phase 6 on the CPU at tiny size, with the kernel wrappers counted
     where ``qdot`` calls them: every run's counts equal
@@ -134,23 +217,10 @@ def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monke
 
     iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
 
-    def counting(fn):
-        def wrapper(*a, **k):
-            wrapper.launches += 1
-            return fn(*a, **k)
-        wrapper.launches = 0
-        return wrapper
-
     for mod, name in ((I8, "int8_matmul"), (I4, "int4_matmul"), (iv, "icv_inject")):
-        monkeypatch.setattr(mod, name, counting(getattr(mod, name)))
+        monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
     monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
-    for name in ("synchronize", "reset_peak_memory_stats", "max_memory_allocated"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
-    for key in ("RESULT_DIR", "MODEL_CPK_DIR", "VQAV2_PATH", "COCO_PATH", "OKVQA_PATH"):
-        monkeypatch.setenv(key, str(tmp_path))  # restored after; the phase sets its own
-    monkeypatch.setattr(C, "N_ICV_Q", 2)
-    monkeypatch.setattr(C, "N_ICL_Q", 1)
-    monkeypatch.chdir(REPO)
+    _stub_cuda(monkeypatch, tmp_path)
     for mode, opts, paths in C.QUANT_RUNS:
         got = C.quantized_path(torch.device("cpu"), tmp_path / mode, mode, opts, paths,
                                lmm="tiny-idefics")

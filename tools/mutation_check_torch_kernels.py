@@ -27,6 +27,8 @@ ICV = "licv_vqa_tpu_torch/ops/icv_inject.py"
 KL = "licv_vqa_tpu_torch/ops/masked_kl_kernel.py"
 INT8 = "licv_vqa_tpu_torch/csrc/int8_matmul.cu"
 INT4 = "licv_vqa_tpu_torch/csrc/int4_matmul.cu"
+BIDIR = "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu"
+BIDIR_LINE = "        sc[j] = seg_s[c0 + j] == seg_q ? sc[j] : -INFINITY;\n"
 KL_CASES = ("masked_kl_fwd", "masked_kl_bwd")
 # name: (file, the kernel's line, its broken form, the cases that read it,
 # run the gradient check)
@@ -49,6 +51,15 @@ MUTATIONS = {
     "int4_low_nibble_unbiased": (
         INT4, "  static constexpr float kLoMagic = 8388616.f;\n",
         "  static constexpr float kLoMagic = 8388608.f;\n", ("int4_matmul",), False),
+    # every key inside S visible (the tail past S stays masked): reads only
+    # where a patch mask is (the all-valid case is unchanged)
+    "bidir_no_segment_rule": (
+        BIDIR, BIDIR_LINE, "        sc[j] = seg_s[c0 + j] >= 0 ? sc[j] : -INFINITY;\n",
+        ("flash_attention_bidir",), False),
+    "bidir_causal_bound_left_in": (
+        BIDIR, BIDIR_LINE,
+        "        sc[j] = seg_s[c0 + j] == seg_q && k0 + c0 + j <= qi ? sc[j] : -INFINITY;\n",
+        ("flash_attention_bidir",), False),
 }
 PROBE = """
 import sys, torch, chip_smoke as C
