@@ -184,33 +184,97 @@ def time_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def device_ms(fn, calls: int) -> float:
-    """Device time per call of ``fn``: the sum of the device-kernel
-    intervals ``torch.profiler`` records over ``calls`` calls, divided by
-    ``calls``.  Host launch gaps between kernels are not counted.  A
-    profiling session now and then records no device activity at all; it
-    is repeated, up to three sessions."""
+_profiler_works = True  # cleared once torch.profiler records no device activity
+
+
+def device_events(fn):
+    """``(wall_ms, events)`` of one call of ``fn`` under ``torch.profiler``:
+    the device-kernel events, or None where three sessions recorded no
+    device activity (it happens now and then, and on some machines always).
+    After such a failure the run stops asking the profiler."""
+    global _profiler_works
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    for attempt in range(3 if _profiler_works else 0):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return wall, events
+        log(f"  torch.profiler recorded no device activity (session {attempt + 1} of 3)")
+    if _profiler_works:
+        log("  torch.profiler is not used for the rest of the run; device times come "
+            "from CUDA events around work queued behind a spin kernel")
+    _profiler_works = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(
-            e.time_range.end - e.time_range.start
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-        )
-        if us > 0:
-            break
-        log(f"  torch.profiler recorded no device time (session {attempt + 1} of 3)")
-    else:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / calls / 1e3
+    return (time.perf_counter() - t0) * 1e3, None
+
+
+_spin_cycles_per_ms = None
+
+
+def queued_ms(fn, calls: int, reps: int = 3) -> float:
+    """Device time per call of ``fn`` from CUDA events around ``calls``
+    calls that the host queues behind a spin kernel (``torch.cuda._sleep``)
+    long enough for it to enqueue them all: the interval holds the device's
+    work and the gaps between its kernels, not the host's launch cost.
+    Median over ``reps``."""
+    global _spin_cycles_per_ms
+    import torch
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    if _spin_cycles_per_ms is None:
+        start, end = events()
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _spin_cycles_per_ms = 10_000_000 / start.elapsed_time(end)
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        start, end = events()
+        torch.cuda._sleep(int(_spin_cycles_per_ms * (2 * host_ms + 1)))
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[len(times) // 2]
+
+
+def device_times(fns, calls: int) -> tuple[list, str]:
+    """Device time per call of each of ``fns`` and how it was taken: the
+    sum of the device-kernel intervals ``torch.profiler`` records over
+    ``calls`` calls, divided by ``calls`` (host launch gaps between kernels
+    not counted), or, where the profiler records nothing for one of them,
+    ``queued_ms`` for all of them, so that they stay comparable."""
+    times = []
+    for fn in fns:
+        fn()
+        _, events = (device_events(lambda: [fn() for _ in range(calls)])
+                     if _profiler_works else (None, None))
+        if events is None:
+            return [queued_ms(f, calls) for f in fns], "events"
+        times.append(sum(e.time_range.end - e.time_range.start for e in events) / calls / 1e3)
+    return times, "profiler"
 
 
 @dataclasses.dataclass
@@ -497,20 +561,19 @@ MAIN_SHAPE = {
 }
 
 
-def library_ms(c: Case) -> tuple:
-    """``(ms, text)`` of the case's library call, or ``(None, reason)`` when
-    there is none or this torch does not run it on the card."""
+def library_runs(c: Case) -> tuple:
+    """``(True, "")`` where the case has a library call that this torch runs
+    on the card, else ``(False, reason)``."""
     import torch
 
     if c.library is None:
-        return None, "none"
+        return False, "none"
     try:
         c.library()
         torch.cuda.synchronize()
     except (RuntimeError, NotImplementedError) as err:
-        return None, f"none ({str(err).strip().splitlines()[0][:120]})"
-    ms = device_ms(c.library, c.calls)
-    return ms, f"{ms:.5f} ms"
+        return False, f"none ({str(err).strip().splitlines()[0][:120]})"
+    return True, ""
 
 
 def check_kernels(dev) -> dict:
@@ -518,14 +581,20 @@ def check_kernels(dev) -> dict:
     out = {}
     for c in kernel_cases(dev):
         err, ratio = compare(c.kernel, c.plain)
-        dev_ms, dev_plain = device_ms(c.kernel, c.calls), device_ms(c.plain, c.calls)
-        lib_ms, lib = library_ms(c)
+        has_lib, lib = library_runs(c)
+        fns = [c.kernel, c.plain] + [f for f, on in ((c.library, has_lib), (c.dense, c.dense))
+                                     if on]
+        times, timed_by = device_times(fns, c.calls)
+        dev_ms, dev_plain = times[:2]
+        lib_ms = times[2] if has_lib else None
+        if has_lib:
+            lib = f"{lib_ms:.5f} ms"
         ev_ms, ev_plain = time_ms(c.kernel, inner=c.calls), time_ms(c.plain, inner=c.calls)
         bound_ms, bound_by = c.bound()
-        note = (f"; note: bf16 matmul with the dense weight {device_ms(c.dense, c.calls):.5f} ms"
+        note = (f"; note: bf16 matmul with the dense weight {times[-1]:.5f} ms"
                 if c.dense is not None else "")
         log(f"{c.name} {c.label}: max_abs={err:.3e} (ratio to max|plain| {ratio:.3e}); "
-            f"device {dev_ms:.5f} ms, plain {dev_plain:.5f} ms, library {lib}, "
+            f"device ({timed_by}) {dev_ms:.5f} ms, plain {dev_plain:.5f} ms, library {lib}, "
             f"bound {bound_ms:.5f} ms ({bound_by}); host-clocked {ev_ms:.4f} ms vs plain "
             f"{ev_plain:.4f} ms{note}")
         if not ratio <= c.tol:
@@ -534,7 +603,7 @@ def check_kernels(dev) -> dict:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if c.label.startswith(MAIN_SHAPE[c.name]):
             row.update(ms=dev_ms, plain_ms=dev_plain, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by, timed_by=timed_by)
     return out
 
 
@@ -966,21 +1035,11 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
 def profile_question(fn, tag: str, top: int = 6) -> None:
     """One warm question under ``torch.profiler``: its wall, the device's
     busy share of it and the device time by kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):  # a session now and then records no device activity
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            break
-    else:
-        raise RuntimeError("torch.profiler recorded no device time")
+    wall, events = device_events(fn)
+    if events is None:
+        log(f"{tag}, one question: {wall:.1f} ms wall; device busy share and device time "
+            "by kernel not measured (torch.profiler recorded no device activity)")
+        return
     busy = busy_ms(events)
     total = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
     log(f"{tag}, one question profiled: {wall:.1f} ms wall, {len(events)} device kernels, "
@@ -1435,7 +1494,6 @@ def profile_training(m: TrainInputs) -> None:
     """Phase 5, last part: where the time of the kernel path's loss and
     backward (a micro-step without the optimizer update) goes."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def wall_ms(fn):
         torch.cuda.synchronize()
@@ -1453,14 +1511,12 @@ def profile_training(m: TrainInputs) -> None:
 
     walls = [wall_ms(step) for _ in range(2)]
     t_teacher = wall_ms(teacher)
-    for _ in range(3):  # a session now and then records no device activity
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall = wall_ms(step)
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            break
-    else:
-        raise RuntimeError("torch.profiler recorded no device time")
+    wall, events = device_events(step)
+    if events is None:
+        log(f"kernel-path loss+backward: {walls[0]:.1f}, {walls[1]:.1f} ms; teacher forward "
+            f"alone {t_teacher:.1f} ms; device busy share and device time by kernel not "
+            "measured (torch.profiler recorded no device activity)")
+        return
     busy = busy_ms(events)
     total = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
     log(f"kernel-path loss+backward: {walls[0]:.1f}, {walls[1]:.1f} ms unprofiled; teacher "
@@ -1565,6 +1621,7 @@ def main() -> int:
                 "ms": f["ms"] + b["ms"], "plain_ms": f["plain_ms"] + b["plain_ms"],
                 "bound_ms": f["bound_ms"] + b["bound_ms"], "bound_by": "bytes",
                 "library_ms": None,
+                "timed_by": f["timed_by"] if f["timed_by"] == b["timed_by"] else "mixed",
                 "fwd": {"launches": counts_train["masked_kl_fwd"], "ms": f["ms"],
                         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"]},
                 "bwd": {"launches": counts_train["masked_kl_bwd"], "ms": b["ms"],
@@ -1574,7 +1631,8 @@ def main() -> int:
             s = summary[name]
             row = {"launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                    "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                   "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
+                   "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                   "timed_by": s["timed_by"]}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         **row})
     for k in kernels:

@@ -109,6 +109,24 @@ def test_busy_ms_is_the_union_of_device_intervals():
     assert C.busy_ms([]) == 0.0
 
 
+def test_a_profiler_without_device_activity_leaves_the_times_to_events(monkeypatch):
+    """Work on the CPU gives the profiler no device kernel, as a machine
+    whose profiler records nothing does: ``device_events`` returns the wall
+    and no events after three sessions instead of failing the run, and
+    ``device_times`` then times every function of a case from CUDA events
+    (``queued_ms``)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(C, "_profiler_works", True)
+    queued = []
+    monkeypatch.setattr(C, "queued_ms", lambda fn, calls: queued.append(calls) or 0.5)
+    ran = []
+    wall, events = C.device_events(lambda: ran.append(torch.ones(4).sum()))
+    assert events is None and wall >= 0 and not C._profiler_works
+    assert len(ran) == 4  # three profiled sessions, then one for the wall
+    times, timed_by = C.device_times([lambda: None] * 3, 20)
+    assert times == [0.5] * 3 and timed_by == "events" and queued == [20] * 3
+
+
 def test_quantized_cases_bound_the_functions_bytes(cases):
     """int8: activations, the int8 plane, f32 column scales, the output;
     int4: the packed nibbles and bf16 group scales (G=64) in its place."""
