@@ -38,7 +38,15 @@ Phases (any failure exits non-zero before the result lines):
    (the SigLIP tower, H=16, Dh=72: one 980x980 image, one 640x480 image
    padded to 672x560, a 32-shot prompt's 33 images), every row compared,
    with ``F.scaled_dot_product_attention`` under the segment mask as the
-   library call;
+   library call; the ALiBi flash attention at ``ALIBI_SHAPES`` (MPT-7B's
+   H=32, Dh=128 at S = 512 and 2048, left- and right-padded), compared on
+   the rows with a visible key, with ``F.scaled_dot_product_attention``
+   under the bias and mask as one float mask as the library call; the
+   fused ViT attention at ``VIT_SHAPES`` (ViT-L and ViT-H, H=16, Dh=64 and
+   80, 1 and 33 images, a key mask, S = 1024), every row compared, with
+   ``F.scaled_dot_product_attention`` under the key mask as the library
+   call; and the bound of each TPU kernel still to port at its tool's
+   shapes (``PROBE_WORK``);
 4. the eval path at Idefics-9B FULL width (32 layers, d=4096, ViT-H, 6-layer
    perceiver, 8 cross-attention blocks; random bf16 weights made on the card
    from a seed, ~18 GB), through the runner entry points the CLI calls
@@ -47,7 +55,8 @@ Phases (any failure exits non-zero before the result lines):
    read back from an ``icv_cpk.pth``, beam-3, ``max_new_tokens=5``; then
    ``test_icl`` with 32 shots, whose prompt is >= 256 tokens.  The kernel
    launch counts are zeroed before and read after each; the ICV count must
-   equal 32 x forward passes and the flash count 32 x questions.  Prints
+   equal 32 x forward passes, the flash count 32 x questions and the fused
+   ViT kernel's 32 x binds (the ViT-H tower, s=257).  Prints
    per-question latency, peak memory, and checks the answers: decoded
    strings scored by the port CLI's VQA accuracy, and the full-width ICL
    prefill logits with the flash kernel against the plain attention path;
@@ -59,7 +68,8 @@ Phases (any failure exits non-zero before the result lines):
    must equal what the structure predicts per micro-step: KL forward 1, KL
    backward 1, ICV backward 32, flash forward 32 (the teacher), ICV forward
    3·32 − 8 = 88 (the student's forward, the per-group recompute up to each
-   group's last layer, the per-layer recompute; ``remat_mode=both``).  The
+   group's last layer, the per-layer recompute; ``remat_mode=both``), fused
+   ViT 2·32 (the teacher's bind and the student's).  The
    losses must be finite and the artifact must carry the reference keys and
    load through the port.  Prints ms per micro-step and peak memory.  Then,
    on one batch with the same weights and ICV: the (icv, alpha) gradients
@@ -75,7 +85,7 @@ Phases (any failure exits non-zero before the result lines):
    (bf16 head), ``test_icv``.  The int8 and int4 kernel counts are zeroed
    before and read after each path and must equal
    ``predicted_quantized_launches`` (derived from ``qdot``'s routes), the
-   ICV count 32 x forwards.  Prints ms per question, peak memory and a
+   ICV count 32 x forwards, the fused ViT kernel's 32 x binds.  Prints ms per question, peak memory and a
    profile of one ``test_icv`` question (device busy share, device time by
    kernel), and holds the test_icv prompt's prefill and first-step logits
    through the kernels against the same weights through their plain
@@ -98,9 +108,25 @@ Phases (any failure exits non-zero before the result lines):
    kernels against the plain path (rel. L2 within ``REL_L2_TOL``) and both
    against the plain path in f32 (the kernel path no farther from it than
    ``F32_DRIFT_RATIO`` times the plain path; the same argmax, or a tie at
-   bf16's resolution: ``idefics2_kernel_vs_plain_logits``);
-8. one ``{"kernels": [...]}`` line;
-9. the last line: ``{"ok": true, "device": {...}}``.
+   bf16's resolution: ``kernel_vs_plain_f32_logits``);
+8. the OpenFlamingo-9B eval at full width (32 MPT-7B layers, d=4096, ALiBi,
+   d_ff 16384, the head tied to the 50432-row table; 24 ViT-L layers at
+   d=1024; a 6-layer perceiver; 8 gated cross-attention blocks; random bf16
+   weights made on the card, ~16 GB), built through the registry and driven
+   through the runner entry points as in phase 4 on 224x224 images:
+   ``test_icv`` (4 questions, the ICV of an ``icv_cpk.pth`` whose
+   ``layer_format`` names the MPT block output), then ``test_icl`` (2
+   questions, 32 shots, a prompt of >= 128 tokens).  The counts of the
+   fused ViT, the ALiBi flash and the ICV kernels are zeroed before and
+   read after each path and must equal ``predicted_openflamingo_launches``
+   (the tower's 24 layers in every bind; the ALiBi kernel at the 32 layers
+   of test_icl's prefills; the ICV at the 32 layers of every test_icv
+   forward).  Prints ms per question, peak memory and one profiled question
+   per path, then holds the test_icv prompt's and the 32-shot prompt's
+   prefill logits through the kernels against the plain path and both
+   against an f32 path, as phase 7 does;
+9. one ``{"kernels": [...]}`` line;
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 The port CLIs themselves are held against ``inference.py`` and ``train.py``
 by the CPU tests (``tests/test_torch_cli.py``, ``tests/test_torch_train*.py``).
@@ -145,11 +171,12 @@ N_ICL_Q = 2
 ICL_SHOTS = 32
 MAX_NEW = 5
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 TRAIN_BS = 2
 TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
 KL_EPS = 1e-6
-CUDA_SOURCES = ("flash_attn_fwd.cu", "int8_matmul.cu", "int4_matmul.cu", "flash_attn_bidir.cu")
+CUDA_SOURCES = ("flash_attn_fwd.cu", "int8_matmul.cu", "int4_matmul.cu", "flash_attn_bidir.cu",
+                "flash_alibi.cu", "vit_attention.cu")
 
 
 def log(msg: str) -> None:
@@ -294,6 +321,9 @@ class Case:
     # a call that is not the same function, timed and printed as a note: the
     # bf16 matmul with a dense weight, which the quantized bytes save against
     dense: object = None
+    # (B, S) bool: the rows the function defines, where the comparison looks
+    # (the ALiBi kernel's rows with a visible key); None = every row
+    rows: object = None
 
     def bound(self) -> tuple[float, str]:
         t_bytes = self.bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -303,10 +333,13 @@ class Case:
 
 def kernel_cases(dev):
     """The kernel-vs-plain cases at the main paths' shapes, from a seed."""
+    import functools
+
     import torch
     import torch.nn.functional as F
 
     from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
     from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
     from licv_vqa_tpu_torch.ops.icv_inject import (
         icv_inject,
@@ -385,6 +418,52 @@ def kernel_cases(dev):
             ),
             calls=3 if b > 1 else 5,
         )
+    for s, pad, side in ALIBI_SHAPES:
+        q, k, v = (randn((1, s, 32, 128)) for _ in range(3))
+        valid = torch.ones((1, s), dtype=torch.int32, device=dev)
+        if side == "left":
+            valid[:, :pad] = 0  # the decode prompts' padding
+        else:
+            valid[:, s - pad :] = 0  # the training batches'
+        slopes = L.alibi_slopes(32, dev)
+        rows = torch.cumsum(valid, dim=1) > 0  # rows with a visible key
+        # the visible pairs (k <= q and valid[k]): QK^T and PV over them
+        pairs = float(torch.cumsum(valid, dim=1).sum())
+        yield Case(
+            "flash_alibi_attention", f"(1,{s},32,128) {side} pad {pad}",
+            lambda q=q, k=k, v=v, valid=valid, sl=slopes: FA.flash_alibi_attention(
+                q, k, v, valid, sl, 128 ** -0.5),
+            lambda q=q, k=k, v=v, valid=valid, sl=slopes: FA.flash_alibi_reference(
+                q, k, v, valid, sl, 128 ** -0.5),
+            bytes_moved=4 * q.numel() * 2 + valid.numel() * 4 + 32 * 4,
+            ops=4 * 32 * 128 * pairs, op_type="bf16",
+            library=lambda q=q, k=k, v=v, m=functools.cache(
+                lambda valid=valid: alibi_float_mask(valid)): F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=m(),
+                scale=128 ** -0.5),
+            calls=5, rows=rows,
+        )
+    for b, s, dh, masked in VIT_SHAPES:
+        q, k, v = (randn((b, s, 16, dh)) for _ in range(3))
+        valid = None
+        keys = torch.full((b,), float(s), device=dev)
+        if masked:
+            valid = torch.rand((b, s), generator=g, device=dev) > 0.3
+            valid[-1] = False  # no valid key: the uniform softmax
+            n = valid.sum(dim=1).float()
+            keys = torch.where(n > 0, n, float(s))
+        yield Case(
+            "vit_attention", f"({b},{s},16,{dh}) {'masked' if masked else 'all valid'}",
+            lambda q=q, k=k, v=v, valid=valid: L.vit_attention(q, k, v, valid),
+            lambda q=q, k=k, v=v, valid=valid: L.vit_attention_reference(q, k, v, valid),
+            bytes_moved=4 * q.numel() * 2 + (0 if valid is None else valid.numel() * 4),
+            # QK^T and PV over every query and the keys its softmax weighs
+            ops=4 * 16 * dh * s * float(keys.sum()), op_type="bf16",
+            library=lambda q=q, k=k, v=v, valid=valid: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=None if valid is None else valid[:, None, None, :]),
+            calls=5,
+        )
     for n in (128, 512):
         v_sz = 32000
         stu, tea = randn((n, v_sz), 3.0, torch.float32), randn((n, v_sz), 3.0, torch.float32)
@@ -424,6 +503,32 @@ BIDIR_SHAPES = (
     (33, 1920, ((34, 45), (30, 45), (27, 35))),
 )
 BIDIR_GRID_W = 48  # 672 / 14: the padded grid's columns at S = 1920
+
+# the MPT prefill's ALiBi attention (H=32, Dh=128) in phase 8: (S, pad, side).
+# A 32-shot prompt's bucket and the longest one MPT-7B's context takes, each
+# left-padded (the decode prompts) and right-padded (the training batches)
+ALIBI_SHAPES = ((512, 39, "left"), (512, 61, "right"), (2048, 301, "left"),
+                (2048, 250, "right"))
+# the CLIP towers' attention (H=16) in phases 4-8: (B, S, Dh, masked).
+# OpenFlamingo's ViT-L (Dh 64) at a test_icv bind and at a 32-shot bind's 33
+# images, Idefics-9B's ViT-H (Dh 80) at a 32-shot bind; a key mask (one row
+# with no valid key); the gate's largest S
+VIT_SHAPES = ((1, 257, 64, False), (33, 257, 64, False), (33, 257, 80, False),
+              (4, 257, 80, True), (2, 1024, 80, True))
+
+
+def alibi_float_mask(valid):
+    """The ALiBi bias and the causal-and-valid mask as one (1, H, S, S) bf16
+    additive mask (masked entries at bf16's lowest, so no row is NaN): the
+    library call's operand."""
+    import torch
+
+    from licv_vqa_tpu_torch.models import layers as L
+
+    pos = torch.arange(valid.shape[1], device=valid.device)[None].expand_as(valid)
+    bias = L.alibi_bias(32, pos, pos)
+    mask = L.causal_mask(pos, pos, valid.bool())
+    return bias.masked_fill(~mask, torch.finfo(torch.bfloat16).min).to(torch.bfloat16)
 
 
 def navit_valid(b: int, s: int, grids, dev):
@@ -522,11 +627,37 @@ def quantized_cases(dev):
             )
 
 
-def compare(kernel, plain) -> tuple[float, float]:
+# the TPU kernels still to port (PERF.md rows 9 and 10) at their tools'
+# shapes: (name, label, bytes, operations, operation type) of the function
+# each computes, for the bound phase 3 prints beside the ported kernels'
+PROBE_WORK = (
+    # tools/exp_int4_unpack.py: x @ (unpack(packed) * s), M, K, N, G = 8,
+    # 4096, 11008, 64: bf16 x, a byte a nibble pair, f32 group scales, f32 out
+    ("int4_unpack_probe", "(8,4096,11008) G=64",
+     8 * 4096 * 2 + 4096 * 11008 // 2 + 4096 // 64 * 11008 * 4 + 8 * 11008 * 4,
+     2 * 8 * 4096 * 11008, "bf16"),
+    # tools/exp_w8a8_tuning.py: (xq @ q) * xs * s, int8 x int8 -> int32 -> bf16,
+    # at its two serving-prefill shapes (MLP in and out, M = 64 x 64 tokens)
+    *(("w8a8_probe", f"({m},{k},{n})", m * k + m * 4 + k * n + n * 4 + m * n * 2,
+       2 * m * k * n, "int8") for m, k, n in ((4096, 4096, 11008), (4096, 11008, 4096))),
+)
+
+
+def probe_bounds() -> list:
+    """``(name, label, bound ms, bound_by)`` of each of ``PROBE_WORK``."""
+    out = []
+    for name, label, nbytes, ops, op_type in PROBE_WORK:
+        c = Case(name, label, None, None, bytes_moved=nbytes, ops=ops, op_type=op_type)
+        out.append((name, label, *c.bound()))
+    return out
+
+
+def compare(kernel, plain, rows=None) -> tuple[float, float]:
     """``(max-abs error, worst error ratio)`` of one kernel call against its
-    plain version on the same inputs, over every output; the ratio is each
-    output's max-abs error over that output's max|plain|.  A non-finite
-    kernel output raises."""
+    plain version on the same inputs, over every output (on ``rows`` only
+    where given: a (B, S) bool over the outputs' leading dims); the ratio is
+    each output's max-abs error over that output's max|plain|.  A
+    non-finite kernel output raises."""
     import torch
 
     got, want = kernel(), plain()
@@ -537,6 +668,8 @@ def compare(kernel, plain) -> tuple[float, float]:
     for a, b in zip(got, want, strict=True):
         if not torch.isfinite(a).all():
             raise AssertionError("non-finite kernel output")
+        if rows is not None:
+            a, b = a[rows], b[rows]
         e = (a.float() - b.float()).abs().max().item()
         err = max(err, e)
         ratio = max(ratio, e / max(b.float().abs().max().item(), 1e-30))
@@ -558,6 +691,10 @@ MAIN_SHAPE = {
     # the tower at a test_icv bind (one 640x480 image), phase 7's most
     # frequent call
     "flash_attention_bidir": "(1,1920,16,72)",
+    # phase 8's 32-shot prefill (its 512-token bucket, left-padded)
+    "flash_alibi_attention": "(1,512,32,128) left",
+    # the ViT-L tower at an OpenFlamingo test_icv bind (one image)
+    "vit_attention": "(1,257,16,64)",
 }
 
 
@@ -580,7 +717,7 @@ def check_kernels(dev) -> dict:
     """Phase 3.  Returns per-kernel summaries for the kernels line."""
     out = {}
     for c in kernel_cases(dev):
-        err, ratio = compare(c.kernel, c.plain)
+        err, ratio = compare(c.kernel, c.plain, c.rows)
         has_lib, lib = library_runs(c)
         fns = [c.kernel, c.plain] + [f for f, on in ((c.library, has_lib), (c.dense, c.dense))
                                      if on]
@@ -604,6 +741,8 @@ def check_kernels(dev) -> dict:
         if c.label.startswith(MAIN_SHAPE[c.name]):
             row.update(ms=dev_ms, plain_ms=dev_plain, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by, timed_by=timed_by)
+    for name, label, bound_ms, bound_by in probe_bounds():
+        log(f"still to port: {name} {label}: bound {bound_ms:.5f} ms ({bound_by})")
     return out
 
 
@@ -677,7 +816,9 @@ def vqa_accuracy(results: dict, rows: list, tmp: Path, tag: str) -> float:
 
 def set_env(tmp: Path) -> None:
     tmp.mkdir(parents=True, exist_ok=True)
-    for key in ("RESULT_DIR", "MODEL_CPK_DIR", "VQAV2_PATH", "COCO_PATH", "OKVQA_PATH"):
+    # CHECKPOINT_PATH: where OpenFlamingo's config looks for the flamingo deltas
+    for key in ("RESULT_DIR", "MODEL_CPK_DIR", "VQAV2_PATH", "COCO_PATH", "OKVQA_PATH",
+                "CHECKPOINT_PATH"):
         os.environ[key] = str(tmp / key.lower())
 
 
@@ -729,7 +870,8 @@ def eval_setup(dev, tmp: Path, extra_args: list, lmm: str = "idefics-9B") -> Eva
         f"{n_params / 1e9:.3f} B stored elements, {n_bytes / 2**30:.2f} GiB, "
         f"built in {time.perf_counter() - t0:.1f} s")
     t = bundle.model_cfg.text
-    full = {"idefics-9B": (32, 4096, 1280, 32), "idefics2-8B-base": (32, 4096, 1152, 27)}
+    full = {"idefics-9B": (32, 4096, 1280, 32), "idefics2-8B-base": (32, 4096, 1152, 27),
+            "openflamingov2-9B": (32, 4096, 1024, 24)}
     v = bundle.model_cfg.vision
     if lmm in full and (t.n_layers, t.d_model, v.d_model, v.n_layers) != full[lmm]:
         raise AssertionError(f"not full width: {t} {v}")
@@ -767,6 +909,15 @@ def icv_prompt(e: EvalSetup, q: int) -> list:
     """The zero-shot prompt as ``icv_inference`` builds it."""
     p = [e.instruction] if e.instruction else []
     return p + [e.val[q]["image"], e.pm.gen_query_text_without_label(e.val[q])]
+
+
+def vit_per_bind(vc, dev) -> int:
+    """Fused ViT kernel launches in one bind of a CLIP tower (one call per
+    layer over all the bind's images) where ``layers.vit_attention_usable``
+    holds for its sequence, else 0."""
+    from licv_vqa_tpu_torch.models import layers as L
+
+    return vc.n_layers * L.vit_attention_usable(vc.n_patches, vc.d_model // vc.n_heads, dev)
 
 
 def eval_runs(e: EvalSetup) -> dict:
@@ -817,8 +968,10 @@ def main_path(dev, tmp: Path) -> dict:
 
     counts = {}
     torch.cuda.reset_peak_memory_stats(dev)
+    vit_bind = vit_per_bind(bundle.model_cfg.vision, dev)
     icv_inject.launches = 0
     L.flash_attention.launches = 0
+    L.vit_attention.launches = 0
     t0 = time.perf_counter()
     res_icv = icv_inference(
         val[1:], bundle, pm, 1, gen_kwargs, instruction, icv_scaled, progress=False
@@ -827,9 +980,11 @@ def main_path(dev, tmp: Path) -> dict:
     dt_icv = (time.perf_counter() - t0) / N_ICV_Q
     counts["icv_inject", "test_icv"] = icv_inject.launches
     counts["flash", "test_icv"] = L.flash_attention.launches
+    counts["vit", "test_icv"] = L.vit_attention.launches
 
     icv_inject.launches = 0
     L.flash_attention.launches = 0
+    L.vit_attention.launches = 0
     t0 = time.perf_counter()
     res_icl = icl_inference(
         train, val[1 : 1 + N_ICL_Q], shots[1:], bundle, pm, 1, gen_kwargs, instruction,
@@ -839,21 +994,27 @@ def main_path(dev, tmp: Path) -> dict:
     dt_icl = (time.perf_counter() - t0) / N_ICL_Q
     counts["icv_inject", "test_icl"] = icv_inject.launches
     counts["flash", "test_icl"] = L.flash_attention.launches
+    counts["vit", "test_icl"] = L.vit_attention.launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
 
     forwards = N_ICV_Q * MAX_NEW  # bs=1: one prefill + (max_new - 1) beam steps each
     log(f"test_icv: {N_ICV_Q} questions, {dt_icv * 1e3:.1f} ms/question; "
         f"icv_inject launches {counts['icv_inject', 'test_icv']} "
         f"(want 32 x {forwards} forwards = {32 * forwards}), "
-        f"flash launches {counts['flash', 'test_icv']}")
+        f"flash launches {counts['flash', 'test_icv']}, vit_attention launches "
+        f"{counts['vit', 'test_icv']} (want {vit_bind} x {N_ICV_Q} binds)")
     log(f"test_icl ({ICL_SHOTS}-shot): {N_ICL_Q} questions, {dt_icl * 1e3:.1f} ms/question; "
         f"flash launches {counts['flash', 'test_icl']} (want 32 x {N_ICL_Q}), "
-        f"icv_inject launches {counts['icv_inject', 'test_icl']}")
+        f"icv_inject launches {counts['icv_inject', 'test_icl']}, vit_attention launches "
+        f"{counts['vit', 'test_icl']} (want {vit_bind} x {N_ICL_Q} binds)")
     log(f"peak device memory over both: {peak:.2f} GiB")
     if counts["icv_inject", "test_icv"] != 32 * forwards:
         raise AssertionError("icv_inject launch count != 32 x forward passes")
     if counts["flash", "test_icl"] != 32 * N_ICL_Q:
         raise AssertionError("flash launch count != 32 x ICL prefills")
+    for path, n_q in (("test_icv", N_ICV_Q), ("test_icl", N_ICL_Q)):
+        if counts["vit", path] != vit_bind * n_q:
+            raise AssertionError(f"{path}: vit_attention launch count != layers x binds")
 
     # the answers: decoded strings, scored by the repo's VQA accuracy
     for tag, res, rows in (("icv", res_icv, val[1:]), ("icl", res_icl, val[1 : 1 + N_ICL_Q])):
@@ -879,13 +1040,18 @@ def main_path(dev, tmp: Path) -> dict:
         _, bind = _wrap_pixel_normalize(
             *I.make_idefics_forward_fns(mc, bundle.eos_token_id), CLIP_MEAN, CLIP_STD
         )
-        with torch.inference_mode():
-            fwd = bind(bundle.params, px, pv, ids, None, s_icl + 1)
-            logits[impl] = fwd(ids, mask, pos, None)[0][:, -1].float()
+        if impl == "xla":  # the tower's plain attention too
+            os.environ["LICV_VIT_FUSED_ATTN"] = "0"
+        try:
+            with torch.inference_mode():
+                fwd = bind(bundle.params, px, pv, ids, None, s_icl + 1)
+                logits[impl] = fwd(ids, mask, pos, None)[0][:, -1].float()
+        finally:
+            os.environ.pop("LICV_VIT_FUSED_ATTN", None)
     a, b = logits["flash"], logits["xla"]
     diff = (a - b).abs().max().item()
     rel = ((a - b).norm() / b.norm()).item()
-    log(f"full-width ICL prefill logits (32 bf16 layers), flash kernel vs plain "
+    log(f"full-width ICL prefill logits (32 bf16 layers), flash and ViT kernels vs plain "
         f"attention: max_abs={diff:.4e}, rel_l2={rel:.4e} (max |logit| "
         f"{b.abs().max().item():.4e}), argmax "
         f"{'agrees' if a.argmax().item() == b.argmax().item() else 'differs'}")
@@ -894,6 +1060,7 @@ def main_path(dev, tmp: Path) -> dict:
     return {
         "icv_inject": counts["icv_inject", "test_icv"] + counts["icv_inject", "test_icl"],
         "flash_attention_fwd": counts["flash", "test_icv"] + counts["flash", "test_icl"],
+        "vit_attention": counts["vit", "test_icv"] + counts["vit", "test_icl"],
     }
 
 
@@ -983,7 +1150,9 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     b = e.bundle
     n_layers = b.model_cfg.text.n_layers
     counters = {"int8_matmul": I8.int8_matmul, "int4_matmul": I4.int4_matmul,
-                "icv_inject": icv_inject, "flash_attention_fwd": L.flash_attention}
+                "icv_inject": icv_inject, "flash_attention_fwd": L.flash_attention,
+                "vit_attention": L.vit_attention}
+    vit_bind = vit_per_bind(b.model_cfg.vision, b.device)
     beams = int(e.gen_kwargs["num_beams"])
     runs = eval_runs(e)
     # warm-up on one question of each path
@@ -1020,6 +1189,9 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
                 raise AssertionError(f"{mode} test_{path}: {k} launched {counts[k]} != {v}")
         if path == "icv" and counts["icv_inject"] != n_layers * n_q * MAX_NEW:
             raise AssertionError("icv_inject launch count != 32 x forward passes")
+        if counts["vit_attention"] != vit_bind * n_q:  # one bind a question
+            raise AssertionError(f"{mode} test_{path}: vit_attention launched "
+                                 f"{counts['vit_attention']} != {vit_bind} x {n_q}")
         if len(res) != n_q or not all(isinstance(r["prediction"], str) for r in res.values()):
             raise AssertionError(f"{mode} test_{path}: malformed results {res}")
         for k in total:
@@ -1111,9 +1283,14 @@ def predicted_idefics2_launches(mc, s_prompt: int, n_patches: int, with_icv: boo
     layer of every forward when the ICV is on."""
     from licv_vqa_tpu_torch.models import layers as L
 
-    t = mc.text
+    t, v = mc.text, mc.vision
+    bidir = L.flash_bidir_usable(n_patches, dev)
     return {
-        "flash_attention_bidir": mc.vision.n_layers * L.flash_bidir_usable(n_patches, dev),
+        "flash_attention_bidir": v.n_layers * bidir,
+        # the fused short-sequence kernel takes the tower only under 1024
+        # patches, which no NaViT image at full width has
+        "vit_attention": v.n_layers * (not bidir) * L.vit_attention_usable(
+            n_patches, v.d_model // v.n_heads, dev),
         "flash_attention_fwd": t.n_layers * L.flash_attention_usable(
             t, s_prompt, t.head_dim, dev),
         "icv_inject": t.n_layers * MAX_NEW if with_icv else 0,
@@ -1136,6 +1313,7 @@ def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
     if not fmt["layer_format"].endswith(".mlp"):
         raise AssertionError(f"icv_cpk.pth layer_format {fmt['layer_format']}: not the MLP site")
     counters = {"flash_attention_bidir": L.flash_attention_bidir,
+                "vit_attention": L.vit_attention,
                 "flash_attention_fwd": L.flash_attention, "icv_inject": icv_inject}
     runs = eval_runs(e)
     runs["icv"][0](e.val[:1])  # warm-up (Triton specialisations, libraries, allocator)
@@ -1184,31 +1362,40 @@ def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
         profile_question(lambda: runs["icv"][0](e.val[1:2]), "idefics2 test_icv")
         profile_question(lambda: runs["icl"][0](e.val[1:2], e.shots[1:2]),
                          f"idefics2 test_icl ({ICL_SHOTS}-shot)")
-    idefics2_kernel_vs_plain_logits(e)
+    from licv_vqa_tpu_torch.data.processor import SIGLIP_MEAN, SIGLIP_STD
+    from licv_vqa_tpu_torch.models.idefics2 import make_idefics2_forward_fns
+
+    kernel_vs_plain_f32_logits(
+        e, "idefics2", make_idefics2_forward_fns, SIGLIP_MEAN, SIGLIP_STD,
+        (("test_icv", icv_prompt(e, 1), e.icv_scaled),
+         (f"{IDEFICS2_CHECK_SHOTS}-shot ICL",
+          icl_prompt(e, 1, e.shots[1][:IDEFICS2_CHECK_SHOTS]), None)),
+    )
     return total
 
 
-def idefics2_kernel_vs_plain_logits(e: EvalSetup) -> None:
-    """The test_icv prompt's and an 8-shot ICL prompt's prefill logits
-    through the kernels (the tower's and the decoder's flash, the ICV
-    injection) against the same weights through their plain versions
-    (``LICV_VIT_FLASH=0``, ``attention_impl=xla``, the plain injection), and
-    both against the plain path with the weights in f32.
+def kernel_vs_plain_f32_logits(e: EvalSetup, tag_prefix: str, make_fns, mean, std,
+                               checks) -> None:
+    """For each ``(tag, prompt, icv)`` of ``checks``: the prompt's prefill
+    logits through the kernels (the towers' and the decoder's attention
+    kernels, the ICV injection) against the same weights through their
+    plain versions (``LICV_VIT_FLASH=0``, ``LICV_VIT_FUSED_ATTN=0``,
+    ``attention_impl=xla``, the plain injection), and both against the
+    plain path with the weights in f32.  ``make_fns`` is the family's
+    ``make_*_forward_fns``, ``mean``/``std`` its pixel normalisation.
 
-    At random init two bf16 paths differ by rounding amplified through 59
-    layers (rel. L2 5e-2 to 8e-2, each path alike from the f32 one), and the
-    top two logits can lie closer than that, so the argmax alone can flip
-    on a sound kernel (PERF.md, Findings).  The checks: kernel vs plain within
-    ``REL_L2_TOL``; the kernel path no farther from the f32 path than
-    ``F32_DRIFT_RATIO`` times the plain path is; the same argmax, or, where
-    the two bf16 paths pick different tokens, tokens whose f32 logits lie
-    within the kernel-vs-plain max-abs difference (a tie at bf16's
-    resolution)."""
+    At random init two bf16 paths differ by rounding amplified through the
+    tower and the decoder (rel. L2 5e-2 to 8e-2 for Idefics2, each path
+    alike from the f32 one), and the top two logits can lie closer than
+    that, so the argmax alone can flip on a sound kernel (PERF.md,
+    Findings).  The checks: kernel vs plain within ``REL_L2_TOL``; the
+    kernel path no farther from the f32 path than ``F32_DRIFT_RATIO`` times
+    the plain path is; the same argmax, or, where the two bf16 paths pick
+    different tokens, tokens whose f32 logits lie within the kernel-vs-plain
+    max-abs difference (a tie at bf16's resolution)."""
     import torch
 
-    from licv_vqa_tpu_torch.data.processor import SIGLIP_MEAN, SIGLIP_STD
     from licv_vqa_tpu_torch.models import decoder as Dm
-    from licv_vqa_tpu_torch.models.idefics2 import make_idefics2_forward_fns
     from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
     from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
 
@@ -1216,9 +1403,7 @@ def idefics2_kernel_vs_plain_logits(e: EvalSetup) -> None:
     mc = b.model_cfg
 
     def plain_bind(cfg):
-        return _wrap_pixel_normalize(
-            *make_idefics2_forward_fns(cfg, b.eos_token_id), SIGLIP_MEAN, SIGLIP_STD
-        )[1]
+        return _wrap_pixel_normalize(*make_fns(cfg, b.eos_token_id), mean, std)[1]
 
     def f32(tree):
         if isinstance(tree, dict):
@@ -1234,9 +1419,6 @@ def idefics2_kernel_vs_plain_logits(e: EvalSetup) -> None:
     paths = (("kernel", b.bind_decode, b.params),
              ("plain", plain_bind(dataclasses.replace(mc, text=xla_text)), b.params),
              ("f32", plain_bind(f32_cfg), f32(b.params)))
-    checks = (("test_icv", icv_prompt(e, 1), e.icv_scaled),
-              (f"{IDEFICS2_CHECK_SHOTS}-shot ICL", icl_prompt(e, 1, e.shots[1][:IDEFICS2_CHECK_SHOTS]),
-               None))
     for tag, prompt, icv in checks:
         enc = b.processor.prepare_input([prompt], padding=True, padding_side="left")
         ids, mask, px, pv = (torch.from_numpy(enc[k]).to(b.device) for k in (
@@ -1247,7 +1429,7 @@ def idefics2_kernel_vs_plain_logits(e: EvalSetup) -> None:
         out = {}
         for path, bind, params in paths:
             if path != "kernel":
-                os.environ["LICV_VIT_FLASH"] = "0"
+                os.environ["LICV_VIT_FLASH"] = os.environ["LICV_VIT_FUSED_ATTN"] = "0"
                 Dm.icv_inject = icv_inject_reference
             try:
                 with torch.inference_mode():
@@ -1255,6 +1437,7 @@ def idefics2_kernel_vs_plain_logits(e: EvalSetup) -> None:
                     out[path] = fwd(ids, mask, pos, None)[0][:, -1].float()
             finally:
                 os.environ.pop("LICV_VIT_FLASH", None)
+                os.environ.pop("LICV_VIT_FUSED_ATTN", None)
                 Dm.icv_inject = icv_inject
             free_device_memory()
         a, p, g = out["kernel"], out["plain"], out["f32"]
@@ -1266,7 +1449,7 @@ def idefics2_kernel_vs_plain_logits(e: EvalSetup) -> None:
         ta, tp = a.argmax().item(), p.argmax().item()
         tie = abs((g[0, ta] - g[0, tp]).item())
         top2 = g[0].topk(2).values
-        log(f"idefics2 full-width {tag} prefill logits ({ids.shape[1]} tokens, "
+        log(f"{tag_prefix} full-width {tag} prefill logits ({ids.shape[1]} tokens, "
             f"{px.shape[1]} images): kernel vs plain max_abs={diff:.4e}, rel_l2={rel(a, p):.4e}; "
             f"rel_l2 to the f32 path: kernel {rel(a, g):.4e}, plain {rel(p, g):.4e}; argmax "
             f"kernel {ta}, plain {tp}, f32 {g.argmax().item()} (f32 top-2 gap "
@@ -1274,9 +1457,104 @@ def idefics2_kernel_vs_plain_logits(e: EvalSetup) -> None:
         ok = (torch.isfinite(a).all() and rel(a, p) <= REL_L2_TOL
               and rel(a, g) <= F32_DRIFT_RATIO * rel(p, g) and (ta == tp or tie <= diff))
         if not ok:
-            raise AssertionError(f"idefics2 {tag} logits: kernel path disagrees with plain path")
+            raise AssertionError(f"{tag_prefix} {tag} logits: kernel path disagrees with plain path")
     del paths
     free_device_memory()
+
+
+def predicted_openflamingo_launches(mc, s_prompt: int, with_icv: bool, dev) -> dict:
+    """Launches in ONE bs=1 question (one bind, a prefill of ``s_prompt``
+    tokens, MAX_NEW - 1 beam steps): the fused ViT kernel at every tower
+    layer when ``layers.vit_attention_usable`` holds for the tower's 257
+    tokens (on the card, always); the ALiBi flash kernel at every decoder
+    layer of the prefill when ``flash_alibi.flash_alibi_usable`` holds (>=
+    128 tokens: test_icl's prompt, not test_icv's); the ICV injection at
+    every decoder layer of every forward when the ICV is on; the rope flash
+    kernel never (MPT has no rope)."""
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
+
+    t = mc.text
+    return {
+        "vit_attention": vit_per_bind(mc.vision, dev),
+        "flash_alibi_attention": t.n_layers * FA.flash_alibi_usable(
+            t, s_prompt, t.head_dim, dev),
+        "flash_attention_fwd": 0,
+        "icv_inject": t.n_layers * MAX_NEW if with_icv else 0,
+    }
+
+
+def openflamingo_path(dev, tmp: Path, lmm: str = "openflamingov2-9B") -> dict:
+    """Phase 8: the OpenFlamingo-9B eval at full width through the runner
+    entry points, test_icv then test_icl.  Returns the launch counts of the
+    run."""
+    import torch
+
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.models.openflamingo import make_openflamingo_forward_fns
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    e = eval_setup(dev, tmp, [], lmm)
+    b = e.bundle
+    fmt = torch.load(tmp / "icv_cpk" / "icv_cpk.pth", weights_only=False)["lmm_args"]
+    if ".transformer.blocks." not in fmt["layer_format"]:
+        raise AssertionError(f"icv_cpk.pth layer_format {fmt['layer_format']}: not the MPT block")
+    counters = {"vit_attention": L.vit_attention, "flash_alibi_attention": FA.flash_alibi_attention,
+                "flash_attention_fwd": L.flash_attention, "icv_inject": icv_inject}
+    runs = eval_runs(e)
+    enc = b.processor.prepare_input([icl_prompt(e, 1, e.shots[1])], padding=True,
+                                    padding_side="left")
+    s_icl = enc["input_ids"].shape[1]
+    log(f"openflamingo test_icl prompt: {int(enc['attention_mask'].sum())} tokens, padded to "
+        f"{s_icl}, {enc['pixel_values'].shape[1]} images")
+    if s_icl < 128:
+        raise AssertionError(f"{ICL_SHOTS}-shot prompt {s_icl} < 128: the ALiBi flash gate "
+                             "is not reached")
+    runs["icv"][0](e.val[:1])  # warm-up (Triton specialisations, libraries, allocator)
+    runs["icl"][0](e.val[:1], e.shots[:1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = dict.fromkeys(counters, 0)
+    for path in ("icv", "icl"):
+        run, prompt, n_q = runs[path]
+        want = dict.fromkeys(counters, 0)
+        for q in range(1, 1 + n_q):
+            enc = b.processor.prepare_input([prompt(q)], padding=True, padding_side="left")
+            for k, v in predicted_openflamingo_launches(
+                b.model_cfg, enc["input_ids"].shape[1], path == "icv", dev,
+            ).items():
+                want[k] += v
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rows = e.val[1 : 1 + n_q]
+        res = run(rows) if path == "icv" else run(rows, e.shots[1 : 1 + n_q])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n_q
+        counts = {k: fn.launches for k, fn in counters.items()}
+        log(f"openflamingo test_{path}: {n_q} questions, {dt * 1e3:.1f} ms/question; launches "
+            f"{counts} (predicted {want}); predictions {[r['prediction'] for r in res.values()]}, "
+            f"VQA accuracy {vqa_accuracy(res, rows, tmp, f'openflamingo_{path}'):.2f} "
+            "(random weights)")
+        if counts != want:
+            raise AssertionError(f"openflamingo test_{path}: launches {counts} != {want}")
+        if len(res) != n_q or not all(isinstance(r["prediction"], str) for r in res.values()):
+            raise AssertionError(f"openflamingo test_{path}: malformed results {res}")
+        for k in total:
+            total[k] += counts[k]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"openflamingo: peak device memory over both paths {peak:.2f} GiB")
+    if dev.type == "cuda":
+        profile_question(lambda: runs["icv"][0](e.val[1:2]), "openflamingo test_icv")
+        profile_question(lambda: runs["icl"][0](e.val[1:2], e.shots[1:2]),
+                         f"openflamingo test_icl ({ICL_SHOTS}-shot)")
+    kernel_vs_plain_f32_logits(
+        e, "openflamingo", make_openflamingo_forward_fns, CLIP_MEAN, CLIP_STD,
+        (("test_icv", icv_prompt(e, 1), e.icv_scaled),
+         (f"{ICL_SHOTS}-shot ICL", icl_prompt(e, 1, e.shots[1]), None)),
+    )
+    return total
 
 
 def _counters():
@@ -1288,6 +1566,7 @@ def _counters():
         "icv_inject": icv_inject,
         "icv_inject_bwd": icv_inject_backward,
         "flash_attention_fwd": L.flash_attention,
+        "vit_attention": L.vit_attention,
         "masked_kl_fwd": K.rowwise_kl_forward,
         "masked_kl_bwd": K.rowwise_kl_backward,
     }
@@ -1358,6 +1637,8 @@ def training_path(dev, tmp: Path) -> dict:
     want = {
         "masked_kl_fwd": 1, "masked_kl_bwd": 1, "icv_inject_bwd": 32,
         "flash_attention_fwd": 32, "icv_inject": 3 * 32 - 8,
+        # the ViT-H tower's 32 layers in the teacher's bind and the student's
+        "vit_attention": 2 * 32,
     }
     for k, per_step in want.items():
         log(f"  {k} launches {counts[k]} (want {per_step} x {TRAIN_MICRO} micro-steps)")
@@ -1438,8 +1719,9 @@ def training_inputs(dev) -> TrainInputs:
 
 def loss_and_grads(m: TrainInputs, path: str):
     """``(loss, (d_icv, d_alpha))`` of one batch on the kernel path (flash,
-    ICV and KL kernels) or the plain path (plain attention, the plain
-    injection differentiated by autograd, ``kl_impl=xla``)."""
+    ViT, ICV and KL kernels) or the plain path (plain attention in the
+    decoder and the tower, the plain injection differentiated by autograd,
+    ``kl_impl=xla``)."""
     import torch
 
     from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn
@@ -1449,6 +1731,8 @@ def loss_and_grads(m: TrainInputs, path: str):
     kernel = path == "kernel"
     b = m.bundle
     Dm.icv_inject = icv_inject if kernel else icv_inject_reference
+    if not kernel:  # the tower's plain attention too
+        os.environ["LICV_VIT_FUSED_ATTN"] = "0"
     try:
         loss, _ = icv_loss_fn(
             m.encoder, m.temperature, b.params, m.batch,
@@ -1458,6 +1742,7 @@ def loss_and_grads(m: TrainInputs, path: str):
         grads = torch.autograd.grad(loss, (m.encoder.icv, m.encoder.alpha))
     finally:
         Dm.icv_inject = icv_inject
+        os.environ.pop("LICV_VIT_FUSED_ATTN", None)
     return loss.detach(), grads
 
 
@@ -1575,12 +1860,14 @@ def main() -> int:
         del m
         free_device_memory()
         counts_q = dict.fromkeys(("int8_matmul", "int4_matmul", "icv_inject",
-                                  "flash_attention_fwd"), 0)
+                                  "flash_attention_fwd", "vit_attention"), 0)
         for mode, opts, paths in QUANT_RUNS:
             for k, v in quantized_path(dev, Path(tmp) / mode, mode, opts, paths).items():
                 counts_q[k] += v
             free_device_memory()
         counts_i2 = idefics2_path(dev, Path(tmp) / "idefics2")
+        free_device_memory()
+        counts_of = openflamingo_path(dev, Path(tmp) / "openflamingo")
         free_device_memory()
 
     sources = {
@@ -1598,18 +1885,23 @@ def main() -> int:
                         "licv_vqa_tpu/ops/int4_matmul.py:134"),
         "flash_attention_bidir": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu",
                                   "licv_vqa_tpu/models/layers.py:233"),
+        "flash_alibi_attention": ("cuda", "licv_vqa_tpu_torch/csrc/flash_alibi.cu",
+                                  "licv_vqa_tpu/ops/flash_alibi.py:124"),
+        "vit_attention": ("cuda", "licv_vqa_tpu_torch/csrc/vit_attention.cu",
+                          "licv_vqa_tpu/ops/vit_attention.py:118"),
     }
+    phases = (counts, counts_train, counts_q, counts_i2, counts_of)
     launches = {
-        "icv_inject": (counts["icv_inject"] + counts_q["icv_inject"] + counts_train["icv_inject"]
-                       + counts_i2["icv_inject"]),
-        "flash_attention_fwd": (counts["flash_attention_fwd"] + counts_q["flash_attention_fwd"]
-                                + counts_train["flash_attention_fwd"]
-                                + counts_i2["flash_attention_fwd"]),
+        name: sum(c.get(name, 0) for c in phases)
+        for name in ("icv_inject", "flash_attention_fwd", "vit_attention")
+    }
+    launches.update({
+        "flash_alibi_attention": counts_of["flash_alibi_attention"],
         "flash_attention_bidir": counts_i2["flash_attention_bidir"],
         "icv_inject_bwd": counts_train["icv_inject_bwd"],
         "int8_matmul": counts_q["int8_matmul"],
         "int4_matmul": counts_q["int4_matmul"],
-    }
+    })
     kernels = []
     for name, (route, source, replaces) in sources.items():
         if name == "masked_kl":

@@ -19,7 +19,16 @@ which runs only for CPU tensors):
 - ``models.layers.flash_attention`` — the causal flash-attention forward, in
   CUDA C++ (``csrc/flash_attn_fwd.cu``);
 - ``ops.masked_kl_kernel.masked_kl_pallas`` — the masked temperature-KL,
-  forward and fused backward, in Triton.
+  forward and fused backward, in Triton;
+- ``ops.int8_matmul.int8_matmul`` and ``ops.int4_matmul.int4_matmul`` — the
+  quantized decode matmuls, in CUDA C++ (``csrc/int8_matmul.cu``,
+  ``csrc/int4_matmul.cu``);
+- ``models.layers.flash_attention_bidir`` — the vision towers' long-sequence
+  attention, in CUDA C++ (``csrc/flash_attn_bidir.cu``);
+- ``ops.flash_alibi.flash_alibi_attention`` — MPT's causal attention with
+  the ALiBi bias made in the kernel, in CUDA C++ (``csrc/flash_alibi.cu``);
+- ``models.layers.vit_attention`` — the CLIP towers' fused short-sequence
+  attention, in CUDA C++ (``csrc/vit_attention.cu``).
 """
 
 __version__ = "0.2.0"

@@ -1,9 +1,11 @@
 """Model configurations (counterpart of ``licv_vqa_tpu/models/config.py``),
 re-declared with torch dtypes.
 
-Only the rope / RMSNorm / SwiGLU decoder branch is ported.  The other values
-of the JAX config raise ``NotImplementedError`` naming the ROADMAP item that
-ports them, so a config the port cannot run fails at construction and never
+Both decoder branches are ported: LLaMA's rope / RMSNorm / SwiGLU and MPT's
+ALiBi / bias-free LayerNorm / GELU.  Values outside the JAX config's raise
+``ValueError``, and the one combination the port does not run yet (the int8
+KV cache under ALiBi) raises ``NotImplementedError`` naming its ROADMAP
+item, so a config the port cannot run fails at construction and never
 silently runs a different model.
 """
 
@@ -26,7 +28,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """LLaMA-family causal decoder (rope, RMSNorm, SwiGLU)."""
+    """Causal decoder: LLaMA-family (rope, RMSNorm, SwiGLU) or MPT (ALiBi,
+    LayerNorm, GELU MLP)."""
 
     vocab_size: int = 32000
     d_model: int = 4096
@@ -53,15 +56,17 @@ class DecoderConfig:
     w8a8_prefill: bool = False
 
     def __post_init__(self):
-        if self.positional != "rope":
+        for field, allowed in (("positional", ("rope", "alibi")),
+                               ("norm_type", ("rmsnorm", "layernorm")),
+                               ("activation", ("silu_glu", "gelu"))):
+            if getattr(self, field) not in allowed:
+                raise ValueError(
+                    f"{field} must be {'|'.join(allowed)}, got {getattr(self, field)!r}"
+                )
+        if self.positional == "alibi" and self.kv_cache_dtype == "int8":
             raise _not_ported(
-                f"positional={self.positional!r} (ALiBi / MPT)",
-                "Queue 1 item 11 (OpenFlamingo)",
-            )
-        if self.norm_type != "rmsnorm" or self.activation != "silu_glu":
-            raise _not_ported(
-                f"norm_type={self.norm_type!r}/activation={self.activation!r}",
-                "Queue 1 item 11 (OpenFlamingo)",
+                "the int8 KV cache under ALiBi (quantized OpenFlamingo)",
+                "Queue 1 item 20",
             )
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be bf16|int8, got {self.kv_cache_dtype!r}")

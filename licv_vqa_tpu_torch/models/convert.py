@@ -1,7 +1,10 @@
-"""HF checkpoint → port params, Idefics and Idefics2 families
-(counterpart of ``licv_vqa_tpu/models/convert.py``: ``convert_llama`` :36,
-``convert_idefics`` :172, ``convert_siglip_vision`` :256 and
-``convert_idefics2`` :296).
+"""HF checkpoint → port params, the Idefics, Idefics2 and OpenFlamingo
+families (counterpart of ``licv_vqa_tpu/models/convert.py``:
+``convert_llama`` :36, ``convert_idefics`` :172, ``convert_siglip_vision``
+:256, ``convert_idefics2`` :296, ``convert_mpt`` :339,
+``convert_openclip_vision`` :370, ``convert_flamingo_perceiver`` :415,
+``convert_flamingo_xattn`` :451 and ``convert_openflamingo_checkpoint``
+:481).
 
 Input is any mapping of HF parameter names to tensors or arrays (a torch
 ``state_dict``, safetensors shards); output is the layer-stacked param dict
@@ -289,3 +292,185 @@ def convert_idefics(
         ),
     }
     return _cast_tree(params, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# OpenFlamingo: the MPT base, the open_clip tower and the flamingo deltas
+# (JAX convert.py:339-540).  open_clip and open_flamingo are not needed: the
+# converters read their state-dict naming only.
+# ---------------------------------------------------------------------------
+
+
+def convert_mpt(
+    sd: Mapping, cfg, prefix: str = "transformer.", dtype: Optional[torch.dtype] = None,
+    device="cpu",
+) -> dict:
+    """HF ``MptForCausalLM`` state dict → decoder params (OpenFlamingo's
+    language encoder).  The fused ``Wqkv`` (3D, D) splits into q/k/v; the
+    LayerNorms are bias-free; the LM head ties to the embedding.  ``cfg`` is
+    a ``config.DecoderConfig``."""
+    n, d = cfg.n_layers, cfg.d_model
+    lp = prefix + "blocks.{i}."
+    wqkv = _stack(sd, lp + "attn.Wqkv.weight", n)  # (L, 3D, D)
+    layers = {
+        "attn": {
+            "wq": wqkv[:, :d, :].transpose(1, 2),
+            "wk": wqkv[:, d : 2 * d, :].transpose(1, 2),
+            "wv": wqkv[:, 2 * d :, :].transpose(1, 2),
+            "wo": _stack(sd, lp + "attn.out_proj.weight", n, True),
+        },
+        "mlp": {
+            "w_up": _stack(sd, lp + "ffn.up_proj.weight", n, True),
+            "w_down": _stack(sd, lp + "ffn.down_proj.weight", n, True),
+        },
+        "ln1": _stack(sd, lp + "norm_1.weight", n),
+        "ln2": _stack(sd, lp + "norm_2.weight", n),
+    }
+    params = {
+        "embed": _t(sd[prefix + "wte.weight"]),
+        "layers": layers,
+        "final_norm": _t(sd[prefix + "norm_f.weight"]),
+    }
+    return _cast_tree(params, dtype or cfg.dtype, device)
+
+
+def convert_openclip_vision(sd: Mapping, cfg, prefix: str = "visual.") -> dict:
+    """open_clip ``VisionTransformer`` (CLIP ViT-L/14, OpenFlamingo's frozen
+    tower) → the port's vision params.  open_clip fuses q/k/v into
+    ``attn.in_proj_weight`` (3D, D); the patch conv has no bias.  Returns
+    the source dtypes on the CPU (``_cast_tree`` places them)."""
+    n, d = cfg.n_layers, cfg.d_model
+    lp = prefix + "transformer.resblocks.{i}."
+    conv = _t(sd[prefix + "conv1.weight"])  # (D, 3, P, P)
+    in_w = _stack(sd, lp + "attn.in_proj_weight", n)  # (L, 3D, D)
+    in_b = _stack(sd, lp + "attn.in_proj_bias", n)  # (L, 3D)
+    return {
+        "patch_embed": conv.permute(2, 3, 1, 0).reshape(-1, conv.shape[0]),
+        "class_embed": _t(sd[prefix + "class_embedding"]).reshape(-1),
+        "pos_embed": _t(sd[prefix + "positional_embedding"]),
+        "pre_ln": _ln(sd, prefix + "ln_pre."),
+        "post_ln": _ln(sd, prefix + "ln_post."),
+        "layers": {
+            "ln1": {"w": _stack(sd, lp + "ln_1.weight", n), "b": _stack(sd, lp + "ln_1.bias", n)},
+            "ln2": {"w": _stack(sd, lp + "ln_2.weight", n), "b": _stack(sd, lp + "ln_2.bias", n)},
+            "attn": {
+                "wq": in_w[:, :d, :].transpose(1, 2),
+                "bq": in_b[:, :d],
+                "wk": in_w[:, d : 2 * d, :].transpose(1, 2),
+                "bk": in_b[:, d : 2 * d],
+                "wv": in_w[:, 2 * d :, :].transpose(1, 2),
+                "bv": in_b[:, 2 * d :],
+                "wo": _stack(sd, lp + "attn.out_proj.weight", n, True),
+                "bo": _stack(sd, lp + "attn.out_proj.bias", n),
+            },
+            "mlp": {
+                "w1": _stack(sd, lp + "mlp.c_fc.weight", n, True),
+                "b1": _stack(sd, lp + "mlp.c_fc.bias", n),
+                "w2": _stack(sd, lp + "mlp.c_proj.weight", n, True),
+                "b2": _stack(sd, lp + "mlp.c_proj.bias", n),
+            },
+        },
+    }
+
+
+def convert_flamingo_perceiver(sd: Mapping, n_layers: int, prefix: str = "perceiver.") -> dict:
+    """open_flamingo ``PerceiverResampler`` naming → the port's perceiver
+    params: ``layers.{i}.0`` is the attention (norm_media/norm_latents, a
+    fused to_kv split k first, as torch's ``chunk(2, dim=-1)``) and
+    ``layers.{i}.1`` the FeedForward (LN, Linear, GELU, Linear; bias-free
+    linears)."""
+    n = n_layers
+    ap = prefix + "layers.{i}.0."
+    fp = prefix + "layers.{i}.1."
+    to_kv = _stack(sd, ap + "to_kv.weight", n, True)  # (L, De, 2·inner)
+    inner = to_kv.shape[-1] // 2
+    return {
+        "latents": _t(sd[prefix + "latents"]),
+        "blocks": {
+            "ctx_ln": {"w": _stack(sd, ap + "norm_media.weight", n),
+                       "b": _stack(sd, ap + "norm_media.bias", n)},
+            "lat_ln": {"w": _stack(sd, ap + "norm_latents.weight", n),
+                       "b": _stack(sd, ap + "norm_latents.bias", n)},
+            "wq": _stack(sd, ap + "to_q.weight", n, True),
+            "wk": to_kv[:, :, :inner],
+            "wv": to_kv[:, :, inner:],
+            "wo": _stack(sd, ap + "to_out.weight", n, True),
+            "mlp_ln": {"w": _stack(sd, fp + "0.weight", n), "b": _stack(sd, fp + "0.bias", n)},
+            "fc": _stack(sd, fp + "1.weight", n, True),
+            "c_proj": _stack(sd, fp + "3.weight", n, True),
+        },
+        "final_ln": _ln(sd, prefix + "norm."),
+    }
+
+
+def convert_flamingo_xattn(
+    sd: Mapping, n_xattn: int, prefix: str = "lang_encoder.gated_cross_attn_layers."
+) -> dict:
+    """open_flamingo ``GatedCrossAttentionBlock`` naming → the port's xattn
+    stack (``openflamingo.init_flamingo_xattn_params``).  The fused to_kv
+    stays fused: the block reshapes it (…, 2, nh, dh), k first."""
+    n = n_xattn
+    xp = prefix + "{i}."
+
+    def gate(name):
+        return torch.stack([_t(sd[xp.format(i=i) + name]).reshape(-1)[0] for i in range(n)])
+
+    return {
+        "ln_attn": {"w": _stack(sd, xp + "attn.norm.weight", n),
+                    "b": _stack(sd, xp + "attn.norm.bias", n)},
+        "wq": _stack(sd, xp + "attn.to_q.weight", n, True),
+        "wkv": _stack(sd, xp + "attn.to_kv.weight", n, True),
+        "wo": _stack(sd, xp + "attn.to_out.weight", n, True),
+        "attn_gate": gate("attn_gate"),
+        "ln_ff": {"w": _stack(sd, xp + "ff.0.weight", n), "b": _stack(sd, xp + "ff.0.bias", n)},
+        "ff_up": _stack(sd, xp + "ff.1.weight", n, True),
+        "ff_down": _stack(sd, xp + "ff.3.weight", n, True),
+        "ff_gate": gate("ff_gate"),
+    }
+
+
+def convert_openflamingo_checkpoint(
+    sd: Mapping, cfg, params: dict, dtype: Optional[torch.dtype] = None, device=None
+) -> tuple:
+    """Merge an open_flamingo ``checkpoint.pt`` state dict into ``params``;
+    returns ``(new_params, updated_keys)``.
+
+    The released checkpoints carry only the trained deltas: the perceiver,
+    the gated cross-attention layers and the resized input embedding
+    (``lang_encoder.transformer.wte.weight``); the MPT base and the CLIP
+    tower load separately.  A full-model dump also carries the MPT blocks
+    and the tower (``vision_encoder.visual.*``).  Keys may be
+    ``module.``-prefixed (DDP).  ``cfg`` is an ``OpenFlamingoConfig``; the
+    new leaves go to ``device`` (default: where ``params["embed"]`` is)."""
+    t = cfg.text
+    dtype = dtype or t.dtype
+    device = device if device is not None else params["embed"].device
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    out = dict(params)
+    updated = []
+    if "perceiver.latents" in sd:
+        out["perceiver"] = _cast_tree(
+            convert_flamingo_perceiver(sd, cfg.perceiver.n_layers), dtype, device
+        )
+        updated.append("perceiver")
+    n_xattn = t.n_layers // cfg.cross_attn_every_n_layers
+    if "lang_encoder.gated_cross_attn_layers.0.attn_gate" in sd:
+        out["xattn"] = _cast_tree(convert_flamingo_xattn(sd, n_xattn), dtype, device)
+        updated.append("xattn")
+    if "lang_encoder.transformer.wte.weight" in sd:
+        # embeddings resized for <image>/<|endofchunk|>; MPT ties the head
+        out["embed"] = _cast_tree(_t(sd["lang_encoder.transformer.wte.weight"]), dtype, device)
+        updated.append("embed")
+    if "lang_encoder.transformer.blocks.0.attn.Wqkv.weight" in sd:
+        # a full-model dump: the MPT base rides along
+        mpt = convert_mpt(sd, t, prefix="lang_encoder.transformer.", dtype=dtype, device=device)
+        out["layers"], out["final_norm"] = mpt["layers"], mpt["final_norm"]
+        if "embed" not in updated:
+            out["embed"] = mpt["embed"]
+        updated.append("layers")
+    if "vision_encoder.visual.conv1.weight" in sd:
+        out["vision"] = _cast_tree(
+            convert_openclip_vision(sd, cfg.vision, "vision_encoder.visual."), dtype, device
+        )
+        updated.append("vision")
+    return out, updated

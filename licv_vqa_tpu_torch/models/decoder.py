@@ -1,5 +1,10 @@
-"""Causal LLaMA decoder layer with the ICV injection and a KV cache
-(counterpart of ``licv_vqa_tpu/models/decoder.py``, rope path only).
+"""Causal decoder layer with the ICV injection and a KV cache (counterpart
+of ``licv_vqa_tpu/models/decoder.py``): LLaMA's rope / RMSNorm / SwiGLU
+branch and MPT's ALiBi / bias-free LayerNorm / GELU branch (OpenFlamingo).
+The ALiBi bias reaches the layer as a (B, H, s, Sk) f32 tensor from the
+caller; a prefill of at least 128 tokens into an empty cache on the card
+takes ``ops.flash_alibi.flash_alibi_attention`` instead, which makes the
+bias inside the kernel.
 
 Layer params are layer-stacked ``(L, ...)`` leaves as in JAX; the multimodal
 wrapper (``idefics.py``) loops over the layers in Python and hands each layer
@@ -31,6 +36,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.flash_alibi import flash_alibi_attention, flash_alibi_usable
 from ..ops.icv_inject import icv_inject
 from ..ops.int8_matmul import qdot
 from ..ops.quantize import dequantize_kv, quantize_kv_rows
@@ -60,7 +66,7 @@ def init_layer_params(
     def ones(*shape):
         return torch.ones((n_layers, *shape), dtype=cfg.dtype, device=device)
 
-    return {
+    p = {
         "attn": {
             "wq": w(d, h * dh),
             "wk": w(d, kv * dh),
@@ -69,8 +75,14 @@ def init_layer_params(
         },
         "ln1": ones(d),
         "ln2": ones(d),
-        "mlp": {"w_gate": w(d, f), "w_up": w(d, f), "w_down": w(f, d)},
     }
+    if cfg.activation == "silu_glu":
+        p["mlp"] = {"w_gate": w(d, f), "w_up": w(d, f), "w_down": w(f, d)}
+    else:
+        # MPT: a two-matrix GELU MLP and no ln1_b/ln2_b, as JAX (the real
+        # checkpoints are bias-free; the layer still reads a converted bias)
+        p["mlp"] = {"w_up": w(d, f), "w_down": w(f, d)}
+    return p
 
 
 def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig, device) -> dict:
@@ -160,15 +172,17 @@ def _cached_attention(
     mask: torch.Tensor,  # (B, 1, s, S) from decode_cache_view
     end: int,
     logit_softcap=None,
+    bias: Optional[torch.Tensor] = None,  # (B, H, s, S) ALiBi over cache columns
 ) -> torch.Tensor:
     """Attention over the written cache prefix ``[0, end)``.  Columns past
-    ``end`` are masked in JAX's full-width mask, so dropping them changes
-    nothing but the work."""
+    ``end`` are masked in JAX's full-width mask, so dropping them (and their
+    bias) changes nothing but the work."""
     n_rep = q.shape[2] // k_cache_l.shape[2]
     return L.dot_product_attention(
         q,
         L.repeat_kv(k_cache_l[:, :end], n_rep),
         L.repeat_kv(v_cache_l[:, :end], n_rep),
+        bias=None if bias is None else bias[..., :end],
         mask=mask[..., :end],
         logit_softcap=logit_softcap,
     )
@@ -214,8 +228,11 @@ def _int8_cached_attention(
     return out.to(q.dtype)
 
 
-def _norm(cfg: DecoderConfig, w, x):
-    return L.rms_norm(w, x, cfg.norm_eps)
+def _norm(cfg: DecoderConfig, w, b, x):
+    """RMSNorm, or LayerNorm with an optional bias (MPT's are bias-free)."""
+    if cfg.norm_type == "rmsnorm":
+        return L.rms_norm(w, x, cfg.norm_eps)
+    return L.layer_norm(w, b, x, cfg.norm_eps)
 
 
 def decoder_layer(
@@ -228,23 +245,29 @@ def decoder_layer(
     icv_row,  # (D,) scaled ICV row, a (row, flag) pair, or None
     kv_write: Optional[tuple] = None,  # (k_cache_l, v_cache_l, index)
     flash_valid: Optional[torch.Tensor] = None,  # (B, s): enables the flash path
+    bias: Optional[torch.Tensor] = None,  # (B, H, s, Sk) f32 ALiBi bias
 ) -> torch.Tensor:
-    """One pre-norm LLaMA layer.  With ``kv_write`` the new K/V rows go into
-    the cache in place (see the module docstring).  ``flash_valid`` is passed
-    only for self-contained blocks (a prefill into an EMPTY cache), so the
-    flash kernel attends the local keys and ignores the cache mask."""
+    """One pre-norm layer, LLaMA's or MPT's (``cfg.positional``).  With
+    ``kv_write`` the new K/V rows go into the cache in place (see the module
+    docstring).  ``flash_valid`` is passed only for self-contained blocks (a
+    prefill into an EMPTY cache, or the no-cache train forward), so the
+    flash kernels attend the local keys and ignore the cache mask.  ALiBi
+    layers take ``bias`` over the same key columns as ``mask``; it may be
+    None only where the ALiBi flash branch is taken."""
     b, s, d = h.shape
     nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     # a token-count gate: prefill and bind blocks run w8a8, decode steps
     # keep the weight-only routes
     a8 = cfg.w8a8_prefill and s >= W8A8_MIN_TOKENS
 
-    x = _norm(cfg, p["ln1"], h)
+    x = _norm(cfg, p["ln1"], p.get("ln1_b"), h)
     q = qdot(x, p["attn"]["wq"], a8=a8).reshape(b, s, nh, dh)
     k = qdot(x, p["attn"]["wk"], a8=a8).reshape(b, s, nkv, dh)
     v = qdot(x, p["attn"]["wv"], a8=a8).reshape(b, s, nkv, dh)
-    q = L.apply_rope(q, cos, sin)
-    k = L.apply_rope(k, cos, sin)
+    alibi = cfg.positional == "alibi"
+    if not alibi:
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
     if "q_norm" in p["attn"]:  # idefics qk_layer_norms: per-head-dim RMSNorm
         q = L.rms_norm(p["attn"]["q_norm"], q, cfg.norm_eps)
         k = L.rms_norm(p["attn"]["k_norm"], k, cfg.norm_eps)
@@ -261,14 +284,23 @@ def decoder_layer(
             v_local = dequantize_kv(vq, vs, h.dtype)
         else:
             apply_kv_rows(k_cache, v_cache, k, v, index)
+    self_contained = flash_valid is not None and cfg.attn_logit_softcap is None
     use_flash = (
-        flash_valid is not None
-        and cfg.attn_logit_softcap is None
-        and L.flash_attention_usable(cfg, s, dh, h.device)
+        self_contained and not alibi and L.flash_attention_usable(cfg, s, dh, h.device)
     )
+    # ALiBi depends on index differences only, so left-padded prefill rows
+    # are fine: q_idx - k_idx equals q_pos - k_pos for every real token
+    use_flash_alibi = self_contained and alibi and flash_alibi_usable(cfg, s, dh, h.device)
+    if alibi and bias is None and not use_flash_alibi:
+        raise ValueError("decoder_layer: an ALiBi layer off the flash branch needs its bias")
     if use_flash:
         attn = L.flash_attention(
             q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid
+        )
+    elif use_flash_alibi:
+        attn = flash_alibi_attention(
+            q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid,
+            L.alibi_slopes(nh, h.device), float(dh) ** -0.5,
         )
     elif kv_write is not None and isinstance(k_cache, dict):
         attn = _int8_cached_attention(
@@ -276,16 +308,18 @@ def decoder_layer(
         )
     elif kv_write is not None:
         attn = _cached_attention(
-            q, k_cache, v_cache, mask, index + s, cfg.attn_logit_softcap
+            q, k_cache, v_cache, mask, index + s, cfg.attn_logit_softcap, bias
         )
     else:
         attn = L.dot_product_attention(
             q, L.repeat_kv(k, nh // nkv), L.repeat_kv(v, nh // nkv),
-            mask=mask, logit_softcap=cfg.attn_logit_softcap,
+            bias=bias, mask=mask, logit_softcap=cfg.attn_logit_softcap,
         )
     h = h + qdot(attn.reshape(b, s, nh * dh), p["attn"]["wo"], a8=a8).to(h.dtype)
 
-    mlp = L.swiglu_mlp(p["mlp"], _norm(cfg, p["ln2"], h), a8=a8)
+    x2 = _norm(cfg, p["ln2"], p.get("ln2_b"), h)
+    mlp = (L.swiglu_mlp(p["mlp"], x2, a8=a8) if cfg.activation == "silu_glu"
+           else L.gelu_mlp(p["mlp"], x2, a8=a8))
     if icv_row is not None and cfg.injection_site == MLP_OUTPUT:
         mlp = _apply_icv(mlp, icv_row)
     h = h + mlp
@@ -303,6 +337,22 @@ def _apply_icv(x: torch.Tensor, icv_row) -> torch.Tensor:
         row, flag = icv_row
         return icv_inject(x, row) if flag else x
     return icv_inject(x, icv_row)
+
+
+def alibi_bias_for(cfg: DecoderConfig, positions: torch.Tensor, cache: Optional[dict],
+                   flash_valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The (B, H, s, Sk) ALiBi bias of one forward: over the cache's columns
+    (``cache["pos"]``, after ``decode_cache_view`` wrote this block's) or
+    over the block itself.  None where every layer takes the ALiBi flash
+    branch (a self-contained block the gate passes), which makes the bias
+    in the kernel: the plain path's f32 bias is 537 MB a forward at 2048
+    tokens and 32 heads."""
+    s = positions.shape[1]
+    if (flash_valid is not None and cfg.attn_logit_softcap is None
+            and flash_alibi_usable(cfg, s, cfg.head_dim, positions.device)):
+        return None
+    k_pos = cache["pos"] if cache is not None else positions
+    return L.alibi_bias(cfg.n_heads, positions, k_pos)
 
 
 def _positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -375,7 +425,11 @@ def forward_hidden(
         index = cache["index"]
         mask, _, _ = decode_cache_view(cache, positions, attention_mask, s)
         flash_valid = prefill_flash
-    cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos = sin = bias = None
+    if cfg.positional == "rope":
+        cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    else:
+        bias = alibi_bias_for(cfg, positions, cache, flash_valid)
     remat = remat and cache is None and torch.is_grad_enabled()
     for li in range(cfg.n_layers):
         p_l = L.layer_slice(params["layers"], li)
@@ -386,7 +440,7 @@ def forward_hidden(
         def layer_fn(hh, icv_arg, p_l=p_l, kv_write=kv_write):
             return decoder_layer(
                 cfg, p_l, hh, cos, sin, mask, icv_arg, kv_write=kv_write,
-                flash_valid=flash_valid,
+                flash_valid=flash_valid, bias=bias,
             )
 
         icv_arg = _icv_row(icv, li)
@@ -396,7 +450,7 @@ def forward_hidden(
             h = layer_fn(h, icv_arg)
     if cache is not None:
         cache["index"] = index + s
-    return _norm(cfg, params["final_norm"], h), cache
+    return _norm(cfg, params["final_norm"], params.get("final_norm_b"), h), cache
 
 
 def causal_lm_forward(

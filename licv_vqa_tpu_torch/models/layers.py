@@ -81,6 +81,34 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
+# ALiBi (the MPT backbone of OpenFlamingo)
+# ---------------------------------------------------------------------------
+
+
+def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """(H,) f32 per-head slopes (Press et al.): ``2^(-8i/n)`` for a power of
+    two ``n``; otherwise those of the nearest lower power of two followed by
+    every other slope of the next one (JAX layers.py:81-94)."""
+
+    def pow2slopes(n: int) -> torch.Tensor:
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3.0)))
+        return start ** torch.arange(1, n + 1, dtype=torch.float32, device=device)
+
+    if math.log2(n_heads).is_integer():
+        return pow2slopes(n_heads)
+    closest = 2 ** math.floor(math.log2(n_heads))
+    extra = pow2slopes(2 * closest)[0::2][: n_heads - closest]
+    return torch.cat([pow2slopes(closest), extra])
+
+
+def alibi_bias(n_heads: int, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    """ALiBi additive bias (B, H, Sq, Sk) f32: ``-slope_h · (q_pos − k_pos)``."""
+    slopes = alibi_slopes(n_heads, q_pos.device)
+    rel = (q_pos[:, :, None] - k_pos[:, None, :]).float()  # (B, Sq, Sk)
+    return -slopes[None, :, None, None] * rel[:, None, :, :]
+
+
+# ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
@@ -147,16 +175,17 @@ def flash_attention_reference(
 _FLASH_HEAD_DIM = 128
 
 
-def _check_flash_operand(name: str, x: torch.Tensor, shape: tuple) -> None:
+def _check_flash_operand(name: str, x: torch.Tensor, shape: tuple,
+                         fn: str = "flash_attention") -> None:
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention: {name} must be bf16, got {x.dtype}")
+        raise TypeError(f"{fn}: {name} must be bf16, got {x.dtype}")
     if tuple(x.shape) != shape:
-        raise ValueError(f"flash_attention: {name} has shape {tuple(x.shape)}, want {shape}")
+        raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, want {shape}")
     if x.stride(-1) != 1:
-        raise ValueError(f"flash_attention: {name} needs a contiguous head dim")
+        raise ValueError(f"{fn}: {name} needs a contiguous head dim")
     # 16-byte loads of K/V rows and 4-byte bf16x2 accesses everywhere
     if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:-1]):
-        raise ValueError(f"flash_attention: {name} rows must be 16-byte aligned")
+        raise ValueError(f"{fn}: {name} rows must be 16-byte aligned")
 
 
 def _flash_attention_cuda(q, k, v, valid, scale) -> torch.Tensor:
@@ -260,52 +289,53 @@ def flash_attention_bidir_reference(
 
 
 # the head dims the bidirectional kernel is built for: SigLIP-SO400M's
-# 1152/16 (the OpenFlamingo slice adds CLIP's 64 and 80)
+# 1152/16 (the CLIP towers' s=257 takes vit_attention)
 _FLASH_BIDIR_HEAD_DIMS = (72,)
 
 
-def _flash_attention_bidir_cuda(q, k, v, valid, scale) -> torch.Tensor:
+def _tower_attention_cuda(fn: str, source: str, symbol: str, head_dims: tuple,
+                          off_switch: str, q, k, v, valid, scale) -> torch.Tensor:
+    """Launch one of the towers' bidirectional attention kernels
+    (``csrc/flash_attn_bidir.cu``, ``csrc/vit_attention.cu``: one plain C
+    interface) on bf16 (B, S, H, Dh) strided views and an optional (B, S)
+    ``valid``.  ``fn`` names the wrapper in errors, ``off_switch`` the
+    environment variable that takes its plain path."""
     from ..csrc import load_library
 
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        # as the causal kernel: a ctypes output has no grad_fn
+        # the towers are frozen, and a ctypes output has no grad_fn: a
+        # backward would skip attention without a word
         raise RuntimeError(
-            "flash_attention_bidir: the CUDA kernel has a forward only (the "
-            "vision towers are frozen). Run under torch.no_grad(), or with "
-            "LICV_VIT_FLASH=0 for a gradient"
+            f"{fn}: the CUDA kernel has a forward only (the vision towers are "
+            f"frozen). Run under torch.no_grad(), or with {off_switch}=0 for a gradient"
         )
     b, s, h, dh = q.shape
-    if dh not in _FLASH_BIDIR_HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention_bidir kernel supports head_dim in {_FLASH_BIDIR_HEAD_DIMS}, got {dh}"
-        )
+    if dh not in head_dims:
+        raise ValueError(f"{fn} kernel supports head_dim in {head_dims}, got {dh}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
-            raise ValueError(f"flash_attention_bidir: {name} is on {x.device}, q on {q.device}")
-        _check_flash_operand(name, x, (b, s, h, dh))
+            raise ValueError(f"{fn}: {name} is on {x.device}, q on {q.device}")
+        _check_flash_operand(name, x, (b, s, h, dh), fn)
     valid_ptr = None  # every key real
     if valid is not None:
         if tuple(valid.shape) != (b, s):
-            raise ValueError(
-                f"flash_attention_bidir: valid has shape {tuple(valid.shape)}, want {(b, s)}"
-            )
+            raise ValueError(f"{fn}: valid has shape {tuple(valid.shape)}, want {(b, s)}")
         valid = valid.to(device=q.device, dtype=torch.int32).contiguous()
         valid_ptr = valid.data_ptr()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    fn = load_library("flash_attn_bidir.cu").flash_attn_bidir_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
+    kernel = getattr(load_library(source), symbol)
+    kernel.restype = ctypes.c_int
+    kernel.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_void_p]
     )
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
-    err = fn(
+    err = kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_ptr, out.data_ptr(),
         b, s, h, dh, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attn_bidir_bf16 launch failed: cudaError {err}")
-    flash_attention_bidir.launches += 1
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
     return out
 
 
@@ -331,7 +361,12 @@ def flash_attention_bidir(
     scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     if q.device.type == "cpu":
         return flash_attention_bidir_reference(q, k, v, valid, scale)
-    return _flash_attention_bidir_cuda(q, k, v, valid, scale)
+    out = _tower_attention_cuda(
+        "flash_attention_bidir", "flash_attn_bidir.cu", "flash_attn_bidir_bf16",
+        _FLASH_BIDIR_HEAD_DIMS, "LICV_VIT_FLASH", q, k, v, valid, scale,
+    )
+    flash_attention_bidir.launches += 1
+    return out
 
 
 flash_attention_bidir.launches = 0  # kernel launches (CUDA tensors only)
@@ -346,6 +381,72 @@ def flash_bidir_usable(s: int, device: torch.device) -> bool:
         torch.device(device).type == "cuda"
         and s >= 1024
         and os.environ.get("LICV_VIT_FLASH", "1") != "0"
+    )
+
+
+def vit_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of ``vit_attention``: ``dot_product_attention`` under
+    the key mask ``valid[:, None, None, :]`` (no mask when every key is
+    real)."""
+    mask = None if valid is None else valid.bool()[:, None, None, :]
+    return dot_product_attention(q, k, v, mask=mask, scale=scale)
+
+
+# the head dims the fused ViT kernel is built for: OpenFlamingo's ViT-L
+# (1024/16), SigLIP-SO400M's (1152/16), Idefics-9B's ViT-H (1280/16)
+_VIT_HEAD_DIMS = (64, 72, 80)
+
+
+def vit_attention(
+    q: torch.Tensor,  # (B, S, H, Dh)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,  # (B, S) key mask; None = every key
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused bidirectional attention for short vision sequences
+    (counterpart of ``vit_attention_tpu``): f32 scores and an exact softmax
+    over the whole row, masked keys at ``finfo(f32).min``, the probabilities
+    rounded to V's dtype before P·V with f32 accumulation.
+
+    CUDA tensors launch the hand-written kernel ``csrc/vit_attention.cu``
+    (bf16, head_dim 64, 72 or 80) or raise; CPU tensors take the plain
+    version ``vit_attention_reference``.  A row with no valid key gets the
+    uniform softmax, as in the plain version."""
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    if q.device.type == "cpu":
+        return vit_attention_reference(q, k, v, valid, scale)
+    out = _tower_attention_cuda(
+        "vit_attention", "vit_attention.cu", "vit_attention_bf16", _VIT_HEAD_DIMS,
+        "LICV_VIT_FUSED_ATTN", q, k, v, valid, scale,
+    )
+    vit_attention.launches += 1
+    return out
+
+
+vit_attention.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def vit_attention_usable(s: int, dh: int, device: torch.device) -> bool:
+    """Gate of the towers' fused short-sequence branch: a CUDA device,
+    ``s <= 1024``, a head dim the kernel is built for, and
+    ``LICV_VIT_FUSED_ATTN`` not ``0``.  On by default, where JAX keeps it
+    opt-in (``ops/vit_attention.py:92-115``: on the TPU the kernel lost
+    XLA's in-tower fusion).  Eager PyTorch has no such fusion: the plain
+    branch upcasts Q/K/V to f32 and writes and reads (B, H, S, S) f32
+    scores in device memory (ROADMAP Queue 3).  The caller adds the other
+    condition: the layer's mask is a key mask."""
+    return (
+        torch.device(device).type == "cuda"
+        and s <= 1024
+        and dh in _VIT_HEAD_DIMS
+        and os.environ.get("LICV_VIT_FUSED_ATTN", "1") != "0"
     )
 
 

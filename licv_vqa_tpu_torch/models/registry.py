@@ -1,12 +1,16 @@
 """Model registry: config group ``lmm`` → a runnable model bundle
-(counterpart of ``licv_vqa_tpu/models/registry.py``, Idefics and Idefics2
-parts).
+(counterpart of ``licv_vqa_tpu/models/registry.py``: Idefics, Idefics2 and
+OpenFlamingo).
 
 Weight resolution is the JAX package's: HF ``*.safetensors`` shards (or
 ``pytorch_model*.bin``) under ``{model_cpk_dir}/{model_name}``, converted by
-``convert.convert_idefics`` / ``convert.convert_idefics2``; when absent,
-parameters are randomly initialised on the device with a loud warning, and
-the tokenizer falls back to ``WhitespaceTokenizer``.
+``convert.convert_idefics`` / ``convert.convert_idefics2``; OpenFlamingo's
+three pieces (the MPT base under ``lang_encoder_path``, the flamingo deltas
+and the open_clip tower under ``flamingo_checkpoint_dir``) by
+``convert.convert_mpt`` and ``convert.convert_openflamingo_checkpoint``.
+Where weights are absent, parameters are randomly initialised on the device
+with a loud warning, and the tokenizer falls back to
+``WhitespaceTokenizer``.
 """
 
 from __future__ import annotations
@@ -29,10 +33,22 @@ from ..data.tokenizer import WhitespaceTokenizer, load_hf_tokenizer
 from ..utils.config import InterpolationError
 from ..ops.quantize import quantize_array, quantize_layer_stack
 from ..utils.log import get_logger
-from .convert import convert_idefics, convert_idefics2
+from .convert import (
+    _cast_tree,
+    convert_idefics,
+    convert_idefics2,
+    convert_mpt,
+    convert_openclip_vision,
+    convert_openflamingo_checkpoint,
+)
 from .decoder import logits_from_hidden
 from .idefics import IdeficsConfig, init_idefics_params, make_idefics_forward_fns
 from .idefics2 import Idefics2Config, init_idefics2_params, make_idefics2_forward_fns
+from .openflamingo import (
+    OpenFlamingoConfig,
+    init_openflamingo_params,
+    make_openflamingo_forward_fns,
+)
 
 logger = get_logger("models")
 
@@ -238,6 +254,124 @@ def _family_bundle(cfg, model_cfg, name: str, device) -> ModelBundle:
     )
 
 
+def _load_torch_state_dict(path: Path) -> Optional[dict]:
+    """``torch.load`` a ``.pt``/``.bin`` and unwrap the common containers
+    (JAX registry.py:519-533)."""
+    try:
+        obj = torch.load(str(path), map_location="cpu", weights_only=True)
+    except Exception as e:  # a foreign pickle: skipped with a warning, as in JAX
+        logger.warning("could not load %s: %s", path, e)
+        return None
+    if isinstance(obj, dict):
+        for key in ("model_state_dict", "state_dict", "model"):
+            if key in obj and isinstance(obj[key], dict):
+                return obj[key]
+        return obj
+    return None
+
+
+def _flamingo_dirs(cfg, name: str) -> tuple:
+    """``(MPT base dir, flamingo checkpoint dir)``, either None, as JAX
+    resolves them (registry.py:540-559): ``{model_cpk_dir}/{lang_encoder_path
+    or model_name}``, and ``flamingo_checkpoint_dir`` or else
+    ``{model_cpk_dir}/{hf_root}``; an unset environment variable in either
+    leaves it None."""
+    model_dir = flamingo_dir = None
+    if cfg is None or "model_cpk_dir" not in cfg:
+        return None, None
+    try:
+        base = cfg.lmm.get("lang_encoder_path", cfg.lmm.get("model_name", name))
+        model_dir = Path(str(cfg.model_cpk_dir)) / str(base)
+    except InterpolationError:
+        model_dir = None
+    try:
+        fdir = cfg.lmm.get("flamingo_checkpoint_dir")
+        if fdir:
+            flamingo_dir = Path(str(fdir))
+        elif cfg.lmm.get("hf_root"):
+            flamingo_dir = Path(str(cfg.model_cpk_dir)) / str(cfg.lmm.hf_root)
+    except InterpolationError:
+        flamingo_dir = None
+    return model_dir, flamingo_dir
+
+
+def _openflamingo_bundle(cfg, model_cfg, name: str, device) -> ModelBundle:
+    """OpenFlamingo (JAX ``_openflamingo_bundle``, registry.py:536-647): its
+    weights come in three pieces (the MPT base, the flamingo deltas of
+    ``checkpoint.pt``, the open_clip ViT-L tower), each over a random init
+    on the device where it is missing; CLIP normalisation; the
+    ``flamingo`` prompt family at MPT-7B's 2048-token context; the head
+    tied to the embedding table."""
+    model_dir, flamingo_dir = _flamingo_dirs(cfg, name)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_openflamingo_params(gen, model_cfg, device)
+    sd = _load_hf_weights(model_dir) if model_dir and model_dir.exists() else None
+    if sd is not None:
+        mpt = convert_mpt(sd, model_cfg.text, device=device)
+        params.update({k: mpt[k] for k in ("embed", "layers", "final_norm")})
+        logger.info("loaded MPT backbone from %s", model_dir)
+    else:
+        logger.warning("openflamingo weights not found under %s — RANDOM INIT (%s)",
+                       model_dir, model_cfg.text.dtype)
+    if flamingo_dir is not None and flamingo_dir.exists():
+        candidates = [flamingo_dir / "checkpoint.pt"] + sorted(
+            p for p in flamingo_dir.glob("*.pt") if p.name != "checkpoint.pt"
+        ) + sorted(flamingo_dir.glob("*.bin"))
+        applied = []
+        for path in candidates:
+            fsd = _load_torch_state_dict(path) if path.exists() else None
+            if fsd is None:
+                continue
+            keys = {k[len("module."):] if k.startswith("module.") else k for k in fsd}
+            if any(k.startswith(("perceiver.", "lang_encoder.")) for k in keys):
+                params, updated = convert_openflamingo_checkpoint(fsd, model_cfg, params)
+                applied += updated
+                logger.info("applied flamingo deltas %s from %s", updated, path)
+            elif "visual.conv1.weight" in keys:  # a standalone open_clip tower
+                params["vision"] = _cast_tree(
+                    convert_openclip_vision(fsd, model_cfg.vision, "visual."),
+                    model_cfg.vision.dtype, device,
+                )
+                applied.append("vision")
+                logger.info("loaded open_clip ViT tower from %s", path)
+        missing = {"perceiver", "xattn", "vision"} - set(applied)
+        if missing:
+            logger.warning("flamingo checkpoint dir %s left %s at random init",
+                           flamingo_dir, sorted(missing))
+    elif flamingo_dir is not None:
+        logger.warning("flamingo_checkpoint_dir %s not found — perceiver/xattn/vision "
+                       "stay at random init", flamingo_dir)
+
+    tokenizer = _resolve_tokenizer(model_dir)
+    processor = PromptProcessor(
+        tokenizer,
+        ImageTransform(model_cfg.vision.image_size, CLIP_MEAN, CLIP_STD),
+        family="flamingo",
+        max_length=_max_length(cfg, default=2048),  # MPT-7B context
+    )
+    if isinstance(tokenizer, WhitespaceTokenizer):
+        model_cfg = dataclasses.replace(model_cfg, image_token_id=processor.image_token_id)
+    train_fwd, bind = make_openflamingo_forward_fns(model_cfg, tokenizer.eos_token_id)
+    train_fwd, bind = _wrap_pixel_normalize(train_fwd, bind, CLIP_MEAN, CLIP_STD)
+    train_fwd, bind, n_icv_layers, icv_layer_ids = _wrap_intervention(
+        cfg, model_cfg.text.n_layers, train_fwd, bind
+    )
+    return ModelBundle(
+        name=name,
+        model_cfg=model_cfg,
+        params=params,
+        tokenizer=tokenizer,
+        processor=processor,
+        train_forward=train_fwd,
+        bind_decode=bind,
+        hidden_size=model_cfg.text.d_model,
+        n_layers=n_icv_layers,
+        device=torch.device(device),
+        intervention_layers=icv_layer_ids,
+        head_fn=lambda p, h, _t=model_cfg.text: logits_from_hidden(_t, p, h),
+    )
+
+
 def _apply_lmm_options(cfg, model_cfg):
     """Honor ``lmm.attention_impl`` (xla|flash), ``lmm.remat_mode``
     (both|inner|outer; policy raises in the train forward; only configs
@@ -310,11 +444,18 @@ def build_model(cfg, device="cuda") -> ModelBundle:
         model_cfg = Idefics2Config.idefics2_8b()
     elif name == "tiny-idefics2":
         model_cfg = Idefics2Config.tiny(dtype=torch.float32)
-    elif "flamingo" in name.lower():
-        raise NotImplementedError(
-            f"lmm {name} is not ported to licv_vqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 11 (OpenFlamingo))"
-        )
+    elif "openflamingo" in name.lower() or name == "tiny-flamingo":
+        quantized = (str(cfg.lmm.get("quantize", "none")) != "none"
+                     or bool(cfg.lmm.get("w8a8_prefill", False))
+                     or str(cfg.lmm.get("kv_cache", "bf16")) == "int8")
+        if quantized:
+            raise NotImplementedError(
+                "quantized OpenFlamingo (lmm.quantize, lmm.w8a8_prefill, lmm.kv_cache=int8) "
+                "is not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 20)"
+            )
+        model_cfg = (OpenFlamingoConfig.tiny(dtype=torch.float32) if name == "tiny-flamingo"
+                     else OpenFlamingoConfig.openflamingo_9b())
+        return _openflamingo_bundle(cfg, _apply_lmm_options(cfg, model_cfg), name, device)
     else:
         raise ValueError(f"unknown lmm name: {name}")
     bundle = _family_bundle(cfg, _apply_lmm_options(cfg, model_cfg), name, device)

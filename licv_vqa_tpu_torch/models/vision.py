@@ -9,13 +9,15 @@ prepend a class token and add learned positions; SigLIP towers have a
 biased patch conv, no class token, NaViT bucketized position ids and a
 patch mask for batch-padded images, and a post-layernorm.
 
-Attention: sequences of at least 1024 patches on the card (every Idefics2
-image) take the bidirectional flash kernel (``layers.flash_attention_bidir``,
-``csrc/flash_attn_bidir.cu``), as JAX takes its Pallas kernel; the rest take
-the plain ``dot_product_attention`` with the key mask (JAX's default
-branch, ViT-H's s=257).  JAX's opt-in fused short-sequence kernel
-(``LICV_VIT_FUSED_ATTN=1``, CLIP towers only) is not ported yet (ROADMAP
-Queue 2, the OpenFlamingo slice).
+Attention, in JAX's order (vision.py:93-111): sequences of at least 1024
+patches on the card (every Idefics2 image) take the bidirectional flash
+kernel (``layers.flash_attention_bidir``, ``csrc/flash_attn_bidir.cu``);
+shorter ones on the card (the CLIP towers' s=257: Idefics-9B's ViT-H,
+OpenFlamingo's ViT-L) take the fused short-sequence kernel
+(``layers.vit_attention``, ``csrc/vit_attention.cu``), on by default where
+JAX keeps it opt-in (``LICV_VIT_FUSED_ATTN=0`` turns it off; ROADMAP Queue
+3), and only under a key mask; the rest take the plain
+``dot_product_attention`` with the layer's mask.
 """
 
 from __future__ import annotations
@@ -86,8 +88,12 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
 def _vit_layer(
     cfg: VisionConfig, p: dict, h: torch.Tensor, mask=None, valid=None, a8: bool = False
 ) -> torch.Tensor:
-    """``mask``: (B, 1, 1, S) key mask of the plain branch; ``valid``: the
-    same patch validity (B, S) for the flash kernel's segment rule."""
+    """``mask``: the plain branch's mask, a (B, 1, 1, S) key mask or any
+    other (a text encoder's causal mask); ``valid``: the patch validity (B,
+    S) of a key mask, for the kernels.  The fused short-sequence kernel
+    takes key masks only (no ``mask``, or a ``valid``): JAX's branch drops
+    ``mask`` (vision.py:102-110) and would attend a causal one
+    bidirectionally (ROADMAP Queue 3, reference behaviour not to copy)."""
     b, s, d = h.shape
     nh, dh = cfg.n_heads, d // cfg.n_heads
     x = L.layer_norm(p["ln1"]["w"], p["ln1"]["b"], h, cfg.norm_eps)
@@ -101,6 +107,9 @@ def _vit_layer(
         # from the plain branch's and are consumed by nothing (the
         # perceiver's kv_mask drops them)
         attn = L.flash_attention_bidir(q, k, v, valid=valid)
+    elif (mask is None or valid is not None) and L.vit_attention_usable(s, dh, h.device):
+        # never writes the (B, H, S, S) f32 scores to device memory
+        attn = L.vit_attention(q, k, v, valid)
     else:
         attn = L.dot_product_attention(q, k, v, mask=mask)
     h = h + (qdot(attn.reshape(b, s, d), a["wo"], a8=a8) + a["bo"]).to(h.dtype)

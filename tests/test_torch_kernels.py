@@ -5,7 +5,10 @@ kernels); skipped without one.  Run on the H100 with
 ``python -m pytest tests/test_torch_kernels.py -o addopts="" -m cuda``
 (``-o addopts=""`` drops the repository's xdist defaults).
 The bidirectional flash kernel is held at ``chip_smoke.py`` phase 3's
-shapes (the SigLIP tower's H=16, Dh=72) and at a ragged one.
+shapes (the SigLIP tower's H=16, Dh=72) and at a ragged one; the ALiBi
+flash kernel at MPT-7B's (H=32, Dh=128) with both paddings, on the rows
+with a visible key; the fused ViT kernel at ViT-L's and ViT-H's (H=16,
+Dh=64 and 80), masked and unmasked, on every row.
 Tolerance: f32 math on both sides, so the two differ by output rounding
 (bf16 outputs) and summation order.  The limit scales with the output:
 max-abs error ≤ 2e-2 · max|plain| for bf16 outputs (one bf16 ulp is at most
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from licv_vqa_tpu_torch.models import layers as PL
+from licv_vqa_tpu_torch.ops import flash_alibi as FA
 from licv_vqa_tpu_torch.ops import int4_matmul as I4
 from licv_vqa_tpu_torch.ops import int8_matmul as I8
 from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
@@ -172,6 +176,120 @@ def test_flash_bidir_kernel_rejects_other_head_dims_and_grad(dev):
     y = torch.zeros((1, 1024, 16, 72), dtype=torch.bfloat16, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
         PL.flash_attention_bidir(y, y, y)
+
+
+def _alibi_rows(valid: torch.Tensor) -> torch.Tensor:
+    """(B, S) rows with a visible key under the ALiBi rule (k <= q and
+    valid[k]): real rows and right-pad rows.  A left-pad row sees none; the
+    kernel writes 0 there, the plain version a uniform average."""
+    return torch.cumsum(valid, dim=1) > 0
+
+
+@pytest.mark.parametrize("b,s,pad,side", [
+    # chip_smoke.py phase 3's shapes (MPT-7B: 32 heads of 128), each padding
+    (1, 512, 39, "left"), (1, 512, 61, "right"), (1, 2048, 301, "left"),
+    (1, 2048, 250, "right"),
+    # a ragged tail (S not a multiple of the 64-key tile), two rows
+    (2, 300, 37, "left"),
+])
+def test_flash_alibi_kernel_matches_plain(dev, b, s, pad, side):
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (
+        torch.randn((b, s, 32, 128), generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(3)
+    )
+    valid = torch.ones((b, s), dtype=torch.int32, device=dev)
+    if side == "left":
+        valid[:, :pad] = 0
+    else:
+        valid[:, s - pad :] = 0
+    slopes = PL.alibi_slopes(32, dev)
+    before = FA.flash_alibi_attention.launches
+    with torch.no_grad():
+        got = FA.flash_alibi_attention(q, k, v, valid, slopes, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert FA.flash_alibi_attention.launches == before + 1
+    want = FA.flash_alibi_reference(q, k, v, valid, slopes, 128 ** -0.5)
+    assert torch.isfinite(got).all()
+    rows = _alibi_rows(valid)
+    _assert_close(got[rows], want[rows])
+    if side == "left":  # no visible key: the kernel writes 0
+        assert (got[~rows] == 0).all()
+
+
+def test_flash_alibi_kernel_takes_strided_views_and_gives_a_gradient(dev):
+    """q/k/v as views into one fused (B, S, 3, H, Dh) buffer; under autograd
+    the forward launches the kernel and the backward recomputes through the
+    plain version."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    qkv = torch.randn((1, 256, 3, 8, 128), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    valid = torch.ones((1, 256), dtype=torch.int32, device=dev)
+    slopes = PL.alibi_slopes(8, dev)
+    _assert_close(FA.flash_alibi_attention(q, k, v, valid, slopes, 0.09),
+                  FA.flash_alibi_reference(q, k, v, valid, slopes, 0.09))
+    qg = q.detach().float().requires_grad_(True)
+    x = qg.to(torch.bfloat16)
+    out = FA.flash_alibi_attention(x, k, v, valid, slopes, 0.09)
+    (dq,) = torch.autograd.grad(out.float().square().sum(), qg)
+    qr = q.detach().float().requires_grad_(True)
+    ref = FA.flash_alibi_reference(qr.to(torch.bfloat16), k, v, valid, slopes, 0.09)
+    (want,) = torch.autograd.grad(ref.float().square().sum(), qr)
+    assert torch.isfinite(dq).all()
+    _assert_close(dq, want, tol=5e-2)  # the cotangent is the kernel's output
+
+
+def test_flash_alibi_kernel_rejects_other_head_dims(dev):
+    x = torch.zeros((1, 256, 4, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_alibi_attention(x, x, x, torch.ones((1, 256), device=dev),
+                                 PL.alibi_slopes(4, dev), 0.125)
+
+
+@pytest.mark.parametrize("b,s,dh,masked", [
+    # chip_smoke.py phase 3's shapes: ViT-L (Dh 64) at a test_icv bind and a
+    # 32-shot bind, ViT-H (Dh 80) at a 32-shot bind, a masked case and the
+    # gate's largest s
+    (1, 257, 64, False), (33, 257, 64, False), (33, 257, 80, False),
+    (4, 257, 80, True), (2, 1024, 80, True),
+    # SigLIP's head dim under 1024 patches, and a tiny ragged one
+    (2, 729, 72, True), (3, 5, 64, True),
+])
+def test_vit_attention_kernel_matches_plain(dev, b, s, dh, masked):
+    """Every row: a fully masked one gives the plain version's uniform
+    softmax."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = (
+        torch.randn((b, s, 16, dh), generator=g, device=dev).to(torch.bfloat16)
+        for _ in range(3)
+    )
+    valid = None
+    if masked:
+        valid = torch.rand((b, s), generator=g, device=dev) > 0.3
+        valid[-1] = False
+    before = PL.vit_attention.launches
+    got = PL.vit_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert PL.vit_attention.launches == before + 1
+    want = PL.vit_attention_reference(q, k, v, valid)
+    assert torch.isfinite(got).all()
+    _assert_close(got, want)
+
+
+def test_vit_attention_kernel_takes_strided_views(dev):
+    g = torch.Generator(device=dev).manual_seed(32)
+    qkv = torch.randn((2, 257, 3, 16, 64), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    _assert_close(PL.vit_attention(q, k, v), PL.vit_attention_reference(q, k, v))
+
+
+def test_vit_attention_kernel_rejects_other_head_dims_and_grad(dev):
+    x = torch.zeros((1, 257, 16, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        PL.vit_attention(x, x, x)
+    y = torch.zeros((1, 257, 16, 64), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        PL.vit_attention(y, y, y)
 
 
 @pytest.mark.parametrize("shape,layout", [

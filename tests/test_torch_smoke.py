@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s checks as written, read on the CPU: the work each
 kernel case's bound counts, the limit each case is held to, the device-busy
-union the training profile reports, the launch counts phases 6 and 7
+union the training profile reports, the launch counts phases 6, 7 and 8
 predict (rehearsed at tiny size), and the kernel lines that
 ``tools/mutation_check_torch_kernels.py`` breaks (so a change to a kernel
 cannot silently leave the mutation check with nothing to break)."""
@@ -93,11 +93,71 @@ def test_idefics2_launch_prediction_at_full_width():
 
     mc, cuda = Idefics2Config.idefics2_8b(), torch.device("cuda")
     icv = C.predicted_idefics2_launches(mc, 128, 1920, True, cuda)
-    assert icv == {"flash_attention_bidir": 27, "flash_attention_fwd": 0, "icv_inject": 160}
+    assert icv == {"flash_attention_bidir": 27, "vit_attention": 0, "flash_attention_fwd": 0,
+                   "icv_inject": 160}
     icl = C.predicted_idefics2_launches(mc, 2752, 1920, False, cuda)
-    assert icl == {"flash_attention_bidir": 27, "flash_attention_fwd": 32, "icv_inject": 0}
+    assert icl == {"flash_attention_bidir": 27, "vit_attention": 0, "flash_attention_fwd": 32,
+                   "icv_inject": 0}
     assert C.predicted_idefics2_launches(mc, 2752, 1920, False, torch.device("cpu")) == dict.fromkeys(
         icl, 0)
+
+
+def test_openflamingo_launch_prediction_at_full_width():
+    """Per bs=1 question at OpenFlamingo-9B width on the card: the fused ViT
+    kernel at the tower's 24 layers (s=257, Dh 64); the ALiBi kernel at the
+    32 layers of a prefill of >= 128 tokens only; the ICV at the 32 layers
+    of each of the 5 forwards; the rope flash kernel never."""
+    from licv_vqa_tpu_torch.models.openflamingo import OpenFlamingoConfig
+
+    mc, cuda = OpenFlamingoConfig.openflamingo_9b(), torch.device("cuda")
+    icv = C.predicted_openflamingo_launches(mc, 64, True, cuda)
+    assert icv == {"vit_attention": 24, "flash_alibi_attention": 0, "flash_attention_fwd": 0,
+                   "icv_inject": 160}
+    icl = C.predicted_openflamingo_launches(mc, 384, False, cuda)
+    assert icl == {"vit_attention": 24, "flash_alibi_attention": 32, "flash_attention_fwd": 0,
+                   "icv_inject": 0}
+    assert C.predicted_openflamingo_launches(mc, 384, False, torch.device("cpu")) == dict.fromkeys(
+        icl, 0)
+
+
+def test_alibi_and_vit_cases_cover_phase_8_and_bound_the_visible_pairs(cases):
+    """ALiBi: MPT-7B's shapes with both paddings, compared on the rows with
+    a visible key; operations over the visible pairs (k <= q, valid[k]),
+    bytes q, k, v, out (bf16), valid (int32) and the slopes.  ViT: ViT-L's
+    and ViT-H's shapes, a key mask, S = 1024; bound by the bytes at the
+    towers' s=257."""
+    alibi = {label for name, label in cases if name == "flash_alibi_attention"}
+    assert alibi == {"(1,512,32,128) left pad 39", "(1,512,32,128) right pad 61",
+                     "(1,2048,32,128) left pad 301", "(1,2048,32,128) right pad 250"}
+    c = cases["flash_alibi_attention", "(1,512,32,128) left pad 39"]
+    assert c.bytes_moved == 4 * 512 * 32 * 128 * 2 + 512 * 4 + 32 * 4
+    assert c.ops == 4 * 32 * 128 * (473 * 474 / 2)
+    assert int(c.rows.sum()) == 473 and not bool(c.rows[0, :39].any())
+    assert c.bound()[1] == "bytes"
+    c = cases["flash_alibi_attention", "(1,2048,32,128) right pad 250"]
+    assert c.ops == 4 * 32 * 128 * (1798 * 1799 / 2 + 250 * 1798)
+    assert bool(c.rows.all()) and c.bound()[1] == "operations"
+    vit = {label for name, label in cases if name == "vit_attention"}
+    assert vit == {"(1,257,16,64) all valid", "(33,257,16,64) all valid",
+                   "(33,257,16,80) all valid", "(4,257,16,80) masked", "(2,1024,16,80) masked"}
+    for label, dh in (("(33,257,16,64) all valid", 64), ("(33,257,16,80) all valid", 80)):
+        c = cases["vit_attention", label]
+        assert c.bytes_moved == 4 * 33 * 257 * 16 * dh * 2
+        assert c.ops == 4 * 16 * dh * 33 * 257 ** 2
+        assert c.bound()[1] == "bytes" and c.rows is None
+
+
+def test_probe_bounds_of_the_kernels_still_to_port():
+    """PERF.md rows 9 and 10 at their tools' shapes: the int4 decode probe
+    moves about 25.8 MB (bound by the bytes), the w8a8 probe does 369 GOP
+    of int8 products (bound by the operations at 1979 TOP/s)."""
+    got = {(name, label): (ms, by) for name, label, ms, by in C.probe_bounds()}
+    ms, by = got["int4_unpack_probe", "(8,4096,11008) G=64"]
+    nbytes = 8 * 4096 * 2 + 2048 * 11008 + 64 * 11008 * 4 + 8 * 11008 * 4
+    assert by == "bytes" and ms == pytest.approx(nbytes / C.HBM_BYTES_PER_S * 1e3)
+    for label in ("(4096,4096,11008)", "(4096,11008,4096)"):
+        ms, by = got["w8a8_probe", label]
+        assert by == "operations" and ms == pytest.approx(2 * 4096 * 4096 * 11008 / 1979e12 * 1e3)
 
 
 def test_busy_ms_is_the_union_of_device_intervals():
@@ -219,8 +279,39 @@ def test_idefics2_phase_counts_match_prediction_on_tiny_idefics2(tmp_path, monke
     got = C.idefics2_path(torch.device("cpu"), tmp_path / "idefics2", lmm="tiny-idefics2")
     # 2 test_icv and 1 test_icl questions: a bind each, 2 vision layers,
     # 4 decoder layers, 5 forwards a question
-    assert got == {"flash_attention_bidir": 2 * 3, "flash_attention_fwd": 4 * 1,
-                   "icv_inject": 4 * 2 * C.MAX_NEW}
+    assert got == {"flash_attention_bidir": 2 * 3, "vit_attention": 0,
+                   "flash_attention_fwd": 4 * 1, "icv_inject": 4 * 2 * C.MAX_NEW}
+
+
+def test_openflamingo_phase_counts_match_prediction_on_tiny_flamingo(tmp_path, monkeypatch):
+    """Phase 8 on the CPU at tiny size: the two gates take the CPU (the
+    fused ViT one at s <= 1024, the ALiBi one at >= 128 tokens, as on the
+    card), the wrappers are counted where the model calls them, and every
+    path's counts equal ``predicted_openflamingo_launches`` (the phase
+    checks it and raises): the tower's kernel in each bind, the ALiBi one in
+    the 32-shot prefills, the ICV in every test_icv forward."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.models import layers as PL
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    for mod, name in ((PL, "vit_attention"), (FA, "flash_alibi_attention"),
+                      (iv, "icv_inject")):
+        monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
+    monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
+    monkeypatch.setattr(PD, "flash_alibi_attention", FA.flash_alibi_attention)
+    monkeypatch.setattr(PL, "vit_attention_usable", lambda s, dh, device: s <= 1024)
+    for mod in (PD, FA):
+        monkeypatch.setattr(mod, "flash_alibi_usable", lambda cfg, s, dh, device: s >= 128)
+    _stub_cuda(monkeypatch, tmp_path)
+    got = C.openflamingo_path(torch.device("cpu"), tmp_path / "openflamingo",
+                              lmm="tiny-flamingo")
+    # 2 test_icv and 1 test_icl questions: a bind each, 2 tower layers, 4
+    # decoder layers, 5 forwards a question
+    assert got == {"vit_attention": 2 * 3, "flash_alibi_attention": 4 * 1,
+                   "flash_attention_fwd": 0, "icv_inject": 4 * 2 * C.MAX_NEW}
 
 
 def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypatch):

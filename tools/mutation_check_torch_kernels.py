@@ -29,6 +29,8 @@ INT8 = "licv_vqa_tpu_torch/csrc/int8_matmul.cu"
 INT4 = "licv_vqa_tpu_torch/csrc/int4_matmul.cu"
 BIDIR = "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu"
 BIDIR_LINE = "        sc[j] = seg_s[c0 + j] == seg_q ? sc[j] : -INFINITY;\n"
+ALIBI = "licv_vqa_tpu_torch/csrc/flash_alibi.cu"
+VIT = "licv_vqa_tpu_torch/csrc/vit_attention.cu"
 KL_CASES = ("masked_kl_fwd", "masked_kl_bwd")
 # name: (file, the kernel's line, its broken form, the cases that read it,
 # run the gradient check)
@@ -60,13 +62,29 @@ MUTATIONS = {
         BIDIR, BIDIR_LINE,
         "        sc[j] = seg_s[c0 + j] == seg_q && k0 + c0 + j <= qi ? sc[j] : -INFINITY;\n",
         ("flash_attention_bidir",), False),
+    "alibi_bias_dropped": (
+        ALIBI, "        const float bias = slope * (float)(qi - kj);\n",
+        "        const float bias = 0.f;\n", ("flash_alibi_attention",), False),
+    # flash_attn_fwd.cu's rule: on the compared rows (those with a visible
+    # key) it differs only where a right-pad row would attend the real keys
+    "alibi_segment_rule_for_valid": (
+        ALIBI, "        const bool visible = kj <= qi && valid_s[r] != 0;\n",
+        "        const bool visible = kj <= qi && valid_s[r] == (q_in ? valid[(long long)b * S + qi]"
+        " : -1);\n", ("flash_alibi_attention",), False),
+    # every key inside S counts: reads only on the masked cases
+    "vit_key_mask_ignored": (
+        VIT, "        seg_s[tid] = kj >= S ? -1 : (valid ? valid[(long long)b * S + kj] : 1);\n",
+        "        seg_s[tid] = kj >= S ? -1 : 1;\n", ("vit_attention",), False),
+    "vit_probabilities_not_rounded": (
+        VIT, "          const float p = __bfloat162float(__float2bfloat16(expf(sc[j] - m) * inv_l));\n",
+        "          const float p = expf(sc[j] - m) * inv_l;\n", ("vit_attention",), False),
 }
 PROBE = """
 import sys, torch, chip_smoke as C
 for c in C.kernel_cases(torch.device("cuda")):
     if c.name in sys.argv[1:]:
         try:
-            _, ratio = C.compare(c.kernel, c.plain)
+            _, ratio = C.compare(c.kernel, c.plain, c.rows)
             print(f"  {c.name} {c.label}: ratio {ratio:.3e} (limit {c.tol})", flush=True)
         except AssertionError as e:
             print(f"  {c.name} {c.label}: {e}", flush=True)
