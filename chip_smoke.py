@@ -26,7 +26,13 @@ Phases (any failure exits non-zero before the result lines):
    them) at (2, 64, 4096) and (1, 512, 4096) bf16, each for every shift
    layout; the
    flash-attention forward at (1, S, 32, 128) for S = 384, 512 and 2048
-   with left padding; the masked temperature-KL forward and backward at
+   with left padding; its backward (``csrc/flash_attn_bwd.cu``: dq, dk and
+   dv each) at ``FLASH_BWD_SHAPES`` (the flagship student's (4, 256, 32,
+   128) with ragged rows, (4, 512, 8, 128) and (1, 2048, 32, 128), right-
+   padded) on the forward kernel's output and log-sum-exp (the log-sum-exp
+   held against the plain one to ``F32_REL_TOL``), with the backward of
+   ``F.scaled_dot_product_attention`` under the segment mask as the library
+   call (``torch.autograd.grad`` alone timed); the masked temperature-KL forward and backward at
    (128, 32000) and (512, 32000) f32 with a partial mask; the int8 and
    int4 decode matmuls at ``QUANT_SHAPES`` (a beam step's projections, a
    64-row block), the int8 one at ``HEAD_SHAPES`` (the head at a beam step
@@ -69,8 +75,8 @@ Phases (any failure exits non-zero before the result lines):
    backward 1, ICV backward 32, flash forward 32 (the teacher), ICV forward
    3·32 − 8 = 88 (the student's forward, the per-group recompute up to each
    group's last layer, the per-layer recompute; ``remat_mode=both``), fused
-   ViT 2·32 (the teacher's bind and the student's).  The
-   losses must be finite and the artifact must carry the reference keys and
+   ViT 2·32 (the teacher's bind and the student's), flash backward 0 (the
+   64-token student is under the flash gate), int8 0.  The losses must be finite and the artifact must carry the reference keys and
    load through the port.  Prints ms per micro-step and peak memory.  Then,
    on one batch with the same weights and ICV: the (icv, alpha) gradients
    of the kernel path (flash, ICV and KL kernels) against the plain path
@@ -125,8 +131,22 @@ Phases (any failure exits non-zero before the result lines):
    per path, then holds the test_icv prompt's and the 32-shot prompt's
    prefill logits through the kernels against the plain path and both
    against an f32 path, as phase 7 does;
-9. one ``{"kernels": [...]}`` line;
-10. the last line: ``{"ok": true, "device": {...}}``.
+9. the flagship ICV train step of ``tools/bench_train_step_torch.py``
+   (Idefics-9B at full width with int8 frozen ``layers`` and ``xattn``, a
+   2048-token teacher, a 256-token student, bs=4), in process, under
+   ``remat_mode`` inner and both (``FLAGSHIP_MODES``): ms a step, tokens/s,
+   MFU against 989 TFLOP/s bf16, peak memory, and the launch counts of
+   every step (the flash forward for the teacher, the student and its
+   recompute; the flash backward; the ICV forward and backward; the fused
+   ViT; the int8 kernel) against ``predicted_flagship_launches``, and a
+   profile of one step (device busy share, device time by kernel); then
+   ``flagship_gradient_check``: the kernel path's (icv, alpha) gradients
+   against the student's attention plain, within ``REL_L2_TOL``, on one
+   batch whose student rows are right-padded to different lengths, on the
+   model's first ``FLAGSHIP_GRAD_LAYERS`` layers (the whole-path and f32
+   comparisons printed beside it, and all four at full depth);
+10. one ``{"kernels": [...]}`` line;
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 The port CLIs themselves are held against ``inference.py`` and ``train.py``
 by the CPU tests (``tests/test_torch_cli.py``, ``tests/test_torch_train*.py``).
@@ -175,8 +195,8 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 TRAIN_BS = 2
 TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
 KL_EPS = 1e-6
-CUDA_SOURCES = ("flash_attn_fwd.cu", "int8_matmul.cu", "int4_matmul.cu", "flash_attn_bidir.cu",
-                "flash_alibi.cu", "vit_attention.cu")
+CUDA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "int8_matmul.cu", "int4_matmul.cu",
+                "flash_attn_bidir.cu", "flash_alibi.cu", "vit_attention.cu")
 
 
 def log(msg: str) -> None:
@@ -399,6 +419,7 @@ def kernel_cases(dev):
             ),
             calls=5,
         )
+    yield from flash_backward_cases(dev, randn)
     for b, s, grids in BIDIR_SHAPES:
         q, k, v = (randn((b, s, 16, 72)) for _ in range(3))
         valid = navit_valid(b, s, grids, dev)
@@ -490,6 +511,95 @@ def kernel_cases(dev):
 
 
     yield from quantized_cases(dev)
+
+
+# the causal flash backward's cases: (B, S, H) at Dh 128 and each row's real
+# length, right-padded as the training batches are.  The flagship student
+# (phase 9's) with ragged rows; the shape of JAX tools/validate_flash_tpu.py's
+# gradient check (valid[1, 400:] = 0, valid[3, 100:] = 0); one 2048-token row
+FLASH_BWD_SHAPES = (
+    ((4, 256, 32), (256, 201, 150, 77)),
+    ((4, 512, 8), (512, 400, 512, 100)),
+    ((1, 2048, 32), (1798,)),
+)
+
+
+def right_padded(lengths, s: int, dev):
+    """(B, S) int32: row i real up to ``lengths[i]``."""
+    import torch
+
+    return (torch.arange(s, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]).to(
+        torch.int32)
+
+
+def causal_segment_pairs(valid) -> float:
+    """The (query, key) pairs the causal segment rule leaves visible: a real
+    query sees the real keys up to it, a pad query the pads up to it."""
+    import torch
+
+    v = valid.long()
+    return float(torch.where(v.bool(), torch.cumsum(v, 1), torch.cumsum(1 - v, 1)).sum())
+
+
+def flash_backward_cases(dev, randn):
+    """The backward kernels against the plain backward at
+    ``FLASH_BWD_SHAPES``, on the output and log-sum-exp the forward kernel
+    writes (its log-sum-exp first held against the plain one, to
+    ``F32_REL_TOL``); the library call is the backward of
+    ``F.scaled_dot_product_attention`` under the segment mask, timed on
+    ``torch.autograd.grad`` alone."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from licv_vqa_tpu_torch.models import layers as L
+
+    scale = 128 ** -0.5
+    for (b, s, h), lengths in FLASH_BWD_SHAPES:
+        q, k, v, do = (randn((b, s, h, 128)) for _ in range(4))
+        valid = right_padded(lengths, s, dev)
+        label = f"({b},{s},{h},128) lengths {','.join(map(str, lengths))}"
+
+        @functools.cache
+        def forward(q=q, k=k, v=v, valid=valid, label=label):
+            """The forward kernel's output and log-sum-exp (made on first use,
+            its log-sum-exp held against the plain one then)."""
+            if dev.type == "cuda":
+                o, lse = L._flash_attention_cuda(q, k, v, valid, scale, with_lse=True)
+            else:  # the CPU rehearsal: the plain output and log-sum-exp
+                o = L.flash_attention_reference(q, k, v, valid, scale)
+                lse = L.flash_attention_lse_reference(q, k, valid, scale)
+            want = L.flash_attention_lse_reference(q, k, valid, scale)
+            err = (lse - want).abs().max().item()
+            log(f"flash_attention_fwd {label} log-sum-exp: max_abs={err:.3e} "
+                f"(max|plain| {want.abs().max().item():.3e}, limit {F32_REL_TOL} of it)")
+            if not err <= F32_REL_TOL * want.abs().max().item():
+                raise AssertionError(f"flash_attention_fwd {label}: log-sum-exp disagrees")
+            return o, lse
+
+        @functools.cache
+        def library_graph(q=q, k=k, v=v, valid=valid):
+            leaves = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+            out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=L.segment_causal_mask(valid), scale=scale)
+            return out, leaves
+
+        rest = (do, valid, scale)
+        yield Case(
+            "flash_attention_bwd", label,
+            lambda f=forward, x=(q, k, v), r=rest: L.flash_attention_backward(*x, *f(), *r),
+            lambda f=forward, x=(q, k, v), r=rest: L.flash_attention_bwd_reference(*x, *f(), *r),
+            # q, k, v, o, do read and dq, dk, dv written (bf16), the f32
+            # log-sum-exp and the int32 validity read
+            bytes_moved=8 * q.numel() * 2 + b * h * s * 4 + valid.numel() * 4,
+            # five products over the visible pairs: QK^T and dO·V^T again,
+            # dV, dK, dQ
+            ops=5 * 2 * 128 * h * causal_segment_pairs(valid), op_type="bf16",
+            library=lambda g=library_graph, do=do: torch.autograd.grad(
+                g()[0], g()[1], do.transpose(1, 2), retain_graph=True),
+            calls=3 if s >= 2048 else 10,
+        )
 
 
 # the SigLIP tower's attention (H=16, Dh=72) in phase 7: (B, S, the valid
@@ -682,6 +792,8 @@ def compare(kernel, plain, rows=None) -> tuple[float, float]:
 MAIN_SHAPE = {
     "icv_inject": "(3,1,4096) shift=row",
     "flash_attention_fwd": "(1,512,32,128)",
+    # the flagship student's layer (phase 9), the only path that reaches it
+    "flash_attention_bwd": "(4,256,32,128)",
     "icv_inject_bwd": "(2,64,4096) shift=row",
     "masked_kl_fwd": "(128,32000)",
     "masked_kl_bwd": "(128,32000)",
@@ -1204,17 +1316,18 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     return total
 
 
-def profile_question(fn, tag: str, top: int = 6) -> None:
-    """One warm question under ``torch.profiler``: its wall, the device's
-    busy share of it and the device time by kernel."""
+def profile_question(fn, tag: str, top: int = 6, what: str = "one question") -> None:
+    """One warm call of ``fn`` (``what``: a question, a train step) under
+    ``torch.profiler``: its wall, the device's busy share of it and the
+    device time by kernel."""
     wall, events = device_events(fn)
     if events is None:
-        log(f"{tag}, one question: {wall:.1f} ms wall; device busy share and device time "
+        log(f"{tag}, {what}: {wall:.1f} ms wall; device busy share and device time "
             "by kernel not measured (torch.profiler recorded no device activity)")
         return
     busy = busy_ms(events)
     total = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
-    log(f"{tag}, one question profiled: {wall:.1f} ms wall, {len(events)} device kernels, "
+    log(f"{tag}, {what} profiled: {wall:.1f} ms wall, {len(events)} device kernels, "
         f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}% of the wall)")
     by_name: dict = {}
     for e in events:
@@ -1374,6 +1487,28 @@ def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
     return total
 
 
+def plain_config(mc, f32: bool = False):
+    """``mc`` with the decoder's plain attention (``attention_impl=xla``),
+    and with every tower in f32 where ``f32``."""
+    import torch
+
+    text = dataclasses.replace(mc.text, attention_impl="xla")
+    if not f32:
+        return dataclasses.replace(mc, text=text)
+    return dataclasses.replace(
+        mc, text=dataclasses.replace(text, dtype=torch.float32),
+        vision=dataclasses.replace(mc.vision, dtype=torch.float32),
+        perceiver=dataclasses.replace(mc.perceiver, dtype=torch.float32),
+    )
+
+
+def f32_tree(tree):
+    """The floating leaves of a param tree in f32 (int8 planes stay)."""
+    if isinstance(tree, dict):
+        return {k: f32_tree(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
 def kernel_vs_plain_f32_logits(e: EvalSetup, tag_prefix: str, make_fns, mean, std,
                                checks) -> None:
     """For each ``(tag, prompt, icv)`` of ``checks``: the prompt's prefill
@@ -1405,20 +1540,9 @@ def kernel_vs_plain_f32_logits(e: EvalSetup, tag_prefix: str, make_fns, mean, st
     def plain_bind(cfg):
         return _wrap_pixel_normalize(*make_fns(cfg, b.eos_token_id), mean, std)[1]
 
-    def f32(tree):
-        if isinstance(tree, dict):
-            return {k: f32(v) for k, v in tree.items()}
-        return tree.float() if tree.is_floating_point() else tree
-
-    xla_text = dataclasses.replace(mc.text, attention_impl="xla")
-    f32_cfg = dataclasses.replace(
-        mc, text=dataclasses.replace(xla_text, dtype=torch.float32),
-        vision=dataclasses.replace(mc.vision, dtype=torch.float32),
-        perceiver=dataclasses.replace(mc.perceiver, dtype=torch.float32),
-    )
     paths = (("kernel", b.bind_decode, b.params),
-             ("plain", plain_bind(dataclasses.replace(mc, text=xla_text)), b.params),
-             ("f32", plain_bind(f32_cfg), f32(b.params)))
+             ("plain", plain_bind(plain_config(mc)), b.params),
+             ("f32", plain_bind(plain_config(mc, f32=True)), f32_tree(b.params)))
     for tag, prompt, icv in checks:
         enc = b.processor.prepare_input([prompt], padding=True, padding_side="left")
         ids, mask, px, pv = (torch.from_numpy(enc[k]).to(b.device) for k in (
@@ -1559,6 +1683,7 @@ def openflamingo_path(dev, tmp: Path, lmm: str = "openflamingov2-9B") -> dict:
 
 def _counters():
     from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
     from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
     from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_backward
 
@@ -1566,9 +1691,11 @@ def _counters():
         "icv_inject": icv_inject,
         "icv_inject_bwd": icv_inject_backward,
         "flash_attention_fwd": L.flash_attention,
+        "flash_attention_bwd": L.flash_attention_backward,
         "vit_attention": L.vit_attention,
         "masked_kl_fwd": K.rowwise_kl_forward,
         "masked_kl_bwd": K.rowwise_kl_backward,
+        "int8_matmul": I8.int8_matmul,
     }
 
 
@@ -1637,6 +1764,8 @@ def training_path(dev, tmp: Path) -> dict:
     want = {
         "masked_kl_fwd": 1, "masked_kl_bwd": 1, "icv_inject_bwd": 32,
         "flash_attention_fwd": 32, "icv_inject": 3 * 32 - 8,
+        # the student (64 tokens) is under the flash gate; bf16 weights
+        "flash_attention_bwd": 0, "int8_matmul": 0,
         # the ViT-H tower's 32 layers in the teacher's bind and the student's
         "vit_attention": 2 * 32,
     }
@@ -1703,9 +1832,8 @@ def training_inputs(dev) -> TrainInputs:
 
     bundle = build_model(compose(str(REPO / "config"), "train", TRAIN_ARGS), device=dev)
     mc = bundle.model_cfg
-    xla = dataclasses.replace(mc, text=dataclasses.replace(mc.text, attention_impl="xla"))
     plain_forward, _ = _wrap_pixel_normalize(
-        *I.make_idefics_forward_fns(xla, bundle.eos_token_id), CLIP_MEAN, CLIP_STD
+        *I.make_idefics_forward_fns(plain_config(mc), bundle.eos_token_id), CLIP_MEAN, CLIP_STD
     )
     encoder = GlobalICVEncoder(
         bundle.hidden_size, bundle.n_layers, alpha_init_value=0.5, use_sigmoid=True,
@@ -1816,6 +1944,215 @@ def profile_training(m: TrainInputs) -> None:
         log(f"  {ms:9.3f}  {100 * ms / total:5.1f}%  {n:6d}  {name[:100]}")
 
 
+# phase 9: the remat modes run (the JAX tool's flagship modes) and the
+# steps timed after the first in each; the student rows' real lengths in
+# the gradient check (right-padded, each past the query's 128 tokens)
+FLAGSHIP_MODES = ("inner", "both")
+FLAGSHIP_REPS = 2
+FLAGSHIP_GRAD_LENGTHS = (256, 224, 192, 160)
+# the depth of the checked gradient comparison (two cross-attention groups):
+# at 32 random bf16 layers the plain path alone is as far from an f32 path
+# as REL_L2_TOL (PERF.md, Findings)
+FLAGSHIP_GRAD_LAYERS = 8
+
+
+def bench_tool():
+    """``tools/bench_train_step_torch.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_train_step_torch", REPO / "tools" / "bench_train_step_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def predicted_flagship_launches(mc, mode: str, s_tea: int, s_stu: int, bs: int, n_img: int,
+                                int8: bool, dev) -> dict:
+    """Launches in ONE train step of the bench tool, from the structure.
+    The teacher (no gradient) runs the flash forward at every layer where
+    ``layers.flash_attention_usable`` holds for ``s_tea``.  The student's
+    layers are checkpointed: its forward runs every layer once, and the
+    backward's recompute runs them again, L more under "inner" and L − G
+    more under "both" (a group's recompute stops before its last layer,
+    whose input the inner checkpoint kept): the flash forward (where the
+    gate holds for ``s_stu``) and the ICV injection each run at every layer
+    run.  The flash backward runs at every layer whose attention input
+    depends on the ICV: all but the first (the ICV enters at each block's
+    output).  The ICV backward at every layer; the fused ViT kernel in the
+    teacher's bind and the student's.  The int8 kernel takes int8 matmuls
+    of at most ``KERNEL_MAX_ROWS`` rows; the smallest here has
+    min(bs·s_stu, bs·n_img·n_latents) rows, over it at the flagship, so 0."""
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
+
+    t = mc.text
+    n, g = t.n_layers, t.n_layers // mc.cross_layer_interval
+    runs = {"inner": 2 * n, "both": 3 * n - g}[mode]
+    stu = L.flash_attention_usable(t, s_stu, t.head_dim, dev)
+    if int8 and min(bs * s_stu, bs * n_img * mc.perceiver.n_latents) <= KERNEL_MAX_ROWS:
+        raise NotImplementedError("an int8 matmul of <= KERNEL_MAX_ROWS rows: not predicted")
+    return {
+        "flash_attention_fwd": n * L.flash_attention_usable(t, s_tea, t.head_dim, dev)
+        + runs * stu,
+        "flash_attention_bwd": (n - 1) * stu,
+        "icv_inject": runs,
+        "icv_inject_bwd": n,
+        "vit_attention": 2 * vit_per_bind(mc.vision, dev),
+        "int8_matmul": 0,
+    }
+
+
+def flagship_train_path(dev, shape: str = "flagship") -> dict:
+    """Phase 9: the bench tool's train step (``_build``, ``measure``) in
+    each of ``FLAGSHIP_MODES``, in process; the launch counts of every step
+    against ``predicted_flagship_launches``, and one step profiled; then,
+    after the first mode's run, ``flagship_gradient_check``.  Returns the
+    launch counts of the runs."""
+    import torch
+
+    tool = bench_tool()
+    counters = _counters()
+    total = dict.fromkeys(counters, 0)
+    for mode in FLAGSHIP_MODES:
+        step, state, params, batch, meta = tool._build(shape, mode, dev)
+        mc, *_, int8 = tool.shape_config(shape, mode)
+        want = predicted_flagship_launches(
+            mc, mode, meta["s_tea"], meta["s_stu"], meta["bs"],
+            batch["inputs"]["pixel_values"].shape[1], int8, dev)
+        steps = 1 + FLAGSHIP_REPS
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = tool.measure(step, state, params, batch, meta, reps=FLAGSHIP_REPS)
+        counts = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"flagship train step, remat_mode={mode} ({shape}: s_tea {meta['s_tea']}, s_stu "
+            f"{meta['s_stu']}, bs {meta['bs']}, {meta['model_tflops']} model TFLOP a step): "
+            f"{res['step_ms']} ms a step (mean of {FLAGSHIP_REPS} after the first, which took "
+            f"{res['first_step_s']} s), {res['tokens_per_sec']} tokens/s, MFU "
+            f"{res['mfu_pct_bf16_peak']}% of 989 TFLOP/s bf16, loss {res['loss']}, peak device "
+            f"memory {peak:.2f} GiB")
+        for k, per_step in want.items():
+            log(f"  {k} launches {counts[k]} (predicted {per_step} x {steps} steps)")
+            if counts[k] != per_step * steps:
+                raise AssertionError(f"flagship {mode}: {k} launched {counts[k]} != "
+                                     f"{per_step} x {steps}")
+        if not math.isfinite(res["loss"]):
+            raise AssertionError(f"flagship {mode}: loss {res['loss']}")
+        for k in total:
+            total[k] += counts[k]
+        if dev.type == "cuda":
+            profile_question(lambda: step(state, params, batch), f"flagship remat_mode={mode}",
+                             top=10, what="one train step")
+        if mode == FLAGSHIP_MODES[0]:
+            grad = flagship_gradient_check(tool, shape, mode, params, batch, dev)
+        del step, state, params, batch
+        free_device_memory()
+    if not (math.isfinite(grad["loss_kernel"])
+            and max(grad["rel_l2_icv"], grad["rel_l2_alpha"]) <= REL_L2_TOL):
+        raise AssertionError("flagship: kernel-path gradients disagree with the plain path")
+    return total
+
+
+def flagship_gradient_check(tool, shape: str, mode: str, params, batch, dev) -> dict:
+    """Phase 9's gradient check on the bench tool's model and batch, the
+    student rows right-padded to ``FLAGSHIP_GRAD_LENGTHS`` (pad id 0), with
+    a seeded encoder whose alpha is not 0 (the tool's starts at 0, where
+    d_icv is).  The check: the (icv, alpha) gradients of the kernel path
+    against the same path with the student's attention plain (plain
+    attention differentiated by autograd), rel. L2 within ``REL_L2_TOL``, on
+    the model's first ``FLAGSHIP_GRAD_LAYERS`` layers; the teacher's target,
+    the ICV, ViT and KL kernels are the same in both, so the two differ by
+    the flash kernels under autograd alone.  Printed beside it, not
+    checked: the kernel path against the whole plain path (phase 5's
+    comparison) and both against that plain path with the weights in f32,
+    at that depth and at the model's full depth.  At full depth the plain
+    path itself is as far from the f32 path as the limit (PERF.md,
+    Findings): a gradient check there cannot tell a sound kernel."""
+    import torch
+
+    from licv_vqa_tpu_torch.icv.encoder import GlobalICVEncoder
+    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn
+    from licv_vqa_tpu_torch.models import decoder as Dm
+    from licv_vqa_tpu_torch.models.idefics import make_idefics_forward_fns
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
+
+    full = tool.shape_config(shape, mode)[0]
+    q = dict(batch["query_inputs"])
+    s_stu = q["input_ids"].shape[1]
+    lengths = FLAGSHIP_GRAD_LENGTHS if shape == "flagship" else (s_stu, s_stu - 7)
+    q["attention_mask"] = right_padded(lengths, s_stu, dev)
+    q["input_ids"] = q["input_ids"] * q["attention_mask"]
+    batch = {**batch, "query_inputs": q}
+
+    def grads(mc, prm, fwd, student: str, teacher: str, kernels: bool, f32: bool = False):
+        """``(loss, (d_icv, d_alpha))``: the student's and the teacher's
+        forwards by name; ``kernels`` = the ICV, ViT and KL kernels, else
+        their plain versions."""
+        t = mc.text
+        enc = GlobalICVEncoder(t.d_model, t.n_layers, alpha_init_value=0.5, use_sigmoid=True,
+                               generator=torch.Generator().manual_seed(0), device=dev)
+
+        def forward(p, inputs, icv, return_hidden=False):
+            # the teacher is the call without an ICV
+            return fwd[teacher if icv is None else student](p, inputs, icv, return_hidden)
+
+        Dm.icv_inject = icv_inject if kernels else icv_inject_reference
+        if not kernels:
+            os.environ["LICV_VIT_FUSED_ATTN"] = "0"
+        try:
+            loss, _ = icv_loss_fn(
+                enc, torch.tensor(1.0, device=dev), f32_tree(prm) if f32 else prm, batch,
+                forward, ICVModuleConfig(kl_impl="pallas" if kernels else "xla"), 0,
+                lambda p, h: Dm.logits_from_hidden(
+                    dataclasses.replace(t, dtype=torch.float32) if f32 else t, p, h))
+            g = torch.autograd.grad(loss, (enc.icv, enc.alpha))
+        finally:
+            Dm.icv_inject = icv_inject
+            os.environ.pop("LICV_VIT_FUSED_ATTN", None)
+        free_device_memory()
+        return loss.item(), g
+
+    out = {}
+    for depth in dict.fromkeys((min(FLAGSHIP_GRAD_LAYERS, full.text.n_layers),
+                                full.text.n_layers)):
+        mc = dataclasses.replace(full, text=dataclasses.replace(full.text, n_layers=depth))
+        groups = depth // mc.cross_layer_interval
+        prm = {**params, "layers": _first(params["layers"], depth),
+               "xattn": _first(params["xattn"], groups)}
+        fwd = {name: make_idefics_forward_fns(cfg, 2)[0] for name, cfg in (
+            ("kernel", mc), ("plain", plain_config(mc)), ("f32", plain_config(mc, f32=True)))}
+        paths = {
+            "kernel": grads(mc, prm, fwd, "kernel", "kernel", True),
+            "student attention plain": grads(mc, prm, fwd, "plain", "kernel", True),
+            "plain": grads(mc, prm, fwd, "plain", "plain", False),
+            "plain f32": grads(mc, prm, fwd, "f32", "f32", False, f32=True),
+        }
+        gated = not out
+        log(f"flagship gradient check (remat_mode={mode}) at {depth} layers, one batch, the "
+            f"student rows of {lengths} real tokens{'' if gated else ' (not checked)'}:")
+        for a, b in (("kernel", "student attention plain"), ("kernel", "plain"),
+                     ("kernel", "plain f32"), ("plain", "plain f32")):
+            r = [((x - y).norm() / y.norm()).item()
+                 for x, y in zip(paths[a][1], paths[b][1], strict=True)]
+            checked = gated and b == "student attention plain"
+            if checked:
+                out = {"loss_kernel": paths["kernel"][0], "rel_l2_icv": r[0], "rel_l2_alpha": r[1]}
+            log(f"  {a} path vs {b} path: loss {paths[a][0]:.6e} vs {paths[b][0]:.6e}; rel_l2 "
+                f"d_icv {r[0]:.4e}, d_alpha {r[1]:.4e}"
+                + (f" (limit {REL_L2_TOL})" if checked else ""))
+        del paths, prm
+    return out
+
+
+def _first(tree, n: int):
+    """The first ``n`` layers of a layer-stacked param tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _first(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
 def main() -> int:
     import torch
 
@@ -1869,11 +2206,17 @@ def main() -> int:
         free_device_memory()
         counts_of = openflamingo_path(dev, Path(tmp) / "openflamingo")
         free_device_memory()
+    counts_fl = flagship_train_path(dev)
+    free_device_memory()
 
     sources = {
         "icv_inject": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
                        "licv_vqa_tpu/ops/icv_inject.py:56"),
         "flash_attention_fwd": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_fwd.cu",
+                                "licv_vqa_tpu/models/layers.py:148"),
+        # upstream's dkv and dq kernels, which flash_attention_tpu reaches
+        # under autograd
+        "flash_attention_bwd": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_bwd.cu",
                                 "licv_vqa_tpu/models/layers.py:148"),
         "masked_kl": ("triton", "licv_vqa_tpu_torch/ops/masked_kl_kernel.py",
                       "licv_vqa_tpu/ops/masked_kl_kernel.py:128"),
@@ -1890,16 +2233,15 @@ def main() -> int:
         "vit_attention": ("cuda", "licv_vqa_tpu_torch/csrc/vit_attention.cu",
                           "licv_vqa_tpu/ops/vit_attention.py:118"),
     }
-    phases = (counts, counts_train, counts_q, counts_i2, counts_of)
+    phases = (counts, counts_train, counts_q, counts_i2, counts_of, counts_fl)
     launches = {
         name: sum(c.get(name, 0) for c in phases)
-        for name in ("icv_inject", "flash_attention_fwd", "vit_attention")
+        for name in ("icv_inject", "flash_attention_fwd", "vit_attention", "icv_inject_bwd",
+                     "flash_attention_bwd", "int8_matmul")
     }
     launches.update({
         "flash_alibi_attention": counts_of["flash_alibi_attention"],
         "flash_attention_bidir": counts_i2["flash_attention_bidir"],
-        "icv_inject_bwd": counts_train["icv_inject_bwd"],
-        "int8_matmul": counts_q["int8_matmul"],
         "int4_matmul": counts_q["int4_matmul"],
     })
     kernels = []

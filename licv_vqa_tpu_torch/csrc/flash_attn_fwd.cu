@@ -32,7 +32,11 @@
 //   leave all 4 with the same bits, so the online-softmax state (running
 //   max m, running sum l) agrees across them without communication;
 // - online softmax in f32 over chunks of 16 keys; masked keys score -inf
-//   and the update is branch-free.
+//   and the update is branch-free;
+// - where the caller passes an lse buffer (a forward that autograd will
+//   differentiate), the per-row log-sum-exp m + log l of the scaled scores
+//   goes to it as (B, H, S) f32 for csrc/flash_attn_bwd.cu; with a null
+//   pointer (eval prefills, the no-grad teacher) nothing more is written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,8 +62,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int32_t* __restrict__ valid,
-                 __nv_bfloat16* __restrict__ out, int S, Strides qs,
-                 Strides ks, Strides vs, Strides os, float scale) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int S, Strides qs, Strides ks, Strides vs, Strides os,
+                 float scale) {
   __shared__ __align__(16) __nv_bfloat162 k_s[kBlockK][kHeadDim / 2];
   __shared__ __align__(16) __nv_bfloat162 v_s[kBlockK][kHeadDim / 2];
   __shared__ int seg_s[kBlockK];
@@ -173,17 +178,22 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       o_row[part + kThreadsPerRow * i] =
           __floats2bfloat162_rn(acc[2 * i] * inv, acc[2 * i + 1] * inv);
     }
+    // every row sees itself, so m is finite and l >= 1
+    if (lse != nullptr && part == 0) {
+      lse[((long long)b * gridDim.y + h) * S + qi] = m + logf(l);
+    }
   }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Strides are in elements.
+// Plain C entry point (loaded with ctypes).  Strides are in elements; lse
+// may be null.
 // Launches on `stream`, does not synchronise, allocates nothing, and
 // returns cudaGetLastError() so a refused launch is reported to the caller.
 extern "C" int flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, const void* valid, void* out,
-    int B, int S, int H, long long q_sb, long long q_ss, long long q_sh,
+    void* lse, int B, int S, int H, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, float scale, void* stream) {
@@ -192,7 +202,8 @@ extern "C" int flash_attn_fwd_bf16(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<const int32_t*>(valid), static_cast<__nv_bfloat16*>(out), S,
+      static_cast<const int32_t*>(valid), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), S,
       Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
       Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh}, scale);
   return static_cast<int>(cudaGetLastError());

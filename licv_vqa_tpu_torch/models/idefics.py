@@ -19,10 +19,15 @@ JAX's ``jax.checkpoint`` sits (``IdeficsConfig.remat_mode``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.int8_matmul import qdot
 from . import layers as L
@@ -57,8 +62,9 @@ class IdeficsConfig:
     # train-forward recompute structure (JAX ``remat_mode``): "both" =
     # checkpoint each group of (cross-attention block + ``interval`` layers)
     # and, inside it, each layer; "inner" = each layer; "outer" = each
-    # group; "none" = no recompute.  The cross-attention block is
-    # checkpointed under every mode but "none".
+    # group; "policy" = each layer, keeping the weight matmuls' outputs and
+    # recomputing the rest; "none" = no recompute.  The cross-attention
+    # block is checkpointed under every mode but "none".
     remat_mode: str = "both"
 
     @classmethod
@@ -377,13 +383,29 @@ def idefics_forward(
     return logits_from_hidden(t, params, h), cache
 
 
+# the weight matmuls: a 2-D ``x @ w`` dispatches as mm (addmm with a bias);
+# attention's batched products are bmm
+_WEIGHT_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_mode=policy``, the counterpart
+    of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of the products without batch dims, recompute the rest.
+    Kernels launched through ctypes or Triton are not aten ops: they rerun
+    in the recompute, and the ``torch.empty`` they write into is recomputed
+    with them, never kept."""
+    if op in _WEIGHT_MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask, gate, icv, mode):
     """The no-cache decoder stack as JAX's grouped scan: per group, one
     gated cross-attention block then ``interval`` decoder layers.
-    ``torch.utils.checkpoint`` stands where ``jax.checkpoint`` does.  The
-    flash branch is gated on the attention mask as the JAX train forward
-    gates it; the kernel has no backward, so it is reached only without
-    gradients (the teacher) or raises."""
+    ``torch.utils.checkpoint`` stands where ``jax.checkpoint`` does
+    (JAX idefics.py:545-574).  The flash branch is gated on the attention
+    mask as the JAX train forward gates it."""
     t = cfg.text
     interval = cfg.cross_layer_interval
     n_groups = t.n_layers // interval
@@ -392,12 +414,7 @@ def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask,
             f"idefics train forward needs n_layers ({t.n_layers}) divisible by "
             f"cross_layer_interval ({interval}): layers run in groups"
         )
-    if mode == "policy":
-        raise NotImplementedError(
-            "remat_mode=policy (save the weight matmuls, recompute the rest) is "
-            "not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 8)"
-        )
-    if mode not in ("both", "inner", "outer", "none"):
+    if mode not in ("both", "inner", "outer", "policy", "none"):
         raise ValueError(f"remat_mode must be both|inner|outer|none|policy, got {mode!r}")
     positions = _positions_from_mask(attention_mask)
     mask = L.causal_mask(positions, positions, attention_mask.bool())
@@ -405,6 +422,10 @@ def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask,
 
     def run(fn, *args):
         return checkpoint(fn, *args, use_reentrant=False)
+
+    def run_policy(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_matmuls))
 
     def group_body(h, g):
         xp = L.layer_slice(params["xattn"], g)
@@ -422,7 +443,12 @@ def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask,
                 )
 
             icv_arg = _icv_row(icv, li)
-            h = run(layer_fn, h, icv_arg) if mode in ("both", "inner") else layer_fn(h, icv_arg)
+            if mode in ("both", "inner"):
+                h = run(layer_fn, h, icv_arg)
+            elif mode == "policy":
+                h = run_policy(layer_fn, h, icv_arg)
+            else:
+                h = layer_fn(h, icv_arg)
         return h
 
     for g in range(n_groups):

@@ -172,6 +172,48 @@ def flash_attention_reference(
     return dot_product_attention(q, k, v, mask=segment_causal_mask(valid), scale=scale)
 
 
+def _segment_causal_scores(q, k, valid, scale: float) -> torch.Tensor:
+    """(B, H, S, S) f32 scores ``scale · q·k`` with the keys the segment
+    rule hides at ``-inf``."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return scores.masked_fill(~segment_causal_mask(valid), -math.inf)
+
+
+def flash_attention_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, valid: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """(B, H, S) f32 per-row log-sum-exp of the visible scaled scores: what
+    the forward kernel writes for the backward (``m + log l``).  Every row
+    sees itself, so every value is finite, pad rows' too."""
+    return torch.logsumexp(_segment_causal_scores(q, k, valid, scale), dim=-1)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,  # (B, S, H, Dh)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,  # the forward's output
+    lse: torch.Tensor,  # (B, H, S) f32
+    do: torch.Tensor,  # (B, S, H, Dh) output cotangent
+    valid: torch.Tensor,
+    scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_attention_backward``, step by step in f32
+    (upstream ``_flash_attention_bwd``): ``P = exp(scale·q·k − lse)`` on the
+    visible pairs, ``D = rowsum(do ∘ o)``, ``dV = Pᵀ·do``,
+    ``dS = P ∘ (do·vᵀ − D)``, ``dK = scale·dSᵀ·q``, ``dQ = scale·dS·k``.
+    Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    f = (lambda x: x.float().transpose(1, 2))  # (B, H, S, Dh)
+    qf, kf, vf, of, dof = (f(x) for x in (q, k, v, o, do))
+    p = torch.exp(_segment_causal_scores(q, k, valid, scale) - lse.float()[..., None])
+    d = (dof * of).sum(dim=-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ vf.transpose(-1, -2) - d)
+    dk = scale * (ds.transpose(-1, -2) @ qf)
+    dq = scale * (ds @ kf)
+    return tuple(x.transpose(1, 2).to(y.dtype) for x, y in ((dq, q), (dk, k), (dv, v)))
+
+
 _FLASH_HEAD_DIM = 128
 
 
@@ -188,44 +230,125 @@ def _check_flash_operand(name: str, x: torch.Tensor, shape: tuple,
         raise ValueError(f"{fn}: {name} rows must be 16-byte aligned")
 
 
-def _flash_attention_cuda(q, k, v, valid, scale) -> torch.Tensor:
-    from ..csrc import load_library
-
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        # the kernel writes a fresh tensor through ctypes: its output has no
-        # grad_fn, and a backward would skip attention without a word
-        raise RuntimeError(
-            "flash_attention: the CUDA kernel has a forward only; its backward "
-            "(dq, dk, dv) is not ported yet (ROADMAP.md Queue 2 item 2). Run "
-            "under torch.no_grad(), or with attention_impl=xla for a gradient"
-        )
+def _check_flash_qkv(fn: str, q, k, v, valid) -> torch.Tensor:
+    """Check q/k/v for the causal kernels; returns ``valid`` as a contiguous
+    (B, S) int32 on q's device."""
     b, s, h, dh = q.shape
     if dh != _FLASH_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel supports head_dim=128, got {dh}")
+        raise ValueError(f"{fn} kernel supports head_dim=128, got {dh}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
-            raise ValueError(f"flash_attention: {name} is on {x.device}, q on {q.device}")
-        _check_flash_operand(name, x, (b, s, h, dh))
+            raise ValueError(f"{fn}: {name} is on {x.device}, q on {q.device}")
+        _check_flash_operand(name, x, (b, s, h, dh), fn)
     if tuple(valid.shape) != (b, s):
-        raise ValueError(f"flash_attention: valid has shape {tuple(valid.shape)}, want {(b, s)}")
-    valid_i32 = valid.to(device=q.device, dtype=torch.int32).contiguous()
+        raise ValueError(f"{fn}: valid has shape {tuple(valid.shape)}, want {(b, s)}")
+    return valid.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _flash_attention_cuda(q, k, v, valid, scale, with_lse: bool = False):
+    """The forward kernel (``csrc/flash_attn_fwd.cu``).  Returns the output,
+    and with ``with_lse`` also the (B, H, S) f32 log-sum-exp the backward
+    needs; without it the kernel writes none."""
+    from ..csrc import load_library
+
+    b, s, h, _ = q.shape
+    valid_i32 = _check_flash_qkv("flash_attention", q, k, v, valid)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lib = load_library("flash_attn_fwd.cu")
-    fn = lib.flash_attn_fwd_bf16
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    fn = load_library("flash_attn_fwd.cu").flash_attn_fwd_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_void_p]
     )
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_i32.data_ptr(), out.data_ptr(),
-        b, s, h, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        None if lse is None else lse.data_ptr(), b, s, h, *strides, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd_bf16 launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_backward(
+    q: torch.Tensor,  # (B, S, H, Dh)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,  # the forward's output
+    lse: torch.Tensor,  # (B, H, S) f32, the forward's log-sum-exp
+    do: torch.Tensor,  # (B, S, H, Dh) output cotangent
+    valid: torch.Tensor,  # (B, S) 1 = real token
+    scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of causal flash attention (counterpart of upstream
+    ``_flash_attention_bwd``, which JAX's ``flash_attention_tpu`` reaches
+    under autograd).
+
+    CUDA tensors launch ``csrc/flash_attn_bwd.cu`` (bf16, head_dim 128: a
+    dQ kernel that also writes ``D = rowsum(do ∘ o)``, then a dK/dV kernel)
+    or raise; CPU tensors take ``flash_attention_bwd_reference``.  q/k/v
+    may be strided views; o, do and lse are made contiguous (autograd may
+    hand ``do`` in with zero strides)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, valid, scale)
+    from ..csrc import load_library
+
+    b, s, h, dh = q.shape
+    valid_i32 = _check_flash_qkv("flash_attention_backward", q, k, v, valid)
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    for name, x in (("o", o), ("do", do)):
+        _check_flash_operand(name, x, (b, s, h, dh), "flash_attention_backward")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"flash_attention_backward: lse must be f32 {(b, h, s)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if any(x.device != q.device for x in (o, do, lse)):
+        raise ValueError("flash_attention_backward: o, do and lse must be on q's device")
+    dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
+    dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = load_library("flash_attn_bwd.cu").flash_attn_bwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 9
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    strides = [st for x in (q, k, v) for st in x.stride()[:3]]
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        valid_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
+        b, s, h, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd_bf16 launch failed: cudaError {err}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0  # kernel launches (CUDA tensors only)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its log-sum-exp, and the backward kernels
+    (JAX ``flash_attention_tpu``'s custom VJP); on CPU tensors the plain
+    forward, the plain LSE and the plain backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, scale):
+        if q.device.type == "cpu":
+            out = flash_attention_reference(q, k, v, valid, scale)
+            lse = flash_attention_lse_reference(q, k, valid, scale)
+        else:
+            out, lse = _flash_attention_cuda(q, k, v, valid, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, valid)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, valid = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, o, lse, do, valid, ctx.scale), None, None)
 
 
 def flash_attention(
@@ -239,16 +362,21 @@ def flash_attention(
 
     CUDA tensors launch the hand-written kernel ``csrc/flash_attn_fwd.cu``
     (bf16, head_dim 128) or raise; CPU tensors take the plain version
-    ``flash_attention_reference``.  Outputs at pad positions follow the
-    segment rule (a pad attends the earlier pads), so they are finite, and
-    are garbage by contract as on the TPU (layers.py:157-159)."""
+    ``flash_attention_reference``.  A call that needs a gradient goes
+    through ``_FlashAttention``: the forward kernel also writes the per-row
+    log-sum-exp and the backward launches ``csrc/flash_attn_bwd.cu``.
+    Outputs at pad positions follow the segment rule (a pad attends the
+    earlier pads), so they are finite, and are garbage by contract as on
+    the TPU (layers.py:157-159)."""
     scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, valid, scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, valid, scale)
     return _flash_attention_cuda(q, k, v, valid, scale)
 
 
-flash_attention.launches = 0  # kernel launches (CUDA tensors only)
+flash_attention.launches = 0  # forward kernel launches (CUDA tensors only)
 
 
 def flash_attention_usable(cfg, q_len: int, head_dim: int, device: torch.device) -> bool:

@@ -48,22 +48,12 @@ def flash_alibi_reference(
 def _flash_alibi_cuda(q, k, v, valid, slopes, scale) -> torch.Tensor:
     from ..csrc import load_library
 
-    b, s, h, dh = q.shape
-    if dh != _HEAD_DIM:
-        raise ValueError(f"flash_alibi_attention kernel supports head_dim=128, got {dh}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"flash_alibi_attention: {name} is on {x.device}, q on {q.device}")
-        L._check_flash_operand(name, x, (b, s, h, dh), "flash_alibi_attention")
-    if tuple(valid.shape) != (b, s):
-        raise ValueError(
-            f"flash_alibi_attention: valid has shape {tuple(valid.shape)}, want {(b, s)}"
-        )
+    b, s, h, _ = q.shape
+    valid_i32 = L._check_flash_qkv("flash_alibi_attention", q, k, v, valid)
     if tuple(slopes.shape) != (h,):
         raise ValueError(
             f"flash_alibi_attention: slopes has shape {tuple(slopes.shape)}, want {(h,)}"
         )
-    valid_i32 = valid.to(device=q.device, dtype=torch.int32).contiguous()
     slopes_f32 = slopes.to(device=q.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     fn = load_library("flash_alibi.cu").flash_alibi_bf16

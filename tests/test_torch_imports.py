@@ -1,6 +1,6 @@
 """The port stands alone: no ``jax`` and no ``licv_vqa_tpu`` module is
-imported by ``licv_vqa_tpu_torch``, ``inference_torch.py``, ``train_torch.py``
-or ``chip_smoke.py``; and the host modules the port copied give the JAX
+imported by ``licv_vqa_tpu_torch``, ``inference_torch.py``, ``train_torch.py``,
+``chip_smoke.py`` or ``tools/bench_train_step_torch.py``; and the host modules the port copied give the JAX
 package's outputs on the same inputs."""
 
 import ast
@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-SCRIPTS = ("inference_torch.py", "train_torch.py", "chip_smoke.py")
+SCRIPTS = ("inference_torch.py", "train_torch.py", "chip_smoke.py",
+           "tools/bench_train_step_torch.py")
 
 
 def test_port_modules_import_neither_jax_nor_the_jax_package():

@@ -8,7 +8,10 @@ The bidirectional flash kernel is held at ``chip_smoke.py`` phase 3's
 shapes (the SigLIP tower's H=16, Dh=72) and at a ragged one; the ALiBi
 flash kernel at MPT-7B's (H=32, Dh=128) with both paddings, on the rows
 with a visible key; the fused ViT kernel at ViT-L's and ViT-H's (H=16,
-Dh=64 and 80), masked and unmasked, on every row.
+Dh=64 and 80), masked and unmasked, on every row; the causal flash
+backward at ``chip_smoke.py`` phase 3's shapes (dq, dk and dv each, on the
+forward kernel's output and log-sum-exp), on strided views with an
+expanded cotangent, bit-equal across calls.
 Tolerance: f32 math on both sides, so the two differ by output rounding
 (bf16 outputs) and summation order.  The limit scales with the output:
 max-abs error ≤ 2e-2 · max|plain| for bf16 outputs (one bf16 ulp is at most
@@ -112,15 +115,103 @@ def test_flash_kernel_rejects_other_head_dims(dev):
         PL.flash_attention(x, x, x, torch.ones((1, 256), device=dev))
 
 
-def test_flash_kernel_refuses_inputs_that_require_grad(dev):
-    """The kernel has no backward: under autograd it raises instead of
-    returning an output that would drop attention from the gradient."""
-    x = torch.zeros((1, 256, 4, 128), dtype=torch.bfloat16, device=dev, requires_grad=True)
-    valid = torch.ones((1, 256), device=dev)
-    with pytest.raises(RuntimeError, match="Queue 2 item 2"):
-        PL.flash_attention(x, x, x, valid)
-    with torch.no_grad():  # the teacher's case
-        assert torch.isfinite(PL.flash_attention(x, x, x, valid)).all()
+def test_flash_kernel_gives_gradients_and_no_grad_calls_write_no_lse(dev, monkeypatch):
+    """Under autograd the forward kernel writes its log-sum-exp and the
+    backward kernels run (the gradients against the plain backward on the
+    same output, log-sum-exp and cotangent); without a gradient (the
+    teacher's case) the forward kernel is launched alone, with no
+    log-sum-exp."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 256, 4, 128), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    valid = torch.ones((2, 256), dtype=torch.int32, device=dev)
+    valid[1, 180:] = 0
+    calls = []
+    real = PL._flash_attention_cuda
+    monkeypatch.setattr(PL, "_flash_attention_cuda",
+                        lambda *a, **kw: calls.append(kw.get("with_lse", False)) or real(*a, **kw))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = PL.flash_attention_backward.launches
+    got = torch.autograd.grad(PL.flash_attention(*leaves, valid).float().square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert calls == [True] and PL.flash_attention_backward.launches == before + 1
+    o, lse = real(q, k, v, valid, 128 ** -0.5, with_lse=True)
+    want = PL.flash_attention_bwd_reference(q, k, v, o, lse, 2 * o, valid, 128 ** -0.5)
+    for a, b in zip(got, want, strict=True):
+        _assert_close(a, b)
+    with torch.no_grad():
+        assert torch.isfinite(PL.flash_attention(*leaves, valid)).all()
+    assert calls == [True, False]
+    assert PL.flash_attention_backward.launches == before + 1
+
+
+def _right_padded(lengths, s, dev):
+    return (torch.arange(s, device=dev)[None]
+            < torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
+
+
+@pytest.mark.parametrize("b,s,h,lengths", [
+    # chip_smoke.py phase 3's shapes: the flagship student with ragged
+    # rows; JAX tools/validate_flash_tpu.py's gradient check; one 2048 row
+    (4, 256, 32, (256, 201, 150, 77)), (4, 512, 8, (512, 400, 512, 100)),
+    (1, 2048, 32, (1798,)),
+    # a ragged tail (S not a multiple of the 64-row tile)
+    (2, 300, 4, (300, 263)),
+])
+def test_flash_backward_kernels_match_plain(dev, b, s, h, lengths):
+    """dq, dk and dv each against the plain backward on the forward kernel's
+    output and log-sum-exp; the log-sum-exp against the plain one (f32)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, do = (torch.randn((b, s, h, 128), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    valid = _right_padded(lengths, s, dev)
+    scale = 128 ** -0.5
+    o, lse = PL._flash_attention_cuda(q, k, v, valid, scale, with_lse=True)
+    want_lse = PL.flash_attention_lse_reference(q, k, valid, scale)
+    _assert_close(lse, want_lse, F32_REL_TOL)
+    before = PL.flash_attention_backward.launches
+    got = PL.flash_attention_backward(q, k, v, o, lse, do, valid, scale)
+    torch.cuda.synchronize()
+    assert PL.flash_attention_backward.launches == before + 1
+    want = PL.flash_attention_bwd_reference(q, k, v, o, lse, do, valid, scale)
+    for a, w in zip(got, want, strict=True):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        _assert_close(a, w)
+
+
+def test_flash_backward_takes_strided_views_and_an_expanded_cotangent(dev):
+    """q/k/v as views into one fused (B, S, 3, H, Dh) buffer, and the
+    cotangent a ``.sum()`` hands in (an expanded tensor, zero strides)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn((2, 320, 3, 4, 128), generator=g, device=dev).to(torch.bfloat16)
+    valid = _right_padded((320, 250), 320, dev)
+    leaf = qkv.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(PL.flash_attention(*leaf.unbind(2), valid).sum(), leaf)
+    q, k, v = qkv.unbind(2)
+    o, lse = PL._flash_attention_cuda(q, k, v, valid, 128 ** -0.5, with_lse=True)
+    ones = torch.ones_like(o)
+    want = PL.flash_attention_bwd_reference(q, k, v, o, lse, ones, valid, 128 ** -0.5)
+    for i in range(3):
+        _assert_close(got[:, :, i], want[i])
+
+
+def test_flash_backward_is_deterministic(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, do = (torch.randn((2, 384, 8, 128), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    valid = _right_padded((384, 301), 384, dev)
+    o, lse = PL._flash_attention_cuda(q, k, v, valid, 0.09, with_lse=True)
+    first = PL.flash_attention_backward(q, k, v, o, lse, do, valid, 0.09)
+    second = PL.flash_attention_backward(q, k, v, o, lse, do, valid, 0.09)
+    for a, b in zip(first, second, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_rejects_other_head_dims(dev):
+    x = torch.zeros((1, 256, 4, 64), dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros((1, 4, 256), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        PL.flash_attention_backward(x, x, x, x, lse, x, torch.ones((1, 256), device=dev), 0.1)
 
 
 def _navit_valid(b, s, grids, dev, grid_w):

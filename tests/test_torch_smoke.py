@@ -334,3 +334,114 @@ def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monke
         got = C.quantized_path(torch.device("cpu"), tmp_path / mode, mode, opts, paths,
                                lmm="tiny-idefics")
         assert got[f"{mode}_matmul"] > 0 and got["icv_inject"] == 4 * 2 * C.MAX_NEW
+
+
+def test_flash_backward_cases_bound_the_visible_pairs(cases):
+    """Phase 3's three backward shapes, right-padded; bytes: q, k, v, o, do
+    read and dq, dk, dv written (bf16), the f32 log-sum-exp and the int32
+    validity; operations: five products over the visible pairs (a real
+    query sees the real keys up to it, a pad the pads up to it)."""
+    got = {label: c for (name, label), c in cases.items() if name == "flash_attention_bwd"}
+    assert sorted(got) == sorted([
+        "(4,256,32,128) lengths 256,201,150,77", "(4,512,8,128) lengths 512,400,512,100",
+        "(1,2048,32,128) lengths 1798",
+    ])
+    c = got["(4,512,8,128) lengths 512,400,512,100"]
+    n = 4 * 512 * 8 * 128
+    assert c.bytes_moved == 8 * n * 2 + 4 * 8 * 512 * 4 + 4 * 512 * 4
+    tri = lambda m: m * (m + 1) // 2  # noqa: E731
+    pairs = 2 * tri(512) + tri(400) + tri(112) + tri(100) + tri(412)
+    assert c.ops == 5 * 2 * 128 * 8 * pairs
+    # the bounds without padding: 20.1 µs (bytes) at the flagship
+    # student's shape, 86.9 µs (operations) at one 2048-token row
+    valid = torch.ones((1, 2048), dtype=torch.int32)
+    assert C.causal_segment_pairs(valid) == tri(2048)
+    ms, by = got["(4,256,32,128) lengths 256,201,150,77"].bound()
+    assert by == "bytes" and ms == pytest.approx(20.06e-3, rel=1e-3)
+
+
+def test_flash_backward_case_holds_its_plain_version_on_cpu(cases):
+    """The case as phase 3 runs it, on CPU tensors: the wrapper takes the
+    plain backward, so the comparison reads 0, and the log-sum-exp check
+    passes."""
+    c = cases["flash_attention_bwd", "(4,256,32,128) lengths 256,201,150,77"]
+    got, want = c.kernel(), c.plain()
+    assert len(got) == 3
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+def test_flagship_launch_prediction_at_full_width():
+    """Phase 9's prediction at the flagship (Idefics-9B, s_tea 2048, s_stu
+    256, bs 4, one image a row) on the card: the teacher's 32 flash
+    forwards, the student's 2·32 under inner and 3·32 − 8 under both, the
+    backward at 31 layers, the ICV backward at 32, the ViT-H tower in two
+    binds, and no int8 kernel (1024 and 256 rows)."""
+    from licv_vqa_tpu_torch.models.idefics import IdeficsConfig
+
+    mc = IdeficsConfig.idefics_9b()
+    cuda = torch.device("cuda")
+    for mode, runs in (("inner", 64), ("both", 88)):
+        assert C.predicted_flagship_launches(mc, mode, 2048, 256, 4, 1, True, cuda) == {
+            "flash_attention_fwd": 32 + runs, "flash_attention_bwd": 31, "icv_inject": runs,
+            "icv_inject_bwd": 32, "vit_attention": 64, "int8_matmul": 0,
+        }
+    # under the 256-token gate the student takes no flash kernel
+    got = C.predicted_flagship_launches(mc, "both", 2048, 128, 4, 1, True, cuda)
+    assert got["flash_attention_fwd"] == 32 and got["flash_attention_bwd"] == 0
+
+
+def test_flagship_phase_counts_match_prediction_on_tiny_idefics(monkeypatch):
+    """Phase 9 on the CPU at the bench tool's tiny shape, with the flash gate
+    opened for every length (under ``attention_impl=flash``) and the wrappers counted where the model and
+    the Functions call them (the ICV through an autograd Function whose
+    backward is the wrapper, as on the card): every mode's counts equal
+    ``predicted_flagship_launches`` (the phase checks it and raises), and
+    the gradient check, which takes the flash Function's plain forward and
+    backward against plain attention, reads within its limit on the
+    model's first layers (and is printed at full depth)."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.models import layers as PL
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    bwd = _counting(iv.icv_inject_backward)
+    fwd = _counting(iv.icv_inject_reference)
+
+    class Inject(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h, shift):
+            ctx.save_for_backward(h, shift)
+            return fwd(h, shift)
+
+        @staticmethod
+        def backward(ctx, g):
+            return bwd(*ctx.saved_tensors, g)
+
+    inject = lambda h, v: Inject.apply(h, v)  # noqa: E731
+    inject.launches = 0
+    fwd.launches = 0
+    monkeypatch.setattr(iv, "icv_inject", inject)
+    monkeypatch.setattr(iv, "icv_inject_backward", bwd)
+    monkeypatch.setattr(PD, "icv_inject", inject)
+    for name in ("flash_attention", "flash_attention_backward"):
+        monkeypatch.setattr(PL, name, _counting(getattr(PL, name)))
+    monkeypatch.setattr(PL, "flash_attention_usable",
+                        lambda cfg, s, dh, device: cfg.attention_impl == "flash")
+    for name in ("synchronize", "reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+
+    def count_inject(counters):
+        # the forward count lives on the wrapped plain injection
+        counters["icv_inject"] = fwd
+        return counters
+
+    real = C._counters
+    monkeypatch.setattr(C, "_counters", lambda: count_inject(real()))
+    monkeypatch.setattr(C, "FLAGSHIP_GRAD_LAYERS", 2)  # checked on one group of two
+    got = C.flagship_train_path(torch.device("cpu"), shape="tiny")
+    # tiny-idefics: 4 layers in 2 groups, 3 steps a mode
+    assert got["flash_attention_fwd"] == 3 * ((4 + 8) + (4 + 10))
+    assert got["flash_attention_bwd"] == 3 * 3 * 2
+    assert got["icv_inject"] == 3 * (8 + 10) and got["icv_inject_bwd"] == 3 * 4 * 2

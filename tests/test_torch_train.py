@@ -7,13 +7,15 @@ the same numpy batch goes through both sides.
 - ``icv_loss_fn``: the loss to 1e-5 relative and the (icv, alpha) gradients
   to 1e-4 relative (max-abs error over max-abs value), with and without the
   gather-before-head teacher, with hard CE, a padding row, and under every
-  ``remat_mode`` of the port (recompute changes no number).
+  ``remat_mode`` (recompute changes no number), ``policy`` (the selective
+  checkpoint that keeps the weight matmuls) included.
 - The train step: four micro-batches (accumulation 2, warmup, the joint clip
   active, temperature decay; alpha learnable or frozen) give the same
   (icv, alpha) and temperature as JAX ``make_train_step``, to 1e-5
   absolute on values of order 1e-1.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from licv_vqa_tpu.icv import encoder as jx_encoder
 from licv_vqa_tpu.icv import module as jx_module
@@ -130,7 +133,7 @@ def jax_losses(models):
     return out
 
 
-@pytest.mark.parametrize("remat_mode", ["both", "inner", "outer", "none"])
+@pytest.mark.parametrize("remat_mode", ["both", "inner", "outer", "policy", "none"])
 @pytest.mark.parametrize("case", list(LOSS_CASES))
 def test_icv_loss_and_grads_match_jax(models, jax_losses, case, remat_mode):
     *_, pcfg, pparams, phead = models
@@ -175,7 +178,9 @@ def test_icv_loss_only_hard_and_frozen_weights(models):
     assert all(not t.requires_grad for t in jax.tree_util.tree_leaves(pparams))
 
 
-@pytest.mark.parametrize("remat_mode,want", [("both", 10), ("inner", 8), ("outer", 8), ("none", 4)])
+@pytest.mark.parametrize("remat_mode,want", [
+    ("both", 10), ("inner", 8), ("outer", 8), ("policy", 8), ("none", 4),
+])
 def test_icv_forward_count_under_remat(models, monkeypatch, remat_mode, want):
     """Injections per student forward+backward: 4 in the forward; "inner"
     recomputes each layer once (2·L), "outer" each group whole (2·L);
@@ -183,7 +188,10 @@ def test_icv_forward_count_under_remat(models, monkeypatch, remat_mode, want):
     whose input the inner checkpoint already saved (``torch.utils.checkpoint``
     ends a recompute once the tensors the backward needs are rebuilt:
     L − G), then each layer (L).  So "both" is 3·L − G: 88 at Idefics-9B's
-    32 layers in 8 groups, the count ``chip_smoke.py`` holds the card to."""
+    32 layers in 8 groups, the count ``chip_smoke.py`` holds the card to.
+    "policy" checkpoints each layer as "inner" does (2·L): the selective
+    policy keeps the weight matmuls' outputs, but the injection is not one
+    and its saved input is rebuilt by running the layer again."""
     *_, pcfg, pparams, _ = models
     calls = []
     real = pt_decoder.icv_inject
@@ -200,13 +208,43 @@ def test_icv_forward_count_under_remat(models, monkeypatch, remat_mode, want):
         assert want == 3 * L_TINY - groups
 
 
-def test_remat_policy_is_not_ported(models):
+class _CountOps(TorchDispatchMode):
+    """Counts the aten ops that reach the kernels below the checkpoint's
+    own dispatch mode (an output the selective policy kept never does)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_policy_recomputes_all_but_the_weight_matmuls(models):
+    """Under ``policy`` the backward's recompute runs no weight matmul (mm)
+    again and reruns the batched attention products (bmm), as
+    ``dots_with_no_batch_dims_saveable`` does in JAX; ``inner`` reruns both.
+    The gradients are the same."""
     *_, pcfg, pparams, _ = models
-    cfg = dataclasses.replace(pcfg, remat_mode="policy")
-    pfwd = pt_idefics.make_idefics_forward_fns(cfg, EOS)[0]
-    batch = to_torch(make_batch(np.random.default_rng(3)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        pfwd(pparams, batch["query_inputs"], torch.zeros((L_TINY, D_TINY), requires_grad=True))
+    batch = to_torch(make_batch(np.random.default_rng(3), pad_row=False))
+    icv = torch.randn((L_TINY, D_TINY), generator=torch.Generator().manual_seed(3))
+    counts, grads = {}, {}
+    for mode in ("inner", "policy"):
+        cfg = dataclasses.replace(pcfg, remat_mode=mode)
+        pfwd = pt_idefics.make_idefics_forward_fns(cfg, EOS)[0]
+        leaf = icv.clone().requires_grad_(True)
+        out = pfwd(pparams, batch["query_inputs"], leaf).sum()
+        with _CountOps() as ops:
+            (grads[mode],) = torch.autograd.grad(out, leaf)
+        counts[mode] = ops.counts
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    # each decoder layer runs 7 weight matmuls (wq wk wv wo gate up down);
+    # the backward's own products are the same under both modes, so the
+    # difference is the recompute
+    assert counts["inner"][mm] - counts["policy"][mm] == 7 * L_TINY
+    assert counts["policy"][bmm] == counts["inner"][bmm] > 0
+    torch.testing.assert_close(grads["policy"], grads["inner"], rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("alpha_learnable", [True, False])

@@ -9,7 +9,9 @@ kernel in ``chip_smoke.kernel_cases`` is printed from that copy, beside the
 case's limit (a CUDA source is rebuilt from the copy).  For the
 ICV-backward mutation, the full-width
 gradient check (``chip_smoke.gradient_check``, Idefics-9B with random
-weights, ~18 GB on the card) is run from the copy too, against
+weights, ~18 GB on the card) is run from the copy too, and for the flash
+backward's, phase 9's (``chip_smoke.flagship_gradient_check`` on the bench
+tool's flagship model, int8 weights), both against
 ``chip_smoke.REL_L2_TOL``.  Needs an NVIDIA GPU.  Run from the repository
 root: ``python3 tools/mutation_check_torch_kernels.py``.
 """
@@ -31,53 +33,70 @@ BIDIR = "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu"
 BIDIR_LINE = "        sc[j] = seg_s[c0 + j] == seg_q ? sc[j] : -INFINITY;\n"
 ALIBI = "licv_vqa_tpu_torch/csrc/flash_alibi.cu"
 VIT = "licv_vqa_tpu_torch/csrc/vit_attention.cu"
+FLASH_BWD = "licv_vqa_tpu_torch/csrc/flash_attn_bwd.cu"
 KL_CASES = ("masked_kl_fwd", "masked_kl_bwd")
 # name: (file, the kernel's line, its broken form, the cases that read it,
-# run the gradient check)
+# the full-width gradient check that reads it: None, "training" or
+# "flagship")
 MUTATIONS = {
     "icv_bwd_no_norm_term": (
         ICV, "        dh = ds + (gs / n_s) * (h / n_h)\n", "        dh = ds\n",
-        ("icv_inject_bwd",), True),
+        ("icv_inject_bwd",), "training"),
     "kl_bwd_no_q_term": (
-        KL, "ds = g * (p * c - q * (p / (p + eps)))", "ds = g * (p * c)", KL_CASES, False),
-    "kl_bwd_no_mean_a": (KL, "dt = g * (q * (a - ea))", "dt = g * (q * a)", KL_CASES, False),
+        KL, "ds = g * (p * c - q * (p / (p + eps)))", "ds = g * (p * c)", KL_CASES, None),
+    "kl_bwd_no_mean_a": (KL, "dt = g * (q * (a - ea))", "dt = g * (q * a)", KL_CASES, None),
     "kl_fwd_max_never_updated": (
-        KL, "            m_s = ms_new\n", "            m_s = m_s\n", KL_CASES, False),
+        KL, "            m_s = ms_new\n", "            m_s = m_s\n", KL_CASES, None),
     "int8_no_column_scale": (
         INT8, "  __device__ __forceinline__ float scale(int n) const { return s[n]; }\n",
         "  __device__ __forceinline__ float scale(int n) const { return 1.f; }\n",
-        ("int8_matmul",), False),
+        ("int8_matmul",), None),
     "int4_planes_swapped": (
         INT4, "  static constexpr int kLoPlane = 0;\n", "  static constexpr int kLoPlane = 1;\n",
-        ("int4_matmul",), False),
+        ("int4_matmul",), None),
     "int4_low_nibble_unbiased": (
         INT4, "  static constexpr float kLoMagic = 8388616.f;\n",
-        "  static constexpr float kLoMagic = 8388608.f;\n", ("int4_matmul",), False),
+        "  static constexpr float kLoMagic = 8388608.f;\n", ("int4_matmul",), None),
     # every key inside S visible (the tail past S stays masked): reads only
     # where a patch mask is (the all-valid case is unchanged)
     "bidir_no_segment_rule": (
         BIDIR, BIDIR_LINE, "        sc[j] = seg_s[c0 + j] >= 0 ? sc[j] : -INFINITY;\n",
-        ("flash_attention_bidir",), False),
+        ("flash_attention_bidir",), None),
     "bidir_causal_bound_left_in": (
         BIDIR, BIDIR_LINE,
         "        sc[j] = seg_s[c0 + j] == seg_q && k0 + c0 + j <= qi ? sc[j] : -INFINITY;\n",
-        ("flash_attention_bidir",), False),
+        ("flash_attention_bidir",), None),
     "alibi_bias_dropped": (
         ALIBI, "        const float bias = slope * (float)(qi - kj);\n",
-        "        const float bias = 0.f;\n", ("flash_alibi_attention",), False),
+        "        const float bias = 0.f;\n", ("flash_alibi_attention",), None),
     # flash_attn_fwd.cu's rule: on the compared rows (those with a visible
     # key) it differs only where a right-pad row would attend the real keys
     "alibi_segment_rule_for_valid": (
         ALIBI, "        const bool visible = kj <= qi && valid_s[r] != 0;\n",
         "        const bool visible = kj <= qi && valid_s[r] == (q_in ? valid[(long long)b * S + qi]"
-        " : -1);\n", ("flash_alibi_attention",), False),
+        " : -1);\n", ("flash_alibi_attention",), None),
     # every key inside S counts: reads only on the masked cases
     "vit_key_mask_ignored": (
         VIT, "        seg_s[tid] = kj >= S ? -1 : (valid ? valid[(long long)b * S + kj] : 1);\n",
-        "        seg_s[tid] = kj >= S ? -1 : 1;\n", ("vit_attention",), False),
+        "        seg_s[tid] = kj >= S ? -1 : 1;\n", ("vit_attention",), None),
+    # the causal flash backward: D = rowsum(do * o) left out of dS (the dQ
+    # kernel writes the 0 it computes for the dK/dV kernel too)
+    "flash_bwd_no_d": (
+        FLASH_BWD, "  const float d_row = dot(dof, acc);  // D = rowsum(do * o)\n",
+        "  const float d_row = 0.f;\n", ("flash_attention_bwd",), "flagship"),
+    # every key up to the query inside S visible: reads only where a row is
+    # padded (every case has one)
+    "flash_bwd_no_segment_rule": (
+        FLASH_BWD, "  return kj <= qi && seg_k == seg_q;\n",
+        "  return kj <= qi && seg_k >= 0 && seg_q >= 0;\n", ("flash_attention_bwd",), "flagship"),
+    "flash_bwd_dk_unscaled": (
+        FLASH_BWD,
+        "    store_dims(reinterpret_cast<__nv_bfloat162*>(dk + c_off), part, dkf, scale);\n",
+        "    store_dims(reinterpret_cast<__nv_bfloat162*>(dk + c_off), part, dkf, 1.f);\n",
+        ("flash_attention_bwd",), "flagship"),
     "vit_probabilities_not_rounded": (
         VIT, "          const float p = __bfloat162float(__float2bfloat16(expf(sc[j] - m) * inv_l));\n",
-        "          const float p = expf(sc[j] - m) * inv_l;\n", ("vit_attention",), False),
+        "          const float p = expf(sc[j] - m) * inv_l;\n", ("vit_attention",), None),
 }
 PROBE = """
 import sys, torch, chip_smoke as C
@@ -89,14 +108,24 @@ for c in C.kernel_cases(torch.device("cuda")):
         except AssertionError as e:
             print(f"  {c.name} {c.label}: {e}", flush=True)
 """
-GRADIENT_PROBE = """
+GRADIENT_PROBES = {
+    "training": """
 import tempfile, torch, chip_smoke as C
 from pathlib import Path
 with tempfile.TemporaryDirectory() as tmp:
     C.write_training_split(Path(tmp))
     r = C.gradient_check(C.training_inputs(torch.device("cuda", 0)))
 print(f"  full-width gradient check: {r} (limit {C.REL_L2_TOL})", flush=True)
-"""
+""",
+    "flagship": """
+import torch, chip_smoke as C
+dev = torch.device("cuda", 0)
+tool = C.bench_tool()
+_, _, params, batch, _ = tool._build("flagship", "inner", dev)
+r = C.flagship_gradient_check(tool, "flagship", "inner", params, batch, dev)
+print(f"  flagship gradient check: {r} (limit {C.REL_L2_TOL})", flush=True)
+""",
+}
 
 
 def main() -> int:
@@ -111,7 +140,7 @@ def main() -> int:
                 raise RuntimeError(f"{name}: the line to break is not in {path} once")
             f.write_text(text.replace(line, broken))
             print(name, flush=True)
-            for probe in (PROBE, GRADIENT_PROBE) if gradient else (PROBE,):
+            for probe in (PROBE, GRADIENT_PROBES[gradient]) if gradient else (PROBE,):
                 r = subprocess.run([sys.executable, "-c", probe, *cases], cwd=dst, text=True,
                                    capture_output=True, timeout=600)
                 print(r.stdout, end="", flush=True)
