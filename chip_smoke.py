@@ -51,8 +51,17 @@ Phases (any failure exits non-zero before the result lines):
    fused ViT attention at ``VIT_SHAPES`` (ViT-L and ViT-H, H=16, Dh=64 and
    80, 1 and 33 images, a key mask, S = 1024), every row compared, with
    ``F.scaled_dot_product_attention`` under the key mask as the library
-   call; and the bound of each TPU kernel still to port at its tool's
-   shapes (``PROBE_WORK``);
+   call; the w8a8 kernel (``csrc/w8a8_matmul.cu``), both entry points
+   (fused, pre-quantized) at ``W8A8_SHAPES`` (run A's 64-token prefill,
+   its bind-time K/V and perceiver calls at K = 1280, and the tuning tool's
+   serving-prefill MLP), held to EQUAL its plain version (limit 0), with
+   ``torch._int_mm`` on the pre-quantized plane (rows padded as
+   ``_int_product`` pads them) as the library call; and the int4
+   unpack-schedule probe (``csrc/int4_unpack_probe.cu``), its four
+   schedules at the tool's (8, 4096, 11008), G = 64, each to
+   ``F32_REL_TOL``, with ``torch._weight_int4pack_mm`` (the layout
+   converted once) as the library call, which the int4 matmul's cases get
+   too;
 4. the eval path at Idefics-9B FULL width (32 layers, d=4096, ViT-H, 6-layer
    perceiver, 8 cross-attention blocks; random bf16 weights made on the card
    from a seed, ~18 GB), through the runner entry points the CLI calls
@@ -88,10 +97,11 @@ Phases (any failure exits non-zero before the result lines):
    registry, through the runner entry points as in phase 4 (``QUANT_RUNS``):
    A, int8 weights with the int8 head, the int8 KV cache, w8a8 prefill and
    the int8 vision tower, ``test_icv`` then ``test_icl``; B, int4 weights
-   (bf16 head), ``test_icv``.  The int8 and int4 kernel counts are zeroed
-   before and read after each path and must equal
+   (bf16 head), ``test_icv``.  The int8, w8a8 and int4 kernel counts are
+   zeroed before and read after each path and must equal
    ``predicted_quantized_launches`` (derived from ``qdot``'s routes), the
-   ICV count 32 x forwards, the fused ViT kernel's 32 x binds.  Prints ms per question, peak memory and a
+   ICV count 32 x forwards, the fused ViT kernel's 32 x binds; no call of
+   ``torch._int_mm`` is made (w8a8 goes through the kernel).  Prints ms per question, peak memory and a
    profile of one ``test_icv`` question (device busy share, device time by
    kernel), and holds the test_icv prompt's prefill and first-step logits
    through the kernels against the same weights through their plain
@@ -145,8 +155,14 @@ Phases (any failure exits non-zero before the result lines):
    batch whose student rows are right-padded to different lengths, on the
    model's first ``FLAGSHIP_GRAD_LAYERS`` layers (the whole-path and f32
    comparisons printed beside it, and all four at full depth);
-10. one ``{"kernels": [...]}`` line;
-11. the last line: ``{"ok": true, "device": {...}}``.
+10. the two probe tools in process at their shapes
+   (``tools/exp_w8a8_tuning_torch.py``: every variant at (4096, 4096,
+   11008) and (4096, 11008, 4096), two tiles; ``tools/exp_int4_unpack_torch.py``:
+   the four schedules at (8, 4096, 11008)), each variant checked by the
+   tool, the launches of the w8a8 and int4-probe kernels counted against
+   the tools' own tallies;
+11. one ``{"kernels": [...]}`` line;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 The port CLIs themselves are held against ``inference.py`` and ``train.py``
 by the CPU tests (``tests/test_torch_cli.py``, ``tests/test_torch_train*.py``).
@@ -196,7 +212,8 @@ TRAIN_BS = 2
 TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
 KL_EPS = 1e-6
 CUDA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "int8_matmul.cu", "int4_matmul.cu",
-                "flash_attn_bidir.cu", "flash_alibi.cu", "vit_attention.cu")
+                "flash_attn_bidir.cu", "flash_alibi.cu", "vit_attention.cu", "w8a8_matmul.cu",
+                "int4_unpack_probe.cu")
 
 
 def log(msg: str) -> None:
@@ -511,6 +528,8 @@ def kernel_cases(dev):
 
 
     yield from quantized_cases(dev)
+    yield from w8a8_cases(dev)
+    yield from int4_probe_cases(dev)
 
 
 # the causal flash backward's cases: (B, S, H) at Dh 128 and each row's real
@@ -711,8 +730,9 @@ def quantized_cases(dev):
                                 w_nk=leaf["q"].t().contiguous(),
                                 sc=leaf["s"].reshape(-1).to(x.dtype))
                 leaf = Q.quantize_array_int4(w, INT4_GROUP)
-                return dict(x=x, dense=w, args=(
-                    leaf["q4"], leaf["s"].reshape(k // INT4_GROUP, n), INT4_GROUP))
+                s = leaf["s"].reshape(k // INT4_GROUP, n)
+                return dict(x=x, dense=w, args=(leaf["q4"], s, INT4_GROUP),
+                            signed=Q._unpack_int4(leaf["q4"]), sc=s)
 
             ob = 4 if out == "f32" else 2
             if mode == "int8":
@@ -723,7 +743,8 @@ def quantized_cases(dev):
             else:
                 wrapper, plain = I4.int4_matmul, I4.int4_matmul_reference
                 w_bytes = k * n // 2 + (k // INT4_GROUP) * n * 2  # packed nibbles, bf16 scales
-                library = None  # no single PyTorch call reads this layout
+                library = int4pack_library(
+                    lambda i=inputs: (i()["x"], i()["signed"], i()["sc"]), INT4_GROUP)
             yield Case(
                 f"{mode}_matmul", f"({m},{k},{n}) {out} out",
                 lambda i=inputs, f=wrapper, o=odt: f(i()["x"], *i()["args"], o),
@@ -737,29 +758,129 @@ def quantized_cases(dev):
             )
 
 
-# the TPU kernels still to port (PERF.md rows 9 and 10) at their tools'
-# shapes: (name, label, bytes, operations, operation type) of the function
-# each computes, for the bound phase 3 prints beside the ported kernels'
-PROBE_WORK = (
-    # tools/exp_int4_unpack.py: x @ (unpack(packed) * s), M, K, N, G = 8,
-    # 4096, 11008, 64: bf16 x, a byte a nibble pair, f32 group scales, f32 out
-    ("int4_unpack_probe", "(8,4096,11008) G=64",
-     8 * 4096 * 2 + 4096 * 11008 // 2 + 4096 // 64 * 11008 * 4 + 8 * 11008 * 4,
-     2 * 8 * 4096 * 11008, "bf16"),
-    # tools/exp_w8a8_tuning.py: (xq @ q) * xs * s, int8 x int8 -> int32 -> bf16,
-    # at its two serving-prefill shapes (MLP in and out, M = 64 x 64 tokens)
-    *(("w8a8_probe", f"({m},{k},{n})", m * k + m * 4 + k * n + n * 4 + m * n * 2,
-       2 * m * k * n, "int8") for m, k, n in ((4096, 4096, 11008), (4096, 11008, 4096))),
+def int4pack_library(operands, group: int):
+    """The call of ``torch._weight_int4pack_mm`` that computes ``x @ (q ·
+    s)`` from ``operands() = (x, q, s)``: q (K, N) the signed int4 values,
+    s (K/G, N) the group scales.  Its layout (uint4 = q + 8 with a zero
+    point of 0, two a byte along K, then ``_convert_weight_to_int4pack``)
+    is built once, at the first call, outside the timed calls; a torch that
+    refuses it raises there, and ``library_runs`` records why."""
+    import functools
+
+    import torch
+
+    @functools.cache
+    def layout():
+        x, q, s = operands()
+        u = (q.t().to(torch.int32) + 8).contiguous()  # (N, K)
+        packed = (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8)
+        w = torch._convert_weight_to_int4pack(packed, 8)
+        sz = torch.stack([s.to(torch.bfloat16), torch.zeros_like(s, dtype=torch.bfloat16)],
+                         dim=-1).contiguous()  # (K/G, N, 2): scale, zero
+        return x.to(torch.bfloat16), w, sz
+
+    def call():
+        x, w, sz = layout()
+        return torch._weight_int4pack_mm(x, w, group, sz)
+
+    return call
+
+
+# w8a8 (phase 6's run A and the tuning tool): (M, K, N) and the output
+# dtype.  Run A's 64-token prefill (the attention projections; the MLP in
+# and out, f32), the bind-time cross-attention K/V of 64 perceiver latents
+# (K = 1280: 16 a question) and the perceiver's K/V over 64 latents and 257
+# patches (12 a question); the tool's serving-prefill MLP (M = 64 x 64)
+W8A8_SHAPES = (
+    ((64, 4096, 4096), "bf16"), ((64, 4096, 11008), "f32"), ((64, 11008, 4096), "f32"),
+    ((64, 1280, 4096), "bf16"), ((321, 1280, 1536), "bf16"),
+    ((4096, 4096, 11008), "bf16"), ((4096, 11008, 4096), "bf16"),
 )
+# the int4 unpack probe's shape (tools/exp_int4_unpack.py: M, K, N, G)
+INT4_PROBE_SHAPE = (8, 4096, 11008)
 
 
-def probe_bounds() -> list:
-    """``(name, label, bound ms, bound_by)`` of each of ``PROBE_WORK``."""
-    out = []
-    for name, label, nbytes, ops, op_type in PROBE_WORK:
-        c = Case(name, label, None, None, bytes_moved=nbytes, ops=ops, op_type=op_type)
-        out.append((name, label, *c.bound()))
-    return out
+def w8a8_cases(dev):
+    """The w8a8 kernel, both entry points, against its plain versions: equal
+    outputs (the int32 sum is exact and the epilogue the same f32
+    arithmetic).  Inputs made on first use: a random bf16 weight quantized
+    as the registry does, bf16 activations."""
+    import functools
+
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+    from licv_vqa_tpu_torch.ops import quantize as Q
+
+    for (m, k, n), out in W8A8_SHAPES:
+        odt = torch.float32 if out == "f32" else torch.bfloat16
+        ob = 4 if out == "f32" else 2
+
+        @functools.cache
+        def inputs(m=m, k=k, n=n):
+            g = torch.Generator(device=dev).manual_seed(m + k + n)
+            leaf = Q.quantize_array(
+                (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16))
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            xq, xs = I8.quantize_act_rows(x)
+            return dict(x=x, q=leaf["q"], s=leaf["s"], xq=xq, xs=xs,
+                        xq_p=I8.pad_rows_for_int_mm(xq))
+
+        library = lambda i=inputs: torch._int_mm(i()["xq_p"], i()["q"])  # noqa: E731
+        calls = 5 if m * k * n > 1e10 else 20
+        w_bytes = k * n + n * 4  # the int8 plane, f32 column scales
+        yield Case(
+            "w8a8_matmul", f"fused ({m},{k},{n}) {out} out",
+            lambda i=inputs, o=odt: I8.w8a8_matmul(i()["x"], i()["q"], i()["s"], o),
+            lambda i=inputs, o=odt: I8.w8a8_matmul_reference(i()["x"], i()["q"], i()["s"], o),
+            bytes_moved=m * k * 2 + w_bytes + m * n * ob, ops=2 * m * k * n, op_type="int8",
+            library=library, calls=calls, tol=0.0,
+        )
+        yield Case(
+            "w8a8_matmul", f"prequantized ({m},{k},{n}) {out} out",
+            lambda i=inputs, o=odt: I8.w8a8_matmul_prequantized(
+                i()["xq"], i()["xs"], i()["q"], i()["s"], o),
+            lambda i=inputs, o=odt: I8.w8a8_prequantized_reference(
+                i()["xq"], i()["xs"], i()["q"], i()["s"], o),
+            bytes_moved=m * k + m * 4 + w_bytes + m * n * ob, ops=2 * m * k * n, op_type="int8",
+            library=library, calls=calls, tol=0.0,
+        )
+
+
+def int4_probe_cases(dev):
+    """The int4 unpack probe's four schedules against their plain versions,
+    on the tool's operands (``np.random.default_rng(0)``), packed per
+    schedule."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int4_unpack_probe as P
+
+    m, k, n = INT4_PROBE_SHAPE
+    g = INT4_GROUP
+
+    @functools.cache
+    def operands():
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+        q = torch.from_numpy(rng.integers(-7, 8, size=(k, n)).astype(np.int8)).to(dev)
+        s = torch.from_numpy(rng.random((k // g, n)).astype(np.float32) * 0.01 + 0.001).to(dev)
+        return x, q, s
+
+    library = int4pack_library(operands, g)
+    for sched in P.SCHEDULES:
+        packed = functools.cache(lambda sched=sched: P.probe_operands(*operands()[1:], sched))
+        yield Case(
+            "int4_unpack_probe", f"{sched} ({m},{k},{n}) G={g}",
+            lambda sched=sched, pk=packed: P.int4_unpack_probe(operands()[0], *pk(), g, sched),
+            lambda sched=sched, pk=packed: P.int4_unpack_probe_reference(
+                operands()[0], *pk(), g, sched),
+            # bf16 x, a byte a nibble pair, f32 group scales, f32 out
+            bytes_moved=m * k * 2 + k * n // 2 + (k // g) * n * 4 + m * n * 4,
+            ops=2 * m * k * n, op_type="bf16", library=library, calls=50, tol=F32_REL_TOL,
+        )
 
 
 def compare(kernel, plain, rows=None) -> tuple[float, float]:
@@ -807,6 +928,10 @@ MAIN_SHAPE = {
     "flash_alibi_attention": "(1,512,32,128) left",
     # the ViT-L tower at an OpenFlamingo test_icv bind (one image)
     "vit_attention": "(1,257,16,64)",
+    # run A's 64-token prefill projections (the most frequent w8a8 call)
+    "w8a8_matmul": "fused (64,4096,4096)",
+    # the JAX tool's first schedule, its production kernel of the time
+    "int4_unpack_probe": "a (8,4096,11008)",
 }
 
 
@@ -853,8 +978,6 @@ def check_kernels(dev) -> dict:
         if c.label.startswith(MAIN_SHAPE[c.name]):
             row.update(ms=dev_ms, plain_ms=dev_plain, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by, timed_by=timed_by)
-    for name, label, bound_ms, bound_by in probe_bounds():
-        log(f"still to port: {name} {label}: bound {bound_ms:.5f} ms ({bound_by})")
     return out
 
 
@@ -1188,13 +1311,15 @@ QUANT_RUNS = (
 
 def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: int,
                                  n_img: int, beams: int, max_new: int) -> dict:
-    """Launches of the int8 and int4 kernels in ONE generate (bs prompts of
-    ``s_prompt`` tokens with ``n_img`` images each), derived from the code's
-    routes.  A matmul launches a kernel iff its weight is quantized and the
-    call has at most ``KERNEL_MAX_ROWS`` rows (``ops/int8_matmul.py::qdot``),
-    except that an int8 weight takes w8a8 under ``lmm.w8a8_prefill`` in a
-    block of at least ``W8A8_MIN_TOKENS`` tokens (the vision tower never:
-    ``idefics.encode_images``), and an int4 weight needs K/2 % G == 0.
+    """Launches of the int8, w8a8 and int4 kernels in ONE generate (bs
+    prompts of ``s_prompt`` tokens with ``n_img`` images each), derived
+    from the code's routes.  A matmul launches the int8 or int4 kernel iff
+    its weight is quantized and the call has at most ``KERNEL_MAX_ROWS``
+    rows (``ops/int8_matmul.py::qdot``), except that an int8 weight takes
+    w8a8 (the w8a8 kernel, at any row count) under ``lmm.w8a8_prefill`` in
+    a block of at least ``W8A8_MIN_TOKENS`` tokens (the vision tower never:
+    ``idefics.encode_images``; the head never), and an int4 weight needs
+    K/2 % G == 0.
     Per forward: 7 projections per decoder layer (wq wk wv wo, gate up:
     K = d_model; down: K = d_ff) and 5 per cross-attention block with its
     bound K/V (wq wo gate up, down), one block per ``cross_layer_interval``
@@ -1213,13 +1338,19 @@ def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: i
 
     a8 = "lmm.w8a8_prefill=true" in opts
 
+    def w8a8(tokens, int8: bool) -> int:
+        """1 if one matmul in a block of ``tokens`` tokens (None: never
+        w8a8) takes w8a8."""
+        return int(int8 and a8 and tokens is not None and tokens >= W8A8_MIN_TOKENS)
+
     def takes(rows: int, tokens, k: int, int8: bool) -> int:
         """1 if one matmul of ``rows`` rows, a block of ``tokens`` tokens
-        (None: never w8a8) and ``k`` in-features launches a kernel."""
-        if rows > KERNEL_MAX_ROWS:
+        (None: never w8a8) and ``k`` in-features launches the int8 or int4
+        kernel."""
+        if rows > KERNEL_MAX_ROWS or w8a8(tokens, int8):
             return 0
         if int8:
-            return int(not (a8 and tokens is not None and tokens >= W8A8_MIN_TOKENS))
+            return 1
         return int((k // 2) % _int4_group(k) == 0)
 
     t, v, p = mc.text, mc.vision, mc.perceiver
@@ -1233,7 +1364,10 @@ def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: i
     n_k = n_img * p.n_latents
     n = (stacks(bs * s_prompt, s_prompt) + (max_new - 1) * stacks(bs * beams, 1)
          + 2 * groups * takes(bs * n_k, n_k, p.d_model, int8))
-    out = {"int8_matmul": n if int8 else 0, "int4_matmul": 0 if int8 else n}
+    per_stack = t.n_layers * 7 + groups * 5
+    out = {"int8_matmul": n if int8 else 0, "int4_matmul": 0 if int8 else n,
+           "w8a8_matmul": (per_stack * (w8a8(s_prompt, int8) + (max_new - 1) * w8a8(1, int8))
+                           + 2 * groups * w8a8(n_k, int8))}
     if "lmm.quantize_head=true" in opts:
         out["int8_matmul"] += (takes(bs, 1, t.d_model, True)
                                + (max_new - 1) * takes(bs * beams, 1, t.d_model, True))
@@ -1244,6 +1378,7 @@ def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: i
             + p.n_layers * (4 * takes(imgs * lat, lat, p.d_model, True)
                             + 2 * takes(imgs * (lat + np_), lat + np_, p.d_model, True))
         )
+        out["w8a8_matmul"] += p.n_layers * (4 * w8a8(lat, True) + 2 * w8a8(lat + np_, True))
     return out
 
 
@@ -1262,8 +1397,8 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     b = e.bundle
     n_layers = b.model_cfg.text.n_layers
     counters = {"int8_matmul": I8.int8_matmul, "int4_matmul": I4.int4_matmul,
-                "icv_inject": icv_inject, "flash_attention_fwd": L.flash_attention,
-                "vit_attention": L.vit_attention}
+                "w8a8_matmul": I8.w8a8_matmul, "icv_inject": icv_inject,
+                "flash_attention_fwd": L.flash_attention, "vit_attention": L.vit_attention}
     vit_bind = vit_per_bind(b.model_cfg.vision, b.device)
     beams = int(e.gen_kwargs["num_beams"])
     runs = eval_runs(e)
@@ -1276,7 +1411,7 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     total = dict.fromkeys(counters, 0)
     for path in paths:
         run, prompt, n_q = runs[path]
-        want = dict.fromkeys(("int8_matmul", "int4_matmul"), 0)
+        want = dict.fromkeys(("int8_matmul", "int4_matmul", "w8a8_matmul"), 0)
         for q in range(1, 1 + n_q):
             enc = b.processor.prepare_input([prompt(q)], padding=True, padding_side="left")
             for k, v in predicted_quantized_launches(
@@ -1286,19 +1421,33 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
                 want[k] += v
         for fn in counters.values():
             fn.launches = 0
-        t0 = time.perf_counter()
-        rows = e.val[1 : 1 + n_q]
-        res = run(rows) if path == "icv" else run(rows, e.shots[1 : 1 + n_q])
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / n_q
+        int_mm = torch._int_mm
+        int_mm_calls = []
+
+        def counted_int_mm(*a, **k):
+            int_mm_calls.append(1)
+            return int_mm(*a, **k)
+
+        torch._int_mm = counted_int_mm  # w8a8 takes the kernel: no library call
+        try:
+            t0 = time.perf_counter()
+            rows = e.val[1 : 1 + n_q]
+            res = run(rows) if path == "icv" else run(rows, e.shots[1 : 1 + n_q])
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / n_q
+        finally:
+            torch._int_mm = int_mm
         counts = {k: fn.launches for k, fn in counters.items()}
         log(f"{mode} test_{path}: {n_q} questions, {dt * 1e3:.1f} ms/question; launches "
-            f"{counts} (int8/int4 predicted {want}); predictions "
+            f"{counts} (int8/int4/w8a8 predicted {want}), torch._int_mm calls "
+            f"{len(int_mm_calls)}; predictions "
             f"{[r['prediction'] for r in res.values()]}, VQA accuracy "
             f"{vqa_accuracy(res, rows, tmp, f'{mode}_{path}'):.2f} (random weights)")
         for k, v in want.items():
             if counts[k] != v:
                 raise AssertionError(f"{mode} test_{path}: {k} launched {counts[k]} != {v}")
+        if int_mm_calls:
+            raise AssertionError(f"{mode} test_{path}: torch._int_mm called on the main path")
         if path == "icv" and counts["icv_inject"] != n_layers * n_q * MAX_NEW:
             raise AssertionError("icv_inject launch count != 32 x forward passes")
         if counts["vit_attention"] != vit_bind * n_q:  # one bind a question
@@ -1353,10 +1502,11 @@ def kernel_vs_plain_logits(e: EvalSetup, mode: str) -> None:
         "input_ids", "attention_mask", "pixel_values", "pixel_valid"))
     pos = torch.clamp(torch.cumsum(mask, -1) - 1, min=0)
     out = {}
-    kernels = (I8.int8_matmul, I4.int4_matmul)
+    kernels = (I8.int8_matmul, I4.int4_matmul, I8.w8a8_matmul)
     for path in ("kernel", "plain"):
         if path == "plain":
-            I8.int8_matmul, I4.int4_matmul = I8.int8_matmul_reference, I4.int4_matmul_reference
+            I8.int8_matmul, I4.int4_matmul, I8.w8a8_matmul = (
+                I8.int8_matmul_reference, I4.int4_matmul_reference, I8.w8a8_matmul_reference)
         try:
             with torch.inference_mode():
                 fwd = b.bind_decode(b.params, px, pv, ids, e.icv_scaled, ids.shape[1] + 2)
@@ -1365,7 +1515,7 @@ def kernel_vs_plain_logits(e: EvalSetup, mode: str) -> None:
                 step, _ = fwd(tok, torch.ones_like(tok), pos[:, -1:] + 1, cache)
             out[path] = (pre[:, -1].float(), step[:, -1].float())
         finally:
-            I8.int8_matmul, I4.int4_matmul = kernels
+            I8.int8_matmul, I4.int4_matmul, I8.w8a8_matmul = kernels
     for i, what in enumerate(("prefill", "step")):
         a, p = out["kernel"][i], out["plain"][i]
         rel = ((a - p).norm() / p.norm()).item()
@@ -1956,15 +2106,19 @@ FLAGSHIP_GRAD_LENGTHS = (256, 224, 192, 160)
 FLAGSHIP_GRAD_LAYERS = 8
 
 
-def bench_tool():
-    """``tools/bench_train_step_torch.py`` as a module."""
+def load_tool(name: str):
+    """``tools/<name>.py`` as a module."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "bench_train_step_torch", REPO / "tools" / "bench_train_step_torch.py")
+    spec = importlib.util.spec_from_file_location(name, REPO / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def bench_tool():
+    """``tools/bench_train_step_torch.py`` as a module."""
+    return load_tool("bench_train_step_torch")
 
 
 def predicted_flagship_launches(mc, mode: str, s_tea: int, s_stu: int, bs: int, n_img: int,
@@ -2146,11 +2300,72 @@ def flagship_gradient_check(tool, shape: str, mode: str, params, batch, dev) -> 
     return out
 
 
+def tools_path(dev, w8a8_shapes=None, int4_shape=None, reps=None) -> dict:
+    """Phase 10: the two probe tools in process at their own shapes (each
+    checks its variants and raises on a wrong one); the w8a8 and int4-probe
+    kernel launches, zeroed before and read after, must equal the tools'
+    tallies of their wrapper calls."""
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int4_unpack_probe as P
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    w8, i4 = load_tool("exp_w8a8_tuning_torch"), load_tool("exp_int4_unpack_torch")
+    I8.w8a8_matmul.launches = 0
+    P.int4_unpack_probe.launches = 0
+    t0 = time.perf_counter()
+    rows_w = w8.run(dev, w8a8_shapes or w8.SHAPES, None, (), reps or 30)
+    rows_i = i4.run(dev, int4_shape or i4.SHAPE, i4.G, reps or 200)
+    torch.cuda.synchronize()
+    counts = {"w8a8_matmul": I8.w8a8_matmul.launches,
+              "int4_unpack_probe": P.int4_unpack_probe.launches}
+    want = {"w8a8_matmul": sum(r["launches"] for r in rows_w),
+            "int4_unpack_probe": sum(r["launches"] for r in rows_i)}
+    log(f"probe tools: {time.perf_counter() - t0:.1f} s; launches {counts} (the tools' "
+        f"tallies {want})")
+    if counts != want:
+        raise AssertionError(f"probe tools: launches {counts} != {want}")
+    return counts
+
+
 def _first(tree, n: int):
     """The first ``n`` layers of a layer-stacked param tree (views)."""
     if isinstance(tree, dict):
         return {k: _first(v, n) for k, v in tree.items()}
     return tree[:n]
+
+
+# the kernels line's rows: (route, source, the TPU kernel it replaces)
+KERNEL_SOURCES = {
+    "icv_inject": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
+                   "licv_vqa_tpu/ops/icv_inject.py:56"),
+    "flash_attention_fwd": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_fwd.cu",
+                            "licv_vqa_tpu/models/layers.py:148"),
+    # upstream's dkv and dq kernels, which flash_attention_tpu reaches
+    # under autograd
+    "flash_attention_bwd": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_bwd.cu",
+                            "licv_vqa_tpu/models/layers.py:148"),
+    "masked_kl": ("triton", "licv_vqa_tpu_torch/ops/masked_kl_kernel.py",
+                  "licv_vqa_tpu/ops/masked_kl_kernel.py:128"),
+    "icv_inject_bwd": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
+                       "licv_vqa_tpu/ops/icv_inject.py:113"),
+    "int8_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/int8_matmul.cu",
+                    "licv_vqa_tpu/ops/int8_matmul.py:67"),
+    "int4_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/int4_matmul.cu",
+                    "licv_vqa_tpu/ops/int4_matmul.py:134"),
+    "flash_attention_bidir": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu",
+                              "licv_vqa_tpu/models/layers.py:233"),
+    "flash_alibi_attention": ("cuda", "licv_vqa_tpu_torch/csrc/flash_alibi.cu",
+                              "licv_vqa_tpu/ops/flash_alibi.py:124"),
+    "vit_attention": ("cuda", "licv_vqa_tpu_torch/csrc/vit_attention.cu",
+                      "licv_vqa_tpu/ops/vit_attention.py:118"),
+    # the tuning probe's w8a8_kernel and w8a8_fused_kernel (JAX's production
+    # w8a8 is XLA)
+    "w8a8_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/w8a8_matmul.cu",
+                    "tools/exp_w8a8_tuning.py:36"),
+    "int4_unpack_probe": ("cuda", "licv_vqa_tpu_torch/csrc/int4_unpack_probe.cu",
+                          "tools/exp_int4_unpack.py:111"),
+}
 
 
 def main() -> int:
@@ -2196,7 +2411,7 @@ def main() -> int:
         profile_training(m)
         del m
         free_device_memory()
-        counts_q = dict.fromkeys(("int8_matmul", "int4_matmul", "icv_inject",
+        counts_q = dict.fromkeys(("int8_matmul", "int4_matmul", "w8a8_matmul", "icv_inject",
                                   "flash_attention_fwd", "vit_attention"), 0)
         for mode, opts, paths in QUANT_RUNS:
             for k, v in quantized_path(dev, Path(tmp) / mode, mode, opts, paths).items():
@@ -2208,31 +2423,9 @@ def main() -> int:
         free_device_memory()
     counts_fl = flagship_train_path(dev)
     free_device_memory()
+    counts_tools = tools_path(dev)
+    free_device_memory()
 
-    sources = {
-        "icv_inject": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
-                       "licv_vqa_tpu/ops/icv_inject.py:56"),
-        "flash_attention_fwd": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_fwd.cu",
-                                "licv_vqa_tpu/models/layers.py:148"),
-        # upstream's dkv and dq kernels, which flash_attention_tpu reaches
-        # under autograd
-        "flash_attention_bwd": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_bwd.cu",
-                                "licv_vqa_tpu/models/layers.py:148"),
-        "masked_kl": ("triton", "licv_vqa_tpu_torch/ops/masked_kl_kernel.py",
-                      "licv_vqa_tpu/ops/masked_kl_kernel.py:128"),
-        "icv_inject_bwd": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
-                           "licv_vqa_tpu/ops/icv_inject.py:113"),
-        "int8_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/int8_matmul.cu",
-                        "licv_vqa_tpu/ops/int8_matmul.py:67"),
-        "int4_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/int4_matmul.cu",
-                        "licv_vqa_tpu/ops/int4_matmul.py:134"),
-        "flash_attention_bidir": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu",
-                                  "licv_vqa_tpu/models/layers.py:233"),
-        "flash_alibi_attention": ("cuda", "licv_vqa_tpu_torch/csrc/flash_alibi.cu",
-                                  "licv_vqa_tpu/ops/flash_alibi.py:124"),
-        "vit_attention": ("cuda", "licv_vqa_tpu_torch/csrc/vit_attention.cu",
-                          "licv_vqa_tpu/ops/vit_attention.py:118"),
-    }
     phases = (counts, counts_train, counts_q, counts_i2, counts_of, counts_fl)
     launches = {
         name: sum(c.get(name, 0) for c in phases)
@@ -2243,9 +2436,11 @@ def main() -> int:
         "flash_alibi_attention": counts_of["flash_alibi_attention"],
         "flash_attention_bidir": counts_i2["flash_attention_bidir"],
         "int4_matmul": counts_q["int4_matmul"],
+        "w8a8_matmul": counts_q["w8a8_matmul"] + counts_tools["w8a8_matmul"],
+        "int4_unpack_probe": counts_tools["int4_unpack_probe"],
     })
     kernels = []
-    for name, (route, source, replaces) in sources.items():
+    for name, (route, source, replaces) in KERNEL_SOURCES.items():
         if name == "masked_kl":
             # one kernel pair behind one autograd Function: the row sums fwd + bwd
             f, b = summary["masked_kl_fwd"], summary["masked_kl_bwd"]

@@ -8,19 +8,22 @@ and picks its route by the leaf and the call's shape, as JAX's does:
 - int4 leaf: the int4 kernel (``ops/int4_matmul.py``) for decode-shaped
   calls (at most ``KERNEL_MAX_ROWS`` rows), else dequantize + matmul;
 - int8 leaf with ``a8``: w8a8, per-row int8 activations times the int8
-  weight with an exact int32 accumulator (``_w8a8_dot``);
+  weight with an exact int32 accumulator (``w8a8_matmul``: on the card the
+  fused kernel ``csrc/w8a8_matmul.cu``, where JAX leaves it to XLA);
 - int8 leaf, decode-shaped: the int8 kernel (``int8_matmul``);
 - int8 leaf, otherwise: scale-on-output, ``(x @ q) * s``.
 
-Two routing rules differ from JAX's, both TPU rules with no counterpart
-here (ROADMAP Queue 3): the int8 kernel is on by default (JAX keeps it
-behind ``LICV_INT8_PALLAS=1`` because inside ``lax.scan`` it broke XLA's
-cross-op pipelining; eager PyTorch has no such fusion, and the
-scale-on-output route widens the whole weight on every call), and neither
-kernel asks for ``m % 8 == 0``, a tileable shape or rows padded to 8.
+Three routing rules differ from JAX's (ROADMAP Queue 3): the int8 kernel
+is on by default (JAX keeps it behind ``LICV_INT8_PALLAS=1`` because
+inside ``lax.scan`` it broke XLA's cross-op pipelining; eager PyTorch has
+no such fusion, and the scale-on-output route widens the whole weight on
+every call); w8a8 goes through a hand-written kernel, which computes what
+XLA computes for JAX, bit for bit; and no kernel asks for ``m % 8 == 0``,
+a tileable shape or rows padded to 8.
 
-Kernel wrappers (``int8_matmul`` here, ``int4_matmul``) launch their
-kernel for CUDA tensors or raise; CPU tensors take the plain version.  The
+Kernel wrappers (``int8_matmul`` and ``w8a8_matmul`` here,
+``int4_matmul``) launch their kernel for CUDA tensors or raise; CPU
+tensors take the plain version.  The
 kernel routes carry an activation-only backward (``_FrozenWeightMatmul``):
 the quantized weights are frozen in ICV training.
 """
@@ -162,13 +165,23 @@ int8_matmul.launches = 0  # kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
 
+# the reciprocal JAX multiplies by: under ``jit`` XLA rewrites ``a / 127.0``
+# as ``a * f32(1/127)`` (eager JAX divides; the two differ by an ulp in a
+# few rows in 25, and JAX runs w8a8 under jit)
+INV_127 = 1.0 / 127.0
+# w8a8 kernel tiles (rows x columns of the output a block computes), the
+# template instantiations of csrc/w8a8_matmul.cu in its order
+W8A8_TILES = ("64x64", "128x128")
+
+
 def quantize_act_rows(x: torch.Tensor):
     """Dynamic per-row symmetric int8 quantization of activations:
-    ``(int8 plane, f32 scale (..., 1))`` with ``scale = absmax / 127`` over
-    the contraction dim; all-zero rows get a floor scale."""
+    ``(int8 plane, f32 scale (..., 1))`` with ``scale = absmax · f32(1/127)``
+    over the contraction dim, as JAX computes it under jit; all-zero rows
+    get a floor scale."""
     xf = x.float()
     absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
-    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    scale = torch.clamp(absmax, min=1e-8) * INV_127
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q.to(torch.int8), scale
 
@@ -182,19 +195,129 @@ def _int_product(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     m, k = xq.shape
     n = q.shape[1]
     if xq.device.type == "cuda" and k % 8 == 0 and n % 8 == 0:
-        mp = max(24, math.ceil(m / 8) * 8)
-        if mp != m:
-            xq = torch.cat([xq, xq.new_zeros((mp - m, k))])
-        return torch._int_mm(xq, q)[:m].float()
+        return torch._int_mm(pad_rows_for_int_mm(xq), q)[:m].float()
     return (xq.double() @ q.double()).float()
 
 
-def _w8a8_dot(x, q, s, out_dtype):
-    """int8 activations x int8 weight with an int32 accumulator; the per-row
-    activation scale and the per-column weight scale both commute out of
-    the K contraction and apply to the f32 accumulator."""
+def pad_rows_for_int_mm(xq: torch.Tensor) -> torch.Tensor:
+    """``xq`` zero-padded to the rows ``torch._int_mm`` takes: at least 24,
+    a multiple of 8."""
+    m, k = xq.shape
+    mp = max(24, math.ceil(m / 8) * 8)
+    return xq if mp == m else torch.cat([xq, xq.new_zeros((mp - m, k))])
+
+
+def w8a8_matmul_reference(x, q, s, out_dtype) -> torch.Tensor:
+    """Plain version of ``w8a8_matmul``: int8 activations x int8 weight with
+    an int32 accumulator; the per-row activation scale and the per-column
+    weight scale both commute out of the K contraction and apply to the f32
+    accumulator, ``(acc · xs) · s``."""
     xq, xs = quantize_act_rows(x)
+    return w8a8_prequantized_reference(xq, xs, q, s, out_dtype)
+
+
+def w8a8_prequantized_reference(xq, xs, q, s, out_dtype) -> torch.Tensor:
+    """Plain version of ``w8a8_matmul_prequantized``."""
     return (_int_product(xq, q) * xs * s.reshape(1, -1)).to(out_dtype)
+
+
+def _w8a8_tile(m: int, tile) -> int:
+    """Index into ``W8A8_TILES``: the caller's, else 64x64 up to 1024 rows
+    and 128x128 above."""
+    if tile is None:
+        tile = "64x64" if m <= 1024 else "128x128"
+    return W8A8_TILES.index(tile)
+
+
+def _w8a8_splits(m: int, k: int, n: int, tile: int, n_sm: int) -> int:
+    """Blocks a tile's K steps (of 64) are split across: enough for about
+    four blocks an SM, each with at least four steps."""
+    bm, bn = (int(v) for v in W8A8_TILES[tile].split("x"))
+    blocks = math.ceil(n / bn) * math.ceil(m / bm)
+    return max(1, min(math.ceil(4 * n_sm / blocks), math.ceil(k / 64) // 4))
+
+
+def _w8a8_launch(fn_name: str, a, xs, q, s, out_dtype, tile) -> torch.Tensor:
+    """Launch one entry point of ``csrc/w8a8_matmul.cu``.  ``xs`` is None for
+    the fused one, which writes the row scales into a scratch of its own."""
+    from ..csrc import load_library
+
+    m, k = a.shape
+    n = q.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    if xs is None:
+        xs = torch.empty((m,), dtype=torch.float32, device=a.device)
+    ti = _w8a8_tile(m, tile)
+    splits = _w8a8_splits(m, k, n, ti, _sm_count(a.device.index or 0))
+    # the int32 sums of a tile's split-K blocks, added in any order (exact)
+    acc = torch.zeros((m, n), dtype=torch.int32, device=a.device) if splits > 1 else None
+    fn = getattr(load_library("w8a8_matmul.cu"), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    err = fn(
+        a.data_ptr(), xs.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+        acc.data_ptr() if acc is not None else None, m, k, n, int(a.dtype == torch.float32),
+        ti, splits, int(out_dtype == torch.float32),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
+    return out
+
+
+def _check_w8a8(name, a, q, s, out_dtype, a_dtypes) -> torch.Tensor:
+    s = s.reshape(-1)
+    _check_operands(name, a, q, s, torch.int8, torch.float32, out_dtype)
+    if a.dtype not in a_dtypes:
+        raise TypeError(f"{name}: activations {a.dtype}, want one of {a_dtypes}")
+    if s.numel() != q.shape[1] or a.shape[1] != q.shape[0]:
+        raise ValueError(f"{name}: x {tuple(a.shape)}, q {tuple(q.shape)}, "
+                         f"s {tuple(s.shape)} do not agree")
+    return s
+
+
+def w8a8_matmul(x, q, s, out_dtype, tile=None) -> torch.Tensor:
+    """w8a8 from bf16 or f32 ``x`` (M, K): each row quantized to int8 with
+    its own scale, times the int8 weight q (K, N) with an exact int32 sum,
+    then ``(acc · xs) · s`` with s the (1, N) or (N,) f32 column scales
+    (counterpart of the TPU probe's ``w8a8_fused_kernel``,
+    tools/exp_w8a8_tuning.py:67; JAX's production w8a8 is XLA,
+    ``_w8a8_dot``).
+
+    CUDA tensors launch the fused kernel of ``csrc/w8a8_matmul.cu`` (the
+    row scales and the quantization in the kernel; ``tile`` one of
+    ``W8A8_TILES``, by default by M) or raise; CPU tensors take
+    ``w8a8_matmul_reference``.  Bit-equal to the reference."""
+    if x.device.type == "cpu":
+        return w8a8_matmul_reference(x, q, s, out_dtype)
+    s = _check_w8a8("w8a8_matmul", x, q, s, out_dtype, (torch.bfloat16, torch.float32))
+    out = _w8a8_launch("w8a8_matmul_fused", x.contiguous(), None, q, s, out_dtype, tile)
+    w8a8_matmul.launches += 1
+    return out
+
+
+w8a8_matmul.launches = 0  # kernel launches (CUDA tensors only), both entry points
+
+
+def w8a8_matmul_prequantized(xq, xs, q, s, out_dtype, tile=None) -> torch.Tensor:
+    """``(float(xq @ q) · xs) · s`` from activations quantized beforehand
+    (``quantize_act_rows``): xq (M, K) int8, xs (M, 1) f32 (the TPU probe's
+    ``w8a8_kernel``, tools/exp_w8a8_tuning.py:61).  CUDA tensors launch the
+    pre-quantized kernel of ``csrc/w8a8_matmul.cu`` or raise; CPU tensors
+    take ``w8a8_prequantized_reference``."""
+    if xq.device.type == "cpu":
+        return w8a8_prequantized_reference(xq, xs, q, s, out_dtype)
+    s = _check_w8a8("w8a8_matmul_prequantized", xq, q, s, out_dtype, (torch.int8,))
+    xs = xs.reshape(-1)
+    if xs.numel() != xq.shape[0] or xs.dtype != torch.float32 or xs.device != xq.device:
+        raise ValueError(f"w8a8_matmul_prequantized: xs {tuple(xs.shape)} {xs.dtype} does "
+                         f"not match xq {tuple(xq.shape)}")
+    out = _w8a8_launch("w8a8_matmul_prequantized", xq.contiguous(), xs.contiguous(), q, s,
+                       out_dtype, tile)
+    w8a8_matmul.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +379,7 @@ def qdot(x: torch.Tensor, w, preferred_element_type=None, a8: bool = False) -> t
     k, n = q.shape
     xm = x.reshape(m, k)
     if a8:
-        y = _frozen(xm, lambda xv: _w8a8_dot(xv, q, s, out_dtype), lambda: q.float() * s)
+        y = _frozen(xm, lambda xv: w8a8_matmul(xv, q, s, out_dtype), lambda: q.float() * s)
     elif m <= KERNEL_MAX_ROWS:
         y = _frozen(xm, lambda xv: int8_matmul(xv, q, s, out_dtype), lambda: q.float() * s)
     else:

@@ -2,12 +2,16 @@
 
 - ``trace(log_dir)``: a ``torch.profiler`` context (host and CUDA
   activities) that writes a Chrome trace, ``trace.json``, under ``log_dir``;
-- ``StepTimer``: per-step wall-clock stats fed to the metrics sink.
+- ``StepTimer``: per-step wall-clock stats fed to the metrics sink;
+- ``card``, ``per_call_us``: the device's name (with the power limit of an
+  NVIDIA card) and the time per call of back-to-back calls, for the probe
+  tools.
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from pathlib import Path
 from typing import Iterator, Optional
@@ -60,3 +64,37 @@ class StepTimer:
             "step_time_p95_s": float(np.percentile(arr, 95)),
             "steps_per_sec": float(1.0 / max(arr.mean(), 1e-9)),
         }
+
+
+def card(device) -> str:
+    """``nvidia-smi``'s ``name, power.limit`` of a CUDA device, else "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[device.index or 0]
+
+
+def per_call_us(fn, reps: int, device) -> float:
+    """µs per call of ``reps`` back-to-back calls of ``fn`` after one warm
+    call: CUDA events around them on a CUDA device, the host clock on the
+    CPU (a host time, not a device metric)."""
+    import torch
+
+    fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps * 1e3

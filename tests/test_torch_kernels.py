@@ -11,7 +11,11 @@ with a visible key; the fused ViT kernel at ViT-L's and ViT-H's (H=16,
 Dh=64 and 80), masked and unmasked, on every row; the causal flash
 backward at ``chip_smoke.py`` phase 3's shapes (dq, dk and dv each, on the
 forward kernel's output and log-sum-exp), on strided views with an
-expanded cotangent, bit-equal across calls.
+expanded cotangent, bit-equal across calls; the w8a8 kernel (both entry
+points, every tile) at run A's and the tuning tool's shapes and at ragged
+ones, bf16 and f32 in and out, EQUAL to its plain version (the int32 sum
+is exact and the epilogue the same f32 arithmetic); the int4 unpack probe's
+four schedules at the tool's shape and at ragged ones.
 Tolerance: f32 math on both sides, so the two differ by output rounding
 (bf16 outputs) and summation order.  The limit scales with the output:
 max-abs error ≤ 2e-2 · max|plain| for bf16 outputs (one bf16 ulp is at most
@@ -27,6 +31,7 @@ import torch
 from licv_vqa_tpu_torch.models import layers as PL
 from licv_vqa_tpu_torch.ops import flash_alibi as FA
 from licv_vqa_tpu_torch.ops import int4_matmul as I4
+from licv_vqa_tpu_torch.ops import int4_unpack_probe as P
 from licv_vqa_tpu_torch.ops import int8_matmul as I8
 from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
 from licv_vqa_tpu_torch.ops import quantize as Q
@@ -546,3 +551,100 @@ def test_w8a8_integer_product_on_card_is_exact(dev, m):
     got = I8._int_product(xq, q)
     want = (xq.cpu().double() @ q.cpu().double()).float()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m,k,n,x_dtype,out_dtype", [
+    # run A's 64-token prefill, its bind-time K/V and perceiver calls, the
+    # tool's serving prefill
+    (64, 4096, 4096, torch.bfloat16, torch.bfloat16), (64, 4096, 11008, torch.bfloat16,
+                                                       torch.float32),
+    (64, 11008, 4096, torch.bfloat16, torch.float32), (64, 1280, 4096, torch.bfloat16,
+                                                       torch.bfloat16),
+    (321, 1280, 1536, torch.bfloat16, torch.bfloat16),
+    (4096, 4096, 11008, torch.bfloat16, torch.bfloat16),
+    # ragged M, K and N (K % 4 != 0: the scalar loads), f32 activations
+    (1, 1280, 64, torch.float32, torch.float32), (17, 100, 33, torch.bfloat16, torch.float32),
+    (130, 258, 70, torch.float32, torch.bfloat16), (65, 64, 8, torch.bfloat16, torch.bfloat16),
+])
+@pytest.mark.parametrize("tile", I8.W8A8_TILES)
+def test_w8a8_kernels_equal_plain(dev, m, k, n, x_dtype, out_dtype, tile):
+    leaf = Q.quantize_array(_weights(dev, k, n, 11))
+    x = (_acts(dev, m, k, 11) * 3).to(x_dtype)
+    x[0] = 0  # the floor scale
+    before = I8.w8a8_matmul.launches
+    got = I8.w8a8_matmul(x, leaf["q"], leaf["s"], out_dtype, tile=tile)
+    xq, xs = I8.quantize_act_rows(x)
+    pre = I8.w8a8_matmul_prequantized(xq, xs, leaf["q"], leaf["s"], out_dtype, tile=tile)
+    torch.cuda.synchronize()
+    assert I8.w8a8_matmul.launches == before + 2
+    want = I8.w8a8_matmul_reference(x, leaf["q"], leaf["s"], out_dtype)
+    for y in (got, pre):
+        assert y.dtype == out_dtype and y.shape == (m, n)
+        assert torch.equal(y, want)
+
+
+def test_w8a8_kernel_quantizes_ties_to_even_and_takes_the_qdot_route(dev):
+    """Rows of exact .5 ties after scaling (absmax 127: scale 1) round to the
+    even neighbour, as the plain version; ``qdot(a8=True)`` launches the
+    fused kernel and its activation gradient is ``gy @ W^T``."""
+    k, n = 1280, 256
+    leaf = Q.quantize_array(_weights(dev, k, n, 12))
+    g = torch.Generator(device=dev).manual_seed(12)
+    ties = torch.randint(0, 127, (8, k), generator=g, device=dev).float() + 0.5
+    ties[:, 0] = 127.0
+    x = (ties * torch.where(torch.rand((8, k), generator=g, device=dev) < 0.5, -1.0, 1.0))
+    x = x.to(torch.bfloat16)
+    xq, _ = I8.quantize_act_rows(x)
+    assert ((xq.float() - x.float()).abs() == 0.5).float().mean() > 0.9
+    assert torch.equal(I8.w8a8_matmul(x, leaf["q"], leaf["s"], torch.float32),
+                       I8.w8a8_matmul_reference(x, leaf["q"], leaf["s"], torch.float32))
+    xr = x.reshape(2, 4, k).requires_grad_()
+    before = I8.w8a8_matmul.launches
+    y = I8.qdot(xr, leaf, preferred_element_type=torch.float32, a8=True)
+    (gx,) = torch.autograd.grad(y.sum(), xr)
+    assert I8.w8a8_matmul.launches == before + 1 and y.shape == (2, 4, n)
+    wdq = Q.dequantize_tree(leaf, torch.float32)
+    _assert_close(gx, (torch.ones((2, 4, n), device=dev) @ wdq.T).to(gx.dtype))
+
+
+def test_w8a8_kernel_rejects_wrong_operands(dev):
+    leaf = Q.quantize_array(_weights(dev, 256, 64, 13))
+    x = _acts(dev, 4, 256, 13)
+    with pytest.raises(TypeError):
+        I8.w8a8_matmul(x.to(torch.float16), leaf["q"], leaf["s"], torch.float32)
+    with pytest.raises(ValueError):
+        I8.w8a8_matmul(x[:, :128], leaf["q"], leaf["s"], torch.float32)
+
+
+def _probe_operands(dev, m, k, n, g, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev)
+    q = torch.randint(-7, 8, (k, n), generator=gen, device=dev).to(torch.int8)
+    s = torch.rand((k // g, n), generator=gen, device=dev) * 0.01 + 0.001
+    return x, q, s
+
+
+@pytest.mark.parametrize("m,k,n,g", [
+    (8, 4096, 11008, 64),  # the tool's shape
+    (1, 512, 36, 64), (13, 1024, 132, 32), (8, 200, 44, 20), (9, 4096, 256, 128),
+])
+@pytest.mark.parametrize("schedule", P.SCHEDULES)
+def test_int4_unpack_probe_matches_plain(dev, m, k, n, g, schedule):
+    x, q, s = _probe_operands(dev, m, k, n, g, 14)
+    packed, table = P.probe_operands(q, s, schedule)
+    before = P.int4_unpack_probe.launches
+    got = P.int4_unpack_probe(x, packed, table, g, schedule)
+    torch.cuda.synchronize()
+    assert P.int4_unpack_probe.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    _assert_close(got, P.int4_unpack_probe_reference(x, packed, table, g, schedule),
+                  F32_REL_TOL)
+    w = (q.float().reshape(k // g, g, n) * s.reshape(k // g, 1, n)).reshape(k, n)
+    _assert_close(got, x.to(torch.bfloat16).float() @ w, REL_TOL)  # the same function
+
+
+def test_int4_unpack_probe_rejects_unaligned_shapes(dev):
+    x, q, s = _probe_operands(dev, 2, 256, 34, 64, 15)
+    packed, table = P.probe_operands(q, s, "a")
+    with pytest.raises(ValueError):
+        P.int4_unpack_probe(x, packed, table, 64, "a")  # N % 4 != 0

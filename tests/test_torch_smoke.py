@@ -54,11 +54,13 @@ def test_icv_backward_bound_counts_the_functions_bytes(cases, layout, vnumel):
 
 
 def test_each_case_is_held_to_its_outputs_limit(cases):
-    """The f32 outputs (the KL's, the quantized matmuls') to ``F32_REL_TOL``,
-    the bf16 outputs to ``REL_TOL``."""
+    """The f32 outputs (the KL's, the quantized matmuls', the int4 probe's)
+    to ``F32_REL_TOL``, the bf16 outputs to ``REL_TOL``, and the w8a8
+    kernel's, whatever their dtype, to equality."""
     for (name, label), c in cases.items():
-        f32 = name.startswith("masked_kl") or label.endswith("f32 out")
-        assert c.tol == (C.F32_REL_TOL if f32 else C.REL_TOL), (name, label)
+        f32 = name.startswith(("masked_kl", "int4_unpack_probe")) or label.endswith("f32 out")
+        want = 0.0 if name == "w8a8_matmul" else C.F32_REL_TOL if f32 else C.REL_TOL
+        assert c.tol == want, (name, label)
     assert C.F32_REL_TOL < C.REL_TOL
     assert {name for name, _ in cases} == set(C.MAIN_SHAPE)
 
@@ -147,17 +149,77 @@ def test_alibi_and_vit_cases_cover_phase_8_and_bound_the_visible_pairs(cases):
         assert c.bound()[1] == "bytes" and c.rows is None
 
 
-def test_probe_bounds_of_the_kernels_still_to_port():
-    """PERF.md rows 9 and 10 at their tools' shapes: the int4 decode probe
-    moves about 25.8 MB (bound by the bytes), the w8a8 probe does 369 GOP
-    of int8 products (bound by the operations at 1979 TOP/s)."""
-    got = {(name, label): (ms, by) for name, label, ms, by in C.probe_bounds()}
-    ms, by = got["int4_unpack_probe", "(8,4096,11008) G=64"]
+def test_probe_bounds_of_the_kernels_still_to_port(cases):
+    """PERF.md rows 9 and 10, now ported, at their tools' shapes: each of
+    the int4 probe's schedules moves about 25.8 MB (bound by the bytes), the
+    w8a8 kernel does 369 GOP of int8 products (bound by the operations at
+    1979 TOP/s) from either entry point."""
     nbytes = 8 * 4096 * 2 + 2048 * 11008 + 64 * 11008 * 4 + 8 * 11008 * 4
-    assert by == "bytes" and ms == pytest.approx(nbytes / C.HBM_BYTES_PER_S * 1e3)
-    for label in ("(4096,4096,11008)", "(4096,11008,4096)"):
-        ms, by = got["w8a8_probe", label]
-        assert by == "operations" and ms == pytest.approx(2 * 4096 * 4096 * 11008 / 1979e12 * 1e3)
+    for sched in ("a", "d", "e", "f"):
+        c = cases["int4_unpack_probe", f"{sched} (8,4096,11008) G=64"]
+        assert c.bytes_moved == nbytes and c.ops == 2 * 8 * 4096 * 11008
+        ms, by = c.bound()
+        assert by == "bytes" and ms == pytest.approx(nbytes / C.HBM_BYTES_PER_S * 1e3)
+    for shape in ("(4096,4096,11008)", "(4096,11008,4096)"):
+        for entry in ("fused", "prequantized"):
+            ms, by = cases["w8a8_matmul", f"{entry} {shape} bf16 out"].bound()
+            assert by == "operations"
+            assert ms == pytest.approx(2 * 4096 * 4096 * 11008 / 1979e12 * 1e3)
+    m, k, n = 64, 4096, 4096
+    fused = cases["w8a8_matmul", "fused (64,4096,4096) bf16 out"]
+    pre = cases["w8a8_matmul", "prequantized (64,4096,4096) bf16 out"]
+    assert fused.bytes_moved == m * k * 2 + k * n + n * 4 + m * n * 2
+    assert pre.bytes_moved == m * k + m * 4 + k * n + n * 4 + m * n * 2
+    assert not hasattr(C, "PROBE_WORK") and not hasattr(C, "probe_bounds")
+
+
+@pytest.mark.parametrize("label", [
+    "fused (64,4096,4096) bf16 out", "prequantized (64,11008,4096) f32 out",
+    "fused (321,1280,1536) bf16 out",
+])
+def test_w8a8_case_equals_its_plain_version_on_cpu(cases, label, monkeypatch):
+    """The case as phase 3 runs it, on CPU tensors: the wrappers take the
+    plain versions, so the comparison reads exactly 0 (phase 3's limit)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    c = cases["w8a8_matmul", label]
+    assert C.compare(c.kernel, c.plain) == (0.0, 0.0)
+
+
+def test_int4_probe_case_holds_its_plain_version_on_cpu(cases, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    c = cases["int4_unpack_probe", "d (8,4096,11008) G=64"]
+    err, ratio = C.compare(c.kernel, c.plain)
+    assert err == 0.0 and ratio == 0.0
+
+
+def test_w8a8_and_probe_cases_cover_their_shapes(cases):
+    """Run A's 64-token prefill, its bind-time K/V and perceiver calls at
+    K = 1280 and the tool's two shapes, both entry points; the int4 probe's
+    four schedules."""
+    for (m, k, n), out in C.W8A8_SHAPES:
+        for entry in ("fused", "prequantized"):
+            assert ("w8a8_matmul", f"{entry} ({m},{k},{n}) {out} out") in cases
+    shapes = {s for s, _ in C.W8A8_SHAPES}
+    assert {(64, 4096, 4096), (64, 4096, 11008), (64, 11008, 4096), (4096, 4096, 11008),
+            (4096, 11008, 4096)} <= shapes and any(k == 1280 for _, k, _ in shapes)
+    assert sorted(label for name, label in cases if name == "int4_unpack_probe") == [
+        f"{s} (8,4096,11008) G=64" for s in "adef"]
+
+
+def test_kernels_line_has_twelve_rows_each_naming_its_tpu_kernel():
+    """One row a kernel: the ten of slices 1-6 and the two probes; every
+    source is in the repository, every TPU kernel's file:line reaches
+    ``pallas_call`` or names the probe's ``main``/``make_fn``."""
+    assert len(C.KERNEL_SOURCES) == 12
+    assert set(C.KERNEL_SOURCES) == (set(C.MAIN_SHAPE) - {"masked_kl_fwd", "masked_kl_bwd"}
+                                     | {"masked_kl"})
+    for name, (route, source, replaces) in C.KERNEL_SOURCES.items():
+        assert route in ("cuda", "triton") and (REPO / source).is_file(), name
+        path, line = replaces.split(":")
+        assert (REPO / path).is_file() and int(line) <= len((REPO / path).read_text().splitlines())
+    assert C.KERNEL_SOURCES["w8a8_matmul"][2] == "tools/exp_w8a8_tuning.py:36"
+    assert C.KERNEL_SOURCES["int4_unpack_probe"][2] == "tools/exp_int4_unpack.py:111"
+    assert {"w8a8_matmul.cu", "int4_unpack_probe.cu"} <= set(C.CUDA_SOURCES)
 
 
 def test_busy_ms_is_the_union_of_device_intervals():
@@ -231,11 +293,18 @@ def test_quantized_launch_prediction_at_full_width():
     mc = IdeficsConfig.idefics_9b()
     (_, opts_a, _), (_, opts_b, _) = C.QUANT_RUNS
     step = 32 * 7 + 8 * 5
+    # run A's w8a8: the prefill's projections, the bind-time K/V (2 a block)
+    # and the perceiver's 6 a layer (the 316 `_int_mm` calls of PERF.md §5)
+    w8a8 = step + 2 * 8 + 6 * 6
+    assert w8a8 == 316
     for s_prompt, n_img in ((64, 1), (512, 33)):
         got = C.predicted_quantized_launches(mc, "int8", opts_a, 1, s_prompt, n_img, 3, 5)
-        assert got == {"int8_matmul": 4 * step + 5, "int4_matmul": 0}
+        assert got == {"int8_matmul": 4 * step + 5, "int4_matmul": 0, "w8a8_matmul": w8a8}
     got = C.predicted_quantized_launches(mc, "int4", opts_b, 1, 64, 1, 3, 5)
-    assert got == {"int8_matmul": 0, "int4_matmul": step + 4 * step + 2 * 8}
+    assert got == {"int8_matmul": 0, "int4_matmul": step + 4 * step + 2 * 8, "w8a8_matmul": 0}
+    # without w8a8 the prefill's 64 rows take the int8 kernel
+    got = C.predicted_quantized_launches(mc, "int8", ["lmm.quantize=int8"], 1, 64, 1, 3, 5)
+    assert got == {"int8_matmul": 5 * step + 2 * 8, "int4_matmul": 0, "w8a8_matmul": 0}
 
 
 def _counting(fn):
@@ -326,7 +395,8 @@ def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monke
 
     iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
 
-    for mod, name in ((I8, "int8_matmul"), (I4, "int4_matmul"), (iv, "icv_inject")):
+    for mod, name in ((I8, "int8_matmul"), (I4, "int4_matmul"), (I8, "w8a8_matmul"),
+                      (iv, "icv_inject")):
         monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
     monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
     _stub_cuda(monkeypatch, tmp_path)
@@ -334,6 +404,7 @@ def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monke
         got = C.quantized_path(torch.device("cpu"), tmp_path / mode, mode, opts, paths,
                                lmm="tiny-idefics")
         assert got[f"{mode}_matmul"] > 0 and got["icv_inject"] == 4 * 2 * C.MAX_NEW
+        assert (got["w8a8_matmul"] > 0) == (mode == "int8")
 
 
 def test_flash_backward_cases_bound_the_visible_pairs(cases):
@@ -445,3 +516,28 @@ def test_flagship_phase_counts_match_prediction_on_tiny_idefics(monkeypatch):
     assert got["flash_attention_fwd"] == 3 * ((4 + 8) + (4 + 10))
     assert got["flash_attention_bwd"] == 3 * 3 * 2
     assert got["icv_inject"] == 3 * (8 + 10) and got["icv_inject_bwd"] == 3 * 4 * 2
+
+
+def test_tools_phase_counts_match_the_tools_tallies_on_cpu(monkeypatch):
+    """Phase 10 on the CPU at tiny shapes, with the wrappers counted where
+    the tools call them (the pre-quantized entry point on the w8a8 kernel's
+    counter, as on the card): the counts equal the tools' tallies (the
+    phase checks it and raises), and every variant's check passed."""
+    from licv_vqa_tpu_torch.ops import int4_unpack_probe as P
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    w8a8 = _counting(I8.w8a8_matmul)
+    pre = I8.w8a8_matmul_prequantized
+
+    def counted_pre(*a, **k):
+        w8a8.launches += 1
+        return pre(*a, **k)
+
+    monkeypatch.setattr(I8, "w8a8_matmul", w8a8)
+    monkeypatch.setattr(I8, "w8a8_matmul_prequantized", counted_pre)
+    monkeypatch.setattr(P, "int4_unpack_probe", _counting(P.int4_unpack_probe))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    got = C.tools_path(torch.device("cpu"), w8a8_shapes=((24, 96, 40),),
+                       int4_shape=(8, 256, 64), reps=2)
+    # w8a8: b, two d tiles and two e tiles, each checked, warmed and run twice
+    assert got == {"w8a8_matmul": 5 * 4, "int4_unpack_probe": 4 * 4}

@@ -13,7 +13,8 @@ weights, ~18 GB on the card) is run from the copy too, and for the flash
 backward's, phase 9's (``chip_smoke.flagship_gradient_check`` on the bench
 tool's flagship model, int8 weights), both against
 ``chip_smoke.REL_L2_TOL``.  Needs an NVIDIA GPU.  Run from the repository
-root: ``python3 tools/mutation_check_torch_kernels.py``.
+root: ``python3 tools/mutation_check_torch_kernels.py [name ...]`` (the
+names of ``MUTATIONS`` to run; all by default).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ BIDIR_LINE = "        sc[j] = seg_s[c0 + j] == seg_q ? sc[j] : -INFINITY;\n"
 ALIBI = "licv_vqa_tpu_torch/csrc/flash_alibi.cu"
 VIT = "licv_vqa_tpu_torch/csrc/vit_attention.cu"
 FLASH_BWD = "licv_vqa_tpu_torch/csrc/flash_attn_bwd.cu"
+W8A8 = "licv_vqa_tpu_torch/csrc/w8a8_matmul.cu"
+PROBE4 = "licv_vqa_tpu_torch/csrc/int4_unpack_probe.cu"
 KL_CASES = ("masked_kl_fwd", "masked_kl_bwd")
 # name: (file, the kernel's line, its broken form, the cases that read it,
 # the full-width gradient check that reads it: None, "training" or
@@ -94,6 +97,23 @@ MUTATIONS = {
         "    store_dims(reinterpret_cast<__nv_bfloat162*>(dk + c_off), part, dkf, scale);\n",
         "    store_dims(reinterpret_cast<__nv_bfloat162*>(dk + c_off), part, dkf, 1.f);\n",
         ("flash_attention_bwd",), "flagship"),
+    # w8a8 (phase 3's limit: equality): ties and every non-integer quotient
+    # rounded toward zero; the absmax of the first K tile only (the rows'
+    # scales too small: values clamp); the activation scale dropped
+    "w8a8_round_toward_zero": (
+        W8A8, "  const int r = __float2int_rn(y);\n", "  const int r = __float2int_rz(y);\n",
+        ("w8a8_matmul",), None),
+    "w8a8_absmax_first_tile_only": (
+        W8A8, "  const int k_end = K;  // the absmax runs over the whole row\n",
+        "  const int k_end = min(K, kBK);\n", ("w8a8_matmul",), None),
+    "w8a8_activation_scale_dropped": (
+        W8A8, "  return __fmul_rn(__fmul_rn(__int2float_rn(c), xsr), sc);\n",
+        "  return __fmul_rn(__int2float_rn(c), sc);\n", ("w8a8_matmul",), None),
+    # schedule e reads its nibbles unsigned (reads on the e case only)
+    "int4_probe_e_not_sign_extended": (
+        PROBE4,
+        "    const int lo = static_cast<int8_t>(b << 4) >> 4, hi = static_cast<int8_t>(b) >> 4;\n",
+        "    const int lo = b & 15u, hi = b >> 4;\n", ("int4_unpack_probe",), None),
     "vit_probabilities_not_rounded": (
         VIT, "          const float p = __bfloat162float(__float2bfloat16(expf(sc[j] - m) * inv_l));\n",
         "          const float p = expf(sc[j] - m) * inv_l;\n", ("vit_attention",), None),
@@ -128,9 +148,14 @@ print(f"  flagship gradient check: {r} (limit {C.REL_L2_TOL})", flush=True)
 }
 
 
-def main() -> int:
+def main(names=None) -> int:
+    names = names or list(MUTATIONS)
+    unknown = sorted(set(names) - set(MUTATIONS))
+    if unknown:
+        raise SystemExit(f"unknown mutations {unknown}; known: {sorted(MUTATIONS)}")
     with tempfile.TemporaryDirectory(prefix="mutation_check_") as tmp:
-        for name, (path, line, broken, cases, gradient) in MUTATIONS.items():
+        for name in names:
+            path, line, broken, cases, gradient = MUTATIONS[name]
             dst = Path(tmp) / name
             shutil.copytree(REPO, dst, ignore=shutil.ignore_patterns(
                 ".git", "_archive", "*_out", "_build", "__pycache__"))
@@ -151,4 +176,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
