@@ -25,9 +25,12 @@ Phases (any failure exits non-zero before the result lines):
    kernel and the reduction of its per-row shift gradient, as autograd runs
    them) at (2, 64, 4096) and (1, 512, 4096) bf16, each for every shift
    layout; the
-   flash-attention forward at (1, S, 32, 128) for S = 384, 512 and 2048
-   with left padding; its backward (``csrc/flash_attn_bwd.cu``: dq, dk and
-   dv each) at ``FLASH_BWD_SHAPES`` (the flagship student's (4, 256, 32,
+   flash-attention forward at ``FLASH_FWD_SHAPES`` ((1, S, 32, 128) for S =
+   384, 512, 2048 and 2560 with left padding, every row compared, the
+   library call ``F.scaled_dot_product_attention`` under the segment mask;
+   the flagship teacher's (4, 2048, 32, 128) all valid, where the library
+   call is its own causal path); its backward (``csrc/flash_attn_bwd.cu``:
+   dq, dk and dv each) at ``FLASH_BWD_SHAPES`` (the flagship student's (4, 256, 32,
    128) with ragged rows, (4, 512, 8, 128) and (1, 2048, 32, 128), right-
    padded) on the forward kernel's output and log-sum-exp (the log-sum-exp
    held against the plain one to ``F32_REL_TOL``), with the backward of
@@ -419,22 +422,26 @@ def kernel_cases(dev):
                 bytes_moved=n * (2 + 2 + 2) + 2 * v.numel() * 2, ops=16 * n,
                 op_type="f32", calls=50,
             )
-    for s, pad in ((384, 57), (512, 39), (2048, 301)):
-        q, k, v = (randn((1, s, 32, 128)) for _ in range(3))
-        valid = torch.ones((1, s), dtype=torch.int32, device=dev)
+    for b, s, pad in FLASH_FWD_SHAPES:
+        q, k, v = (randn((b, s, 32, 128)) for _ in range(3))
+        valid = torch.ones((b, s), dtype=torch.int32, device=dev)
         valid[:, :pad] = 0  # left padding, as the decode prompts are
-        mask = L.segment_causal_mask(valid)
-        # the causal half: QK^T and PV over the s(s+1)/2 visible pairs
-        flops = 4 * 32 * 128 * s * (s + 1) / 2
+        # with no pad the segment rule is the causal mask alone: the
+        # library's own causal flash path is the same function
+        mask = L.segment_causal_mask(valid) if pad else None
         yield Case(
-            "flash_attention_fwd", f"(1,{s},32,128) left pad {pad}",
+            "flash_attention_fwd",
+            f"({b},{s},32,128) " + (f"left pad {pad}" if pad else "all valid"),
             lambda q=q, k=k, v=v, valid=valid: L.flash_attention(q, k, v, valid),
             lambda q=q, k=k, v=v, valid=valid: L.flash_attention_reference(q, k, v, valid),
-            bytes_moved=4 * q.numel() * 2 + valid.numel() * 4, ops=flops, op_type="bf16",
+            # QK^T and PV over the pairs the segment rule leaves visible
+            bytes_moved=4 * q.numel() * 2 + valid.numel() * 4,
+            ops=4 * 32 * 128 * causal_segment_pairs(valid), op_type="bf16",
             library=lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                is_causal=mask is None,
             ),
-            calls=5,
+            calls=3 if b * s > 2048 else 5,
         )
     yield from flash_backward_cases(dev, randn)
     for b, s, grids in BIDIR_SHAPES:
@@ -531,6 +538,12 @@ def kernel_cases(dev):
     yield from w8a8_cases(dev)
     yield from int4_probe_cases(dev)
 
+
+# the causal flash forward's cases at H=32, Dh=128: (B, S, left pad).  The
+# 32-shot prefill buckets of Idefics-9B (384, 512), its 2048 bucket, the
+# Idefics2 test_icl prefill (2560), and the flagship teacher's call (phase
+# 9: four 2048-token rows, all valid)
+FLASH_FWD_SHAPES = ((1, 384, 57), (1, 512, 39), (1, 2048, 301), (1, 2560, 173), (4, 2048, 0))
 
 # the causal flash backward's cases: (B, S, H) at Dh 128 and each row's real
 # length, right-padded as the training batches are.  The flagship student

@@ -4,6 +4,9 @@ Needs an NVIDIA GPU (nvcc for the CUDA library, triton for the Triton
 kernels); skipped without one.  Run on the H100 with
 ``python -m pytest tests/test_torch_kernels.py -o addopts="" -m cuda``
 (``-o addopts=""`` drops the repository's xdist defaults).
+The causal flash forward (``csrc/flash_fwd_sm90.cuh``) is held at a
+ragged S, on strided views and at the flagship teacher's (4, 2048, 32, 128),
+and its two wgmma products alone on one tile against ``torch.matmul``.
 The bidirectional flash kernel is held at ``chip_smoke.py`` phase 3's
 shapes (the SigLIP tower's H=16, Dh=72) and at a ragged one; the ALiBi
 flash kernel at MPT-7B's (H=32, Dh=128) with both paddings, on the rows
@@ -81,6 +84,8 @@ def test_icv_inject_kernel_matches_plain(dev, shape, layout):
 
 @pytest.mark.parametrize("b,s,h,pad,side", [
     (1, 384, 32, 50, "left"), (2, 300, 4, 37, "right"), (1, 2048, 32, 300, "left"),
+    # the flagship teacher's call (phase 9): four 2048-token rows, all valid
+    (4, 2048, 32, 0, "left"),
 ])
 def test_flash_kernel_matches_plain(dev, b, s, h, pad, side):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -100,6 +105,32 @@ def test_flash_kernel_matches_plain(dev, b, s, h, pad, side):
     want = PL.flash_attention_reference(q, k, v, valid)
     assert torch.isfinite(got).all()  # pad rows too
     _assert_close(got, want)
+
+
+def test_flash_fwd_sm90_tile_products_match_matmul(dev):
+    """The forward template's two tensor-core products on one tile, through
+    its TMA loads, 128-byte swizzle and wgmma descriptors
+    (``flash_fwd_sm90_tile_check``): S = Q·Kᵀ at (64, 128)·(128, 128)ᵀ,
+    both K-major, and O = bf16(S)·V with S as register fragments and V
+    MN-major, each against ``torch.matmul`` in f32 (exact bf16 products
+    summed in f32: the two differ by summation order only)."""
+    import ctypes
+
+    from licv_vqa_tpu_torch.csrc import load_library
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((64, 128), (128, 128), (128, 128)))
+    s, o = (torch.full((64, 128), float("nan"), device=dev) for _ in range(2))
+    fn = load_library("flash_attn_fwd.cu").flash_fwd_sm90_tile_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    _assert_close(s, q.float() @ k.float().T, F32_REL_TOL)
+    _assert_close(o, s.to(torch.bfloat16).float() @ v.float(), F32_REL_TOL)
 
 
 def test_flash_kernel_takes_strided_views(dev):
@@ -285,7 +316,7 @@ def _alibi_rows(valid: torch.Tensor) -> torch.Tensor:
     # chip_smoke.py phase 3's shapes (MPT-7B: 32 heads of 128), each padding
     (1, 512, 39, "left"), (1, 512, 61, "right"), (1, 2048, 301, "left"),
     (1, 2048, 250, "right"),
-    # a ragged tail (S not a multiple of the 64-key tile), two rows
+    # a ragged tail (S not a multiple of the 128-key tile), two rows
     (2, 300, 37, "left"),
 ])
 def test_flash_alibi_kernel_matches_plain(dev, b, s, pad, side):

@@ -32,7 +32,8 @@ INT8 = "licv_vqa_tpu_torch/csrc/int8_matmul.cu"
 INT4 = "licv_vqa_tpu_torch/csrc/int4_matmul.cu"
 BIDIR = "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu"
 BIDIR_LINE = "        sc[j] = seg_s[c0 + j] == seg_q ? sc[j] : -INFINITY;\n"
-ALIBI = "licv_vqa_tpu_torch/csrc/flash_alibi.cu"
+# the causal flash forward and the ALiBi flash: one template
+FLASH_FWD = "licv_vqa_tpu_torch/csrc/flash_fwd_sm90.cuh"
 VIT = "licv_vqa_tpu_torch/csrc/vit_attention.cu"
 FLASH_BWD = "licv_vqa_tpu_torch/csrc/flash_attn_bwd.cu"
 W8A8 = "licv_vqa_tpu_torch/csrc/w8a8_matmul.cu"
@@ -70,14 +71,42 @@ MUTATIONS = {
         "        sc[j] = seg_s[c0 + j] == seg_q && k0 + c0 + j <= qi ? sc[j] : -INFINITY;\n",
         ("flash_attention_bidir",), None),
     "alibi_bias_dropped": (
-        ALIBI, "        const float bias = slope * (float)(qi - kj);\n",
-        "        const float bias = 0.f;\n", ("flash_alibi_attention",), None),
-    # flash_attn_fwd.cu's rule: on the compared rows (those with a visible
-    # key) it differs only where a right-pad row would attend the real keys
+        FLASH_FWD,
+        "  if constexpr (kBias == Bias::Alibi)"
+        " return fmaf(slope_log2, float(k - q), qk * scale_log2);\n",
+        "  if constexpr (kBias == Bias::Alibi) return qk * scale_log2;\n",
+        ("flash_alibi_attention",), None),
+    # the causal forward's rule for the ALiBi kernel: on the compared rows
+    # (those with a visible key) it differs only where a right-pad row would
+    # attend the real keys
     "alibi_segment_rule_for_valid": (
-        ALIBI, "        const bool visible = kj <= qi && valid_s[r] != 0;\n",
-        "        const bool visible = kj <= qi && valid_s[r] == (q_in ? valid[(long long)b * S + qi]"
-        " : -1);\n", ("flash_alibi_attention",), None),
+        FLASH_FWD,
+        "  if constexpr (kRule == MaskRule::ValidKey) return vk != 0;"
+        "  // every valid key (ALiBi)\n",
+        "  if constexpr (kRule == MaskRule::ValidKey) return vk == vq;"
+        "  // every valid key (ALiBi)\n",
+        ("flash_alibi_attention",), None),
+    # the causal forward: the ALiBi kernel's rule (a pad query attends no
+    # key and writes 0): reads on the pad rows, which phase 3 compares
+    "flash_fwd_no_segment_rule": (
+        FLASH_FWD, "  return vk == vq;  // the segment rule: a pad query attends the pads\n",
+        "  return vk != 0;  // the segment rule: a pad query attends the pads\n",
+        ("flash_attention_fwd",), None),
+    # the diagonal tile unmasked where its keys' validity matches the rows'
+    # (the later keys visible); the ALiBi kernel shares the line
+    "flash_fwd_diagonal_unmasked": (
+        FLASH_FWD,
+        "  const bool diag = n0 + kBlockN - 1 > rows.lo;"
+        "  // a key past one of the warp's queries\n",
+        "  const bool diag = false;\n", ("flash_attention_fwd",), None),
+    # the log-sum-exp without its log l: read by the log-sum-exp check of
+    # the backward cases (their forward) and by phase 9's gradients
+    "flash_fwd_lse_without_log_l": (
+        FLASH_FWD,
+        "        p.lse[(static_cast<long long>(b) * p.H + h) * p.S + qi]"
+        " = (m[r] + log2f(l[r])) * kLn2;\n",
+        "        p.lse[(static_cast<long long>(b) * p.H + h) * p.S + qi] = m[r] * kLn2;\n",
+        ("flash_attention_bwd",), "flagship"),
     # every key inside S counts: reads only on the masked cases
     "vit_key_mask_ignored": (
         VIT, "        seg_s[tid] = kj >= S ? -1 : (valid ? valid[(long long)b * S + kj] : 1);\n",
