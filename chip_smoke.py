@@ -31,11 +31,13 @@ Phases (any failure exits non-zero before the result lines):
    the flagship teacher's (4, 2048, 32, 128) all valid, where the library
    call is its own causal path); its backward (``csrc/flash_attn_bwd.cu``:
    dq, dk and dv each) at ``FLASH_BWD_SHAPES`` (the flagship student's (4, 256, 32,
-   128) with ragged rows, (4, 512, 8, 128) and (1, 2048, 32, 128), right-
-   padded) on the forward kernel's output and log-sum-exp (the log-sum-exp
-   held against the plain one to ``F32_REL_TOL``), with the backward of
-   ``F.scaled_dot_product_attention`` under the segment mask as the library
-   call (``torch.autograd.grad`` alone timed); the masked temperature-KL forward and backward at
+   128) with ragged rows and with every row valid, (4, 512, 8, 128) and
+   (1, 2048, 32, 128), right-padded) on the forward kernel's output and
+   log-sum-exp (the log-sum-exp held against the plain one to
+   ``F32_REL_TOL``), with the backward of ``F.scaled_dot_product_attention``
+   under the segment mask as the library call, and under ``is_causal=True``
+   (PyTorch's own flash backward) where every row is valid
+   (``torch.autograd.grad`` alone timed); the masked temperature-KL forward and backward at
    (128, 32000) and (512, 32000) f32 with a partial mask; the int8 and
    int4 decode matmuls at ``QUANT_SHAPES`` (a beam step's projections, a
    64-row block), the int8 one at ``HEAD_SHAPES`` (the head at a beam step
@@ -45,7 +47,8 @@ Phases (any failure exits non-zero before the result lines):
    runs it on the card, and the bf16 matmul with the dense weight printed
    beside as a note; the bidirectional flash attention at ``BIDIR_SHAPES``
    (the SigLIP tower, H=16, Dh=72: one 980x980 image, one 640x480 image
-   padded to 672x560, a 32-shot prompt's 33 images), every row compared,
+   padded to 672x560, a 32-shot prompt's 33 images, and two images of a
+   20x55 grid, whose S = 1100 leaves a ragged tail), every row compared,
    with ``F.scaled_dot_product_attention`` under the segment mask as the
    library call; the ALiBi flash attention at ``ALIBI_SHAPES`` (MPT-7B's
    H=32, Dh=128 at S = 512 and 2048, left- and right-padded), compared on
@@ -444,16 +447,16 @@ def kernel_cases(dev):
             calls=3 if b * s > 2048 else 5,
         )
     yield from flash_backward_cases(dev, randn)
-    for b, s, grids in BIDIR_SHAPES:
+    for b, s, grids, grid_w in BIDIR_SHAPES:
         q, k, v = (randn((b, s, 16, 72)) for _ in range(3))
-        valid = navit_valid(b, s, grids, dev)
+        valid = navit_valid(b, s, grids, grid_w, dev)
         mask = L.segment_bidir_mask(valid)
         n_real = valid.sum(dim=1).double()
         # the visible pairs: real rows attend the real keys, invalid rows the
         # invalid ones (QK^T and PV)
         pairs = float((n_real ** 2 + (s - n_real) ** 2).sum())
         yield Case(
-            "flash_attention_bidir", f"({b},{s},16,72) {bidir_label(s, grids)}",
+            "flash_attention_bidir", f"({b},{s},16,72) {bidir_label(s, grids, grid_w)}",
             lambda q=q, k=k, v=v, valid=valid: L.flash_attention_bidir(q, k, v, valid),
             lambda q=q, k=k, v=v, valid=valid: L.flash_attention_bidir_reference(q, k, v, valid),
             bytes_moved=4 * q.numel() * 2 + valid.numel() * 4, ops=4 * 16 * 72 * pairs,
@@ -547,10 +550,13 @@ FLASH_FWD_SHAPES = ((1, 384, 57), (1, 512, 39), (1, 2048, 301), (1, 2560, 173), 
 
 # the causal flash backward's cases: (B, S, H) at Dh 128 and each row's real
 # length, right-padded as the training batches are.  The flagship student
-# (phase 9's) with ragged rows; the shape of JAX tools/validate_flash_tpu.py's
-# gradient check (valid[1, 400:] = 0, valid[3, 100:] = 0); one 2048-token row
+# (phase 9's) with ragged rows and with every row valid (the library call is
+# then PyTorch's own causal flash backward); the shape of JAX
+# tools/validate_flash_tpu.py's gradient check (valid[1, 400:] = 0,
+# valid[3, 100:] = 0); one 2048-token row
 FLASH_BWD_SHAPES = (
     ((4, 256, 32), (256, 201, 150, 77)),
+    ((4, 256, 32), (256, 256, 256, 256)),
     ((4, 512, 8), (512, 400, 512, 100)),
     ((1, 2048, 32), (1798,)),
 )
@@ -591,7 +597,9 @@ def flash_backward_cases(dev, randn):
     for (b, s, h), lengths in FLASH_BWD_SHAPES:
         q, k, v, do = (randn((b, s, h, 128)) for _ in range(4))
         valid = right_padded(lengths, s, dev)
-        label = f"({b},{s},{h},128) lengths {','.join(map(str, lengths))}"
+        every = all(n == s for n in lengths)
+        label = f"({b},{s},{h},128) " + (
+            "all valid" if every else f"lengths {','.join(map(str, lengths))}")
 
         @functools.cache
         def forward(q=q, k=k, v=v, valid=valid, label=label):
@@ -611,10 +619,12 @@ def flash_backward_cases(dev, randn):
             return o, lse
 
         @functools.cache
-        def library_graph(q=q, k=k, v=v, valid=valid):
+        def library_graph(q=q, k=k, v=v, valid=valid, every=every):
             leaves = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+            # with every row valid the segment rule is the causal mask alone
+            mask = None if every else L.segment_causal_mask(valid)
             out = F.scaled_dot_product_attention(
-                *leaves, attn_mask=L.segment_causal_mask(valid), scale=scale)
+                *leaves, attn_mask=mask, is_causal=every, scale=scale)
             return out, leaves
 
         rest = (do, valid, scale)
@@ -635,16 +645,19 @@ def flash_backward_cases(dev, randn):
 
 
 # the SigLIP tower's attention (H=16, Dh=72) in phase 7: (B, S, the valid
-# (rows, cols) of each image's patch grid, cycled; None = every patch real).
-# One 980x980 image (70x70 patches); one 640x480 image padded to 672x560
-# (48x40 patches, 34x45 valid); a 32-shot prompt's 33 images of 640x480,
-# 640x427 and 500x378 (the 378-pixel minimum), all padded to 672x560
+# (rows, cols) of each image's patch grid, cycled (None = every patch real),
+# the padded grid's columns).  One 980x980 image (70x70 patches); one
+# 640x480 image padded to 672x560 (48x40 patches, 34x45 valid); a 32-shot
+# prompt's 33 images of 640x480, 640x427 and 500x378 (the 378-pixel
+# minimum), all padded to 672x560; two images padded to a 20x55 grid, whose
+# S = 1100 is no multiple of the kernel's 128-key tile (the invalid rows
+# must not see the ragged tail)
 BIDIR_SHAPES = (
-    (1, 4900, None),
-    (1, 1920, ((34, 45),)),
-    (33, 1920, ((34, 45), (30, 45), (27, 35))),
+    (1, 4900, None, None),
+    (1, 1920, ((34, 45),), 48),
+    (33, 1920, ((34, 45), (30, 45), (27, 35)), 48),
+    (2, 1100, ((20, 30), (15, 55)), 55),
 )
-BIDIR_GRID_W = 48  # 672 / 14: the padded grid's columns at S = 1920
 
 # the MPT prefill's ALiBi attention (H=32, Dh=128) in phase 8: (S, pad, side).
 # A 32-shot prompt's bucket and the longest one MPT-7B's context takes, each
@@ -673,14 +686,13 @@ def alibi_float_mask(valid):
     return bias.masked_fill(~mask, torch.finfo(torch.bfloat16).min).to(torch.bfloat16)
 
 
-def navit_valid(b: int, s: int, grids, dev):
+def navit_valid(b: int, s: int, grids, gw: int, dev):
     """(B, S) int32 patch validity: each image fills the top-left rows x
-    cols of the padded 40x48 grid, as the NaViT processor pads it."""
+    cols of the padded (S / gw) x gw grid, as the NaViT processor pads it."""
     import torch
 
     valid = torch.ones((b, s), dtype=torch.int32, device=dev)
     if grids is not None:
-        gw = BIDIR_GRID_W
         for i in range(b):
             rows, cols = grids[i % len(grids)]
             grid = torch.zeros((s // gw, gw), dtype=torch.int32, device=dev)
@@ -689,10 +701,10 @@ def navit_valid(b: int, s: int, grids, dev):
     return valid
 
 
-def bidir_label(s: int, grids) -> str:
+def bidir_label(s: int, grids, gw) -> str:
     if grids is None:
         return "all valid"
-    return "valid " + ",".join(f"{r}x{c}" for r, c in grids) + f" of {s // BIDIR_GRID_W}x{BIDIR_GRID_W}"
+    return "valid " + ",".join(f"{r}x{c}" for r, c in grids) + f" of {s // gw}x{gw}"
 
 
 # the quantized decode matmuls' cases: ((M, K, N), output dtype).  A beam
@@ -927,7 +939,7 @@ MAIN_SHAPE = {
     "icv_inject": "(3,1,4096) shift=row",
     "flash_attention_fwd": "(1,512,32,128)",
     # the flagship student's layer (phase 9), the only path that reaches it
-    "flash_attention_bwd": "(4,256,32,128)",
+    "flash_attention_bwd": "(4,256,32,128) lengths",
     "icv_inject_bwd": "(2,64,4096) shift=row",
     "masked_kl_fwd": "(128,32000)",
     "masked_kl_bwd": "(128,32000)",

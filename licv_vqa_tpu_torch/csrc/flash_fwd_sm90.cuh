@@ -1,7 +1,10 @@
 // Causal flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out,
 // head dim 128: one tile loop on the tensor cores (wgmma) fed by the Tensor
 // Memory Accelerator (TMA), with the visibility rule and the bias as
-// template parameters.  Two entry points instantiate it:
+// template parameters.  Its primitives (TMA loads, mbarriers, wgmma
+// descriptors and products, the online softmax, the tensor maps) also serve
+// csrc/flash_attn_bidir.cu (the towers' head dim 72) and csrc/flash_attn_bwd.cu
+// (the causal backward).  Two entry points instantiate the template:
 //
 // - csrc/flash_attn_fwd.cu, MaskRule::Segment, Bias::None (replaces
 //   licv_vqa_tpu/models/layers.py::flash_attention_tpu, the upstream Pallas
@@ -147,6 +150,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16), completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // one box of the 4-D map at (dim, seq, head, batch), completing on `bar`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int d, int s, int h, int b) {
@@ -173,6 +185,11 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead, uint
          | static_cast<uint64_t>(stride >> 4) << 32
          | 1ull << 62;
 }
+// the same with 32-byte swizzle (a 16-dim box: rows 32 bytes, 8-row groups
+// 256 apart)
+__device__ __forceinline__ uint64_t smem_desc_sw32(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return smem_desc(addr, lead, stride) | 3ull << 62;
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -193,9 +210,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");
+  for (int i = 0; i < 4 * K; ++i) asm volatile("" : "+r"(r[i / 4][i % 4])::"memory");
 }
 
 // named barriers 1 and 2 order the two consumer warpgroups' wgmma issues
@@ -238,8 +256,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define FLASH_SM90_D32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "        \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FLASH_SM90_R32 FLASH_SM90_R8(0), FLASH_SM90_R8(8), FLASH_SM90_R8(16), FLASH_SM90_R8(24)
+
+// d (64 x 64, f32) = A.B^T (+ d), both bf16 K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_SM90_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FLASH_SM90_R32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 72, f32) += A.B, A bf16 from registers, B bf16 MN-major in shared
+// memory: 64 columns in one 128-byte swizzle atom, 8 in the next (LBO away)
+__device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : FLASH_SM90_R32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef FLASH_SM90_D64
+#undef FLASH_SM90_D32
 #undef FLASH_SM90_R8
+#undef FLASH_SM90_R32
 #undef FLASH_SM90_R64
 
 __device__ __forceinline__ float ex2(float x) {
@@ -316,6 +365,36 @@ struct Rows {
   int col;         // 2 * (lane % 4): the thread's first column in each 8
 };
 
+// Folds one tile's scores (hidden keys at -inf) into the rows' running max
+// m and sum l (base 2, m in log2 units; to_log2 takes a score there): s
+// becomes the probabilities, alpha the factor the rows' earlier output takes.
+__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float to_log2) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * to_log2);
+    // nothing visible yet: subtract 0 (every term is exp2(-inf) = 0)
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2(m[r] - m_use);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * r + e];
+        x = ex2(fmaf(x, to_log2, -m_use));
+        sum += x;
+      }
+    l[r] = l[r] * alpha[r] + sum;
+  }
+}
+
 // Scores and masks one tile's raw q.k in place and folds them into the
 // rows' running max m and sum l (base 2, m in log2 units): s becomes the
 // probabilities, alpha the factor the rows' earlier output takes.  kv holds
@@ -357,30 +436,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
       }
   }
   // the factor from a score to log2 units (the scale > 0 keeps the max)
-  const float to_log2 = kBias == Bias::Alibi ? 1.f : scale_log2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m[r], mx * to_log2);
-    // nothing visible yet: subtract 0 (every term is exp2(-inf) = 0)
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    alpha[r] = ex2(m[r] - m_use);
-    m[r] = m_new;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[4 * j + 2 * r + e];
-        x = ex2(fmaf(x, to_log2, -m_use));
-        sum += x;
-      }
-    l[r] = l[r] * alpha[r] + sum;
-  }
+  online_softmax(s, m, l, alpha, kBias == Bias::Alibi ? 1.f : scale_log2);
 }
 
 // the tile's key validity for a warp: key n0 + 32i + lane in kv[i] (0 past S)
@@ -631,25 +687,48 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the 4-D (Dh, S, H, B) map of a (B, S, H, 128) bf16 tensor with element
-// strides sb, ss, sh, in boxes of 64 dims by kBlockN rows
-inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, long long sb,
-                     long long ss, long long sh) {
+// the 4-D (dh, S, H, B) map of a (B, S, H, dh) bf16 tensor with element
+// strides sb, ss, sh, in boxes of box_dh dims by box_rows rows; what lies
+// outside the tensor (rows past S, dims past dh) reads as zeros
+inline bool make_map(CUtensorMap* map, const void* ptr, int dh, int box_dh, int box_rows,
+                     CUtensorMapSwizzle swizzle, int B, int S, int H, long long sb, long long ss,
+                     long long sh) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   // a dimension of extent 1 is never stepped: any legal stride will do
-  auto bytes = [](long long stride, int extent) -> cuuint64_t {
-    return extent > 1 ? static_cast<cuuint64_t>(stride) * 2 : kHeadDim * 2;
+  auto bytes = [dh](long long stride, int extent) -> cuuint64_t {
+    return static_cast<cuuint64_t>(extent > 1 ? stride : dh) * 2;
   };
-  const cuuint64_t dims[4] = {kHeadDim, static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {bytes(ss, S), bytes(sh, H), bytes(sb, B)};
-  const cuuint32_t box[4] = {64, kBlockN, 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_dh), static_cast<cuuint32_t>(box_rows),
+                             1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the template's map: 128 dims in boxes of 64 dims by kBlockN rows
+inline bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, long long sb,
+                     long long ss, long long sh) {
+  return make_map(map, ptr, kHeadDim, 64, kBlockN, CU_TENSOR_MAP_SWIZZLE_128B, B, S, H, sb, ss,
+                  sh);
+}
+
+// A kernel of 384 threads whose consumers take registers from a producer
+// warpgroup (setmaxnreg) must enter at kEntryRegs: at another count the
+// consumers would wait for registers no warp frees.  Returns the error to
+// report, or cudaSuccess once the kernel may take `smem` bytes.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem) {
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess || fa.numRegs != kEntryRegs) {
+    return cudaErrorInvalidConfiguration;
+  }
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // Encodes the maps and launches on `stream`; returns a cudaError_t (a map
@@ -666,15 +745,8 @@ int launch(const void* q, const void* k, const void* v, const long long (&qs)[3]
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_fwd_kernel<kRule, kBias>;
-  // a build at another entry count would leave the consumers' setmaxnreg
-  // waiting for registers no warp frees: refuse it rather than hang
-  cudaFuncAttributes fa;
-  if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess || fa.numRegs != kEntryRegs) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const cudaError_t ready = prepare(kernel, kSmemBytes);
+  if (ready != cudaSuccess) return static_cast<int>(ready);
   const Params p{static_cast<__nv_bfloat16*>(out), os[0], os[1], os[2],
                  static_cast<const int32_t*>(valid), static_cast<float*>(lse),
                  static_cast<const float*>(slopes), S, H, scale * kLog2e};

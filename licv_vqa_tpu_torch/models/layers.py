@@ -288,7 +288,8 @@ def flash_attention_backward(
     under autograd).
 
     CUDA tensors launch ``csrc/flash_attn_bwd.cu`` (bf16, head_dim 128: a
-    dQ kernel that also writes ``D = rowsum(do ∘ o)``, then a dK/dV kernel)
+    dQ kernel that also writes ``D = rowsum(do ∘ o)`` and the base-2
+    log-sum-exp to a scratch, then a dK/dV kernel)
     or raise; CPU tensors take ``flash_attention_bwd_reference``.  q/k/v
     may be strided views; o, do and lse are made contiguous (autograd may
     hand ``do`` in with zero strides)."""
@@ -307,7 +308,9 @@ def flash_attention_backward(
     if any(x.device != q.device for x in (o, do, lse)):
         raise ValueError("flash_attention_backward: o, do and lse must be on q's device")
     dq, dk, dv = (torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v))
-    dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # the dQ kernel's row statistics for the dK/dV kernel: per 64-query
+    # tile, the rows' lse·log2(e), D and validity
+    stats = torch.empty((b, h, -(-s // 64), 3, 64), dtype=torch.float32, device=q.device)
     fn = load_library("flash_attn_bwd.cu").flash_attn_bwd_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = (
@@ -317,7 +320,7 @@ def flash_attention_backward(
     strides = [st for x in (q, k, v) for st in x.stride()[:3]]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        valid_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(),
+        valid_i32.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
         b, s, h, *strides, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

@@ -1,5 +1,8 @@
-"""The Hopper flash forward's tile arithmetic (``csrc/flash_fwd_sm90.cuh``)
-emulated in plain torch on the CPU, held to the unchanged plain versions.
+"""The Hopper flash kernels' tile arithmetic emulated in plain torch on the
+CPU, held to the unchanged plain versions: the causal forward
+(``csrc/flash_fwd_sm90.cuh``), the towers' bidirectional forward
+(``csrc/flash_attn_bidir.cu``) and the causal backward
+(``csrc/flash_attn_bwd.cu``).
 
 The emulation follows the kernel's schedule: 128-query tiles, 128-key tiles
 up to the causal bound, the per-tile online softmax in base 2 (with no bias
@@ -7,13 +10,22 @@ the max of the raw q·k and the scale times log2(e) folded into the
 exponent; ALiBi's scores scaled and biased first), the ``m = -inf``
 guard (the exponent subtracts 0 while a row has seen no visible key), the
 row sums of the f32 probabilities, P rounded to bf16 before P·V (f32 accumulation), 1/l at
-the end (0 where l = 0) and the log-sum-exp ``(m + log2 l)·ln 2``.  It
-lives here only: no code path of the package runs it.
+the end (0 where l = 0) and the log-sum-exp ``(m + log2 l)·ln 2``.  The
+bidirectional forward's (``emulate_bidir``): the head dim 72 zero-padded to
+80 in Q·Kᵀ (TMA's zeros past the map's dims), every key tile of the whole
+sequence, the ones no row of the block can see skipped, the segment rule
+with the keys past S at a validity no row has, and ``valid=None`` as every
+key real.  The backward's (``emulate_bwd``): 64-key tiles up to the causal
+bound for 128-query blocks (dQ), 64-query tiles from the diagonal for
+128-key blocks (dK, dV), the log-sum-exp in base 2, D from the bf16 output,
+and P and dS rounded to bf16 as the gradient products' A operands.  These
+emulations live here only: no code path of the package runs them.
 
-Tolerances: with P kept in f32 and f32 inputs the emulation is the plain
-function up to summation order and exp2 against exp (1e-5 of max|plain|);
-with P rounded, against the plain version on bf16 inputs, phase 3's bf16
-limit (2e-2 of max|plain|).  The log-sum-exp to 1e-5 of max|plain|.
+Tolerances: with P (and dS) kept in f32 and f32 inputs the emulation is
+the plain function up to summation order and exp2 against exp (1e-5 of
+max|plain|); with them rounded, against the plain version on bf16 inputs,
+phase 3's bf16 limit (2e-2 of max|plain|).  The log-sum-exp to 1e-5 of
+max|plain|.
 """
 
 import math
@@ -171,3 +183,208 @@ def test_whole_tile_of_left_pad_needs_the_guard():
     assert torch.isnan(bad[0, :128]).all()
     good, _ = emulate(q, k, v, valid, SCALE, "valid_key", slopes)
     assert (good[0, :150] == 0).all() and torch.isfinite(good).all()
+
+
+# ------------------------------------------------ the bidirectional forward
+
+
+def _key_validity(valid, b: int, s: int, tail: int = -2) -> torch.Tensor:
+    """(B, whole tiles) int32: 1 real, 0 invalid, ``tail`` past S."""
+    kval = torch.full((b, -(-s // BLOCK_N) * BLOCK_N), tail, dtype=torch.int32)
+    kval[:, :s] = 1 if valid is None else (valid != 0).to(torch.int32)
+    return kval
+
+
+def _tile_kinds(kval: torch.Tensor) -> torch.Tensor:
+    """(B, n_tiles): 1 if the 128-key tile holds a real key, 2 if an
+    invalid one (both: 3).  A block skips the key tiles that share no kind
+    with its own query tile."""
+    tiles = kval.view(kval.shape[0], -1, BLOCK_N)
+    return (tiles == 1).any(-1).int() | 2 * (tiles == 0).any(-1).int()
+
+
+def emulate_bidir(q, k, v, valid, scale, round_p=True, tail=-2):
+    """``out (B, S, H, 72) f32`` of ``csrc/flash_attn_bidir.cu``'s schedule;
+    ``tail`` is the validity the keys past S take (the kernel's: -2, none)."""
+    b, s, h, dh = q.shape
+    n_tiles = -(-s // BLOCK_N)
+    # Q·Kᵀ over 80 dims (dims 72-79 zeros); K/V rows past S zeros, as TMA reads them
+    qf = torch.nn.functional.pad(q.float(), (0, 80 - dh)).transpose(1, 2)
+    kf = torch.zeros((b, h, n_tiles * BLOCK_N, 80))
+    kf[:, :, :s, :dh] = k.float().transpose(1, 2)
+    vf = torch.zeros((b, h, n_tiles * BLOCK_N, dh))
+    vf[:, :, :s] = v.float().transpose(1, 2)
+    kval = _key_validity(valid, b, s, tail)
+    flags = _tile_kinds(kval)
+    out = torch.zeros((b, h, s, dh))
+    for m0 in range(0, s, BLOCK_M):
+        rows = torch.arange(m0, min(m0 + BLOCK_M, s))
+        m = torch.full((b, h, len(rows)), -math.inf)
+        l = torch.zeros((b, h, len(rows)))
+        o = torch.zeros((b, h, len(rows), dh))
+        for t in range(n_tiles):
+            seen = (flags[:, t] & flags[:, m0 // BLOCK_M]) != 0  # (B,): else skipped
+            keys = torch.arange(t * BLOCK_N, (t + 1) * BLOCK_N)
+            x = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+            visible = kval[:, keys][:, None, :] == kval[:, rows][:, :, None]
+            x = x.masked_fill(~visible[:, None], -math.inf)
+            m_new = torch.maximum(m, x.amax(-1) * scale * LOG2E)
+            m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+            alpha = torch.exp2(m - m_use)
+            p = torch.exp2(x * scale * LOG2E - m_use[..., None])
+            pv = p.to(torch.bfloat16).float() if round_p else p
+            keep = seen[:, None, None]
+            l = torch.where(keep, l * alpha + p.sum(-1), l)
+            o = torch.where(keep[..., None], o * alpha[..., None] + pv @ vf[:, :, keys], o)
+            m = torch.where(keep, m_new, m)
+        out[:, :, rows] = o * torch.where(l > 0, 1.0 / l, 0.0)[..., None]
+    return out.transpose(1, 2)
+
+
+def _navit(grids, gw: int, s: int) -> torch.Tensor:
+    """(B, S) int32: image i fills the top-left rows x cols of its padded
+    (S / gw) x gw patch grid, so its pads interleave with its patches."""
+    valid = torch.zeros((len(grids), s), dtype=torch.int32)
+    for i, (r, c) in enumerate(grids):
+        grid = torch.zeros((s // gw, gw), dtype=torch.int32)
+        grid[:r, :c] = 1
+        valid[i] = grid.reshape(-1)
+    return valid
+
+
+# S = 300 (two 128-key tiles and a ragged tail of 44): 15x20 grids, one with
+# 3 pad columns a row and 2 pad rows, one with real rows 0-9 only, whose
+# third key tile then holds pads alone (the first query tile skips it)
+BIDIR_KINDS = {"interleaved": ((13, 17), (10, 20)), "all_valid": None}
+
+
+def _bidir_inputs(seed: int, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((2, 300, 2, 72), dtype=np.float32)).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("kind", list(BIDIR_KINDS))
+def test_bidir_tiles_match_plain(kind):
+    """Every row, the invalid ones too: exact up to summation order with P
+    in f32, within the bf16 limit with P rounded as the kernel rounds it."""
+    grids = BIDIR_KINDS[kind]
+    valid = None if grids is None else _navit(grids, 20, 300)
+    q, k, v = _bidir_inputs(6)
+    scale = 72 ** -0.5
+    f32 = [x.float() for x in (q, k, v)]
+    got = emulate_bidir(*f32, valid, scale, round_p=False)
+    _assert_close(got, L.flash_attention_bidir_reference(*f32, valid, scale), TIGHT_TOL)
+    got = emulate_bidir(q, k, v, valid, scale)
+    assert torch.isfinite(got).all()
+    _assert_close(got, L.flash_attention_bidir_reference(q, k, v, valid, scale), REL_TOL)
+
+
+def test_bidir_skips_tiles_only_where_pads_are_whole_rows():
+    """A grid padded by whole rows (the second image: real rows 0-9) has a
+    query tile of real rows only and a key tile of pads only, which skip
+    each other; pad columns (the first image, and phase 7's 34x45 of 40x48)
+    put a pad in every tile, and nothing is skipped."""
+    def skipped(kinds):
+        return sum(int(kinds[i] & kinds[j] == 0) for i in range(len(kinds))
+                   for j in range(len(kinds)))
+
+    kinds = _tile_kinds(_key_validity(_navit(BIDIR_KINDS["interleaved"], 20, 300), 2, 300))
+    assert skipped(kinds[0]) == 0 and skipped(kinds[1]) == 2
+    phase7 = _tile_kinds(_key_validity(_navit(((34, 45),), 48, 1920), 1, 1920))
+    assert skipped(phase7[0]) == 0
+
+
+def test_bidir_tail_needs_a_validity_of_its_own():
+    """Keys past S read as TMA's zero rows.  At validity 0 (an invalid
+    patch's) the invalid rows would attend them, and their outputs move
+    far past the bf16 limit; the real rows stay put."""
+    valid = _navit(BIDIR_KINDS["interleaved"], 20, 300)
+    q, k, v = (x.float() for x in _bidir_inputs(7))
+    scale = 72 ** -0.5
+    want = L.flash_attention_bidir_reference(q, k, v, valid, scale)
+    bad = emulate_bidir(q, k, v, valid, scale, round_p=False, tail=0)
+    pad_rows, real_rows = valid == 0, valid == 1
+    assert (bad[pad_rows] - want[pad_rows]).abs().max() > REL_TOL * want.abs().max()
+    _assert_close(bad[real_rows], want[real_rows], TIGHT_TOL)
+
+
+# ------------------------------------------------------- the backward
+
+BWD_ROWS = 64  # a tile's rows; blocks of two tiles
+
+
+def emulate_bwd(q, k, v, o, lse, do, valid, scale, round_ops=True, to_log2=LOG2E):
+    """``(dq, dk, dv)`` f32 of ``csrc/flash_attn_bwd.cu``'s schedule;
+    ``to_log2`` is the factor that takes the log-sum-exp to base 2."""
+    b, s, h, _ = q.shape
+    qf, kf, vf, of, dof = (x.float().transpose(1, 2) for x in (q, k, v, o, do))
+    valid = valid.to(torch.int32)
+    lse2 = lse.float() * to_log2
+    d = (dof * of).sum(-1)  # D from the forward's (bf16) output
+    rnd = (lambda x: x.to(torch.bfloat16).float()) if round_ops else (lambda x: x)
+
+    def p_ds(qs, ks):
+        """P and dS (f32) of the queries qs against the keys ks."""
+        x = qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)
+        seen = (ks[None, :] <= qs[:, None]) & (valid[:, ks][:, None, :] == valid[:, qs][:, :, None])
+        p = torch.where(seen[:, None], torch.exp2(x * scale * LOG2E - lse2[:, :, qs, None]), 0.0)
+        dp = dof[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+        return p, p * (dp - d[:, :, qs, None])
+
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for m0 in range(0, s, 2 * BWD_ROWS):  # the dQ kernel's blocks
+        qs = torch.arange(m0, min(m0 + 2 * BWD_ROWS, s))
+        for n0 in range(0, min(s, m0 + 2 * BWD_ROWS), BWD_ROWS):  # up to the causal bound
+            ks = torch.arange(n0, min(n0 + BWD_ROWS, s))
+            _, ds = p_ds(qs, ks)
+            dq[:, :, qs] += rnd(ds) @ kf[:, :, ks]
+    for n0 in range(0, s, 2 * BWD_ROWS):  # the dK/dV kernel's blocks
+        ks = torch.arange(n0, min(n0 + 2 * BWD_ROWS, s))
+        for q0 in range(n0, s, BWD_ROWS):  # from the diagonal
+            qs = torch.arange(q0, min(q0 + BWD_ROWS, s))
+            p, ds = p_ds(qs, ks)
+            dv[:, :, ks] += rnd(p).transpose(-1, -2) @ dof[:, :, qs]
+            dk[:, :, ks] += rnd(ds).transpose(-1, -2) @ qf[:, :, qs]
+    return tuple(x.transpose(1, 2) for x in (scale * dq, scale * dk, dv))
+
+
+# right-padded rows at S = 300 (a ragged tail); "pad_tile": rows of 100
+# and 50 real tokens, so whole 64-row tiles and a 128-row block hold pads only
+BWD_KINDS = {"ragged": (300, 180), "pad_tile": (100, 50)}
+
+
+def _bwd_case(kind: str, seed: int, dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 300, 2, 128), dtype=np.float32))
+                   .to(dtype) for _ in range(4))
+    valid = (torch.arange(300)[None] < torch.tensor(BWD_KINDS[kind])[:, None]).to(torch.int32)
+    o = L.flash_attention_reference(q, k, v, valid, SCALE)
+    lse = L.flash_attention_lse_reference(q, k, valid, SCALE)
+    return q, k, v, o, lse, do, valid
+
+
+@pytest.mark.parametrize("kind", list(BWD_KINDS))
+def test_backward_tiles_match_plain(kind):
+    """dq, dk and dv on every row: exact up to summation order with P and
+    dS in f32, within the bf16 limit with them rounded as the kernels
+    round them, against the plain backward on the same inputs."""
+    case = _bwd_case(kind, 8, torch.float32)
+    got = emulate_bwd(*case, SCALE, round_ops=False)
+    for a, w in zip(got, L.flash_attention_bwd_reference(*case, SCALE), strict=True):
+        _assert_close(a, w, TIGHT_TOL)
+    case = _bwd_case(kind, 8, torch.bfloat16)
+    got = emulate_bwd(*case, SCALE)
+    for a, w in zip(got, L.flash_attention_bwd_reference(*case, SCALE), strict=True):
+        assert torch.isfinite(a).all()
+        _assert_close(a, w, REL_TOL)
+
+
+def test_backward_needs_the_lse_in_base_2():
+    """The natural-log log-sum-exp taken as base 2 scales every P by
+    exp2(lse·(log2 e − 1)): the gradients move far past the bf16 limit."""
+    case = _bwd_case("ragged", 9, torch.float32)
+    want = L.flash_attention_bwd_reference(*case, SCALE)
+    bad = emulate_bwd(*case, SCALE, round_ops=False, to_log2=1.0)
+    assert all((a - w).abs().max() > 0.1 * w.abs().max()
+               for a, w in zip(bad, want, strict=True))

@@ -1,7 +1,8 @@
 """The port stands alone: no ``jax`` and no ``licv_vqa_tpu`` module is
 imported by ``licv_vqa_tpu_torch``, ``inference_torch.py``, ``train_torch.py``,
 ``chip_smoke.py`` or the port's tools (``tools/bench_train_step_torch.py``,
-``tools/exp_w8a8_tuning_torch.py``, ``tools/exp_int4_unpack_torch.py``);
+``tools/exp_w8a8_tuning_torch.py``, ``tools/exp_int4_unpack_torch.py``,
+``tools/phase3_kernels_torch.py``);
 and the host modules the port copied give the JAX package's outputs on the
 same inputs."""
 
@@ -17,7 +18,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 SCRIPTS = ("inference_torch.py", "train_torch.py", "chip_smoke.py",
            "tools/bench_train_step_torch.py", "tools/exp_w8a8_tuning_torch.py",
-           "tools/exp_int4_unpack_torch.py")
+           "tools/exp_int4_unpack_torch.py", "tools/phase3_kernels_torch.py")
 
 
 def test_port_modules_import_neither_jax_nor_the_jax_package():

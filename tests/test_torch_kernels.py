@@ -133,6 +133,51 @@ def test_flash_fwd_sm90_tile_products_match_matmul(dev):
     _assert_close(o, s.to(torch.bfloat16).float() @ v.float(), F32_REL_TOL)
 
 
+def _tile_check(dev, source, symbol, shapes, outs, seed):
+    """Inputs of ``shapes`` (bf16, from a seed), ``outs`` f32 outputs
+    (NaN-filled), and one call of the entry point ``symbol``."""
+    import ctypes
+
+    from licv_vqa_tpu_torch.csrc import load_library
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ins = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for shape in shapes]
+    got = [torch.full(shape, float("nan"), device=dev) for shape in outs]
+    fn = getattr(load_library(source), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6
+    err = fn(*(x.data_ptr() for x in ins + got), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    return ins, got
+
+
+def test_flash_bidir_tile_products_match_matmul(dev):
+    """The bidirectional kernel's two products at head dim 72 on one tile
+    (``flash_bidir_tile_check``): S = Q·Kᵀ over the 64-dim box (128-byte
+    swizzle) and the 16-dim box (32-byte swizzle, dims 72-79 zeros from
+    TMA) at (64, 72)·(128, 72)ᵀ, and O = bf16(S)·V with m64n72k16 (V
+    MN-major in two 128-byte swizzle boxes, N = 72 reaching 8 columns into
+    the second), each against ``torch.matmul`` in f32."""
+    (q, k, v), (s, o) = _tile_check(dev, "flash_attn_bidir.cu", "flash_bidir_tile_check",
+                                    ((64, 72), (128, 72), (128, 72)), ((64, 128), (64, 72)), 8)
+    _assert_close(s, q.float() @ k.float().T, F32_REL_TOL)
+    _assert_close(o, s.to(torch.bfloat16).float() @ v.float(), F32_REL_TOL)
+
+
+def test_flash_bwd_tile_products_match_matmul(dev):
+    """The backward kernels' two product layouts on one 64-row tile
+    (``flash_bwd_sm90_tile_check``): S = A·Bᵀ with m64n64k16, both
+    K-major (the score products S = Q·Kᵀ, dP = dO·Vᵀ and their transposes),
+    and O = bf16(S)·C with m64n128k16, S as register fragments and C
+    MN-major (dQ += dS·K, dV += Pᵀ·dO, dK += dSᵀ·Q), against
+    ``torch.matmul`` in f32."""
+    (a, b, c), (s, o) = _tile_check(dev, "flash_attn_bwd.cu", "flash_bwd_sm90_tile_check",
+                                    ((64, 128),) * 3, ((64, 64), (64, 128)), 9)
+    _assert_close(s, a.float() @ b.float().T, F32_REL_TOL)
+    _assert_close(o, s.to(torch.bfloat16).float() @ c.float(), F32_REL_TOL)
+
+
 def test_flash_kernel_takes_strided_views(dev):
     """The (B, S, H, Dh) JAX layout by strides: q/k/v as views into one
     fused (B, S, 3, H, Dh) buffer, no copies."""

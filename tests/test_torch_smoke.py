@@ -66,15 +66,19 @@ def test_each_case_is_held_to_its_outputs_limit(cases):
 
 
 def test_bidir_cases_cover_phase_7_and_bound_the_visible_pairs(cases):
-    """The tower's three shapes; bytes: q, k, v read and the output written
-    (bf16) and the int32 validity; operations: QK^T and PV over the pairs
-    the segment rule leaves visible, bound by operations at these sizes."""
+    """The tower's three shapes and a ragged S with pads; bytes: q, k, v
+    read and the output written (bf16) and the int32 validity; operations:
+    QK^T and PV over the pairs the segment rule leaves visible, bound by
+    operations at these sizes."""
     labels = {label for name, label in cases if name == "flash_attention_bidir"}
     assert labels == {
         "(1,4900,16,72) all valid",
         "(1,1920,16,72) valid 34x45 of 40x48",
         "(33,1920,16,72) valid 34x45,30x45,27x35 of 40x48",
+        "(2,1100,16,72) valid 20x30,15x55 of 20x55",
     }
+    ragged = cases["flash_attention_bidir", "(2,1100,16,72) valid 20x30,15x55 of 20x55"]
+    assert ragged.ops == 4 * 16 * 72 * (600 ** 2 + 500 ** 2 + 825 ** 2 + 275 ** 2)
     c = cases["flash_attention_bidir", "(1,1920,16,72) valid 34x45 of 40x48"]
     n = 1920 * 16 * 72
     assert c.bytes_moved == 4 * n * 2 + 1920 * 4
@@ -408,19 +412,23 @@ def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monke
 
 
 def test_flash_backward_cases_bound_the_visible_pairs(cases):
-    """Phase 3's three backward shapes, right-padded; bytes: q, k, v, o, do
-    read and dq, dk, dv written (bf16), the f32 log-sum-exp and the int32
-    validity; operations: five products over the visible pairs (a real
-    query sees the real keys up to it, a pad the pads up to it)."""
+    """Phase 3's three backward shapes, right-padded, and the flagship
+    student's with every row valid; bytes: q, k, v, o, do read and dq, dk,
+    dv written (bf16), the f32 log-sum-exp and the int32 validity;
+    operations: five products over the visible pairs (a real query sees
+    the real keys up to it, a pad the pads up to it)."""
     got = {label: c for (name, label), c in cases.items() if name == "flash_attention_bwd"}
     assert sorted(got) == sorted([
-        "(4,256,32,128) lengths 256,201,150,77", "(4,512,8,128) lengths 512,400,512,100",
-        "(1,2048,32,128) lengths 1798",
+        "(4,256,32,128) lengths 256,201,150,77", "(4,256,32,128) all valid",
+        "(4,512,8,128) lengths 512,400,512,100", "(1,2048,32,128) lengths 1798",
     ])
+    tri = lambda m: m * (m + 1) // 2  # noqa: E731
+    assert got["(4,256,32,128) all valid"].ops == 5 * 2 * 128 * 32 * 4 * tri(256)
+    # the kernels line reads the ragged case, phase 9's
+    assert not "(4,256,32,128) all valid".startswith(C.MAIN_SHAPE["flash_attention_bwd"])
     c = got["(4,512,8,128) lengths 512,400,512,100"]
     n = 4 * 512 * 8 * 128
     assert c.bytes_moved == 8 * n * 2 + 4 * 8 * 512 * 4 + 4 * 512 * 4
-    tri = lambda m: m * (m + 1) // 2  # noqa: E731
     pairs = 2 * tri(512) + tri(400) + tri(112) + tri(100) + tri(412)
     assert c.ops == 5 * 2 * 128 * 8 * pairs
     # the bounds without padding: 20.1 µs (bytes) at the flagship

@@ -31,7 +31,6 @@ KL = "licv_vqa_tpu_torch/ops/masked_kl_kernel.py"
 INT8 = "licv_vqa_tpu_torch/csrc/int8_matmul.cu"
 INT4 = "licv_vqa_tpu_torch/csrc/int4_matmul.cu"
 BIDIR = "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu"
-BIDIR_LINE = "        sc[j] = seg_s[c0 + j] == seg_q ? sc[j] : -INFINITY;\n"
 # the causal flash forward and the ALiBi flash: one template
 FLASH_FWD = "licv_vqa_tpu_torch/csrc/flash_fwd_sm90.cuh"
 VIT = "licv_vqa_tpu_torch/csrc/vit_attention.cu"
@@ -61,14 +60,24 @@ MUTATIONS = {
     "int4_low_nibble_unbiased": (
         INT4, "  static constexpr float kLoMagic = 8388616.f;\n",
         "  static constexpr float kLoMagic = 8388608.f;\n", ("int4_matmul",), None),
-    # every key inside S visible (the tail past S stays masked): reads only
-    # where a patch mask is (the all-valid case is unchanged)
+    # every key inside S visible on a masked tile (the tail past S stays
+    # masked): reads only where a patch mask is (the all-valid case is
+    # unchanged)
     "bidir_no_segment_rule": (
-        BIDIR, BIDIR_LINE, "        sc[j] = seg_s[c0 + j] >= 0 ? sc[j] : -INFINITY;\n",
-        ("flash_attention_bidir",), None),
+        BIDIR, "  return vq == 1 ? real : vq == 0 ? pad : 0u;\n",
+        "  return vq >= 0 ? real | pad : 0u;\n", ("flash_attention_bidir",), None),
+    # the causal template's key loop: no key past the block's last query
     "bidir_causal_bound_left_in": (
-        BIDIR, BIDIR_LINE,
-        "        sc[j] = seg_s[c0 + j] == seg_q && k0 + c0 + j <= qi ? sc[j] : -INFINITY;\n",
+        BIDIR,
+        "  const int n_tiles = (p.S + kBlockN - 1) / kBlockN;  // no causal bound: every key tile\n",
+        "  const int n_tiles = (min(p.S, m0 + kBlockM) + kBlockN - 1) / kBlockN;\n",
+        ("flash_attention_bidir",), None),
+    # the keys past S get the invalid rows' validity (TMA's zero rows): the
+    # invalid rows attend the ragged tail; reads on the ragged case's
+    # invalid rows only
+    "bidir_tail_keys_visible": (
+        BIDIR, "  return kj < S ? (valid_b != nullptr ? valid_b[kj] != 0 : 1) : -2;\n",
+        "  return kj < S ? (valid_b != nullptr ? valid_b[kj] != 0 : 1) : 0;\n",
         ("flash_attention_bidir",), None),
     "alibi_bias_dropped": (
         FLASH_FWD,
@@ -114,17 +123,24 @@ MUTATIONS = {
     # the causal flash backward: D = rowsum(do * o) left out of dS (the dQ
     # kernel writes the 0 it computes for the dK/dV kernel too)
     "flash_bwd_no_d": (
-        FLASH_BWD, "  const float d_row = dot(dof, acc);  // D = rowsum(do * o)\n",
-        "  const float d_row = 0.f;\n", ("flash_attention_bwd",), "flagship"),
+        FLASH_BWD,
+        "      const float d_row = d + __shfl_xor_sync(0xffffffffu, d, 1);  // D = rowsum(do * o)\n",
+        "      const float d_row = 0.f;\n", ("flash_attention_bwd",), "flagship"),
+    # the log-sum-exp used without its log2(e) in both kernels (the dQ
+    # kernel converts it once, for both): every P off by a factor
+    "flash_bwd_lse_natural_log": (
+        FLASH_BWD,
+        "      const float lse2 = in ? p.lse[bh * p.S + qi] * kLog2e : 0.f;  // base 2, once\n",
+        "      const float lse2 = in ? p.lse[bh * p.S + qi] : 0.f;  // base 2, once\n",
+        ("flash_attention_bwd",), "flagship"),
     # every key up to the query inside S visible: reads only where a row is
-    # padded (every case has one)
+    # padded (all but the all-valid case)
     "flash_bwd_no_segment_rule": (
         FLASH_BWD, "  return kj <= qi && seg_k == seg_q;\n",
         "  return kj <= qi && seg_k >= 0 && seg_q >= 0;\n", ("flash_attention_bwd",), "flagship"),
     "flash_bwd_dk_unscaled": (
-        FLASH_BWD,
-        "    store_dims(reinterpret_cast<__nv_bfloat162*>(dk + c_off), part, dkf, scale);\n",
-        "    store_dims(reinterpret_cast<__nv_bfloat162*>(dk + c_off), part, dkf, 1.f);\n",
+        FLASH_BWD, "    store_rows(p.dk, dk, krow, b, h, p.S, p.H, p.scale);\n",
+        "    store_rows(p.dk, dk, krow, b, h, p.S, p.H, 1.f);\n",
         ("flash_attention_bwd",), "flagship"),
     # w8a8 (phase 3's limit: equality): ties and every non-integer quotient
     # rounded toward zero; the absmax of the first K tile only (the rows'
