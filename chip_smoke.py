@@ -42,7 +42,10 @@ Phases (any failure exits non-zero before the result lines):
    int4 decode matmuls at ``QUANT_SHAPES`` (a beam step's projections, a
    64-row block), the int8 one at ``HEAD_SHAPES`` (the head at a beam step
    and at prefill) and the int4 one at ``INT4_PREFILL_SHAPES`` (run B's
-   64-row prefill MLP and bind-time K/V), with
+   64-row prefill MLP and bind-time K/V) and with its weights cold
+   (``INT4_COLD_SHAPE``, each call on the next of ``INT4_COLD_COPIES``
+   weight copies, past the L2), every int4 case also called twice for equal
+   bits (its split-K sums in a fixed order), with
    ``torch._weight_int8pack_mm`` as the int8 library call where this torch
    runs it on the card, and the bf16 matmul with the dense weight printed
    beside as a note; the bidirectional flash attention at ``BIDIR_SHAPES``
@@ -367,6 +370,9 @@ class Case:
     # (B, S) bool: the rows the function defines, where the comparison looks
     # (the ALiBi kernel's rows with a visible key); None = every row
     rows: object = None
+    # two kernel calls on the same inputs must give equal bits (the int4
+    # kernel's split-K sums in a fixed order)
+    deterministic: bool = False
 
     def bound(self) -> tuple[float, str]:
         t_bytes = self.bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -780,7 +786,60 @@ def quantized_cases(dev):
                 # order only; one rounded through bf16 reads above 1e-4
                 tol=F32_REL_TOL if out == "f32" else REL_TOL,
                 dense=lambda i=inputs: i()["x"] @ i()["dense"],
+                deterministic=mode == "int4",
             )
+    yield int4_cold_case(dev)
+
+
+# the int4 kernel with its weights cold: a beam step's (M, K, N), each call
+# on the next of INT4_COLD_COPIES copies of the weights (8 x 8.9 MB, past
+# the 50 MB L2), as a decode step streams its weights from device memory
+INT4_COLD_SHAPE = (3, 4096, 4096)
+INT4_COLD_COPIES = 8
+
+
+def int4_cold_case(dev):
+    """The int4 kernel, its plain version and the library call at
+    ``INT4_COLD_SHAPE``, each cycling through ``INT4_COLD_COPIES`` copies
+    of one quantized weight (equal bytes at other addresses, so the first
+    call of each compares equal inputs and two calls give equal bits); the
+    library call through as many copies of its own layout."""
+    import functools
+    import itertools
+
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int4_matmul as I4
+    from licv_vqa_tpu_torch.ops import quantize as Q
+
+    m, k, n = INT4_COLD_SHAPE
+
+    @functools.cache
+    def inputs():
+        g = torch.Generator(device=dev).manual_seed(m + k + n)
+        w = (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        leaf = Q.quantize_array_int4(w, INT4_GROUP)
+        s = leaf["s"].reshape(k // INT4_GROUP, n)
+        copies = [(leaf["q4"].clone(), s.clone()) for _ in range(INT4_COLD_COPIES)]
+        return x, copies, Q._unpack_int4(leaf["q4"]), s
+
+    def cycling(call):
+        count = itertools.count()
+        return lambda: call(next(count) % INT4_COLD_COPIES)
+
+    layouts = [int4pack_library(lambda: (inputs()[0], *inputs()[2:]), INT4_GROUP)
+               for _ in range(INT4_COLD_COPIES)]
+    return Case(
+        "int4_matmul", f"cold ({m},{k},{n}) bf16 out, {INT4_COLD_COPIES} weight copies",
+        cycling(lambda i: I4.int4_matmul(inputs()[0], *inputs()[1][i], INT4_GROUP,
+                                         torch.bfloat16)),
+        cycling(lambda i: I4.int4_matmul_reference(inputs()[0], *inputs()[1][i], INT4_GROUP,
+                                                   torch.bfloat16)),
+        bytes_moved=m * k * 2 + k * n // 2 + (k // INT4_GROUP) * n * 2 + m * n * 2,
+        ops=2 * m * k * n, op_type="bf16", library=cycling(lambda i: layouts[i]()),
+        deterministic=True,
+    )
 
 
 def int4pack_library(operands, group: int):
@@ -977,9 +1036,16 @@ def library_runs(c: Case) -> tuple:
 
 def check_kernels(dev) -> dict:
     """Phase 3.  Returns per-kernel summaries for the kernels line."""
+    import torch
+
     out = {}
     for c in kernel_cases(dev):
         err, ratio = compare(c.kernel, c.plain, c.rows)
+        if c.deterministic:
+            first, second = c.kernel(), c.kernel()
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                raise AssertionError(f"{c.name} {c.label}: two calls on equal inputs differ")
         has_lib, lib = library_runs(c)
         fns = [c.kernel, c.plain] + [f for f, on in ((c.library, has_lib), (c.dense, c.dense))
                                      if on]

@@ -3,8 +3,10 @@
 // Memory Accelerator (TMA), with the visibility rule and the bias as
 // template parameters.  Its primitives (TMA loads, mbarriers, wgmma
 // descriptors and products, the online softmax, the tensor maps) also serve
-// csrc/flash_attn_bidir.cu (the towers' head dim 72) and csrc/flash_attn_bwd.cu
-// (the causal backward).  Two entry points instantiate the template:
+// csrc/flash_attn_bidir.cu (the towers' head dim 72), csrc/flash_attn_bwd.cu
+// (the causal backward), csrc/vit_attention.cu (the CLIP towers' fused
+// attention) and csrc/int4_matmul.cu (its mbarriers and tensor-map encoder).
+// Two entry points instantiate the template:
 //
 // - csrc/flash_attn_fwd.cu, MaskRule::Segment, Bias::None (replaces
 //   licv_vqa_tpu/models/layers.py::flash_attention_tpu, the upstream Pallas
@@ -169,6 +171,12 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// brings a tensor map (a kernel parameter) into the TMA unit's cache ahead
+// of its first load
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // a 128-row tile's two 64-dim halves
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                               int s, int h, int b) {
@@ -285,7 +293,69 @@ __device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define FLASH_SM90_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+#define FLASH_SM90_R128                                                          \
+  FLASH_SM90_R64, FLASH_SM90_R8(64), FLASH_SM90_R8(72), FLASH_SM90_R8(80),    \
+      FLASH_SM90_R8(88), FLASH_SM90_R8(96), FLASH_SM90_R8(104), FLASH_SM90_R8(112), \
+      FLASH_SM90_R8(120)
+
+// The fused ViT kernel's products (csrc/vit_attention.cu): a whole 257-key
+// score row as m64n256k16 + m64n8k16, and P.V over head dims 64-79 as
+// m64n64k16 + m64n16k16.
+
+// d (64 x 256, f32) = A.B^T (+ d), both bf16 K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " FLASH_SM90_D128
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : FLASH_SM90_R128
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 8, f32) = A.B^T (+ d), both bf16 K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A.B, A bf16 from registers, B bf16 MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_SM90_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FLASH_SM90_R32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 16, f32) += A.B, A bf16 from registers, B bf16 MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : FLASH_SM90_R8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef FLASH_SM90_D64
+#undef FLASH_SM90_D128
+#undef FLASH_SM90_R128
 #undef FLASH_SM90_D32
 #undef FLASH_SM90_R8
 #undef FLASH_SM90_R32

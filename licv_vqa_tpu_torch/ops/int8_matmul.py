@@ -41,13 +41,13 @@ from .quantize import dequantize_int4, is_quantized4_leaf, is_quantized_leaf
 # decode-shaped calls (beam rows, prefill blocks and bind K/V of at most
 # this many rows) take the kernels
 KERNEL_MAX_ROWS = 64
-# the kernels' weight rows a block's warps take per batch of loads
+# the int8 kernel's weight rows a block's warps take per batch of loads
 # (csrc/quant_common.cuh: 8 warps x 8 rows in flight)
 _ROW_BATCH = 64
 
 
 # ---------------------------------------------------------------------------
-# Launch plan shared by the two kernels
+# The int8 kernel's launch plan (csrc/quant_common.cuh)
 # ---------------------------------------------------------------------------
 
 
@@ -68,7 +68,7 @@ def _rows_m(m: int) -> int:
 def _launch_plan(m: int, rows: int, n: int, vec: int, n_sm: int) -> tuple[int, int]:
     """``(splits, rows_per_split)``: enough split-K blocks that the grid
     holds about two blocks per SM, each with whole batches of 64 weight
-    rows (a group of 64 int4 rows then never straddles a batch)."""
+    rows."""
     blocks = math.ceil(n / (32 * vec)) * math.ceil(m / _rows_m(m))
     splits = max(1, min(math.ceil(2 * n_sm / blocks), math.ceil(rows / _ROW_BATCH)))
     per = math.ceil(math.ceil(rows / splits) / _ROW_BATCH) * _ROW_BATCH
@@ -80,32 +80,30 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(fn_name: str, source: str, x, w, s, out_dtype, rows: int, extra: tuple):
-    """Allocate the output (and this launch's split-K scratch), launch, raise
-    on a launch error.  ``extra`` holds the C arguments between N and vec."""
+def _launch(x, w, s, out_dtype):
+    """Allocate the output (and this launch's split-K scratch), launch
+    ``int8_matmul_bf16``, raise on a launch error."""
     from ..csrc import load_library
 
     m, k = x.shape
     n = w.shape[1]
     vec = _vec_width(n, w)
-    splits, per = _launch_plan(m, rows, n, vec, _sm_count(x.device.index or 0))
+    splits, per = _launch_plan(m, k, n, vec, _sm_count(x.device.index or 0))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     partial = None
     if splits > 1:
         partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    fn = getattr(load_library(source), fn_name)
+    fn = load_library("int8_matmul.cu").int8_matmul_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * (3 + len(extra) + 4) + [ctypes.c_void_p]
-    )
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     err = fn(
         x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        m, k, n, *extra, vec, splits, per, int(out_dtype == torch.float32),
+        m, k, n, vec, splits, per, int(out_dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
+        raise RuntimeError(f"int8_matmul_bf16 launch failed: cudaError {err}")
     return out
 
 
@@ -152,7 +150,7 @@ def int8_matmul(x, q, s, out_dtype=None) -> torch.Tensor:
         raise ValueError(f"int8_matmul: x {tuple(x.shape)}, q {tuple(q.shape)}, "
                          f"s {tuple(s.shape)} do not agree")
     x = x.to(torch.bfloat16).contiguous()
-    out = _launch("int8_matmul_bf16", "int8_matmul.cu", x, q, s, out_dtype, q.shape[0], ())
+    out = _launch(x, q, s, out_dtype)
     int8_matmul.launches += 1
     return out
 

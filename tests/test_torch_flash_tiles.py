@@ -1,8 +1,10 @@
 """The Hopper flash kernels' tile arithmetic emulated in plain torch on the
 CPU, held to the unchanged plain versions: the causal forward
 (``csrc/flash_fwd_sm90.cuh``), the towers' bidirectional forward
-(``csrc/flash_attn_bidir.cu``) and the causal backward
-(``csrc/flash_attn_bwd.cu``).
+(``csrc/flash_attn_bidir.cu``), the causal backward
+(``csrc/flash_attn_bwd.cu``) and the CLIP towers' fused attention
+(``csrc/vit_attention.cu``: ``emulate_vit``, its one-pass and two-pass
+schedules, the rounding point and the tail's term; tolerances by its tests).
 
 The emulation follows the kernel's schedule: 128-query tiles, 128-key tiles
 up to the causal bound, the per-tile online softmax in base 2 (with no bias
@@ -388,3 +390,138 @@ def test_backward_needs_the_lse_in_base_2():
     bad = emulate_bwd(*case, SCALE, round_ops=False, to_log2=1.0)
     assert all((a - w).abs().max() > 0.1 * w.abs().max()
                for a, w in zip(bad, want, strict=True))
+
+
+# ------------------------------------------------- the fused ViT attention
+
+ONE_PASS_KEYS = 264  # the one-pass score row: m64n256k16 + m64n8k16
+VIT_TILE = 128  # the two-pass key tiles
+FLT_MAX = torch.finfo(torch.float32).max
+# the mean error of the emulation against the plain version, over the plain
+# output's mean magnitude: rounding where the plain version rounds differs
+# from it only where an exp2-against-exp difference flips a bf16 rounding
+MEAN_TOL = 1e-5
+
+
+def emulate_vit(q, k, v, valid, scale, schedule, round_p=True, normalise_first=True,
+                tail=-math.inf):
+    """``out (B, S, H, Dh) f32`` of ``csrc/vit_attention.cu``'s schedules:
+    ``"one"`` (S <= 264: the whole row's scores at once, keys padded to 264)
+    or ``"two"`` (128-key tiles: the rows' max and sum online, then the
+    scores again).  x = q·k · scale·log2(e) + the key's term (0 counts,
+    -FLT_MAX masked, ``tail`` past S: the kernel's -inf; K/V rows past S are
+    TMA's zeros); p = exp2(x - max); P normalised and then rounded to bf16
+    before P·V (``normalise_first=False``: rounded, then the output divided
+    by l)."""
+    b, s, h, dh = q.shape
+    nk = ONE_PASS_KEYS if schedule == "one" else -(-s // VIT_TILE) * VIT_TILE
+    assert nk >= s
+    qf = q.float().transpose(1, 2)
+    kf = torch.zeros((b, h, nk, dh))
+    kf[:, :, :s] = k.float().transpose(1, 2)
+    vf = torch.zeros((b, h, nk, dh))
+    vf[:, :, :s] = v.float().transpose(1, 2)
+    term = torch.full((b, nk), tail)
+    term[:, :s] = 0.0 if valid is None else torch.where(valid.bool(), 0.0, -FLT_MAX)
+    x = (qf @ kf.transpose(-1, -2)) * (scale * LOG2E) + term[:, None, None, :]
+    if schedule == "one":
+        m = x.amax(-1, keepdim=True)
+        l = torch.exp2(x - m).sum(-1, keepdim=True)
+    else:
+        m = torch.full(x.shape[:-1] + (1,), -math.inf)
+        l = torch.zeros_like(m)
+        for t0 in range(0, nk, VIT_TILE):
+            xt = x[..., t0:t0 + VIT_TILE]
+            m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+            l = l * torch.exp2(m - m_new) + torch.exp2(xt - m_new).sum(-1, keepdim=True)
+            m = m_new
+    p = torch.exp2(x - m)
+    if normalise_first:
+        p = p * (1.0 / l)
+    if round_p:
+        p = p.to(torch.bfloat16).float()
+    o = p @ vf
+    if not normalise_first:
+        o = o * (1.0 / l)
+    return o.transpose(1, 2)
+
+
+def _vit_case(seed: int, s: int, dh: int, masked: bool, dtype=torch.bfloat16):
+    """(q, k, v, valid) at (2, S, 2, Dh): with ``masked`` a random key mask
+    and a second row with no valid key (the uniform softmax)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, 2, dh), dtype=np.float32)).to(dtype)
+               for _ in range(3))
+    valid = None
+    if masked:
+        valid = torch.from_numpy(rng.random((2, s)) > 0.3)
+        valid[1] = False
+    return q, k, v, valid
+
+
+def _mean_ratio(got, want) -> float:
+    return ((got.float() - want.float()).abs().mean() / want.float().abs().mean()).item()
+
+
+VIT_SCHEDULES = (("one", 257), ("two", 257), ("two", 1024))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dh", [64, 72, 80])
+@pytest.mark.parametrize("schedule,s", VIT_SCHEDULES)
+def test_vit_schedules_match_plain(schedule, s, dh, masked):
+    """Every row (the all-masked one's uniform softmax too): exact up to
+    summation order with P in f32; with P normalised and then rounded, as
+    the kernel does, equal to the plain version's bf16 output but where a
+    bf16 rounding of P flips (mean error under ``MEAN_TOL``)."""
+    scale = dh ** -0.5
+    q, k, v, valid = _vit_case(20 + dh, s, dh, masked, torch.float32)
+    got = emulate_vit(q, k, v, valid, scale, schedule, round_p=False)
+    _assert_close(got, L.vit_attention_reference(q, k, v, valid, scale), TIGHT_TOL)
+    q, k, v, valid = _vit_case(20 + dh, s, dh, masked)
+    got = emulate_vit(q, k, v, valid, scale, schedule).to(torch.bfloat16)
+    want = L.vit_attention_reference(q, k, v, valid, scale)
+    assert torch.isfinite(got).all()
+    _assert_close(got, want, REL_TOL)
+    assert _mean_ratio(got, want) <= MEAN_TOL
+    if masked:  # no valid key: the mean of V over the S keys
+        _assert_close(got[1], v[1].float().mean(0, keepdim=True).expand_as(got[1]), REL_TOL)
+
+
+@pytest.mark.parametrize("schedule,s", VIT_SCHEDULES)
+def test_vit_rounding_point_is_after_normalising(schedule, s):
+    """Rounding P to bf16 before it is normalised (the flash kernels'
+    rounding point, the output divided by l after P·V) stays inside the
+    2e-2 limit phase 3 holds the kernel to, but moves the mean error two
+    orders past the emulation's tolerance: this is the check that sees the
+    rounding point."""
+    q, k, v, valid = _vit_case(31, s, 80, True)
+    want = L.vit_attention_reference(q, k, v, valid, 80 ** -0.5)
+    bad = emulate_vit(q, k, v, valid, 80 ** -0.5, schedule, normalise_first=False)
+    bad = bad.to(torch.bfloat16)
+    _assert_close(bad, want, REL_TOL)
+    assert _mean_ratio(bad, want) > 10 * MEAN_TOL
+
+
+@pytest.mark.parametrize("schedule", ["one", "two"])
+def test_vit_tail_keys_need_a_term_of_their_own(schedule):
+    """Keys past S read as TMA's zero rows, whose score is 0.  Counted as
+    keys (term 0 in place of -inf) they take their share of every row's
+    softmax (7 of 264 in one pass at S = 257, 127 of 384 in two), and the
+    outputs move far past the bf16 limit; the all-masked row's uniform
+    average would take them in too."""
+    q, k, v, valid = _vit_case(32, 257, 64, True)
+    want = L.vit_attention_reference(q, k, v, valid, 0.125)
+    bad = emulate_vit(q, k, v, valid, 0.125, schedule, tail=0.0).to(torch.bfloat16)
+    assert (bad - want).abs().max() > REL_TOL * want.abs().max()
+    assert (bad[1] - want[1]).abs().max() > REL_TOL * want[1].abs().max()
+
+
+def test_vit_one_pass_row_fits_the_n256_n8_split():
+    """The one-pass score row covers every key of the CLIP towers (S = 257
+    is the n256 tile and one key of the n8 tile; keys 258-263 are the tail)
+    and P·V's 17 k16 steps cover the 264 keys (272 staged, 264-271 zero)."""
+    assert 256 < 257 <= ONE_PASS_KEYS == 256 + 8
+    assert 17 * 16 == 272 >= ONE_PASS_KEYS
+    assert L.vit_attention_usable(1024, 80, torch.device("cuda"))
+    assert not L.vit_attention_usable(1025, 80, torch.device("cuda"))

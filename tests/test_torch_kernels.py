@@ -426,6 +426,8 @@ def test_flash_alibi_kernel_rejects_other_head_dims(dev):
     (4, 257, 80, True), (2, 1024, 80, True),
     # SigLIP's head dim under 1024 patches, and a tiny ragged one
     (2, 729, 72, True), (3, 5, 64, True),
+    # the last S of the one-pass schedule and the first of the two-pass one
+    (2, 264, 80, True), (2, 265, 64, False),
 ])
 def test_vit_attention_kernel_matches_plain(dev, b, s, dh, masked):
     """Every row: a fully masked one gives the plain version's uniform
@@ -446,6 +448,35 @@ def test_vit_attention_kernel_matches_plain(dev, b, s, dh, masked):
     want = PL.vit_attention_reference(q, k, v, valid)
     assert torch.isfinite(got).all()
     _assert_close(got, want)
+
+
+@pytest.mark.parametrize("dh", [64, 72, 80])
+def test_vit_tile_products_match_matmul(dev, dh):
+    """The fused ViT kernel's one-pass products on one head
+    (``vit_tile_check``): the whole 264-key score row S = Q·Kᵀ as
+    m64n256k16 + m64n8k16 (keys 256-263 in the second) over the 64-dim box
+    (128-byte swizzle) and, at Dh 72 and 80, the 16-dim box (32-byte
+    swizzle, TMA's zeros at 72-79); O = bf16(S)·V over 17 k16 steps,
+    m64n64k16 on V's first box plus m64n16k16 on its second (V MN-major),
+    keys 264-271 zero; each against ``torch.matmul`` in f32."""
+    import ctypes
+
+    from licv_vqa_tpu_torch.csrc import load_library
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((64, dh), (264, dh), (264, dh)))
+    s = torch.full((64, 264), float("nan"), device=dev)
+    o = torch.full((64, dh), float("nan"), device=dev)
+    fn = load_library("vit_attention.cu").vit_tile_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), dh,
+             torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    _assert_close(s, q.float() @ k.float().T, F32_REL_TOL)
+    _assert_close(o, s.to(torch.bfloat16).float() @ v.float(), F32_REL_TOL)
 
 
 def test_vit_attention_kernel_takes_strided_views(dev):
@@ -598,6 +629,40 @@ def test_int4_kernel_matches_plain(dev, m, k, n, g, out_dtype):
     want = I4.int4_matmul_reference(x, leaf["q4"], s, g, out_dtype)
     assert got.dtype == out_dtype and got.shape == (m, n)
     _assert_close(got, want, REL_TOL if out_dtype == torch.bfloat16 else F32_REL_TOL)
+
+
+@pytest.mark.parametrize("m", [3, 16, 40, 64])
+def test_int4_fragment_layout_on_one_tile(dev, m):
+    """One tile of the int4 kernel (K = 128: one 64-row stage; N = 128: one
+    column tile; G = 64, unit scales) with each row of x picking one
+    in-feature: output row i is in-feature ``pick[i]``'s signed nibbles,
+    exactly.  Holds the B fragments' byte-to-column interleave (tile j,
+    column c is column 4c + j), both planes, the rows 2t, 2t+1, 2t+8, 2t+9
+    of each k16 step and the A fragments of every m16 tile."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = torch.randint(-8, 8, (128, 128), generator=g, device=dev, dtype=torch.int32)
+    packed = ((q[:64] + 8) | ((q[64:] & 0xF) << 4)).to(torch.uint8)
+    s = torch.ones((2, 128), dtype=torch.bfloat16, device=dev)
+    pick = (torch.arange(m, device=dev) * 37 + 5) % 128
+    x = torch.zeros((m, 128), dtype=torch.bfloat16, device=dev)
+    x[torch.arange(m, device=dev), pick] = 1.0
+    got = I4.int4_matmul(x, packed, s, 64, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, q[pick].float())
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 11008, 4096), (64, 4096, 4096), (33, 200, 24)])
+def test_int4_kernel_is_deterministic(dev, m, k, n):
+    """The split-K blocks of a column tile sum their partials in rank order
+    through the cluster's shared memory: two calls give equal bits."""
+    leaf = Q.quantize_array_int4(_weights(dev, k, n, 11), group=64 if k % 128 == 0 else 20)
+    g = leaf["s"].numel() // n
+    x = _acts(dev, m, k, 11)
+    s = leaf["s"].reshape(g, n)
+    a = I4.int4_matmul(x, leaf["q4"], s, k // g, torch.float32)
+    b = I4.int4_matmul(x, leaf["q4"], s, k // g, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])

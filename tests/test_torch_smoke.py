@@ -2,8 +2,9 @@
 kernel case's bound counts, the limit each case is held to, the device-busy
 union the training profile reports, the launch counts phases 6, 7 and 8
 predict (rehearsed at tiny size), and the kernel lines that
-``tools/mutation_check_torch_kernels.py`` breaks (so a change to a kernel
-cannot silently leave the mutation check with nothing to break)."""
+``tools/mutation_check_torch_kernels.py`` breaks and
+``tools/exp_kernel_schedules_torch.py`` patches (so a change to a kernel
+cannot silently leave either with nothing to break)."""
 
 import importlib.util
 import sys
@@ -31,6 +32,26 @@ T = _load("tools/mutation_check_torch_kernels.py", "mutation_check_torch_kernels
 @pytest.fixture(scope="module")
 def cases():
     return {(c.name, c.label): c for c in C.kernel_cases(torch.device("cpu"))}
+
+
+S = _load("tools/exp_kernel_schedules_torch.py", "exp_kernel_schedules_torch")
+
+
+@pytest.mark.parametrize("source,name", [
+    *(("vit_attention.cu", n) for n in S.VIT_VARIANTS),
+    *(("int4_matmul.cu", n) for n in S.INT4_LOAD_VARIANTS),
+    ("int4_matmul.cu", "timeline"),
+])
+def test_schedule_experiment_patches_apply_once(source, name):
+    """``tools/exp_kernel_schedules_torch.py`` builds its variants from
+    patched copies of the kernels: each line it patches is in the source
+    once (a change to a kernel cannot leave the experiment with nothing to
+    patch)."""
+    patches = S.TIMELINE_PATCHES if name == "timeline" else (
+        S.VIT_VARIANTS if source == "vit_attention.cu" else S.INT4_LOAD_VARIANTS)[name]
+    text = (REPO / "licv_vqa_tpu_torch/csrc" / source).read_text()
+    for old, new in patches:
+        assert old != new and text.count(old) == 1, old[:60]
 
 
 @pytest.mark.parametrize("name", list(T.MUTATIONS))

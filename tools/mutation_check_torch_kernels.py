@@ -54,12 +54,21 @@ MUTATIONS = {
         INT8, "  __device__ __forceinline__ float scale(int n) const { return s[n]; }\n",
         "  __device__ __forceinline__ float scale(int n) const { return 1.f; }\n",
         ("int8_matmul",), None),
+    # the x plane of in-features i + K/2 against the low nibbles, and the
+    # other way round
     "int4_planes_swapped": (
-        INT4, "  static constexpr int kLoPlane = 0;\n", "  static constexpr int kLoPlane = 1;\n",
+        INT4, "constexpr int kLoPlane = 0;\n", "constexpr int kLoPlane = 1;\n",
         ("int4_matmul",), None),
+    # the low nibble read as q + 8 (128 subtracted where 136 is)
     "int4_low_nibble_unbiased": (
-        INT4, "  static constexpr float kLoMagic = 8388616.f;\n",
-        "  static constexpr float kLoMagic = 8388608.f;\n", ("int4_matmul",), None),
+        INT4, "constexpr uint32_t kLoBias = 0x43084308u;\n",
+        "constexpr uint32_t kLoBias = 0x43004300u;\n", ("int4_matmul",), None),
+    # the high plane's partial times its low-plane group's scale (group g
+    # where g + K/(2G)), on the path of G a multiple of 64 (phase 3's)
+    "int4_scale_of_the_wrong_group": (
+        INT4, "        fold(d + St::scales, d + St::scales + St::splane, wc, t, plo, phi, acc);\n",
+        "        fold(d + St::scales, d + St::scales, wc, t, plo, phi, acc);\n",
+        ("int4_matmul",), None),
     # every key inside S visible on a masked tile (the tail past S stays
     # masked): reads only where a patch mask is (the all-valid case is
     # unchanged)
@@ -118,8 +127,16 @@ MUTATIONS = {
         ("flash_attention_bwd",), "flagship"),
     # every key inside S counts: reads only on the masked cases
     "vit_key_mask_ignored": (
-        VIT, "        seg_s[tid] = kj >= S ? -1 : (valid ? valid[(long long)b * S + kj] : 1);\n",
-        "        seg_s[tid] = kj >= S ? -1 : 1;\n", ("vit_attention",), None),
+        VIT,
+        "    terms[i] = i >= p.S ? -INFINITY : (valid_b == nullptr || valid_b[i] != 0 ? 0.f : -FLT_MAX);\n",
+        "    terms[i] = i >= p.S ? -INFINITY : 0.f;\n", ("vit_attention",), None),
+    # the keys past S (TMA's zero rows) score 0 and count in every row: the
+    # one-pass schedule's 7 of 264 at S = 257, a two-pass tile's tail
+    "vit_tail_keys_visible": (
+        VIT,
+        "    terms[i] = i >= p.S ? -INFINITY : (valid_b == nullptr || valid_b[i] != 0 ? 0.f : -FLT_MAX);\n",
+        "    terms[i] = i >= p.S ? 0.f : (valid_b == nullptr || valid_b[i] != 0 ? 0.f : -FLT_MAX);\n",
+        ("vit_attention",), None),
     # the causal flash backward: D = rowsum(do * o) left out of dS (the dQ
     # kernel writes the 0 it computes for the dK/dV kernel too)
     "flash_bwd_no_d": (
@@ -159,9 +176,16 @@ MUTATIONS = {
         PROBE4,
         "    const int lo = static_cast<int8_t>(b << 4) >> 4, hi = static_cast<int8_t>(b) >> 4;\n",
         "    const int lo = b & 15u, hi = b >> 4;\n", ("int4_unpack_probe",), None),
+    # P rounded to bf16 before it is normalised, the output divided by l
+    # (the flash kernels' rounding point; the tensor cores take P in bf16,
+    # so "not rounded" moves the rounding): one pass (S <= 264) only.
+    # About an ulp of the output, under phase 3's limit: caught by
+    # tests/test_torch_flash_tiles.py::test_vit_rounding_point_is_after_normalising
     "vit_probabilities_not_rounded": (
-        VIT, "          const float p = __bfloat162float(__float2bfloat16(expf(sc[j] - m) * inv_l));\n",
-        "          const float p = expf(sc[j] - m) * inv_l;\n", ("vit_attention",), None),
+        VIT,
+        "    p_scale[0] = 1.f / l[0], p_scale[1] = 1.f / l[1], o_scale[0] = o_scale[1] = 1.f;\n",
+        "    p_scale[0] = p_scale[1] = 1.f, o_scale[0] = 1.f / l[0], o_scale[1] = 1.f / l[1];\n",
+        ("vit_attention",), None),
 }
 PROBE = """
 import sys, torch, chip_smoke as C
