@@ -46,8 +46,16 @@
 //   fragment reads (four rows 2t, 2t+1, 2t+8, 2t+9 by 8 column words) are
 //   free of bank conflicts), x's two planes for those rows (128-byte
 //   swizzle) and the scale rows of the groups they touch.  Shapes TMA does
-//   not take (N % 16 or K % 8 not 0, unaligned pointers: the tests' small
-//   shapes) fill the same layout with the producer warp's plain loads.
+//   not take (N % 16 or K % 8 not 0, unaligned pointers) fill the same
+//   layout with the producer warp's plain loads.
+// - Which paths real traffic takes: every int4 projection of Idefics-9B
+//   and Idefics2-8B (K and N among 1024, 1280, 4096, 11008 and 14336, all
+//   multiples of 128; the quantizer's G = 64; contiguous layer slices,
+//   16-byte aligned) takes TMA with G = 64, the variants <MT, WR, true,
+//   true>.  The plain-load and any-G variants are reached only by other
+//   shapes or groups (the tiny test configurations, the card tests' odd
+//   shapes); they keep the function's shape rules
+//   (ops/int4_matmul.py::int4_matmul_usable) whole.
 //   The consumers are issue-bound, not the loads (PERF.md §6): their
 //   shared-memory offsets are computed once, and a stage's partials start
 //   from a zero-accumulator product.

@@ -57,8 +57,7 @@
 //   S (TMA reads those rows as zeros, whose score 0 would otherwise count;
 //   -inf keeps them out of the max and the sum).  x = q.k * scale*log2(e)
 //   + term, one FFMA; p = exp2(x - max).
-// - Grid, chosen by timing both shapes on the H100
-//   (tools/exp_kernel_schedules_torch.py vit; PERF.md §6): one pass, one
+// - Grid, chosen by timing both shapes on the H100 (PERF.md §6): one pass, one
 //   block per (64 query rows, head, image), one warpgroup and no producer
 //   warp (thread 0 issues the loads): at S = 257 that is 5 x 16 = 80
 //   blocks for one image, each on an SM of its own, and two blocks fit an
@@ -94,10 +93,12 @@ struct Dims {
 
 // Shared memory, from the 1024-aligned base: the 128-byte-swizzle parts
 // (each a multiple of 1024 bytes), then the 32-byte-swizzle parts (of 256),
-// the key terms and the barriers.  W warpgroups; kOne: the one-pass layout
-// (one K and one V buffer of 272 rows), else kRing stages of 128 keys.
-template <int DH, bool kOne, int W>
+// the key terms and the barriers.  kOne: the one-pass layout (one
+// warpgroup, one K and one V buffer of 272 rows), else two warpgroups
+// sharing kRing stages of 128 keys.
+template <int DH, bool kOne>
 struct Smem {
+  static constexpr int W = kOne ? 1 : 2;  // warpgroups a block
   static constexpr int kKvRows = kOne ? kOneRows : kTileKeys;
   static constexpr int kStages = kOne ? 1 : kRing;
   static constexpr int kKvA = kKvRows * 128;
@@ -257,11 +258,11 @@ __device__ __forceinline__ void tail_fragment(const float (&s8)[4], const float 
   p[2] = p[3] = 0u;
 }
 
-// the output rows in bf16, each times its o_scale (1: P came normalised)
+// the output rows in bf16 (P came normalised)
 template <int DH>
 __device__ __forceinline__ void store_rows(const float (&o)[32], const float (&o2)[8],
-                                           const float (&o_scale)[2], const VitParams& p,
-                                           int row0, int warp, int lane, int h, int b) {
+                                           const VitParams& p, int row0, int warp, int lane,
+                                           int h, int b) {
   const int col = 2 * (lane % 4);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -271,20 +272,21 @@ __device__ __forceinline__ void store_rows(const float (&o)[32], const float (&o
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + col) = __floats2bfloat162_rn(
-          o[4 * j + 2 * r] * o_scale[r], o[4 * j + 2 * r + 1] * o_scale[r]);
+          o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
     }
 #pragma unroll
     for (int j = 0; j < (DH - 64) / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(row + 64 + 8 * j + col) = __floats2bfloat162_rn(
-          o2[4 * j + 2 * r] * o_scale[r], o2[4 * j + 2 * r + 1] * o_scale[r]);
+          o2[4 * j + 2 * r], o2[4 * j + 2 * r + 1]);
     }
   }
 }
 
-template <int DH, bool kOne, int W>
-__global__ void __launch_bounds__(128 * W, 1)
+template <int DH, bool kOne>
+__global__ void __launch_bounds__(128 * Smem<DH, kOne>::W, 1)
 vit_attention_kernel(const __grid_constant__ Maps maps, const VitParams p) {
-  using L = Smem<DH, kOne, W>;
+  using L = Smem<DH, kOne>;
+  constexpr int W = L::W;
   constexpr int kRowBytes = Dims<DH>::kRowBytes;
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle wants 1024-byte aligned boxes
@@ -365,15 +367,12 @@ vit_attention_kernel(const __grid_constant__ Maps maps, const VitParams p) {
   const uint32_t q_a = base + L::q_a + wg * kRows * 128;
   const uint32_t q_b = base + L::q_b + wg * kRows * Dims<DH>::kB;
   float o[32], o2[8];
-  float o_scale[2] = {1.f, 1.f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) o2[i] = 0.f;
 
   if constexpr (kOne) {
-    // a warpgroup past S has no row to write (thread 0's never is)
-    if (row0 >= p.S) return;
     float s[128], s8[4];
 #pragma unroll
     for (int i = 0; i < 128; ++i) s[i] = 0.f;
@@ -396,9 +395,8 @@ vit_attention_kernel(const __grid_constant__ Maps maps, const VitParams p) {
     exp2_rows(s, m, l);
     exp2_rows(s8, m, l);
     quad_sum(l);
-    float p_scale[2];
     // the rounding point: P normalised, then rounded; the output as P.V leaves it
-    p_scale[0] = 1.f / l[0], p_scale[1] = 1.f / l[1], o_scale[0] = o_scale[1] = 1.f;
+    const float p_scale[2] = {1.f / l[0], 1.f / l[1]};
     uint32_t pf[17][4];
     normalised_fragments(s, p_scale, pf);
     tail_fragment(s8, p_scale, pf[16]);
@@ -477,7 +475,7 @@ vit_attention_kernel(const __grid_constant__ Maps maps, const VitParams p) {
       release(i);
     }
   }
-  store_rows<DH>(o, o2, o_scale, p, row0, warp, lane, h, b);
+  store_rows<DH>(o, o2, p, row0, warp, lane, h, b);
 }
 
 // One warpgroup, the one-pass schedule's two products on one head, through
@@ -488,7 +486,7 @@ vit_attention_kernel(const __grid_constant__ Maps maps, const VitParams p) {
 template <int DH>
 __global__ void __launch_bounds__(128)
 vit_tile_check_kernel(const __grid_constant__ Maps maps, float* s_out, float* o_out) {
-  using L = Smem<DH, true, 1>;
+  using L = Smem<DH, true>;
   constexpr int kRowBytes = Dims<DH>::kRowBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -565,10 +563,11 @@ bool make_maps(CUtensorMap* a, CUtensorMap* b, const void* ptr, int rows, int B,
          make_map(b, ptr, DH, 16, rows, CU_TENSOR_MAP_SWIZZLE_32B, B, S, H, sb, ss, sh);
 }
 
-template <int DH, bool kOne, int W>
+template <int DH, bool kOne>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
            int S, int H, const long long (&st)[12], float scale, cudaStream_t stream) {
-  using L = Smem<DH, kOne, W>;
+  using L = Smem<DH, kOne>;
+  constexpr int W = L::W;
   Maps m{};
   const int kv_rows = kOne ? kOneBox : kTileKeys;
   if (!make_maps<DH>(&m.qa, &m.qb, q, kRows, B, S, H, st[0], st[1], st[2]) ||
@@ -576,7 +575,7 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
       !make_maps<DH>(&m.va, &m.vb, v, kv_rows, B, S, H, st[6], st[7], st[8])) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = vit_attention_kernel<DH, kOne, W>;
+  auto kernel = vit_attention_kernel<DH, kOne>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -592,14 +591,14 @@ int launch_dh(const void* q, const void* k, const void* v, const void* valid, vo
               int S, int H, const long long (&st)[12], float scale, cudaStream_t stream) {
   // one pass: a warpgroup a block (two blocks an SM); two passes: two
   // warpgroups share the K/V ring (its 136 KB leave one block an SM)
-  if (S <= kOneKeys) return launch<DH, true, 1>(q, k, v, valid, out, B, S, H, st, scale, stream);
-  return launch<DH, false, 2>(q, k, v, valid, out, B, S, H, st, scale, stream);
+  if (S <= kOneKeys) return launch<DH, true>(q, k, v, valid, out, B, S, H, st, scale, stream);
+  return launch<DH, false>(q, k, v, valid, out, B, S, H, st, scale, stream);
 }
 
 template <int DH>
 int tile_check(const void* q, const void* k, const void* v, void* s_out, void* o_out,
                cudaStream_t stream) {
-  using L = Smem<DH, true, 1>;
+  using L = Smem<DH, true>;
   Maps m{};
   if (!make_maps<DH>(&m.qa, &m.qb, q, kRows, 1, kRows, 1, 0, DH, 0) ||
       !make_maps<DH>(&m.ka, &m.kb, k, kOneBox, 1, kOneKeys, 1, 0, DH, 0) ||

@@ -48,7 +48,7 @@ def launch_plan(m: int, k2: int, n: int, n_sm: int) -> tuple[int, int]:
     about two blocks an SM up to 32 rows.  Above, the blocks' registers
     allow one an SM, and clusters of 4 such blocks over 128 SMs took two
     waves (a cluster's blocks share one GPC): at most half the SMs' worth
-    of blocks (tools/exp_kernel_schedules_torch.py int4-splits)."""
+    of blocks (timed on the H100: PERF.md §6)."""
     tiles = math.ceil(n / TILE_N)
     stages = math.ceil(k2 / STAGE_ROWS)
     want = math.ceil(2 * n_sm / tiles) if m <= 32 else n_sm // (2 * tiles)

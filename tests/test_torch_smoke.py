@@ -2,9 +2,8 @@
 kernel case's bound counts, the limit each case is held to, the device-busy
 union the training profile reports, the launch counts phases 6, 7 and 8
 predict (rehearsed at tiny size), and the kernel lines that
-``tools/mutation_check_torch_kernels.py`` breaks and
-``tools/exp_kernel_schedules_torch.py`` patches (so a change to a kernel
-cannot silently leave either with nothing to break)."""
+``tools/mutation_check_torch_kernels.py`` breaks (so a change to a kernel
+cannot silently leave the mutation check with nothing to break)."""
 
 import importlib.util
 import sys
@@ -32,26 +31,6 @@ T = _load("tools/mutation_check_torch_kernels.py", "mutation_check_torch_kernels
 @pytest.fixture(scope="module")
 def cases():
     return {(c.name, c.label): c for c in C.kernel_cases(torch.device("cpu"))}
-
-
-S = _load("tools/exp_kernel_schedules_torch.py", "exp_kernel_schedules_torch")
-
-
-@pytest.mark.parametrize("source,name", [
-    *(("vit_attention.cu", n) for n in S.VIT_VARIANTS),
-    *(("int4_matmul.cu", n) for n in S.INT4_LOAD_VARIANTS),
-    ("int4_matmul.cu", "timeline"),
-])
-def test_schedule_experiment_patches_apply_once(source, name):
-    """``tools/exp_kernel_schedules_torch.py`` builds its variants from
-    patched copies of the kernels: each line it patches is in the source
-    once (a change to a kernel cannot leave the experiment with nothing to
-    patch)."""
-    patches = S.TIMELINE_PATCHES if name == "timeline" else (
-        S.VIT_VARIANTS if source == "vit_attention.cu" else S.INT4_LOAD_VARIANTS)[name]
-    text = (REPO / "licv_vqa_tpu_torch/csrc" / source).read_text()
-    for old, new in patches:
-        assert old != new and text.count(old) == 1, old[:60]
 
 
 @pytest.mark.parametrize("name", list(T.MUTATIONS))
@@ -215,6 +194,75 @@ def test_int4_probe_case_holds_its_plain_version_on_cpu(cases, monkeypatch):
     c = cases["int4_unpack_probe", "d (8,4096,11008) G=64"]
     err, ratio = C.compare(c.kernel, c.plain)
     assert err == 0.0 and ratio == 0.0
+
+
+def test_int4_cold_library_builds_every_layout_before_the_timed_calls(monkeypatch):
+    """The cold case's library call converts each weight copy's layout at
+    its first call: all of them at the case's first call (``library_runs``,
+    untimed), none in the calls that ``device_times`` profiles, which go to
+    the copies in turn."""
+    built, called = [], []
+
+    def fake_library(operands, group):
+        i = fake_library.made
+        fake_library.made += 1
+        state = {"built": False}
+
+        def call():
+            if not state["built"]:
+                state["built"] = True
+                built.append(i)
+            called.append(i)
+
+        return call
+
+    fake_library.made = 0
+    monkeypatch.setattr(C, "int4pack_library", fake_library)
+    c = C.int4_cold_case(torch.device("cpu"))
+    assert fake_library.made == C.INT4_COLD_COPIES and built == []
+    c.library()
+    assert sorted(built) == list(range(C.INT4_COLD_COPIES))
+    for _ in range(3 * C.INT4_COLD_COPIES):
+        c.library()
+    assert len(built) == C.INT4_COLD_COPIES
+    assert sorted(called[-C.INT4_COLD_COPIES:]) == list(range(C.INT4_COLD_COPIES))
+
+
+def test_mean_ratio_of_equal_outputs_is_zero(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    x = torch.randn((4, 8), generator=torch.Generator().manual_seed(0))
+    assert C.mean_ratio(lambda: x.clone(), lambda: x) == 0.0
+
+
+def test_mean_ratio_reads_only_the_given_rows(monkeypatch):
+    """One row off by 0.1 in a (2, 2, 3) output of ones: 0.1 · 3 / 12 over
+    every row; 0 on the rows that hold no error."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    want = torch.ones((2, 2, 3))
+    got = want.clone()
+    got[0, 1] += 0.1
+    assert C.mean_ratio(lambda: got, lambda: want) == pytest.approx(0.1 * 3 / 12)
+    rows = torch.tensor([[True, False], [True, True]])
+    assert C.mean_ratio(lambda: got, lambda: want, rows) == 0.0
+
+
+def test_mean_ratio_takes_the_worst_output(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    want = (torch.ones(8), 2 * torch.ones(8))
+    got = (torch.ones(8) + 0.01, 2 * torch.ones(8) + 0.1)
+    assert C.mean_ratio(lambda: got, lambda: want) == pytest.approx(0.05)
+
+
+@pytest.mark.parametrize("b,s,dh,masked", C.VIT_SHAPES)
+def test_vit_case_holds_the_mean_limit_on_cpu(cases, b, s, dh, masked, monkeypatch):
+    """Every fused-ViT case (and no other) carries the mean-error limit;
+    on CPU tensors the wrapper takes the plain version, so it reads 0."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    c = cases["vit_attention", f"({b},{s},16,{dh}) {'masked' if masked else 'all valid'}"]
+    assert c.mean_tol == C.VIT_MEAN_TOL
+    assert all(other.mean_tol is None for (name, _), other in cases.items()
+               if name != "vit_attention")
+    assert C.mean_ratio(c.kernel, c.plain, c.rows) == 0.0
 
 
 def test_w8a8_and_probe_cases_cover_their_shapes(cases):
