@@ -64,15 +64,22 @@ Phases (any failure exits non-zero before the result lines):
    ``F.scaled_dot_product_attention`` under the key mask as the library
    call; the w8a8 kernel (``csrc/w8a8_matmul.cu``), both entry points
    (fused, pre-quantized) at ``W8A8_SHAPES`` (run A's 64-token prefill,
-   its bind-time K/V and perceiver calls at K = 1280, and the tuning tool's
-   serving-prefill MLP), held to EQUAL its plain version (limit 0), with
-   ``torch._int_mm`` on the pre-quantized plane (rows padded as
-   ``_int_product`` pads them) as the library call; and the int4
-   unpack-schedule probe (``csrc/int4_unpack_probe.cu``), its four
-   schedules at the tool's (8, 4096, 11008), G = 64, each to
-   ``F32_REL_TOL``, with ``torch._weight_int4pack_mm`` (the layout
-   converted once) as the library call, which the int4 matmul's cases get
-   too;
+   its 32-shot ``test_icl`` prefill in the 512-token bucket, its bind-time
+   K/V and perceiver calls at K = 1280, and the tuning tool's
+   serving-prefill MLP), held to EQUAL its plain version (limit 0) and
+   called twice for equal bits, with ``torch._int_mm`` on the
+   pre-quantized plane (rows padded as ``_int_product`` pads them) as the
+   library call, and the fused entry point with its weights cold at
+   ``W8A8_COLD_SHAPES`` (each call on the next of a set of weight copies
+   past the L2, the library call likewise); and the int4 unpack-schedule
+   probe (``csrc/int4_unpack_probe.cu``), its four schedules at the tool's
+   (8, 4096, 11008), G = 64, each to ``F32_REL_TOL``, warm and with its
+   weights cold, with ``torch._weight_int4pack_mm`` (the layout converted
+   once, for each copy before the timed calls) as the library call, which
+   the int4 matmul's cases get too.  A device time is the sum of every
+   kernel one call launches (the w8a8 row pass and matmul, schedule f's
+   correction outside the probe kernel); a profiled session that recorded
+   fewer kernels than the calls launch is not used;
 4. the eval path at Idefics-9B FULL width (32 layers, d=4096, ViT-H, 6-layer
    perceiver, 8 cross-attention blocks; random bf16 weights made on the card
    from a seed, ~18 GB), through the runner entry points the CLI calls
@@ -338,14 +345,22 @@ def queued_ms(fn, calls: int, reps: int = 3) -> float:
 def device_times(fns, calls: int) -> tuple[list, str]:
     """Device time per call of each of ``fns`` and how it was taken: the
     sum of the device-kernel intervals ``torch.profiler`` records over
-    ``calls`` calls, divided by ``calls`` (host launch gaps between kernels
-    not counted), or, where the profiler records nothing for one of them,
-    ``queued_ms`` for all of them, so that they stay comparable."""
+    ``calls`` calls, divided by ``calls`` (every kernel a call launches;
+    host launch gaps between kernels not counted), or, where the profiler
+    records nothing for one of them or fewer kernels over the ``calls``
+    calls than ``calls`` times what it records for one call (a session
+    that lost events reads too low), ``queued_ms`` for all of them, so
+    that they stay comparable."""
     times = []
     for fn in fns:
         fn()
+        _, one = device_events(fn) if _profiler_works else (None, None)
         _, events = (device_events(lambda: [fn() for _ in range(calls)])
-                     if _profiler_works else (None, None))
+                     if one is not None else (None, None))
+        if events is not None and len(events) < calls * len(one):
+            log(f"  torch.profiler recorded {len(events)} kernels over {calls} calls of "
+                f"{len(one)} each: timed from CUDA events instead")
+            events = None
         if events is None:
             return [queued_ms(f, calls) for f in fns], "events"
         times.append(sum(e.time_range.end - e.time_range.start for e in events) / calls / 1e3)
@@ -815,7 +830,6 @@ def int4_cold_case(dev):
     call of each compares equal inputs and two calls give equal bits); the
     library call through as many copies of its own layout."""
     import functools
-    import itertools
 
     import torch
 
@@ -834,10 +848,6 @@ def int4_cold_case(dev):
         copies = [(leaf["q4"].clone(), s.clone()) for _ in range(INT4_COLD_COPIES)]
         return x, copies, Q._unpack_int4(leaf["q4"]), s
 
-    def cycling(call):
-        count = itertools.count()
-        return lambda: call(next(count) % INT4_COLD_COPIES)
-
     layouts = [int4pack_library(lambda: (inputs()[0], *inputs()[2:]), INT4_GROUP)
                for _ in range(INT4_COLD_COPIES)]
 
@@ -852,12 +862,12 @@ def int4_cold_case(dev):
     return Case(
         "int4_matmul", f"cold ({m},{k},{n}) bf16 out, {INT4_COLD_COPIES} weight copies",
         cycling(lambda i: I4.int4_matmul(inputs()[0], *inputs()[1][i], INT4_GROUP,
-                                         torch.bfloat16)),
+                                         torch.bfloat16), INT4_COLD_COPIES),
         cycling(lambda i: I4.int4_matmul_reference(inputs()[0], *inputs()[1][i], INT4_GROUP,
-                                                   torch.bfloat16)),
+                                                   torch.bfloat16), INT4_COLD_COPIES),
         bytes_moved=m * k * 2 + k * n // 2 + (k // INT4_GROUP) * n * 2 + m * n * 2,
-        ops=2 * m * k * n, op_type="bf16", library=cycling(lambda i: built()[i]()),
-        deterministic=True,
+        ops=2 * m * k * n, op_type="bf16",
+        library=cycling(lambda i: built()[i](), INT4_COLD_COPIES), deterministic=True,
     )
 
 
@@ -891,16 +901,34 @@ def int4pack_library(operands, group: int):
 
 # w8a8 (phase 6's run A and the tuning tool): (M, K, N) and the output
 # dtype.  Run A's 64-token prefill (the attention projections; the MLP in
-# and out, f32), the bind-time cross-attention K/V of 64 perceiver latents
-# (K = 1280: 16 a question) and the perceiver's K/V over 64 latents and 257
-# patches (12 a question); the tool's serving-prefill MLP (M = 64 x 64)
+# and out, f32), its 32-shot test_icl prefill in the 512-token bucket (the
+# same projections), the bind-time cross-attention K/V of 64 perceiver
+# latents (K = 1280: 16 a question) and the perceiver's K/V over 64 latents
+# and 257 patches (12 a question); the tool's serving-prefill MLP (M = 64 x
+# 64)
 W8A8_SHAPES = (
     ((64, 4096, 4096), "bf16"), ((64, 4096, 11008), "f32"), ((64, 11008, 4096), "f32"),
+    ((512, 4096, 4096), "bf16"), ((512, 4096, 11008), "f32"), ((512, 11008, 4096), "f32"),
     ((64, 1280, 4096), "bf16"), ((321, 1280, 1536), "bf16"),
     ((4096, 4096, 11008), "bf16"), ((4096, 11008, 4096), "bf16"),
 )
-# the int4 unpack probe's shape (tools/exp_int4_unpack.py: M, K, N, G)
+# the fused w8a8 kernel with its weights cold: run A's 64-token prefill
+# projection and MLP-in, each call on the next of the copies (8 x 16.8 MB
+# and 4 x 45.1 MB, past the 50 MB L2), as a prefill streams its layers'
+# weights from device memory
+W8A8_COLD_SHAPES = (((64, 4096, 4096), "bf16", 8), ((64, 4096, 11008), "f32", 4))
+# the int4 unpack probe's shape (tools/exp_int4_unpack.py: M, K, N, G) and
+# its cold copies (6 x 25.3 MB)
 INT4_PROBE_SHAPE = (8, 4096, 11008)
+INT4_PROBE_COLD_COPIES = 6
+
+
+def cycling(call, copies: int):
+    """``call(i)`` on the next of ``copies`` operand copies at each call."""
+    import itertools
+
+    count = itertools.count()
+    return lambda: call(next(count) % copies)
 
 
 def w8a8_cases(dev):
@@ -937,7 +965,7 @@ def w8a8_cases(dev):
             lambda i=inputs, o=odt: I8.w8a8_matmul(i()["x"], i()["q"], i()["s"], o),
             lambda i=inputs, o=odt: I8.w8a8_matmul_reference(i()["x"], i()["q"], i()["s"], o),
             bytes_moved=m * k * 2 + w_bytes + m * n * ob, ops=2 * m * k * n, op_type="int8",
-            library=library, calls=calls, tol=0.0,
+            library=library, calls=calls, tol=0.0, deterministic=True,
         )
         yield Case(
             "w8a8_matmul", f"prequantized ({m},{k},{n}) {out} out",
@@ -946,8 +974,45 @@ def w8a8_cases(dev):
             lambda i=inputs, o=odt: I8.w8a8_prequantized_reference(
                 i()["xq"], i()["xs"], i()["q"], i()["s"], o),
             bytes_moved=m * k + m * 4 + w_bytes + m * n * ob, ops=2 * m * k * n, op_type="int8",
-            library=library, calls=calls, tol=0.0,
+            library=library, calls=calls, tol=0.0, deterministic=True,
         )
+    for (m, k, n), out, copies in W8A8_COLD_SHAPES:
+        yield w8a8_cold_case(dev, m, k, n, out, copies)
+
+
+def w8a8_cold_case(dev, m: int, k: int, n: int, out: str, copies: int):
+    """The fused w8a8 kernel, its plain version and the library call, each
+    cycling through ``copies`` copies of one quantized weight (equal bytes
+    at other addresses: equal outputs, so two calls give equal bits);
+    ``torch._int_mm`` takes the weight's own layout, so its copies are
+    built as the kernel's are, before any timed call."""
+    import functools
+
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+    from licv_vqa_tpu_torch.ops import quantize as Q
+
+    odt = torch.float32 if out == "f32" else torch.bfloat16
+
+    @functools.cache
+    def inputs():
+        g = torch.Generator(device=dev).manual_seed(m + k + n)
+        leaf = Q.quantize_array(
+            (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16))
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        xq_p = I8.pad_rows_for_int_mm(I8.quantize_act_rows(x)[0])
+        return x, [(leaf["q"].clone(), leaf["s"].clone()) for _ in range(copies)], xq_p
+
+    return Case(
+        "w8a8_matmul", f"cold fused ({m},{k},{n}) {out} out, {copies} weight copies",
+        cycling(lambda i: I8.w8a8_matmul(inputs()[0], *inputs()[1][i], odt), copies),
+        cycling(lambda i: I8.w8a8_matmul_reference(inputs()[0], *inputs()[1][i], odt), copies),
+        bytes_moved=m * k * 2 + k * n + n * 4 + m * n * (4 if out == "f32" else 2),
+        ops=2 * m * k * n, op_type="int8",
+        library=cycling(lambda i: torch._int_mm(inputs()[2], inputs()[1][i][0]), copies),
+        tol=0.0, deterministic=True,
+    )
 
 
 def int4_probe_cases(dev):
@@ -973,6 +1038,8 @@ def int4_probe_cases(dev):
         return x, q, s
 
     library = int4pack_library(operands, g)
+    # bf16 x, a byte a nibble pair, f32 group scales, f32 out
+    nbytes = m * k * 2 + k * n // 2 + (k // g) * n * 4 + m * n * 4
     for sched in P.SCHEDULES:
         packed = functools.cache(lambda sched=sched: P.probe_operands(*operands()[1:], sched))
         yield Case(
@@ -980,10 +1047,32 @@ def int4_probe_cases(dev):
             lambda sched=sched, pk=packed: P.int4_unpack_probe(operands()[0], *pk(), g, sched),
             lambda sched=sched, pk=packed: P.int4_unpack_probe_reference(
                 operands()[0], *pk(), g, sched),
-            # bf16 x, a byte a nibble pair, f32 group scales, f32 out
-            bytes_moved=m * k * 2 + k * n // 2 + (k // g) * n * 4 + m * n * 4,
-            ops=2 * m * k * n, op_type="bf16", library=library, calls=50, tol=F32_REL_TOL,
+            bytes_moved=nbytes, ops=2 * m * k * n, op_type="bf16", library=library, calls=50,
+            tol=F32_REL_TOL,
         )
+    # schedule a (the int4 kernel's decode) with its weights cold: the
+    # kernel, its plain version and the library call each cycling through
+    # INT4_PROBE_COLD_COPIES copies, the library's layouts built before any
+    # timed call
+    copies = INT4_PROBE_COLD_COPIES
+    cold = functools.cache(lambda: [tuple(t.clone() for t in P.probe_operands(*operands()[1:], "a"))
+                                    for _ in range(copies)])
+    layouts = [int4pack_library(operands, g) for _ in range(copies)]
+
+    @functools.cache
+    def built():
+        for layout in layouts:
+            layout()
+        return layouts
+
+    yield Case(
+        "int4_unpack_probe", f"cold a ({m},{k},{n}) G={g}, {copies} weight copies",
+        cycling(lambda i: P.int4_unpack_probe(operands()[0], *cold()[i], g, "a"), copies),
+        cycling(lambda i: P.int4_unpack_probe_reference(operands()[0], *cold()[i], g, "a"),
+                copies),
+        bytes_moved=nbytes, ops=2 * m * k * n, op_type="bf16",
+        library=cycling(lambda i: built()[i](), copies), calls=50, tol=F32_REL_TOL,
+    )
 
 
 def compare(kernel, plain, rows=None) -> tuple[float, float]:

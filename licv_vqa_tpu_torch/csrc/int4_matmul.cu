@@ -65,26 +65,20 @@
 //   owns that slice of the tile (distributed shared memory), one cluster
 //   barrier later each block sums its slice over the senders in rank order
 //   and writes it.  No atomics, no scratch, no second launch.
-#include <cooperative_groups.h>
-
-#include "flash_fwd_sm90.cuh"
+// Its primitives (TMA boxes, swizzle, fragments, cluster barriers, the
+// launch) are csrc/quant_sm90.cuh's, which the int4 unpack probe and the
+// w8a8 matmul share.
+#include "quant_sm90.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-using flash_sm90::encode_tiled;
-using flash_sm90::mbar_arrive;
-using flash_sm90::mbar_expect_tx;
-using flash_sm90::mbar_init;
-using flash_sm90::mbar_wait;
-using flash_sm90::prefetch_map;
-using flash_sm90::smem_u32;
+using namespace quant_sm90;
 
 constexpr int kBN = 128;       // columns (packed bytes) a block
 constexpr int kBK = 64;        // packed rows a stage
 constexpr int kStages = 4;
 constexpr int kMaxGroupRows = 5;  // scale rows of the groups a stage touches (G >= 16)
-constexpr int kMaxSplits = 8;     // a portable cluster
 // the activation plane the low nibbles multiply (in-features i < K/2)
 constexpr int kLoPlane = 0;
 // bf16x2 {136, 136}: a nibble n in the mantissa of 128 reads 128 + n; the
@@ -116,65 +110,6 @@ struct Stage {
   static constexpr int bytes = (scales + 2 * splane + 1023) / 1024 * 1024;
 };
 
-// byte offset of (row r, byte c) in a 128-byte-swizzled tile of 128-byte rows
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15));
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// d += a.b (m16n8k16, bf16 in, f32 accumulate); with kFirst, d = a.b
-template <bool kFirst = false>
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  if constexpr (kFirst) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-}
-
-// the A fragment of an m16k16 tile (rows g, g + 8 by k 2t, 2t + 8) from
-// the lanes' row addresses
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// (a & b) | c and (a & b) ^ c in one instruction each
-__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-__device__ __forceinline__ uint32_t and_xor(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0x6A;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&d);
-}
-
 // The B fragments of one k16 step for both planes: w[0..3] are a thread's
 // words of packed rows 2t, 2t+1, 2t+8, 2t+9 (four columns each); tile j
 // takes byte j.  Register 0 holds rows 2t and 2t+1, register 1 rows 2t+8
@@ -190,12 +125,6 @@ __device__ __forceinline__ void decode_fragments(const uint32_t (&w)[4], uint32_
       lo[j][r] = bf16x2_sub(and_or(v, 0x000F000Fu, 0x43004300u), kLoBias);
       hi[j][r] = bf16x2_sub(and_xor(v >> 4, 0x000F000Fu, 0x43084308u), kHiBias);
     }
-}
-
-// the fragment's rows outside [lo, hi) of the step zeroed (a group boundary
-// or the split's end inside a k16 step)
-__device__ __forceinline__ uint32_t row_mask(int r0, int lo, int hi) {
-  return (r0 >= lo && r0 < hi ? 0x0000FFFFu : 0u) | (r0 + 1 >= lo && r0 + 1 < hi ? 0xFFFF0000u : 0u);
 }
 
 // A consumer thread's shared-memory offsets in a stage: its B words of
@@ -285,16 +214,6 @@ __device__ __forceinline__ void fold(const uint8_t* s_lo, const uint8_t* s_hi, i
         acc[mt][j][e] = fmaf(phi[mt][j][e], b, acc[mt][j][e]);
       }
     }
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // The warps of a block: 4 column slices of 32 by WR rows of MT m16 tiles
@@ -516,23 +435,6 @@ int4_matmul_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant
   }
 }
 
-// a 2-D (inner, outer) map with the given element type, row pitch in bytes
-// and box
-bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int inner,
-                 int outer, long long pitch, int box_inner, int box_outer,
-                 CUtensorMapSwizzle swizzle) {
-  const auto encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int MT, int WR, bool kTma, bool kG64>
 int launch(const Problem& p, int splits, cudaStream_t stream) {
   using Sh = Shape<MT, WR>;
@@ -548,25 +450,9 @@ int launch(const Problem& p, int splits, cudaStream_t stream) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  auto kernel = int4_matmul_kernel<MT, WR, kTma, kG64>;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.N + kBN - 1) / kBN, 1, splits);
-  cfg.blockDim = dim3(Sh::kThreads);
-  cfg.dynamicSmemBytes = Sh::kSmem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = 1;
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = splits;
-  cfg.attrs = attrs;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, tw, tx, ts, p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster(int4_matmul_kernel<MT, WR, kTma, kG64>,
+                        dim3((p.N + kBN - 1) / kBN, 1, splits), Sh::kThreads, Sh::kSmem, splits,
+                        stream, tw, tx, ts, p);
 }
 
 // the block's warps for M rows: up to 16, one m16 tile a warp; up to 32,
@@ -577,8 +463,6 @@ int launch_m(const Problem& p, int splits, cudaStream_t stream) {
   if (p.M <= 32) return launch<2, 1, kTma, kG64>(p, splits, stream);
   return launch<2, 2, kTma, kG64>(p, splits, stream);
 }
-
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 }  // namespace
 

@@ -13,60 +13,67 @@
 // with IEEE division, the int32 -> f32 cast rounding to nearest, and y in
 // bf16 or f32 (round to nearest even).  x is (M, K) bf16 or f32, or xq
 // (M, K) int8 with its scales xs (M,) f32 for the pre-quantized entry
-// point; q is (K, N) int8 with N contiguous (the port's weight layout);
-// s is (N,) f32; all contiguous.  Any M, K, N: ragged tiles are masked.
+// point; q is (K, N) int8 with N contiguous (the port's weight layout,
+// which run A's int8 decode kernel reads too: no second copy); s is (N,)
+// f32; all contiguous.  Any M, K, N: what lies outside is zero.
 //
-// What bounds it on the H100: at the prefill shapes (M = 64 to 16384
-// rows, K and N 1280 to 11008) it does 2*M*K*N int8 operations against
-// M*K*2 + K*N bytes.  At run A's M = 64 that is about 128 operations a
-// byte, under the ~590 the card needs to be compute-bound at 1979 TOP/s:
-// the bound is the weight bytes over 3.35 TB/s, and the work is to keep
-// enough loads in flight.  From M = 1024 up the bound is the int8
-// tensor-core rate.  A simple kernel first: `mma.sync.m16n8k32` s8 tiles
-// from shared memory, an int32 accumulator in registers; no TMA, no
-// `wgmma` (later work).
+// What bounds it on the H100: 2*M*K*N int8 operations against M*K*2 + K*N
+// bytes.  Up to M of about 512 (run A's 64-token prefill and bind, its
+// 32-shot prefill, the perceiver's 321 rows) that is under the ~590
+// operations a byte the card needs to be compute-bound at 1979 TOP/s: the
+// bound is the weight bytes over 3.35 TB/s, and the work is keeping loads
+// in flight.  Above, the bound is the int8 tensor-core rate.  The design:
 //
-// Design:
-// - a block of 4 or 8 warps owns a BM x BN tile of y (64 x 64 or 128 x
-//   128) and walks its K range in steps of 64 bytes; each warp owns a
-//   sub-tile, its fragments loaded with `ldmatrix.x4`;
-// - one stage of shared memory, with the next step's tiles loaded into
-//   registers while the current step's products run;
-// - the mma's B operand wants K contiguous per column, but q has N
-//   contiguous, and `ldmatrix.trans` moves 16-bit elements only: q is
-//   transposed while it is staged, a 4 x 4 block of bytes a thread (four
-//   32-bit loads from four rows, byte permutes, four 32-bit stores into
-//   the column-major tile);
-// - split-K where the tiles alone would leave SMs idle (M = 64): the
-//   blocks of a tile add their int32 sums into a zeroed (M, N) scratch
-//   with atomics, exact in any order, and a last kernel applies the
-//   epilogue;
-// - the fused entry point needs each row's absmax over the whole K before
-//   any tile is quantized (the TPU kernel held the whole (mt, K) block in
-//   VMEM; a 64 x 11008 bf16 block is 1.4 MB, shared memory 227 KB).  A
-//   first kernel sweeps each row once (one warp a row) and writes the row
-//   scales; the matmul kernel quantizes every K tile of x as it stages it.
-//   (Sweeping the rows in every block instead read them again for every
-//   column block and K split: 197 against 49 us for the pre-quantized
-//   kernel at (64, 11008, 4096) on the H100.)  The quotient v / scale is
-//   taken as v * (1 / scale), with the IEEE division where that product
-//   lies near a half-integer, so the rounding is the division's;
-// - staged rows are padded to 80 bytes, so the eight 16-byte rows an
-//   `ldmatrix` reads fall in distinct banks.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+// - Each row is quantized once: the fused entry point's first kernel
+//   (`quantize_rows`, one block a row) writes xq and xs into the caller's
+//   scratch; the matmul then reads int8 activations at every M, for both
+//   entry points.  The fused call costs the pre-quantized one plus one pass
+//   over x (the TPU kernel held the whole (mt, K) block in VMEM and
+//   quantized it in every column block).
+// - One matmul kernel, a producer warp and WM x WN consumer warps: the
+//   producer keeps a ring of TMA stages, 128 K-bytes each, of xq (BM rows,
+//   K contiguous) and of q in its own (K, N) layout (128 x 128-byte boxes),
+//   all 128-byte swizzled.  A consumer warp owns MT m16 tiles by NB groups
+//   of 32 columns; per k32 step it reads A with `ldmatrix` and feeds
+//   `mma.sync.m16n8k32.s8` (the int8 `wgmma` takes B K-major only, and q
+//   is N-major).
+// - B fragments in registers: a thread reads one 32-bit word (four
+//   columns) from each of four K-rows and transposes the 4 x 4 bytes with
+//   byte permutes, so that each word feeds four n8 tiles (tile j, column c
+//   is the group's column 4c + j).  A thread's K-rows are 4t + (i ^ (t & 2))
+//   for its i-th load, so that the warp's four rows of one load fall in
+//   four distinct 32-byte bank ranges of the swizzle; the permutes undo the
+//   order.  A thread's outputs are then 8 contiguous columns of a row.
+// - Two tiles (ops/int8_matmul.py::W8A8_TILES): "64x128" (four warps,
+//   64 rows each, three stages, two blocks an SM) streams the weight at
+//   M <= 512 and splits K over a thread-block cluster of up to 8 blocks:
+//   each block writes its int32 tile in chunks into the owners' receive
+//   buffers (distributed shared memory), one cluster barrier later each
+//   block sums its chunk over the senders in rank order, applies the
+//   epilogue and writes it (no atomics, no scratch, no second kernel).
+//   "128x256" (eight warps of 64 x 64, four stages, one block an SM) is
+//   the compute tile above, with no split; its epilogue is the registers'.
+// - Shapes TMA does not take (K or N not a multiple of 16, unaligned
+//   pointers) fill the same stage layout with the producer warp's plain
+//   loads; what lies past M, K or N is zero either way.
+#include "quant_sm90.cuh"
 
 namespace {
 
-constexpr int kBK = 64;               // K bytes staged per step: two mma k-steps
-constexpr int kRowBytes = kBK + 16;   // a staged row with its padding
+namespace cg = cooperative_groups;
+using namespace quant_sm90;
+
+constexpr int kBK = 128;               // K bytes a stage: four mma k32 steps
 constexpr float kInv127 = 1.0f / 127.0f;  // f32(1/127), as XLA folds a / 127
+constexpr int kRowThreads = 256;       // the row pass's block: one row
+constexpr int kRowVecs = 8;            // its vectors of 8 a thread held in registers
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
+
+// the IEEE quotient, out of line: the rare branch that takes it stays a
+// branch, not predicated code run for every activation
+__device__ __noinline__ float ieee_quotient(float v, float scale) { return __fdiv_rn(v, scale); }
 
 // one activation to int8 as the plain version rounds it: the IEEE quotient
 // v / scale, rounded half to even, clamped to +-127.  |v / scale| <= 127
@@ -75,19 +82,95 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 // unless it is within 2^-13 of a half-integer; there the division decides
 __device__ __forceinline__ uint32_t quantize(float v, float scale, float inv) {
   float y = __fmul_rn(v, inv);
-  if (fabsf(y - floorf(y) - 0.5f) < 1.220703125e-4f) y = __fdiv_rn(v, scale);
+  if (fabsf(y - floorf(y) - 0.5f) < 1.220703125e-4f) y = ieee_quotient(v, scale);
   const int r = __float2int_rn(y);
   return static_cast<uint32_t>(max(-127, min(127, r))) & 0xFFu;
 }
 
-// four int8 bytes at p (in one row); `vec`: aligned and all in the row
-__device__ __forceinline__ uint32_t load_bytes(const int8_t* p, bool vec, int cnt) {
-  if (vec) return __ldg(reinterpret_cast<const uint32_t*>(p));
-  uint32_t w = 0;
+// eight activations from 16-byte-aligned p
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (j < cnt) w |= static_cast<uint32_t>(static_cast<uint8_t>(p[j])) << (8 * j);
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// eight activations quantized, as eight bytes
+__device__ __forceinline__ uint2 quantize8(const float (&v)[8], float sc, float inv) {
+  uint2 w;
+  w.x = quantize(v[0], sc, inv) | quantize(v[1], sc, inv) << 8 |
+        quantize(v[2], sc, inv) << 16 | quantize(v[3], sc, inv) << 24;
+  w.y = quantize(v[4], sc, inv) | quantize(v[5], sc, inv) << 8 |
+        quantize(v[6], sc, inv) << 16 | quantize(v[7], sc, inv) << 24;
   return w;
+}
+
+// the block's absmax from each thread's, as the row's scale
+__device__ __forceinline__ float row_scale(float mx, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < kRowThreads / 32; ++w) mx = fmaxf(mx, red[w]);
+  return __fmul_rn(fmaxf(mx, 1e-8f), kInv127);
+}
+
+// The fused entry point's first kernel, one block a row m: xs[m] =
+// max(absmax, 1e-8) * f32(1/127) over the whole row, then the row's int8
+// plane into xq.  With `vec` (K % 8 == 0, x 16-byte aligned) a row of up
+// to kRowThreads * 8 * kRowVecs activations (every projection of the
+// supported models) is read once, eight a load, into registers, all loads
+// in flight together (M = 64 rows are 64 blocks: one load latency, not one
+// a loop trip), and written eight bytes a store
+template <class T>
+__global__ void __launch_bounds__(kRowThreads)
+quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int K,
+              int vec) {
+  __shared__ float red[kRowThreads / 32];
+  const int m = blockIdx.x, tid = threadIdx.x;
+  const T* row = x + static_cast<long long>(m) * K;
+  int8_t* qrow = xq + static_cast<long long>(m) * K;
+  const int k_end = K;  // the absmax runs over the whole row
+  float mx = 0.f;
+  if (vec && K <= kRowThreads * 8 * kRowVecs) {
+    float v[kRowVecs][8];
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i) {
+      const int k = (tid + i * kRowThreads) * 8;
+      if (k < K) load8(row + k, v[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i) {
+      if ((tid + i * kRowThreads) * 8 >= k_end) continue;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mx = fmaxf(mx, fabsf(v[i][e]));
+    }
+    const float sc = row_scale(mx, red), inv = __frcp_rn(sc);
+    if (tid == 0) xs[m] = sc;
+#pragma unroll
+    for (int i = 0; i < kRowVecs; ++i) {
+      const int k = (tid + i * kRowThreads) * 8;
+      if (k < K) *reinterpret_cast<uint2*>(qrow + k) = quantize8(v[i], sc, inv);
+    }
+    return;
+  }
+  // longer rows and unaligned ones: two passes, the second from the cache
+  for (int k = tid; k < k_end; k += kRowThreads) mx = fmaxf(mx, fabsf(to_f32(row[k])));
+  const float sc = row_scale(mx, red), inv = __frcp_rn(sc);
+  if (tid == 0) xs[m] = sc;
+  for (int k = tid; k < K; k += kRowThreads)
+    qrow[k] = static_cast<int8_t>(quantize(to_f32(row[k]), sc, inv));
 }
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
@@ -99,341 +182,605 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The s8 B registers of four n8 tiles from a thread's four words: w[i] is
+// K-row 4t + (i ^ (t & 2)) at the thread's four columns; b[j] gets byte j
+// of each row, K-rows 4t .. 4t + 3 from the low byte up.  sel_lo / sel_hi
+// are 0x5410 / 0x7632 for t < 2 and 0x1054 / 0x3276 for t >= 2, whose
+// first two words hold rows 2 and 3
+__device__ __forceinline__ void s8_fragments(const uint32_t (&w)[4], uint32_t sel_lo,
+                                             uint32_t sel_hi, uint32_t (&b)[4]) {
+  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
+  b[0] = __byte_perm(lo01, lo23, sel_lo);
+  b[1] = __byte_perm(lo01, lo23, sel_hi);
+  b[2] = __byte_perm(hi01, hi23, sel_lo);
+  b[3] = __byte_perm(hi01, hi23, sel_hi);
+}
+
 // the epilogue of one int32 sum: (float(acc) * xs) * s, each rounded
 __device__ __forceinline__ float epilogue(int c, float xsr, float sc) {
   return __fmul_rn(__fmul_rn(__int2float_rn(c), xsr), sc);
 }
 
-__device__ __forceinline__ void store_out(void* out, long long o, float v, int out_f32) {
-  if (out_f32) {
-    static_cast<float*>(out)[o] = v;
-  } else {
-    static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
-  }
-}
+struct Problem {
+  const int8_t* a;   // xq (M, K)
+  const float* xs;   // (M,)
+  const int8_t* q;   // (K, N)
+  const float* s;    // (N,)
+  void* out;         // (M, N) bf16 or f32
+  int M, K, N;
+  int k_per_split;   // a multiple of kBK
+  int out_f32;
+};
 
-// four 8 x 16-byte matrices from shared memory, one per register
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const int8_t* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// four activations as loaded (before quantization): the raw bytes of the
-// input type
-template <class T> struct Raw4;
-template <> struct Raw4<int8_t> { uint32_t v; };
-template <> struct Raw4<__nv_bfloat16> { uint2 v; };
-template <> struct Raw4<float> { float4 v; };
-
-template <class T>
-__device__ __forceinline__ Raw4<T> load_raw4(const T* p, bool vec, int cnt) {
-  Raw4<T> r;
-  if constexpr (std::is_same<T, int8_t>::value) {
-    r.v = load_bytes(p, vec, cnt);
-  } else if constexpr (std::is_same<T, float>::value) {
-    if (vec) {
-      r.v = __ldg(reinterpret_cast<const float4*>(p));
-    } else {
-      r.v.x = cnt > 0 ? p[0] : 0.f;
-      r.v.y = cnt > 1 ? p[1] : 0.f;
-      r.v.z = cnt > 2 ? p[2] : 0.f;
-      r.v.w = cnt > 3 ? p[3] : 0.f;
-    }
-  } else {
-    if (vec) {
-      r.v = __ldg(reinterpret_cast<const uint2*>(p));
-    } else {
-      const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
-      const uint32_t e0 = cnt > 0 ? h[0] : 0u, e1 = cnt > 1 ? h[1] : 0u;
-      const uint32_t e2 = cnt > 2 ? h[2] : 0u, e3 = cnt > 3 ? h[3] : 0u;
-      r.v.x = e0 | (e1 << 16);
-      r.v.y = e2 | (e3 << 16);
-    }
-  }
-  return r;
-}
-
-__device__ __forceinline__ void raw_floats(const Raw4<float>& r, float (&v)[4]) {
-  v[0] = r.v.x; v[1] = r.v.y; v[2] = r.v.z; v[3] = r.v.w;
-}
-__device__ __forceinline__ void raw_floats(const Raw4<__nv_bfloat16>& r, float (&v)[4]) {
-  v[0] = __uint_as_float(r.v.x << 16); v[1] = __uint_as_float(r.v.x & 0xFFFF0000u);
-  v[2] = __uint_as_float(r.v.y << 16); v[3] = __uint_as_float(r.v.y & 0xFFFF0000u);
-}
-
-// The fused entry point's first kernel: one warp a row sweeps the whole K
-// once, xs[m] = max(absmax, 1e-8) * f32(1/127)
-template <class T>
-__global__ void row_scales(const T* __restrict__ x, float* __restrict__ xs, int M, int K,
-                           int a_vec) {
-  const int r = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
-  if (r >= M) return;
-  const T* row = x + static_cast<long long>(r) * K;
-  const int k_end = K;  // the absmax runs over the whole row
-  float mx = 0.f;
-  if (a_vec) {
-    for (int k = lane * 4; k < k_end; k += 128) {
-      float v[4];
-      raw_floats(load_raw4(row + k, true, 4), v);
-      mx = fmaxf(mx, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
-    }
-  } else {
-    for (int k = lane; k < k_end; k += 32) mx = fmaxf(mx, fabsf(to_f32(row[k])));
-  }
+// Eight outputs of row m from column n on: (acc * xs[m]) * s[n + u]
+__device__ __forceinline__ void store8(const Problem& p, int m, int n, const int (&v)[8]) {
+  if (m >= p.M) return;
+  const float xsr = p.xs[m];
+  float y[8];
 #pragma unroll
-  for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
-  if (lane == 0) xs[r] = __fmul_rn(fmaxf(mx, 1e-8f), kInv127);
+  for (int u = 0; u < 8; ++u) y[u] = n + u < p.N ? epilogue(v[u], xsr, __ldg(p.s + n + u)) : 0.f;
+  const long long o = static_cast<long long>(m) * p.N + n;
+  if (p.out_f32) {
+    float* out = static_cast<float*>(p.out) + o;
+    if (p.N % 4 == 0 && n + 8 <= p.N) {
+      reinterpret_cast<float4*>(out)[0] = make_float4(y[0], y[1], y[2], y[3]);
+      reinterpret_cast<float4*>(out)[1] = make_float4(y[4], y[5], y[6], y[7]);
+    } else {
+      for (int u = 0; u < 8 && n + u < p.N; ++u) out[u] = y[u];
+    }
+  } else {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + o;
+    if (p.N % 8 == 0 && n + 8 <= p.N) {
+      uint4 w;
+      w.x = flash_sm90::pack_bf16(y[0], y[1]);
+      w.y = flash_sm90::pack_bf16(y[2], y[3]);
+      w.z = flash_sm90::pack_bf16(y[4], y[5]);
+      w.w = flash_sm90::pack_bf16(y[6], y[7]);
+      *reinterpret_cast<uint4*>(out) = w;
+    } else {
+      for (int u = 0; u < 8 && n + u < p.N; ++u) out[u] = __float2bfloat16_rn(y[u]);
+    }
+  }
 }
 
-// TA: int8_t (pre-quantized) or __nv_bfloat16 or float (fused: each K tile
-// quantized as it is staged); xs holds the row scales either way.  With
-// split-K (acc_out != nullptr) the blocks of blockIdx.z add their int32
-// sums into acc_out and `finish` applies the epilogue.
-template <class TA, int BM, int BN, int WARPS_M, int WARPS_N>
-__global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
-w8a8_kernel(const TA* __restrict__ a, const float* __restrict__ xs,
-            const int8_t* __restrict__ q, const float* __restrict__ s, void* __restrict__ out,
-            int* __restrict__ acc_out, int M, int K, int N,
-            int k_per_split, int a_vec, int q_vec, int out_f32) {
-  constexpr bool kFused = !std::is_same<TA, int8_t>::value;
-  constexpr int kWarps = WARPS_M * WARPS_N;
-  constexpr int kThreads = 32 * kWarps;
-  constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
-  constexpr int MI = WTM / 16, NI = WTN / 8;
-  constexpr int kItemsA = BM * (kBK / 4) / kThreads;         // 4 activations each
-  constexpr int kItemsB = (kBK / 4) * (BN / 4) / kThreads;   // a 4 x 4 block of bytes each
-  static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BN % 32 == 0, "tile");
-  static_assert(kItemsA * kThreads == BM * (kBK / 4) && kItemsB * kThreads == kBK * BN / 16,
-                "staging");
-  __shared__ __align__(16) int8_t a_s[BM * kRowBytes];  // (m, k), k contiguous
-  __shared__ __align__(16) int8_t b_s[BN * kRowBytes];  // (n, k), k contiguous
-  __shared__ float xs_s[BM];
-  __shared__ float inv_s[BM];  // 1 / xs, IEEE rounded
+// The producer warp: stage i (of STAGES) holds A, xq's BM rows by the 128
+// K bytes from k_begin + 128 i, then q's 128 rows by BN columns from n0 as
+// BN / 128 boxes of 128 x 128 bytes, all 128-byte swizzled; full(st) at
+// bars + 8 st completes when it has landed, empty(st) after it frees it
+template <int BM, int BN, int STAGES, bool kTma>
+__device__ __forceinline__ void produce(const CUtensorMap& ta, const CUtensorMap& tq,
+                                        const Problem& p, uint32_t base, uint8_t* base_ptr,
+                                        uint32_t bars, int n_stages, int k_begin, int m0, int n0,
+                                        int lane) {
+  constexpr int kA = BM * kBK, kStage = kA + BN * kBK;
+  for (int i = 0; i < n_stages; ++i) {
+    const int st = i % STAGES;
+    const int k0 = k_begin + i * kBK;
+    const uint32_t dst = base + st * kStage, full = bars + 8 * st;
+    // the stage's previous contents released (passes at once on the first round)
+    mbar_wait(bars + 8 * (STAGES + st), ((i / STAGES) & 1) ^ 1);
+    if constexpr (kTma) {
+      if (lane == 0) {
+        mbar_expect_tx(full, kStage);
+        tma_load_2d(dst, &ta, full, k0, m0);
+#pragma unroll
+        for (int h = 0; h < BN / 128; ++h)
+          tma_load_2d(dst + kA + h * 128 * kBK, &tq, full, n0 + 128 * h, k0);
+      }
+    } else {
+      uint8_t* const d = base_ptr + st * kStage;
+      for (int e = lane; e < BM * kBK; e += 32) {
+        const int r = e / kBK, c = e % kBK;
+        const bool in = m0 + r < p.M && k0 + c < p.K;
+        d[swz(r, c)] = in ? p.a[static_cast<long long>(m0 + r) * p.K + k0 + c] : 0;
+      }
+      for (int e = lane; e < kBK * BN; e += 32) {
+        const int r = e / BN, c = e % BN;
+        const bool in = k0 + r < p.K && n0 + c < p.N;
+        d[kA + (c / 128) * 128 * kBK + swz(r, c % 128)] =
+            in ? p.q[static_cast<long long>(k0 + r) * p.N + n0 + c] : 0;
+      }
+      mbar_arrive(full);  // each lane: its stores are the stage's
+    }
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // the mma fragments' group and thread
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_stop = min(K, k_begin + k_per_split);
+// A block: WM x WN consumer warps of MT m16 tiles by NB 32-column groups
+// (BM x BN outputs) and a producer warp; STAGES stages of A (BM x 128
+// bytes) and B (BN / 128 boxes of 128 x 128 bytes); with kSplitK, the
+// receive buffer of the cluster's int32 partial tiles
+template <int MT, int NB, int WM, int WN, int STAGES, bool kSplitK>
+struct Tile {
+  static constexpr int kBM = 16 * MT * WM;
+  static constexpr int kBN = 32 * NB * WN;
+  static constexpr int kConsumers = WM * WN;
+  static constexpr int kThreads = 32 * (kConsumers + 1);
+  static constexpr int kA = kBM * kBK;
+  static constexpr int kStage = kA + kBN * kBK;
+  static constexpr int kRecvInts = kSplitK ? kBM * kBN + 4 * kMaxSplits : 0;
+  static constexpr int kRecv = STAGES * kStage;
+  static constexpr int kBars = kRecv + 4 * kRecvInts;
+  static constexpr int kSmem = kBars + 16 * STAGES + 1024;  // + align slack
+  static_assert(kBN % 128 == 0 && kStage % 1024 == 0, "tile");
+};
 
-  for (int r = tid; r < BM; r += kThreads) {
-    xs_s[r] = m0 + r < M ? xs[m0 + r] : 1.f;
-    inv_s[r] = __frcp_rn(xs_s[r]);
+template <int MT, int NB, int WM, int WN, int STAGES, bool kSplitK, bool kTma>
+__global__ void __launch_bounds__(Tile<MT, NB, WM, WN, STAGES, kSplitK>::kThreads)
+w8a8_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tq,
+            const Problem p) {
+  using T = Tile<MT, NB, WM, WN, STAGES, kSplitK>;
+  constexpr int BM = T::kBM, BN = T::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + T::kBars;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (STAGES + st); };
+
+  // every block of the cluster has started before any writes into another
+  // (the wait is just before the first such write)
+  if constexpr (kSplitK) cluster_arrive_relaxed();
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int k_begin = blockIdx.z * p.k_per_split;
+  const int k_end = min(p.K, k_begin + p.k_per_split);
+  const int n_stages = (k_end - k_begin + kBK - 1) / kBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    if constexpr (kTma) {
+      prefetch_map(&ta);
+      prefetch_map(&tq);
+    }
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), kTma ? 1 : 32);
+      mbar_init(empty(st), T::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // the next tile, held in registers while the current one is multiplied
-  Raw4<TA> ra[kItemsA];
-  uint32_t rb[kItemsB][4];
-  auto load_tile = [&](int k0) {
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane / 4, t = lane % 4;
+  int acc[MT][NB][4][4];
 #pragma unroll
-    for (int it = 0; it < kItemsA; ++it) {
-      const int i = tid + it * kThreads;
-      const int r = i / (kBK / 4), gk = k0 + (i % (kBK / 4)) * 4;
-      const int cnt = m0 + r < M ? max(0, min(4, k_stop - gk)) : 0;
-      ra[it] = load_raw4(a + static_cast<long long>(m0 + r) * K + gk, a_vec && cnt == 4, cnt);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nb][j][e] = 0;
+
+  if (warp == T::kConsumers) {
+    produce<BM, BN, STAGES, kTma>(ta, tq, p, base, base_ptr, bars, n_stages, k_begin, m0, n0,
+                                  lane);
+  } else {
+    // the thread's shared-memory offsets: its ldmatrix row address of k32
+    // step kk in the warp's first m16 tile (tile mt is 2048 * mt further),
+    // and its B words of step 0's first K half (the second is 16 rows, step
+    // kk 32 rows further) in each column group
+    int a_off[4], b_off[NB][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      a_off[kk] = MT * wm * 2048 + swz(lane % 16, 32 * kk + 16 * (lane / 16));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int col = 32 * (wn * NB + nb) + 4 * g;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        b_off[nb][i] = T::kA + (col / 128) * 128 * kBK + swz(4 * t + (i ^ (t & 2)), col % 128);
     }
-    // eight neighbouring lanes read 32 contiguous bytes of a weight row
-#pragma unroll
-    for (int it = 0; it < kItemsB; ++it) {
-      const int i = tid + it * kThreads;
-      const int gn = n0 + ((i / (8 * (kBK / 4))) * 8 + i % 8) * 4;
-      const int gk = k0 + ((i / 8) % (kBK / 4)) * 4;
+    const uint32_t sel_lo = t & 2 ? 0x1054u : 0x5410u;
+    const uint32_t sel_hi = t & 2 ? 0x3276u : 0x7632u;
+    for (int i = 0; i < n_stages; ++i) {
+      const int st = i % STAGES;
+      const uint8_t* const d = base_ptr + st * T::kStage;
+      const uint32_t sd = base + st * T::kStage;
+      mbar_wait(full(st), (i / STAGES) & 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const int cnt = gk + kk < k_stop ? min(4, N - gn) : 0;
-        rb[it][kk] = cnt > 0 ? load_bytes(q + static_cast<long long>(gk + kk) * N + gn,
-                                          q_vec && cnt == 4, cnt)
-                             : 0u;
-      }
-    }
-  };
-  // quantize (fused) and store A; transpose and store B
-  auto store_tile = [&]() {
+        uint32_t af[MT][4];
 #pragma unroll
-    for (int it = 0; it < kItemsA; ++it) {
-      const int i = tid + it * kThreads;
-      const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
-      uint32_t w;
-      if constexpr (kFused) {
-        float v[4];
-        raw_floats(ra[it], v);
-        const float sc = xs_s[r], inv = inv_s[r];
-        w = quantize(v[0], sc, inv) | (quantize(v[1], sc, inv) << 8) |
-            (quantize(v[2], sc, inv) << 16) | (quantize(v[3], sc, inv) << 24);
-      } else {
-        w = ra[it].v;
-      }
-      *reinterpret_cast<uint32_t*>(a_s + r * kRowBytes + c) = w;
-    }
+        for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(af[mt], sd + a_off[kk] + 2048 * mt);
 #pragma unroll
-    for (int it = 0; it < kItemsB; ++it) {
-      const int i = tid + it * kThreads;
-      const int nc = ((i / (8 * (kBK / 4))) * 8 + i % 8) * 4;
-      const int kr = ((i / 8) % (kBK / 4)) * 4;
-      const uint32_t lo01 = __byte_perm(rb[it][0], rb[it][1], 0x5140);
-      const uint32_t hi01 = __byte_perm(rb[it][0], rb[it][1], 0x7362);
-      const uint32_t lo23 = __byte_perm(rb[it][2], rb[it][3], 0x5140);
-      const uint32_t hi23 = __byte_perm(rb[it][2], rb[it][3], 0x7362);
-      int8_t* dst = b_s + nc * kRowBytes + kr;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + kRowBytes) = __byte_perm(lo01, lo23, 0x7632);
-      *reinterpret_cast<uint32_t*>(dst + 2 * kRowBytes) = __byte_perm(hi01, hi23, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + 3 * kRowBytes) = __byte_perm(hi01, hi23, 0x7632);
-    }
-  };
-
-  int acc[MI][NI][4];
+        for (int nb = 0; nb < NB; ++nb) {
+          uint32_t w0[4], w1[4], b0[4], b1[4];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  // ldmatrix row addresses: A's four matrices are (rows 0-7 | 8-15) x
-  // (k 0-15 | 16-31), B's (n 0-7 | 8-15) x (k 0-15 | 16-31)
-  const int a_row = wm * WTM + (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 16;
-  const int b_row = wn * WTN + (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 16;
-
-  if (k_begin < k_stop) {
-    load_tile(k_begin);
-    store_tile();
-  }
-  __syncthreads();
-  for (int k0 = k_begin; k0 < k_stop; k0 += kBK) {
-    const bool more = k0 + kBK < k_stop;
-    if (more) load_tile(k0 + kBK);  // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t af[MI][4], bf[NI][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldmatrix_x4(af[mi], a_s + (a_row + mi * 16) * kRowBytes + kk + a_col);
-#pragma unroll
-      for (int ni = 0; ni < NI; ni += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_s + (b_row + ni * 8) * kRowBytes + kk + b_col);
-        bf[ni][0] = r[0]; bf[ni][1] = r[1]; bf[ni + 1][0] = r[2]; bf[ni + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();
-    if (more) {
-      store_tile();
-      __syncthreads();
-    }
-  }
-
-  // c[0], c[1] are row g, columns 2t and 2t + 1; c[2], c[3] row g + 8
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int lr = wm * WTM + mi * 16 + g + half * 8;
-      if (m0 + lr >= M) continue;
-      const float xsr = xs_s[lr];
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + wn * WTN + ni * 8 + t * 2 + j;
-          if (col >= N) continue;
-          const int c = acc[mi][ni][half * 2 + j];
-          const long long o = static_cast<long long>(m0 + lr) * N + col;
-          if (acc_out != nullptr) {
-            atomicAdd(acc_out + o, c);  // exact: int32 sums in any order
-          } else {
-            store_out(out, o, epilogue(c, xsr, s[col]), out_f32);
+          for (int i2 = 0; i2 < 4; ++i2) {
+            w0[i2] = *reinterpret_cast<const uint32_t*>(d + b_off[nb][i2] + 4096 * kk);
+            w1[i2] = *reinterpret_cast<const uint32_t*>(d + b_off[nb][i2] + 4096 * kk + 2048);
           }
+          s8_fragments(w0, sel_lo, sel_hi, b0);
+          s8_fragments(w1, sel_lo, sel_hi, b1);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t b[2] = {b0[j], b1[j]};
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][nb][j], af[mt], b);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+  }
+
+  // A thread's outputs: row 16 * (MT * wm + mt) + g + 8 * half, the 8
+  // columns 32 * (wn * NB + nb) + 8t ..: tile j's c0 / c2 at column 8t + j,
+  // its c1 / c3 at 8t + 4 + j
+  auto row_of = [&](int mt, int half) { return 16 * (MT * wm + mt) + g + 8 * half; };
+  auto col_of = [&](int nb) { return 32 * (wn * NB + nb) + 8 * t; };
+  auto values = [&](int mt, int nb, int half, int (&v)[8]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = acc[mt][nb][j][2 * half];
+      v[4 + j] = acc[mt][nb][j][2 * half + 1];
+    }
+  };
+  if constexpr (!kSplitK) {
+    if (warp < T::kConsumers) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            int v[8];
+            values(mt, nb, half, v);
+            store8(p, m0 + row_of(mt, half), n0 + col_of(nb), v);
+          }
+    }
+  } else {
+    // Split-K in the cluster: the tile's rows x BN int32 sums in `splits`
+    // chunks of whole int4s, chunk r summed by block r.  Each consumer
+    // thread writes its sums into their owner's receive buffer (this
+    // block's slot), then one cluster barrier, then each block sums its
+    // chunk's slots in rank order and applies the epilogue.
+    cg::cluster_group cluster = cg::this_cluster();
+    const int splits = static_cast<int>(cluster.num_blocks());
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int rows = min(BM, p.M - m0);
+    const int n_out = rows * BN;
+    const int chunk = (n_out / 4 + splits - 1) / splits * 4;
+    int* const recv = reinterpret_cast<int*>(base_ptr + T::kRecv);
+    cluster_wait();
+    if (splits == 1) {
+      if (warp < T::kConsumers) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              int v[8];
+              values(mt, nb, half, v);
+              store8(p, m0 + row_of(mt, half), n0 + col_of(nb), v);
+            }
+      }
+      return;
+    }
+    if (warp < T::kConsumers) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int lm = row_of(mt, half);
+          if (lm >= rows) continue;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            int v[8];
+            values(mt, nb, half, v);
+#pragma unroll
+            for (int h4 = 0; h4 < 2; ++h4) {
+              const int e = lm * BN + col_of(nb) + 4 * h4;
+              const int owner = e / chunk;
+              int* const slot =
+                  cluster.map_shared_rank(recv, owner) + rank * chunk + (e - owner * chunk);
+              *reinterpret_cast<int4*>(slot) =
+                  make_int4(v[4 * h4], v[4 * h4 + 1], v[4 * h4 + 2], v[4 * h4 + 3]);
+            }
+          }
+        }
+    }
+    cluster_arrive();
+    cluster_wait();
+    const int c_begin = rank * chunk;
+    const int c_end = min(n_out, c_begin + chunk);
+    for (int c = c_begin + 4 * static_cast<int>(threadIdx.x); c < c_end;
+         c += 4 * static_cast<int>(blockDim.x)) {
+      int v[4] = {0, 0, 0, 0};
+      for (int r = 0; r < splits; ++r) {
+        const int4 part = *reinterpret_cast<const int4*>(recv + r * chunk + (c - c_begin));
+        v[0] += part.x;
+        v[1] += part.y;
+        v[2] += part.z;
+        v[3] += part.w;
+      }
+      const int m = m0 + c / BN, n = n0 + c % BN;
+      const float xsr = p.xs[m];
+      const long long o = static_cast<long long>(m) * p.N + n;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (n + u >= p.N) break;
+        const float y = epilogue(v[u], xsr, __ldg(p.s + n + u));
+        if (p.out_f32) {
+          static_cast<float*>(p.out)[o + u] = y;
+        } else {
+          static_cast<__nv_bfloat16*>(p.out)[o + u] = __float2bfloat16_rn(y);
         }
       }
     }
   }
 }
 
-// split-K: the epilogue of the summed int32 tile
-__global__ void finish(const int* __restrict__ acc, const float* __restrict__ xs,
-                       const float* __restrict__ s, void* __restrict__ out, int M, int N,
-                       int out_f32) {
-  const long long mn = static_cast<long long>(M) * N;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < mn;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    store_out(out, i, epilogue(acc[i], xs[i / N], s[i % N]), out_f32);
+// ---------------------------------------------------------------- wgmma
+// The compute tile on wgmma: 128 x 256 outputs, two consumer warpgroups of
+// 64 rows and the producer warp.  wgmma takes 8-bit B K-major only, so the
+// consumers transpose each landed B stage into a K-major, 128-byte-swizzled
+// copy (two buffers) while the tensor cores run the previous stage
+
+#define W8A8_D128                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+#define W8A8_R8(i)                                                            \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define W8A8_R32 W8A8_R8(0), W8A8_R8(8), W8A8_R8(16), W8A8_R8(24)
+#define W8A8_R128                                                                      \
+  W8A8_R32, W8A8_R8(32), W8A8_R8(40), W8A8_R8(48), W8A8_R8(56), W8A8_R8(64), W8A8_R8(72), \
+      W8A8_R8(80), W8A8_R8(88), W8A8_R8(96), W8A8_R8(104), W8A8_R8(112), W8A8_R8(120)
+
+// d (64 x 256, s32) += A.B^T, both s8 K-major in shared memory
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " W8A8_D128
+      ", %128, %129, p;\n}\n"
+      : W8A8_R128
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void fence_acc(int (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+struct WgTile {
+  static constexpr int kBM = 128, kBN = 256, kStages = 3;
+  static constexpr int kThreads = 32 * 9;
+  static constexpr int kA = kBM * kBK;
+  static constexpr int kStage = kA + kBN * kBK;
+  static constexpr int kBt = kStages * kStage;           // two K-major B copies
+  static constexpr int kBars = kBt + 2 * kBN * kBK;
+  static constexpr int kSmem = kBars + 16 * kStages + 1024;  // + align slack
+};
+
+// Warp w (of the eight) transposes a 64 x 64-byte block of the landed B
+// stage (K-rows 64 (w & 1) .., columns 64 (w >> 1) ..) into the K-major
+// copy: a lane takes 4 x 4 bytes at column word b = lane & 15 and K word a
+// (bit 0 = lane bit 4, bits 1-3 = lane bits 1-3 XOR the pass), eight
+// passes; reads and writes then fall in 32 distinct banks of both swizzles
+__device__ __forceinline__ void transpose_b(const uint8_t* src, uint8_t* dst, int w, int lane) {
+  const int kt = w & 1, nt = w >> 1;
+  const int b = lane & 15;
+  const int a0 = 8 * ((lane >> 3) & 1) + 4 * ((lane >> 2) & 1) + 2 * ((lane >> 1) & 1) + (lane >> 4);
+  const uint8_t* const box = src + (nt >> 1) * 128 * kBK;
+  const int col = 64 * (nt & 1) + 4 * b;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int k = 64 * kt + 4 * (a0 ^ (2 * c));
+    uint32_t w4[4], out[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w4[r] = *reinterpret_cast<const uint32_t*>(box + swz(k + r, col));
+    s8_fragments(w4, 0x5410u, 0x7632u, out);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<uint32_t*>(dst + swz(64 * nt + 4 * b + j, k)) = out[j];
+  }
+  // the generic stores, before the tensor cores read them
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
+
+template <bool kTma>
+__global__ void __launch_bounds__(WgTile::kThreads, 1)
+w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tq,
+                  const Problem p) {
+  using T = WgTile;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + T::kBars;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (T::kStages + st); };
+  const int n0 = blockIdx.x * T::kBN, m0 = blockIdx.y * T::kBM;
+  const int n_stages = (p.K + kBK - 1) / kBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    if constexpr (kTma) {
+      prefetch_map(&ta);
+      prefetch_map(&tq);
+    }
+    for (int st = 0; st < T::kStages; ++st) {
+      mbar_init(full(st), kTma ? 1 : 32);
+      mbar_init(empty(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 8) {
+    produce<T::kBM, T::kBN, T::kStages, kTma>(ta, tq, p, base, base_ptr, bars, n_stages, 0, m0,
+                                              n0, lane);
+    return;
+  }
+  const int wg = warp / 4;
+  int acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+  auto stage_b = [&](int i) { return base_ptr + (i % T::kStages) * T::kStage + T::kA; };
+  auto copy_b = [&](int i) { return T::kBt + (i & 1) * T::kBN * kBK; };
+  mbar_wait(full(0), 0);
+  transpose_b(stage_b(0), base_ptr + copy_b(0), warp, lane);
+  consumers_sync();
+  for (int i = 0; i < n_stages; ++i) {
+    const int st = i % T::kStages;
+    const uint32_t a = base + st * T::kStage + wg * 64 * kBK, b = base + copy_b(i);
+    fence_acc(acc);
+    flash_sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      wgmma_s8_n256(acc, flash_sm90::smem_desc(a + 32 * kk, 16, 1024),
+                    flash_sm90::smem_desc(b + 32 * kk, 16, 1024));
+    }
+    flash_sm90::wgmma_commit();
+    // the next stage's B transposed while the tensor cores run this one
+    if (i + 1 < n_stages) {
+      mbar_wait(full((i + 1) % T::kStages), ((i + 1) / T::kStages) & 1);
+      transpose_b(stage_b(i + 1), base_ptr + copy_b(i + 1), warp, lane);
+    }
+    flash_sm90::wgmma_wait<0>();
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+    // both warpgroups' products done (the other copy free) and the next copy whole
+    consumers_sync();
+  }
+  // accumulator layout: warp w4 of the warpgroup holds rows 16 w4 + g
+  // (acc[4j], acc[4j + 1]) and 16 w4 + g + 8 (acc[4j + 2], acc[4j + 3]) at
+  // columns 8j + 2t, 8j + 2t + 1
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + 64 * wg + 16 * (warp % 4) + g + 8 * half;
+    if (m >= p.M) continue;
+    const float xsr = p.xs[m];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      const long long o = static_cast<long long>(m) * p.N + n;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (n + u >= p.N) break;
+        const float y = epilogue(acc[4 * j + 2 * half + u], xsr, __ldg(p.s + n + u));
+        if (p.out_f32) {
+          static_cast<float*>(p.out)[o + u] = y;
+        } else {
+          static_cast<__nv_bfloat16*>(p.out)[o + u] = __float2bfloat16_rn(y);
+        }
+      }
+    }
   }
 }
 
-template <class TA, int BM, int BN, int WM, int WN>
-int launch_tile(const TA* a, float* xs, const int8_t* q, const float* s, void* out, int* acc,
-                int M, int K, int N, int splits, int out_f32, cudaStream_t stream) {
-  const int a_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % (4 * sizeof(TA)) == 0;
-  const int q_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
-  if constexpr (!std::is_same<TA, int8_t>::value) {
-    row_scales<TA><<<(M + 7) / 8, 256, 0, stream>>>(a, xs, M, K, a_vec);
+template <bool kTma>
+int launch_wgmma(const Problem& p, cudaStream_t stream) {
+  using T = WgTile;
+  CUtensorMap ta{}, tq{};
+  if constexpr (kTma) {
+    if (!make_map_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.a, p.K, p.M, p.K, kBK, T::kBM,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !make_map_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, 128, kBK,
+                     CU_TENSOR_MAP_SWIZZLE_128B)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  const int steps = (K + kBK - 1) / kBK;
-  const int k_per_split = (steps + splits - 1) / splits * kBK;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, (K + k_per_split - 1) / k_per_split);
-  const bool split = grid.z > 1;
-  w8a8_kernel<TA, BM, BN, WM, WN><<<grid, 32 * WM * WN, 0, stream>>>(
-      a, xs, q, s, out, split ? acc : nullptr, M, K, N, k_per_split, a_vec, q_vec, out_f32);
-  if (split) {
-    const long long mn = static_cast<long long>(M) * N;
-    const int blocks = static_cast<int>(min((mn + 255) / 256, 4096LL));
-    finish<<<blocks, 256, 0, stream>>>(acc, xs, s, out, M, N, out_f32);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((p.N + T::kBN - 1) / T::kBN, (p.M + T::kBM - 1) / T::kBM, 1);
+  return launch_cluster(w8a8_wgmma_kernel<kTma>, grid, T::kThreads, T::kSmem, 1, stream, ta, tq,
+                        p);
 }
 
-// tile: 0 = 64 x 64 (4 warps), 1 = 128 x 128 (8 warps); ops/int8_matmul.py::W8A8_TILES
-template <class TA>
-int launch(const void* a, void* xs, const void* q, const void* s, void* out, void* acc, int M,
-           int K, int N, int tile, int splits, int out_f32, void* stream) {
-  const TA* av = static_cast<const TA*>(a);
-  float* xv = static_cast<float*>(xs);
-  const int8_t* qv = static_cast<const int8_t*>(q);
-  const float* sv = static_cast<const float*>(s);
-  int* accv = static_cast<int*>(acc);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <int MT, int NB, int WM, int WN, int STAGES, bool kSplitK, bool kTma>
+int launch_tile(const Problem& p, int splits, cudaStream_t stream) {
+  using T = Tile<MT, NB, WM, WN, STAGES, kSplitK>;
+  CUtensorMap ta{}, tq{};
+  if constexpr (kTma) {
+    if (!make_map_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.a, p.K, p.M, p.K, kBK, T::kBM,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !make_map_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, 128, kBK,
+                     CU_TENSOR_MAP_SWIZZLE_128B)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const dim3 grid((p.N + T::kBN - 1) / T::kBN, (p.M + T::kBM - 1) / T::kBM,
+                  (p.K + p.k_per_split - 1) / p.k_per_split);
+  return launch_cluster(w8a8_kernel<MT, NB, WM, WN, STAGES, kSplitK, kTma>, grid, T::kThreads,
+                        T::kSmem, kSplitK ? splits : 1, stream, ta, tq, p);
+}
+
+// tile 0 = "64x128" (split-K in a cluster), 1 = "128x256" (no split);
+// ops/int8_matmul.py::W8A8_TILES
+template <bool kTma>
+int launch_matmul(const Problem& p, int tile, int splits, cudaStream_t stream) {
   switch (tile) {
-    case 0:
-      return launch_tile<TA, 64, 64, 2, 2>(av, xv, qv, sv, out, accv, M, K, N, splits,
-                                           out_f32, st);
-    case 1:
-      return launch_tile<TA, 128, 128, 2, 4>(av, xv, qv, sv, out, accv, M, K, N, splits,
-                                             out_f32, st);
+    case 0: return launch_tile<4, 1, 1, 4, 3, true, kTma>(p, splits, stream);
+    case 1: return launch_tile<4, 2, 2, 4, 4, false, kTma>(p, splits, stream);
+    case 2: return launch_wgmma<kTma>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+int matmul(const int8_t* xq, const float* xs, const void* q, const void* s, void* out, int M,
+           int K, int N, int tile, int splits, int out_f32, cudaStream_t stream) {
+  if (M < 1 || K < 1 || N < 1 || splits < 1 || splits > kMaxSplits || (tile != 0 && splits > 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int steps = (K + kBK - 1) / kBK;
+  const int k_per_split = (steps + splits - 1) / splits * kBK;
+  const Problem p{xq, xs, static_cast<const int8_t*>(q), static_cast<const float*>(s), out,
+                  M, K, N, k_per_split, out_f32};
+  const int used = (K + k_per_split - 1) / k_per_split;  // no split left empty
+  // TMA: 16-byte row pitches and addresses
+  const bool tma = K % 16 == 0 && N % 16 == 0 && aligned16(xq) && aligned16(q);
+  return tma ? launch_matmul<true>(p, tile, used, stream)
+             : launch_matmul<false>(p, tile, used, stream);
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes), one signature for both.  The
-// fused one takes x (bf16, or f32 with a_f32 = 1) and writes the row
-// scales into xs, an (M,) f32 scratch, with a first kernel; the
-// pre-quantized one takes xq (int8) and its scales xs (M,) f32.  With
-// splits > 1 the K steps are shared by `splits` blocks a tile, whose int32
-// sums go into `acc`, an (M, N) int32 scratch the caller zeroed, and a
-// last kernel on the same stream applies the epilogue.  Launch on
-// `stream`, do not synchronise, allocate nothing, and return
-// cudaGetLastError().
-extern "C" int w8a8_matmul_fused(const void* x, void* xs, const void* q, const void* s,
-                                 void* out, void* acc, int M, int K, int N, int a_f32, int tile,
-                                 int splits, int out_f32, void* stream) {
-  return a_f32 ? launch<float>(x, xs, q, s, out, acc, M, K, N, tile, splits, out_f32, stream)
-               : launch<__nv_bfloat16>(x, xs, q, s, out, acc, M, K, N, tile, splits, out_f32,
-                                       stream);
+// fused one takes x (bf16, or f32 with a_f32 = 1), writes each row's scale
+// into xs (M,) f32 and its int8 plane into xq (M, K), scratch the caller
+// allocated, with a first kernel, then runs the matmul on them; the
+// pre-quantized one takes xq (int8, as x) and its scales xs (M,) f32, and
+// its xq argument is unused.  `tile` indexes ops/int8_matmul.py::W8A8_TILES;
+// with tile 0 and splits > 1 the K steps are shared by a cluster of
+// `splits` blocks (at most 8) a tile, summed in the cluster; tile 1 takes
+// no split.  Launch on `stream`, do not synchronise, allocate nothing, and
+// return a cudaError_t.
+extern "C" int w8a8_matmul_fused(const void* x, void* xq, void* xs, const void* q,
+                                 const void* s, void* out, int M, int K, int N, int a_f32,
+                                 int tile, int splits, int out_f32, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = K % 8 == 0 && aligned16(x);
+  if (a_f32) {
+    quantize_rows<float><<<M, kRowThreads, 0, st>>>(static_cast<const float*>(x),
+                                                   static_cast<int8_t*>(xq),
+                                                   static_cast<float*>(xs), K, vec);
+  } else {
+    quantize_rows<__nv_bfloat16><<<M, kRowThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs),
+        K, vec);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return matmul(static_cast<const int8_t*>(xq), static_cast<const float*>(xs), q, s, out, M, K,
+                N, tile, splits, out_f32, st);
 }
 
-extern "C" int w8a8_matmul_prequantized(const void* xq, void* xs, const void* q,
-                                        const void* s, void* out, void* acc, int M, int K,
-                                        int N, int, int tile, int splits, int out_f32,
-                                        void* stream) {
-  return launch<int8_t>(xq, xs, q, s, out, acc, M, K, N, tile, splits, out_f32, stream);
+extern "C" int w8a8_matmul_prequantized(const void* xq, void*, void* xs, const void* q,
+                                        const void* s, void* out, int M, int K, int N, int,
+                                        int tile, int splits, int out_f32, void* stream) {
+  return matmul(static_cast<const int8_t*>(xq), static_cast<const float*>(xs), q, s, out, M, K,
+                N, tile, splits, out_f32, static_cast<cudaStream_t>(stream));
 }

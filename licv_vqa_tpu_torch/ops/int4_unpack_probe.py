@@ -31,9 +31,17 @@ import math
 
 import torch
 
+from .int8_matmul import _sm_count
+
 SCHEDULES = ("a", "d", "e", "f")
-# packed rows a block of the kernel takes, at most (csrc: kMaxRows)
-_MAX_ROWS = 256
+# the kernel's tiles (csrc/int4_unpack_probe.cu): 128 output columns by 16
+# activation rows a block, 64 packed rows a stage; the blocks of one tile's
+# split-K form one thread-block cluster, at most 8
+TILE_N = 128
+TILE_M = 16
+STAGE_ROWS = 64
+MAX_SPLITS = 8
+MIN_GROUP = 8
 
 
 def probe_operands(q: torch.Tensor, s: torch.Tensor, schedule: str):
@@ -107,10 +115,37 @@ def _f_correction(x, s, group: int) -> torch.Tensor:
     return 8.0 * (xg @ _bf16(s.float()[: k // 2 // group]))
 
 
+def _f_corrected(out, xb, s, group: int) -> torch.Tensor:
+    """``out - _f_correction`` in fewer launches, for the kernel's output:
+    the group sums from the bf16 activations ``xb`` the kernel read, the
+    product and the subtraction in one ``addmm`` (8 is a power of two, so
+    scaling the product by -8 rounds nothing)."""
+    m, k = xb.shape
+    xg = xb[:, : k // 2].reshape(m, -1, group).sum(-1, dtype=torch.float64)
+    xg = xg.float().to(torch.bfloat16)
+    return torch.addmm(out, xg.float(), s[: k // 2 // group].to(torch.bfloat16).float(),
+                       alpha=-8.0)
+
+
 def int4_unpack_probe_reference(x, packed, s, group: int, schedule: str) -> torch.Tensor:
     """Plain version of ``int4_unpack_probe``."""
     y = _raw_reference(x, packed, s, group, schedule)
     return y - _f_correction(x, s, group) if schedule == "f" else y
+
+
+def launch_plan(m: int, k2: int, n: int, group: int, n_sm: int) -> tuple[int, int]:
+    """``(splits, rows_per_split)`` for M = ``m`` rows, K/2 = ``k2`` packed
+    rows, N = ``n`` columns and groups of ``group``: split-K blocks (one
+    cluster, at most ``MAX_SPLITS``) of whole stages and whole groups (so
+    that schedule d's group sums are never cut), no split left empty,
+    enough for about two blocks an SM, as the int4 decode kernel plans at
+    its beam-step shapes (``ops/int4_matmul.py::launch_plan``)."""
+    unit = math.lcm(STAGE_ROWS, group)
+    units = math.ceil(k2 / unit)
+    tiles = math.ceil(n / TILE_N) * math.ceil(m / TILE_M)
+    splits = max(1, min(MAX_SPLITS, units, math.ceil(2 * n_sm / tiles)))
+    per = math.ceil(units / splits) * unit
+    return math.ceil(k2 / per), per
 
 
 def _check(x, packed, s, group: int, schedule: str) -> None:
@@ -121,16 +156,14 @@ def _check(x, packed, s, group: int, schedule: str) -> None:
     if packed.dtype != torch.uint8 or s.dtype != torch.float32:
         raise TypeError(f"int4_unpack_probe: packed {packed.dtype} / s {s.dtype}, want uint8 / "
                         "float32")
-    if k != 2 * k2 or tuple(s.shape) != (k // group, n) or not 8 <= group <= _MAX_ROWS \
-            or k2 % group or n % 4:
+    if k != 2 * k2 or tuple(s.shape) != (k // group, n) or group < MIN_GROUP or k2 % group \
+            or n % 4:
         raise ValueError(f"int4_unpack_probe: x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
-                         f"s {tuple(s.shape)}, G={group} do not agree (N % 4 == 0, 8 <= G <= "
-                         f"{_MAX_ROWS}, G divides K/2)")
+                         f"s {tuple(s.shape)}, G={group} do not agree (N % 4 == 0, G >= "
+                         f"{MIN_GROUP}, G divides K/2)")
     for t, what in ((packed, "packed"), (s, "s")):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"int4_unpack_probe: {what} must be contiguous on {x.device}")
-    if packed.data_ptr() % 4:
-        raise ValueError("int4_unpack_probe: packed must be 4-byte aligned")
 
 
 def int4_unpack_probe(x, packed, s, group: int, schedule: str) -> torch.Tensor:
@@ -138,8 +171,9 @@ def int4_unpack_probe(x, packed, s, group: int, schedule: str) -> torch.Tensor:
     docstring): x (M, K), packed (K/2, N) uint8, s (K/G, N) f32; returns
     (M, N) f32.
 
-    CUDA tensors launch ``csrc/int4_unpack_probe.cu`` (schedule f's +8
-    correction then follows as a plain matmul) or raise; CPU tensors take
+    CUDA tensors launch ``csrc/int4_unpack_probe.cu`` (one launch, split-K
+    summed in a cluster; schedule f's +8 correction then follows as a
+    plain matmul) or raise; CPU tensors take
     ``int4_unpack_probe_reference``."""
     if x.device.type == "cpu":
         return int4_unpack_probe_reference(x, packed, s, group, schedule)
@@ -149,24 +183,19 @@ def int4_unpack_probe(x, packed, s, group: int, schedule: str) -> torch.Tensor:
     m, k = x.shape
     k2, n = packed.shape
     xb = x.to(torch.bfloat16).contiguous()
-    per = group * min(_MAX_ROWS // group, 32)
-    splits = math.ceil(k2 / per)
+    splits, per = launch_plan(m, k2, n, group, _sm_count(x.device.index or 0))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
     fn = load_library("int4_unpack_probe.cu").int4_unpack_probe
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     err = fn(
-        xb.data_ptr(), packed.data_ptr(), s.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        m, k, n, group, per, splits, SCHEDULES.index(schedule),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        xb.data_ptr(), packed.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n, group, splits,
+        per, SCHEDULES.index(schedule), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"int4_unpack_probe launch failed: cudaError {err}")
     int4_unpack_probe.launches += 1
-    return out - _f_correction(x, s, group) if schedule == "f" else out
+    return _f_corrected(out, xb, s, group) if schedule == "f" else out
 
 
 int4_unpack_probe.launches = 0  # kernel launches (CUDA tensors only)

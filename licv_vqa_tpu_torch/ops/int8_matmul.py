@@ -8,8 +8,8 @@ and picks its route by the leaf and the call's shape, as JAX's does:
 - int4 leaf: the int4 kernel (``ops/int4_matmul.py``) for decode-shaped
   calls (at most ``KERNEL_MAX_ROWS`` rows), else dequantize + matmul;
 - int8 leaf with ``a8``: w8a8, per-row int8 activations times the int8
-  weight with an exact int32 accumulator (``w8a8_matmul``: on the card the
-  fused kernel ``csrc/w8a8_matmul.cu``, where JAX leaves it to XLA);
+  weight with an exact int32 accumulator (``w8a8_matmul``: on the card
+  ``csrc/w8a8_matmul.cu``, where JAX leaves it to XLA);
 - int8 leaf, decode-shaped: the int8 kernel (``int8_matmul``);
 - int8 leaf, otherwise: scale-on-output, ``(x @ q) * s``.
 
@@ -168,8 +168,14 @@ int8_matmul.launches = 0  # kernel launches (CUDA tensors only)
 # few rows in 25, and JAX runs w8a8 under jit)
 INV_127 = 1.0 / 127.0
 # w8a8 kernel tiles (rows x columns of the output a block computes), the
-# template instantiations of csrc/w8a8_matmul.cu in its order
-W8A8_TILES = ("64x64", "128x128")
+# template instantiations of csrc/w8a8_matmul.cu in its order: the
+# weight-streaming tile (split-K in a cluster) and the compute tile
+W8A8_TILES = ("64x128", "128x256", "128x256w")
+# rows up to which the weight-streaming tile is the default
+W8A8_STREAM_MAX_ROWS = 512
+# the w8a8 kernel's K bytes a stage and its largest cluster (split-K blocks)
+_W8A8_STAGE_K = 128
+_W8A8_MAX_SPLITS = 8
 
 
 def quantize_act_rows(x: torch.Tensor):
@@ -220,24 +226,36 @@ def w8a8_prequantized_reference(xq, xs, q, s, out_dtype) -> torch.Tensor:
 
 
 def _w8a8_tile(m: int, tile) -> int:
-    """Index into ``W8A8_TILES``: the caller's, else 64x64 up to 1024 rows
-    and 128x128 above."""
+    """Index into ``W8A8_TILES``: the caller's, else the weight-streaming
+    tile up to ``W8A8_STREAM_MAX_ROWS`` rows and the compute tile above."""
     if tile is None:
-        tile = "64x64" if m <= 1024 else "128x128"
+        tile = W8A8_TILES[0] if m <= W8A8_STREAM_MAX_ROWS else W8A8_TILES[1]
     return W8A8_TILES.index(tile)
 
 
 def _w8a8_splits(m: int, k: int, n: int, tile: int, n_sm: int) -> int:
-    """Blocks a tile's K steps (of 64) are split across: enough for about
-    four blocks an SM, each with at least four steps."""
+    """Blocks of one cluster that share a tile's K stages (of 128): for the
+    weight-streaming tile as many as fill about three quarters of the SMs
+    with one block each, at most 8, each with whole stages and none empty
+    (the kernel's own arithmetic); the compute tile takes no split.  Timed
+    on the H100 at run A's shapes (PERF.md §6): two blocks an SM, though
+    their shared memory fits, and clusters over all the SMs (a cluster's
+    blocks share a GPC, so the last ones wait for a second wave) were
+    slower."""
+    if tile != 0:
+        return 1
     bm, bn = (int(v) for v in W8A8_TILES[tile].split("x"))
-    blocks = math.ceil(n / bn) * math.ceil(m / bm)
-    return max(1, min(math.ceil(4 * n_sm / blocks), math.ceil(k / 64) // 4))
+    tiles = math.ceil(n / bn) * math.ceil(m / bm)
+    stages = math.ceil(k / _W8A8_STAGE_K)
+    want = max(1, min(_W8A8_MAX_SPLITS, stages, 3 * n_sm // (4 * tiles)))
+    per = math.ceil(stages / want)  # the kernel's stages a split: none left empty
+    return math.ceil(stages / per)
 
 
 def _w8a8_launch(fn_name: str, a, xs, q, s, out_dtype, tile) -> torch.Tensor:
     """Launch one entry point of ``csrc/w8a8_matmul.cu``.  ``xs`` is None for
-    the fused one, which writes the row scales into a scratch of its own."""
+    the fused one, which writes the rows' int8 plane and scales into a
+    scratch of its own (one pass over x), then runs the matmul on them."""
     from ..csrc import load_library
 
     m, k = a.shape
@@ -245,20 +263,19 @@ def _w8a8_launch(fn_name: str, a, xs, q, s, out_dtype, tile) -> torch.Tensor:
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
+    xq = None
     if xs is None:
+        xq = torch.empty((m, k), dtype=torch.int8, device=a.device)
         xs = torch.empty((m,), dtype=torch.float32, device=a.device)
     ti = _w8a8_tile(m, tile)
     splits = _w8a8_splits(m, k, n, ti, _sm_count(a.device.index or 0))
-    # the int32 sums of a tile's split-K blocks, added in any order (exact)
-    acc = torch.zeros((m, n), dtype=torch.int32, device=a.device) if splits > 1 else None
     fn = getattr(load_library("w8a8_matmul.cu"), fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     err = fn(
-        a.data_ptr(), xs.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        acc.data_ptr() if acc is not None else None, m, k, n, int(a.dtype == torch.float32),
-        ti, splits, int(out_dtype == torch.float32),
-        torch.cuda.current_stream(a.device).cuda_stream,
+        a.data_ptr(), xq.data_ptr() if xq is not None else None, xs.data_ptr(), q.data_ptr(),
+        s.data_ptr(), out.data_ptr(), m, k, n, int(a.dtype == torch.float32), ti, splits,
+        int(out_dtype == torch.float32), torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
@@ -284,10 +301,10 @@ def w8a8_matmul(x, q, s, out_dtype, tile=None) -> torch.Tensor:
     tools/exp_w8a8_tuning.py:67; JAX's production w8a8 is XLA,
     ``_w8a8_dot``).
 
-    CUDA tensors launch the fused kernel of ``csrc/w8a8_matmul.cu`` (the
-    row scales and the quantization in the kernel; ``tile`` one of
-    ``W8A8_TILES``, by default by M) or raise; CPU tensors take
-    ``w8a8_matmul_reference``.  Bit-equal to the reference."""
+    CUDA tensors launch the fused entry point of ``csrc/w8a8_matmul.cu``
+    (a row pass writes each row's scale and int8 plane, then the matmul;
+    ``tile`` one of ``W8A8_TILES``, by default by M) or raise; CPU tensors
+    take ``w8a8_matmul_reference``.  Bit-equal to the reference."""
     if x.device.type == "cpu":
         return w8a8_matmul_reference(x, q, s, out_dtype)
     s = _check_w8a8("w8a8_matmul", x, q, s, out_dtype, (torch.bfloat16, torch.float32))

@@ -712,6 +712,10 @@ def test_w8a8_integer_product_on_card_is_exact(dev, m):
     # ragged M, K and N (K % 4 != 0: the scalar loads), f32 activations
     (1, 1280, 64, torch.float32, torch.float32), (17, 100, 33, torch.bfloat16, torch.float32),
     (130, 258, 70, torch.float32, torch.bfloat16), (65, 64, 8, torch.bfloat16, torch.bfloat16),
+    # TMA with a ragged last stage and rows past M, split over a cluster;
+    # plain loads (K % 16 != 0) split; the compute tile's rows past M
+    (70, 400, 144, torch.bfloat16, torch.float32), (40, 1000, 136, torch.bfloat16, torch.float32),
+    (600, 272, 272, torch.bfloat16, torch.bfloat16),
 ])
 @pytest.mark.parametrize("tile", I8.W8A8_TILES)
 def test_w8a8_kernels_equal_plain(dev, m, k, n, x_dtype, out_dtype, tile):
@@ -774,6 +778,9 @@ def _probe_operands(dev, m, k, n, g, seed):
 @pytest.mark.parametrize("m,k,n,g", [
     (8, 4096, 11008, 64),  # the tool's shape
     (1, 512, 36, 64), (13, 1024, 132, 32), (8, 200, 44, 20), (9, 4096, 256, 128),
+    # G = 8 (eight groups a stage), G = 128 (a group over two stages) with
+    # two row blocks, G = 20 through TMA (K/2 = 320: ragged last stage)
+    (5, 256, 64, 8), (20, 1024, 256, 128), (3, 640, 128, 20),
 ])
 @pytest.mark.parametrize("schedule", P.SCHEDULES)
 def test_int4_unpack_probe_matches_plain(dev, m, k, n, g, schedule):

@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from licv_vqa_tpu_torch.ops import int4_matmul as I4
+from licv_vqa_tpu_torch.ops import int4_unpack_probe as P
+from licv_vqa_tpu_torch.ops import int8_matmul as I8
 from licv_vqa_tpu_torch.ops import quantize as Q
 
 F32_REL_TOL = 1e-4
@@ -243,3 +245,438 @@ def test_int4_launch_plan_covers_every_row_once(m, k, n):
         assert blocks <= 66 or splits == 1
     elif k2 >= 8 * BK:
         assert blocks >= 132 or splits == I4.MAX_SPLITS
+
+
+# ---------------------------------------------------------------------------
+# w8a8 (csrc/w8a8_matmul.cu): s8 fragments from N-major weight rows
+# ---------------------------------------------------------------------------
+
+W8A8_BK = 128  # K bytes a stage
+
+
+def w8a8_tile_shape(tile: str):
+    """``(BM, BN, MT, NB, WM, WN)`` of a ``W8A8_TILES`` entry, as the
+    kernel's template arguments give them."""
+    return {"64x128": (64, 128, 4, 1, 1, 4), "128x256": (128, 256, 4, 2, 2, 4)}[tile]
+
+
+def swizzled(rows: np.ndarray) -> np.ndarray:
+    """A (R, 128) uint8 tile as TMA lays it out in the 128-byte swizzle."""
+    r, c = np.meshgrid(np.arange(rows.shape[0]), np.arange(128), indexing="ij")
+    tile = np.zeros(rows.size, np.uint8)
+    tile[swz(r, c)] = rows
+    return tile
+
+
+def s8_fragments(w, t: int):
+    """``s8_fragments`` for lane t: w[i] the words of K-rows 4t + (i ^ (t &
+    2)); returns the four B registers."""
+    sel_lo, sel_hi = (0x1054, 0x3276) if t & 2 else (0x5410, 0x7632)
+    lo01, hi01 = byte_perm(w[0], w[1], 0x5140), byte_perm(w[0], w[1], 0x7362)
+    lo23, hi23 = byte_perm(w[2], w[3], 0x5140), byte_perm(w[2], w[3], 0x7362)
+    return [byte_perm(lo01, lo23, sel_lo), byte_perm(lo01, lo23, sel_hi),
+            byte_perm(hi01, hi23, sel_lo), byte_perm(hi01, hi23, sel_hi)]
+
+
+def s8_bytes(reg: int) -> list:
+    return [int(v) for v in np.frombuffer(reg.to_bytes(4, "little"), np.int8)]
+
+
+def w8a8_b_registers(tile: np.ndarray, col: int, lane: int, kk: int):
+    """A thread's B registers of k32 step kk at the 128-byte box column
+    ``col`` (its group's column 4g): ``b[j] = (b0, b1)`` for n8 tile j."""
+    t = lane % 4
+    regs = []
+    for half in range(2):
+        w = [word(tile, swz(32 * kk + 16 * half + 4 * t + (i ^ (t & 2)), col)) for i in range(4)]
+        regs.append(s8_fragments(w, t))
+    return [(regs[0][j], regs[1][j]) for j in range(4)]
+
+
+def test_w8a8_fragments_hold_four_k_rows_of_one_column():
+    """Register j of a thread (g, t) holds K-rows 4t .. 4t + 3 (b0) and
+    16 + 4t .. (b1) of the group's column 4g + j, low byte first, for the
+    lanes that load their rows rotated (t >= 2) and those that do not."""
+    rng = np.random.default_rng(0)
+    q = rng.integers(-128, 128, size=(W8A8_BK, 128)).astype(np.int8)
+    tile = swizzled(q.view(np.uint8))
+    for wn in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for kk in range(4):
+                regs = w8a8_b_registers(tile, 32 * wn + 4 * g, lane, kk)
+                for j in range(4):
+                    for half in range(2):
+                        rows = 32 * kk + 16 * half + 4 * t + np.arange(4)
+                        assert s8_bytes(regs[j][half]) == list(q[rows, 32 * wn + 4 * g + j])
+
+
+def test_w8a8_word_loads_and_ldmatrix_are_free_of_bank_conflicts():
+    """Each of a warp's B word loads touches 32 different banks (the rows
+    4t + (i ^ (t & 2)) keep the four rows of a load in four 32-byte bank
+    ranges); with the rows 4t + i it would not.  Each 8-lane phase of the
+    A ``ldmatrix`` reads 8 different 16-byte bank groups."""
+    def banks(row_of):
+        return {swz(row_of(l % 4, i), 32 * wc + 4 * (l // 4)) // 4 % 32 for l in range(32)}
+
+    for wc in range(4):
+        for i in range(4):
+            assert len(banks(lambda t, i=i: 4 * t + (i ^ (t & 2)))) == 32
+        assert min(len(banks(lambda t, i=i: 4 * t + i)) for i in range(4)) == 16
+    for kk in range(4):
+        for phase in range(4):
+            groups = {swz(l % 16, 32 * kk + 16 * (l // 16)) // 16 % 8
+                      for l in range(8 * phase, 8 * phase + 8)}
+            assert len(groups) == 8
+
+
+def _ldmatrix_a(stage: np.ndarray, m16: int, kk: int, lane: int):
+    """``ldmatrix.x4`` of the A stage for thread ``lane``: matrix i's rows
+    come from the addresses of lanes 8i .. 8i + 7 (row lane % 16, byte 16 *
+    (lane / 16) of the step), the thread gets row g's bytes 4t .. 4t + 3."""
+    g, t = lane // 4, lane % 4
+    regs = []
+    for i in range(4):
+        src = 8 * i + g
+        off = 2048 * m16 + swz(src % 16, 32 * kk + 16 * (src // 16)) + 4 * t
+        regs.append(word(stage, off))
+    return regs
+
+
+def emulate_w8a8(xq, xs, q, s, out_dtype, tile: str, splits: int, n_sm_plan=None):
+    """The kernel's schedule on the CPU, as integers: blocks of BM x BN
+    outputs, K in stages of 128 bytes (zeros past M, K and N), split over
+    ``splits`` blocks; per warp and k32 step the A registers from the
+    swizzled stage through ``ldmatrix``'s row addresses, the B registers
+    from ``s8_fragments``, m16n8k32 products per n8 tile, the sums placed
+    by the thread's C registers (tile j's c0 / c1 at columns 8t + j and
+    8t + 4 + j); with splits, each block's int32 tile written in chunks to
+    their owners and summed in rank order; then ``(f32(acc) * xs) * s``."""
+    m, k = xq.shape
+    n = q.shape[1]
+    bm, bn, mt_n, nb_n, wm_n, wn_n = w8a8_tile_shape(tile)
+    steps = -(-k // W8A8_BK)
+    per = -(-steps // splits) * W8A8_BK
+    used = -(-k // per)
+    xqp = np.zeros((-(-m // bm) * bm, used * per), np.int8)
+    xqp[:m, :k] = xq.numpy()
+    qp = np.zeros((used * per, -(-n // bn) * bn), np.int8)
+    qp[:k, :n] = q.numpy()
+    acc_out = np.zeros((xqp.shape[0], qp.shape[1]), np.int64)
+    for by in range(xqp.shape[0] // bm):
+        m0 = by * bm
+        rows = min(bm, m - m0)
+        for bx in range(qp.shape[1] // bn):
+            n0 = bx * bn
+            tiles = []
+            for rank in range(used):
+                acc = np.zeros((bm, bn), np.int64)
+                for k0 in range(rank * per, min(k, rank * per + per), W8A8_BK):
+                    stage_a = swizzled(xqp[m0:m0 + bm, k0:k0 + W8A8_BK].view(np.uint8))
+                    boxes = [swizzled(qp[k0:k0 + W8A8_BK, n0 + 128 * h:n0 + 128 * h + 128]
+                                      .view(np.uint8)) for h in range(bn // 128)]
+                    for wm in range(wm_n):
+                        for wn in range(wn_n):
+                            for kk in range(4):
+                                for mt in range(mt_n):
+                                    m16 = mt_n * wm + mt
+                                    a = np.zeros((16, 32), np.int64)
+                                    for lane in range(32):
+                                        g, t = lane // 4, lane % 4
+                                        r = _ldmatrix_a(stage_a, m16, kk, lane)
+                                        a[g, 4 * t:4 * t + 4] = s8_bytes(r[0])
+                                        a[g + 8, 4 * t:4 * t + 4] = s8_bytes(r[1])
+                                        a[g, 16 + 4 * t:20 + 4 * t] = s8_bytes(r[2])
+                                        a[g + 8, 16 + 4 * t:20 + 4 * t] = s8_bytes(r[3])
+                                    for nb in range(nb_n):
+                                        cb = 32 * (wn * nb_n + nb)
+                                        b = np.zeros((4, 32, 8), np.int64)  # tile j, k, n
+                                        for lane in range(32):
+                                            g, t = lane // 4, lane % 4
+                                            regs = w8a8_b_registers(boxes[cb // 128],
+                                                                    cb % 128 + 4 * g, lane, kk)
+                                            for j in range(4):
+                                                b[j, 4 * t:4 * t + 4, g] = s8_bytes(regs[j][0])
+                                                b[j, 16 + 4 * t:20 + 4 * t, g] = s8_bytes(regs[j][1])
+                                        for j in range(4):
+                                            c = a @ b[j]
+                                            for lane in range(32):
+                                                g, t = lane // 4, lane % 4
+                                                for half in range(2):
+                                                    r0 = 16 * m16 + g + 8 * half
+                                                    acc[r0, cb + 8 * t + j] += c[g + 8 * half, 2 * t]
+                                                    acc[r0, cb + 8 * t + 4 + j] += \
+                                                        c[g + 8 * half, 2 * t + 1]
+                tiles.append(acc)
+            if used == 1:
+                acc_out[m0:m0 + bm, n0:n0 + bn] = tiles[0]
+                continue
+            n_out = rows * bn
+            chunk = -(-(n_out // 4) // used) * 4
+            recv = np.zeros((used, used * chunk), np.int64)
+            for rank, acc in enumerate(tiles):
+                flat = acc[:rows].reshape(-1)
+                for e in range(0, n_out, 4):
+                    owner = e // chunk
+                    slot = rank * chunk + e - owner * chunk
+                    recv[owner, slot:slot + 4] = flat[e:e + 4]
+            summed = np.zeros(n_out, np.int64)
+            for owner in range(used):
+                for c0 in range(owner * chunk, min(n_out, owner * chunk + chunk)):
+                    v = 0
+                    for rank in range(used):  # in rank order
+                        v += recv[owner, rank * chunk + c0 - owner * chunk]
+                    summed[c0] = v
+            acc_out[m0:m0 + rows, n0:n0 + bn] = summed.reshape(rows, bn)
+    acc32 = acc_out[:m, :n].astype(np.int32)
+    y = (acc32.astype(np.float32) * xs.numpy().reshape(-1, 1)) * s.numpy().reshape(1, -1)
+    return torch.from_numpy(y.astype(np.float32)).to(out_dtype)
+
+
+def _w8a8_case(m: int, k: int, n: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn((k, n), generator=g) * 0.02).to(torch.bfloat16)
+    x = (torch.randn((m, k), generator=g) * 3).to(torch.bfloat16)
+    x[0] = 0  # the floor scale
+    leaf = Q.quantize_array(w)
+    xq, xs = I8.quantize_act_rows(x)
+    return xq, xs, leaf["q"], leaf["s"].reshape(-1)
+
+
+# (M, K, N, tile, splits): the streaming tile with a 3-block split (ragged
+# K: the last split shorter, the last stage past K) and without; the
+# compute tile with a ragged M, K and N
+W8A8_CASES = ((70, 320, 136, "64x128", 3), (17, 100, 33, "64x128", 1),
+              (130, 144, 264, "128x256", 1), (64, 256, 128, "64x128", 2))
+
+
+@pytest.mark.parametrize("m,k,n,tile,splits", W8A8_CASES)
+def test_w8a8_schedule_equals_plain(m, k, n, tile, splits):
+    """The kernel's fragments, column mapping and cluster split-K order
+    give the plain version's output bit for bit, as phase 3 holds the
+    kernel (bf16 and f32 outputs)."""
+    xq, xs, q, s = _w8a8_case(m, k, n, 21)
+    for out in (torch.float32, torch.bfloat16):
+        got = emulate_w8a8(xq, xs, q, s, out, tile, splits)
+        want = I8.w8a8_prequantized_reference(xq, xs, q, s, out)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 4096, 4096), (64, 4096, 11008), (64, 11008, 4096),
+                                   (64, 1280, 4096), (321, 1280, 1536), (512, 4096, 11008),
+                                   (4096, 4096, 11008), (17, 100, 33), (1, 64, 8)])
+def test_w8a8_launch_plan(m, k, n):
+    """The streaming tile up to ``W8A8_STREAM_MAX_ROWS`` rows, the compute
+    tile above with no split; the streaming tile's splits (a portable
+    cluster, at most 8) leave no split empty and blocks for at most three
+    quarters of the SMs unless there is no split at all."""
+    ti = I8._w8a8_tile(m, None)
+    assert I8.W8A8_TILES[ti] == ("64x128" if m <= I8.W8A8_STREAM_MAX_ROWS else "128x256")
+    splits = I8._w8a8_splits(m, k, n, ti, 132)
+    steps = -(-k // W8A8_BK)
+    per = -(-steps // splits) * W8A8_BK
+    assert 1 <= splits <= 8 and -(-k // per) == splits  # the kernel's own arithmetic
+    bm, bn = w8a8_tile_shape(I8.W8A8_TILES[ti])[:2]
+    blocks = -(-m // bm) * -(-n // bn) * splits
+    assert blocks <= 3 * 132 // 4 or splits == 1
+    if ti == 1:
+        assert splits == 1
+
+
+# ---------------------------------------------------------------------------
+# The int4 unpack probe (csrc/int4_unpack_probe.cu): the four schedules on
+# the int4 kernel's fragments
+# ---------------------------------------------------------------------------
+
+PROBE_READS = {"a": ("biased", "biased"), "d": ("unbiased", "unbiased"),
+               "e": ("signed", "signed"), "f": ("unbiased", "signed")}
+
+
+def bf16_round(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.float32).to(torch.bfloat16).float())
+
+
+def nibble_value(v: int, read: str) -> list:
+    """``nibbles<read>`` on the word v (nibbles at bits 0-3 and 16-19): the
+    two halves as floats, by the kernel's bf16 bit arithmetic."""
+    if read == "signed":
+        bits = ((v & 0x000F000F) ^ 0x43084308)
+        return [x - 136 for x in bf16_pair(bits)]
+    bits = (v & 0x000F000F) | 0x43004300
+    return [x - (136 if read == "biased" else 128) for x in bf16_pair(bits)]
+
+
+def probe_fragments(tile: np.ndarray, wc: int, lane: int, kk: int, schedule: str):
+    """``load_step``'s B fragments of one thread, decoded (lo, hi)[j][r] as
+    float pairs."""
+    g, t = lane // 4, lane % 4
+    w = [word(tile, swz(16 * kk + 2 * t + (q & 1) + 8 * (q >> 1), 32 * wc + 4 * g))
+         for q in range(4)]
+    read_lo, read_hi = PROBE_READS[schedule]
+    lo, hi = [], []
+    for j in range(4):
+        lo.append([]), hi.append([])
+        for r in range(2):
+            v = byte_perm(w[2 * r], w[2 * r + 1], 0x4400 + 0x1111 * j)
+            lo[j].append(nibble_value(v, read_lo))
+            hi[j].append(nibble_value(v >> 4, read_hi))
+    return lo, hi
+
+
+@pytest.mark.parametrize("schedule", P.SCHEDULES)
+def test_probe_fragments_decode_and_scale_as_the_plain_version(schedule):
+    """Each schedule's B fragments hold the integers its plain version reads
+    from the nibbles (``_decode``), exactly; for d, e and f the fragment
+    times its column's bf16 scale pair, rounded once to bf16, is the plain
+    version's weight bf16(q · bf16(s)) (f's high plane through 16 ·
+    bf16(s/16)), exactly."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.integers(-7, 8, size=(2 * BK, BN)).astype(np.int8))
+    s = torch.from_numpy(rng.random((2, BN)).astype(np.float32) * 0.01 + 0.001)
+    packed, table = P.probe_operands(q, s, schedule)
+    lo_int, hi_int = P._decode(packed, schedule)
+    tile = stage_tile(packed.numpy())
+    factor = 16.0 if schedule == "f" else 1.0
+    for wc in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for kk in range(4):
+                lo, hi = probe_fragments(tile, wc, lane, kk, schedule)
+                for j in range(4):
+                    col = 32 * wc + 4 * g + j
+                    sl = bf16_round(float(table[0, col]))
+                    sh = bf16_round(factor * bf16_round(float(table[1, col])))
+                    for r in range(2):
+                        for h in range(2):
+                            row = 16 * kk + 2 * t + 8 * r + h
+                            # f's high fragment holds q, its plain version 16 q
+                            assert lo[j][r][h] == lo_int[row, col]
+                            assert hi[j][r][h] * factor == hi_int[row, col]
+                            if schedule != "a":
+                                want_lo = bf16_round(float(lo_int[row, col]) * bf16_round(
+                                    float(table[0, col])))
+                                want_hi = bf16_round(float(hi_int[row, col]) * bf16_round(
+                                    float(table[1, col])))
+                                assert bf16_round(lo[j][r][h] * sl) == want_lo
+                                assert bf16_round(hi[j][r][h] * sh) == want_hi
+
+
+def emulate_probe(x, packed, s, group: int, schedule: str, splits: int, per: int):
+    """``(M, N) f32`` of the probe kernel's schedule: split-K blocks of
+    ``per`` packed rows, stages of 64 and k16 steps; a: each group piece's
+    exact-integer partial (both planes) times its f32 scale into the
+    accumulator; d, e, f: the products with w = bf16(q · scale) summed
+    directly, and for d at each group's end -8 · bf16(f32(exact group sum
+    of x)) · bf16(s) per plane; the splits summed in rank order.  Schedule
+    f's correction outside the kernel is the caller's."""
+    m, k = x.shape
+    k2, n = packed.shape
+    xb = x.to(torch.bfloat16).float()
+    lo, hi = (v.float() for v in P._decode(packed, schedule))
+    fh = 16.0 if schedule == "f" else 1.0
+    hi = hi / fh  # f's high fragment: q, its scale 16 bf16(s/16)
+    sf = s.float()
+    hi_groups = k2 // group
+    out = torch.zeros((m, n))
+    for sp in range(splits):
+        r0, r1 = sp * per, min(k2, (sp + 1) * per)
+        acc = torch.zeros((m, n))
+        for kr in range(r0, r1, 16):
+            a = kr
+            while a < min(kr + 16, r1):
+                gi = a // group
+                b = min(kr + 16, r1, (gi + 1) * group)
+                rows = slice(a, b)
+                xl, xh = xb[:, rows], xb[:, k2 + a:k2 + b]
+                if schedule == "a":
+                    acc = acc + (xl @ lo[rows]) * sf[gi] + (xh @ hi[rows]) * sf[gi + hi_groups]
+                else:
+                    wl = (lo[rows] * sf[gi].to(torch.bfloat16).float()).to(torch.bfloat16).float()
+                    wh = (hi[rows] * (fh * sf[gi + hi_groups].to(torch.bfloat16).float()))
+                    acc = acc + xl @ wl + xh @ wh.to(torch.bfloat16).float()
+                if schedule == "d" and b == (gi + 1) * group:
+                    gs = [xb[:, p * k2 + gi * group:p * k2 + b].double().sum(-1).float()
+                          .to(torch.bfloat16).float() for p in range(2)]
+                    for p, row in ((0, gi), (1, gi + hi_groups)):
+                        acc = acc - 8.0 * gs[p][:, None] * sf[row].to(torch.bfloat16).float()
+                a = b
+        out = out + acc
+    return out
+
+
+# (M, K, N, G): the tool's G = 64 at a few splits, G = 20 and 8 (groups
+# inside k16 steps), G = 128 (a group over two stages) with more than one
+# row block
+PROBE_CASES = ((8, 1024, 256, 64), (13, 640, 132, 20), (5, 256, 64, 8), (20, 1024, 256, 128))
+
+
+@pytest.mark.parametrize("schedule", P.SCHEDULES)
+@pytest.mark.parametrize("m,k,n,group", PROBE_CASES)
+def test_probe_schedule_matches_plain(m, k, n, group, schedule):
+    """The schedule with the launch plan's split-K on a card of 4 SMs (so
+    that the cases split), f's correction then taken outside as the
+    wrapper takes it, to ``F32_REL_TOL`` of the plain version."""
+    rng = np.random.default_rng(m + k + group)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-7, 8, size=(k, n)).astype(np.int8))
+    s = torch.from_numpy(rng.random((k // group, n)).astype(np.float32) * 0.01 + 0.001)
+    packed, table = P.probe_operands(q, s, schedule)
+    splits, per = P.launch_plan(m, k // 2, n, group, 4)
+    got = emulate_probe(x, packed, table, group, schedule, splits, per)
+    if schedule == "f":
+        got = P._f_corrected(got, x.to(torch.bfloat16), table, group)
+    _assert_close(got, P.int4_unpack_probe_reference(x, packed, table, group, schedule),
+                  F32_REL_TOL)
+
+
+@pytest.mark.parametrize("m,k,n,group", [(8, 4096, 11008, 64), (1, 512, 36, 64),
+                                         (13, 1024, 132, 32), (8, 200, 44, 20),
+                                         (9, 4096, 256, 128), (5, 256, 64, 8),
+                                         (20, 1024, 256, 128), (3, 640, 128, 20)])
+def test_probe_launch_plan_covers_every_row_once(m, k, n, group):
+    """At most 8 splits (a portable cluster), none empty, each whole stages
+    and whole groups (d's group sums never cut), every packed row in one;
+    the tool's shape takes about two blocks an SM."""
+    k2 = k // 2
+    splits, per = P.launch_plan(m, k2, n, group, 132)
+    assert 1 <= splits <= P.MAX_SPLITS and per % P.STAGE_ROWS == 0 and per % group == 0
+    assert (splits - 1) * per < k2 <= splits * per
+    if (m, k, n) == (8, 4096, 11008):
+        assert (splits, per) == (4, 512)  # 86 column tiles x 4: 344 blocks
+
+
+def test_w8a8_wgmma_transpose_covers_the_stage_without_bank_conflicts():
+    """The compute tile's B transpose (``transpose_b``): the eight warps'
+    lanes over their eight passes move every byte of the landed 128 x 256
+    N-major stage to its place in the K-major copy (row n, byte k, 128-byte
+    swizzle), and each of a warp's word loads and stores touches 32
+    distinct banks."""
+    rng = np.random.default_rng(4)
+    q = rng.integers(0, 256, size=(W8A8_BK, 256)).astype(np.uint8)
+    boxes = [swizzled(q[:, 128 * h:128 * h + 128]) for h in range(2)]
+    copy = np.zeros(256 * W8A8_BK, np.uint8)
+    for w in range(8):
+        kt, nt = w & 1, w >> 1
+        for c in range(8):
+            loads = [[] for _ in range(4)]
+            stores = [[] for _ in range(4)]
+            for lane in range(32):
+                b = lane & 15
+                a0 = (8 * ((lane >> 3) & 1) + 4 * ((lane >> 2) & 1) + 2 * ((lane >> 1) & 1)
+                      + (lane >> 4))
+                k = 64 * kt + 4 * (a0 ^ (2 * c))
+                col = 64 * (nt & 1) + 4 * b
+                box = boxes[nt >> 1]
+                words = []
+                for r in range(4):
+                    off = swz(k + r, col)
+                    loads[r].append(off // 4 % 32)
+                    words.append(word(box, off))
+                out = s8_fragments(words, 0)  # t = 0: the plain selectors
+                for j in range(4):
+                    off = swz(64 * nt + 4 * b + j, k)
+                    stores[j].append(off // 4 % 32)
+                    copy[off:off + 4] = np.frombuffer(out[j].to_bytes(4, "little"), np.uint8)
+            assert all(len(set(banks)) == 32 for banks in loads + stores)
+    want = swizzled(np.ascontiguousarray(q.T))  # row n, K bytes
+    assert np.array_equal(copy, want)

@@ -164,11 +164,26 @@ def test_probe_bounds_of_the_kernels_still_to_port(cases):
         assert c.bytes_moved == nbytes and c.ops == 2 * 8 * 4096 * 11008
         ms, by = c.bound()
         assert by == "bytes" and ms == pytest.approx(nbytes / C.HBM_BYTES_PER_S * 1e3)
+    cold = cases["int4_unpack_probe",
+                 f"cold a (8,4096,11008) G=64, {C.INT4_PROBE_COLD_COPIES} weight copies"]
+    assert cold.bytes_moved == nbytes and cold.bound()[1] == "bytes"
     for shape in ("(4096,4096,11008)", "(4096,11008,4096)"):
         for entry in ("fused", "prequantized"):
             ms, by = cases["w8a8_matmul", f"{entry} {shape} bf16 out"].bound()
             assert by == "operations"
             assert ms == pytest.approx(2 * 4096 * 4096 * 11008 / 1979e12 * 1e3)
+    # run A's test_icl prefill: at 512 rows about 1000 operations a weight
+    # byte, past the card's ridge (~590): bound by the operations
+    for shape, out in (("(512,4096,4096)", 2), ("(512,4096,11008)", 4), ("(512,11008,4096)", 4)):
+        m, k, n = (int(v) for v in shape[1:-1].split(","))
+        c = cases["w8a8_matmul", f"fused {shape} {'f32' if out == 4 else 'bf16'} out"]
+        assert c.bytes_moved == m * k * 2 + k * n + n * 4 + m * n * out
+        assert c.bound() == (pytest.approx(2 * m * k * n / 1979e12 * 1e3), "operations")
+    for copies, (m, k, n), out in ((8, (64, 4096, 4096), 2), (4, (64, 4096, 11008), 4)):
+        label = f"cold fused ({m},{k},{n}) {'f32' if out == 4 else 'bf16'} out, {copies} weight copies"
+        c = cases["w8a8_matmul", label]
+        assert c.bytes_moved == m * k * 2 + k * n + n * 4 + m * n * out
+        assert c.bound() == (pytest.approx(c.bytes_moved / C.HBM_BYTES_PER_S * 1e3), "bytes")
     m, k, n = 64, 4096, 4096
     fused = cases["w8a8_matmul", "fused (64,4096,4096) bf16 out"]
     pre = cases["w8a8_matmul", "prequantized (64,4096,4096) bf16 out"]
@@ -266,17 +281,43 @@ def test_vit_case_holds_the_mean_limit_on_cpu(cases, b, s, dh, masked, monkeypat
 
 
 def test_w8a8_and_probe_cases_cover_their_shapes(cases):
-    """Run A's 64-token prefill, its bind-time K/V and perceiver calls at
-    K = 1280 and the tool's two shapes, both entry points; the int4 probe's
-    four schedules."""
+    """Run A's 64-token prefill, its 32-shot ``test_icl`` prefill in the
+    512-token bucket, its bind-time K/V and perceiver calls at K = 1280 and
+    the tool's two shapes, both entry points, each held to equality and
+    called twice for equal bits; the fused entry point cold at run A's
+    projection and MLP-in, on copies well past the 50 MB L2; the int4
+    probe's four schedules, and schedule a cold."""
     for (m, k, n), out in C.W8A8_SHAPES:
         for entry in ("fused", "prequantized"):
-            assert ("w8a8_matmul", f"{entry} ({m},{k},{n}) {out} out") in cases
+            c = cases["w8a8_matmul", f"{entry} ({m},{k},{n}) {out} out"]
+            assert c.tol == 0.0 and c.deterministic
     shapes = {s for s, _ in C.W8A8_SHAPES}
-    assert {(64, 4096, 4096), (64, 4096, 11008), (64, 11008, 4096), (4096, 4096, 11008),
+    assert {(64, 4096, 4096), (64, 4096, 11008), (64, 11008, 4096), (512, 4096, 4096),
+            (512, 4096, 11008), (512, 11008, 4096), (4096, 4096, 11008),
             (4096, 11008, 4096)} <= shapes and any(k == 1280 for _, k, _ in shapes)
-    assert sorted(label for name, label in cases if name == "int4_unpack_probe") == [
-        f"{s} (8,4096,11008) G=64" for s in "adef"]
+    cold = {(m, k, n): copies for (m, k, n), _, copies in C.W8A8_COLD_SHAPES}
+    assert set(cold) == {(64, 4096, 4096), (64, 4096, 11008)}
+    for (m, k, n), out, copies in C.W8A8_COLD_SHAPES:
+        c = cases["w8a8_matmul", f"cold fused ({m},{k},{n}) {out} out, {copies} weight copies"]
+        assert copies * (k * n + n * 4) > 2.5 * 50e6  # the copies pass the L2
+        assert c.tol == 0.0 and c.deterministic and c.library is not None
+    probe = sorted(label for name, label in cases if name == "int4_unpack_probe")
+    copies = C.INT4_PROBE_COLD_COPIES
+    assert probe == sorted([f"{s} (8,4096,11008) G=64" for s in "adef"] + [
+        f"cold a (8,4096,11008) G=64, {copies} weight copies"])
+    assert copies * (2048 * 11008 + 64 * 11008 * 4) > 2.5 * 50e6
+
+
+def test_cold_cases_cycle_through_equal_copies(cases, monkeypatch):
+    """The cold cases (CPU tensors take the plain versions): each call
+    takes the next copy, and every copy gives the same output, so the
+    first call compares equal inputs and two calls give equal bits."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for (name, label), c in cases.items():
+        if not label.startswith("cold") or name == "int4_matmul":
+            continue
+        first, second = c.kernel(), c.kernel()
+        assert torch.equal(first, second) and torch.equal(first, c.plain()), label
 
 
 def test_kernels_line_has_twelve_rows_each_naming_its_tpu_kernel():
@@ -320,6 +361,34 @@ def test_a_profiler_without_device_activity_leaves_the_times_to_events(monkeypat
     assert len(ran) == 4  # three profiled sessions, then one for the wall
     times, timed_by = C.device_times([lambda: None] * 3, 20)
     assert times == [0.5] * 3 and timed_by == "events" and queued == [20] * 3
+
+
+def test_a_session_that_lost_kernels_leaves_the_times_to_events(monkeypatch):
+    """A profiled session of ``calls`` calls that holds fewer kernels than
+    ``calls`` times one call's (a reading under the bound) is not used: every
+    function of the case is timed from CUDA events; a complete session is
+    summed over all its kernels (each call's row pass and matmul)."""
+    def ev(start, end):
+        return SimpleNamespace(time_range=SimpleNamespace(start=start, end=end))
+
+    monkeypatch.setattr(C, "_profiler_works", True)
+    queued = []
+    monkeypatch.setattr(C, "queued_ms", lambda fn, calls: queued.append(calls) or 0.5)
+    lost = []  # kernels the profiler drops from a session of several calls
+
+    def fake_events(fn):
+        ran = []
+        fn_calls = fn()  # one call returns None, a session returns its calls' results
+        n = len(fn_calls) if isinstance(fn_calls, list) else 1
+        ran.extend([ev(0, 3), ev(3, 10)] * n)  # the row pass and the matmul, µs
+        return 1.0, ran[:len(ran) - (lost[0] if n > 1 and lost else 0)]
+
+    monkeypatch.setattr(C, "device_events", fake_events)
+    times, by = C.device_times([lambda: None], 4)
+    assert by == "profiler" and times == [pytest.approx(10 / 1e3)] and not queued
+    lost.append(3)
+    times, by = C.device_times([lambda: None, lambda: None], 4)
+    assert by == "events" and times == [0.5, 0.5] and queued == [4, 4]
 
 
 def test_quantized_cases_bound_the_functions_bytes(cases):

@@ -8,13 +8,16 @@ at serving token counts M = bs·prompt (64 x 64 = 4096; ``--wide`` adds
 
   a_bf16              dense bf16 matmul (the rate w8a8 must beat)
   b_w8a8              the port's route (``ops/int8_matmul.qdot`` with
-                      ``a8``): the fused kernel of ``csrc/w8a8_matmul.cu``
+                      ``a8``): the fused entry point of
+                      ``csrc/w8a8_matmul.cu``
   c_s8s8              ``torch._int_mm`` on activations quantized
                       beforehand, then the scales: isolates the activation
                       quantization from the matmul itself
-  d_kernel_<tile>     the pre-quantized kernel, per tile shape
-  e_kernel_fused_<t>  the fused kernel (row scales and quantization in
-                      the kernel), per tile shape
+  d_kernel_<tile>     the pre-quantized entry point, per tile
+                      (``W8A8_TILES``: the weight-streaming tile and the
+                      compute tile)
+  e_kernel_fused_<t>  the fused entry point (a row pass writes each row's
+                      scale and int8 plane once, then the matmul), per tile
 
 ``b`` must equal its plain version (``w8a8_matmul_reference``) exactly,
 and each variant is checked against that output with the JAX tool's rule

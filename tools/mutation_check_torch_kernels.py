@@ -188,11 +188,21 @@ MUTATIONS = {
     "w8a8_activation_scale_dropped": (
         W8A8, "  return __fmul_rn(__fmul_rn(__int2float_rn(c), xsr), sc);\n",
         "  return __fmul_rn(__int2float_rn(c), sc);\n", ("w8a8_matmul",), None),
-    # schedule e reads its nibbles unsigned (reads on the e case only)
+    # the s8 B fragments: tile 0 gets tile 1's columns (the interleaved n8
+    # tiles' mapping); and the K-rows of the lanes t >= 2, loaded rotated by
+    # two for the banks, left in load order
+    "w8a8_n8_tiles_swapped": (
+        W8A8, "  b[0] = __byte_perm(lo01, lo23, sel_lo);\n",
+        "  b[0] = __byte_perm(lo01, lo23, sel_hi);\n", ("w8a8_matmul",), None),
+    "w8a8_row_rotation_not_undone": (
+        W8A8, "    const uint32_t sel_lo = t & 2 ? 0x1054u : 0x5410u;\n",
+        "    const uint32_t sel_lo = 0x5410u;\n", ("w8a8_matmul",), None),
+    # schedule e reads its nibbles unsigned (reads on the e cases only)
     "int4_probe_e_not_sign_extended": (
         PROBE4,
-        "    const int lo = static_cast<int8_t>(b << 4) >> 4, hi = static_cast<int8_t>(b) >> 4;\n",
-        "    const int lo = b & 15u, hi = b >> 4;\n", ("int4_unpack_probe",), None),
+        "template <> struct Planes<kE> { static constexpr Nib lo = Nib::Signed, hi = Nib::Signed; };\n",
+        "template <> struct Planes<kE> { static constexpr Nib lo = Nib::Unbiased, hi = Nib::Unbiased; };\n",
+        ("int4_unpack_probe",), None),
     # P rounded to bf16 before it is normalised, the output divided by l
     # after P.V (the flash kernels' rounding point; the tensor cores take P
     # in bf16, so "not rounded" moves the rounding): one pass (S <= 264)
