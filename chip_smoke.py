@@ -175,7 +175,7 @@ Phases (any failure exits non-zero before the result lines):
    comparisons printed beside it, and all four at full depth);
 10. the two probe tools in process at their shapes
    (``tools/exp_w8a8_tuning_torch.py``: every variant at (4096, 4096,
-   11008) and (4096, 11008, 4096), two tiles; ``tools/exp_int4_unpack_torch.py``:
+   11008) and (4096, 11008, 4096), each tile; ``tools/exp_int4_unpack_torch.py``:
    the four schedules at (8, 4096, 11008)), each variant checked by the
    tool, the launches of the w8a8 and int4-probe kernels counted against
    the tools' own tallies;

@@ -44,15 +44,18 @@
 //   for its i-th load, so that the warp's four rows of one load fall in
 //   four distinct 32-byte bank ranges of the swizzle; the permutes undo the
 //   order.  A thread's outputs are then 8 contiguous columns of a row.
-// - Two tiles (ops/int8_matmul.py::W8A8_TILES): "64x128" (four warps,
-//   64 rows each, three stages, two blocks an SM) streams the weight at
-//   M <= 512 and splits K over a thread-block cluster of up to 8 blocks:
-//   each block writes its int32 tile in chunks into the owners' receive
-//   buffers (distributed shared memory), one cluster barrier later each
-//   block sums its chunk over the senders in rank order, applies the
-//   epilogue and writes it (no atomics, no scratch, no second kernel).
-//   "128x256" (eight warps of 64 x 64, four stages, one block an SM) is
-//   the compute tile above, with no split; its epilogue is the registers'.
+// - One tile for every M (ops/int8_matmul.py::W8A8_TILES, "64x128"): four
+//   consumer warps of 64 rows by 32 columns, three stages, two blocks an
+//   SM.  Where the tiles alone leave SMs idle (run A's 64 rows), K is split
+//   over a thread-block cluster of up to 8 blocks: each block writes its
+//   int32 tile in chunks into the owners' receive buffers (distributed
+//   shared memory), one cluster barrier later each block sums its chunk
+//   over the senders in rank order, applies the epilogue and writes it (no
+//   atomics, no scratch, no second kernel).  At M = 4096 and 16384 it beat
+//   both compute tiles timed against it with tools/exp_w8a8_tuning_torch.py
+//   on the H100: a 128 x 256 tile of eight such warps, and a 128 x 256
+//   `wgmma` tile whose consumers transposed each landed B stage into a
+//   K-major, 128-byte-swizzled copy (PERF.md §6).
 // - Shapes TMA does not take (K or N not a multiple of 16, unaligned
 //   pointers) fill the same stage layout with the producer warp's plain
 //   loads; what lies past M, K or N is zero either way.
@@ -65,15 +68,11 @@ using namespace quant_sm90;
 
 constexpr int kBK = 128;               // K bytes a stage: four mma k32 steps
 constexpr float kInv127 = 1.0f / 127.0f;  // f32(1/127), as XLA folds a / 127
-constexpr int kRowThreads = 256;       // the row pass's block: one row
-constexpr int kRowVecs = 8;            // its vectors of 8 a thread held in registers
+constexpr int kRowThreads = 1024;      // the row pass's block: one row
+constexpr int kRowVecs = 2;            // its vectors of 8 a thread held in registers
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
-
-// the IEEE quotient, out of line: the rare branch that takes it stays a
-// branch, not predicated code run for every activation
-__device__ __noinline__ float ieee_quotient(float v, float scale) { return __fdiv_rn(v, scale); }
 
 // one activation to int8 as the plain version rounds it: the IEEE quotient
 // v / scale, rounded half to even, clamped to +-127.  |v / scale| <= 127
@@ -82,7 +81,7 @@ __device__ __noinline__ float ieee_quotient(float v, float scale) { return __fdi
 // unless it is within 2^-13 of a half-integer; there the division decides
 __device__ __forceinline__ uint32_t quantize(float v, float scale, float inv) {
   float y = __fmul_rn(v, inv);
-  if (fabsf(y - floorf(y) - 0.5f) < 1.220703125e-4f) y = ieee_quotient(v, scale);
+  if (fabsf(y - floorf(y) - 0.5f) < 1.220703125e-4f) y = __fdiv_rn(v, scale);
   const int r = __float2int_rn(y);
   return static_cast<uint32_t>(max(-127, min(127, r))) & 0xFFu;
 }
@@ -131,8 +130,11 @@ __device__ __forceinline__ float row_scale(float mx, float* red) {
 // plane into xq.  With `vec` (K % 8 == 0, x 16-byte aligned) a row of up
 // to kRowThreads * 8 * kRowVecs activations (every projection of the
 // supported models) is read once, eight a load, into registers, all loads
-// in flight together (M = 64 rows are 64 blocks: one load latency, not one
-// a loop trip), and written eight bytes a store
+// in flight together, and written eight bytes a store.  M = 64 rows are 64
+// blocks on 132 SMs, so a row takes a whole block of 32 warps: the
+// quantization's arithmetic, not the loads, bounds it (at K = 11008 on an
+// H100 80GB HBM3 at 700 W, 256 threads a row took 9.3 µs, 1024 take 4.5;
+// PERF.md §6)
 template <class T>
 __global__ void __launch_bounds__(kRowThreads)
 quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int K,
@@ -290,9 +292,9 @@ __device__ __forceinline__ void produce(const CUtensorMap& ta, const CUtensorMap
 
 // A block: WM x WN consumer warps of MT m16 tiles by NB 32-column groups
 // (BM x BN outputs) and a producer warp; STAGES stages of A (BM x 128
-// bytes) and B (BN / 128 boxes of 128 x 128 bytes); with kSplitK, the
-// receive buffer of the cluster's int32 partial tiles
-template <int MT, int NB, int WM, int WN, int STAGES, bool kSplitK>
+// bytes) and B (BN / 128 boxes of 128 x 128 bytes), then the receive
+// buffer of the cluster's int32 partial tiles
+template <int MT, int NB, int WM, int WN, int STAGES>
 struct Tile {
   static constexpr int kBM = 16 * MT * WM;
   static constexpr int kBN = 32 * NB * WN;
@@ -300,18 +302,18 @@ struct Tile {
   static constexpr int kThreads = 32 * (kConsumers + 1);
   static constexpr int kA = kBM * kBK;
   static constexpr int kStage = kA + kBN * kBK;
-  static constexpr int kRecvInts = kSplitK ? kBM * kBN + 4 * kMaxSplits : 0;
+  static constexpr int kRecvInts = kBM * kBN + 4 * kMaxSplits;
   static constexpr int kRecv = STAGES * kStage;
   static constexpr int kBars = kRecv + 4 * kRecvInts;
   static constexpr int kSmem = kBars + 16 * STAGES + 1024;  // + align slack
   static_assert(kBN % 128 == 0 && kStage % 1024 == 0, "tile");
 };
 
-template <int MT, int NB, int WM, int WN, int STAGES, bool kSplitK, bool kTma>
-__global__ void __launch_bounds__(Tile<MT, NB, WM, WN, STAGES, kSplitK>::kThreads)
+template <int MT, int NB, int WM, int WN, int STAGES, bool kTma>
+__global__ void __launch_bounds__(Tile<MT, NB, WM, WN, STAGES>::kThreads)
 w8a8_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tq,
             const Problem p) {
-  using T = Tile<MT, NB, WM, WN, STAGES, kSplitK>;
+  using T = Tile<MT, NB, WM, WN, STAGES>;
   constexpr int BM = T::kBM, BN = T::kBN;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -322,7 +324,7 @@ w8a8_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
 
   // every block of the cluster has started before any writes into another
   // (the wait is just before the first such write)
-  if constexpr (kSplitK) cluster_arrive_relaxed();
+  cluster_arrive_relaxed();
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int k_begin = blockIdx.z * p.k_per_split;
   const int k_end = min(p.K, k_begin + p.k_per_split);
@@ -420,7 +422,20 @@ w8a8_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
       v[4 + j] = acc[mt][nb][j][2 * half + 1];
     }
   };
-  if constexpr (!kSplitK) {
+  // Split-K in the cluster: the tile's rows x BN int32 sums in `splits`
+  // chunks of whole int4s, chunk r summed by block r.  Each consumer
+  // thread writes its sums into their owner's receive buffer (this
+  // block's slot), then one cluster barrier, then each block sums its
+  // chunk's slots in rank order and applies the epilogue.
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int rows = min(BM, p.M - m0);
+  const int n_out = rows * BN;
+  const int chunk = (n_out / 4 + splits - 1) / splits * 4;
+  int* const recv = reinterpret_cast<int*>(base_ptr + T::kRecv);
+  cluster_wait();
+  if (splits == 1) {
     if (warp < T::kConsumers) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -433,276 +448,64 @@ w8a8_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
             store8(p, m0 + row_of(mt, half), n0 + col_of(nb), v);
           }
     }
-  } else {
-    // Split-K in the cluster: the tile's rows x BN int32 sums in `splits`
-    // chunks of whole int4s, chunk r summed by block r.  Each consumer
-    // thread writes its sums into their owner's receive buffer (this
-    // block's slot), then one cluster barrier, then each block sums its
-    // chunk's slots in rank order and applies the epilogue.
-    cg::cluster_group cluster = cg::this_cluster();
-    const int splits = static_cast<int>(cluster.num_blocks());
-    const int rank = static_cast<int>(cluster.block_rank());
-    const int rows = min(BM, p.M - m0);
-    const int n_out = rows * BN;
-    const int chunk = (n_out / 4 + splits - 1) / splits * 4;
-    int* const recv = reinterpret_cast<int*>(base_ptr + T::kRecv);
-    cluster_wait();
-    if (splits == 1) {
-      if (warp < T::kConsumers) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              int v[8];
-              values(mt, nb, half, v);
-              store8(p, m0 + row_of(mt, half), n0 + col_of(nb), v);
-            }
-      }
-      return;
-    }
-    if (warp < T::kConsumers) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int lm = row_of(mt, half);
-          if (lm >= rows) continue;
-#pragma unroll
-          for (int nb = 0; nb < NB; ++nb) {
-            int v[8];
-            values(mt, nb, half, v);
-#pragma unroll
-            for (int h4 = 0; h4 < 2; ++h4) {
-              const int e = lm * BN + col_of(nb) + 4 * h4;
-              const int owner = e / chunk;
-              int* const slot =
-                  cluster.map_shared_rank(recv, owner) + rank * chunk + (e - owner * chunk);
-              *reinterpret_cast<int4*>(slot) =
-                  make_int4(v[4 * h4], v[4 * h4 + 1], v[4 * h4 + 2], v[4 * h4 + 3]);
-            }
-          }
-        }
-    }
-    cluster_arrive();
-    cluster_wait();
-    const int c_begin = rank * chunk;
-    const int c_end = min(n_out, c_begin + chunk);
-    for (int c = c_begin + 4 * static_cast<int>(threadIdx.x); c < c_end;
-         c += 4 * static_cast<int>(blockDim.x)) {
-      int v[4] = {0, 0, 0, 0};
-      for (int r = 0; r < splits; ++r) {
-        const int4 part = *reinterpret_cast<const int4*>(recv + r * chunk + (c - c_begin));
-        v[0] += part.x;
-        v[1] += part.y;
-        v[2] += part.z;
-        v[3] += part.w;
-      }
-      const int m = m0 + c / BN, n = n0 + c % BN;
-      const float xsr = p.xs[m];
-      const long long o = static_cast<long long>(m) * p.N + n;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (n + u >= p.N) break;
-        const float y = epilogue(v[u], xsr, __ldg(p.s + n + u));
-        if (p.out_f32) {
-          static_cast<float*>(p.out)[o + u] = y;
-        } else {
-          static_cast<__nv_bfloat16*>(p.out)[o + u] = __float2bfloat16_rn(y);
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- wgmma
-// The compute tile on wgmma: 128 x 256 outputs, two consumer warpgroups of
-// 64 rows and the producer warp.  wgmma takes 8-bit B K-major only, so the
-// consumers transpose each landed B stage into a K-major, 128-byte-swizzled
-// copy (two buffers) while the tensor cores run the previous stage
-
-#define W8A8_D128                                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
-  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
-  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
-#define W8A8_R8(i)                                                            \
-  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
-      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-#define W8A8_R32 W8A8_R8(0), W8A8_R8(8), W8A8_R8(16), W8A8_R8(24)
-#define W8A8_R128                                                                      \
-  W8A8_R32, W8A8_R8(32), W8A8_R8(40), W8A8_R8(48), W8A8_R8(56), W8A8_R8(64), W8A8_R8(72), \
-      W8A8_R8(80), W8A8_R8(88), W8A8_R8(96), W8A8_R8(104), W8A8_R8(112), W8A8_R8(120)
-
-// d (64 x 256, s32) += A.B^T, both s8 K-major in shared memory
-__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " W8A8_D128
-      ", %128, %129, p;\n}\n"
-      : W8A8_R128
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void fence_acc(int (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-struct WgTile {
-  static constexpr int kBM = 128, kBN = 256, kStages = 3;
-  static constexpr int kThreads = 32 * 9;
-  static constexpr int kA = kBM * kBK;
-  static constexpr int kStage = kA + kBN * kBK;
-  static constexpr int kBt = kStages * kStage;           // two K-major B copies
-  static constexpr int kBars = kBt + 2 * kBN * kBK;
-  static constexpr int kSmem = kBars + 16 * kStages + 1024;  // + align slack
-};
-
-// Warp w (of the eight) transposes a 64 x 64-byte block of the landed B
-// stage (K-rows 64 (w & 1) .., columns 64 (w >> 1) ..) into the K-major
-// copy: a lane takes 4 x 4 bytes at column word b = lane & 15 and K word a
-// (bit 0 = lane bit 4, bits 1-3 = lane bits 1-3 XOR the pass), eight
-// passes; reads and writes then fall in 32 distinct banks of both swizzles
-__device__ __forceinline__ void transpose_b(const uint8_t* src, uint8_t* dst, int w, int lane) {
-  const int kt = w & 1, nt = w >> 1;
-  const int b = lane & 15;
-  const int a0 = 8 * ((lane >> 3) & 1) + 4 * ((lane >> 2) & 1) + 2 * ((lane >> 1) & 1) + (lane >> 4);
-  const uint8_t* const box = src + (nt >> 1) * 128 * kBK;
-  const int col = 64 * (nt & 1) + 4 * b;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int k = 64 * kt + 4 * (a0 ^ (2 * c));
-    uint32_t w4[4], out[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) w4[r] = *reinterpret_cast<const uint32_t*>(box + swz(k + r, col));
-    s8_fragments(w4, 0x5410u, 0x7632u, out);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<uint32_t*>(dst + swz(64 * nt + 4 * b + j, k)) = out[j];
-  }
-  // the generic stores, before the tensor cores read them
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
-
-template <bool kTma>
-__global__ void __launch_bounds__(WgTile::kThreads, 1)
-w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tq,
-                  const Problem p) {
-  using T = WgTile;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t bars = base + T::kBars;
-  auto full = [&](int st) { return bars + 8 * st; };
-  auto empty = [&](int st) { return bars + 8 * (T::kStages + st); };
-  const int n0 = blockIdx.x * T::kBN, m0 = blockIdx.y * T::kBM;
-  const int n_stages = (p.K + kBK - 1) / kBK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    if constexpr (kTma) {
-      prefetch_map(&ta);
-      prefetch_map(&tq);
-    }
-    for (int st = 0; st < T::kStages; ++st) {
-      mbar_init(full(st), kTma ? 1 : 32);
-      mbar_init(empty(st), 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (warp == 8) {
-    produce<T::kBM, T::kBN, T::kStages, kTma>(ta, tq, p, base, base_ptr, bars, n_stages, 0, m0,
-                                              n0, lane);
     return;
   }
-  const int wg = warp / 4;
-  int acc[128];
+  if (warp < T::kConsumers) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0;
-  auto stage_b = [&](int i) { return base_ptr + (i % T::kStages) * T::kStage + T::kA; };
-  auto copy_b = [&](int i) { return T::kBt + (i & 1) * T::kBN * kBK; };
-  mbar_wait(full(0), 0);
-  transpose_b(stage_b(0), base_ptr + copy_b(0), warp, lane);
-  consumers_sync();
-  for (int i = 0; i < n_stages; ++i) {
-    const int st = i % T::kStages;
-    const uint32_t a = base + st * T::kStage + wg * 64 * kBK, b = base + copy_b(i);
-    fence_acc(acc);
-    flash_sm90::wgmma_fence();
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < kBK / 32; ++kk) {
-      wgmma_s8_n256(acc, flash_sm90::smem_desc(a + 32 * kk, 16, 1024),
-                    flash_sm90::smem_desc(b + 32 * kk, 16, 1024));
-    }
-    flash_sm90::wgmma_commit();
-    // the next stage's B transposed while the tensor cores run this one
-    if (i + 1 < n_stages) {
-      mbar_wait(full((i + 1) % T::kStages), ((i + 1) / T::kStages) & 1);
-      transpose_b(stage_b(i + 1), base_ptr + copy_b(i + 1), warp, lane);
-    }
-    flash_sm90::wgmma_wait<0>();
-    fence_acc(acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(st));
-    // both warpgroups' products done (the other copy free) and the next copy whole
-    consumers_sync();
-  }
-  // accumulator layout: warp w4 of the warpgroup holds rows 16 w4 + g
-  // (acc[4j], acc[4j + 1]) and 16 w4 + g + 8 (acc[4j + 2], acc[4j + 3]) at
-  // columns 8j + 2t, 8j + 2t + 1
-  const int g = lane / 4, t = lane % 4;
+      for (int half = 0; half < 2; ++half) {
+        const int lm = row_of(mt, half);
+        if (lm >= rows) continue;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int m = m0 + 64 * wg + 16 * (warp % 4) + g + 8 * half;
-    if (m >= p.M) continue;
-    const float xsr = p.xs[m];
+        for (int nb = 0; nb < NB; ++nb) {
+          int v[8];
+          values(mt, nb, half, v);
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int n = n0 + 8 * j + 2 * t;
-      const long long o = static_cast<long long>(m) * p.N + n;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        if (n + u >= p.N) break;
-        const float y = epilogue(acc[4 * j + 2 * half + u], xsr, __ldg(p.s + n + u));
-        if (p.out_f32) {
-          static_cast<float*>(p.out)[o + u] = y;
-        } else {
-          static_cast<__nv_bfloat16*>(p.out)[o + u] = __float2bfloat16_rn(y);
+          for (int h4 = 0; h4 < 2; ++h4) {
+            const int e = lm * BN + col_of(nb) + 4 * h4;
+            const int owner = e / chunk;
+            int* const slot =
+                cluster.map_shared_rank(recv, owner) + rank * chunk + (e - owner * chunk);
+            *reinterpret_cast<int4*>(slot) =
+                make_int4(v[4 * h4], v[4 * h4 + 1], v[4 * h4 + 2], v[4 * h4 + 3]);
+          }
         }
+      }
+  }
+  cluster_arrive();
+  cluster_wait();
+  const int c_begin = rank * chunk;
+  const int c_end = min(n_out, c_begin + chunk);
+  for (int c = c_begin + 4 * static_cast<int>(threadIdx.x); c < c_end;
+       c += 4 * static_cast<int>(blockDim.x)) {
+    int v[4] = {0, 0, 0, 0};
+    for (int r = 0; r < splits; ++r) {
+      const int4 part = *reinterpret_cast<const int4*>(recv + r * chunk + (c - c_begin));
+      v[0] += part.x;
+      v[1] += part.y;
+      v[2] += part.z;
+      v[3] += part.w;
+    }
+    const int m = m0 + c / BN, n = n0 + c % BN;
+    const float xsr = p.xs[m];
+    const long long o = static_cast<long long>(m) * p.N + n;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (n + u >= p.N) break;
+      const float y = epilogue(v[u], xsr, __ldg(p.s + n + u));
+      if (p.out_f32) {
+        static_cast<float*>(p.out)[o + u] = y;
+      } else {
+        static_cast<__nv_bfloat16*>(p.out)[o + u] = __float2bfloat16_rn(y);
       }
     }
   }
 }
 
-template <bool kTma>
-int launch_wgmma(const Problem& p, cudaStream_t stream) {
-  using T = WgTile;
-  CUtensorMap ta{}, tq{};
-  if constexpr (kTma) {
-    if (!make_map_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.a, p.K, p.M, p.K, kBK, T::kBM,
-                     CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !make_map_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.N, p.K, p.N, 128, kBK,
-                     CU_TENSOR_MAP_SWIZZLE_128B)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  const dim3 grid((p.N + T::kBN - 1) / T::kBN, (p.M + T::kBM - 1) / T::kBM, 1);
-  return launch_cluster(w8a8_wgmma_kernel<kTma>, grid, T::kThreads, T::kSmem, 1, stream, ta, tq,
-                        p);
-}
-
-template <int MT, int NB, int WM, int WN, int STAGES, bool kSplitK, bool kTma>
+template <int MT, int NB, int WM, int WN, int STAGES, bool kTma>
 int launch_tile(const Problem& p, int splits, cudaStream_t stream) {
-  using T = Tile<MT, NB, WM, WN, STAGES, kSplitK>;
+  using T = Tile<MT, NB, WM, WN, STAGES>;
   CUtensorMap ta{}, tq{};
   if constexpr (kTma) {
     if (!make_map_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.a, p.K, p.M, p.K, kBK, T::kBM,
@@ -714,25 +517,20 @@ int launch_tile(const Problem& p, int splits, cudaStream_t stream) {
   }
   const dim3 grid((p.N + T::kBN - 1) / T::kBN, (p.M + T::kBM - 1) / T::kBM,
                   (p.K + p.k_per_split - 1) / p.k_per_split);
-  return launch_cluster(w8a8_kernel<MT, NB, WM, WN, STAGES, kSplitK, kTma>, grid, T::kThreads,
-                        T::kSmem, kSplitK ? splits : 1, stream, ta, tq, p);
+  return launch_cluster(w8a8_kernel<MT, NB, WM, WN, STAGES, kTma>, grid, T::kThreads, T::kSmem,
+                        splits, stream, ta, tq, p);
 }
 
-// tile 0 = "64x128" (split-K in a cluster), 1 = "128x256" (no split);
-// ops/int8_matmul.py::W8A8_TILES
+// the one tile, "64x128" (ops/int8_matmul.py::W8A8_TILES): four consumer
+// warps of 64 rows x 32 columns, three stages, split-K in a cluster
 template <bool kTma>
-int launch_matmul(const Problem& p, int tile, int splits, cudaStream_t stream) {
-  switch (tile) {
-    case 0: return launch_tile<4, 1, 1, 4, 3, true, kTma>(p, splits, stream);
-    case 1: return launch_tile<4, 2, 2, 4, 4, false, kTma>(p, splits, stream);
-    case 2: return launch_wgmma<kTma>(p, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_matmul(const Problem& p, int splits, cudaStream_t stream) {
+  return launch_tile<4, 1, 1, 4, 3, kTma>(p, splits, stream);
 }
 
 int matmul(const int8_t* xq, const float* xs, const void* q, const void* s, void* out, int M,
            int K, int N, int tile, int splits, int out_f32, cudaStream_t stream) {
-  if (M < 1 || K < 1 || N < 1 || splits < 1 || splits > kMaxSplits || (tile != 0 && splits > 1))
+  if (M < 1 || K < 1 || N < 1 || tile != 0 || splits < 1 || splits > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   const int steps = (K + kBK - 1) / kBK;
   const int k_per_split = (steps + splits - 1) / splits * kBK;
@@ -741,8 +539,7 @@ int matmul(const int8_t* xq, const float* xs, const void* q, const void* s, void
   const int used = (K + k_per_split - 1) / k_per_split;  // no split left empty
   // TMA: 16-byte row pitches and addresses
   const bool tma = K % 16 == 0 && N % 16 == 0 && aligned16(xq) && aligned16(q);
-  return tma ? launch_matmul<true>(p, tile, used, stream)
-             : launch_matmul<false>(p, tile, used, stream);
+  return tma ? launch_matmul<true>(p, used, stream) : launch_matmul<false>(p, used, stream);
 }
 
 }  // namespace
@@ -752,11 +549,11 @@ int matmul(const int8_t* xq, const float* xs, const void* q, const void* s, void
 // into xs (M,) f32 and its int8 plane into xq (M, K), scratch the caller
 // allocated, with a first kernel, then runs the matmul on them; the
 // pre-quantized one takes xq (int8, as x) and its scales xs (M,) f32, and
-// its xq argument is unused.  `tile` indexes ops/int8_matmul.py::W8A8_TILES;
-// with tile 0 and splits > 1 the K steps are shared by a cluster of
-// `splits` blocks (at most 8) a tile, summed in the cluster; tile 1 takes
-// no split.  Launch on `stream`, do not synchronise, allocate nothing, and
-// return a cudaError_t.
+// its xq argument is unused.  `tile` indexes ops/int8_matmul.py::W8A8_TILES
+// (0, the one tile); with splits > 1 the K steps are shared by a cluster
+// of `splits` blocks (at most 8) a tile, summed in the cluster.  Launch on
+// `stream`, do not synchronise, allocate nothing, and return a
+// cudaError_t.
 extern "C" int w8a8_matmul_fused(const void* x, void* xq, void* xs, const void* q,
                                  const void* s, void* out, int M, int K, int N, int a_f32,
                                  int tile, int splits, int out_f32, void* stream) {

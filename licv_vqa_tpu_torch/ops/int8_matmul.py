@@ -168,11 +168,10 @@ int8_matmul.launches = 0  # kernel launches (CUDA tensors only)
 # few rows in 25, and JAX runs w8a8 under jit)
 INV_127 = 1.0 / 127.0
 # w8a8 kernel tiles (rows x columns of the output a block computes), the
-# template instantiations of csrc/w8a8_matmul.cu in its order: the
-# weight-streaming tile (split-K in a cluster) and the compute tile
-W8A8_TILES = ("64x128", "128x256", "128x256w")
-# rows up to which the weight-streaming tile is the default
-W8A8_STREAM_MAX_ROWS = 512
+# instantiations of csrc/w8a8_matmul.cu in its order: one, which streams the
+# weight at run A's 64 rows (split-K in a cluster) and beat two compute
+# tiles at the tool's 4096 and 16384 (PERF.md §6)
+W8A8_TILES = ("64x128",)
 # the w8a8 kernel's K bytes a stage and its largest cluster (split-K blocks)
 _W8A8_STAGE_K = 128
 _W8A8_MAX_SPLITS = 8
@@ -225,25 +224,19 @@ def w8a8_prequantized_reference(xq, xs, q, s, out_dtype) -> torch.Tensor:
     return (_int_product(xq, q) * xs * s.reshape(1, -1)).to(out_dtype)
 
 
-def _w8a8_tile(m: int, tile) -> int:
-    """Index into ``W8A8_TILES``: the caller's, else the weight-streaming
-    tile up to ``W8A8_STREAM_MAX_ROWS`` rows and the compute tile above."""
-    if tile is None:
-        tile = W8A8_TILES[0] if m <= W8A8_STREAM_MAX_ROWS else W8A8_TILES[1]
-    return W8A8_TILES.index(tile)
+def _w8a8_tile(tile) -> int:
+    """Index into ``W8A8_TILES``: the caller's, else the first."""
+    return W8A8_TILES.index(tile or W8A8_TILES[0])
 
 
 def _w8a8_splits(m: int, k: int, n: int, tile: int, n_sm: int) -> int:
-    """Blocks of one cluster that share a tile's K stages (of 128): for the
-    weight-streaming tile as many as fill about three quarters of the SMs
-    with one block each, at most 8, each with whole stages and none empty
-    (the kernel's own arithmetic); the compute tile takes no split.  Timed
-    on the H100 at run A's shapes (PERF.md §6): two blocks an SM, though
-    their shared memory fits, and clusters over all the SMs (a cluster's
-    blocks share a GPC, so the last ones wait for a second wave) were
-    slower."""
-    if tile != 0:
-        return 1
+    """Blocks of one cluster that share a tile's K stages (of 128): as many
+    as fill about three quarters of the SMs with one block each, at most 8,
+    each with whole stages and none empty (the kernel's own arithmetic).
+    Timed on the H100 at run A's shapes (PERF.md §6): two blocks an SM,
+    though their shared memory fits, and clusters over all the SMs (a
+    cluster's blocks share a GPC, so the last ones wait for a second wave)
+    were slower."""
     bm, bn = (int(v) for v in W8A8_TILES[tile].split("x"))
     tiles = math.ceil(n / bn) * math.ceil(m / bm)
     stages = math.ceil(k / _W8A8_STAGE_K)
@@ -267,7 +260,7 @@ def _w8a8_launch(fn_name: str, a, xs, q, s, out_dtype, tile) -> torch.Tensor:
     if xs is None:
         xq = torch.empty((m, k), dtype=torch.int8, device=a.device)
         xs = torch.empty((m,), dtype=torch.float32, device=a.device)
-    ti = _w8a8_tile(m, tile)
+    ti = _w8a8_tile(tile)
     splits = _w8a8_splits(m, k, n, ti, _sm_count(a.device.index or 0))
     fn = getattr(load_library("w8a8_matmul.cu"), fn_name)
     fn.restype = ctypes.c_int
@@ -303,7 +296,7 @@ def w8a8_matmul(x, q, s, out_dtype, tile=None) -> torch.Tensor:
 
     CUDA tensors launch the fused entry point of ``csrc/w8a8_matmul.cu``
     (a row pass writes each row's scale and int8 plane, then the matmul;
-    ``tile`` one of ``W8A8_TILES``, by default by M) or raise; CPU tensors
+    ``tile`` one of ``W8A8_TILES``) or raise; CPU tensors
     take ``w8a8_matmul_reference``.  Bit-equal to the reference."""
     if x.device.type == "cpu":
         return w8a8_matmul_reference(x, q, s, out_dtype)

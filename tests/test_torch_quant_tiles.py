@@ -254,10 +254,9 @@ def test_int4_launch_plan_covers_every_row_once(m, k, n):
 W8A8_BK = 128  # K bytes a stage
 
 
-def w8a8_tile_shape(tile: str):
-    """``(BM, BN, MT, NB, WM, WN)`` of a ``W8A8_TILES`` entry, as the
-    kernel's template arguments give them."""
-    return {"64x128": (64, 128, 4, 1, 1, 4), "128x256": (128, 256, 4, 2, 2, 4)}[tile]
+# (BM, BN, MT, NB, WM, WN) of the one tile, as the kernel's template
+# arguments give them
+W8A8_TILE = (64, 128, 4, 1, 1, 4)
 
 
 def swizzled(rows: np.ndarray) -> np.ndarray:
@@ -343,7 +342,7 @@ def _ldmatrix_a(stage: np.ndarray, m16: int, kk: int, lane: int):
     return regs
 
 
-def emulate_w8a8(xq, xs, q, s, out_dtype, tile: str, splits: int, n_sm_plan=None):
+def emulate_w8a8(xq, xs, q, s, out_dtype, splits: int):
     """The kernel's schedule on the CPU, as integers: blocks of BM x BN
     outputs, K in stages of 128 bytes (zeros past M, K and N), split over
     ``splits`` blocks; per warp and k32 step the A registers from the
@@ -354,7 +353,7 @@ def emulate_w8a8(xq, xs, q, s, out_dtype, tile: str, splits: int, n_sm_plan=None
     their owners and summed in rank order; then ``(f32(acc) * xs) * s``."""
     m, k = xq.shape
     n = q.shape[1]
-    bm, bn, mt_n, nb_n, wm_n, wn_n = w8a8_tile_shape(tile)
+    bm, bn, mt_n, nb_n, wm_n, wn_n = W8A8_TILE
     steps = -(-k // W8A8_BK)
     per = -(-steps // splits) * W8A8_BK
     used = -(-k // per)
@@ -443,21 +442,20 @@ def _w8a8_case(m: int, k: int, n: int, seed: int):
     return xq, xs, leaf["q"], leaf["s"].reshape(-1)
 
 
-# (M, K, N, tile, splits): the streaming tile with a 3-block split (ragged
-# K: the last split shorter, the last stage past K) and without; the
-# compute tile with a ragged M, K and N
-W8A8_CASES = ((70, 320, 136, "64x128", 3), (17, 100, 33, "64x128", 1),
-              (130, 144, 264, "128x256", 1), (64, 256, 128, "64x128", 2))
+# (M, K, N, splits): a 3-block split (ragged K: the last split shorter, the
+# last stage past K) and none; ragged M, K and N over three row blocks; an
+# even split
+W8A8_CASES = ((70, 320, 136, 3), (17, 100, 33, 1), (130, 144, 264, 1), (64, 256, 128, 2))
 
 
-@pytest.mark.parametrize("m,k,n,tile,splits", W8A8_CASES)
-def test_w8a8_schedule_equals_plain(m, k, n, tile, splits):
+@pytest.mark.parametrize("m,k,n,splits", W8A8_CASES)
+def test_w8a8_schedule_equals_plain(m, k, n, splits):
     """The kernel's fragments, column mapping and cluster split-K order
     give the plain version's output bit for bit, as phase 3 holds the
     kernel (bf16 and f32 outputs)."""
     xq, xs, q, s = _w8a8_case(m, k, n, 21)
     for out in (torch.float32, torch.bfloat16):
-        got = emulate_w8a8(xq, xs, q, s, out, tile, splits)
+        got = emulate_w8a8(xq, xs, q, s, out, splits)
         want = I8.w8a8_prequantized_reference(xq, xs, q, s, out)
         assert torch.equal(got, want)
 
@@ -466,21 +464,17 @@ def test_w8a8_schedule_equals_plain(m, k, n, tile, splits):
                                    (64, 1280, 4096), (321, 1280, 1536), (512, 4096, 11008),
                                    (4096, 4096, 11008), (17, 100, 33), (1, 64, 8)])
 def test_w8a8_launch_plan(m, k, n):
-    """The streaming tile up to ``W8A8_STREAM_MAX_ROWS`` rows, the compute
-    tile above with no split; the streaming tile's splits (a portable
-    cluster, at most 8) leave no split empty and blocks for at most three
-    quarters of the SMs unless there is no split at all."""
-    ti = I8._w8a8_tile(m, None)
-    assert I8.W8A8_TILES[ti] == ("64x128" if m <= I8.W8A8_STREAM_MAX_ROWS else "128x256")
+    """The one tile at every M; its splits (a portable cluster, at most 8)
+    leave no split empty and blocks for at most three quarters of the SMs
+    unless there is no split at all."""
+    ti = I8._w8a8_tile(None)
+    assert I8.W8A8_TILES[ti] == "64x128" == f"{W8A8_TILE[0]}x{W8A8_TILE[1]}"
     splits = I8._w8a8_splits(m, k, n, ti, 132)
     steps = -(-k // W8A8_BK)
     per = -(-steps // splits) * W8A8_BK
     assert 1 <= splits <= 8 and -(-k // per) == splits  # the kernel's own arithmetic
-    bm, bn = w8a8_tile_shape(I8.W8A8_TILES[ti])[:2]
-    blocks = -(-m // bm) * -(-n // bn) * splits
+    blocks = -(-m // W8A8_TILE[0]) * -(-n // W8A8_TILE[1]) * splits
     assert blocks <= 3 * 132 // 4 or splits == 1
-    if ti == 1:
-        assert splits == 1
 
 
 # ---------------------------------------------------------------------------
@@ -644,39 +638,3 @@ def test_probe_launch_plan_covers_every_row_once(m, k, n, group):
     if (m, k, n) == (8, 4096, 11008):
         assert (splits, per) == (4, 512)  # 86 column tiles x 4: 344 blocks
 
-
-def test_w8a8_wgmma_transpose_covers_the_stage_without_bank_conflicts():
-    """The compute tile's B transpose (``transpose_b``): the eight warps'
-    lanes over their eight passes move every byte of the landed 128 x 256
-    N-major stage to its place in the K-major copy (row n, byte k, 128-byte
-    swizzle), and each of a warp's word loads and stores touches 32
-    distinct banks."""
-    rng = np.random.default_rng(4)
-    q = rng.integers(0, 256, size=(W8A8_BK, 256)).astype(np.uint8)
-    boxes = [swizzled(q[:, 128 * h:128 * h + 128]) for h in range(2)]
-    copy = np.zeros(256 * W8A8_BK, np.uint8)
-    for w in range(8):
-        kt, nt = w & 1, w >> 1
-        for c in range(8):
-            loads = [[] for _ in range(4)]
-            stores = [[] for _ in range(4)]
-            for lane in range(32):
-                b = lane & 15
-                a0 = (8 * ((lane >> 3) & 1) + 4 * ((lane >> 2) & 1) + 2 * ((lane >> 1) & 1)
-                      + (lane >> 4))
-                k = 64 * kt + 4 * (a0 ^ (2 * c))
-                col = 64 * (nt & 1) + 4 * b
-                box = boxes[nt >> 1]
-                words = []
-                for r in range(4):
-                    off = swz(k + r, col)
-                    loads[r].append(off // 4 % 32)
-                    words.append(word(box, off))
-                out = s8_fragments(words, 0)  # t = 0: the plain selectors
-                for j in range(4):
-                    off = swz(64 * nt + 4 * b + j, k)
-                    stores[j].append(off // 4 % 32)
-                    copy[off:off + 4] = np.frombuffer(out[j].to_bytes(4, "little"), np.uint8)
-            assert all(len(set(banks)) == 32 for banks in loads + stores)
-    want = swizzled(np.ascontiguousarray(q.T))  # row n, K bytes
-    assert np.array_equal(copy, want)

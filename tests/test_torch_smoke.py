@@ -685,5 +685,7 @@ def test_tools_phase_counts_match_the_tools_tallies_on_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     got = C.tools_path(torch.device("cpu"), w8a8_shapes=((24, 96, 40),),
                        int4_shape=(8, 256, 64), reps=2)
-    # w8a8: b, two d tiles and two e tiles, each checked, warmed and run twice
-    assert got == {"w8a8_matmul": 5 * 4, "int4_unpack_probe": 4 * 4}
+    # w8a8: b and a d and an e variant a tile, each checked, warmed and run
+    # twice
+    variants = 1 + 2 * len(I8.W8A8_TILES)
+    assert got == {"w8a8_matmul": variants * 4, "int4_unpack_probe": 4 * 4}

@@ -3,8 +3,8 @@
 unpack probe on one NVIDIA GPU: the device time per call at each cluster
 size, beside the plan the wrappers choose.
 
-- w8a8 (``csrc/w8a8_matmul.cu``, the pre-quantized entry point, tile
-  "64x128"): run A's prefill and bind shapes, each at 1, 2, 3, 4 and 6
+- w8a8 (``csrc/w8a8_matmul.cu``, the pre-quantized entry point): run A's
+  prefill and bind shapes, each at 1, 2, 3, 4 and 6
   split-K blocks a cluster (the C entry takes the count; it uses fewer
   where the K stages run out), then the planned call of each entry point,
   and the device time of each kernel one fused call launches (the row pass
@@ -94,7 +94,7 @@ def main() -> int:
                 if err:
                     raise RuntimeError(f"cudaError {err}")
             sweep.append(f"{splits}: {C.queued_ms(call, 50) * 1e3:.2f}")
-        plan = I8._w8a8_splits(m, k, n, I8._w8a8_tile(m, None), n_sm)
+        plan = I8._w8a8_splits(m, k, n, I8._w8a8_tile(None), n_sm)
         planned = C.queued_ms(lambda: I8.w8a8_matmul_prequantized(xq, xs, q, s, torch.bfloat16),
                               50) * 1e3
         fused = C.queued_ms(lambda: I8.w8a8_matmul(x, q, s, torch.bfloat16), 50) * 1e3
