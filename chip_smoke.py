@@ -21,10 +21,10 @@ Phases (any failure exits non-zero before the result lines):
    bound: the larger of the bytes the function must move over 3.35 TB/s
    and its operations over the peak rate for their type (989 TFLOP/s bf16
    tensor cores, 67 TFLOP/s f32).  Cases: the ICV injection forward at
-   (1, 512, 4096), (1, 64, 4096) and (3, 1, 4096) and its backward (the
-   kernel and the reduction of its per-row shift gradient, as autograd runs
-   them) at (2, 64, 4096) and (1, 512, 4096) bf16, each for every shift
-   layout; the
+   (1, 512, 4096), (1, 64, 4096) and (3, 1, 4096) and its backward (one
+   launch: dh and the shift's gradient reduced to the shift's shape) at
+   (2, 64, 4096), (1, 512, 4096) and (4, 256, 4096) bf16, each for every
+   shift layout and called twice for equal bits; the
    flash-attention forward at ``FLASH_FWD_SHAPES`` ((1, S, 32, 128) for S =
    384, 512, 2048 and 2560 with left padding, every row compared, the
    library call ``F.scaled_dot_product_attention`` under the segment mask;
@@ -45,8 +45,10 @@ Phases (any failure exits non-zero before the result lines):
    64-row prefill MLP and bind-time K/V) and with its weights cold
    (``INT4_COLD_SHAPE``, each call on the next of ``INT4_COLD_COPIES``
    weight copies, past the L2; the library call likewise, every copy's
-   layout built before the timed calls), every int4 case also called twice for equal
-   bits (its split-K sums in a fixed order), with
+   layout built before the timed calls), the int8 one likewise cold at
+   ``INT8_COLD`` (with the dense bf16 matmul cold beside it), every int8
+   and int4 case also called twice for equal bits (their split-K sums in
+   a fixed order), with
    ``torch._weight_int8pack_mm`` as the int8 library call where this torch
    runs it on the card, and the bf16 matmul with the dense weight printed
    beside as a note; the bidirectional flash attention at ``BIDIR_SHAPES``
@@ -231,7 +233,7 @@ TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
 KL_EPS = 1e-6
 CUDA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "int8_matmul.cu", "int4_matmul.cu",
                 "flash_attn_bidir.cu", "flash_alibi.cu", "vit_attention.cu", "w8a8_matmul.cu",
-                "int4_unpack_probe.cu")
+                "int4_unpack_probe.cu", "icv_inject_bwd.cu")
 
 
 def log(msg: str) -> None:
@@ -436,7 +438,9 @@ def kernel_cases(dev):
                 lambda h=h, v=v: icv_inject_reference(h, v),
                 bytes_moved=2 * n * 2 + v.numel() * 2, ops=8 * n, op_type="f32", calls=50,
             )
-    for (b, s, d) in ((2, 64, 4096), (1, 512, 4096)):
+    # training's student (bs=2, 64 tokens), a 512-token row, and phase 9's
+    # flagship student (bs=4, 256 tokens)
+    for (b, s, d) in ((2, 64, 4096), (1, 512, 4096), (4, 256, 4096)):
         h, gout = randn((b, s, d)), randn((b, s, d))
         for layout, vshape in layouts(b, s, d):
             v = randn(vshape, 0.5)
@@ -446,10 +450,12 @@ def kernel_cases(dev):
                 lambda h=h, v=v, gout=gout: icv_inject_backward(h, v, gout),
                 lambda h=h, v=v, gout=gout: icv_inject_backward_reference(h, v, gout),
                 # h and g read, dh written, the shift read and its gradient
-                # written (all bf16); the kernel's per-row f32 ds is not the
-                # function's and is not counted
+                # written (all bf16); the kernel's f32 partials of the
+                # gradient are scratch, not the function's, and not counted
                 bytes_moved=n * (2 + 2 + 2) + 2 * v.numel() * 2, ops=16 * n,
                 op_type="f32", calls=50,
+                # the gradient's partials are summed in a fixed order
+                deterministic=True,
             )
     for b, s, pad in FLASH_FWD_SHAPES:
         q, k, v = (randn((b, s, 32, 128)) for _ in range(3))
@@ -811,9 +817,12 @@ def quantized_cases(dev):
                 # order only; one rounded through bf16 reads above 1e-4
                 tol=F32_REL_TOL if out == "f32" else REL_TOL,
                 dense=lambda i=inputs: i()["x"] @ i()["dense"],
-                deterministic=mode == "int4",
+                # split-K sums in a fixed order (a cluster's ranks)
+                deterministic=True,
             )
     yield int4_cold_case(dev)
+    for shape, copies in INT8_COLD:
+        yield int8_cold_case(dev, shape, copies)
 
 
 # the int4 kernel with its weights cold: a beam step's (M, K, N), each call
@@ -868,6 +877,55 @@ def int4_cold_case(dev):
         bytes_moved=m * k * 2 + k * n // 2 + (k // INT4_GROUP) * n * 2 + m * n * 2,
         ops=2 * m * k * n, op_type="bf16",
         library=cycling(lambda i: built()[i](), INT4_COLD_COPIES), deterministic=True,
+    )
+
+
+# the int8 kernel with its weights cold: a beam step's wq/wk/wv/wo across
+# 8 copies of the weights (8 x 16.8 MB) and its MLP gate/up across 4 (4 x
+# 45.1 MB), past the 50 MB L2, as a decode step streams its weights from
+# device memory; the dense bf16 matmul beside it cold too
+INT8_COLD = ((((3, 4096, 4096), "bf16"), 8), (((3, 4096, 11008), "f32"), 4))
+
+
+def int8_cold_case(dev, shape, copies: int):
+    """The int8 kernel, its plain version and the library call, each
+    cycling through ``copies`` copies of one quantized weight (equal bytes
+    at other addresses: equal outputs, so two calls give equal bits); the
+    library's (N, K) layout and the dense bf16 weight (the note) each in as
+    many copies, built before any timed call."""
+    import functools
+
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+    from licv_vqa_tpu_torch.ops import quantize as Q
+
+    (m, k, n), out = shape
+    odt = torch.float32 if out == "f32" else torch.bfloat16
+
+    @functools.cache
+    def inputs():
+        g = torch.Generator(device=dev).manual_seed(m + k + n)
+        w = (torch.randn((k, n), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        leaf = Q.quantize_array(w)
+        sc = leaf["s"].reshape(-1).to(x.dtype)
+        return dict(x=x, q=[(leaf["q"].clone(), leaf["s"].clone()) for _ in range(copies)],
+                    nk=[(leaf["q"].t().contiguous(), sc) for _ in range(copies)],
+                    dense=[w.clone() for _ in range(copies)])
+
+    return Case(
+        "int8_matmul", f"cold, {copies} weight copies, ({m},{k},{n}) {out} out",
+        cycling(lambda i: I8.int8_matmul(inputs()["x"], *inputs()["q"][i], odt), copies),
+        cycling(lambda i: I8.int8_matmul_reference(inputs()["x"], *inputs()["q"][i], odt),
+                copies),
+        bytes_moved=m * k * 2 + k * n + n * 4 + m * n * (4 if out == "f32" else 2),
+        ops=2 * m * k * n, op_type="bf16",
+        library=cycling(lambda i: torch._weight_int8pack_mm(inputs()["x"], *inputs()["nk"][i]),
+                        copies),
+        tol=F32_REL_TOL if out == "f32" else REL_TOL,
+        dense=cycling(lambda i: inputs()["x"] @ inputs()["dense"][i], copies),
+        deterministic=True,
     )
 
 
@@ -1147,6 +1205,17 @@ MAIN_SHAPE = {
 }
 
 
+def equal_bits(first, second) -> bool:
+    """Whether two kernel calls' outputs (a tensor or a tuple of them) are
+    equal bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    return all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
+
+
 def library_runs(c: Case) -> tuple:
     """``(True, "")`` where the case has a library call that this torch runs
     on the card, else ``(False, reason)``."""
@@ -1170,11 +1239,8 @@ def check_kernels(dev) -> dict:
     for c in kernel_cases(dev):
         err, ratio = compare(c.kernel, c.plain, c.rows)
         mean = None if c.mean_tol is None else mean_ratio(c.kernel, c.plain, c.rows)
-        if c.deterministic:
-            first, second = c.kernel(), c.kernel()
-            torch.cuda.synchronize()
-            if not torch.equal(first, second):
-                raise AssertionError(f"{c.name} {c.label}: two calls on equal inputs differ")
+        if c.deterministic and not equal_bits(c.kernel(), c.kernel()):
+            raise AssertionError(f"{c.name} {c.label}: two calls on equal inputs differ")
         has_lib, lib = library_runs(c)
         fns = [c.kernel, c.plain] + [f for f, on in ((c.library, has_lib), (c.dense, c.dense))
                                      if on]
@@ -2572,7 +2638,7 @@ KERNEL_SOURCES = {
                             "licv_vqa_tpu/models/layers.py:148"),
     "masked_kl": ("triton", "licv_vqa_tpu_torch/ops/masked_kl_kernel.py",
                   "licv_vqa_tpu/ops/masked_kl_kernel.py:128"),
-    "icv_inject_bwd": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
+    "icv_inject_bwd": ("cuda", "licv_vqa_tpu_torch/csrc/icv_inject_bwd.cu",
                        "licv_vqa_tpu/ops/icv_inject.py:113"),
     "int8_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/int8_matmul.cu",
                     "licv_vqa_tpu/ops/int8_matmul.py:67"),

@@ -14,8 +14,8 @@ held against the originals by ``tests/test_torch_imports.py``.
 Kernels written by hand for Hopper (each beside its plain PyTorch version,
 which runs only for CPU tensors):
 
-- ``ops.icv_inject.icv_inject`` — the ICV residual edit, forward and
-  backward, in Triton;
+- ``ops.icv_inject.icv_inject`` — the ICV residual edit, forward in
+  Triton, backward in CUDA C++ (``csrc/icv_inject_bwd.cu``);
 - ``models.layers.flash_attention`` — the causal flash-attention forward, in
   CUDA C++ (``csrc/flash_attn_fwd.cu``);
 - ``ops.masked_kl_kernel.masked_kl_pallas`` — the masked temperature-KL,

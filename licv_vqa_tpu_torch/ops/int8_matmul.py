@@ -41,38 +41,41 @@ from .quantize import dequantize_int4, is_quantized4_leaf, is_quantized_leaf
 # decode-shaped calls (beam rows, prefill blocks and bind K/V of at most
 # this many rows) take the kernels
 KERNEL_MAX_ROWS = 64
-# the int8 kernel's weight rows a block's warps take per batch of loads
-# (csrc/quant_common.cuh: 8 warps x 8 rows in flight)
-_ROW_BATCH = 64
 
 
 # ---------------------------------------------------------------------------
-# The int8 kernel's launch plan (csrc/quant_common.cuh)
+# The int8 kernel's launch plan (csrc/int8_matmul.cu)
 # ---------------------------------------------------------------------------
 
-
-def _vec_width(n: int, w: torch.Tensor) -> int:
-    """Bytes per weight load: the widest of 8, 4, 2, 1 that divides the row
-    length ``n`` and the weight's address."""
-    for v in (8, 4, 2, 1):
-        if n % v == 0 and w.data_ptr() % v == 0:
-            return v
-    return 1
-
-
-def _rows_m(m: int) -> int:
-    """Activation rows per block (the kernel's MT)."""
-    return 4 if m <= 4 else 8
+# the kernel's tiles: 128 output columns and up to 64 rows a block, 64
+# weight rows a stage; the blocks of one tile's split-K form one
+# thread-block cluster: the kernel takes up to 8, the plan asks for at most
+# 6 (on the H100, 8 were slower than 6 at every beam-step shape and 1.4x at
+# 64 rows: clusters of 8 did not all fit in one wave; PERF.md §6)
+INT8_TILE_N = 128
+INT8_TILE_M = 64
+INT8_STAGE_ROWS = 64
+INT8_MAX_SPLITS = 6
 
 
-def _launch_plan(m: int, rows: int, n: int, vec: int, n_sm: int) -> tuple[int, int]:
-    """``(splits, rows_per_split)``: enough split-K blocks that the grid
-    holds about two blocks per SM, each with whole batches of 64 weight
-    rows."""
-    blocks = math.ceil(n / (32 * vec)) * math.ceil(m / _rows_m(m))
-    splits = max(1, min(math.ceil(2 * n_sm / blocks), math.ceil(rows / _ROW_BATCH)))
-    per = math.ceil(math.ceil(rows / splits) / _ROW_BATCH) * _ROW_BATCH
-    return math.ceil(rows / per), per
+def tma_path(k: int, n: int, x_addr: int = 0, q_addr: int = 0) -> bool:
+    """Whether the kernel streams its operands by TMA: row pitches of 16
+    bytes (``N % 16 == 0`` and ``K % 8 == 0``) and 16-byte aligned x and
+    q.  Else its producer warpgroup's plain loads take any pitch (the
+    Idefics-9B head's N = 32002, the card tests' odd N)."""
+    return n % 16 == 0 and k % 8 == 0 and x_addr % 16 == 0 and q_addr % 16 == 0
+
+
+def launch_plan(m: int, k: int, n: int, n_sm: int) -> tuple[int, int]:
+    """``(splits, rows_per_split)`` for M = ``m`` rows, K = ``k`` weight rows
+    and N = ``n`` columns: split-K blocks (one cluster, at most
+    ``INT8_MAX_SPLITS``) of whole 64-row stages, none left empty, enough
+    for about two blocks an SM where the cluster allows."""
+    tiles = math.ceil(n / INT8_TILE_N) * math.ceil(m / INT8_TILE_M)
+    stages = math.ceil(k / INT8_STAGE_ROWS)
+    splits = max(1, min(INT8_MAX_SPLITS, stages, math.ceil(2 * n_sm / tiles)))
+    per = math.ceil(stages / splits) * INT8_STAGE_ROWS
+    return math.ceil(k / per), per
 
 
 @functools.cache
@@ -81,25 +84,20 @@ def _sm_count(index: int) -> int:
 
 
 def _launch(x, w, s, out_dtype):
-    """Allocate the output (and this launch's split-K scratch), launch
-    ``int8_matmul_bf16``, raise on a launch error."""
+    """Allocate the output, launch ``int8_matmul_bf16``, raise on a launch
+    error."""
     from ..csrc import load_library
 
     m, k = x.shape
     n = w.shape[1]
-    vec = _vec_width(n, w)
-    splits, per = _launch_plan(m, k, n, vec, _sm_count(x.device.index or 0))
+    splits, per = launch_plan(m, k, n, _sm_count(x.device.index or 0))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    partial = None
-    if splits > 1:
-        partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     fn = load_library("int8_matmul.cu").int8_matmul_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     err = fn(
-        x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        m, k, n, vec, splits, per, int(out_dtype == torch.float32),
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n, splits, per,
+        int(tma_path(k, n, x.data_ptr(), w.data_ptr())), int(out_dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

@@ -18,7 +18,10 @@ expanded cotangent, bit-equal across calls; the w8a8 kernel (both entry
 points, every tile) at run A's and the tuning tool's shapes and at ragged
 ones, bf16 and f32 in and out, EQUAL to its plain version (the int32 sum
 is exact and the epilogue the same f32 arithmetic); the int4 unpack probe's
-four schedules at the tool's shape and at ragged ones.
+four schedules at the tool's shape and at ragged ones; the int8 kernel on
+both sides of its TMA pitch rule, on one tile and bit-equal across calls;
+the ICV backward in every shift layout at the flagship student's shape
+and a ragged one, bf16 or f32, bit-equal across calls.
 Tolerance: f32 math on both sides, so the two differ by output rounding
 (bf16 outputs) and summation order.  The limit scales with the output:
 max-abs error ≤ 2e-2 · max|plain| for bf16 outputs (one bf16 ulp is at most
@@ -504,6 +507,11 @@ def test_vit_attention_kernel_rejects_other_head_dims_and_grad(dev):
 @pytest.mark.parametrize("shape,layout", [
     ((2, 64, 4096), "row"), ((2, 64, 4096), "batch"), ((2, 64, 4096), "batch1"),
     ((2, 64, 4096), "per_pos"), ((1, 512, 4096), "row"), ((2, 7, 4000), "per_pos"),
+    # the flagship student (phase 9) in every layout, and a ragged B.S (no
+    # whole two-row steps, groups of partials cut short)
+    ((4, 256, 4096), "row"), ((4, 256, 4096), "batch"), ((4, 256, 4096), "batch1"),
+    ((4, 256, 4096), "per_pos"), ((3, 37, 4000), "row"), ((3, 37, 4000), "batch"),
+    ((3, 37, 4000), "batch1"), ((3, 37, 4000), "per_pos"),
 ])
 def test_icv_inject_backward_kernel_matches_plain(dev, shape, layout):
     g = torch.Generator(device=dev).manual_seed(3)
@@ -520,6 +528,44 @@ def test_icv_inject_backward_kernel_matches_plain(dev, shape, layout):
     assert dh.dtype == torch.bfloat16 and dv.dtype == torch.bfloat16 and dv.shape == vshape
     _assert_close(dh, want_dh)
     _assert_close(dv, want_dv)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 4096), (3, 37, 4000)])
+@pytest.mark.parametrize("layout", ["row", "batch", "per_pos"])
+def test_icv_inject_backward_is_deterministic(dev, shape, layout):
+    """The shift's gradient is summed from the programs' partials in a fixed
+    order, with no float atomics: two calls give equal bits (the finishers
+    leave the tickets at zero for the next call)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, s, d = shape
+    h = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    gout = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    vshape = {"row": (d,), "batch": (b, d), "per_pos": shape}[layout]
+    v = (torch.randn(vshape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    first = icv_inject_backward(h, v, gout)
+    second = icv_inject_backward(h, v, gout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("h_dtype,v_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float32),
+                                             (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("layout", ["row", "batch", "per_pos"])
+def test_icv_inject_backward_kernel_takes_f32(dev, h_dtype, v_dtype, layout):
+    """h, g and dh in bf16 or f32, the shift and its gradient in bf16 or
+    f32, each output in its input's dtype and within its limit."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, s, d = 3, 37, 4000
+    h = torch.randn((b, s, d), generator=g, device=dev).to(h_dtype)
+    gout = torch.randn((b, s, d), generator=g, device=dev).to(h_dtype)
+    vshape = {"row": (d,), "batch": (b, d), "per_pos": (b, s, d)}[layout]
+    v = (torch.randn(vshape, generator=g, device=dev) * 0.5).to(v_dtype)
+    dh, dv = icv_inject_backward(h, v, gout)
+    want_dh, want_dv = icv_inject_backward_reference(h, v, gout)
+    assert dh.dtype == h_dtype and dv.dtype == v_dtype and dv.shape == vshape
+    _assert_close(dh, want_dh, REL_TOL if h_dtype == torch.bfloat16 else F32_REL_TOL)
+    _assert_close(dv, want_dv, REL_TOL if v_dtype == torch.bfloat16 else F32_REL_TOL)
 
 
 def test_icv_inject_autograd_launches_both_kernels(dev):
@@ -600,6 +646,10 @@ def _acts(dev, m, k, seed):
     # N and rows
     (9, 100, 33, torch.float32), (40, 4096, 32002, torch.float32), (65, 256, 72, torch.bfloat16),
     (1, 4096, 32002, torch.float32), (64, 1280, 4096, torch.bfloat16),
+    # either side of the TMA path's pitch rule: N % 16 (8-byte plain loads)
+    # and K % 8 (x's pitch) off by a little, beside the TMA shapes above
+    (3, 4096, 4104, torch.float32), (3, 4100, 4096, torch.bfloat16),
+    (130, 4096, 4112, torch.float32),
 ])
 def test_int8_kernel_matches_plain(dev, m, k, n, out_dtype):
     leaf = Q.quantize_array(_weights(dev, k, n, 7))
@@ -611,6 +661,43 @@ def test_int8_kernel_matches_plain(dev, m, k, n, out_dtype):
     want = I8.int8_matmul_reference(x, leaf["q"], leaf["s"], out_dtype)
     assert got.dtype == out_dtype and got.shape == (m, n)
     _assert_close(got, want, REL_TOL if out_dtype == torch.bfloat16 else F32_REL_TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 4096, 4096), (64, 4096, 4096), (3, 4096, 32002),
+                                   (65, 256, 72), (3, 11008, 4096)])
+def test_int8_kernel_is_deterministic(dev, m, k, n):
+    """The split-K blocks of a column tile sum their partials in rank order
+    through the cluster's shared memory: two calls give equal bits, on the
+    TMA path and the plain-load path."""
+    leaf = Q.quantize_array(_weights(dev, k, n, 13))
+    x = _acts(dev, m, k, 13)
+    a = I8.int8_matmul(x, leaf["q"], leaf["s"], torch.float32)
+    b = I8.int8_matmul(x, leaf["q"], leaf["s"], torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [3, 20, 64])
+def test_int8_fragment_layout_on_one_tile(dev, m):
+    """One tile of the int8 kernel (K = 64: one stage; N = 128: one column
+    tile; unit scales) with each row of x picking one in-feature: output
+    row i is in-feature ``pick[i]``'s int8 row, exactly.  Holds the B
+    fragments' byte-to-column interleave (tile j, column c is column
+    4c + j), the rows 2t, 2t+1, 2t+8, 2t+9 of each k16 step, the exact
+    widening of every byte from -128 to 127, and the A fragments of every
+    m16 tile."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = torch.randint(-128, 128, (64, 128), generator=g, device=dev, dtype=torch.int32)
+    q[0, :] = torch.arange(-128, 0, device=dev)  # every byte value appears
+    q[1, :] = torch.arange(0, 128, device=dev)
+    s = torch.ones((128,), dtype=torch.float32, device=dev)
+    pick = (torch.arange(m, device=dev) * 37 + 5) % 64
+    pick[0] = 0
+    x = torch.zeros((m, 64), dtype=torch.bfloat16, device=dev)
+    x[torch.arange(m, device=dev), pick] = 1.0
+    got = I8.int8_matmul(x, q.to(torch.int8), s, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, q[pick].float())
 
 
 @pytest.mark.parametrize("m,k,n,g,out_dtype", [

@@ -14,6 +14,13 @@ accumulator (at G = 64 once a stage), and the split-K partials summed in
 rank order.  Tolerance: the f32 outputs to 1e-4 of max|plain|, phase 3's
 ``F32_REL_TOL`` (the two differ by summation order only); the fragments
 exactly.
+
+The int8 decode kernel (``csrc/int8_matmul.cu``) on the same stage layout:
+each byte widened through f32 (2^23 + q + 128, less 2^23 + 128, the upper
+half kept as bf16) into the same interleaved fragments, the stages summed
+per split, the splits in rank order, the column scale once at the end; its
+launch plan, its choice between TMA and plain loads, and the plain loads'
+merged words at any row pitch.
 """
 
 import numpy as np
@@ -245,6 +252,275 @@ def test_int4_launch_plan_covers_every_row_once(m, k, n):
         assert blocks <= 66 or splits == 1
     elif k2 >= 8 * BK:
         assert blocks >= 132 or splits == I4.MAX_SPLITS
+
+
+# ---------------------------------------------------------------------------
+# int8 (csrc/int8_matmul.cu): bytes widened through f32 into bf16 fragments
+# ---------------------------------------------------------------------------
+
+
+def f32_bits(v: np.float32) -> int:
+    return int(np.array([v], np.float32).view(np.uint32)[0])
+
+
+def widen_pair(w0: int, w1: int, j: int, swapped: bool = False) -> int:
+    """``widen_pair<j>`` on two words whose sign bits were flipped: byte j
+    of each in the low mantissa bits of 2^23, less 2^23 + 128 in f32, the
+    two upper halves packed (row k low, k + 1 high; ``swapped``: the other
+    way round, as the mutation check breaks it)."""
+    lo, hi = (np.array([byte_perm(w, 0x4B000000, 0x7440 | j)], np.uint32).view(np.float32)[0]
+              - np.float32(8388736.0) for w in (w0, w1))
+    a, b = (f32_bits(hi), f32_bits(lo)) if swapped else (f32_bits(lo), f32_bits(hi))
+    return byte_perm(a, b, 0x7632)
+
+
+def int8_fragments(tile: np.ndarray, wc: int, lane: int, kk: int, swapped: bool = False):
+    """``widen_fragments`` for one thread: b[j][r] as float pairs."""
+    g, t = lane // 4, lane % 4
+    w = [word(tile, swz(16 * kk + 2 * t + (q & 1) + 8 * (q >> 1), 32 * wc + 4 * g)) ^ 0x80808080
+         for q in range(4)]
+    return [[list(bf16_pair(widen_pair(w[2 * r], w[2 * r + 1], j, swapped))) for r in range(2)]
+            for j in range(4)]
+
+
+def _int8_tile(seed: int) -> np.ndarray:
+    """A stage's (64, 128) int8 weight rows, every byte value among them."""
+    q = np.random.default_rng(seed).integers(-128, 128, size=(BK, BN))
+    q[0] = np.arange(-128, 0)
+    q[1] = np.arange(0, 128)
+    return q.astype(np.int8)
+
+
+def test_int8_fragments_hold_the_weight_bytes():
+    """Every thread's B fragments of every k16 step: register r of tile j
+    holds rows 2t + 8r (low half) and 2t + 8r + 1 of column 32w + 4g + j,
+    each byte's int8 value exactly (-128 and 127 included)."""
+    q = _int8_tile(0)
+    tile = stage_tile(q.view(np.uint8))
+    for wc in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for kk in range(4):
+                b = int8_fragments(tile, wc, lane, kk)
+                for j in range(4):
+                    col = 32 * wc + 4 * g + j
+                    for r in range(2):
+                        row = 16 * kk + 2 * t + 8 * r
+                        assert b[j][r] == [q[row, col], q[row + 1, col]]
+
+
+def test_int8_shared_memory_reads_are_free_of_bank_conflicts():
+    """A warp's four B word loads each touch 32 different banks, and each
+    8-lane phase of its ldmatrix of x (one m16 tile's rows of 16 bytes) 8
+    different 16-byte bank groups, in the 128-byte swizzle, for every m16
+    tile of 64 rows."""
+    for wc in range(4):
+        for kk in range(4):
+            for q in range(4):
+                banks = {swz(16 * kk + 2 * (l % 4) + (q & 1) + 8 * (q >> 1),
+                             32 * wc + 4 * (l // 4)) // 4 % 32 for l in range(32)}
+                assert len(banks) == 32
+    for mt in range(4):
+        for kk in range(4):
+            for phase in range(4):
+                groups = {(2048 * mt + swz(l % 16, 32 * kk + 16 * (l // 16))) // 16 % 8
+                          for l in range(8 * phase, 8 * phase + 8)}
+                assert len(groups) == 8
+
+
+def test_int8_interleaved_tiles_give_the_tile_product():
+    """One stage through the fragments: for each warp slice and n8 tile j,
+    B_j[k, c] from the threads' fragments (column c of tile j is the
+    warp's column 4c + j), C_j = A.B_j over the 4 k16 steps, written back
+    to the columns the C fragments name, equals x.q."""
+    q = _int8_tile(1)
+    tile = stage_tile(q.view(np.uint8))
+    x = np.random.default_rng(2).standard_normal((16, BK)).astype(np.float32)
+    got = np.zeros((16, BN), np.float32)
+    for wc in range(4):
+        for kk in range(4):
+            b = np.zeros((4, 16, 8), np.float32)  # tile j, k, column
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                frag = int8_fragments(tile, wc, lane, kk)
+                for j in range(4):
+                    for r in range(2):
+                        for h in range(2):
+                            b[j, 2 * t + 8 * r + h, g] = frag[j][r][h]
+            a = x[:, 16 * kk:16 * kk + 16]
+            for j in range(4):
+                got[:, 32 * wc + 4 * np.arange(8) + j] += a @ b[j]
+    np.testing.assert_allclose(got, x @ q.astype(np.float32), rtol=1e-5, atol=1e-4)
+
+
+def emulate_int8(x, q, s, out_dtype, splits: int, per: int, groups: int = 2,
+                 drop_rank0=False, no_scale=False, pairs_swapped=False):
+    """``(M, N)`` of the kernel's schedule: split-K blocks of ``per`` rows;
+    in each, ``groups`` consumer groups (2 on the TMA path, 1 on the plain
+    loads) take a 64-row stage's 16-row steps between them, each summing
+    its steps' x.q (f32; rows past K are zeros) into its own accumulator;
+    the accumulators summed in rank order (a rank's groups in order), times
+    the column scale, then rounded to ``out_dtype``.  The keywords break it
+    as the mutation check does: rank 0's partials left out of the sum, the
+    scale dropped, rows k and k + 1 swapped in every B register."""
+    m, k = x.shape
+    qf = q.float()
+    if pairs_swapped:
+        qf = qf.reshape(-1, 2, qf.shape[1]).flip(1).reshape(qf.shape) if k % 2 == 0 else qf
+    xf = x.to(torch.bfloat16).float()
+    out = torch.zeros((m, q.shape[1]))
+    steps = BK // 16 // groups
+    for rank in range(splits):
+        accs = [torch.zeros_like(out) for _ in range(groups)]
+        for kb in range(rank * per, min(k, rank * per + per), BK):
+            for grp in range(groups):
+                for kk in range(grp * steps, (grp + 1) * steps):
+                    r0 = kb + 16 * kk
+                    accs[grp] = accs[grp] + xf[:, r0:r0 + 16] @ qf[r0:r0 + 16]
+        if not (drop_rank0 and rank == 0):
+            for acc in accs:
+                out = out + acc
+    return (out if no_scale else out * s.reshape(1, -1)).to(out_dtype)
+
+
+def _int8_case(m: int, k: int, n: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn((k, n), generator=g) * 0.02).to(torch.bfloat16)
+    x = torch.randn((m, k), generator=g).to(torch.bfloat16)
+    leaf = Q.quantize_array(w)
+    return x, leaf["q"], leaf["s"].reshape(-1)
+
+
+# (M, K, N): a beam step's 3 rows over five stages and a ragged last one,
+# a 64-row block, more than 64 rows (three row blocks), K and N ragged
+INT8_CASES = ((3, 320, 256), (3, 300, 136), (64, 640, 128), (130, 200, 72), (7, 100, 33))
+
+
+@pytest.mark.parametrize("m,k,n", INT8_CASES)
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_int8_schedule_matches_plain(m, k, n, out):
+    """The schedule with the launch plan's split-K (two blocks an SM on a
+    small card of 4 SMs, so that the cases split) and the path's consumer
+    groups to ``F32_REL_TOL`` of the plain version's f32 output (bf16
+    outputs: each within one rounding of it)."""
+    x, q, s = _int8_case(m, k, n, 7)
+    splits, per = I8.launch_plan(m, k, n, 4)
+    groups = 2 if I8.tma_path(k, n) else 1
+    got = emulate_int8(x, q, s, torch.float32, splits, per, groups)
+    want = I8.int8_matmul_reference(x, q, s, torch.float32)
+    _assert_close(got, want, F32_REL_TOL)
+    if out == torch.bfloat16:
+        bf = emulate_int8(x, q, s, out, splits, per, groups).float()
+        assert ((bf - want).abs() <= want.abs() * 2 ** -8 + 1e-30).all()
+
+
+@pytest.mark.parametrize("mutation", ["drop_rank0", "no_scale", "pairs_swapped"])
+def test_int8_schedule_breaks_where_the_mutations_break_it(mutation):
+    """The mutation check's broken kernels, emulated: the first rank's
+    partial dropped, the column scale dropped, the k-row pairs swapped;
+    each moves the output far past ``F32_REL_TOL``."""
+    x, q, s = _int8_case(3, 640, 256, 8)
+    got = emulate_int8(x, q, s, torch.float32, 4, 192, **{mutation: True})
+    want = I8.int8_matmul_reference(x, q, s, torch.float32)
+    assert (got - want).abs().max() > 100 * F32_REL_TOL * want.abs().max()
+
+
+def test_int8_swapped_pair_fragment_holds_the_rows_the_other_way_round():
+    """The swapped pack puts row k + 1 in the low half: what the emulated
+    mutation computes with its flipped row pairs."""
+    q = _int8_tile(3)
+    tile = stage_tile(q.view(np.uint8))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        b = int8_fragments(tile, 1, lane, 2, swapped=True)
+        for j in range(4):
+            row, col = 32 + 2 * t, 32 + 4 * g + j
+            assert b[j][0] == [q[row + 1, col], q[row, col]]
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 4096, 4096), (3, 4096, 11008), (3, 11008, 4096),
+                                   (64, 4096, 4096), (3, 4096, 32000), (3, 4096, 32002),
+                                   (1, 4096, 32002), (65, 256, 72), (7, 100, 33), (5, 96, 130),
+                                   (3, 4100, 4096), (130, 4096, 4112), (1, 1, 1), (9, 63, 17)])
+def test_int8_launch_plan_covers_every_row_once(m, k, n):
+    """Whole 64-row stages a split, at most ``INT8_MAX_SPLITS`` (6) splits
+    (the kernel's cluster takes 8), none empty, every weight row in one
+    (ragged K too); the beam step's projections take about two blocks an
+    SM where the cluster allows."""
+    splits, per = I8.launch_plan(m, k, n, 132)
+    assert per % I8.INT8_STAGE_ROWS == 0 and 1 <= splits <= I8.INT8_MAX_SPLITS
+    assert (splits - 1) * per < k <= splits * per
+    blocks = -(-n // I8.INT8_TILE_N) * -(-m // I8.INT8_TILE_M) * splits
+    if k >= 8 * I8.INT8_STAGE_ROWS:
+        assert blocks >= 132 or splits == I8.INT8_MAX_SPLITS
+    assert blocks <= 2 * 132 + -(-n // I8.INT8_TILE_N) * -(-m // I8.INT8_TILE_M)
+    if (m, k, n) == (3, 4096, 4096):
+        assert (splits, per) == (6, 704)  # 32 column tiles x 6: 192 blocks
+
+
+# phase 3's shapes and the card tests' (ops/int8_matmul.py::tma_path): TMA
+# where both row pitches are multiples of 16 bytes, else the plain loads
+INT8_ROUTES = (
+    ((4096, 4096), True), ((4096, 11008), True), ((11008, 4096), True), ((4096, 32000), True),
+    ((1280, 1536), True), ((1280, 4096), True), ((4096, 4112), True), ((64, 128), True),
+    ((4096, 32002), False), ((256, 72), False), ((100, 33), False), ((96, 130), False),
+    ((4096, 4104), False), ((4100, 4096), False),
+)
+
+
+@pytest.mark.parametrize("kn,tma", INT8_ROUTES)
+def test_int8_routes_tma_or_plain_loads_by_the_pitch(kn, tma):
+    """The path each shape takes with 16-byte aligned operands; an
+    unaligned weight or x (a slice into a plane) takes the plain loads."""
+    k, n = kn
+    assert I8.tma_path(k, n, 256, 512) == tma
+    assert not I8.tma_path(k, n, 256, 514) and not I8.tma_path(k, n, 258, 512)
+
+
+def plain_words(plane: np.ndarray, n0: int, pitch_offset: int = 0):
+    """The plain producers' stage words of a tile at column n0 of an (R, N)
+    uint8 plane that starts ``pitch_offset`` bytes into an aligned buffer
+    (``PlainStage``): lane l's aligned word at or before its 4 columns (a
+    word with no byte of the plane is zero, not read; one with any is read
+    whole), merged with the next lane's (lane 31: the word after its own)
+    by ``__byte_perm`` (selector 0x3210 + 0x1111 o for the row's
+    misalignment o), bytes past N zero."""
+    r_n, n = plane.shape
+    buf = np.full(pitch_offset + plane.size + 8, 0xEE, np.uint8)  # not the plane's
+    buf[pitch_offset:pitch_offset + plane.size] = plane.reshape(-1)
+    lo_b, hi_b = pitch_offset, pitch_offset + plane.size
+    out = np.zeros((r_n, 128), np.uint8)
+
+    def word_at(a):
+        if a + 4 <= lo_b or a >= hi_b:
+            return 0
+        return int.from_bytes(buf[max(a, 0):a + 4].tobytes().rjust(4, b"\xee"), "little")
+
+    for row in range(r_n):
+        tile = pitch_offset + row * n + n0
+        o = tile & 3
+        words = [word_at(tile - o + 4 * lane) for lane in range(33)]
+        for lane in range(32):
+            v = byte_perm(words[lane], words[lane + 1], 0x3210 + 0x1111 * o)
+            valid = n - n0 - 4 * lane
+            v = v if valid >= 4 else 0 if valid <= 0 else v & ((1 << (8 * valid)) - 1)
+            out[row, 4 * lane:4 * lane + 4] = np.frombuffer(v.to_bytes(4, "little"), np.uint8)
+    return out
+
+
+@pytest.mark.parametrize("n,offset", [(32002, 0), (33, 0), (130, 1), (72, 3), (4104, 2),
+                                      (200, 0), (33, 13), (4096, 6)])
+def test_int8_plain_loads_read_each_row_tile_at_any_pitch(n, offset):
+    """The plain path's merged words hold the row's 128 columns of the tile
+    exactly, whatever the row's misalignment (N odd or 2 mod 4, the plane
+    at any byte offset), zeros past N; at the first and last tiles."""
+    rng = np.random.default_rng(n + offset)
+    plane = rng.integers(0, 256, size=(9, n)).astype(np.uint8)
+    for n0 in sorted({0, (n - 1) // 128 * 128}):
+        got = plain_words(plane, n0, offset)
+        want = np.zeros((9, 128), np.uint8)
+        want[:, :min(128, n - n0)] = plane[:, n0:n0 + 128]
+        np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

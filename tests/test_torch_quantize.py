@@ -241,20 +241,23 @@ def test_activation_backward_matches_jax_grad(mode, a8, m):
 
 
 def test_launch_plan_covers_every_row_once():
-    """The split-K plan: at least a block per SM at decode shapes (about
-    two), whole batches of 64 rows per split, every weight row in exactly
-    one split; blocks of 4 activation rows up to 4 rows, else 8."""
-    w = torch.empty(64, dtype=torch.int8)
+    """The split-K plan: about two blocks per SM at decode shapes (unless a
+    column tile's cluster is full or the stages run out),
+    whole 64-row stages per split, every weight row in exactly one split;
+    blocks of 128 columns and up to 64 activation rows; TMA where both row
+    pitches are multiples of 16 bytes, else the plain loads."""
     for m, rows, n in [(3, 4096, 4096), (3, 11008, 4096), (64, 4096, 4096), (3, 4096, 32002),
                        (3, 2048, 11008), (1, 40, 33), (64, 2048, 4096), (17, 1280, 1536)]:
-        vec = PI8._vec_width(n, w)
-        assert PI8._rows_m(m) == (4 if m <= 4 else 8)
-        splits, per = PI8._launch_plan(m, rows, n, vec, 132)
+        splits, per = PI8.launch_plan(m, rows, n, 132)
         assert per % 64 == 0 and (splits - 1) * per < rows <= splits * per
-        blocks = -(-n // (32 * vec)) * -(-m // PI8._rows_m(m)) * splits
-        assert blocks >= 132 or splits == -(-rows // 64), (m, rows, n, blocks)
-    assert PI8._vec_width(4096, w) == 8 and PI8._vec_width(11008, w) == 8
-    assert PI8._vec_width(32002, w) == 2 and PI8._vec_width(33, w) == 1
+        blocks = -(-n // 128) * -(-m // 64) * splits
+        stages = -(-rows // 64)
+        # a full cluster: INT8_MAX_SPLITS splits' worth of stages each
+        # (fewer splits where whole stages leave the last ones empty)
+        full = -(-stages // PI8.INT8_MAX_SPLITS) * 64
+        assert blocks >= 132 or per == full or splits == stages, (m, rows, n)
+    assert PI8.tma_path(4096, 4096) and PI8.tma_path(4096, 11008)
+    assert not PI8.tma_path(4096, 32002) and not PI8.tma_path(40, 33)
 
 
 # ---------------------------------------------------------------------------

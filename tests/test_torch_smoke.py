@@ -45,7 +45,8 @@ def test_mutation_line_is_in_its_kernel_once(name):
 ])
 def test_icv_backward_bound_counts_the_functions_bytes(cases, layout, vnumel):
     """h and g read, dh written, the shift read and its gradient written,
-    all bf16: the kernel's per-row f32 ds is not part of the function."""
+    all bf16: the kernel's f32 partials of the gradient are not part of
+    the function."""
     c = cases["icv_inject_bwd", f"(2,64,4096) shift={layout}"]
     n = 2 * 64 * 4096
     assert c.bytes_moved == 6 * n + 4 * vnumel

@@ -1,8 +1,13 @@
 #!/usr/bin/env python
-"""Split-K plans of the w8a8 matmul's weight-streaming tile and the int4
-unpack probe on one NVIDIA GPU: the device time per call at each cluster
-size, beside the plan the wrappers choose.
+"""Split-K plans of the int8 decode matmul, the w8a8 matmul's
+weight-streaming tile and the int4 unpack probe on one NVIDIA GPU: the
+device time per call at each cluster size, beside the plan the wrappers
+choose.
 
+- int8 (``csrc/int8_matmul.cu``): a beam step's projections, a 64-row
+  block and the head (N = 32000 on TMA, 32002 on the plain loads), each at
+  1, 2, 4, 6 and 8 split-K blocks a cluster (the C entry takes the count),
+  then through its wrapper;
 - w8a8 (``csrc/w8a8_matmul.cu``, the pre-quantized entry point): run A's
   prefill and bind shapes, each at 1, 2, 3, 4 and 6
   split-K blocks a cluster (the C entry takes the count; it uses fewer
@@ -16,9 +21,9 @@ Times: CUDA events around calls queued behind a spin kernel
 (``chip_smoke.queued_ms``: the device's work and the gaps between its
 kernels, not the host's launch cost), with the card's name and power
 limit.  Needs an NVIDIA GPU.  Run from the repository root:
-``python3 tools/exp_quant_splits_torch.py [--root DIR]`` (``--root``: the
-port and ``chip_smoke.py`` of another checkout, for two versions in one
-call).
+``python3 tools/exp_quant_splits_torch.py [--root DIR] [--kernels int8,w8a8,probe]``
+(``--root``: the port and ``chip_smoke.py`` of another checkout, for two
+versions in one call; ``--kernels``: which sweeps, all by default).
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ import ctypes
 import sys
 from pathlib import Path
 
+INT8_SHAPES = ((3, 4096, 4096), (3, 4096, 11008), (3, 11008, 4096), (64, 4096, 4096),
+               (3, 4096, 32000), (3, 4096, 32002))
+INT8_SPLITS = (1, 2, 4, 6, 8)
 W8A8_SHAPES = ((64, 4096, 4096), (64, 4096, 11008), (64, 11008, 4096), (64, 1280, 4096),
                (512, 4096, 4096), (321, 1280, 1536))
 W8A8_SPLITS = (1, 2, 3, 4, 6)
@@ -59,12 +67,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent),
                     help="the checkout whose port and chip_smoke.py to run")
+    ap.add_argument("--kernels", default="int8,w8a8,probe",
+                    help="comma-separated sweeps to run: int8, w8a8, probe")
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
     import chip_smoke as C
-    from licv_vqa_tpu_torch.csrc import load_library
     from licv_vqa_tpu_torch.ops import int4_unpack_probe as P
     from licv_vqa_tpu_torch.ops import int8_matmul as I8
 
@@ -75,6 +85,50 @@ def main() -> int:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
+
+    if "int8" in kernels:
+        int8_sweep(C, I8, dev, g, n_sm, stream)
+    if "w8a8" in kernels:
+        w8a8_sweep(C, I8, dev, g, n_sm, stream)
+    if "probe" in kernels:
+        probe_sweep(C, P, dev, g, n_sm, stream)
+    return 0
+
+
+def int8_sweep(C, I8, dev, g, n_sm: int, stream) -> None:
+    import torch
+
+    from licv_vqa_tpu_torch.csrc import load_library
+
+    fn = load_library("int8_matmul.cu").int8_matmul_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    for m, k, n in INT8_SHAPES:
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        q = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        s = torch.rand(n, generator=g, device=dev)
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+        tma = I8.tma_path(k, n, x.data_ptr(), q.data_ptr())
+        stages = -(-k // I8.INT8_STAGE_ROWS)
+        sweep = []
+        for splits in INT8_SPLITS:
+            per = -(-stages // splits) * I8.INT8_STAGE_ROWS
+            def call(per=per):
+                err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n,
+                         -(-k // per), per, int(tma), 1, stream)
+                if err:
+                    raise RuntimeError(f"cudaError {err}")
+            sweep.append(f"{splits}: {C.queued_ms(call, 50) * 1e3:.2f}")
+        plan = I8.launch_plan(m, k, n, n_sm)[0]
+        wrapper = C.queued_ms(lambda: I8.int8_matmul(x, q, s, torch.float32), 50) * 1e3
+        print(f"int8 ({m},{k},{n}) {'TMA' if tma else 'plain loads'} splits µs "
+              f"{', '.join(sweep)}; plan {plan}: wrapper {wrapper:.2f}", flush=True)
+
+
+def w8a8_sweep(C, I8, dev, g, n_sm: int, stream) -> None:
+    import torch
+
+    from licv_vqa_tpu_torch.csrc import load_library
 
     pre = load_library("w8a8_matmul.cu").w8a8_matmul_prequantized
     pre.restype = ctypes.c_int
@@ -102,6 +156,12 @@ def main() -> int:
         print(f"w8a8 ({m},{k},{n}) splits µs {', '.join(sweep)}; plan {plan}: pre-quantized "
               f"{planned:.2f}, fused {fused:.2f} ({kernels})", flush=True)
 
+
+def probe_sweep(C, P, dev, g, n_sm: int, stream) -> None:
+    import torch
+
+    from licv_vqa_tpu_torch.csrc import load_library
+
     m, k, n, group = PROBE_SHAPE
     probe = load_library("int4_unpack_probe.cu").int4_unpack_probe
     probe.restype = ctypes.c_int
@@ -126,7 +186,6 @@ def main() -> int:
         wrapper = C.queued_ms(lambda: P.int4_unpack_probe(x, packed, table, group, sched), 50)
         print(f"probe {sched} ({m},{k},{n}) G={group} splits µs {', '.join(sweep)}; plan {plan}: "
               f"wrapper {wrapper * 1e3:.2f}", flush=True)
-    return 0
 
 
 if __name__ == "__main__":

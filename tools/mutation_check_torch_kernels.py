@@ -28,7 +28,7 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-ICV = "licv_vqa_tpu_torch/ops/icv_inject.py"
+ICV_BWD = "licv_vqa_tpu_torch/csrc/icv_inject_bwd.cu"
 KL = "licv_vqa_tpu_torch/ops/masked_kl_kernel.py"
 INT8 = "licv_vqa_tpu_torch/csrc/int8_matmul.cu"
 INT4 = "licv_vqa_tpu_torch/csrc/int4_matmul.cu"
@@ -60,17 +60,34 @@ _VIT_PV = """\
 # "flagship")
 MUTATIONS = {
     "icv_bwd_no_norm_term": (
-        ICV, "        dh = ds + (gs / n_s) * (h / n_h)\n", "        dh = ds\n",
+        ICV_BWD, "          d_h[i] = d_s[i] + k_h * (hv / n_h);\n", "          d_h[i] = d_s[i];\n",
         ("icv_inject_bwd",), "training"),
+    # the first cluster partial of each half left out of the last
+    # cluster's sum of the shift's gradient (reads where a segment has more
+    # than one cluster)
+    "icv_bwd_partial_dropped": (
+        ICV_BWD, "      for (int q = half * per_half; q < q_end; ++q) {\n",
+        "      for (int q = half * per_half + 1; q < q_end; ++q) {\n", ("icv_inject_bwd",), None),
     "kl_bwd_no_q_term": (
         KL, "ds = g * (p * c - q * (p / (p + eps)))", "ds = g * (p * c)", KL_CASES, None),
     "kl_bwd_no_mean_a": (KL, "dt = g * (q * (a - ea))", "dt = g * (q * a)", KL_CASES, None),
     "kl_fwd_max_never_updated": (
         KL, "            m_s = ms_new\n", "            m_s = m_s\n", KL_CASES, None),
     "int8_no_column_scale": (
-        INT8, "  __device__ __forceinline__ float scale(int n) const { return s[n]; }\n",
-        "  __device__ __forceinline__ float scale(int n) const { return 1.f; }\n",
-        ("int8_matmul",), None),
+        INT8, "      const float y = v[u] * __ldg(p.s + n + u);  // the column scale, once\n",
+        "      const float y = v[u];  // the column scale, once\n", ("int8_matmul",), None),
+    # the cluster's split-K sum without rank 0's partial (every case that
+    # splits K)
+    "int8_split_partial_dropped": (
+        INT8, "    for (int sp = 0; sp < splits; ++sp) {\n",
+        "    for (int sp = 1; sp < splits; ++sp) {\n", ("int8_matmul",), None),
+    # rows k and k + 1 swapped in every B register
+    "int8_k_pair_swapped": (
+        INT8,
+        "  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);"
+        "  // row k low, k+1 high\n",
+        "  return __byte_perm(__float_as_uint(hi), __float_as_uint(lo), 0x7632);"
+        "  // row k low, k+1 high\n", ("int8_matmul",), None),
     # the x plane of in-features i + K/2 against the low nibbles, and the
     # other way round
     "int4_planes_swapped": (
