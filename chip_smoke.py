@@ -21,10 +21,15 @@ Phases (any failure exits non-zero before the result lines):
    bound: the larger of the bytes the function must move over 3.35 TB/s
    and its operations over the peak rate for their type (989 TFLOP/s bf16
    tensor cores, 67 TFLOP/s f32).  Cases: the ICV injection forward at
-   (1, 512, 4096), (1, 64, 4096) and (3, 1, 4096) and its backward (one
-   launch: dh and the shift's gradient reduced to the shift's shape) at
-   (2, 64, 4096), (1, 512, 4096) and (4, 256, 4096) bf16, each for every
-   shift layout and called twice for equal bits; the
+   (1, 512, 4096), (1, 64, 4096) and (3, 1, 4096), alone and with the
+   residual add folded in (``icv_inject_after_add``, the block output's
+   site; ``add_icv_inject``, the MLP output's), the add and ``icv_inject``
+   timed beside the fused entries as their two-launch yardstick and the
+   sum the first writes under autograd held bit-equal to ``h + delta``,
+   and its backward (one launch: dh and the shift's gradient reduced to
+   the shift's shape) at (2, 64, 4096), (1, 512, 4096) and (4, 256, 4096)
+   bf16, each for every shift layout ((1, S, D) shared by the batch
+   included) and the backward called twice for equal bits; the
    flash-attention forward at ``FLASH_FWD_SHAPES`` ((1, S, 32, 128) for S =
    384, 512, 2048 and 2560 with left padding, every row compared, the
    library call ``F.scaled_dot_product_attention`` under the segment mask;
@@ -37,8 +42,14 @@ Phases (any failure exits non-zero before the result lines):
    ``F32_REL_TOL``), with the backward of ``F.scaled_dot_product_attention``
    under the segment mask as the library call, and under ``is_causal=True``
    (PyTorch's own flash backward) where every row is valid
-   (``torch.autograd.grad`` alone timed); the masked temperature-KL forward and backward at
-   (128, 32000) and (512, 32000) f32 with a partial mask; the int8 and
+   (``torch.autograd.grad`` alone timed); the masked temperature-KL forward and
+   backward (``csrc/masked_kl.cu``) at (128, 32000) and (512, 32000) f32
+   with a 70% mask and with every row weighted, and at (128, 32002), the
+   Idefics-9B head's width, under the answer mask of phase 5's collated
+   batch (``training_kl_mask``), the forward compared on the weighted rows
+   and through the masked mean, the backward on every element, both
+   called twice for equal bits, the bound counting the weighted rows' reads
+   and every row's writes; the int8 and
    int4 decode matmuls at ``QUANT_SHAPES`` (a beam step's projections, a
    64-row block), the int8 one at ``HEAD_SHAPES`` (the head at a beam step
    and at prefill) and the int4 one at ``INT4_PREFILL_SHAPES`` (run B's
@@ -233,7 +244,7 @@ TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
 KL_EPS = 1e-6
 CUDA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "int8_matmul.cu", "int4_matmul.cu",
                 "flash_attn_bidir.cu", "flash_alibi.cu", "vit_attention.cu", "w8a8_matmul.cu",
-                "int4_unpack_probe.cu", "icv_inject_bwd.cu")
+                "int4_unpack_probe.cu", "icv_inject_bwd.cu", "masked_kl.cu")
 
 
 def log(msg: str) -> None:
@@ -271,16 +282,18 @@ def time_ms(fn, reps: int = 5, inner: int = 20) -> float:
 _profiler_works = True  # cleared once torch.profiler records no device activity
 
 
-def device_events(fn):
+def device_events(fn, always: bool = False):
     """``(wall_ms, events)`` of one call of ``fn`` under ``torch.profiler``:
     the device-kernel events, or None where three sessions recorded no
-    device activity (it happens now and then, and on some machines always).
-    After such a failure the run stops asking the profiler."""
+    device activity (it happens now and then, more often after phase 3's
+    hundreds of sessions, and on some machines always).  After such a
+    failure the kernel cases stop asking the profiler; a main path's
+    profile (``always``) asks it all the same."""
     global _profiler_works
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(3 if _profiler_works else 0):
+    for attempt in range(3 if _profiler_works or always else 0):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -292,8 +305,8 @@ def device_events(fn):
             return wall, events
         log(f"  torch.profiler recorded no device activity (session {attempt + 1} of 3)")
     if _profiler_works:
-        log("  torch.profiler is not used for the rest of the run; device times come "
-            "from CUDA events around work queued behind a spin kernel")
+        log("  torch.profiler is not used for the rest of the kernel cases; their device "
+            "times come from CUDA events around work queued behind a spin kernel")
     _profiler_works = False
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -386,6 +399,7 @@ class Case:
     # a call that is not the same function, timed and printed as a note: the
     # bf16 matmul with a dense weight, which the quantized bytes save against
     dense: object = None
+    dense_label: str = "bf16 matmul with the dense weight"
     # (B, S) bool: the rows the function defines, where the comparison looks
     # (the ALiBi kernel's rows with a visible key); None = every row
     rows: object = None
@@ -395,6 +409,11 @@ class Case:
     # limit of the mean error ratio (``mean_ratio``), where the max-abs
     # ratio cannot see a fault: None = not checked
     mean_tol: float = None
+    # the calls compared, where they are not the timed ones (the KL
+    # forward's weighted rows and masked mean): None = kernel and plain
+    check: tuple = None
+    # () -> (got, want), which must be equal bit for bit: None = no such check
+    exact: object = None
 
     def bound(self) -> tuple[float, str]:
         t_bytes = self.bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -402,8 +421,33 @@ class Case:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_cases(dev):
-    """The kernel-vs-plain cases at the main paths' shapes, from a seed."""
+# phase 5's KL rows when no collated batch is given (the CPU tests): bs=2
+# student rows of 64 tokens, each with a 3-token answer and its EOS
+KL_TRAIN_MASK_STAND_IN = ((60, 64), (57, 61))
+
+
+def training_kl_mask(tmp: Path):
+    """(128,) bool: the KL's row weights of phase 5's first collated batch
+    (the student's answer-region mask over its 2 x 64 positions), on the
+    synthetic split ``write_training_split`` writes under ``tmp``."""
+    import torch
+
+    from licv_vqa_tpu_torch.data.tokenizer import WhitespaceTokenizer
+    from licv_vqa_tpu_torch.ops.kl import answer_region_mask
+
+    write_training_split(tmp)
+    batch = _collated_batch(TRAIN_ARGS)
+    q = batch["query_inputs"]
+    ids, attn = torch.as_tensor(q["input_ids"]), torch.as_tensor(q["attention_mask"]).bool()
+    mask = answer_region_mask(ids, torch.as_tensor(batch["query_x_length"]),
+                              WhitespaceTokenizer().pad_token_id) & attn.any(dim=1)[:, None]
+    return mask.reshape(-1)
+
+
+def kernel_cases(dev, kl_mask=None):
+    """The kernel-vs-plain cases at the main paths' shapes, from a seed;
+    ``kl_mask`` the KL's row weights at the training shape
+    (``training_kl_mask``; a stand-in where None)."""
     import functools
 
     import torch
@@ -413,7 +457,13 @@ def kernel_cases(dev):
     from licv_vqa_tpu_torch.ops import flash_alibi as FA
     from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
     from licv_vqa_tpu_torch.ops.icv_inject import (
+        ADD_THEN_INJECT,
+        _icv_inject_triton,
+        add_icv_inject,
+        add_icv_inject_reference,
         icv_inject,
+        icv_inject_after_add,
+        icv_inject_after_add_reference,
         icv_inject_backward,
         icv_inject_backward_reference,
         icv_inject_reference,
@@ -425,10 +475,17 @@ def kernel_cases(dev):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
     def layouts(b, s, d):
-        return (("row", (d,)), ("batch", (b, d)), ("batch1", (b, 1, d)), ("per_pos", (b, s, d)))
+        # the (1, S, D) shift shared by the batch differs from per_pos at B > 1
+        return (("row", (d,)), ("batch", (b, d)), ("batch1", (b, 1, d)), ("per_pos", (b, s, d)),
+                *((("pos", (1, s, d)),) if b > 1 and s > 1 else ()))
+
+    def written_sum(h, delta, v):
+        """The sum the block output's entry writes for its backward, and
+        eager PyTorch's."""
+        return _icv_inject_triton(h, v, delta, ADD_THEN_INJECT, write_s=True)[1], h + delta
 
     for (b, s, d) in ((1, 512, 4096), (1, 64, 4096), (3, 1, 4096)):
-        h = randn((b, s, d))
+        h, other = randn((b, s, d)), randn((b, s, d))
         for layout, vshape in layouts(b, s, d):
             v = randn(vshape, 0.5)
             n = b * s * d
@@ -437,6 +494,25 @@ def kernel_cases(dev):
                 lambda h=h, v=v: icv_inject(h, v),
                 lambda h=h, v=v: icv_inject_reference(h, v),
                 bytes_moved=2 * n * 2 + v.numel() * 2, ops=8 * n, op_type="f32", calls=50,
+            )
+            # the residual add folded in: two rows read, one written; the add
+            # then the injection timed beside as the two launches it replaces
+            yield Case(
+                "icv_inject", f"({b},{s},{d}) shift={layout} after_add",
+                lambda h=h, o=other, v=v: icv_inject_after_add(h, o, v),
+                lambda h=h, o=other, v=v: icv_inject_after_add_reference(h, o, v),
+                bytes_moved=3 * n * 2 + v.numel() * 2, ops=9 * n, op_type="f32", calls=50,
+                dense=lambda h=h, o=other, v=v: icv_inject(h + o, v),
+                dense_label="the add then icv_inject (two launches)",
+                exact=lambda h=h, o=other, v=v: written_sum(h, o, v),
+            )
+            yield Case(
+                "icv_inject", f"({b},{s},{d}) shift={layout} add_after",
+                lambda h=h, o=other, v=v: add_icv_inject(o, h, v),
+                lambda h=h, o=other, v=v: add_icv_inject_reference(o, h, v),
+                bytes_moved=3 * n * 2 + v.numel() * 2, ops=9 * n, op_type="f32", calls=50,
+                dense=lambda h=h, o=other, v=v: o + icv_inject(h, v),
+                dense_label="icv_inject then the add (two launches)",
             )
     # training's student (bs=2, 64 tokens), a 512-token row, and phase 9's
     # flagship student (bs=4, 256 tokens)
@@ -544,28 +620,49 @@ def kernel_cases(dev):
                 attn_mask=None if valid is None else valid[:, None, None, :]),
             calls=5, mean_tol=VIT_MEAN_TOL,
         )
-    for n in (128, 512):
-        v_sz = 32000
+    if kl_mask is None:
+        kl_mask = torch.zeros((2, 64), dtype=torch.bool)
+        for row, (lo, hi) in enumerate(KL_TRAIN_MASK_STAND_IN):
+            kl_mask[row, lo:hi] = True
+    kl_mask = kl_mask.reshape(-1).to(dev)
+    for n, v_sz, mask in ((128, 32000, "70%"), (128, 32000, "all"), (512, 32000, "70%"),
+                          (512, 32000, "all"), (128, 32002, "train")):
         stu, tea = randn((n, v_sz), 3.0, torch.float32), randn((n, v_sz), 3.0, torch.float32)
-        w = (torch.rand((n,), generator=g, device=dev) < 0.7).float()
+        w = {"70%": lambda: (torch.rand((n,), generator=g, device=dev) < 0.7).float(),
+             "all": lambda: torch.ones((n,), device=dev),
+             "train": lambda: kl_mask.float()}[mask]()
+        n_w = int((w != 0).sum())
         gw = w / w.sum()  # the masked mean's per-row cotangent
-        _, lse_s, lse_t = K.rowwise_kl_reference(stu, tea, KL_EPS)
-        elems = n * v_sz
+        _, lse_s, lse_t = K.rowwise_kl_reference(stu, tea, KL_EPS, w)
+        label = f"({n},{v_sz}) f32 {mask} ({n_w} of {n} rows weighted)"
+        keep = w != 0
+
+        def weighted(out, w=w, keep=keep):
+            """The forward's outputs on the weighted rows, and the masked mean."""
+            kl, a, b = out
+            return kl[keep], a[keep], b[keep], (torch.dot(kl, w) / w.sum())[None]
+
         yield Case(
-            "masked_kl_fwd", f"({n},{v_sz}) f32",
-            lambda stu=stu, tea=tea: K.rowwise_kl_forward(stu, tea, KL_EPS),
-            lambda stu=stu, tea=tea: K.rowwise_kl_reference(stu, tea, KL_EPS),
-            bytes_moved=2 * elems * 4 + 3 * n * 4, ops=17 * elems, op_type="f32",
-            tol=F32_REL_TOL,
+            "masked_kl_fwd", label,
+            lambda stu=stu, tea=tea, w=w: K.rowwise_kl_forward(stu, tea, KL_EPS, w),
+            lambda stu=stu, tea=tea, w=w: K.rowwise_kl_reference(stu, tea, KL_EPS, w),
+            # the weighted rows read; three outputs a row written
+            bytes_moved=2 * n_w * v_sz * 4 + 4 * n * 4, ops=17 * n_w * v_sz, op_type="f32",
+            tol=F32_REL_TOL, deterministic=True,
+            check=(lambda stu=stu, tea=tea, w=w: weighted(
+                       K.rowwise_kl_forward(stu, tea, KL_EPS, w)),
+                   lambda stu=stu, tea=tea, w=w: weighted(
+                       K.rowwise_kl_reference(stu, tea, KL_EPS, w))),
         )
         yield Case(
-            "masked_kl_bwd", f"({n},{v_sz}) f32",
-            lambda stu=stu, tea=tea, a=lse_s, b=lse_t, gw=gw: K.rowwise_kl_backward(
-                stu, tea, a, b, gw, KL_EPS),
-            lambda stu=stu, tea=tea, a=lse_s, b=lse_t, gw=gw: K.rowwise_kl_backward_reference(
-                stu, tea, a, b, gw, KL_EPS),
-            bytes_moved=4 * elems * 4 + 3 * n * 4, ops=30 * elems, op_type="f32",
-            tol=F32_REL_TOL,
+            "masked_kl_bwd", label,
+            lambda stu=stu, tea=tea, a=lse_s, b=lse_t, gw=gw, w=w: K.rowwise_kl_backward(
+                stu, tea, a, b, gw, KL_EPS, w),
+            lambda stu=stu, tea=tea, a=lse_s, b=lse_t, gw=gw, w=w:
+                K.rowwise_kl_backward_reference(stu, tea, a, b, gw, KL_EPS, w),
+            # the weighted rows read, every row's two gradients written
+            bytes_moved=(2 * n_w + 2 * n) * v_sz * 4 + 5 * n * 4, ops=30 * n_w * v_sz,
+            op_type="f32", tol=F32_REL_TOL, deterministic=True,
         )
 
 
@@ -1181,13 +1278,16 @@ def mean_ratio(kernel, plain, rows=None) -> float:
 # beam step (32 per step), the flash forward at the 32-shot prefill (512),
 # the ICV backward and the KL at the training student (bs=2, 64 tokens)
 MAIN_SHAPE = {
-    "icv_inject": "(3,1,4096) shift=row",
+    # every ICV launch of the main paths is now a fused one: Idefics-9B's
+    # and OpenFlamingo's at the block output
+    "icv_inject": "(3,1,4096) shift=row after_add",
     "flash_attention_fwd": "(1,512,32,128)",
     # the flagship student's layer (phase 9), the only path that reaches it
     "flash_attention_bwd": "(4,256,32,128) lengths",
     "icv_inject_bwd": "(2,64,4096) shift=row",
-    "masked_kl_fwd": "(128,32000)",
-    "masked_kl_bwd": "(128,32000)",
+    # the training student's rows at the head's width, its answer mask
+    "masked_kl_fwd": "(128,32002) f32 train",
+    "masked_kl_bwd": "(128,32002) f32 train",
     # a beam step's wq/wk/wv/wo (the most frequent quantized call)
     "int8_matmul": "(3,4096,4096)",
     "int4_matmul": "(3,4096,4096)",
@@ -1231,16 +1331,18 @@ def library_runs(c: Case) -> tuple:
     return True, ""
 
 
-def check_kernels(dev) -> dict:
+def check_kernels(dev, kl_mask=None) -> dict:
     """Phase 3.  Returns per-kernel summaries for the kernels line."""
     import torch
 
     out = {}
-    for c in kernel_cases(dev):
-        err, ratio = compare(c.kernel, c.plain, c.rows)
+    for c in kernel_cases(dev, kl_mask):
+        err, ratio = compare(*(c.check or (c.kernel, c.plain)), c.rows)
         mean = None if c.mean_tol is None else mean_ratio(c.kernel, c.plain, c.rows)
         if c.deterministic and not equal_bits(c.kernel(), c.kernel()):
             raise AssertionError(f"{c.name} {c.label}: two calls on equal inputs differ")
+        if c.exact is not None and not equal_bits(*c.exact()):
+            raise AssertionError(f"{c.name} {c.label}: not bit-equal to eager PyTorch")
         has_lib, lib = library_runs(c)
         fns = [c.kernel, c.plain] + [f for f, on in ((c.library, has_lib), (c.dense, c.dense))
                                      if on]
@@ -1251,8 +1353,7 @@ def check_kernels(dev) -> dict:
             lib = f"{lib_ms:.5f} ms"
         ev_ms, ev_plain = time_ms(c.kernel, inner=c.calls), time_ms(c.plain, inner=c.calls)
         bound_ms, bound_by = c.bound()
-        note = (f"; note: bf16 matmul with the dense weight {times[-1]:.5f} ms"
-                if c.dense is not None else "")
+        note = f"; note: {c.dense_label} {times[-1]:.5f} ms" if c.dense is not None else ""
         mean_note = "" if mean is None else f", mean ratio {mean:.3e} (limit {c.mean_tol})"
         log(f"{c.name} {c.label}: max_abs={err:.3e} (ratio to max|plain| {ratio:.3e}"
             f"{mean_note}); "
@@ -1346,6 +1447,20 @@ def set_env(tmp: Path) -> None:
     for key in ("RESULT_DIR", "MODEL_CPK_DIR", "VQAV2_PATH", "COCO_PATH", "OKVQA_PATH",
                 "CHECKPOINT_PATH"):
         os.environ[key] = str(tmp / key.lower())
+
+
+def route_icv(kernels: bool) -> None:
+    """Point the decoder's injection at the kernels (``icv_inject`` and the
+    entries with the residual add folded in) or at their plain versions."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as Dm
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    Dm.icv_inject = iv.icv_inject if kernels else iv.icv_inject_reference
+    Dm.icv_inject_after_add = (iv.icv_inject_after_add if kernels
+                               else iv.icv_inject_after_add_reference)
+    Dm.add_icv_inject = iv.add_icv_inject if kernels else iv.add_icv_inject_reference
 
 
 def _leaves(tree):
@@ -1760,7 +1875,7 @@ def profile_question(fn, tag: str, top: int = 6, what: str = "one question") -> 
     """One warm call of ``fn`` (``what``: a question, a train step) under
     ``torch.profiler``: its wall, the device's busy share of it and the
     device time by kernel."""
-    wall, events = device_events(fn)
+    wall, events = device_events(fn, always=True)
     if events is None:
         log(f"{tag}, {what}: {wall:.1f} ms wall; device busy share and device time "
             "by kernel not measured (torch.profiler recorded no device activity)")
@@ -1971,9 +2086,7 @@ def kernel_vs_plain_f32_logits(e: EvalSetup, tag_prefix: str, make_fns, mean, st
     max-abs difference (a tie at bf16's resolution)."""
     import torch
 
-    from licv_vqa_tpu_torch.models import decoder as Dm
     from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
 
     b = e.bundle
     mc = b.model_cfg
@@ -1995,7 +2108,7 @@ def kernel_vs_plain_f32_logits(e: EvalSetup, tag_prefix: str, make_fns, mean, st
         for path, bind, params in paths:
             if path != "kernel":
                 os.environ["LICV_VIT_FLASH"] = os.environ["LICV_VIT_FUSED_ATTN"] = "0"
-                Dm.icv_inject = icv_inject_reference
+                route_icv(kernels=False)
             try:
                 with torch.inference_mode():
                     fwd = bind(params, px, pv, ids, icv, ids.shape[1] + 1, **kw)
@@ -2003,7 +2116,7 @@ def kernel_vs_plain_f32_logits(e: EvalSetup, tag_prefix: str, make_fns, mean, st
             finally:
                 os.environ.pop("LICV_VIT_FLASH", None)
                 os.environ.pop("LICV_VIT_FUSED_ATTN", None)
-                Dm.icv_inject = icv_inject
+                route_icv(kernels=True)
             free_device_memory()
         a, p, g = out["kernel"], out["plain"], out["f32"]
 
@@ -2294,12 +2407,10 @@ def loss_and_grads(m: TrainInputs, path: str):
     import torch
 
     from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn
-    from licv_vqa_tpu_torch.models import decoder as Dm
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
 
     kernel = path == "kernel"
     b = m.bundle
-    Dm.icv_inject = icv_inject if kernel else icv_inject_reference
+    route_icv(kernel)
     if not kernel:  # the tower's plain attention too
         os.environ["LICV_VIT_FUSED_ATTN"] = "0"
     try:
@@ -2310,7 +2421,7 @@ def loss_and_grads(m: TrainInputs, path: str):
         )
         grads = torch.autograd.grad(loss, (m.encoder.icv, m.encoder.alpha))
     finally:
-        Dm.icv_inject = icv_inject
+        route_icv(kernels=True)
         os.environ.pop("LICV_VIT_FUSED_ATTN", None)
     return loss.detach(), grads
 
@@ -2365,7 +2476,7 @@ def profile_training(m: TrainInputs) -> None:
 
     walls = [wall_ms(step) for _ in range(2)]
     t_teacher = wall_ms(teacher)
-    wall, events = device_events(step)
+    wall, events = device_events(step, always=True)
     if events is None:
         log(f"kernel-path loss+backward: {walls[0]:.1f}, {walls[1]:.1f} ms; teacher forward "
             f"alone {t_teacher:.1f} ms; device busy share and device time by kernel not "
@@ -2521,7 +2632,6 @@ def flagship_gradient_check(tool, shape: str, mode: str, params, batch, dev) -> 
     from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn
     from licv_vqa_tpu_torch.models import decoder as Dm
     from licv_vqa_tpu_torch.models.idefics import make_idefics_forward_fns
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject, icv_inject_reference
 
     full = tool.shape_config(shape, mode)[0]
     q = dict(batch["query_inputs"])
@@ -2543,7 +2653,7 @@ def flagship_gradient_check(tool, shape: str, mode: str, params, batch, dev) -> 
             # the teacher is the call without an ICV
             return fwd[teacher if icv is None else student](p, inputs, icv, return_hidden)
 
-        Dm.icv_inject = icv_inject if kernels else icv_inject_reference
+        route_icv(kernels)
         if not kernels:
             os.environ["LICV_VIT_FUSED_ATTN"] = "0"
         try:
@@ -2554,7 +2664,7 @@ def flagship_gradient_check(tool, shape: str, mode: str, params, batch, dev) -> 
                     dataclasses.replace(t, dtype=torch.float32) if f32 else t, p, h))
             g = torch.autograd.grad(loss, (enc.icv, enc.alpha))
         finally:
-            Dm.icv_inject = icv_inject
+            route_icv(kernels=True)
             os.environ.pop("LICV_VIT_FUSED_ATTN", None)
         free_device_memory()
         return loss.item(), g
@@ -2636,7 +2746,7 @@ KERNEL_SOURCES = {
     # under autograd
     "flash_attention_bwd": ("cuda", "licv_vqa_tpu_torch/csrc/flash_attn_bwd.cu",
                             "licv_vqa_tpu/models/layers.py:148"),
-    "masked_kl": ("triton", "licv_vqa_tpu_torch/ops/masked_kl_kernel.py",
+    "masked_kl": ("cuda", "licv_vqa_tpu_torch/csrc/masked_kl.cu",
                   "licv_vqa_tpu/ops/masked_kl_kernel.py:128"),
     "icv_inject_bwd": ("cuda", "licv_vqa_tpu_torch/csrc/icv_inject_bwd.cu",
                        "licv_vqa_tpu/ops/icv_inject.py:113"),
@@ -2687,7 +2797,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  nvcc: {line.strip()}")
 
-    summary = check_kernels(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        kl_mask = training_kl_mask(Path(tmp))
+    log(f"phase 5's KL rows: {int(kl_mask.sum())} of {kl_mask.numel()} weighted "
+        f"({100 * float(kl_mask.float().mean()):.2f}%)")
+    summary = check_kernels(dev, kl_mask)
     free_device_memory()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts = main_path(dev, Path(tmp) / "eval")

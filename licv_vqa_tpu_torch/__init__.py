@@ -15,11 +15,13 @@ Kernels written by hand for Hopper (each beside its plain PyTorch version,
 which runs only for CPU tensors):
 
 - ``ops.icv_inject.icv_inject`` — the ICV residual edit, forward in
-  Triton, backward in CUDA C++ (``csrc/icv_inject_bwd.cu``);
+  Triton (``icv_inject_after_add`` and ``add_icv_inject`` fold the decoder
+  layer's residual add into the same launch), backward in CUDA C++
+  (``csrc/icv_inject_bwd.cu``);
 - ``models.layers.flash_attention`` — the causal flash-attention forward, in
   CUDA C++ (``csrc/flash_attn_fwd.cu``);
 - ``ops.masked_kl_kernel.masked_kl_pallas`` — the masked temperature-KL,
-  forward and fused backward, in Triton;
+  forward and fused backward, in CUDA C++ (``csrc/masked_kl.cu``);
 - ``ops.int8_matmul.int8_matmul`` and ``ops.int4_matmul.int4_matmul`` — the
   quantized decode matmuls, in CUDA C++ (``csrc/int8_matmul.cu``,
   ``csrc/int4_matmul.cu``);

@@ -7,8 +7,9 @@
 //     ds = r * (g - s * gs / |s|^2),   dh = ds + (gs / |s|) * h / |h|,
 // the three row sums (h.h, s.s, g.s) in f32 from one read of the row.  The
 // shift's gradient is ds summed to the shift's shape: over every row for a
-// (D,) shift, over a batch row's S rows for a (B, D) or (B, 1, D) one, not
-// at all for a per-position (B, S, D) one.
+// (D,) shift, over a batch row's S rows for a (B, D) or (B, 1, D) one, over
+// a position's B rows (b * S + j) for a (1, S, D) one shared by the batch,
+// not at all for a per-position (B, S, D) one.
 //
 // What bounds it on the H100: memory.  It reads h and g and writes dh (6
 // bytes an element in bf16), reads the shift and writes its gradient, and
@@ -16,7 +17,8 @@
 // device memory but one f32 D-row a cluster:
 //
 // - A block of 256 threads takes a run of rows of one segment (the rows
-//   one gradient row sums), RB rows at a time (2 in bf16, 1 in f32), each
+//   one gradient row sums: consecutive rows, or every S-th row for a shift
+//   shared by the batch at each position), RB rows at a time (2 in bf16, 1 in f32), each
 //   thread 16-byte loads of its EPT columns of each row, all RB rows'
 //   loads in flight together; the row sums by warp shuffles and one
 //   shared-memory exchange; dh written at once; ds added into the
@@ -120,6 +122,9 @@ struct Params {
   int S, D;
   long long v_sb, v_ss;
   int seg_rows, rows_per_block, blocks_per_seg;
+  // row i of segment g is g * seg_step + i * row_step (consecutive rows:
+  // seg_step = seg_rows, row_step = 1; a position's rows: 1 and S)
+  long long seg_step, row_step;
   int reduce;          // 0: per-position gradient, written row by row
 };
 
@@ -141,9 +146,10 @@ icv_inject_bwd_kernel(const Params p) {
   const int warp = tid / 32, lane = tid % 32;
   const int seg = blockIdx.x / p.blocks_per_seg;
   const int blk = blockIdx.x % p.blocks_per_seg;
-  const long long seg0 = static_cast<long long>(seg) * p.seg_rows;
-  const long long start = seg0 + static_cast<long long>(blk) * p.rows_per_block;
-  const long long end = min(start + p.rows_per_block, seg0 + p.seg_rows);
+  const long long seg0 = static_cast<long long>(seg) * p.seg_step;
+  // the block's rows of its segment, as indices within the segment
+  const long long start = static_cast<long long>(blk) * p.rows_per_block;
+  const long long end = min(start + p.rows_per_block, static_cast<long long>(p.seg_rows));
 
   // every block of the cluster has started before any writes into another
   // (the wait is just before the first such write)
@@ -160,19 +166,19 @@ icv_inject_bwd_kernel(const Params p) {
   for (int e = 0; e < EPT; ++e) acc[e] = 0.f;
 
   int parity = 0;
-  for (long long r0 = start; r0 < end; r0 += RB, parity ^= 1) {
+  for (long long i0 = start; i0 < end; i0 += RB, parity ^= 1) {
     // the step's rows, raw: all their loads in flight before any is used
     Raw<T, VEC> hr[RB][CH], gr[RB][CH];
     Raw<V, VEC> vr[RB][CH];
     float sums[3 * RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
-      const long long row = r0 + r;
+      const long long row = seg0 + (i0 + r) * p.row_step;
       const long long b = row / p.S, pos = row % p.S;
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const int col = (c * kThreads + tid) * VEC;
-        if (row < end && col < p.D) {
+        if (i0 + r < end && col < p.D) {
           hr[r][c].load(h + row * p.D + col);
           gr[r][c].load(g + row * p.D + col);
           vr[r][c].load(v + b * p.v_sb + pos * p.v_ss + col);
@@ -213,8 +219,8 @@ icv_inject_bwd_kernel(const Params p) {
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
-      const long long row = r0 + r;
-      if (row >= end) break;
+      if (i0 + r >= end) break;
+      const long long row = seg0 + (i0 + r) * p.row_step;
       float hh = 0.f, ss = 0.f, gs = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
@@ -400,7 +406,8 @@ extern "C" int icv_inject_bwd_max_clusters(int D, int cluster, int h_f32, int v_
 // bf16 for h, g, dh and for the shift and its gradient.  The grid is
 // `segments * blocks_per_seg` blocks in clusters of `cluster` (which
 // divides blocks_per_seg; 1 without a reduction); block j of a segment
-// takes its rows from j * rows_per_block.  `part` holds a D-row of f32 for
+// takes its rows from j * rows_per_block, row i of segment g being
+// g * seg_step + i * row_step.  `part` holds a D-row of f32 for
 // each cluster, `tickets` one zeroed int a segment (left zero).  Launches
 // on `stream`, does not synchronise, allocates nothing, and returns a
 // cudaError_t; operands it does not take (D not a multiple of 16 bytes of
@@ -409,8 +416,8 @@ extern "C" int icv_inject_bwd_max_clusters(int D, int cluster, int h_f32, int v_
 extern "C" int icv_inject_bwd(const void* h, const void* v, const void* g, void* dh, void* ds,
                               void* part, void* tickets, int S, int D, long long v_sb,
                               long long v_ss, int segments, int seg_rows, int rows_per_block,
-                              int blocks_per_seg, int cluster, int reduce, int h_f32, int v_f32,
-                              void* stream) {
+                              int blocks_per_seg, long long seg_step, long long row_step,
+                              int cluster, int reduce, int h_f32, int v_f32, void* stream) {
   // a thread's chunk: 16 bytes of h's type, and as many elements of the shift
   const int vec = h_f32 ? 4 : 8;
   const long long v_bytes = v_f32 ? 4 : 2;
@@ -420,12 +427,13 @@ extern "C" int icv_inject_bwd(const void* h, const void* v, const void* g, void*
   const uintptr_t vd = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(ds);
   if (D < 1 || D % vec || D > kThreads * 16 || hgd % 16 || vd % v_align ||
       (v_sb * v_bytes) % v_align || (v_ss * v_bytes) % v_align || cluster < 1 ||
-      cluster > kMaxCluster || blocks_per_seg % cluster || segments < 1 ||
-      (!reduce && cluster != 1)) {
+      cluster > kMaxCluster || blocks_per_seg % cluster || segments < 1 || seg_step < 1 ||
+      row_step < 1 || (!reduce && cluster != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{h, v, g, dh, ds, static_cast<float*>(part), static_cast<int*>(tickets), S, D,
-                 v_sb, v_ss, seg_rows, rows_per_block, blocks_per_seg, reduce};
+                 v_sb, v_ss, seg_rows, rows_per_block, blocks_per_seg, seg_step, row_step,
+                 reduce};
   const int blocks = segments * blocks_per_seg;
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (h_f32) {

@@ -37,7 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_alibi import flash_alibi_attention, flash_alibi_usable
-from ..ops.icv_inject import icv_inject
+from ..ops.icv_inject import add_icv_inject, icv_inject, icv_inject_after_add
 from ..ops.int8_matmul import qdot
 from ..ops.quantize import dequantize_kv, quantize_kv_rows
 from . import layers as L
@@ -320,23 +320,26 @@ def decoder_layer(
     x2 = _norm(cfg, p["ln2"], p.get("ln2_b"), h)
     mlp = (L.swiglu_mlp(p["mlp"], x2, a8=a8) if cfg.activation == "silu_glu"
            else L.gelu_mlp(p["mlp"], x2, a8=a8))
-    if icv_row is not None and cfg.injection_site == MLP_OUTPUT:
-        mlp = _apply_icv(mlp, icv_row)
-    h = h + mlp
-    if icv_row is not None and cfg.injection_site == BLOCK_OUTPUT:
-        h = _apply_icv(h, icv_row)
-    return h
+    return _add_mlp(h, mlp, icv_row, cfg.injection_site)
 
 
-def _apply_icv(x: torch.Tensor, icv_row) -> torch.Tensor:
-    """``icv_row`` is a (D,) row (inject at every layer) or a ``(row, flag)``
-    pair for subset-layer intervention (reference ``intervention_layer``
+def _add_mlp(h: torch.Tensor, mlp: torch.Tensor, icv_row, site: str) -> torch.Tensor:
+    """The residual add of the MLP output, with the ICV injected at ``site``
+    (into the sum at BLOCK_OUTPUT, into ``mlp`` at MLP_OUTPUT).  ``icv_row``
+    is None, a (D,) row (inject at every layer) or a ``(row, flag)`` pair
+    for subset-layer intervention (reference ``intervention_layer``
     semantics, icv_intervention.py:39-42).  ``flag`` is a HOST bool: an off
-    layer skips the launch, and the host never reads a device value back."""
-    if isinstance(icv_row, tuple):
-        row, flag = icv_row
-        return icv_inject(x, row) if flag else x
-    return icv_inject(x, icv_row)
+    layer is the plain add, and the host never reads a device value back.
+    On the card the add and the injection are one kernel launch; on the CPU
+    they are the add and ``icv_inject`` in that order."""
+    row, flag = icv_row if isinstance(icv_row, tuple) else (icv_row, icv_row is not None)
+    if not flag or site not in (MLP_OUTPUT, BLOCK_OUTPUT):
+        return h + mlp
+    if h.device.type == "cpu":
+        return icv_inject(h + mlp, row) if site == BLOCK_OUTPUT else h + icv_inject(mlp, row)
+    if site == BLOCK_OUTPUT:
+        return icv_inject_after_add(h, mlp, row)
+    return add_icv_inject(h, mlp, row)
 
 
 def alibi_bias_for(cfg: DecoderConfig, positions: torch.Tensor, cache: Optional[dict],

@@ -20,8 +20,12 @@ ones, bf16 and f32 in and out, EQUAL to its plain version (the int32 sum
 is exact and the epilogue the same f32 arithmetic); the int4 unpack probe's
 four schedules at the tool's shape and at ragged ones; the int8 kernel on
 both sides of its TMA pitch rule, on one tile and bit-equal across calls;
-the ICV backward in every shift layout at the flagship student's shape
-and a ragged one, bf16 or f32, bit-equal across calls.
+the ICV backward in every shift layout ((1, S, D) shared by the batch
+included) at the flagship student's shape and a ragged one, bf16 or f32,
+bit-equal across calls; the ICV forward with the residual add folded in,
+both sites, forward and gradients; the masked KL (``csrc/masked_kl.cu``)
+at 32000 and the head's 32002 columns, with zero-weight rows and every
+row weighted, bit-equal across calls.
 Tolerance: f32 math on both sides, so the two differ by output rounding
 (bf16 outputs) and summation order.  The limit scales with the output:
 max-abs error ≤ 2e-2 · max|plain| for bf16 outputs (one bf16 ulp is at most
@@ -42,7 +46,11 @@ from licv_vqa_tpu_torch.ops import int8_matmul as I8
 from licv_vqa_tpu_torch.ops import masked_kl_kernel as K
 from licv_vqa_tpu_torch.ops import quantize as Q
 from licv_vqa_tpu_torch.ops.icv_inject import (
+    add_icv_inject,
+    add_icv_inject_reference,
     icv_inject,
+    icv_inject_after_add,
+    icv_inject_after_add_reference,
     icv_inject_backward,
     icv_inject_backward_reference,
     icv_inject_reference,
@@ -86,6 +94,57 @@ def test_icv_inject_kernel_matches_plain(dev, shape, layout):
     want = icv_inject_reference(h, v)
     assert got.dtype == torch.bfloat16 and got.shape == h.shape
     _assert_close(got, want)
+
+
+@pytest.mark.parametrize("site", ["after_add", "add_after"])
+@pytest.mark.parametrize("shape,layout", [
+    ((3, 1, 4096), "row"), ((1, 512, 4096), "row"), ((3, 5, 4096), "batch"),
+    ((3, 5, 4096), "per_pos"), ((3, 5, 4096), "pos"), ((2, 7, 4000), "row"),
+])
+def test_icv_inject_fused_add_matches_plain(dev, shape, layout, site):
+    """The entries with the residual add folded in: one forward launch,
+    bf16, within the limit of the plain add and injection."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, s, d = shape
+    h, x = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    vshape = {"row": (d,), "batch": (b, d), "per_pos": shape, "pos": (1, s, d)}[layout]
+    v = (torch.randn(vshape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    entry, plain = ((icv_inject_after_add, icv_inject_after_add_reference) if site == "after_add"
+                    else (add_icv_inject, add_icv_inject_reference))
+    before = icv_inject.launches
+    got = entry(h, x, v)
+    torch.cuda.synchronize()
+    assert icv_inject.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    _assert_close(got, plain(h, x, v))
+
+
+@pytest.mark.parametrize("site", ["after_add", "add_after"])
+@pytest.mark.parametrize("layout", ["row", "pos"])
+def test_icv_inject_fused_add_autograd_matches_plain(dev, site, layout):
+    """Under autograd: the fused forward (the block output's writing the sum
+    for the backward), then one launch of the backward kernel; the
+    gradients of h, the other operand and an f32 shift within the limit of
+    autograd through the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    shape = (2, 64, 4096)
+    h, x, gout = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(3))
+    v = torch.randn((4096,) if layout == "row" else (1, 64, 4096), generator=g, device=dev) * 0.5
+    entry, plain = ((icv_inject_after_add, icv_inject_after_add_reference) if site == "after_add"
+                    else (add_icv_inject, add_icv_inject_reference))
+    out = {}
+    for name, fn in (("kernel", entry), ("plain", plain)):
+        hh, xx, vv = (a.detach().clone().requires_grad_() for a in (h, x, v))
+        f0, b0 = icv_inject.launches, icv_inject_backward.launches
+        y = fn(hh, xx, vv.to(torch.bfloat16))
+        out[name] = (y.detach(), *torch.autograd.grad(y, (hh, xx, vv), gout))
+        torch.cuda.synchronize()
+        if name == "kernel":
+            assert (icv_inject.launches, icv_inject_backward.launches) == (f0 + 1, b0 + 1)
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _assert_close(a, b)
 
 
 @pytest.mark.parametrize("b,s,h,pad,side", [
@@ -512,13 +571,16 @@ def test_vit_attention_kernel_rejects_other_head_dims_and_grad(dev):
     ((4, 256, 4096), "row"), ((4, 256, 4096), "batch"), ((4, 256, 4096), "batch1"),
     ((4, 256, 4096), "per_pos"), ((3, 37, 4000), "row"), ((3, 37, 4000), "batch"),
     ((3, 37, 4000), "batch1"), ((3, 37, 4000), "per_pos"),
+    # a per-position shift shared by the batch: S segments of B rows
+    ((4, 256, 4096), "pos"), ((3, 37, 4000), "pos"), ((64, 2, 4096), "pos"),
 ])
 def test_icv_inject_backward_kernel_matches_plain(dev, shape, layout):
     g = torch.Generator(device=dev).manual_seed(3)
     b, s, d = shape
     h = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     gout = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-    vshape = {"row": (d,), "batch": (b, d), "batch1": (b, 1, d), "per_pos": shape}[layout]
+    vshape = {"row": (d,), "batch": (b, d), "batch1": (b, 1, d), "per_pos": shape,
+              "pos": (1, s, d)}[layout]
     v = (torch.randn(vshape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
     before = icv_inject_backward.launches
     dh, dv = icv_inject_backward(h, v, gout)
@@ -531,7 +593,7 @@ def test_icv_inject_backward_kernel_matches_plain(dev, shape, layout):
 
 
 @pytest.mark.parametrize("shape", [(4, 256, 4096), (3, 37, 4000)])
-@pytest.mark.parametrize("layout", ["row", "batch", "per_pos"])
+@pytest.mark.parametrize("layout", ["row", "batch", "per_pos", "pos"])
 def test_icv_inject_backward_is_deterministic(dev, shape, layout):
     """The shift's gradient is summed from the programs' partials in a fixed
     order, with no float atomics: two calls give equal bits (the finishers
@@ -540,7 +602,7 @@ def test_icv_inject_backward_is_deterministic(dev, shape, layout):
     b, s, d = shape
     h = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     gout = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-    vshape = {"row": (d,), "batch": (b, d), "per_pos": shape}[layout]
+    vshape = {"row": (d,), "batch": (b, d), "per_pos": shape, "pos": (1, s, d)}[layout]
     v = (torch.randn(vshape, generator=g, device=dev) * 0.5).to(torch.bfloat16)
     first = icv_inject_backward(h, v, gout)
     second = icv_inject_backward(h, v, gout)
@@ -587,24 +649,56 @@ def test_icv_inject_autograd_launches_both_kernels(dev):
     _assert_close(dv, want_dv)
 
 
-@pytest.mark.parametrize("n,v", [(128, 32000), (512, 32000), (15, 257)])
-def test_masked_kl_kernels_match_plain(dev, n, v):
+@pytest.mark.parametrize("weights", ["70%", "all", "none"])
+@pytest.mark.parametrize("n,v", [(128, 32000), (512, 32000), (15, 257), (128, 32002),
+                                 (7, 4099)])
+def test_masked_kl_kernels_match_plain(dev, n, v, weights):
+    """Both kernels against their plain versions with the row weights:
+    zero-weight rows 0 (KL, log-sum-exps, both gradients), the others within
+    the f32 limit; at the head's 32002 columns a row starts 8-byte aligned
+    only.  "none" passes no weights (every row)."""
     g = torch.Generator(device=dev).manual_seed(5)
     stu = torch.randn((n, v), generator=g, device=dev) * 3
     tea = torch.randn((n, v), generator=g, device=dev) * 3
-    w = (torch.rand((n,), generator=g, device=dev) < 0.7).float()
-    gw = w / w.sum()
+    w = {"70%": (torch.rand((n,), generator=g, device=dev) < 0.7).float(),
+         "all": torch.ones((n,), device=dev), "none": None}[weights]
+    gw = torch.rand((n,), generator=g, device=dev) if w is None else w / w.sum()
     f0, b0 = K.rowwise_kl_forward.launches, K.rowwise_kl_backward.launches
-    got = K.rowwise_kl_forward(stu, tea, 1e-6)
-    want = K.rowwise_kl_reference(stu, tea, 1e-6)
+    got = K.rowwise_kl_forward(stu, tea, 1e-6, w)
+    want = K.rowwise_kl_reference(stu, tea, 1e-6, w)
     for a, b in zip(got, want):
         _assert_close(a, b, F32_REL_TOL)
-    dgot = K.rowwise_kl_backward(stu, tea, got[1], got[2], gw, 1e-6)
-    dwant = K.rowwise_kl_backward_reference(stu, tea, want[1], want[2], gw, 1e-6)
+    dgot = K.rowwise_kl_backward(stu, tea, got[1], got[2], gw, 1e-6, w)
+    dwant = K.rowwise_kl_backward_reference(stu, tea, want[1], want[2], gw, 1e-6, w)
     torch.cuda.synchronize()
     assert (K.rowwise_kl_forward.launches, K.rowwise_kl_backward.launches) == (f0 + 1, b0 + 1)
     for a, b in zip(dgot, dwant):
         _assert_close(a, b, F32_REL_TOL)
+    if w is not None:
+        off = w == 0
+        assert all(torch.all(x[off] == 0) for x in (*got, *dgot))
+
+
+@pytest.mark.parametrize("n,v", [(128, 32002), (512, 32000)])
+def test_masked_kl_kernels_are_deterministic_and_skip_zero_weight_rows(dev, n, v):
+    """Two calls give equal bits (the cluster's merges in rank order), and a
+    zero-weight row is not read: NaN logits there leave every output finite
+    and its outputs 0."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    stu = torch.randn((n, v), generator=g, device=dev) * 3
+    tea = torch.randn((n, v), generator=g, device=dev) * 3
+    w = (torch.rand((n,), generator=g, device=dev) < 0.3).float()
+    w[0], w[1] = 1.0, 0.0
+    stu[1], tea[1] = float("nan"), float("nan")
+    gw = w / w.sum()
+    first = K.rowwise_kl_forward(stu, tea, 1e-6, w)
+    second = K.rowwise_kl_forward(stu, tea, 1e-6, w)
+    d1 = K.rowwise_kl_backward(stu, tea, first[1], first[2], gw, 1e-6, w)
+    d2 = K.rowwise_kl_backward(stu, tea, first[1], first[2], gw, 1e-6, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((*first, *d1), (*second, *d2)))
+    assert all(torch.isfinite(x).all() for x in (*first, *d1))
+    assert all(torch.all(x[1] == 0) for x in (*first, *d1))
 
 
 def test_masked_kl_divergence_pallas_matches_xla_with_gradients(dev):

@@ -29,7 +29,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 ICV_BWD = "licv_vqa_tpu_torch/csrc/icv_inject_bwd.cu"
-KL = "licv_vqa_tpu_torch/ops/masked_kl_kernel.py"
+KL = "licv_vqa_tpu_torch/csrc/masked_kl.cu"
+ICV_FWD = "licv_vqa_tpu_torch/ops/icv_inject.py"
 INT8 = "licv_vqa_tpu_torch/csrc/int8_matmul.cu"
 INT4 = "licv_vqa_tpu_torch/csrc/int4_matmul.cu"
 BIDIR = "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu"
@@ -69,10 +70,30 @@ MUTATIONS = {
         ICV_BWD, "      for (int q = half * per_half; q < q_end; ++q) {\n",
         "      for (int q = half * per_half + 1; q < q_end; ++q) {\n", ("icv_inject_bwd",), None),
     "kl_bwd_no_q_term": (
-        KL, "ds = g * (p * c - q * (p / (p + eps)))", "ds = g * (p * c)", KL_CASES, None),
-    "kl_bwd_no_mean_a": (KL, "dt = g * (q * (a - ea))", "dt = g * (q * a)", KL_CASES, None),
-    "kl_fwd_max_never_updated": (
-        KL, "            m_s = ms_new\n", "            m_s = m_s\n", KL_CASES, None),
+        KL, "        d_s[e] = g * (pv[e] * c_sum - qv[e] * __fdividef(pv[e], pv[e] + eps));\n",
+        "        d_s[e] = g * (pv[e] * c_sum);\n", KL_CASES, None),
+    "kl_bwd_no_mean_a": (
+        KL, "        d_t[e] = g * (qv[e] * (a[e] - ea));\n",
+        "        d_t[e] = g * (qv[e] * a[e]);\n", KL_CASES, None),
+    # p without the thread's running max: the stored exps times exp(-lse)
+    "kl_fwd_running_max_dropped": (
+        KL, "      const float scale_s = exp_diff(chunk_max[0][j], lse_s);\n",
+        "      const float scale_s = exp_diff(0.f, lse_s);\n", KL_CASES, None),
+    # rank 0's (max, sum exp) left out of the cluster's merge (every case
+    # whose row is split, all of phase 3's)
+    "kl_merge_rank_dropped": (
+        KL, "    for (int q = 0; q < k; ++q) {\n      l_s += row_pairs[q].y",
+        "    for (int q = 1; q < k; ++q) {\n      l_s += row_pairs[q].y", KL_CASES, None),
+    # a zero-weight row's gradients written as garbage (ones), not zeros
+    # (reads on the masked cases)
+    "kl_bwd_zero_row_not_zeroed": (
+        KL, "  const float zero[4] = {0.f, 0.f, 0.f, 0.f};\n",
+        "  const float zero[4] = {1.f, 1.f, 1.f, 1.f};\n", KL_CASES, None),
+    # the block output's entry injects into h alone, the residual's delta
+    # dropped (reads on the after_add cases)
+    "icv_fused_delta_dropped": (
+        ICV_FWD, "            h = (h + res).to(out_ptr.dtype.element_ty)\n",
+        "            h = h.to(out_ptr.dtype.element_ty)\n", ("icv_inject",), None),
     "int8_no_column_scale": (
         INT8, "      const float y = v[u] * __ldg(p.s + n + u);  // the column scale, once\n",
         "      const float y = v[u];  // the column scale, once\n", ("int8_matmul",), None),
@@ -237,7 +258,7 @@ import sys, torch, chip_smoke as C
 for c in C.kernel_cases(torch.device("cuda")):
     if c.name in sys.argv[1:]:
         try:
-            _, ratio = C.compare(c.kernel, c.plain, c.rows)
+            _, ratio = C.compare(*(c.check or (c.kernel, c.plain)), c.rows)
             mean = "" if c.mean_tol is None else (
                 f", mean ratio {C.mean_ratio(c.kernel, c.plain, c.rows):.3e}"
                 f" (limit {c.mean_tol})")

@@ -37,7 +37,7 @@ def main() -> int:
         raise SystemExit(f"unknown kernels {unknown}; known: {sorted(C.MAIN_SHAPE)}")
     print(C.gpu_name_and_power(), flush=True)
     every = C.kernel_cases
-    C.kernel_cases = lambda dev: (c for c in every(dev) if c.name in args.names)
+    C.kernel_cases = lambda dev, *rest: (c for c in every(dev, *rest) if c.name in args.names)
     print(json.dumps(C.check_kernels(torch.device("cuda", 0))), flush=True)
     return 0
 
