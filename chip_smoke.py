@@ -75,7 +75,11 @@ Phases (any failure exits non-zero before the result lines):
    80, 1 and 33 images, a key mask, S = 1024), every row compared, its
    mean error ratio held to ``VIT_MEAN_TOL`` too (where P is rounded), with
    ``F.scaled_dot_product_attention`` under the key mask as the library
-   call; the w8a8 kernel (``csrc/w8a8_matmul.cu``), both entry points
+   call; its f32 entry (``csrc/vit_attention_f32.cu``) at ``VIT_F32_SHAPES``
+   (RICE's CLIP ViT-B/32, H=12, Dh=64: the encoder's batch of 8, a batch
+   of 64, the batch of 8 with 7 keys of each image masked), to
+   ``F32_REL_TOL``, with ``F.scaled_dot_product_attention`` on the same f32
+   tensors as the library call; the w8a8 kernel (``csrc/w8a8_matmul.cu``), both entry points
    (fused, pre-quantized) at ``W8A8_SHAPES`` (run A's 64-token prefill,
    its 32-shot ``test_icl`` prefill in the 512-token bucket, its bind-time
    K/V and perceiver calls at K = 1280, and the tuning tool's
@@ -106,6 +110,26 @@ Phases (any failure exits non-zero before the result lines):
    per-question latency, peak memory, and checks the answers: decoded
    strings scored by the port CLI's VQA accuracy, and the full-width ICL
    prefill logits with the flash kernel against the plain attention path;
+   then, on the same model, 4b: ``test_icv`` greedy (``num_beams=1``) and
+   again with a draft of its first ``spec_draft_layers`` (8) layers and
+   ``SPEC_GAMMA`` (4) tokens a round, per-row acceptance, through
+   ``icv_inference``: the tokens equal, or first differing where the
+   target's f32 top-2 logit gap is under ``NEAR_TIE`` (printed), the ICV
+   count 32 x target forwards + 8 x draft forwards, the peak memory at most
+   phase 4's plus the draft cache, s/question for both; and 4c: RICE
+   retrieval at CLIP ViT-B/32's published widths (random f32 weights made
+   on the card) with the port's ``MMTopkRetriever`` and ``ClipTowerEncoder``,
+   ``i2i``, an index of ``RICE_INDEX_ROWS`` (4096) rows over
+   ``RICE_IMAGES`` (2048) images made on the card and ``RICE_TEST_ROWS``
+   (256) test rows, ``retrieve`` for 1 and 32 shots: seconds to encode and
+   to retrieve, the f32 fused ViT launches (12 x 544 batches of 8), the
+   features against the plain path (``LICV_VIT_FUSED_ATTN=0``) within
+   ``RICE_FEATURE_TOL`` a row, the 32-shot indices against the plain
+   path's (a difference allowed only under an f32 score gap of
+   ``RICE_GAP_TOL``), ties lower index first, the 1-shot result the
+   32-shot one's first column, the cache reloaded; the text tower on 64
+   ragged id rows (no fused launch, equal to the plain path); then the
+   32-shot indices of 2 test rows through ``icl_inference`` on this model;
 5. the training path at Idefics-9B full width, through the port's train
    CLI (``licv_vqa_tpu_torch.cli.train.main``) on a synthetic VQAv2 split
    written to a temporary directory: ``trainer=debug`` (4 micro-steps, 2
@@ -132,7 +156,11 @@ Phases (any failure exits non-zero before the result lines):
    zeroed before and read after each path and must equal
    ``predicted_quantized_launches`` (derived from ``qdot``'s routes), the
    ICV count 32 x forwards, the fused ViT kernel's 32 x binds; no call of
-   ``torch._int_mm`` is made (w8a8 goes through the kernel).  Prints ms per question, peak memory and a
+   ``torch._int_mm`` is made (w8a8 goes through the kernel); run A then
+   decodes one ``test_icv`` question with the draft (``speculative_int8``:
+   the int8 kernel's launches at M = 4 rows and at M = 1 against the
+   forwards that ran, the tokens against int8 greedy under the near-tie
+   rule).  Prints ms per question, peak memory and a
    profile of one ``test_icv`` question (device busy share, device time by
    kernel), and holds the test_icv prompt's prefill and first-step logits
    through the kernels against the same weights through their plain
@@ -244,7 +272,8 @@ TRAIN_MICRO = 4  # trainer=debug: limit_train_batches 4, accumulate 2
 KL_EPS = 1e-6
 CUDA_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "int8_matmul.cu", "int4_matmul.cu",
                 "flash_attn_bidir.cu", "flash_alibi.cu", "vit_attention.cu", "w8a8_matmul.cu",
-                "int4_unpack_probe.cu", "icv_inject_bwd.cu", "masked_kl.cu")
+                "int4_unpack_probe.cu", "icv_inject_bwd.cu", "masked_kl.cu",
+                "vit_attention_f32.cu")
 
 
 def log(msg: str) -> None:
@@ -620,6 +649,26 @@ def kernel_cases(dev, kl_mask=None):
                 attn_mask=None if valid is None else valid[:, None, None, :]),
             calls=5, mean_tol=VIT_MEAN_TOL,
         )
+    for b, s, h, dh, hidden in VIT_F32_SHAPES:
+        q, k, v = (randn((b, s, h, dh), dtype=torch.float32) for _ in range(3))
+        valid = None
+        if hidden:
+            valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+            for row in range(b):
+                valid[row, torch.randperm(s, generator=g, device=dev)[:hidden]] = False
+        label = f"({b},{s},{h},{dh}) f32 " + (f"masked {hidden}" if hidden else "all valid")
+        yield Case(
+            "vit_attention_f32", label,
+            lambda q=q, k=k, v=v, valid=valid: L.vit_attention(q, k, v, valid),
+            lambda q=q, k=k, v=v, valid=valid: L.vit_attention_reference(q, k, v, valid),
+            bytes_moved=4 * q.numel() * 4 + (0 if valid is None else valid.numel() * 4),
+            # QK^T and PV over every query and the keys its softmax weighs
+            ops=4 * h * dh * s * b * (s - hidden), op_type="f32",
+            library=lambda q=q, k=k, v=v, valid=valid: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=None if valid is None else valid[:, None, None, :]),
+            calls=20, tol=F32_REL_TOL,
+        )
     if kl_mask is None:
         kl_mask = torch.zeros((2, 64), dtype=torch.bool)
         for row, (lo, hi) in enumerate(KL_TRAIN_MASK_STAND_IN):
@@ -799,6 +848,11 @@ ALIBI_SHAPES = ((512, 39, "left"), (512, 61, "right"), (2048, 301, "left"),
 # with no valid key); the gate's largest S
 VIT_SHAPES = ((1, 257, 64, False), (33, 257, 64, False), (33, 257, 80, False),
               (4, 257, 80, True), (2, 1024, 80, True))
+# the f32 entry of the fused ViT kernel (csrc/vit_attention_f32.cu): RICE's
+# CLIP ViT-B/32 image tower (S = 50, H = 12, Dh 64), the encoder's batch of
+# 8, a batch of 64, and the batch of 8 under a key mask that hides 7 keys of
+# each image: (B, S, H, Dh, masked keys an image)
+VIT_F32_SHAPES = ((8, 50, 12, 64, 0), (64, 50, 12, 64, 0), (8, 50, 12, 64, 7))
 # the fused ViT kernel's mean error ratio against its plain version.  P
 # rounded to bf16 before it is normalised (in place of after, as the plain
 # version rounds) moves every output by about an ulp: under the max-abs
@@ -1298,6 +1352,8 @@ MAIN_SHAPE = {
     "flash_alibi_attention": "(1,512,32,128) left",
     # the ViT-L tower at an OpenFlamingo test_icv bind (one image)
     "vit_attention": "(1,257,16,64)",
+    # the RICE encoder's batch of 8 images (CLIP ViT-B/32, f32)
+    "vit_attention_f32": "(8,50,12,64) f32 all valid",
     # run A's 64-token prefill projections (the most frequent w8a8 call)
     "w8a8_matmul": "fused (64,4096,4096)",
     # the JAX tool's first schedule, its production kernel of the time
@@ -1698,11 +1754,419 @@ def main_path(dev, tmp: Path) -> dict:
         f"{'agrees' if a.argmax().item() == b.argmax().item() else 'differs'}")
     if not (torch.isfinite(a).all() and rel <= REL_L2_TOL):
         raise AssertionError("flash path logits disagree with the plain path")
+    spec = speculative_path(e, dev, peak)
+    rice = rice_path(e, dev, tmp)
     return {
-        "icv_inject": counts["icv_inject", "test_icv"] + counts["icv_inject", "test_icl"],
+        "icv_inject": (counts["icv_inject", "test_icv"] + counts["icv_inject", "test_icl"]
+                       + spec["icv_inject"]),
         "flash_attention_fwd": counts["flash", "test_icv"] + counts["flash", "test_icl"],
-        "vit_attention": counts["vit", "test_icv"] + counts["vit", "test_icl"],
+        "vit_attention": counts["vit", "test_icv"] + counts["vit", "test_icl"]
+        + spec["vit_attention"],
+        "vit_attention_f32": rice["vit_attention_f32"],
     }
+
+
+# phase 4b: self-speculative greedy decoding on phase 4's model, a block of
+# SPEC_GAMMA draft tokens a round (generate_kwargs.speculative_gamma); a
+# position where the two decodes differ passes only where the target's f32
+# top-2 logit gap there is under NEAR_TIE (JAX speculative.py:8-14)
+SPEC_GAMMA = 4
+NEAR_TIE = 0.05
+
+
+def spec_draft_layers(mc) -> int:
+    """The draft's depth (``speculative_draft_layers``): a quarter of the
+    decoder, 8 of Idefics-9B's 32 layers, at least one cross-attention
+    group."""
+    return max(mc.cross_layer_interval, mc.text.n_layers // 4)
+
+
+def top2_gap(e: EvalSetup, prompt: list, prefix, icv_scaled) -> float:
+    """The target's f32 gap between its two largest logits after ``prompt``
+    and the generated tokens ``prefix``: a prefill of the whole sequence
+    through the bundle's bind (the token the decodes disagree on comes
+    next)."""
+    import torch
+
+    b = e.bundle
+    enc = b.processor.prepare_input([prompt], padding=True, padding_side="left")
+    dev = b.device
+    ids, mask, px, pv = (torch.from_numpy(enc[k]).to(dev) for k in
+                         ("input_ids", "attention_mask", "pixel_values", "pixel_valid"))
+    ids = torch.cat([ids, prefix[None].to(device=dev, dtype=ids.dtype)], dim=1)
+    mask = torch.cat([mask, torch.ones_like(ids[:, mask.shape[1]:])], dim=1)
+    pos = torch.clamp(torch.cumsum(mask, -1) - 1, min=0)
+    with torch.inference_mode():
+        fwd = b.bind_decode(b.params, px, pv, ids, icv_scaled, ids.shape[1] + 1)
+        top = fwd(ids, mask, pos, None)[0][0, -1].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def decoded_tokens(e: EvalSetup, gen_kwargs: dict, prompts: list, icv_scaled) -> list:
+    """Each prompt's generated tokens (bs 1) through the runner's generate
+    and dispatch, as ``icv_inference`` runs them."""
+    from licv_vqa_tpu_torch.infer import runner
+
+    gen = runner.make_generate_fn(e.bundle, gen_kwargs)
+    out = []
+    for p in prompts:
+        toks, _, s = runner._dispatch_generate(e.bundle, gen, [p], icv_scaled)
+        out.append(toks[0, s:].cpu())
+    return out
+
+
+def near_tie_check(e: EvalSetup, tag: str, prompts: list, greedy: list, spec: list,
+                   icv_scaled) -> int:
+    """Speculative tokens against greedy's: equal, or differing first where
+    the target's top-2 gap is under ``NEAR_TIE`` (after that the two
+    sequences continue from different tokens).  Prints each such position
+    and returns their number."""
+    n = 0
+    for q, (p, a, b) in enumerate(zip(prompts, greedy, spec, strict=True)):
+        diff = (a != b).nonzero()
+        if not len(diff):
+            continue
+        at = int(diff[0])
+        gap = top2_gap(e, p, a[:at], icv_scaled)
+        log(f"{tag}: question {q} differs from greedy at token {at} ({a.tolist()} vs "
+            f"{b.tolist()}); the target's f32 top-2 gap there {gap:.6f} (limit {NEAR_TIE})")
+        if not gap < NEAR_TIE:
+            raise AssertionError(f"{tag}: speculative differs from greedy away from a near tie")
+        n += 1
+    return n
+
+
+def speculative_path(e: EvalSetup, dev, peak_greedy_gib: float) -> dict:
+    """Phase 4b: ``test_icv`` greedy, then with a draft of the first
+    ``spec_draft_layers`` layers and ``SPEC_GAMMA`` tokens a round, per-row
+    acceptance, through the runner entry points on phase 4's Idefics-9B.
+    Returns the launch counts of the speculative run."""
+    import torch
+
+    from licv_vqa_tpu_torch.infer.runner import icv_inference
+    from licv_vqa_tpu_torch.infer.speculative import speculative_greedy_generate
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    b, t = e.bundle, e.bundle.model_cfg.text
+    k = spec_draft_layers(b.model_cfg)
+    greedy_kw = dict(e.gen_kwargs, num_beams=1)
+    spec_kw = dict(greedy_kw, speculative_draft_layers=k, speculative_gamma=SPEC_GAMMA)
+    rows = e.val[1 : 1 + N_ICV_Q]
+    prompts = [icv_prompt(e, q) for q in range(1, 1 + N_ICV_Q)]
+    kws = {"greedy": greedy_kw, "speculative": spec_kw}
+    for kw in kws.values():  # warm-up
+        icv_inference(e.val[:1], b, e.pm, 1, kw, e.instruction, e.icv_scaled, progress=False)
+    secs, res, counts = {}, {}, {}
+    for tag, kw in kws.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        icv_inject.launches = L.vit_attention.launches = 0
+        fwd = speculative_greedy_generate.forwards
+        before = dict(fwd)
+        t0 = time.perf_counter()
+        res[tag] = icv_inference(rows, b, e.pm, 1, kw, e.instruction, e.icv_scaled,
+                                 progress=False)
+        torch.cuda.synchronize()
+        secs[tag] = (time.perf_counter() - t0) / N_ICV_Q
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        counts[tag] = {"icv_inject": icv_inject.launches, "vit_attention": L.vit_attention.launches,
+                       "target": fwd["target"] - before["target"],
+                       "draft": fwd["draft"] - before["draft"], "peak": peak}
+    c = counts["speculative"]
+    want_icv = t.n_layers * c["target"] + k * c["draft"]
+    # the draft's cache: its layers' K and V, positions and validity, at
+    # the longest prompt's length
+    s_max = max(b.processor.prepare_input([p], padding=True, padding_side="left")
+                ["input_ids"].shape[1] for p in prompts)
+    max_len = s_max + MAX_NEW + SPEC_GAMMA + 1
+    draft_cache = (2 * k * max_len * t.n_kv_heads * t.head_dim * 2
+                   + max_len * 5) / 2**30
+    log(f"speculative (draft {k} layers, gamma {SPEC_GAMMA}, per row): "
+        f"{N_ICV_Q} questions, {secs['speculative']:.3f} s/question vs greedy "
+        f"{secs['greedy']:.3f} s/question; target forwards {c['target']}, draft forwards "
+        f"{c['draft']}; icv_inject launches {c['icv_inject']} (want {t.n_layers} x "
+        f"{c['target']} + {k} x {c['draft']} = {want_icv}); vit_attention "
+        f"launches {c['vit_attention']} (the target's and the draft's binds); peak device "
+        f"memory {c['peak']:.2f} GiB (greedy {counts['greedy']['peak']:.2f}; limit phase 4's "
+        f"{peak_greedy_gib:.2f} + the draft cache {draft_cache:.4f})")
+    if c["icv_inject"] != want_icv or c["target"] <= N_ICV_Q:
+        raise AssertionError("speculative: icv_inject launches != layers x target + draft "
+                             "layers x draft forwards")
+    if c["peak"] > peak_greedy_gib + draft_cache:
+        raise AssertionError("speculative: peak memory above phase 4's plus the draft cache")
+    log(f"greedy predictions {[r['prediction'] for r in res['greedy'].values()]}, "
+        f"speculative {[r['prediction'] for r in res['speculative'].values()]}")
+    if dev.type == "cuda":
+        profile_question(lambda: icv_inference(rows[:1], b, e.pm, 1, spec_kw, e.instruction,
+                                               e.icv_scaled, progress=False),
+                         "speculative test_icv")
+    greedy = decoded_tokens(e, greedy_kw, prompts, e.icv_scaled)
+    spec = decoded_tokens(e, spec_kw, prompts, e.icv_scaled)
+    n = near_tie_check(e, "speculative bf16", prompts, greedy, spec, e.icv_scaled)
+    log(f"speculative bf16 tokens: {N_ICV_Q - n} of {N_ICV_Q} questions equal greedy's, "
+        f"{n} differ at a near tie")
+    return {"icv_inject": c["icv_inject"], "vit_attention": c["vit_attention"]}
+
+
+def speculative_int8(e: EvalSetup) -> dict:
+    """Phase 6 run A's speculative check: one ``test_icv`` question with the
+    draft on the int8 model.  Inside the speculative decode (the binds
+    excluded), the int8 kernel's launches at M = gamma rows (every verify
+    forward's projections and head) and at M = 1 (every draft step's, and
+    the two prefills' heads) against the forwards that ran; the tokens
+    against int8 greedy under the near-tie rule."""
+    import torch
+
+    from licv_vqa_tpu_torch.infer import speculative as S
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    b, t = e.bundle, e.bundle.model_cfg.text
+    k = spec_draft_layers(b.model_cfg)
+    greedy_kw = dict(e.gen_kwargs, num_beams=1)
+    spec_kw = dict(greedy_kw, speculative_draft_layers=k, speculative_gamma=SPEC_GAMMA)
+    prompts = [icv_prompt(e, 1)]
+    greedy = decoded_tokens(e, greedy_kw, prompts, e.icv_scaled)
+    decoded_tokens(e, spec_kw, prompts, e.icv_scaled)  # warm-up
+    kernel, decode, rows, inside = I8.int8_matmul, S.speculative_greedy_generate, [], []
+
+    def counted(x, *a, **kw):
+        if inside:
+            rows.append(x.shape[0])
+        return kernel(x, *a, **kw)
+
+    def traced(*a, **kw):
+        inside.append(1)
+        try:
+            return decode(*a, **kw)
+        finally:
+            inside.clear()
+
+    fwd = decode.forwards
+    before = dict(fwd)
+    # the wrapper adds its launches to the module's ``int8_matmul``: the spy
+    # carries the count while it stands in
+    counted.launches = kernel.launches
+    I8.int8_matmul, S.speculative_greedy_generate = counted, traced
+    try:
+        spec = decoded_tokens(e, spec_kw, prompts, e.icv_scaled)
+        torch.cuda.synchronize()
+    finally:
+        I8.int8_matmul, S.speculative_greedy_generate = kernel, decode
+        kernel.launches = counted.launches
+    target, draft = fwd["target"] - before["target"], fwd["draft"] - before["draft"]
+
+    def per(layers: int) -> int:  # 7 projections a layer, 5 a group, the int8 head
+        return 7 * layers + 5 * (layers // b.model_cfg.cross_layer_interval) + 1
+
+    at_gamma, at_one = rows.count(SPEC_GAMMA), rows.count(1)
+    want_gamma, want_one = (target - 1) * per(t.n_layers), (draft - 1) * per(k) + 2
+    log(f"int8 speculative (draft {k} layers): {target} target and {draft} draft forwards; "
+        f"int8 kernel launches at M = {SPEC_GAMMA} rows {at_gamma} (want {target - 1} "
+        f"verifies x {per(t.n_layers)} = {want_gamma}), at M = 1 {at_one} (want "
+        f"{draft - 1} draft steps x {per(k)} + 2 prefill heads = {want_one}), "
+        f"{len(rows)} in all")
+    if (at_gamma, at_one) != (want_gamma, want_one) or target < 2:
+        raise AssertionError("int8 speculative: int8 kernel launches off the forwards that ran")
+    n = near_tie_check(e, "speculative int8", prompts, greedy, spec, e.icv_scaled)
+    log(f"speculative int8 tokens: {1 - n} of 1 question equal int8 greedy's")
+    return {"int8_matmul": len(rows)}
+
+
+# the RICE phase: CLIP ViT-B/32 at its published widths, random f32 weights;
+# an index of RICE_INDEX_ROWS question rows over RICE_IMAGES images (each in
+# RICE_INDEX_ROWS / RICE_IMAGES rows, so equal images tie) and RICE_TEST_ROWS
+# test rows, the first half of them on index images
+RICE_IMAGES = 2048
+RICE_INDEX_ROWS = 4096
+RICE_TEST_ROWS = 256
+RICE_BATCH = 8
+RICE_TEXT_ROWS = 64
+RICE_FEATURE_TOL = 1e-5  # kernel path vs plain path, rel. L2 of each feature row
+RICE_GAP_TOL = 1e-6  # a differing rank is allowed only under this f32 score gap
+
+
+def rice_rows(dev, side: int):
+    """(index rows, test rows): VQA rows whose uint8 ``side`` x ``side``
+    images are made on the device from a seed and brought to the host
+    once."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    n_new = RICE_TEST_ROWS - RICE_TEST_ROWS // 2
+    imgs = torch.randint(0, 256, (RICE_IMAGES + n_new, side, side, 3), generator=g,
+                         device=dev, dtype=torch.uint8).cpu().numpy()
+    answers = ["red", "blue", "two", "cat", "yes", "no"]
+
+    def row(i, img):
+        ans = answers[i % len(answers)]
+        return {"question_id": 10_000 + i, "image": img, "question": f"What is thing {i}?",
+                "answer": ans, "answers": [{"answer": ans, "answer_id": 1}],
+                "question_type": "what", "answer_type": "other"}
+
+    index = [row(i, imgs[i % RICE_IMAGES]) for i in range(RICE_INDEX_ROWS)]
+    test = [row(RICE_INDEX_ROWS + j, imgs[3 * j] if j < RICE_TEST_ROWS // 2
+                else imgs[RICE_IMAGES + j - RICE_TEST_ROWS // 2])
+            for j in range(RICE_TEST_ROWS)]
+    return index, test
+
+
+def rice_path(e: EvalSetup, dev, tmp: Path, cfg=None) -> dict:
+    """Phase 4c: RICE retrieval with the port's ``MMTopkRetriever`` and its
+    CLIP towers (``ClipTowerEncoder``) in f32 on the card, ``i2i``; the f32
+    fused ViT kernel's launches, the kernel path against the plain one, the
+    tie rule, the cache, the text tower, then the 32-shot indices of two
+    test rows through ``icl_inference`` on phase 4's model.  ``cfg``: CLIP
+    ViT-B/32 (its published widths, checked) unless given (the CPU
+    rehearsal's tiny one).  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
+    from licv_vqa_tpu_torch.infer.runner import icl_inference
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.models.clip import ClipConfig, clip_text_features, init_clip_params
+    from licv_vqa_tpu_torch.retrieval.rice import ClipTowerEncoder, MMTopkRetriever
+
+    published = cfg is None
+    cfg = cfg or ClipConfig.vit_b32()
+    v, t = cfg.vision, cfg.text
+    widths = (v.image_size, v.patch_size, v.d_model, v.n_layers, v.n_heads, v.d_ff,
+              t.vocab_size, t.max_positions, t.d_model, t.n_layers, t.n_heads, t.d_ff,
+              cfg.projection_dim)
+    if published and widths != (224, 32, 768, 12, 12, 3072, 49408, 77, 512, 12, 8, 2048, 512):
+        raise AssertionError(f"not CLIP ViT-B/32's widths: {cfg}")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the f32 towers and the product would not be f32")
+    params = init_clip_params(torch.Generator(device=dev).manual_seed(3), cfg, dev)
+    mean = torch.tensor(CLIP_MEAN, device=dev)
+    std = torch.tensor(CLIP_STD, device=dev)
+
+    def preprocess(images):  # uint8 HWC on the host -> normalized f32 NHWC on the card
+        x = torch.from_numpy(np.stack(images)).to(dev, non_blocking=True)
+        return (x.float() / 255.0 - mean) / std
+
+    enc = ClipTowerEncoder(cfg, params, preprocess, batch_size=RICE_BATCH, device=dev)
+    index, test = rice_rows(dev, v.image_size)
+    cache = tmp / "cache" / f"vqav2_{RICE_TEST_ROWS}_rice_imgemb.pkl"
+
+    def build(cache_file=None, encoder=enc):
+        return MMTopkRetriever(index, test, mode="i2i", batch_size=RICE_BATCH,
+                               cache_file=cache_file, encoder=encoder, device=dev)
+
+    MMTopkRetriever(index[:16], test[:8], encoder=enc, device=dev).retrieve(1)  # warm-up
+    L.vit_attention.launches_f32 = L.vit_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = build(str(cache))
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    launches = L.vit_attention.launches_f32
+    t0 = time.perf_counter()
+    one = r.retrieve(1)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    top = r.retrieve(32)
+    t_32 = time.perf_counter() - t0
+    n_enc = RICE_INDEX_ROWS + RICE_TEST_ROWS
+    want = v.n_layers * math.ceil(n_enc / RICE_BATCH)
+    log(f"RICE (CLIP {v.d_model}-wide tower, f32, i2i): encoded {n_enc} images in {t_enc:.2f} s "
+        f"({n_enc / t_enc:.1f} images/s); retrieve(1) {t_one:.4f} s, retrieve(32) "
+        f"{t_32:.4f} s; f32 vit_attention launches {launches} (want {v.n_layers} x "
+        f"{math.ceil(n_enc / RICE_BATCH)} = {want}), bf16 {L.vit_attention.launches}")
+    if launches != want or L.vit_attention.launches:
+        raise AssertionError("RICE: f32 fused ViT launches != layers x batches")
+    if one != [row[:1] for row in top]:
+        raise AssertionError("RICE: the 1-shot result is not the 32-shot one's first column")
+    if dev.type == "cuda":
+        some = [x["image"] for x in index[: 8 * RICE_BATCH]]
+        profile_question(lambda: enc.encode_images(some), "RICE encode",
+                         what=f"{len(some)} images")
+
+    # the plain path: the same towers with the fused ViT route off
+    cache_plain = tmp / "cache_plain" / cache.name
+    os.environ["LICV_VIT_FUSED_ATTN"] = "0"
+    try:
+        plain = build(str(cache_plain))
+    finally:
+        os.environ.pop("LICV_VIT_FUSED_ATTN", None)
+    raw, raw_plain = (torch.load(f, weights_only=False) for f in (cache, cache_plain))
+    for side in ("index", "test"):
+        a, b_ = (torch.from_numpy(np.asarray(x[side])) for x in (raw, raw_plain))
+        rel = ((a - b_).norm(dim=1) / b_.norm(dim=1)).max().item()
+        log(f"RICE {side} features, kernel vs plain path: worst row rel. L2 {rel:.3e} "
+            f"(limit {RICE_FEATURE_TOL})")
+        if not rel <= RICE_FEATURE_TOL:
+            raise AssertionError(f"RICE: {side} features disagree with the plain path")
+    top_plain = plain.retrieve(32)
+    scores = torch.from_numpy(r.test_feats) @ torch.from_numpy(r.index_feats).T
+    differ, worst_gap = 0, 0.0
+    for i, (a, b_) in enumerate(zip(top, top_plain, strict=True)):
+        if a != b_:
+            differ += 1
+            at = next(j for j, (x, y) in enumerate(zip(a, b_)) if x != y)
+            gap = abs(float(scores[i, a[at]] - scores[i, b_[at]]))
+            worst_gap = max(worst_gap, gap)
+            log(f"RICE test row {i}: rank {at} differs ({a[at]} vs {b_[at]}), f32 score gap "
+                f"{gap:.3e}")
+    log(f"RICE 32-shot indices, kernel vs plain path: {differ} of {RICE_TEST_ROWS} rows differ "
+        f"(worst f32 score gap {worst_gap:.3e}, limit {RICE_GAP_TOL})")
+    if not worst_gap < RICE_GAP_TOL:
+        raise AssertionError("RICE: the kernel path ranks apart from the plain path")
+
+    # ties: index rows of equal features, lower index first
+    ties = 0
+    for row in top:
+        for a, b_ in zip(row, row[1:]):
+            if np.array_equal(r.index_feats[a], r.index_feats[b_]):
+                ties += 1
+                if not a < b_:
+                    raise AssertionError(f"RICE: a tie not lower index first: {row}")
+    lead = sum(row[:2] == [3 * j, 3 * j + RICE_IMAGES]
+               for j, row in enumerate(top[: RICE_TEST_ROWS // 2]))
+    log(f"RICE ties: {ties} adjacent pairs of equal features, each lower index first; "
+        f"{lead} of {RICE_TEST_ROWS // 2} test rows on an index image lead with its two rows")
+
+    class NoEncode:
+        def encode_images(self, images):
+            raise AssertionError("RICE: a cache hit encoded images")
+
+    if build(str(cache), NoEncode()).retrieve(32) != top:
+        raise AssertionError("RICE: the reloaded cache ranks differently")
+
+    # the text tower: causal, never the fused kernel
+    g = torch.Generator(device=dev).manual_seed(9)
+    lengths = torch.randint(2, t.max_positions + 1, (RICE_TEXT_ROWS,), generator=g, device=dev)
+    ids = torch.randint(1, t.vocab_size - 1, (RICE_TEXT_ROWS, t.max_positions), generator=g,
+                        device=dev)
+    cols = torch.arange(t.max_positions, device=dev)[None, :]
+    mask = (cols < lengths[:, None]).long()
+    ids = torch.where(cols == lengths[:, None] - 1, t.vocab_size - 1, ids * mask)
+    L.vit_attention.launches_f32 = L.vit_attention.launches = 0
+    with torch.inference_mode():
+        text = clip_text_features(cfg, params, ids, mask)
+        os.environ["LICV_VIT_FUSED_ATTN"] = "0"
+        try:
+            text_plain = clip_text_features(cfg, params, ids, mask)
+        finally:
+            os.environ.pop("LICV_VIT_FUSED_ATTN", None)
+    text_launches = L.vit_attention.launches_f32 + L.vit_attention.launches
+    log(f"CLIP text tower: {RICE_TEXT_ROWS} rows of lengths {int(lengths.min())}-"
+        f"{int(lengths.max())}, features {tuple(text.shape)}, fused ViT launches "
+        f"{text_launches}, equal to the plain path: {torch.equal(text, text_plain)}")
+    if text_launches or not torch.isfinite(text).all() or not torch.equal(text, text_plain):
+        raise AssertionError("CLIP text tower: fused launches, or not the plain path")
+
+    # the retrieved shots into the eval path of phase 4's model
+    t0 = time.perf_counter()
+    res = icl_inference(index, test[:N_ICL_Q], top[:N_ICL_Q], e.bundle, e.pm, 1, e.gen_kwargs,
+                        e.instruction, progress=False)
+    torch.cuda.synchronize()
+    log(f"RICE 32-shot test_icl on {e.bundle.name}: {N_ICL_Q} questions in "
+        f"{time.perf_counter() - t0:.2f} s; predictions {[x['prediction'] for x in res.values()]}")
+    if len(res) != N_ICL_Q or not all(isinstance(x["prediction"], str) for x in res.values()):
+        raise AssertionError(f"RICE test_icl: malformed results {res}")
+    return {"vit_attention_f32": launches}
 
 
 # phase 6's two runs: (mode, the lmm options, the eval paths run)
@@ -1865,6 +2329,8 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
             total[k] += counts[k]
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"{mode}: peak device memory over the runs {peak:.2f} GiB (the bf16 build's is phase 4's)")
+    if mode == "int8":
+        total["int8_matmul"] += speculative_int8(e)["int8_matmul"]
     if dev.type == "cuda":
         profile_question(lambda: runs["icv"][0](e.val[1:2]), f"{mode} test_icv")
     kernel_vs_plain_logits(e, mode)
@@ -2760,6 +3226,9 @@ KERNEL_SOURCES = {
                               "licv_vqa_tpu/ops/flash_alibi.py:124"),
     "vit_attention": ("cuda", "licv_vqa_tpu_torch/csrc/vit_attention.cu",
                       "licv_vqa_tpu/ops/vit_attention.py:118"),
+    # the same Pallas kernel on f32 operands (its out_shape follows q.dtype)
+    "vit_attention_f32": ("cuda", "licv_vqa_tpu_torch/csrc/vit_attention_f32.cu",
+                          "licv_vqa_tpu/ops/vit_attention.py:118"),
     # the tuning probe's w8a8_kernel and w8a8_fused_kernel (JAX's production
     # w8a8 is XLA)
     "w8a8_matmul": ("cuda", "licv_vqa_tpu_torch/csrc/w8a8_matmul.cu",
@@ -2838,6 +3307,7 @@ def main() -> int:
                      "flash_attention_bwd", "int8_matmul")
     }
     launches.update({
+        "vit_attention_f32": counts["vit_attention_f32"],
         "flash_alibi_attention": counts_of["flash_alibi_attention"],
         "flash_attention_bidir": counts_i2["flash_attention_bidir"],
         "int4_matmul": counts_q["int4_matmul"],

@@ -8,13 +8,18 @@ an existing ``result.json`` exits early unless ``re_eval=true``.
 
 ``device`` selects the torch device: ``cuda`` by default (the shared config's
 ``tpu`` also means the accelerator), ``cpu`` for tests.  ``device=cuda``
-without a GPU raises: the port never falls back to the CPU.  The JAX CLI's
-mesh (``infer_dp``/``infer_tp``), engines (``infer_engine``) and RICE
-retrieval (``use_rice``) are not ported yet and raise.
+without a GPU raises: the port never falls back to the CPU.  ``use_rice``
+picks the ICL shots by CLIP image similarity (``retrieval/rice.py``; the
+encoder under ``$CLIP_CPK_DIR``, else ``HashEncoder``), and
+``generate_kwargs.speculative_draft_layers`` decodes greedily with a
+layer-truncated draft (``infer/speculative.py``).  The JAX CLI's mesh
+(``infer_dp``/``infer_tp``) and engines (``infer_engine``) are not ported
+yet and raise.
 
 Examples:
     python inference_torch.py run_name=vqav2_idefics9b test_icv=true
     python inference_torch.py test_icl=true few_shot_list='[4,8]' device=cpu
+    python inference_torch.py test_icl=true use_rice=true few_shot_list='[4]'
 """
 
 from __future__ import annotations
@@ -58,7 +63,6 @@ def _not_ported(cfg) -> None:
          "infer_dp/infer_tp (the serving mesh)", "Queue 1 item 16"),
         (str(cfg.get("infer_engine", "static")) != "static",
          "infer_engine=continuous|pooled", "Queue 1 items 13-14"),
-        (bool(cfg.get("use_rice", False)), "use_rice (RICE retrieval)", "Queue 1 item 15"),
     )
     for bad, what, item in checks:
         if bad:
@@ -171,8 +175,21 @@ def main(argv: list[str] | None = None):
         (meta_info_dir / f"{base_info}icv.json").write_text(json.dumps(results, indent=4))
 
     if cfg.test_icl:
+        if cfg.use_rice:
+            from ..retrieval.rice import MMTopkRetriever
+
+            cache_dir = result_dir / "cache"
+            cache_dir.mkdir(parents=True, exist_ok=True)
+            base_info += "-RICE"
+            retriever = MMTopkRetriever(
+                index_ds=train_ds, test_ds=val_ds, mode="i2i", index_field="image",
+                batch_size=8, device=device,
+                cache_file=str(cache_dir / f"{dataset_name}_{cfg.test_num}_rice_imgemb.pkl"),
+            )
         for shot_num in list(cfg.few_shot_list):
-            if cfg.ice_idx_list_cache is not None:
+            if cfg.use_rice:
+                ice_idx_list = retriever.retrieve(int(shot_num))
+            elif cfg.ice_idx_list_cache is not None:
                 ice_idx_list = json.loads(Path(str(cfg.ice_idx_list_cache)).read_text())
             else:
                 pool = list(range(len(train_ds)))

@@ -3,9 +3,10 @@
 
 Prompts are LEFT-padded to bucket multiples by the shared processor; a short
 final batch is padded to the batch size by repeating its last sample and the
-extra rows are discarded (reference inference.py:264-267).  No mesh, no
-pooled or continuous engine, no speculative draft: those wait for ROADMAP
-Queue 1 items 12-16.
+extra rows are discarded (reference inference.py:264-267).  Greedy
+decoding may take a layer-truncated draft (``speculative_draft_layers``,
+``infer/speculative.py``).  No mesh and no pooled or continuous engine:
+those wait for ROADMAP Queue 1 items 13, 14, 16 and 22.
 """
 
 from __future__ import annotations
@@ -37,17 +38,44 @@ def make_generate_fn(bundle, generate_kwargs: dict) -> Callable:
     """One generate over (params, ids, mask, pixels, valid, icv) and, for
     NaViT variable resolution (Idefics2), the ``pixel_attention_mask`` the
     processor emits.  The KV cache length follows the (bucketed) prompt
-    length of each call."""
+    length of each call.
+
+    ``speculative_draft_layers = K > 0`` with greedy decoding drafts with
+    the model's first K layers (``registry.build_draft_decode``) and
+    verifies with the whole model, ``speculative_gamma`` tokens a round
+    (JAX runner.py:54-130); beam search and ``min_new_tokens > 0`` fall
+    back to the plain decode with a warning."""
     max_new = int(generate_kwargs.get("max_new_tokens", 5))
     min_new = int(generate_kwargs.get("min_new_tokens", 0))
     num_beams = int(generate_kwargs.get("num_beams", 1))
     length_penalty = float(generate_kwargs.get("length_penalty", 0.0))
-    if int(generate_kwargs.get("speculative_draft_layers", 0)) > 0:
-        raise NotImplementedError(
-            "speculative decoding is not ported to licv_vqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 12)"
-        )
+    draft_layers = int(generate_kwargs.get("speculative_draft_layers", 0))
+    gamma = int(generate_kwargs.get("speculative_gamma", 4))
     eos, pad = bundle.eos_token_id, bundle.pad_token_id
+
+    draft = None
+    if draft_layers > 0:
+        if num_beams > 1:
+            logger.warning(
+                "speculative decoding requires num_beams == 1 (exact greedy "
+                "verification; no beam-verification scheme is implemented) — "
+                "falling back to plain beam search"
+            )
+        elif min_new > 0:
+            logger.warning(
+                "speculative decoding does not implement min_new_tokens "
+                "(EOS suppression for the first %d steps) — falling back to "
+                "plain greedy so the contract 'equals greedy token-for-token' "
+                "holds",
+                min_new,
+            )
+        else:
+            from ..models.registry import build_draft_decode
+
+            draft = build_draft_decode(bundle, draft_layers)
+    # the verify writes up to gamma rows past the current index: without
+    # this margin the last rounds would write past the cache
+    margin = gamma if draft is not None else 0
 
     @torch.inference_mode()
     def gen(params, input_ids, attention_mask, pixels, pixel_valid, icv_scaled,
@@ -57,10 +85,22 @@ def make_generate_fn(bundle, generate_kwargs: dict) -> Callable:
             if pixel_attention_mask is not None
             else {}
         )
+        max_len = input_ids.shape[1] + max_new + margin + 1
         fwd = bundle.bind_decode(
-            params, pixels, pixel_valid, input_ids, icv_scaled,
-            input_ids.shape[1] + max_new + 1, **bind_kw,
+            params, pixels, pixel_valid, input_ids, icv_scaled, max_len, **bind_kw,
         )
+        if draft is not None:
+            from .speculative import speculative_greedy_generate
+
+            draft_params, draft_bind = draft
+            dfwd = draft_bind(
+                draft_params, pixels, pixel_valid, input_ids,
+                _draft_icv(bundle, icv_scaled, draft_layers), max_len, **bind_kw,
+            )
+            return speculative_greedy_generate(
+                fwd, dfwd, input_ids, attention_mask, max_new_tokens=max_new,
+                eos_token_id=eos, pad_token_id=pad, gamma=gamma,
+            )
         if num_beams > 1:
             return beam_generate(
                 fwd, input_ids, attention_mask, max_new_tokens=max_new,
@@ -73,6 +113,24 @@ def make_generate_fn(bundle, generate_kwargs: dict) -> Callable:
         )
 
     return gen
+
+
+def _draft_icv(bundle, icv_scaled, draft_layers: int):
+    """The draft's ICV: the target's per-layer rows truncated to the draft's
+    depth.  Under subset-layer intervention the K rows are expanded to
+    per-layer ``(rows, flags)`` first (the draft bind is the raw forward,
+    not the bundle's intervention wrapper).  Its fidelity moves only the
+    acceptance rate, never the output: the target verifies every token."""
+    if icv_scaled is None:
+        return None
+    if bundle.intervention_layers is not None:
+        from ..icv.encoder import expand_icv_to_layers
+
+        rows, flags = expand_icv_to_layers(
+            icv_scaled, bundle.intervention_layers, bundle.model_cfg.text.n_layers
+        )
+        return rows[:draft_layers], list(flags)[:draft_layers]
+    return icv_scaled[:draft_layers]
 
 
 def _dispatch_generate(bundle, gen_fn: Callable, prompts: list[list], icv_scaled):

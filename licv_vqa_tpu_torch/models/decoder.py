@@ -108,9 +108,11 @@ def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig, device) 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, device) -> dict:
     """``cfg.dtype`` cache, or with ``kv_cache_dtype="int8"`` ``{"q": int8,
     "s": f32 (..., 1)}`` leaves (one scale per token and head).  ``index``
-    (the next column to write) is a host int: decode advances all rows in
-    lockstep, and keeping it on the host means the loop never reads a
-    device value back."""
+    (the next column to write) starts as a host int: greedy and beam advance
+    all rows in lockstep, and keeping it on the host means their loops never
+    read a device value back.  Speculative decoding replaces it with a
+    ``(B,)`` int tensor, each row's own next column (``decode_cache_view``
+    takes both, as JAX's does, decoder.py:133-170)."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
 
     def kv():
@@ -130,39 +132,62 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, device) -> dict:
     }
 
 
+def _row_columns(index: torch.Tensor, b: int, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(rows (B, 1), cols (B, s))``: row i's ``s`` new columns start at its
+    own ``index[i]`` (a 0-d index is shared by every row)."""
+    index = index.to(torch.long).expand(b)
+    rows = torch.arange(b, device=index.device)[:, None]
+    return rows, index[:, None] + torch.arange(s, device=index.device)[None, :]
+
+
 def decode_cache_view(
     cache: dict, positions: torch.Tensor, attention_mask: torch.Tensor, s: int
 ):
     """Bookkeeping for decoding ``s`` new tokens against a cache: writes the
     new columns' positions and validity into ``cache["pos"]`` /
     ``cache["valid"]`` in place at ``cache["index"]`` and returns
-    ``(mask (B,1,s,S), cache_pos, cache_valid)``."""
+    ``(mask (B,1,s,S), cache_pos, cache_valid)``.  ``cache["index"]`` is a
+    host int (every row at the same column) or an int tensor, (B,) or 0-d,
+    with each row's own column; a tensor index is not read back, so its
+    overflow is the caller's to rule out (the speculative runner's γ
+    margin)."""
     index = cache["index"]
     max_len = cache["pos"].shape[1]
-    if index + s > max_len:
-        raise ValueError(f"KV cache overflow: {index}+{s} > {max_len}")
     cache_pos, cache_valid = cache["pos"], cache["valid"]
-    cache_pos[:, index : index + s] = positions.to(torch.int32)
-    cache_valid[:, index : index + s] = attention_mask.to(torch.bool)
-    written = torch.arange(max_len, device=cache_pos.device) < (index + s)
+    ar = torch.arange(max_len, device=cache_pos.device)
+    if isinstance(index, int):
+        if index + s > max_len:
+            raise ValueError(f"KV cache overflow: {index}+{s} > {max_len}")
+        cache_pos[:, index : index + s] = positions.to(torch.int32)
+        cache_valid[:, index : index + s] = attention_mask.to(torch.bool)
+        written = (ar < (index + s))[None, :]
+    else:
+        rows, col = _row_columns(index, positions.shape[0], s)
+        cache_pos[rows, col] = positions.to(torch.int32)
+        cache_valid[rows, col] = attention_mask.to(torch.bool)
+        written = ar[None, :] < col[:, -1:] + 1
     mask = (
         (cache_pos[:, None, :] <= positions[:, :, None])
         & cache_valid[:, None, :]
-        & written[None, None, :]
+        & written[:, None, :]
     )[:, None, :, :]
     return mask, cache_pos, cache_valid
 
 
-def apply_kv_rows(k_cache_l, v_cache_l, k_rows, v_rows, index: int) -> None:
+def apply_kv_rows(k_cache_l, v_cache_l, k_rows, v_rows, index) -> None:
     """Write one layer's new K/V rows (B, s, KV, Dh) into its cache (B, S,
-    KV, Dh) in place at ``index`` (JAX bulk-writes all layers after the
-    scan, ``decoder.py:170``); int8 caches take ``{"q", "s"}`` rows."""
+    KV, Dh) in place at ``index``, a host int or each row's own (an int
+    tensor; JAX bulk-writes all layers after the scan, ``decoder.py:173-197``);
+    int8 caches take ``{"q", "s"}`` rows."""
     for cache_l, rows in ((k_cache_l, k_rows), (v_cache_l, v_rows)):
-        if isinstance(cache_l, dict):
-            for key in ("q", "s"):
-                cache_l[key][:, index : index + rows[key].shape[1]] = rows[key]
-        else:
-            cache_l[:, index : index + rows.shape[1]] = rows
+        pairs = ([(cache_l[key], rows[key]) for key in ("q", "s")]
+                 if isinstance(cache_l, dict) else [(cache_l, rows)])
+        for c, r in pairs:
+            if isinstance(index, int):
+                c[:, index : index + r.shape[1]] = r
+            else:
+                b_idx, col = _row_columns(index, r.shape[0], r.shape[1])
+                c[b_idx, col] = r
 
 
 def _cached_attention(
@@ -190,26 +215,41 @@ def _cached_attention(
 
 def _int8_cached_attention(
     q: torch.Tensor,  # (B, s, H, Dh)
-    k_cache_l: dict,  # int8 {"q", "s"} leaves, rows [0, index) from earlier steps
+    k_cache_l: dict,  # int8 {"q", "s"} leaves, this step's rows written at index
     v_cache_l: dict,
     k_local: torch.Tensor,  # (B, s, KV, Dh): this step's int8 round trip
     v_local: torch.Tensor,
     mask: torch.Tensor,  # (B, 1, s, S) from decode_cache_view
-    index: int,
+    index,  # host int, or an int tensor of each row's column
     logit_softcap=None,
 ) -> torch.Tensor:
     """JAX's split softmax over (earlier rows ∥ this step's rows) for the
     int8 cache (``decoder.py:201-330``): the earlier rows stay int8 planes
     and their per-(token, head) f32 scales multiply the f32 scores (K) and
-    the probabilities before they are rounded to the compute dtype (V)."""
+    the probabilities before they are rounded to the compute dtype (V).
+    With a host int the earlier rows are the prefix ``[0, index)``; with a
+    per-row index they are every column, this step's own masked out of the
+    cache part and gathered from ``mask`` for the local part, as JAX's
+    vector-index branch does (``decoder.py:262-276``)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
+    b, s = q.shape[:2]
     n_rep = q.shape[2] // k_local.shape[2]
+    if isinstance(index, int):
+        end = index
+        mask_cache, mask_local = mask[..., :index], mask[..., index : index + s]
+    else:
+        end = mask.shape[-1]
+        _, col = _row_columns(index, b, s)
+        ar = torch.arange(end, device=q.device)
+        new_col = (ar[None, :] >= col[:, :1]) & (ar[None, :] <= col[:, -1:])  # (B, S)
+        mask_cache = mask & ~new_col[:, None, None, :]
+        mask_local = torch.gather(mask, 3, col[:, None, None, :].expand(b, 1, s, s))
 
     def plane(c):
-        return L.repeat_kv(c["q"][:, :index], n_rep).float()
+        return L.repeat_kv(c["q"][:, :end], n_rep).float()
 
-    def col_scale(c):  # (B, index, KV, 1) -> (B, H, 1, index)
-        return L.repeat_kv(c["s"][:, :index], n_rep)[..., 0].transpose(1, 2)[:, :, None, :]
+    def col_scale(c):  # (B, end, KV, 1) -> (B, H, 1, end)
+        return L.repeat_kv(c["s"][:, :end], n_rep)[..., 0].transpose(1, 2)[:, :, None, :]
 
     qf = q.float()
     scores = torch.cat([
@@ -218,10 +258,11 @@ def _int8_cached_attention(
     ], dim=-1)
     if logit_softcap:
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
-    scores = scores.masked_fill(~mask[..., : index + q.shape[1]], torch.finfo(torch.float32).min)
+    scores = scores.masked_fill(~torch.cat([mask_cache, mask_local], dim=-1),
+                                torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
-    p_cache = (probs[..., :index] * col_scale(v_cache_l)).to(q.dtype).float()
-    p_local = probs[..., index:].to(v_local.dtype).float()
+    p_cache = (probs[..., :end] * col_scale(v_cache_l)).to(q.dtype).float()
+    p_local = probs[..., end:].to(v_local.dtype).float()
     out = torch.einsum("bhqk,bkhd->bqhd", p_cache, plane(v_cache_l)) + torch.einsum(
         "bhqk,bkhd->bqhd", p_local, L.repeat_kv(v_local, n_rep).float()
     )
@@ -243,7 +284,7 @@ def decoder_layer(
     sin: torch.Tensor,
     mask: Optional[torch.Tensor],  # (B, 1, s, Sk) bool
     icv_row,  # (D,) scaled ICV row, a (row, flag) pair, or None
-    kv_write: Optional[tuple] = None,  # (k_cache_l, v_cache_l, index)
+    kv_write: Optional[tuple] = None,  # (k_cache_l, v_cache_l, index: int or (B,) tensor)
     flash_valid: Optional[torch.Tensor] = None,  # (B, s): enables the flash path
     bias: Optional[torch.Tensor] = None,  # (B, H, s, Sk) f32 ALiBi bias
 ) -> torch.Tensor:
@@ -307,9 +348,10 @@ def decoder_layer(
             q, k_cache, v_cache, k_local, v_local, mask, index, cfg.attn_logit_softcap
         )
     elif kv_write is not None:
-        attn = _cached_attention(
-            q, k_cache, v_cache, mask, index + s, cfg.attn_logit_softcap, bias
-        )
+        # a per-row index (a tensor) attends every column under its mask:
+        # its written prefix differs by row, and is not read back
+        end = index + s if isinstance(index, int) else mask.shape[-1]
+        attn = _cached_attention(q, k_cache, v_cache, mask, end, cfg.attn_logit_softcap, bias)
     else:
         attn = L.dot_product_attention(
             q, L.repeat_kv(k, nh // nkv), L.repeat_kv(v, nh // nkv),

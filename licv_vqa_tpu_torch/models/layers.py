@@ -218,9 +218,9 @@ _FLASH_HEAD_DIM = 128
 
 
 def _check_flash_operand(name: str, x: torch.Tensor, shape: tuple,
-                         fn: str = "flash_attention") -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{fn}: {name} must be bf16, got {x.dtype}")
+                         fn: str = "flash_attention", dtype: torch.dtype = torch.bfloat16) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"{fn}: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, want {shape}")
     if x.stride(-1) != 1:
@@ -425,12 +425,14 @@ _FLASH_BIDIR_HEAD_DIMS = (72,)
 
 
 def _tower_attention_cuda(fn: str, source: str, symbol: str, head_dims: tuple,
-                          off_switch: str, q, k, v, valid, scale) -> torch.Tensor:
+                          off_switch: str, q, k, v, valid, scale,
+                          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Launch one of the towers' bidirectional attention kernels
-    (``csrc/flash_attn_bidir.cu``, ``csrc/vit_attention.cu``: one plain C
-    interface) on bf16 (B, S, H, Dh) strided views and an optional (B, S)
-    ``valid``.  ``fn`` names the wrapper in errors, ``off_switch`` the
-    environment variable that takes its plain path."""
+    (``csrc/flash_attn_bidir.cu``, ``csrc/vit_attention.cu``,
+    ``csrc/vit_attention_f32.cu``: one plain C interface) on ``dtype`` (B,
+    S, H, Dh) strided views and an optional (B, S) ``valid``.  ``fn`` names
+    the wrapper in errors, ``off_switch`` the environment variable that
+    takes its plain path."""
     from ..csrc import load_library
 
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
@@ -446,7 +448,7 @@ def _tower_attention_cuda(fn: str, source: str, symbol: str, head_dims: tuple,
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{fn}: {name} is on {x.device}, q on {q.device}")
-        _check_flash_operand(name, x, (b, s, h, dh), fn)
+        _check_flash_operand(name, x, (b, s, h, dh), fn, dtype)
     valid_ptr = None  # every key real
     if valid is not None:
         if tuple(valid.shape) != (b, s):
@@ -532,6 +534,8 @@ def vit_attention_reference(
 # the head dims the fused ViT kernel is built for: OpenFlamingo's ViT-L
 # (1024/16), SigLIP-SO400M's (1152/16), Idefics-9B's ViT-H (1280/16)
 _VIT_HEAD_DIMS = (64, 72, 80)
+# the f32 kernel holds a head's whole score row in registers (one pass)
+_VIT_F32_MAX_S = 264
 
 
 def vit_attention(
@@ -546,13 +550,27 @@ def vit_attention(
     over the whole row, masked keys at ``finfo(f32).min``, the probabilities
     rounded to V's dtype before P·V with f32 accumulation.
 
-    CUDA tensors launch the hand-written kernel ``csrc/vit_attention.cu``
-    (bf16, head_dim 64, 72 or 80) or raise; CPU tensors take the plain
-    version ``vit_attention_reference``.  A row with no valid key gets the
-    uniform softmax, as in the plain version."""
+    CUDA tensors launch a hand-written kernel by dtype, or raise: bf16
+    ``csrc/vit_attention.cu`` (head_dim 64, 72 or 80, S <= 1024; counted in
+    ``launches``), f32 ``csrc/vit_attention_f32.cu`` (the f32 CLIP towers
+    of RICE; head_dim 64, 72 or 80, S <= 264; counted in
+    ``launches_f32``).  CPU tensors take the plain version
+    ``vit_attention_reference``.  A row with no valid key gets the uniform
+    softmax, as in the plain version."""
     scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
     if q.device.type == "cpu":
         return vit_attention_reference(q, k, v, valid, scale)
+    if q.dtype == torch.float32:
+        if q.shape[1] > _VIT_F32_MAX_S:
+            raise ValueError(
+                f"vit_attention: the f32 kernel takes S <= {_VIT_F32_MAX_S}, got {q.shape[1]} "
+                "(LICV_VIT_FUSED_ATTN=0 takes the plain path)")
+        out = _tower_attention_cuda(
+            "vit_attention", "vit_attention_f32.cu", "vit_attention_f32", _VIT_HEAD_DIMS,
+            "LICV_VIT_FUSED_ATTN", q, k, v, valid, scale, torch.float32,
+        )
+        vit_attention.launches_f32 += 1
+        return out
     out = _tower_attention_cuda(
         "vit_attention", "vit_attention.cu", "vit_attention_bf16", _VIT_HEAD_DIMS,
         "LICV_VIT_FUSED_ATTN", q, k, v, valid, scale,
@@ -561,7 +579,8 @@ def vit_attention(
     return out
 
 
-vit_attention.launches = 0  # kernel launches (CUDA tensors only)
+vit_attention.launches = 0  # bf16 kernel launches (CUDA tensors only)
+vit_attention.launches_f32 = 0  # f32 kernel launches (CUDA tensors only)
 
 
 def vit_attention_usable(s: int, dh: int, device: torch.device) -> bool:

@@ -372,6 +372,53 @@ def _openflamingo_bundle(cfg, model_cfg, name: str, device) -> ModelBundle:
     )
 
 
+def _leading(tree, n: int):
+    """The first ``n`` entries along the leading (layer) axis of every leaf
+    of a layer-stacked tree: views, no copies (quantized ``{"q", "s"}`` /
+    ``{"q4", "s"}`` leaves included)."""
+    if isinstance(tree, dict):
+        return {k: _leading(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def build_draft_decode(bundle: ModelBundle, draft_layers: int):
+    """A layer-truncated draft ``bind_decode`` for speculative decoding (JAX
+    ``build_draft_decode``, registry.py:306-368): the same weights, the
+    first ``draft_layers`` decoder layers and the cross-attention groups
+    they hold (``k // cross_layer_interval`` for Idefics, ``k //
+    cross_attn_every_n_layers`` for OpenFlamingo).  The draft's params are
+    views of the bundle's tensors (quantized leaves too), so it costs no
+    memory beyond its cache.  Returns ``(draft_params, bind_decode)``; the
+    bind is pixel-normalize-wrapped like the bundle's (the processor emits
+    raw uint8) and takes the ICV as per-layer rows (the runner expands a
+    subset-layer ICV first)."""
+    name = bundle.name
+    mc = bundle.model_cfg
+    k = draft_layers
+    mean, std = (SIGLIP_MEAN, SIGLIP_STD) if "idefics2" in name else (CLIP_MEAN, CLIP_STD)
+    new_cfg = dataclasses.replace(mc, text=dataclasses.replace(mc.text, n_layers=k))
+
+    def draft(make_fns, group: Optional[tuple] = None):
+        params = dict(bundle.params, layers=_leading(bundle.params["layers"], k))
+        if group is not None:
+            field, every = group
+            if k % every:
+                raise ValueError(f"draft_layers ({k}) must be a multiple of {field} ({every})")
+            params["xattn"] = _leading(bundle.params["xattn"], k // every)
+        _, bind = make_fns(new_cfg, bundle.eos_token_id)
+        _, bind = _wrap_pixel_normalize(lambda *a, **kw: None, bind, mean, std)
+        return params, bind
+
+    if "idefics2" in name:
+        return draft(make_idefics2_forward_fns)
+    if "idefics" in name:
+        return draft(make_idefics_forward_fns, ("cross_layer_interval", mc.cross_layer_interval))
+    if "flamingo" in name.lower():
+        return draft(make_openflamingo_forward_fns,
+                     ("cross_attn_every_n_layers", mc.cross_attn_every_n_layers))
+    raise ValueError(f"no draft builder for {name}")
+
+
 def _apply_lmm_options(cfg, model_cfg):
     """Honor ``lmm.attention_impl`` (xla|flash), ``lmm.remat_mode``
     (both|inner|outer; policy raises in the train forward; only configs

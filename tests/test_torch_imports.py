@@ -2,7 +2,9 @@
 imported by ``licv_vqa_tpu_torch``, ``inference_torch.py``, ``train_torch.py``,
 ``chip_smoke.py`` or the port's tools (``tools/bench_train_step_torch.py``,
 ``tools/exp_w8a8_tuning_torch.py``, ``tools/exp_int4_unpack_torch.py``,
-``tools/phase3_kernels_torch.py``);
+``tools/phase3_kernels_torch.py``), the modules of RICE and speculative
+decoding (``models/clip.py``, ``retrieval/rice.py``, ``infer/speculative.py``) among
+them;
 and the host modules the port copied give the JAX package's outputs on the
 same inputs."""
 
@@ -37,6 +39,20 @@ def test_port_modules_import_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_the_sweeps_reach_the_clip_rice_and_speculative_modules():
+    """The import sweep and the statement check below cover CLIP, RICE and
+    speculative decoding (they walk every module of the package)."""
+    import pkgutil
+
+    import licv_vqa_tpu_torch as p
+
+    names = {m.name for m in pkgutil.walk_packages(p.__path__, "licv_vqa_tpu_torch.")}
+    for mod in ("models.clip", "retrieval", "retrieval.rice", "infer.speculative"):
+        assert f"licv_vqa_tpu_torch.{mod}" in names, mod
+        path = REPO / "licv_vqa_tpu_torch" / (mod.replace(".", "/") + ".py")
+        assert path.is_file() or (path.with_suffix("") / "__init__.py").is_file(), mod
 
 
 @pytest.mark.parametrize(

@@ -11,7 +11,8 @@ The bidirectional flash kernel is held at ``chip_smoke.py`` phase 3's
 shapes (the SigLIP tower's H=16, Dh=72) and at a ragged one; the ALiBi
 flash kernel at MPT-7B's (H=32, Dh=128) with both paddings, on the rows
 with a visible key; the fused ViT kernel at ViT-L's and ViT-H's (H=16,
-Dh=64 and 80), masked and unmasked, on every row; the causal flash
+Dh=64 and 80), masked and unmasked, on every row, and its f32 entry at
+CLIP ViT-B/32's (H=12, Dh=64) to 1e-4; the causal flash
 backward at ``chip_smoke.py`` phase 3's shapes (dq, dk and dv each, on the
 forward kernel's output and log-sum-exp), on strided views with an
 expanded cotangent, bit-equal across calls; the w8a8 kernel (both entry
@@ -561,6 +562,86 @@ def test_vit_attention_kernel_rejects_other_head_dims_and_grad(dev):
     y = torch.zeros((1, 257, 16, 64), dtype=torch.bfloat16, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
         PL.vit_attention(y, y, y)
+
+
+@pytest.mark.parametrize("b,s,h,dh,masked", [
+    # chip_smoke.py phase 3's f32 cases: the RICE batch of CLIP ViT-B/32
+    # (S = 50, H = 12, Dh 64), a larger batch, and a key mask
+    (8, 50, 12, 64, False), (64, 50, 12, 64, False), (8, 50, 12, 64, True),
+    # the other head dims, the one-pass limit and a tiny ragged one
+    (2, 257, 16, 80, True), (2, 264, 16, 72, False), (3, 5, 4, 64, True),
+])
+def test_vit_attention_f32_kernel_matches_plain(dev, b, s, h, dh, masked):
+    """The f32 entry (``csrc/vit_attention_f32.cu``) on every row against
+    the f32 plain version to 1e-4 of max|plain| (f32 on both sides: they
+    differ by summation order and ``expf``); a fully masked row gives the
+    uniform softmax; the f32 count moves and the bf16 count does not."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    q, k, v = (torch.randn((b, s, h, dh), generator=g, device=dev) for _ in range(3))
+    valid = None
+    if masked:
+        valid = torch.rand((b, s), generator=g, device=dev) > 0.3
+        valid[-1] = False
+    before, before_bf16 = PL.vit_attention.launches_f32, PL.vit_attention.launches
+    got = PL.vit_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert (PL.vit_attention.launches_f32, PL.vit_attention.launches) == (before + 1, before_bf16)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    _assert_close(got, PL.vit_attention_reference(q, k, v, valid), F32_REL_TOL)
+
+
+def test_vit_attention_f32_kernel_takes_strided_views_and_rejects_what_it_cannot(dev):
+    g = torch.Generator(device=dev).manual_seed(35)
+    qkv = torch.randn((2, 50, 3, 12, 64), generator=g, device=dev)
+    q, k, v = qkv.unbind(2)
+    _assert_close(PL.vit_attention(q, k, v), PL.vit_attention_reference(q, k, v), F32_REL_TOL)
+    with pytest.raises(ValueError, match="S <= 264"):
+        x = torch.zeros((1, 265, 4, 64), device=dev)
+        PL.vit_attention(x, x, x)
+    with pytest.raises(TypeError, match="float32"):
+        PL.vit_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(TypeError, match="bfloat16"):
+        x = torch.zeros((1, 50, 4, 64), dtype=torch.float16, device=dev)
+        PL.vit_attention(x, x, x)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_per_row_cache_writes_on_the_card_equal_the_cpu(dev, kv):
+    """The speculative decode's per-row cache index on CUDA tensors:
+    ``decode_cache_view``'s mask, positions and validity and
+    ``apply_kv_rows``'s K/V (bf16, or the int8 cache's planes and scales)
+    equal the same calls on the CPU, with rows at columns 3, 6 and 4 and a
+    0-d index shared by every row."""
+    from licv_vqa_tpu_torch.models import decoder as D
+    from licv_vqa_tpu_torch.models.config import DecoderConfig
+
+    cfg = DecoderConfig(vocab_size=16, d_model=256, n_layers=1, n_heads=2, n_kv_heads=2,
+                        d_ff=16, kv_cache_dtype=kv)
+    g = torch.Generator().manual_seed(36)
+    b, s, max_len = 3, 4, 16
+    positions = torch.randint(2, 9, (b, s), generator=g, dtype=torch.int32)
+    amask = (torch.rand((b, s), generator=g) > 0.2).to(torch.int32)
+    k, v = (torch.randn((b, s, 2, 128), generator=g).to(torch.bfloat16) for _ in range(2))
+    rows = ({"q": torch.randint(-127, 128, (b, s, 2, 128), generator=g, dtype=torch.int8),
+             "s": torch.rand((b, s, 2, 1), generator=g)} if kv == "int8" else None)
+    for index in (torch.tensor([3, 6, 4]), torch.tensor(5)):
+        out = {}
+        for where in ("cpu", dev):
+            c = D.init_kv_cache(cfg, b, max_len, where)
+            c["index"] = index.to(where)
+            mask, pos, valid = D.decode_cache_view(c, positions.to(where), amask.to(where), s)
+            if kv == "int8":
+                kr = {n: x.to(where) for n, x in rows.items()}
+                D.apply_kv_rows({n: x[0] for n, x in c["k"].items()},
+                                {n: x[0] for n, x in c["v"].items()}, kr, kr, c["index"])
+                leaves = [c["k"]["q"], c["k"]["s"], c["v"]["q"], c["v"]["s"]]
+            else:
+                D.apply_kv_rows(c["k"][0], c["v"][0], k.to(where), v.to(where), c["index"])
+                leaves = [c["k"], c["v"]]
+            torch.cuda.synchronize()
+            out[str(where)] = [x.cpu() for x in (mask, pos, valid, *leaves)]
+        for a, w in zip(out[str(dev)], out["cpu"], strict=True):
+            assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize("shape,layout", [

@@ -55,11 +55,12 @@ def test_icv_backward_bound_counts_the_functions_bytes(cases, layout, vnumel):
 
 
 def test_each_case_is_held_to_its_outputs_limit(cases):
-    """The f32 outputs (the KL's, the quantized matmuls', the int4 probe's)
-    to ``F32_REL_TOL``, the bf16 outputs to ``REL_TOL``, and the w8a8
-    kernel's, whatever their dtype, to equality."""
+    """The f32 outputs (the KL's, the quantized matmuls', the int4 probe's,
+    the f32 ViT entry's) to ``F32_REL_TOL``, the bf16 outputs to
+    ``REL_TOL``, and the w8a8 kernel's, whatever their dtype, to equality."""
     for (name, label), c in cases.items():
-        f32 = name.startswith(("masked_kl", "int4_unpack_probe")) or label.endswith("f32 out")
+        f32 = (name.startswith(("masked_kl", "int4_unpack_probe", "vit_attention_f32"))
+               or label.endswith("f32 out"))
         want = 0.0 if name == "w8a8_matmul" else C.F32_REL_TOL if f32 else C.REL_TOL
         assert c.tol == want, (name, label)
     assert C.F32_REL_TOL < C.REL_TOL
@@ -152,6 +153,32 @@ def test_alibi_and_vit_cases_cover_phase_8_and_bound_the_visible_pairs(cases):
         assert c.bytes_moved == 4 * 33 * 257 * 16 * dh * 2
         assert c.ops == 4 * 16 * dh * 33 * 257 ** 2
         assert c.bound()[1] == "bytes" and c.rows is None
+
+
+def test_vit_f32_cases_cover_rice_and_bound_the_bytes(cases):
+    """The f32 ViT entry at the RICE batch (8, 50, 12, 64): 4.92 MB moved,
+    1.47 us at 3.35 TB/s, over its 61.4 MFLOP at 67 TFLOP/s (0.92 us);
+    the batch of 64; and 7 keys of each image masked (their pairs not
+    counted, the int32 validity read)."""
+    vit = {label for name, label in cases if name == "vit_attention_f32"}
+    assert vit == {"(8,50,12,64) f32 all valid", "(64,50,12,64) f32 all valid",
+                   "(8,50,12,64) f32 masked 7"}
+    c = cases["vit_attention_f32", "(8,50,12,64) f32 all valid"]
+    assert c.bytes_moved == 4 * 8 * 50 * 12 * 64 * 4 == 4_915_200
+    assert c.ops == 4 * 12 * 64 * 50 * 8 * 50 == 61_440_000
+    assert c.bound() == pytest.approx((4_915_200 / 3.35e9, "bytes"))
+    assert cases["vit_attention_f32", "(64,50,12,64) f32 all valid"].bytes_moved == 39_321_600
+    c = cases["vit_attention_f32", "(8,50,12,64) f32 masked 7"]
+    assert c.ops == 4 * 12 * 64 * 50 * 8 * 43
+    assert c.bytes_moved == 4_915_200 + 8 * 50 * 4
+    assert c.library is not None and c.tol == C.F32_REL_TOL
+
+
+def test_vit_f32_case_holds_its_plain_version_on_cpu(cases):
+    for (name, label), c in cases.items():
+        if name == "vit_attention_f32":
+            got, want = c.kernel(), c.plain()
+            assert got.dtype == torch.float32 and torch.equal(got, want), label
 
 
 def test_probe_bounds_of_the_kernels_still_to_port(cases):
@@ -322,10 +349,11 @@ def test_cold_cases_cycle_through_equal_copies(cases, monkeypatch):
 
 
 def test_kernels_line_has_twelve_rows_each_naming_its_tpu_kernel():
-    """One row a kernel: the ten of slices 1-6 and the two probes; every
-    source is in the repository, every TPU kernel's file:line reaches
-    ``pallas_call`` or names the probe's ``main``/``make_fn``."""
-    assert len(C.KERNEL_SOURCES) == 12
+    """One row a kernel: the ten of slices 1-6, the two probes and the fused
+    ViT kernel's f32 entry; every source is in the repository,
+    every TPU kernel's file:line reaches ``pallas_call`` or names the
+    probe's ``main``/``make_fn``."""
+    assert len(C.KERNEL_SOURCES) == 13
     assert set(C.KERNEL_SOURCES) == (set(C.MAIN_SHAPE) - {"masked_kl_fwd", "masked_kl_bwd"}
                                      | {"masked_kl"})
     for name, (route, source, replaces) in C.KERNEL_SOURCES.items():
@@ -334,7 +362,9 @@ def test_kernels_line_has_twelve_rows_each_naming_its_tpu_kernel():
         assert (REPO / path).is_file() and int(line) <= len((REPO / path).read_text().splitlines())
     assert C.KERNEL_SOURCES["w8a8_matmul"][2] == "tools/exp_w8a8_tuning.py:36"
     assert C.KERNEL_SOURCES["int4_unpack_probe"][2] == "tools/exp_int4_unpack.py:111"
-    assert {"w8a8_matmul.cu", "int4_unpack_probe.cu"} <= set(C.CUDA_SOURCES)
+    assert {"w8a8_matmul.cu", "int4_unpack_probe.cu", "vit_attention_f32.cu"} <= set(
+        C.CUDA_SOURCES)
+    assert C.KERNEL_SOURCES["vit_attention_f32"][2] == C.KERNEL_SOURCES["vit_attention"][2]
 
 
 def test_busy_ms_is_the_union_of_device_intervals():
@@ -690,3 +720,46 @@ def test_tools_phase_counts_match_the_tools_tallies_on_cpu(monkeypatch):
     # twice
     variants = 1 + 2 * len(I8.W8A8_TILES)
     assert got == {"w8a8_matmul": variants * 4, "int4_unpack_probe": 4 * 4}
+
+
+def test_speculative_and_rice_phases_on_tiny_idefics(tmp_path, monkeypatch):
+    """Phases 4b and 4c on the CPU at tiny size (tiny-idefics, the tiny CLIP
+    config, a 32-row index over 16 images): the speculative run's ICV
+    count equals layers x target forwards + draft layers x draft forwards
+    and its tokens greedy's (the phase checks both and raises); the RICE
+    phase's f32 fused-ViT count (the wrapper counted, its gate opened)
+    equals the tiny tower's layers x batches, the kernel path equals the
+    plain one, ties go to the lower index, the cache reloads, the text
+    tower never takes the route, and the retrieved shots decode."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.models import layers as PL
+    from licv_vqa_tpu_torch.models.clip import ClipConfig
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    monkeypatch.setattr(iv, "icv_inject", _counting(iv.icv_inject))
+    monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
+    vit = PL.vit_attention
+
+    def counted_vit(q, *a, **k):
+        if q.dtype == torch.float32:
+            counted_vit.launches_f32 += 1
+        else:
+            counted_vit.launches += 1
+        return vit(q, *a, **k)
+
+    counted_vit.launches = counted_vit.launches_f32 = 0
+    monkeypatch.setattr(PL, "vit_attention", counted_vit)
+    monkeypatch.setattr(PL, "vit_attention_usable", lambda s, dh, device: True)
+    for name, value in (("RICE_IMAGES", 16), ("RICE_INDEX_ROWS", 32), ("RICE_TEST_ROWS", 8),
+                        ("RICE_TEXT_ROWS", 4)):
+        monkeypatch.setattr(C, name, value)
+    _stub_cuda(monkeypatch, tmp_path)
+    dev = torch.device("cpu")
+    e = C.eval_setup(dev, tmp_path / "eval", [], lmm="tiny-idefics")
+    spec = C.speculative_path(e, dev, 0.0)
+    assert spec["icv_inject"] > 4 * C.N_ICV_Q
+    got = C.rice_path(e, dev, tmp_path / "rice", cfg=ClipConfig.tiny())
+    # (32 + 8) images in batches of 8, 2 tower layers
+    assert got == {"vit_attention_f32": 2 * 5}

@@ -37,6 +37,7 @@ BIDIR = "licv_vqa_tpu_torch/csrc/flash_attn_bidir.cu"
 # the causal flash forward and the ALiBi flash: one template
 FLASH_FWD = "licv_vqa_tpu_torch/csrc/flash_fwd_sm90.cuh"
 VIT = "licv_vqa_tpu_torch/csrc/vit_attention.cu"
+VIT_F32 = "licv_vqa_tpu_torch/csrc/vit_attention_f32.cu"
 FLASH_BWD = "licv_vqa_tpu_torch/csrc/flash_attn_bwd.cu"
 W8A8 = "licv_vqa_tpu_torch/csrc/w8a8_matmul.cu"
 PROBE4 = "licv_vqa_tpu_torch/csrc/int4_unpack_probe.cu"
@@ -192,6 +193,12 @@ MUTATIONS = {
         "    terms[i] = i >= p.S ? -INFINITY : (valid_b == nullptr || valid_b[i] != 0 ? 0.f : -FLT_MAX);\n",
         "    terms[i] = i >= p.S ? 0.f : (valid_b == nullptr || valid_b[i] != 0 ? 0.f : -FLT_MAX);\n",
         ("vit_attention",), None),
+    # the f32 entry: every key counts, the masked ones too (reads only on the
+    # masked case: 7 of 50 keys of each image)
+    "vit_f32_key_mask_ignored": (
+        VIT_F32,
+        "      sc[j] = key >= S ? -INFINITY : (term[key] != 0.f ? sc[j] * scale : -FLT_MAX);\n",
+        "      sc[j] = key >= S ? -INFINITY : sc[j] * scale;\n", ("vit_attention_f32",), None),
     # the causal flash backward: D = rowsum(do * o) left out of dS (the dQ
     # kernel writes the 0 it computes for the dK/dV kernel too)
     "flash_bwd_no_d": (
