@@ -52,7 +52,8 @@ Phases (any failure exits non-zero before the result lines):
    and every row's writes; the int8 and
    int4 decode matmuls at ``QUANT_SHAPES`` (a beam step's projections, a
    64-row block), the int8 one at ``HEAD_SHAPES`` (the head at a beam step
-   and at prefill) and the int4 one at ``INT4_PREFILL_SHAPES`` (run B's
+   and at prefill) and at ``ENGINE_INT8_SHAPES`` (a step of phase 4d's
+   8-row greedy pool: projections and head) and the int4 one at ``INT4_PREFILL_SHAPES`` (run B's
    64-row prefill MLP and bind-time K/V) and with its weights cold
    (``INT4_COLD_SHAPE``, each call on the next of ``INT4_COLD_COPIES``
    weight copies, past the L2; the library call likewise, every copy's
@@ -130,6 +131,25 @@ Phases (any failure exits non-zero before the result lines):
    32-shot one's first column, the cache reloaded; the text tower on 64
    ragged id rows (no fused launch, equal to the plain path); then the
    32-shot indices of 2 test rows through ``icl_inference`` on this model;
+   and 4d: the continuous-batching engines (``infer/serving.py``) through
+   the runner entry points ``icv_inference_continuous`` /
+   ``icl_inference_continuous`` on the same model: (a) ``test_icv``
+   beam-3 with ``CONT_BEAM_SLOTS`` (4) request groups, (b) ``test_icv``
+   greedy with ``CONT_GREEDY_SLOTS`` (8) slots, (c) ``test_icl`` greedy on
+   ``CONT_ICL_SHOTS`` (6 requests of 1, 8 and 32 shots: mixed buckets,
+   media buffers 33 images wide) with ``CONT_ICL_SLOTS`` (4) slots.  Each
+   is run twice (the first warms up); the second's counts of the ICV, the
+   fused ViT and the causal flash kernels must equal
+   ``predicted_engine_launches`` (32 x (admission prefills + decode steps),
+   32 x admission groups, 32 x groups of a bucket of >= 256 tokens); its
+   tokens are held against the static path's at bs=1 (``decoded_tokens``)
+   under the near-tie rule (greedy: ``near_tie_check``; beam:
+   ``beam_near_tie_check``, a difference allowed only where some decision
+   of the static beam search had an f32 margin under ``NEAR_TIE``).
+   Prints s/question beside the static path's, tokens/s, peak memory, the
+   admissions, the decode steps and the synchronizing CUDA calls that
+   ``torch.cuda.set_sync_debug_mode("warn")`` reports inside decode chunks
+   (predicted 0; a finding, not a failure);
 5. the training path at Idefics-9B full width, through the port's train
    CLI (``licv_vqa_tpu_torch.cli.train.main``) on a synthetic VQAv2 split
    written to a temporary directory: ``trainer=debug`` (4 micro-steps, 2
@@ -160,7 +180,11 @@ Phases (any failure exits non-zero before the result lines):
    decodes one ``test_icv`` question with the draft (``speculative_int8``:
    the int8 kernel's launches at M = 4 rows and at M = 1 against the
    forwards that ran, the tokens against int8 greedy under the near-tie
-   rule).  Prints ms per question, peak memory and a
+   rule) and one ``test_icv`` greedy run through the engine with 8 slots
+   (``continuous_int8``, phase 4d (d): the int8 kernel's launches at M = 8
+   rows against the decode steps times ``predicted_quantized_launches``'s
+   per-step term, the other counts and the tokens as in 4d).  Prints ms
+   per question, peak memory and a
    profile of one ``test_icv`` question (device busy share, device time by
    kernel), and holds the test_icv prompt's prefill and first-step logits
    through the kernels against the same weights through their plain
@@ -229,6 +253,7 @@ by the CPU tests (``tests/test_torch_cli.py``, ``tests/test_torch_train*.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -240,6 +265,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 REPO = Path(__file__).resolve().parent
 # kernel vs plain: max-abs error <= REL_TOL * max|plain|, per output.  For
@@ -908,6 +934,9 @@ QUANT_SHAPES = (
     ((64, 4096, 4096), "bf16"),
 )
 HEAD_SHAPES = (((3, 4096, 32000), "f32"), ((3, 4096, 32002), "f32"), ((1, 4096, 32002), "f32"))
+# phase 4d (d): a decode step of the engine's 8-row greedy pool (run A)
+ENGINE_INT8_SHAPES = (((8, 4096, 4096), "bf16"), ((8, 4096, 11008), "f32"),
+                      ((8, 11008, 4096), "f32"), ((8, 4096, 32002), "f32"))
 INT4_PREFILL_SHAPES = (
     ((64, 4096, 11008), "f32"), ((64, 11008, 4096), "f32"), ((64, 1280, 4096), "bf16"),
 )
@@ -926,7 +955,7 @@ def quantized_cases(dev):
     from licv_vqa_tpu_torch.ops import int8_matmul as I8
     from licv_vqa_tpu_torch.ops import quantize as Q
 
-    for mode, shapes in (("int8", QUANT_SHAPES + HEAD_SHAPES),
+    for mode, shapes in (("int8", QUANT_SHAPES + HEAD_SHAPES + ENGINE_INT8_SHAPES),
                          ("int4", QUANT_SHAPES + INT4_PREFILL_SHAPES)):
         for (m, k, n), out in shapes:
             odt = torch.float32 if out == "f32" else torch.bfloat16
@@ -1756,12 +1785,14 @@ def main_path(dev, tmp: Path) -> dict:
         raise AssertionError("flash path logits disagree with the plain path")
     spec = speculative_path(e, dev, peak)
     rice = rice_path(e, dev, tmp)
+    cont = continuous_path(e)
     return {
         "icv_inject": (counts["icv_inject", "test_icv"] + counts["icv_inject", "test_icl"]
-                       + spec["icv_inject"]),
-        "flash_attention_fwd": counts["flash", "test_icv"] + counts["flash", "test_icl"],
+                       + spec["icv_inject"] + cont["icv_inject"]),
+        "flash_attention_fwd": (counts["flash", "test_icv"] + counts["flash", "test_icl"]
+                                + cont["flash_attention_fwd"]),
         "vit_attention": counts["vit", "test_icv"] + counts["vit", "test_icl"]
-        + spec["vit_attention"],
+        + spec["vit_attention"] + cont["vit_attention"],
         "vit_attention_f32": rice["vit_attention_f32"],
     }
 
@@ -1802,6 +1833,34 @@ def top2_gap(e: EvalSetup, prompt: list, prefix, icv_scaled) -> float:
     return float(top[0] - top[1])
 
 
+def forced_decode_logits(e: EvalSetup, prompts: list, prefixes: list, icv_scaled):
+    """(B, V) f32: the static greedy path's logits after each prompt and its
+    tokens ``prefixes`` (of one length), the prompts at bs = len(prompts)
+    as the runner batches them: one prefill, then one decode step a token
+    with the given tokens in place of the argmax (``greedy_generate``'s
+    calls, so at bs 1 these are its logits along that prefix)."""
+    import torch
+
+    from licv_vqa_tpu_torch.models.decoder import _positions_from_mask
+
+    b = e.bundle
+    dev = b.device
+    enc = b.processor.prepare_input(prompts, padding=True, padding_side="left")
+    ids, mask, px, pv = (torch.from_numpy(enc[k]).to(dev) for k in
+                         ("input_ids", "attention_mask", "pixel_values", "pixel_valid"))
+    pos = _positions_from_mask(mask)
+    with torch.inference_mode():
+        fwd = b.bind_decode(b.params, px, pv, ids, icv_scaled, ids.shape[1] + MAX_NEW + 1)
+        logits, cache = fwd(ids, mask, pos, None)
+        next_pos = pos[:, -1] + 1
+        step_mask = torch.ones((len(prompts), 1), dtype=torch.int32, device=dev)
+        for k in range(len(prefixes[0])):
+            tok = torch.stack([x[k] for x in prefixes]).to(device=dev, dtype=ids.dtype)
+            logits, cache = fwd(tok[:, None], step_mask, next_pos[:, None], cache)
+            next_pos = next_pos + 1
+    return logits[:, -1].float()
+
+
 def decoded_tokens(e: EvalSetup, gen_kwargs: dict, prompts: list, icv_scaled) -> list:
     """Each prompt's generated tokens (bs 1) through the runner's generate
     and dispatch, as ``icv_inference`` runs them."""
@@ -1831,7 +1890,7 @@ def near_tie_check(e: EvalSetup, tag: str, prompts: list, greedy: list, spec: li
         log(f"{tag}: question {q} differs from greedy at token {at} ({a.tolist()} vs "
             f"{b.tolist()}); the target's f32 top-2 gap there {gap:.6f} (limit {NEAR_TIE})")
         if not gap < NEAR_TIE:
-            raise AssertionError(f"{tag}: speculative differs from greedy away from a near tie")
+            raise AssertionError(f"{tag}: differs from greedy away from a near tie")
         n += 1
     return n
 
@@ -1971,6 +2030,430 @@ def speculative_int8(e: EvalSetup) -> dict:
     n = near_tie_check(e, "speculative int8", prompts, greedy, spec, e.icv_scaled)
     log(f"speculative int8 tokens: {1 - n} of 1 question equal int8 greedy's")
     return {"int8_matmul": len(rows)}
+
+
+# phase 4d: the continuous-batching engines on phase 4's model; (d) on run
+# A's int8 model in phase 6.  Slots: request groups of 3 beams for (a)
+CONT_BEAM_SLOTS = 4
+CONT_GREEDY_SLOTS = 8
+CONT_ICL_SLOTS = 4
+CONT_ICL_SHOTS = (1, 8, 32, 1, 8, 32)
+
+
+@contextlib.contextmanager
+def engine_spy():
+    """Records each engine run (the engine and its tokens), counts the
+    synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode("warn")``
+    reports inside its decode chunks (the first one's source line kept) and
+    brackets each chunk with CUDA events (``step_ms``: their mean interval
+    over the steps, after a synchronize)."""
+    import warnings
+
+    import torch
+
+    from licv_vqa_tpu_torch.infer.serving import ServingEngine
+
+    spy = SimpleNamespace(runs=[], syncs=0, first_sync=None, events=[], steps=0)
+
+    def step_ms():
+        if not spy.events:
+            return None
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spy.events) / spy.steps
+
+    spy.step_ms = step_ms
+    run, chunk = ServingEngine.run, ServingEngine._chunk
+
+    def spied_run(self, *a, **kw):
+        out = run(self, *a, **kw)
+        spy.runs.append((self, out))
+        return out
+
+    def spied_chunk(self):
+        if self.device.type != "cuda":
+            return chunk(self)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                start.record()
+                chunk(self)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        spy.events.append((start, end))
+        spy.steps += self.sync_steps
+        syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+        spy.syncs += len(syncs)
+        if syncs and spy.first_sync is None:
+            spy.first_sync = f"{syncs[0].filename}:{syncs[0].lineno}: {syncs[0].message}"
+        return None
+
+    ServingEngine.run, ServingEngine._chunk = spied_run, spied_chunk
+    try:
+        yield spy
+    finally:
+        ServingEngine.run, ServingEngine._chunk = run, chunk
+
+
+def predicted_engine_launches(mc, engine, with_icv: bool, dev) -> dict:
+    """The ICV, fused ViT and causal flash launches of one engine run, from
+    its admissions and decode steps: every admission group prefills once
+    (a bind of the group's images, the tower's layers once; the causal
+    flash at every layer where the bucket passes the flash gate) and every
+    decode step forwards the whole pool once; the ICV enters every layer
+    of both."""
+    from licv_vqa_tpu_torch.models import layers as L
+
+    t = mc.text
+    groups = engine.admissions
+    return {
+        "icv_inject": t.n_layers * (len(groups) + engine.steps_run) if with_icv else 0,
+        "vit_attention": vit_per_bind(mc.vision, dev) * len(groups),
+        "flash_attention_fwd": t.n_layers * sum(
+            L.flash_attention_usable(t, bucket, t.head_dim, dev) for _, bucket in groups),
+    }
+
+
+def engine_tokens(engine_out: dict, n: int, pad: int) -> list:
+    """The engine's tokens of requests 0..n-1 as the static decode lays
+    them out: ``MAX_NEW`` long, pad after EOS."""
+    import torch
+
+    out = []
+    for uid in range(n):
+        toks = torch.full((MAX_NEW,), pad, dtype=torch.long)
+        toks[: len(engine_out[uid])] = torch.from_numpy(engine_out[uid].astype("int64"))
+        out.append(toks)
+    return out
+
+
+def beam_min_margin(e: EvalSetup, gen_kwargs: dict, prompt: list, icv_scaled) -> float:
+    """The smallest f32 margin of any decision of the static beam search on
+    ``prompt`` at bs 1: around rank K and rank 2K of the expanded
+    candidates (which beams go on, which EOS candidates may enter the
+    finished pool), rank K of the live candidates and of the finished pool,
+    and rank 1 of the final hypotheses.  Entries at ``NEG_INF / 2`` or below
+    (beams not started, an unfilled pool) are not compared.  A drift of the
+    scores under this margin changes no decision."""
+    import torch
+
+    from licv_vqa_tpu_torch.infer import decode as D
+
+    margins = []
+
+    def gap(scores, rank: int):
+        s = torch.sort(scores.float(), dim=-1, descending=True).values
+        if s.shape[-1] > rank:
+            a, b = s[..., rank - 1], s[..., rank]
+            keep = b > D.NEG_INF / 2
+            if bool(keep.any()):
+                margins.append(float((a - b)[keep].min()))
+
+    transition, finalize = D.beam_transition, D.beam_finalize
+
+    def spied_transition(live_scores, live_tokens, fin_scores, fin_tokens, last_logp, t, **kw):
+        out = transition(live_scores, live_tokens, fin_scores, fin_tokens, last_logp, t, **kw)
+        b, k = live_scores.shape
+        logp = last_logp.clone()
+        if t < kw["min_new_tokens"]:
+            logp[..., kw["eos_token_id"]] = D.NEG_INF
+        cand = live_scores[:, :, None] + logp
+        gap(cand.reshape(b, -1), k)
+        gap(cand.reshape(b, -1), 2 * k)
+        top, _, token = D._topk_2k_two_stage(cand, b, k, logp.shape[-1])
+        is_eos = token == kw["eos_token_id"]
+        gap(torch.where(is_eos, D.NEG_INF, top), k)
+        div = float(kw["prompt_len"] + t + 1) ** kw["length_penalty"]
+        rank_ok = torch.arange(2 * k, device=top.device)[None, :] < k
+        gap(torch.cat([fin_scores, torch.where(is_eos & rank_ok, top / div, D.NEG_INF)], 1), k)
+        return out
+
+    def spied_finalize(live_scores, live_tokens, fin_scores, fin_tokens, **kw):
+        div = float(kw["prompt_len"] + kw["max_new_tokens"]) ** kw["length_penalty"]
+        gap(torch.cat([fin_scores, live_scores / div], dim=1), 1)
+        return finalize(live_scores, live_tokens, fin_scores, fin_tokens, **kw)
+
+    D.beam_transition, D.beam_finalize = spied_transition, spied_finalize
+    try:
+        decoded_tokens(e, gen_kwargs, [prompt], icv_scaled)
+    finally:
+        D.beam_transition, D.beam_finalize = transition, finalize
+    return min(margins) if margins else math.inf
+
+
+def beam_near_tie_check(e: EvalSetup, tag: str, gen_kwargs: dict, prompts: list, static: list,
+                        engine: list, icv_scaled) -> int:
+    """Engine beam tokens against the static beam search's: equal, or the
+    static search took some decision at an f32 margin under ``NEAR_TIE``
+    (``beam_min_margin``).  Returns the number of such questions."""
+    n = 0
+    for q, (p, a, b) in enumerate(zip(prompts, static, engine, strict=True)):
+        if bool((a == b).all()):
+            continue
+        margin = beam_min_margin(e, gen_kwargs, p, icv_scaled)
+        log(f"{tag}: question {q} differs from the static beam ({a.tolist()} vs "
+            f"{b.tolist()}); the static search's smallest f32 decision margin {margin:.6f} "
+            f"(limit {NEAR_TIE})")
+        if not margin < NEAR_TIE:
+            raise AssertionError(f"{tag}: the engine's beam differs away from a near tie")
+        n += 1
+    return n
+
+
+def engine_run(e: EvalSetup, tag: str, run, prompts: list, gen_kwargs: dict, icv_scaled,
+               counters: dict, check=None) -> dict:
+    """One configuration of phase 4d: ``run()`` (a runner entry point) once
+    to warm up, then once counted and timed; its launches against
+    ``predicted_engine_launches``; the static path's tokens at bs 1 (timed)
+    and the near-tie rule (``check(static, engine)``, which returns the
+    number of questions that differ, in its place where given).  Returns
+    the counted run's launches, the engine and its tokens."""
+    import torch
+
+    b = e.bundle
+    dev = b.device
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    with engine_spy() as spy:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = spy.step_ms()
+    (engine, out), = spy.runs
+    want = predicted_engine_launches(b.model_cfg, engine, icv_scaled is not None, dev)
+    n = len(prompts)
+    t0 = time.perf_counter()
+    static = decoded_tokens(e, gen_kwargs, prompts, icv_scaled)
+    torch.cuda.synchronize()
+    static_s = (time.perf_counter() - t0) / n
+    tokens = engine_tokens(out, n, b.pad_token_id)
+    n_tok = sum(len(x) for x in out.values())
+    step = ("not measured (no card)" if step_ms is None
+            else f"{step_ms:.2f} ms (CUDA events around the chunks)")
+    first = f", the first at {spy.first_sync}" if spy.first_sync else ""
+    log(f"{tag}: {n} requests, {wall / n:.3f} s/question (static bs=1 {static_s:.3f}), "
+        f"{n_tok / wall:.1f} tokens/s; {len(engine.admissions)} admissions "
+        f"{engine.admissions} (size, bucket), {engine.steps_run} decode steps of "
+        f"{engine.n_rows} rows over {engine.cache_len} cache columns, a step {step}; "
+        f"launches {counts} (predicted {want}); peak device memory {peak:.2f} GiB; "
+        f"synchronizing CUDA calls inside decode chunks {spy.syncs} (predicted 0){first}")
+    log(f"{tag} predictions {[r['prediction'] for r in res.values()]}")
+    if len(res) != n or not all(isinstance(r["prediction"], str) for r in res.values()):
+        raise AssertionError(f"{tag}: malformed results {res}")
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"{tag}: {k} launched {counts[k]} != {v}")
+    if check is not None:
+        ties = check(static, tokens)
+    elif int(gen_kwargs.get("num_beams", 1)) > 1:
+        ties = beam_near_tie_check(e, tag, gen_kwargs, prompts, static, tokens, icv_scaled)
+    else:
+        ties = near_tie_check(e, tag, prompts, static, tokens, icv_scaled)
+    log(f"{tag} tokens: {n - ties} of {n} requests equal the static path's, {ties} differ "
+        f"at a near tie")
+    return {"counts": counts, "engine": engine, "tokens": out}
+
+
+def continuous_path(e: EvalSetup) -> dict:
+    """Phase 4d (a)-(c) on phase 4's Idefics-9B.  Returns the launch counts."""
+    from licv_vqa_tpu_torch.infer.runner import icl_inference_continuous, icv_inference_continuous
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    b = e.bundle
+    counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
+                "flash_attention_fwd": L.flash_attention}
+    rows = e.val[1 : 1 + N_ICV_Q]
+    icv_prompts = [icv_prompt(e, q) for q in range(1, 1 + N_ICV_Q)]
+    greedy_kw = dict(e.gen_kwargs, num_beams=1)
+    # (c): request q asks val row q % rows with shots q .. q + n - 1
+    icl_rows = [e.val[q % len(e.val)] for q in range(len(CONT_ICL_SHOTS))]
+    icl_shots = [list(range(q, q + n)) for q, n in enumerate(CONT_ICL_SHOTS)]
+    icl_prompts = [icl_prompt(e, q % len(e.val), s) for q, s in enumerate(icl_shots)]
+    runs = (
+        ("continuous beam-3 test_icv", e.gen_kwargs, icv_prompts, e.icv_scaled,
+         lambda: icv_inference_continuous(rows, b, e.pm, e.gen_kwargs, e.instruction,
+                                          e.icv_scaled, False, CONT_BEAM_SLOTS)),
+        ("continuous greedy test_icv", greedy_kw, icv_prompts, e.icv_scaled,
+         lambda: icv_inference_continuous(rows, b, e.pm, greedy_kw, e.instruction,
+                                          e.icv_scaled, False, CONT_GREEDY_SLOTS)),
+        (f"continuous greedy test_icl {CONT_ICL_SHOTS} shots", greedy_kw, icl_prompts, None,
+         lambda: icl_inference_continuous(e.train, icl_rows, icl_shots, b, e.pm, greedy_kw,
+                                          e.instruction, False, CONT_ICL_SLOTS)),
+    )
+    total = dict.fromkeys(counters, 0)
+    for tag, kw, prompts, icv, run in runs:
+        got = engine_run(e, tag, run, prompts, kw, icv, counters)
+        for k, v in got["counts"].items():
+            total[k] += v
+    return total
+
+
+def continuous_int8(e: EvalSetup, opts: list) -> dict:
+    """Phase 4d (d) on run A's int8 model: ``test_icv`` greedy through the
+    engine with ``CONT_GREEDY_SLOTS`` slots.  Inside the decode chunks (the
+    admissions excluded) the int8 kernel launches at M = the pool's rows
+    alone (every step's projections and head), as many as the decode steps
+    times ``predicted_quantized_launches``'s per-step term.  The tokens
+    against the static path's: equal, or first differing where the static
+    decode's f32 top-2 gap is under ``NEAR_TIE`` or under twice the static
+    path's own batch drift there (the max-abs difference of its logits for
+    that token between bs 1 and the questions decoded together,
+    ``forced_decode_logits``): w8a8 rounds every activation row and the
+    int8 KV cache every cached row to 127 steps, so a bf16 drift can move a
+    value a whole step, in a static batch as in the engine.  Printed beside it: the engine's logits for that
+    token (``int8_engine_logits``) against the static path's."""
+    from licv_vqa_tpu_torch.infer.runner import icv_inference_continuous
+    from licv_vqa_tpu_torch.infer.serving import ServingEngine
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    b = e.bundle
+    kernel, chunk, rows_seen, inside = I8.int8_matmul, ServingEngine._chunk, [], []
+
+    def counted(x, *a, **kw):
+        if inside:
+            rows_seen.append(x.shape[0])
+        return kernel(x, *a, **kw)
+
+    def traced_chunk(self):
+        inside.append(1)
+        try:
+            return chunk(self)
+        finally:
+            inside.clear()
+
+    counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
+                "flash_attention_fwd": L.flash_attention, "int8_matmul": counted}
+    greedy_kw = dict(e.gen_kwargs, num_beams=1)
+    rows = e.val[1 : 1 + N_ICV_Q]
+    prompts = [icv_prompt(e, q) for q in range(1, 1 + N_ICV_Q)]
+    recorded = {}
+
+    def run():
+        rows_seen.clear()  # the counted run's alone
+        with int8_engine_logits() as rec:
+            out = icv_inference_continuous(rows, b, e.pm, greedy_kw, e.instruction,
+                                           e.icv_scaled, False, CONT_GREEDY_SLOTS)
+        recorded.update(rec)
+        return out
+
+    def check(static, engine):
+        n = 0
+        for q, (p, a, t) in enumerate(zip(prompts, static, engine, strict=True)):
+            diff = (a != t).nonzero()
+            if not len(diff):
+                continue
+            at = int(diff[0])
+            want = forced_decode_logits(e, [p], [a[:at]], e.icv_scaled)[0]
+            got = recorded["logits"](q, at).to(want.device)
+            # the questions decoded together along the static tokens: the
+            # static path's own batch drift
+            batch = forced_decode_logits(e, prompts, [aj[:at] for aj in static],
+                                         e.icv_scaled)[q]
+            drift = float((batch - want).abs().max())
+            top = want.topk(2).values
+            gap = float(top[0] - top[1])
+
+            def rel(x):
+                return float((x - want).norm() / want.norm())
+
+            log(f"continuous int8: question {q} differs from the static path at token {at} "
+                f"({a.tolist()} vs {t.tolist()}); the static f32 top-2 gap there {gap:.6f}; "
+                f"the static path's logits there at bs {len(prompts)} against bs 1: max-abs "
+                f"{drift:.4f}, rel. L2 {rel(batch):.4e}; the engine's: rel. L2 "
+                f"{rel(got):.4e}; limit: the gap under {NEAR_TIE} or under twice that drift")
+            if not gap < max(NEAR_TIE, 2 * drift):
+                raise AssertionError("continuous int8: the engine differs from the static "
+                                     "path where the static path's own batch drift cannot "
+                                     "flip the token")
+            n += 1
+        return n
+
+    # the wrapper adds its launches to the module's ``int8_matmul``: the spy
+    # carries the count while it stands in
+    counted.launches = kernel.launches
+    I8.int8_matmul, ServingEngine._chunk = counted, traced_chunk
+    try:
+        got = engine_run(e, "continuous int8 greedy test_icv", run, prompts, greedy_kw,
+                         e.icv_scaled, counters, check=check)
+    finally:
+        I8.int8_matmul, ServingEngine._chunk = kernel, chunk
+        kernel.launches = counted.launches
+    engine = got["engine"]
+    m = engine.n_rows
+
+    def launches(max_new: int) -> int:
+        return predicted_quantized_launches(b.model_cfg, "int8", opts, m, 1, 1, 1,
+                                            max_new)["int8_matmul"]
+
+    per_step = launches(2) - launches(1)
+    at_m, want = rows_seen.count(m), engine.steps_run * per_step
+    log(f"continuous int8: int8 kernel launches inside decode chunks {len(rows_seen)}, at "
+        f"M = {m} rows {at_m} (want {engine.steps_run} decode steps x {per_step} = {want})")
+    if (at_m, len(rows_seen)) != (want, want):
+        raise AssertionError("continuous int8: int8 kernel launches in the decode chunks off "
+                             "the decode steps")
+    return got["counts"]
+
+
+@contextlib.contextmanager
+def int8_engine_logits():
+    """Keeps, on the device, the f32 logits of every admission prefill and
+    decode step of the engine runs inside, with each row's token count and
+    its slot's request.  Yields a dict whose ``"logits"(uid, t)`` is the
+    logits vector the engine took token ``t`` of request ``uid`` from."""
+    from licv_vqa_tpu_torch.infer.serving import ServingEngine
+
+    admit, scatter, forward = (ServingEngine._admit_group, ServingEngine._scatter_admit,
+                               ServingEngine._forward)
+    slot_of, prefills, steps = {}, [], []
+
+    def spied_admit(self, group, slots, bucket):
+        for r, slot in zip(group, slots):
+            if slot in slot_of.values():
+                raise AssertionError("int8_engine_logits: a slot held two requests")
+            slot_of[r.uid] = slot
+        return admit(self, group, slots, bucket)
+
+    def spied_scatter(self, rows, bucket, last, *a, **kw):
+        prefills.append((rows[:, 0].clone(), last.clone()))
+        return scatter(self, rows, bucket, last, *a, **kw)
+
+    def spied_forward(self, tok, adv, positions):
+        logits = forward(self, tok, adv, positions)
+        steps.append((self._state["tok_count"].clone(), adv.clone(), logits.clone()))
+        return logits
+
+    def logits(uid, t):
+        row = slot_of[uid]
+        if t == 0:
+            for rows, last in prefills:
+                hit = (rows == row).nonzero()
+                if len(hit):
+                    return last[int(hit[0])]
+        for count, adv, lg in steps:  # the step that forwarded token t - 1
+            if int(adv[row]) == 1 and int(count[row]) == t - 1:
+                return lg[row]
+        raise KeyError((uid, t))
+
+    ServingEngine._admit_group = spied_admit
+    ServingEngine._scatter_admit = spied_scatter
+    ServingEngine._forward = spied_forward
+    try:
+        yield {"logits": logits}
+    finally:
+        ServingEngine._admit_group, ServingEngine._scatter_admit = admit, scatter
+        ServingEngine._forward = forward
 
 
 # the RICE phase: CLIP ViT-B/32 at its published widths, random f32 weights;
@@ -2331,6 +2814,8 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     log(f"{mode}: peak device memory over the runs {peak:.2f} GiB (the bf16 build's is phase 4's)")
     if mode == "int8":
         total["int8_matmul"] += speculative_int8(e)["int8_matmul"]
+        for k, v in continuous_int8(e, opts).items():
+            total[k] += v
     if dev.type == "cuda":
         profile_question(lambda: runs["icv"][0](e.val[1:2]), f"{mode} test_icv")
     kernel_vs_plain_logits(e, mode)

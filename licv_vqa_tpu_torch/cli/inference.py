@@ -12,14 +12,18 @@ without a GPU raises: the port never falls back to the CPU.  ``use_rice``
 picks the ICL shots by CLIP image similarity (``retrieval/rice.py``; the
 encoder under ``$CLIP_CPK_DIR``, else ``HashEncoder``), and
 ``generate_kwargs.speculative_draft_layers`` decodes greedily with a
-layer-truncated draft (``infer/speculative.py``).  The JAX CLI's mesh
-(``infer_dp``/``infer_tp``) and engines (``infer_engine``) are not ported
-yet and raise.
+layer-truncated draft (``infer/speculative.py``).
+``infer_engine=continuous`` runs ``test_icv`` and ``test_icl`` through the
+continuous-batching engines (``infer/serving.py``: greedy, or beam groups;
+``bs`` slots; Idefics only).  The JAX CLI's mesh (``infer_dp``/``infer_tp``),
+its pooled engine (``infer_engine=pooled``) and continuous serving of the
+other families are not ported yet and raise.
 
 Examples:
     python inference_torch.py run_name=vqav2_idefics9b test_icv=true
     python inference_torch.py test_icl=true few_shot_list='[4,8]' device=cpu
     python inference_torch.py test_icl=true use_rice=true few_shot_list='[4]'
+    python inference_torch.py test_icv=true infer_engine=continuous bs=8
 """
 
 from __future__ import annotations
@@ -33,7 +37,12 @@ from pathlib import Path
 import torch
 
 from ..api import init_dataset, init_prompt_manager
-from ..infer.runner import icl_inference, icv_inference
+from ..infer.runner import (
+    icl_inference,
+    icl_inference_continuous,
+    icv_inference,
+    icv_inference_continuous,
+)
 from ..metrics import compute_cider, compute_vqa_accuracy
 from ..models.registry import build_model
 from ..train.checkpoint import load_icv_checkpoint
@@ -58,11 +67,18 @@ def resolve_device(name) -> torch.device:
 
 
 def _not_ported(cfg) -> None:
+    engine = str(cfg.get("infer_engine", "static"))
+    name = str(cfg.lmm.name)
     checks = (
         (int(cfg.get("infer_dp", 1)) != 1 or int(cfg.get("infer_tp", 1)) != 1,
          "infer_dp/infer_tp (the serving mesh)", "Queue 1 item 16"),
-        (str(cfg.get("infer_engine", "static")) != "static",
-         "infer_engine=continuous|pooled", "Queue 1 items 13-14"),
+        (engine == "pooled", "infer_engine=pooled (the pooled eval chain)", "Queue 1 item 14"),
+        (engine == "continuous" and "idefics2" in name,
+         f"infer_engine=continuous with lmm {name} (Idefics2's serving functions)",
+         "Queue 1 item 13b"),
+        (engine == "continuous" and "flamingo" in name.lower(),
+         f"infer_engine=continuous with lmm {name} (OpenFlamingo's serving functions)",
+         "Queue 1 item 22"),
     )
     for bad, what, item in checks:
         if bad:
@@ -166,11 +182,30 @@ def main(argv: list[str] | None = None):
             result_dict[base_info + tag] = cider
         metric_file_path.write_text(json.dumps(result_dict, indent=4))
 
-    if cfg.test_icv:
-        results = icv_inference(
-            val_ds, bundle, prompt_manager, bs=int(cfg.bs), generate_kwargs=gen_kwargs,
-            instruction=str(cfg.prompt.instruction), icv_scaled=icv_scaled,
+    # infer_engine=continuous: the slot-based engines (greedy pools, beam
+    # group pools; ``bs`` slots); the default stays static
+    continuous = str(cfg.get("infer_engine", "static")) == "continuous"
+    if continuous and int(gen_kwargs.get("num_beams", 1)) > 1 and float(
+            gen_kwargs.get("length_penalty", 0.0)) != 0.0:
+        logger.warning(
+            "infer_engine=continuous with num_beams>1 and length_penalty=%s: the engine "
+            "uses the true prompt length as the lp divisor (matches an unpadded bs=1 HF "
+            "run); the static path uses the padded batch length — predictions may differ "
+            "between engines", gen_kwargs.get("length_penalty"),
         )
+
+    if cfg.test_icv:
+        if continuous:
+            results = icv_inference_continuous(
+                val_ds, bundle, prompt_manager, generate_kwargs=gen_kwargs,
+                instruction=str(cfg.prompt.instruction), icv_scaled=icv_scaled,
+                n_slots=int(cfg.bs),
+            )
+        else:
+            results = icv_inference(
+                val_ds, bundle, prompt_manager, bs=int(cfg.bs), generate_kwargs=gen_kwargs,
+                instruction=str(cfg.prompt.instruction), icv_scaled=icv_scaled,
+            )
         evaluate_and_store(results, "icv result")
         (meta_info_dir / f"{base_info}icv.json").write_text(json.dumps(results, indent=4))
 
@@ -194,10 +229,17 @@ def main(argv: list[str] | None = None):
             else:
                 pool = list(range(len(train_ds)))
                 ice_idx_list = [random.sample(pool, int(shot_num)) for _ in range(len(val_ds))]
-            results = icl_inference(
-                train_ds, val_ds, ice_idx_list, bundle, prompt_manager, bs=int(cfg.bs),
-                generate_kwargs=gen_kwargs, instruction=str(cfg.prompt.instruction),
-            )
+            if continuous:
+                results = icl_inference_continuous(
+                    train_ds, val_ds, ice_idx_list, bundle, prompt_manager,
+                    generate_kwargs=gen_kwargs, instruction=str(cfg.prompt.instruction),
+                    n_slots=int(cfg.bs),
+                )
+            else:
+                results = icl_inference(
+                    train_ds, val_ds, ice_idx_list, bundle, prompt_manager, bs=int(cfg.bs),
+                    generate_kwargs=gen_kwargs, instruction=str(cfg.prompt.instruction),
+                )
             metric_word = "ACC" if task_name == "vqa" else "CIDEr"
             evaluate_and_store(results, f"ICL shot_num: {shot_num} {metric_word} result")
             (meta_info_dir / f"icl_shot{shot_num}.json").write_text(json.dumps(results, indent=4))

@@ -5,8 +5,10 @@ Prompts are LEFT-padded to bucket multiples by the shared processor; a short
 final batch is padded to the batch size by repeating its last sample and the
 extra rows are discarded (reference inference.py:264-267).  Greedy
 decoding may take a layer-truncated draft (``speculative_draft_layers``,
-``infer/speculative.py``).  No mesh and no pooled or continuous engine:
-those wait for ROADMAP Queue 1 items 13, 14, 16 and 22.
+``infer/speculative.py``).  ``icv_inference_continuous`` and
+``icl_inference_continuous`` run the same evals through the
+continuous-batching engines (``infer/serving.py``; Idefics only).  No mesh
+and no pooled engine: those wait for ROADMAP Queue 1 items 14 and 16.
 """
 
 from __future__ import annotations
@@ -230,6 +232,112 @@ def icl_inference(
             prompts.append(p)
         _store(results, batch, generate_answers(bundle, gen_fn, prompts, None))
     return results
+
+
+def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_slots: int,
+                    sync_steps: int) -> dict:
+    """Encode each ``(sample, prompt)`` of ``prompt_iter`` into an engine
+    ``Request``, serve them and return ``icv_inference``'s results dict
+    (JAX runner.py:329-419).  ``num_beams > 1`` (the reference's beam-3
+    default) takes ``BeamServingEngine``."""
+    from .serving import BeamServingEngine, Request, ServingEngine
+
+    num_beams = int(generate_kwargs.get("num_beams", 1))
+    max_new = int(generate_kwargs.get("max_new_tokens", 5))
+    min_new = int(generate_kwargs.get("min_new_tokens", 0))
+    proc = bundle.processor
+
+    samples, requests = [], []
+    for idx, (sample, p) in enumerate(prompt_iter):
+        enc = proc.prepare_input([p], padding=True, padding_side="left")
+        mask = np.asarray(enc["attention_mask"][0], bool)
+        requests.append(Request(
+            uid=idx, input_ids=np.asarray(enc["input_ids"][0])[mask],
+            pixel_values=np.asarray(enc["pixel_values"][0]),
+            pixel_valid=np.asarray(enc["pixel_valid"][0], bool),
+            max_new=max_new, min_new=min_new,
+        ))
+        samples.append(sample)
+
+    # 64-multiple prompt buckets over the observed lengths
+    buckets = tuple(sorted({-(-len(r.input_ids) // 64) * 64 for r in requests})) or (64,)
+    kw = dict(
+        icv_scaled=icv_scaled, n_slots=n_slots, out_cap=max(max_new, 1),
+        prompt_buckets=buckets, sync_steps=sync_steps,
+        # mixed-shot ICL: the media buffers carry the widest request's images
+        max_images=max((r.pixel_values.shape[0] for r in requests), default=None),
+    )
+    if num_beams > 1:
+        engine = BeamServingEngine.from_bundle(
+            bundle, num_beams=num_beams,
+            length_penalty=float(generate_kwargs.get("length_penalty", 0.0)), **kw,
+        )
+    else:
+        engine = ServingEngine.from_bundle(bundle, **kw)
+    for r in requests:
+        engine.submit(r)
+    tokens = engine.run()
+
+    results = {}
+    for idx, sample in enumerate(samples):
+        text = bundle.tokenizer.batch_decode([tokens[idx]], skip_special_tokens=True)[0]
+        row = {k: v for k, v in sample.items() if k != "image"}
+        results[idx] = {"prediction": text, **row}
+    return results
+
+
+def icv_inference_continuous(
+    val_ds,
+    bundle,
+    prompt_manager: PromptManager,
+    generate_kwargs: dict,
+    instruction: str = "",
+    icv_scaled: Optional[torch.Tensor] = None,
+    progress: bool = True,
+    n_slots: int = 8,
+    sync_steps: int = 4,
+) -> dict:
+    """``icv_inference`` through the continuous-batching engine: the same
+    results, each request's tokens its own bs=1 decode's (in f32), with
+    every slot kept busy on ragged workloads."""
+
+    def prompts():
+        for sample in _maybe_tqdm(val_ds, progress):
+            p = [instruction] if instruction else []
+            p += [sample["image"], prompt_manager.gen_query_text_without_label(sample)]
+            yield sample, p
+
+    return _run_continuous(prompts(), bundle, generate_kwargs, icv_scaled, n_slots, sync_steps)
+
+
+def icl_inference_continuous(
+    train_ds,
+    val_ds,
+    ice_idx_list: list[list[int]],
+    bundle,
+    prompt_manager: PromptManager,
+    generate_kwargs: dict,
+    instruction: str = "",
+    progress: bool = True,
+    n_slots: int = 8,
+    sync_steps: int = 4,
+) -> dict:
+    """``icl_inference`` through the continuous-batching engine, the
+    reference's raggedest workload (prompt lengths vary about 30x across
+    ``few_shot_list``): mixed shot counts admit as groups of one bucket and
+    image count against ``max_images``-wide media buffers."""
+
+    def prompts():
+        for idx, sample in enumerate(_maybe_tqdm(val_ds, progress)):
+            p = [instruction] if instruction else []
+            for si in ice_idx_list[idx]:
+                shot = train_ds[si]
+                p += [shot["image"],
+                      prompt_manager.gen_ice_text_with_label(shot, add_sep_token=True)]
+            p += [sample["image"], prompt_manager.gen_query_text_without_label(sample)]
+            yield sample, p
+
+    return _run_continuous(prompts(), bundle, generate_kwargs, None, n_slots, sync_steps)
 
 
 def _maybe_tqdm(it, enabled: bool):

@@ -521,3 +521,60 @@ def make_idefics_forward_fns(cfg: IdeficsConfig, eos_token_id: int):
         return forward_fn
 
     return train_forward, bind_images
+
+
+# per-slot media state the continuous-batching engine keeps for the decode
+# steps (infer/serving.py): each key's (batch axis, image axis).  JAX's dict
+# names the batch axis alone (idefics.py:675) and sizes the buffers from
+# ``jax.eval_shape``; the port sizes them from the first admission's
+# outputs, so it also names the axis whose length is the image count times
+# a per-image width (latents and image K/V: n_latents; the step one-hot: 1)
+SERVING_MEDIA_AXES = {"latents": (0, 1), "step_onehot": (0, 2), "xattn_kv": (1, 2)}
+
+
+def make_idefics_serving_fns(cfg: IdeficsConfig, eos_token_id: int):
+    """Slot-oriented ``(prefill, decode_step, SERVING_MEDIA_AXES)`` for the
+    continuous-batching engine (JAX ``make_idefics_serving_fns``,
+    idefics.py:851-933).  Unlike ``bind_images``, which closes over one
+    batch's media, these keep the media explicit, so the engine can scatter
+    it into per-slot buffers at admission and feed the whole pool at decode:
+
+    - ``prefill(params, pixels, pixel_valid, input_ids, attention_mask,
+      icv_scaled, cache_len) -> (last_logits f32 (B, V), cache, media,
+      next_pos (B,))`` encodes the images, binds them and prefills into a
+      FRESH cache of ``cache_len`` columns (the prompt bucket);
+    - ``decode_step(params, token_ids, attention_mask, positions, cache,
+      icv_scaled, media) -> (logits, cache)`` advances every slot one token
+      against its own media rows.
+    """
+
+    def prefill(params, pixel_values, pixel_valid, input_ids, attention_mask,
+                icv_scaled, cache_len):
+        latents = encode_images(cfg, params, pixel_values)
+        n_img = pixel_values.shape[1]
+        pv = pixel_valid[:, None, :].float()
+        prefill_onehot = (
+            image_attention_onehot(input_ids, cfg.image_token_id, eos_token_id, n_img) * pv
+        )
+        step_onehot = last_image_onehot(input_ids, cfg.image_token_id, n_img) * pv
+        xattn_kv = precompute_xattn_kv(cfg, params, latents)
+        positions = _positions_from_mask(attention_mask)
+        cache = init_kv_cache(cfg.text, input_ids.shape[0], cache_len, input_ids.device)
+        logits, cache = idefics_forward(
+            cfg, params, input_ids, attention_mask, latents, prefill_onehot, cache,
+            positions, icv_scaled=icv_scaled, prefill_flash=attention_mask,
+            xattn_kv=xattn_kv, last_logit_only=True,
+        )
+        media = {"latents": latents, "step_onehot": step_onehot, "xattn_kv": xattn_kv}
+        return logits[:, -1, :].float(), cache, media, positions[:, -1] + 1
+
+    def decode_step(params, token_ids, attention_mask, positions, cache, icv_scaled, media):
+        b, s = token_ids.shape
+        so = media["step_onehot"]
+        return idefics_forward(
+            cfg, params, token_ids, attention_mask, media["latents"],
+            so.expand(b, s, so.shape[-1]), cache, positions, icv_scaled=icv_scaled,
+            xattn_kv=media["xattn_kv"],
+        )
+
+    return prefill, decode_step, SERVING_MEDIA_AXES

@@ -13,7 +13,7 @@ perceiver (3 layers, 64 latents), and a Mistral decoder (GQA, 8 KV heads)
 run by ``decoder.forward_hidden``.  Each run of 64 ``<image>`` tokens is
 replaced by that image's 64 latents through a cumsum gather (HF uses
 ``masked_scatter``).  The merged-admission and serving functions of the
-JAX module (:418-597) wait for ROADMAP Queue 1 item 13.
+JAX module (:418-597) wait for ROADMAP Queue 1 item 13b.
 """
 
 from __future__ import annotations

@@ -84,22 +84,26 @@ class ModelBundle:
         return self.tokenizer.eos_token_id
 
 
+def normalize_pixels(pixels: torch.Tensor, mean, std) -> torch.Tensor:
+    """RAW uint8 pixels normalised on the device (the processor emits uint8);
+    floats pass through (already normalised by a direct-API caller)."""
+    if pixels.dtype != torch.uint8:
+        return pixels
+    m = torch.tensor(mean, dtype=torch.float32, device=pixels.device)
+    inv_std = 1.0 / torch.tensor(std, dtype=torch.float32, device=pixels.device)
+    return (pixels.float() * (1.0 / 255.0) - m) * inv_std
+
+
 def _wrap_pixel_normalize(train_forward, bind_decode, mean, std):
     """Normalise RAW uint8 pixels on the device (the processor emits uint8)."""
 
-    def norm(pixels: torch.Tensor) -> torch.Tensor:
-        if pixels.dtype != torch.uint8:
-            return pixels  # already normalised floats (direct-API callers)
-        m = torch.tensor(mean, dtype=torch.float32, device=pixels.device)
-        inv_std = 1.0 / torch.tensor(std, dtype=torch.float32, device=pixels.device)
-        return (pixels.float() * (1.0 / 255.0) - m) * inv_std
-
     def tf(model_params, inputs, icv_scaled, **kw):
-        inputs = dict(inputs, pixel_values=norm(inputs["pixel_values"]))
+        inputs = dict(inputs, pixel_values=normalize_pixels(inputs["pixel_values"], mean, std))
         return train_forward(model_params, inputs, icv_scaled, **kw)
 
     def bd(model_params, pixels, valid, ids, icv_scaled, max_len, **kw):
-        return bind_decode(model_params, norm(pixels), valid, ids, icv_scaled, max_len, **kw)
+        return bind_decode(model_params, normalize_pixels(pixels, mean, std), valid, ids,
+                           icv_scaled, max_len, **kw)
 
     return tf, bd
 

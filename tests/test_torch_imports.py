@@ -3,8 +3,8 @@ imported by ``licv_vqa_tpu_torch``, ``inference_torch.py``, ``train_torch.py``,
 ``chip_smoke.py`` or the port's tools (``tools/bench_train_step_torch.py``,
 ``tools/exp_w8a8_tuning_torch.py``, ``tools/exp_int4_unpack_torch.py``,
 ``tools/phase3_kernels_torch.py``), the modules of RICE and speculative
-decoding (``models/clip.py``, ``retrieval/rice.py``, ``infer/speculative.py``) among
-them;
+decoding (``models/clip.py``, ``retrieval/rice.py``, ``infer/speculative.py``) and
+the continuous-batching engines (``infer/serving.py``) among them;
 and the host modules the port copied give the JAX package's outputs on the
 same inputs."""
 
@@ -53,6 +53,22 @@ def test_the_sweeps_reach_the_clip_rice_and_speculative_modules():
         assert f"licv_vqa_tpu_torch.{mod}" in names, mod
         path = REPO / "licv_vqa_tpu_torch" / (mod.replace(".", "/") + ".py")
         assert path.is_file() or (path.with_suffix("") / "__init__.py").is_file(), mod
+
+
+def test_the_sweeps_reach_the_serving_engines():
+    """The import sweep and the statement check below cover the engines and
+    the runner and CLI that route ``infer_engine=continuous`` to them."""
+    import pkgutil
+
+    import licv_vqa_tpu_torch as p
+
+    names = {m.name for m in pkgutil.walk_packages(p.__path__, "licv_vqa_tpu_torch.")}
+    for mod in ("infer.serving", "infer.runner", "cli.inference"):
+        assert f"licv_vqa_tpu_torch.{mod}" in names, mod
+    from licv_vqa_tpu_torch.infer import runner, serving
+
+    assert serving.ServingEngine and serving.BeamServingEngine
+    assert runner.icv_inference_continuous and runner.icl_inference_continuous
 
 
 @pytest.mark.parametrize(

@@ -449,6 +449,9 @@ def test_quantized_cases_bound_the_functions_bytes(cases):
     # run B's 64-row prefill: attention, MLP, and the bind-time K/V
     ("int4_matmul", "(64,4096,4096) bf16 out"), ("int4_matmul", "(64,4096,11008) f32 out"),
     ("int4_matmul", "(64,11008,4096) f32 out"), ("int4_matmul", "(64,1280,4096) bf16 out"),
+    # run A's continuous engine: a decode step of its 8-row pool
+    ("int8_matmul", "(8,4096,4096) bf16 out"), ("int8_matmul", "(8,4096,11008) f32 out"),
+    ("int8_matmul", "(8,11008,4096) f32 out"), ("int8_matmul", "(8,4096,32002) f32 out"),
 ])
 def test_quantized_cases_cover_the_main_paths_shapes(cases, name, label):
     """Phase 3 holds each quantized kernel against its plain version at
@@ -559,7 +562,8 @@ def test_openflamingo_phase_counts_match_prediction_on_tiny_flamingo(tmp_path, m
 def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypatch):
     """Phase 6 on the CPU at tiny size, with the kernel wrappers counted
     where ``qdot`` calls them: every run's counts equal
-    ``predicted_quantized_launches`` (the phase checks it and raises)."""
+    ``predicted_quantized_launches`` (the phase checks it and raises), run
+    A's engine run (phase 4d (d)) included."""
     import importlib
 
     from licv_vqa_tpu_torch.models import decoder as PD
@@ -576,7 +580,11 @@ def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monke
     for mode, opts, paths in C.QUANT_RUNS:
         got = C.quantized_path(torch.device("cpu"), tmp_path / mode, mode, opts, paths,
                                lmm="tiny-idefics")
-        assert got[f"{mode}_matmul"] > 0 and got["icv_inject"] == 4 * 2 * C.MAX_NEW
+        # run A adds phase 4d (d): the engine's 2 questions in one admission
+        # and 12 decode steps (5 tokens, chunks of 4, one lagged chunk)
+        icv_engine = 4 * (1 + 12) if mode == "int8" else 0
+        assert got[f"{mode}_matmul"] > 0
+        assert got["icv_inject"] == 4 * 2 * C.MAX_NEW + icv_engine
         assert (got["w8a8_matmul"] > 0) == (mode == "int8")
 
 
@@ -763,3 +771,112 @@ def test_speculative_and_rice_phases_on_tiny_idefics(tmp_path, monkeypatch):
     got = C.rice_path(e, dev, tmp_path / "rice", cfg=ClipConfig.tiny())
     # (32 + 8) images in batches of 8, 2 tower layers
     assert got == {"vit_attention_f32": 2 * 5}
+
+
+@pytest.fixture()
+def one_thread():
+    """One intra-op thread: the tiny tensors gain nothing from more, and
+    beside the suite's other workers more only spin.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _count_engine_kernels(monkeypatch):
+    """Phase 4d's counted wrappers, with the gates of its card run opened
+    for the CPU: the fused ViT at any length, the causal flash at >= 256
+    tokens."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.models import layers as PL
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    for mod, name in ((PL, "vit_attention"), (PL, "flash_attention"), (iv, "icv_inject"),
+                      (I8, "int8_matmul")):
+        monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
+    monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
+    monkeypatch.setattr(PL, "vit_attention_usable", lambda s, dh, device: True)
+    monkeypatch.setattr(PL, "flash_attention_usable", lambda cfg, s, dh, device: s >= 256)
+
+
+def test_continuous_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypatch,
+                                                                  one_thread):
+    """Phase 4d on the CPU at tiny size (tiny-idefics; its bf16 card run's
+    gates opened for the CPU: the fused ViT at any length, the causal flash
+    at >= 256 tokens): in (a)-(c) the ICV, fused ViT and causal flash counts
+    equal ``predicted_engine_launches`` and the tokens the static path's
+    (the phase checks both and raises); the 32-shot requests of (c) take the
+    flash route.  Then (d) on the int8 build of run A's options: the int8
+    launches at the pool's 8 rows equal the decode steps times the per-step
+    term.  Last, the static beam search's decision margin, which the beam
+    near-tie rule reads where tokens differ, is a finite f32 gap."""
+    _count_engine_kernels(monkeypatch)
+    _stub_cuda(monkeypatch, tmp_path)
+    monkeypatch.setattr(C, "CONT_ICL_SHOTS", (1, 32))  # (c) cut to one of each bucket
+    dev = torch.device("cpu")
+    e = C.eval_setup(dev, tmp_path / "eval", [], lmm="tiny-idefics")
+    got = C.continuous_path(e)
+    assert got["icv_inject"] > 0 and got["icv_inject"] % 4 == 0
+    assert got["vit_attention"] > 0 and got["vit_attention"] % 2 == 0
+    # (c)'s 32-shot request: one group of a bucket >= 256, 4 layers
+    assert got["flash_attention_fwd"] == 4
+
+    mode, opts, _ = C.QUANT_RUNS[0]
+    e8 = C.eval_setup(dev, tmp_path / mode, opts, lmm="tiny-idefics")
+    got8 = C.continuous_int8(e8, opts)
+    assert got8["icv_inject"] > 0 and got8["flash_attention_fwd"] == 0
+
+    margin = C.beam_min_margin(e, e.gen_kwargs, C.icv_prompt(e, 1), e.icv_scaled)
+    assert 0.0 <= margin < float("inf")
+
+
+def test_continuous_phase_tie_rules_on_an_altered_static_decode(tmp_path, monkeypatch, capsys,
+                                                                one_thread):
+    """Phase 4d's token rules where the static tokens differ (on tiny f32,
+    engine and static agree, so the static decode of question 0 is altered
+    at its second token): the greedy and beam rules read the static
+    decode's gap or decision margin there and either count a near tie or
+    refuse; the int8 rule refuses it (no static batch drift in f32), and
+    prints the engine's logits for that token equal to the static decode's
+    along the same first token."""
+    _count_engine_kernels(monkeypatch)
+    _stub_cuda(monkeypatch, tmp_path)
+    dev = torch.device("cpu")
+    real = C.decoded_tokens
+
+    def altered(*a, **kw):
+        out = real(*a, **kw)
+        out[0] = out[0].clone()
+        out[0][1] = (out[0][1] + 1) % 100
+        return out
+
+    e = C.eval_setup(dev, tmp_path / "eval", [], lmm="tiny-idefics")
+    prompts = [C.icv_prompt(e, q) for q in (1, 2)]
+    for kw in (dict(e.gen_kwargs, num_beams=1), e.gen_kwargs):
+        static = real(e, kw, prompts, e.icv_scaled)
+        engine = altered(e, kw, prompts, e.icv_scaled)
+        try:
+            if kw["num_beams"] == 1:
+                n = C.near_tie_check(e, "greedy", prompts, static, engine, e.icv_scaled)
+            else:
+                n = C.beam_near_tie_check(e, "beam", kw, prompts, static, engine, e.icv_scaled)
+        except AssertionError as err:
+            assert "near tie" in str(err)
+        else:
+            assert n == 1
+    assert "question 0 differs" in capsys.readouterr().out
+
+    mode, opts, _ = C.QUANT_RUNS[0]
+    e8 = C.eval_setup(dev, tmp_path / mode, opts, lmm="tiny-idefics")
+    monkeypatch.setattr(C, "decoded_tokens", altered)
+    with pytest.raises(AssertionError, match="batch drift"):
+        C.continuous_int8(e8, opts)
+    out = capsys.readouterr().out
+    line = next(x for x in out.splitlines() if "continuous int8: question 0 differs" in x)
+    # in f32 the static batch drift is nil, and the engine's logits for the
+    # token are the static decode's along the same first token
+    assert float(line.split("max-abs ")[1].split(",")[0]) < 1e-4
+    assert float(line.split("the engine's: rel. L2 ")[1].split(";")[0]) < 1e-5
