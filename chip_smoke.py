@@ -149,7 +149,24 @@ Phases (any failure exits non-zero before the result lines):
    Prints s/question beside the static path's, tokens/s, peak memory, the
    admissions, the decode steps and the synchronizing CUDA calls that
    ``torch.cuda.set_sync_debug_mode("warn")`` reports inside decode chunks
-   (predicted 0; a finding, not a failure);
+   (predicted 0; a finding, not a failure); and 4e: the pooled beam eval
+   chain (``infer/eval_chain.py``) through ``icv_inference_pooled`` /
+   ``icl_inference_pooled`` on the same model: (a) ``test_icv`` beam-3 on
+   ``POOLED_ICV_Q`` (8) questions in chunks of ``POOL_QUESTIONS`` (4), then
+   in one chunk of 8, (b)
+   ``test_icl`` on ``CONT_ICL_SHOTS`` (one chain a bucket; the 32-shot
+   bucket's prefill lane takes the causal flash kernel), each run twice,
+   the second's ICV, fused ViT and causal flash counts held to
+   ``predicted_pooled_launches`` (a chain of n questions: one prologue
+   prefill and n + P merged forwards, P = max_new − 1; the ICV 32 x (1 +
+   2 x merged forwards) in ``test_icv``), its tokens to the static beam's
+   under the beam near-tie rule, printing s/question beside the static
+   beam's and 4d (a)'s beam engine's, ms a merged forward (CUDA events
+   around each), peak memory and the synchronizing calls inside the
+   chains (predicted 0); (c) ``test_icv`` greedy on 4 questions through
+   ``MERGED_SLOTS`` (3) slots with merged admission
+   (``merged_admit_in_run``) and then plain, each as a 4d configuration,
+   merged admission on every admission into an occupied pool;
 5. the training path at Idefics-9B full width, through the port's train
    CLI (``licv_vqa_tpu_torch.cli.train.main``) on a synthetic VQAv2 split
    written to a temporary directory: ``trainer=debug`` (4 micro-steps, 2
@@ -183,7 +200,10 @@ Phases (any failure exits non-zero before the result lines):
    rule) and one ``test_icv`` greedy run through the engine with 8 slots
    (``continuous_int8``, phase 4d (d): the int8 kernel's launches at M = 8
    rows against the decode steps times ``predicted_quantized_launches``'s
-   per-step term, the other counts and the tokens as in 4d).  Prints ms
+   per-step term, the other counts and the tokens as in 4d) and one chain
+   of 4 ``test_icv`` questions through the pooled schedule with w8a8 off
+   (``pooled_int8``, phase 4e (d): the int8 and w8a8 launches against
+   ``predicted_pooled_launches``, the tokens as in 4e).  Prints ms
    per question, peak memory and a
    profile of one ``test_icv`` question (device busy share, device time by
    kernel), and holds the test_icv prompt's prefill and first-step logits
@@ -1633,8 +1653,12 @@ def icl_prompt(e: EvalSetup, q: int, shots: list) -> list:
 
 def icv_prompt(e: EvalSetup, q: int) -> list:
     """The zero-shot prompt as ``icv_inference`` builds it."""
+    return row_prompt(e, e.val[q])
+
+
+def row_prompt(e: EvalSetup, row: dict) -> list:
     p = [e.instruction] if e.instruction else []
-    return p + [e.val[q]["image"], e.pm.gen_query_text_without_label(e.val[q])]
+    return p + [row["image"], e.pm.gen_query_text_without_label(row)]
 
 
 def vit_per_bind(vc, dev) -> int:
@@ -1786,13 +1810,14 @@ def main_path(dev, tmp: Path) -> dict:
     spec = speculative_path(e, dev, peak)
     rice = rice_path(e, dev, tmp)
     cont = continuous_path(e)
+    pooled = pooled_path(e, cont["beam_s_per_q"])
     return {
         "icv_inject": (counts["icv_inject", "test_icv"] + counts["icv_inject", "test_icl"]
-                       + spec["icv_inject"] + cont["icv_inject"]),
+                       + spec["icv_inject"] + cont["icv_inject"] + pooled["icv_inject"]),
         "flash_attention_fwd": (counts["flash", "test_icv"] + counts["flash", "test_icl"]
-                                + cont["flash_attention_fwd"]),
+                                + cont["flash_attention_fwd"] + pooled["flash_attention_fwd"]),
         "vit_attention": counts["vit", "test_icv"] + counts["vit", "test_icl"]
-        + spec["vit_attention"] + cont["vit_attention"],
+        + spec["vit_attention"] + cont["vit_attention"] + pooled["vit_attention"],
         "vit_attention_f32": rice["vit_attention_f32"],
     }
 
@@ -2202,6 +2227,36 @@ def beam_near_tie_check(e: EvalSetup, tag: str, gen_kwargs: dict, prompts: list,
     return n
 
 
+def counted_run(e: EvalSetup, run, counters: dict, spy_cm) -> tuple:
+    """``run()`` once to warm up, then once counted and timed inside the
+    spy ``spy_cm()``: ``(results, wall s, launches, peak GiB, the spy)``."""
+    import torch
+
+    dev = e.bundle.device
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    with spy_cm() as spy:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    return res, wall, counts, torch.cuda.max_memory_allocated(dev) / 2**30, spy
+
+
+def timed_static(e: EvalSetup, gen_kwargs: dict, prompts: list, icv_scaled) -> tuple:
+    """The static path's tokens of ``prompts`` at bs 1 and its s/question."""
+    import torch
+
+    t0 = time.perf_counter()
+    static = decoded_tokens(e, gen_kwargs, prompts, icv_scaled)
+    torch.cuda.synchronize()
+    return static, (time.perf_counter() - t0) / len(prompts)
+
+
 def engine_run(e: EvalSetup, tag: str, run, prompts: list, gen_kwargs: dict, icv_scaled,
                counters: dict, check=None) -> dict:
     """One configuration of phase 4d: ``run()`` (a runner entry point) once
@@ -2210,30 +2265,13 @@ def engine_run(e: EvalSetup, tag: str, run, prompts: list, gen_kwargs: dict, icv
     and the near-tie rule (``check(static, engine)``, which returns the
     number of questions that differ, in its place where given).  Returns
     the counted run's launches, the engine and its tokens."""
-    import torch
-
     b = e.bundle
-    dev = b.device
-    run()  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters.values():
-        fn.launches = 0
-    with engine_spy() as spy:
-        t0 = time.perf_counter()
-        res = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    counts = {k: fn.launches for k, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    res, wall, counts, peak, spy = counted_run(e, run, counters, engine_spy)
     step_ms = spy.step_ms()
     (engine, out), = spy.runs
-    want = predicted_engine_launches(b.model_cfg, engine, icv_scaled is not None, dev)
+    want = predicted_engine_launches(b.model_cfg, engine, icv_scaled is not None, b.device)
     n = len(prompts)
-    t0 = time.perf_counter()
-    static = decoded_tokens(e, gen_kwargs, prompts, icv_scaled)
-    torch.cuda.synchronize()
-    static_s = (time.perf_counter() - t0) / n
+    static, static_s = timed_static(e, gen_kwargs, prompts, icv_scaled)
     tokens = engine_tokens(out, n, b.pad_token_id)
     n_tok = sum(len(x) for x in out.values())
     step = ("not measured (no card)" if step_ms is None
@@ -2259,7 +2297,8 @@ def engine_run(e: EvalSetup, tag: str, run, prompts: list, gen_kwargs: dict, icv
         ties = near_tie_check(e, tag, prompts, static, tokens, icv_scaled)
     log(f"{tag} tokens: {n - ties} of {n} requests equal the static path's, {ties} differ "
         f"at a near tie")
-    return {"counts": counts, "engine": engine, "tokens": out}
+    return {"counts": counts, "engine": engine, "tokens": out, "s_per_q": wall / n,
+            "static_s_per_q": static_s}
 
 
 def continuous_path(e: EvalSetup) -> dict:
@@ -2294,6 +2333,7 @@ def continuous_path(e: EvalSetup) -> dict:
         got = engine_run(e, tag, run, prompts, kw, icv, counters)
         for k, v in got["counts"].items():
             total[k] += v
+        total.setdefault("beam_s_per_q", got["s_per_q"])  # (a)'s, for phase 4e
     return total
 
 
@@ -2404,6 +2444,293 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
         raise AssertionError("continuous int8: int8 kernel launches in the decode chunks off "
                              "the decode steps")
     return got["counts"]
+
+
+# phase 4e: the pooled beam eval chain (infer_engine=pooled) and merged
+# admission on phase 4's model; (d) on run A's int8 model in phase 6.  (a)
+# runs POOLED_ICV_Q questions in chunks of POOL_QUESTIONS
+POOL_QUESTIONS = 4
+POOLED_ICV_Q = 8
+MERGED_SLOTS = 3  # 4 requests through 3 slots: two admissions find the pool occupied
+
+
+@contextlib.contextmanager
+def chain_spy():
+    """Records each pooled chain the runner makes and calls: its (questions,
+    bucket, images a question), its prompts (host copies, taken before the
+    chain runs) and answers; brackets each merged forward with CUDA events
+    (``merged_ms``: their mean interval, after a synchronize) and counts
+    the synchronizing CUDA calls that ``set_sync_debug_mode("warn")``
+    reports inside a chain (the first one's source line kept)."""
+    import warnings
+
+    import torch
+
+    from licv_vqa_tpu_torch.infer import eval_chain as EC
+
+    spy = SimpleNamespace(chains=[], outputs=[], merged=0, events=[], syncs=0, first_sync=None)
+    make = EC._make_pooled_chain
+
+    def merged_ms():
+        if not spy.events:
+            return None
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spy.events) / len(spy.events)
+
+    spy.merged_ms = merged_ms
+
+    def spied_make(text_cfg, prefill, merged, axes, **kw):
+        def timed_merged(*a):
+            spy.merged += 1
+            if a[1].device.type != "cuda":
+                return merged(*a)
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = merged(*a)
+            end.record()
+            spy.events.append((start, end))
+            return out
+
+        chain = make(text_cfg, prefill, timed_merged, axes, **kw)
+
+        def spied_chain(params, ids, mask, pixels, valid, icv):
+            spy.chains.append((ids.shape[0], ids.shape[-1], pixels.shape[2]))
+            host = (ids.cpu(), mask.cpu())
+            if ids.device.type != "cuda":
+                out = chain(params, ids, mask, pixels, valid, icv)
+            else:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        out = chain(params, ids, mask, pixels, valid, icv)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+                spy.syncs += len(syncs)
+                if syncs and spy.first_sync is None:
+                    spy.first_sync = f"{syncs[0].filename}:{syncs[0].lineno}: {syncs[0].message}"
+            spy.outputs.append((*host, out))
+            return out
+
+        return spied_chain
+
+    EC._make_pooled_chain = spied_make
+    try:
+        yield spy
+    finally:
+        EC._make_pooled_chain = make
+
+
+def predicted_pooled_launches(mc, chains: list, with_icv: bool, dev, opts=None,
+                              beams: int = 3) -> dict:
+    """The ICV, fused ViT and causal flash launches of the pooled chains
+    ``chains`` ((questions, bucket, images) each), and with ``opts`` (an
+    int8 build's lmm options) the int8 and w8a8 ones.  A chain of n
+    questions runs one prologue prefill and n + P merged forwards (P =
+    max_new − 1), each of them a bind (the tower's layers once) and a
+    prefill lane; the ICV enters every layer of the prologue and of both
+    lanes of every merged forward, the causal flash every layer of each
+    where the bucket passes the flash gate.  Int8 (``quant_routes``): the
+    prologue as ``predicted_quantized_launches``'s prefill; a merged
+    forward packs the decoder's 7 projections a layer over P·K + bucket
+    rows, weight-only; its cross-attention blocks run per lane (P·K rows at
+    one token, the bucket's rows at the bucket's tokens); its bind as the
+    prologue's; the int8 head once over P·K + 1 rows."""
+    from licv_vqa_tpu_torch.models import layers as L
+
+    t, v, pc = mc.text, mc.vision, mc.perceiver
+    p = MAX_NEW - 1
+    rows_d = p * beams
+    groups = t.n_layers // mc.cross_layer_interval
+    vit = vit_per_bind(v, dev)
+    out = dict.fromkeys(("icv_inject", "vit_attention", "flash_attention_fwd"), 0)
+    if opts is not None:
+        out.update(int8_matmul=0, w8a8_matmul=0)
+        takes, w8a8 = quant_routes(opts)
+    for n, bucket, n_img in chains:
+        merged = n + p
+        out["vit_attention"] += vit * (1 + merged)
+        out["flash_attention_fwd"] += t.n_layers * (1 + merged) * L.flash_attention_usable(
+            t, bucket, t.head_dim, dev)
+        if with_icv:
+            out["icv_inject"] += t.n_layers * (1 + 2 * merged)
+        if opts is None:
+            continue
+        pro = predicted_quantized_launches(mc, "int8", opts, 1, bucket, n_img, beams, 1)
+
+        def xattn(rows, tokens):  # a cross-attention block: wq wo gate up, down
+            return 4 * takes(rows, tokens, t.d_model, True) + takes(rows, tokens, t.d_ff, True)
+
+        n_k, packed = n_img * pc.n_latents, rows_d + bucket
+        int8 = (t.n_layers * (6 * takes(packed, None, t.d_model, True)
+                              + takes(packed, None, t.d_ff, True))
+                + groups * (xattn(rows_d, 1) + xattn(bucket, bucket))
+                + 2 * groups * takes(n_k, n_k, pc.d_model, True))
+        a8 = groups * 5 * w8a8(bucket, True) + 2 * groups * w8a8(n_k, True)
+        if "lmm.quantize_head=true" in opts:
+            int8 += takes(rows_d + 1, 1, t.d_model, True)
+        if "lmm.quantize_vision=true" in opts:
+            lat, np_ = pc.n_latents, v.n_patches
+            int8 += (v.n_layers * 6 * takes(n_img * np_, None, v.d_model, True)
+                     + pc.n_layers * (4 * takes(n_img * lat, lat, pc.d_model, True)
+                                      + 2 * takes(n_img * (lat + np_), lat + np_, pc.d_model,
+                                                  True)))
+            a8 += pc.n_layers * (4 * w8a8(lat, True) + 2 * w8a8(lat + np_, True))
+        out["int8_matmul"] += pro["int8_matmul"] + merged * int8
+        out["w8a8_matmul"] += pro["w8a8_matmul"] + merged * a8
+    return out
+
+
+def chain_tokens(e: EvalSetup, spy, prompts: list) -> list:
+    """Each prompt's tokens from the chain that answered it: the chain row
+    whose unpadded ids are the prompt's (padding repeats of a question
+    answer as it does)."""
+    import torch
+
+    out = []
+    for prompt in prompts:
+        enc = e.bundle.processor.prepare_input([prompt], padding=True, padding_side="left")
+        want = torch.from_numpy(enc["input_ids"][0][enc["attention_mask"][0] > 0].astype("int64"))
+        for ids, mask, toks in spy.outputs:
+            hit = [r for r in range(ids.shape[0]) if torch.equal(
+                ids[r, 0][mask[r, 0] > 0].long(), want)]
+            if hit:
+                out.append(toks[hit[0], 0].cpu().long())
+                break
+        else:
+            raise AssertionError("pooled: a question no chain answered")
+    return out
+
+
+def pooled_run(e: EvalSetup, tag: str, run, prompts: list, icv_scaled, counters: dict,
+               opts=None, beam_s=None) -> dict:
+    """One configuration of phase 4e: ``run()`` (a runner entry point) once
+    to warm up, then once counted and timed; its launches against
+    ``predicted_pooled_launches``; the static beam path's tokens at bs 1
+    (timed) under the beam near-tie rule.  Returns the launches."""
+    b = e.bundle
+    res, wall, counts, peak, spy = counted_run(e, run, counters, chain_spy)
+    merged_ms = spy.merged_ms()
+    want = predicted_pooled_launches(b.model_cfg, spy.chains, icv_scaled is not None, b.device,
+                                     opts)
+    n = len(prompts)
+    static, static_s = timed_static(e, e.gen_kwargs, prompts, icv_scaled)
+    tokens = chain_tokens(e, spy, prompts)
+    fwd = ("not measured (no card)" if merged_ms is None
+           else f"{merged_ms:.2f} ms (CUDA events around each)")
+    engine = "" if beam_s is None else f", 4d's beam engine {beam_s:.3f}"
+    first = f", the first at {spy.first_sync}" if spy.first_sync else ""
+    log(f"{tag}: {n} questions, {wall / n:.3f} s/question (static beam bs=1 {static_s:.3f}"
+        f"{engine}); chains (questions, bucket, images) {spy.chains}, {spy.merged} merged "
+        f"forwards, a merged forward {fwd}; launches {counts} (predicted {want}); peak "
+        f"device memory {peak:.2f} GiB; synchronizing CUDA calls inside the chains "
+        f"{spy.syncs} (predicted 0){first}")
+    log(f"{tag} predictions {[r['prediction'] for r in res.values()]}")
+    if len(res) != n or not all(isinstance(r["prediction"], str) for r in res.values()):
+        raise AssertionError(f"{tag}: malformed results {res}")
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"{tag}: {k} launched {counts[k]} != {v}")
+    ties = beam_near_tie_check(e, tag, e.gen_kwargs, prompts, static, tokens, icv_scaled)
+    log(f"{tag} tokens: {n - ties} of {n} questions equal the static beam's, {ties} differ "
+        f"at a near tie")
+    return counts
+
+
+def pooled_path(e: EvalSetup, beam_s: float) -> dict:
+    """Phase 4e (a)-(c) on phase 4's Idefics-9B; ``beam_s`` is 4d (a)'s
+    s/question.  Returns the launch counts."""
+    from licv_vqa_tpu_torch.infer.runner import (
+        icl_inference_pooled,
+        icv_inference_continuous,
+        icv_inference_pooled,
+    )
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    b = e.bundle
+    counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
+                "flash_attention_fwd": L.flash_attention}
+    rows = e.val[1:] + synthetic_vqa(POOLED_ICV_Q - len(e.val) + 1, 200, seed=5)
+    icv_prompts = [row_prompt(e, r) for r in rows]
+    icl_rows = [e.val[q % len(e.val)] for q in range(len(CONT_ICL_SHOTS))]
+    icl_shots = [list(range(q, q + n)) for q, n in enumerate(CONT_ICL_SHOTS)]
+    icl_prompts = [icl_prompt(e, q % len(e.val), s) for q, s in enumerate(icl_shots)]
+    total = dict.fromkeys(counters, 0)
+    for tag, prompts, icv, run in (
+        (f"pooled beam-3 test_icv, chunks of {POOL_QUESTIONS}", icv_prompts, e.icv_scaled,
+         lambda: icv_inference_pooled(rows, b, e.pm, e.gen_kwargs, e.instruction,
+                                      e.icv_scaled, False, POOL_QUESTIONS)),
+        # the same questions in one chain: P + 1 fewer forwards of warm-up
+        # and drain
+        (f"pooled beam-3 test_icv, one chunk of {POOLED_ICV_Q}", icv_prompts, e.icv_scaled,
+         lambda: icv_inference_pooled(rows, b, e.pm, e.gen_kwargs, e.instruction,
+                                      e.icv_scaled, False, POOLED_ICV_Q)),
+        (f"pooled beam-3 test_icl {CONT_ICL_SHOTS} shots", icl_prompts, None,
+         lambda: icl_inference_pooled(e.train, icl_rows, icl_shots, b, e.pm, e.gen_kwargs,
+                                      e.instruction, False, POOL_QUESTIONS)),
+    ):
+        got = pooled_run(e, tag, run, prompts, icv, counters, beam_s=beam_s)
+        for k, v in got.items():
+            total[k] += v
+
+    # (c) the greedy engine with merged admission, against plain admission
+    greedy_kw = dict(e.gen_kwargs, num_beams=1)
+    prompts, rows4 = icv_prompts[:N_ICV_Q], rows[:N_ICV_Q]
+    s_per_q = {}
+    for merged in (True, False):
+        tag = f"{'merged' if merged else 'plain'} admission greedy test_icv, {MERGED_SLOTS} slots"
+        got = engine_run(e, tag, lambda m=merged: icv_inference_continuous(
+            rows4, b, e.pm, greedy_kw, e.instruction, e.icv_scaled, False, MERGED_SLOTS,
+            merged_admit_in_run=m), prompts, greedy_kw, e.icv_scaled, counters)
+        eng = got["engine"]
+        log(f"{tag}: merged_admits {eng.merged_admits} of {len(eng.admissions)} admissions")
+        if merged != (eng.merged_admits > 0):
+            raise AssertionError(f"{tag}: merged_admits {eng.merged_admits}")
+        s_per_q[merged] = got["s_per_q"]
+        for k, v in got["counts"].items():
+            total[k] += v
+    log(f"merged admission: {s_per_q[True]:.3f} s/question against plain admission's "
+        f"{s_per_q[False]:.3f} ({MERGED_SLOTS} slots, {N_ICV_Q} greedy test_icv questions)")
+    return total
+
+
+def pooled_int8(e: EvalSetup, opts: list) -> dict:
+    """Phase 4e (d) on run A's int8 model (int8 weights, head and tower, the
+    int8 KV cache), ``N_ICV_Q`` ``test_icv`` questions in one chunk.  The
+    merged forward is weight-only where the static prefill under
+    ``lmm.w8a8_prefill`` takes w8a8, so both run here on a view of the
+    bundle with w8a8 off (the same int8 weights; the bind rebuilt from the
+    configuration): a question then differs from the static beam only at
+    a near tie.  The int8 launches against ``predicted_pooled_launches``
+    (the packed projections' P·K + bucket rows pass ``KERNEL_MAX_ROWS`` and
+    take the scale-on-output route)."""
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
+    from licv_vqa_tpu_torch.infer.runner import icv_inference_pooled
+    from licv_vqa_tpu_torch.models import idefics as I
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    b = e.bundle
+    mc = b.model_cfg
+    mc = dataclasses.replace(mc, text=dataclasses.replace(mc.text, w8a8_prefill=False))
+    _, bind = _wrap_pixel_normalize(*I.make_idefics_forward_fns(mc, b.eos_token_id),
+                                    CLIP_MEAN, CLIP_STD)
+    e = dataclasses.replace(e, bundle=dataclasses.replace(b, model_cfg=mc, bind_decode=bind))
+    opts = [o for o in opts if o != "lmm.w8a8_prefill=true"]
+    counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
+                "flash_attention_fwd": L.flash_attention, "int8_matmul": I8.int8_matmul,
+                "w8a8_matmul": I8.w8a8_matmul}
+    rows = e.val[1: 1 + N_ICV_Q]
+    return pooled_run(
+        e, "pooled int8 beam-3 test_icv (w8a8 off)",
+        lambda: icv_inference_pooled(rows, e.bundle, e.pm, e.gen_kwargs, e.instruction,
+                                     e.icv_scaled, False, N_ICV_Q),
+        [row_prompt(e, r) for r in rows], e.icv_scaled, counters, opts)
 
 
 @contextlib.contextmanager
@@ -2662,6 +2989,31 @@ QUANT_RUNS = (
 )
 
 
+def quant_routes(opts: list) -> tuple:
+    """``(takes, w8a8)`` under the lmm options ``opts``, from ``qdot``'s
+    routes: ``takes(rows, tokens, k, int8)`` is 1 if one matmul of ``rows``
+    rows in a block of ``tokens`` tokens (None: a weight-only call, never
+    w8a8) with ``k`` in-features launches the int8 (``int8``) or int4
+    kernel, and ``w8a8(tokens, int8)`` 1 if it takes w8a8."""
+    from licv_vqa_tpu_torch.models.decoder import W8A8_MIN_TOKENS
+    from licv_vqa_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
+    from licv_vqa_tpu_torch.ops.quantize import _int4_group
+
+    a8 = "lmm.w8a8_prefill=true" in opts
+
+    def w8a8(tokens, int8: bool) -> int:
+        return int(int8 and a8 and tokens is not None and tokens >= W8A8_MIN_TOKENS)
+
+    def takes(rows: int, tokens, k: int, int8: bool) -> int:
+        if rows > KERNEL_MAX_ROWS or w8a8(tokens, int8):
+            return 0
+        if int8:
+            return 1
+        return int((k // 2) % _int4_group(k) == 0)
+
+    return takes, w8a8
+
+
 def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: int,
                                  n_img: int, beams: int, max_new: int) -> dict:
     """Launches of the int8, w8a8 and int4 kernels in ONE generate (bs
@@ -2685,27 +3037,7 @@ def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: i
     (``quantize_vision``) runs 6 projections per layer on bs·n_img·n_patches
     rows; the perceiver 4 per block on its latents (bs·n_img·n_latents rows,
     n_latents tokens) and 2 on latents and patches together."""
-    from licv_vqa_tpu_torch.models.decoder import W8A8_MIN_TOKENS
-    from licv_vqa_tpu_torch.ops.int8_matmul import KERNEL_MAX_ROWS
-    from licv_vqa_tpu_torch.ops.quantize import _int4_group
-
-    a8 = "lmm.w8a8_prefill=true" in opts
-
-    def w8a8(tokens, int8: bool) -> int:
-        """1 if one matmul in a block of ``tokens`` tokens (None: never
-        w8a8) takes w8a8."""
-        return int(int8 and a8 and tokens is not None and tokens >= W8A8_MIN_TOKENS)
-
-    def takes(rows: int, tokens, k: int, int8: bool) -> int:
-        """1 if one matmul of ``rows`` rows, a block of ``tokens`` tokens
-        (None: never w8a8) and ``k`` in-features launches the int8 or int4
-        kernel."""
-        if rows > KERNEL_MAX_ROWS or w8a8(tokens, int8):
-            return 0
-        if int8:
-            return 1
-        return int((k // 2) % _int4_group(k) == 0)
-
+    takes, w8a8 = quant_routes(opts)
     t, v, p = mc.text, mc.vision, mc.perceiver
     groups = t.n_layers // mc.cross_layer_interval
     int8 = mode == "int8"
@@ -2815,6 +3147,8 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     if mode == "int8":
         total["int8_matmul"] += speculative_int8(e)["int8_matmul"]
         for k, v in continuous_int8(e, opts).items():
+            total[k] += v
+        for k, v in pooled_int8(e, opts).items():
             total[k] += v
     if dev.type == "cuda":
         profile_question(lambda: runs["icv"][0](e.val[1:2]), f"{mode} test_icv")

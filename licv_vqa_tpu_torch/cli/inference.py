@@ -15,15 +15,18 @@ encoder under ``$CLIP_CPK_DIR``, else ``HashEncoder``), and
 layer-truncated draft (``infer/speculative.py``).
 ``infer_engine=continuous`` runs ``test_icv`` and ``test_icl`` through the
 continuous-batching engines (``infer/serving.py``: greedy, or beam groups;
-``bs`` slots; Idefics only).  The JAX CLI's mesh (``infer_dp``/``infer_tp``),
-its pooled engine (``infer_engine=pooled``) and continuous serving of the
-other families are not ported yet and raise.
+``bs`` slots; Idefics only); ``infer_engine=pooled`` through the pooled beam
+schedule (``infer/eval_chain.py``: chunks of ``infer_pool`` questions,
+default 32; beam search only; Idefics-9B's family only).  The JAX CLI's
+mesh (``infer_dp``/``infer_tp``) and the other families' continuous and
+pooled engines are not ported yet and raise.
 
 Examples:
     python inference_torch.py run_name=vqav2_idefics9b test_icv=true
     python inference_torch.py test_icl=true few_shot_list='[4,8]' device=cpu
     python inference_torch.py test_icl=true use_rice=true few_shot_list='[4]'
     python inference_torch.py test_icv=true infer_engine=continuous bs=8
+    python inference_torch.py test_icv=true test_icl=true infer_engine=pooled infer_pool=32
 """
 
 from __future__ import annotations
@@ -40,8 +43,10 @@ from ..api import init_dataset, init_prompt_manager
 from ..infer.runner import (
     icl_inference,
     icl_inference_continuous,
+    icl_inference_pooled,
     icv_inference,
     icv_inference_continuous,
+    icv_inference_pooled,
 )
 from ..metrics import compute_cider, compute_vqa_accuracy
 from ..models.registry import build_model
@@ -69,15 +74,18 @@ def resolve_device(name) -> torch.device:
 def _not_ported(cfg) -> None:
     engine = str(cfg.get("infer_engine", "static"))
     name = str(cfg.lmm.name)
+    served = engine in ("continuous", "pooled")
     checks = (
         (int(cfg.get("infer_dp", 1)) != 1 or int(cfg.get("infer_tp", 1)) != 1,
          "infer_dp/infer_tp (the serving mesh)", "Queue 1 item 16"),
-        (engine == "pooled", "infer_engine=pooled (the pooled eval chain)", "Queue 1 item 14"),
         (engine == "continuous" and "idefics2" in name,
          f"infer_engine=continuous with lmm {name} (Idefics2's serving functions)",
          "Queue 1 item 13b"),
-        (engine == "continuous" and "flamingo" in name.lower(),
-         f"infer_engine=continuous with lmm {name} (OpenFlamingo's serving functions)",
+        (engine == "pooled" and "idefics2" in name,
+         f"infer_engine=pooled with lmm {name} (Idefics2's serving and merged-admission "
+         "functions)", "Queue 1 item 14b, with item 13b"),
+        (served and "flamingo" in name.lower(),
+         f"infer_engine={engine} with lmm {name} (OpenFlamingo's serving functions)",
          "Queue 1 item 22"),
     )
     for bad, what, item in checks:
@@ -183,19 +191,29 @@ def main(argv: list[str] | None = None):
         metric_file_path.write_text(json.dumps(result_dict, indent=4))
 
     # infer_engine=continuous: the slot-based engines (greedy pools, beam
-    # group pools; ``bs`` slots); the default stays static
-    continuous = str(cfg.get("infer_engine", "static")) == "continuous"
-    if continuous and int(gen_kwargs.get("num_beams", 1)) > 1 and float(
+    # group pools; ``bs`` slots); pooled: the pooled beam schedule
+    # (``infer_pool`` questions a chunk); the default stays static
+    engine = str(cfg.get("infer_engine", "static"))
+    continuous, pooled = engine == "continuous", engine == "pooled"
+    pool_questions = int(cfg.get("infer_pool", 32))
+
+    if (continuous or pooled) and int(gen_kwargs.get("num_beams", 1)) > 1 and float(
             gen_kwargs.get("length_penalty", 0.0)) != 0.0:
         logger.warning(
-            "infer_engine=continuous with num_beams>1 and length_penalty=%s: the engine "
-            "uses the true prompt length as the lp divisor (matches an unpadded bs=1 HF "
-            "run); the static path uses the padded batch length — predictions may differ "
-            "between engines", gen_kwargs.get("length_penalty"),
+            "infer_engine=%s with num_beams>1 and length_penalty=%s: the lp divisor "
+            "counts the true prompt length (continuous: an unpadded bs=1 HF run) or its "
+            "64-multiple bucket (pooled); the static path uses the padded batch length — "
+            "predictions may differ between engines", engine, gen_kwargs.get("length_penalty"),
         )
 
     if cfg.test_icv:
-        if continuous:
+        if pooled:
+            results = icv_inference_pooled(
+                val_ds, bundle, prompt_manager, generate_kwargs=gen_kwargs,
+                instruction=str(cfg.prompt.instruction), icv_scaled=icv_scaled,
+                pool_questions=pool_questions,
+            )
+        elif continuous:
             results = icv_inference_continuous(
                 val_ds, bundle, prompt_manager, generate_kwargs=gen_kwargs,
                 instruction=str(cfg.prompt.instruction), icv_scaled=icv_scaled,
@@ -229,7 +247,13 @@ def main(argv: list[str] | None = None):
             else:
                 pool = list(range(len(train_ds)))
                 ice_idx_list = [random.sample(pool, int(shot_num)) for _ in range(len(val_ds))]
-            if continuous:
+            if pooled:
+                results = icl_inference_pooled(
+                    train_ds, val_ds, ice_idx_list, bundle, prompt_manager,
+                    generate_kwargs=gen_kwargs, instruction=str(cfg.prompt.instruction),
+                    pool_questions=pool_questions,
+                )
+            elif continuous:
                 results = icl_inference_continuous(
                     train_ds, val_ds, ice_idx_list, bundle, prompt_manager,
                     generate_kwargs=gen_kwargs, instruction=str(cfg.prompt.instruction),

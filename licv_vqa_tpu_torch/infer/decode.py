@@ -143,6 +143,11 @@ def _topk_2k_two_stage(cand: torch.Tensor, b: int, k: int, vocab: int):
     return top_scores, src_beam, token
 
 
+def _f32(x, device) -> torch.Tensor:
+    """A 0-d f32 tensor made on ``device`` (a fill, no copy from the host)."""
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``take_along_axis(x, idx[:, :, None], axis=1)`` for (B, N, T) x."""
     return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[-1]))
@@ -154,11 +159,20 @@ def beam_transition(
     min_new_tokens: int,
 ):
     """One beam-search transition from the current step's logprobs: update
-    the finished pool and select the K live continuations (no forward)."""
+    the finished pool and select the K live continuations (no forward).
+    ``t``, the step, is a host int, or a (B,) int tensor of each batch
+    item's own step (the pooled eval chain's groups, ``infer/eval_chain.py``),
+    which the host never reads."""
     b, k = live_scores.shape
     vocab = last_logp.shape[-1]
+    dev = live_scores.device
+    per_row = isinstance(t, torch.Tensor)
     logp = last_logp
-    if t < min_new_tokens:
+    if per_row and min_new_tokens > 0:
+        logp = logp.clone()
+        logp[..., eos_token_id] = torch.where((t < min_new_tokens)[:, None], NEG_INF,
+                                              logp[..., eos_token_id])
+    elif not per_row and t < min_new_tokens:
         logp = logp.clone()
         logp[..., eos_token_id] = NEG_INF
     cand = live_scores[:, :, None] + logp  # (B, K, V)
@@ -166,15 +180,24 @@ def beam_transition(
     is_eos = token == eos_token_id
 
     # candidate histories: the parent's history + the new token at slot t
-    cand_hist = _take_rows(live_tokens, src_beam).clone()  # (B, 2K, T)
-    cand_hist[:, :, t] = token
+    cand_hist = _take_rows(live_tokens, src_beam)  # (B, 2K, T)
+    if per_row:
+        cols = torch.arange(cand_hist.shape[-1], device=dev)
+        cand_hist = torch.where(cols[None, None, :] == t[:, None, None], token[:, :, None],
+                                cand_hist)
+    else:
+        cand_hist[:, :, t] = token  # gather made a new tensor
 
     # finished pool: EOS candidates ranked < K compete for K slots, scored
-    # with HF's length penalty over the FULL (padded prompt + generated) length
-    lp_div = torch.tensor(float(prompt_len + t + 1), dtype=torch.float32) ** length_penalty
+    # with HF's length penalty over the FULL (padded prompt + generated)
+    # length, an f32 power made on the device (no host-to-device copy)
+    if per_row:
+        lp_div = (prompt_len + t + 1).float()[:, None] ** length_penalty
+    else:
+        lp_div = _f32(prompt_len + t + 1, dev) ** length_penalty
     rank_ok = torch.arange(2 * k, device=token.device)[None, :] < k
     neg = torch.full_like(top_scores, NEG_INF)
-    eos_scores = torch.where(is_eos & rank_ok, top_scores / lp_div.to(top_scores.device), neg)
+    eos_scores = torch.where(is_eos & rank_ok, top_scores / lp_div, neg)
     pool_scores = torch.cat([fin_scores, eos_scores], dim=1)  # (B, 3K)
     pool_tokens = torch.cat([fin_tokens, cand_hist], dim=1)
     fin_scores, best_idx = _topk(pool_scores, k)
@@ -195,8 +218,8 @@ def beam_finalize(
 ):
     """HF finalize: merge live beams into the pool, pick the best hypothesis
     per batch item — (B, max_new) tokens."""
-    lp_div = torch.tensor(float(prompt_len + max_new_tokens), dtype=torch.float32) ** length_penalty
-    live_final = live_scores / lp_div.to(live_scores.device)
+    lp_div = _f32(prompt_len + max_new_tokens, live_scores.device) ** length_penalty
+    live_final = live_scores / lp_div
     all_scores = torch.cat([fin_scores, live_final], dim=1)
     all_tokens = torch.cat([fin_tokens, live_tokens], dim=1)
     best = torch.argmax(all_scores, dim=1)

@@ -7,8 +7,10 @@ extra rows are discarded (reference inference.py:264-267).  Greedy
 decoding may take a layer-truncated draft (``speculative_draft_layers``,
 ``infer/speculative.py``).  ``icv_inference_continuous`` and
 ``icl_inference_continuous`` run the same evals through the
-continuous-batching engines (``infer/serving.py``; Idefics only).  No mesh
-and no pooled engine: those wait for ROADMAP Queue 1 items 14 and 16.
+continuous-batching engines (``infer/serving.py``; Idefics only), and
+``icv_inference_pooled`` and ``icl_inference_pooled`` through the pooled
+beam schedule (``infer/eval_chain.py``; Idefics-9B's family only).  No
+mesh: it waits for ROADMAP Queue 1 item 16.
 """
 
 from __future__ import annotations
@@ -234,12 +236,35 @@ def icl_inference(
     return results
 
 
+def _icv_prompts(val_ds, prompt_manager, instruction: str, progress: bool):
+    """``(sample, prompt)`` of each zero-shot question, as ``icv_inference``
+    builds them."""
+    for sample in _maybe_tqdm(val_ds, progress):
+        p = [instruction] if instruction else []
+        p += [sample["image"], prompt_manager.gen_query_text_without_label(sample)]
+        yield sample, p
+
+
+def _icl_prompts(train_ds, val_ds, ice_idx_list, prompt_manager, instruction: str,
+                 progress: bool):
+    """``(sample, prompt)`` of each few-shot question (its shots from
+    ``ice_idx_list``), as ``icl_inference`` builds them."""
+    for idx, sample in enumerate(_maybe_tqdm(val_ds, progress)):
+        p = [instruction] if instruction else []
+        for si in ice_idx_list[idx]:
+            shot = train_ds[si]
+            p += [shot["image"], prompt_manager.gen_ice_text_with_label(shot, add_sep_token=True)]
+        p += [sample["image"], prompt_manager.gen_query_text_without_label(sample)]
+        yield sample, p
+
+
 def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_slots: int,
-                    sync_steps: int) -> dict:
+                    sync_steps: int, merged_admit_in_run: bool = False) -> dict:
     """Encode each ``(sample, prompt)`` of ``prompt_iter`` into an engine
     ``Request``, serve them and return ``icv_inference``'s results dict
     (JAX runner.py:329-419).  ``num_beams > 1`` (the reference's beam-3
-    default) takes ``BeamServingEngine``."""
+    default) takes ``BeamServingEngine``; greedy admissions into an occupied
+    pool ride a merged forward where ``merged_admit_in_run`` asks."""
     from .serving import BeamServingEngine, Request, ServingEngine
 
     num_beams = int(generate_kwargs.get("num_beams", 1))
@@ -273,7 +298,7 @@ def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_sl
             length_penalty=float(generate_kwargs.get("length_penalty", 0.0)), **kw,
         )
     else:
-        engine = ServingEngine.from_bundle(bundle, **kw)
+        engine = ServingEngine.from_bundle(bundle, merged_admit_in_run=merged_admit_in_run, **kw)
     for r in requests:
         engine.submit(r)
     tokens = engine.run()
@@ -296,18 +321,15 @@ def icv_inference_continuous(
     progress: bool = True,
     n_slots: int = 8,
     sync_steps: int = 4,
+    merged_admit_in_run: bool = False,
 ) -> dict:
     """``icv_inference`` through the continuous-batching engine: the same
     results, each request's tokens its own bs=1 decode's (in f32), with
     every slot kept busy on ragged workloads."""
 
-    def prompts():
-        for sample in _maybe_tqdm(val_ds, progress):
-            p = [instruction] if instruction else []
-            p += [sample["image"], prompt_manager.gen_query_text_without_label(sample)]
-            yield sample, p
-
-    return _run_continuous(prompts(), bundle, generate_kwargs, icv_scaled, n_slots, sync_steps)
+    return _run_continuous(_icv_prompts(val_ds, prompt_manager, instruction, progress), bundle,
+                           generate_kwargs, icv_scaled, n_slots, sync_steps,
+                           merged_admit_in_run)
 
 
 def icl_inference_continuous(
@@ -327,17 +349,142 @@ def icl_inference_continuous(
     ``few_shot_list``): mixed shot counts admit as groups of one bucket and
     image count against ``max_images``-wide media buffers."""
 
-    def prompts():
-        for idx, sample in enumerate(_maybe_tqdm(val_ds, progress)):
-            p = [instruction] if instruction else []
-            for si in ice_idx_list[idx]:
-                shot = train_ds[si]
-                p += [shot["image"],
-                      prompt_manager.gen_ice_text_with_label(shot, add_sep_token=True)]
-            p += [sample["image"], prompt_manager.gen_query_text_without_label(sample)]
-            yield sample, p
+    return _run_continuous(
+        _icl_prompts(train_ds, val_ds, ice_idx_list, prompt_manager, instruction, progress),
+        bundle, generate_kwargs, None, n_slots, sync_steps)
 
-    return _run_continuous(prompts(), bundle, generate_kwargs, None, n_slots, sync_steps)
+
+def _run_pooled(prompt_iter, bundle, generate_kwargs: dict, icv_scaled,
+                pool_questions: int) -> dict:
+    """The pooled beam schedule (``infer_engine=pooled``, JAX
+    runner.py:495-599): P = max_new − 1 staggered beam groups share every
+    merged forward with the next question's prefill
+    (``eval_chain._make_pooled_chain``).
+
+    Prompts bucket by 64-multiple length and image count; each bucket runs
+    in chunks of ``pool_questions`` questions, the last padded by repeating
+    its last question (the extra answers dropped).  Pixels are normalised
+    on the device before a chunk's chain and the ICV is expanded to the
+    bundle's intervention layers, as the static path's bind does; the
+    answers are read back once a chunk.  Each question's tokens are
+    ``beam_generate``'s at bs=1, so the results are the static beam path's
+    in f32."""
+    from ..data.processor import CLIP_MEAN, CLIP_STD
+    from ..models.idefics import IdeficsConfig
+    from ..models.idefics2 import Idefics2Config
+    from ..models.registry import normalize_pixels
+    from .eval_chain import (
+        make_idefics2_pooled_eval_chain,
+        make_idefics_pooled_eval_chain,
+        make_openflamingo_pooled_eval_chain,
+    )
+
+    num_beams = int(generate_kwargs.get("num_beams", 1))
+    max_new = int(generate_kwargs.get("max_new_tokens", 5))
+    if num_beams < 2 or max_new < 2:
+        raise ValueError("the pooled schedule needs num_beams >= 2 and max_new_tokens >= 2 "
+                         "(greedy or 1-token workloads: use infer_engine=continuous)")
+    cfg = bundle.model_cfg
+    if isinstance(cfg, IdeficsConfig):
+        factory = make_idefics_pooled_eval_chain
+    elif isinstance(cfg, Idefics2Config):
+        factory = make_idefics2_pooled_eval_chain
+    else:
+        factory = make_openflamingo_pooled_eval_chain
+    chain = factory(
+        cfg, bundle.eos_token_id, num_beams=num_beams, max_new_tokens=max_new,
+        length_penalty=float(generate_kwargs.get("length_penalty", 0.0)),
+        min_new_tokens=int(generate_kwargs.get("min_new_tokens", 0)),
+        pad_token_id=bundle.pad_token_id,
+    )
+    if icv_scaled is not None and bundle.intervention_layers is not None:
+        from ..icv.encoder import expand_icv_to_layers
+
+        icv_scaled = expand_icv_to_layers(icv_scaled, bundle.intervention_layers,
+                                          cfg.text.n_layers)
+
+    proc = bundle.processor
+    samples, encs = [], []
+    for sample, p in prompt_iter:
+        enc = proc.prepare_input([p], padding=True, padding_side="left")
+        if "pixel_attention_mask" in enc:
+            raise ValueError("NaViT variable resolution is engine-only; use "
+                             "infer_engine=continuous")
+        mask = np.asarray(enc["attention_mask"][0], bool)
+        encs.append((np.asarray(enc["input_ids"][0])[mask], np.asarray(enc["pixel_values"][0]),
+                     np.asarray(enc["pixel_valid"][0], bool)))
+        samples.append(sample)
+
+    buckets: dict = {}  # (64-multiple length, image count) -> question indices
+    for idx, (ids, px, _) in enumerate(encs):
+        buckets.setdefault((max(-(-len(ids) // 64) * 64, 64), px.shape[0]), []).append(idx)
+
+    dev, pad_id = bundle.device, bundle.pad_token_id
+    answers: dict = {}
+    for (bucket, n_img), idxs in sorted(buckets.items()):
+        c = min(int(pool_questions), len(idxs))
+        for lo in range(0, len(idxs), c):
+            chunk = idxs[lo: lo + c]
+            real = len(chunk)
+            chunk = chunk + [chunk[-1]] * (c - real)
+            ids = np.full((c, 1, bucket), pad_id, np.int32)
+            mask = np.zeros((c, 1, bucket), np.int32)
+            pixels = np.stack([encs[qi][1] for qi in chunk])[:, None]
+            pvs = np.stack([encs[qi][2] for qi in chunk])[:, None]
+            for r, qi in enumerate(chunk):  # left padding
+                q_ids = encs[qi][0]
+                ids[r, 0, bucket - len(q_ids):] = q_ids
+                mask[r, 0, bucket - len(q_ids):] = 1
+            px = normalize_pixels(torch.from_numpy(pixels).to(dev), CLIP_MEAN, CLIP_STD)
+            out = chain(bundle.params, torch.from_numpy(ids).to(dev),
+                        torch.from_numpy(mask).to(dev), px, torch.from_numpy(pvs).to(dev),
+                        icv_scaled).cpu().numpy()  # (c, 1, max_new)
+            for r, qi in enumerate(chunk[:real]):
+                answers[qi] = bundle.tokenizer.batch_decode([out[r, 0]],
+                                                            skip_special_tokens=True)[0]
+
+    results = {}
+    for idx, sample in enumerate(samples):
+        row = {k: v for k, v in sample.items() if k != "image"}
+        results[idx] = {"prediction": answers[idx], **row}
+    return results
+
+
+def icv_inference_pooled(
+    val_ds,
+    bundle,
+    prompt_manager: PromptManager,
+    generate_kwargs: dict,
+    instruction: str = "",
+    icv_scaled: Optional[torch.Tensor] = None,
+    progress: bool = True,
+    pool_questions: int = 32,
+) -> dict:
+    """``icv_inference`` through the pooled beam schedule: one-image VQA
+    questions at the reference's decode settings (reference
+    config/inference.yaml:11,26-30)."""
+
+    return _run_pooled(_icv_prompts(val_ds, prompt_manager, instruction, progress), bundle,
+                       generate_kwargs, icv_scaled, pool_questions)
+
+
+def icl_inference_pooled(
+    train_ds,
+    val_ds,
+    ice_idx_list: list[list[int]],
+    bundle,
+    prompt_manager: PromptManager,
+    generate_kwargs: dict,
+    instruction: str = "",
+    progress: bool = True,
+    pool_questions: int = 32,
+) -> dict:
+    """``icl_inference`` through the pooled beam schedule: mixed shot counts
+    bucket by (prompt length, image count), each bucket its own chains."""
+
+    return _run_pooled(
+        _icl_prompts(train_ds, val_ds, ice_idx_list, prompt_manager, instruction, progress),
+        bundle, generate_kwargs, None, pool_questions)
 
 
 def _maybe_tqdm(it, enabled: bool):

@@ -1,6 +1,5 @@
 """Continuous-batching serving engines, greedy and beam (counterpart of
-``licv_vqa_tpu/infer/serving.py``, host-driven ``run``/``run_online`` with
-plain admission).
+``licv_vqa_tpu/infer/serving.py``, host-driven ``run``/``run_online``).
 
 Static batches make every batch wait for its slowest member (reference
 inference.py:246-321).  Here a fixed pool of ``n_slots`` sequences decodes
@@ -16,6 +15,13 @@ in lockstep, and a request enters a free slot the moment one frees:
   (image latents, cross-attention K/V, step one-hot) and decode state into
   the pool's tensors in place (``index_copy_`` and indexed writes, where
   JAX donates buffers);
+- merged admission (the greedy engine, ``merged_admit_fn`` with
+  ``merged_admit_in_run=True``): an admission into an occupied pool runs
+  ONE forward of a pool decode step and the group's prefill, the decoder
+  projections packed over both token streams
+  (``models/idefics.py::make_idefics_merged_admit_fn``), so the pool keeps
+  decoding while a group is admitted; each admitted request's tokens are
+  those of plain admission;
 - every ``sync_steps`` decode steps (a chunk, no host read inside) the
   finished flags, counts and token buffer are copied with
   ``non_blocking=True`` into pinned host tensors and a CUDA event is
@@ -31,10 +37,9 @@ two static batch sizes (JAX serving.py:31-37); in f32 the tokens are equal.
 
 Not in this port yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: ``run_fused`` (the whole scheduler on the device, item 19's
-CUDA-graph capture), merged admission (``merged_admit_fn``, item 13b), the
-serving mesh (``mesh``, item 16) and families other than Idefics
-(Idefics2 and its ``pixel_attention_mask`` grouping, item 13b;
-OpenFlamingo, item 22).
+CUDA-graph capture), the serving mesh (``mesh``, item 16) and families
+other than Idefics (Idefics2, its ``pixel_attention_mask`` grouping and
+its merged admission, item 13b; OpenFlamingo, item 22).
 """
 
 from __future__ import annotations
@@ -152,13 +157,17 @@ class ServingEngine:
     ):
         if mesh is not None:
             raise _not_ported("the serving mesh (a slot pool sharded over dp)", "item 16")
-        if merged_admit_fn is not None or merged_admit_in_run:
-            raise _not_ported("merged admission (admission prefill packed into a pool "
-                              "decode step)", "item 13b")
         if harvest_lag not in (0, 1):
             raise ValueError(f"harvest_lag must be 0 or 1, got {harvest_lag}")
         self._prefill = prefill_fn
         self._decode = decode_fn
+        # merged admission (chunked prefill): JAX measured it losing in the
+        # host-driven run() and winning only inside its fused loop
+        # (serving.py:145-159), so run() takes it only when
+        # ``merged_admit_in_run`` asks; an admission into an empty pool is
+        # always plain (no decode lane to carry it)
+        self._merged_admit = merged_admit_fn
+        self.merged_admit_in_run = bool(merged_admit_in_run)
         self._media_axes = dict(media_axes)
         self._text_cfg = text_cfg
         self.params = params
@@ -187,11 +196,13 @@ class ServingEngine:
         self._media_n_img: Optional[int] = None  # the buffers' image count
         self._state = None
         self._host = None  # pinned snapshot buffers, one per outstanding chunk
+        self._snapshots = 0  # snapshots taken (the ring's cursor)
         self._ensure_pool()
         self._queue: deque[Request] = deque()
         self._slots: list[Optional[_Slot]] = [None] * self.n_slots
         self.steps_run = 0  # decode steps dispatched
         self.admissions: list[tuple[int, int]] = []  # (group size, bucket) each
+        self.merged_admits = 0  # admissions that rode a merged forward
         self._chunk_count = 0  # chunks dispatched (the harvest's generation id)
         # clocks relative to the serve start: completion (run and
         # run_online); arrival, admission and first token observed at a
@@ -258,11 +269,16 @@ class ServingEngine:
 
     @classmethod
     def from_bundle(cls, bundle, **kw) -> "ServingEngine":
-        """The engine of a ``ModelBundle``: the family's serving functions,
-        the bundle's pixel normalisation (raw uint8 pixels normalised on the
+        """The engine of a ``ModelBundle``: the family's serving functions
+        (and, for the greedy engine, its merged admission function), the
+        bundle's pixel normalisation (raw uint8 pixels normalised on the
         device) and its subset-layer ICV expansion."""
         from ..data.processor import CLIP_MEAN, CLIP_STD
-        from ..models.idefics import IdeficsConfig, make_idefics_serving_fns
+        from ..models.idefics import (
+            IdeficsConfig,
+            make_idefics_merged_admit_fn,
+            make_idefics_serving_fns,
+        )
         from ..models.registry import normalize_pixels
 
         cfg = bundle.model_cfg
@@ -274,6 +290,19 @@ class ServingEngine:
         def norm_prefill(params, pixels, pv, ids, mask, icv, cache_len):
             return prefill(params, normalize_pixels(pixels, CLIP_MEAN, CLIP_STD), pv, ids,
                            mask, icv, cache_len)
+
+        # merged admission for the greedy engine; beam groups keep the
+        # plain admission (their step is the beam transition)
+        if not issubclass(cls, BeamServingEngine):
+            raw_merged = make_idefics_merged_admit_fn(cfg, bundle.eos_token_id)
+
+            def merged(params, tok, adv, pos, cache, media, icv, pixels, pv, ids, mask,
+                       cache_len):
+                return raw_merged(params, tok, adv, pos, cache, media, icv,
+                                  normalize_pixels(pixels, CLIP_MEAN, CLIP_STD), pv, ids, mask,
+                                  cache_len)
+
+            kw.setdefault("merged_admit_fn", merged)
 
         icv = kw.pop("icv_scaled", None)
         if icv is not None and bundle.intervention_layers is not None:
@@ -425,11 +454,16 @@ class ServingEngine:
                        else np.asarray(r.pixel_valid, bool) for r in group])
         max_new = np.asarray([r.max_new for r in group], np.int32)
         min_new = np.asarray([r.min_new for r in group], np.int32)
+        admitted_at = self._chunk_count
         mask_t = self._to_device(mask)
-        last, small, media, next_pos = self._prefill(
-            self.params, self._to_device(pixels), self._to_device(pv), self._to_device(ids),
-            mask_t, self._icv, bucket,
-        )
+        inputs = (self._to_device(pixels), self._to_device(pv), self._to_device(ids), mask_t)
+        merged = (self._merged_admit is not None and self.merged_admit_in_run
+                  and any(s is not None for s in self._slots))
+        if merged:
+            last, small, media, next_pos = self._merged_step(inputs, bucket)
+        else:
+            last, small, media, next_pos = self._prefill(self.params, *inputs, self._icv,
+                                                         bucket)
         if self._media is None:
             self._alloc_media(media, pixels.shape[1])
         rows = self._rows(self._to_device(np.asarray(slots, np.int64)))
@@ -442,7 +476,7 @@ class ServingEngine:
             for r in group:
                 self.admission_s[r.uid] = adm_now
         for r, s in zip(group, slots):
-            self._slots[s] = _Slot(r, len(r.input_ids), self._chunk_count)
+            self._slots[s] = _Slot(r, len(r.input_ids), admitted_at)
 
     def _rows(self, slots: torch.Tensor) -> torch.Tensor:
         """(adm, rows a slot) pool rows of the admitted slots."""
@@ -509,23 +543,31 @@ class ServingEngine:
         for _ in range(self.sync_steps):
             self._step()
 
-    def _forward(self, tok, adv, positions) -> torch.Tensor:
-        """One decode forward of the whole pool: rows with ``adv`` 0 write a
-        masked column and keep their write index (a finished row's index
-        may stand at ``cache_len``, so its write goes to the last column,
-        which it never reads again; JAX drops such writes).  Returns the
-        last position's f32 logits."""
+    def _pool_forward(self, adv, fn):
+        """``fn(cache)``, a forward of the whole pool: rows with ``adv`` 0
+        write a masked column and keep their write index (a finished row's
+        index may stand at ``cache_len``, so the forward sees it clamped to
+        the last column, which the row never reads again; JAX drops such
+        writes)."""
         cache = self._cache
         index = cache["index"]
         cache["index"] = torch.clamp(index, max=self.cache_len - 1)
-        logits, _ = self._decode(self.params, tok[:, None], adv[:, None], positions[:, None],
-                                 cache, self._icv, self._media)
+        out = fn(cache)
         cache["index"] = index + adv
+        return out
+
+    def _forward(self, tok, adv, positions) -> torch.Tensor:
+        """One decode forward of the whole pool; returns the last
+        position's f32 logits."""
+        logits, _ = self._pool_forward(adv, lambda cache: self._decode(
+            self.params, tok[:, None], adv[:, None], positions[:, None], cache, self._icv,
+            self._media))
         return logits[:, -1, :].float()
 
-    def _step(self) -> None:
-        """Emit each active unfinished slot's pending token (argmax, EOS
-        suppressed while under ``min_new``), forward it, advance its row."""
+    def _emit(self) -> tuple:
+        """Each active unfinished slot's pending token (argmax, EOS
+        suppressed while under ``min_new``): ``(emit, tok, adv, out,
+        finished)``, the state not yet updated."""
         st = self._state
         eos, pad = self.eos_token_id, self.pad_token_id
         emit = st["active"] & ~st["finished"]
@@ -537,8 +579,11 @@ class ServingEngine:
         out = torch.where(write, tok[:, None], st["out"])
         finished = st["finished"] | (
             emit & ((tok == eos) | (st["tok_count"] + 1 >= st["max_new"])))
-        adv = emit.to(torch.int32)
-        logits = self._forward(tok, adv, st["next_pos"])
+        return emit, tok, emit.to(torch.int32), out, finished
+
+    def _update(self, logits, emit, adv, out, finished) -> None:
+        """The state after a step whose forward gave ``logits``."""
+        st = self._state
         st.update(
             last_logits=torch.where(emit[:, None], logits, st["last_logits"]),
             tok_count=st["tok_count"] + adv,
@@ -547,12 +592,38 @@ class ServingEngine:
             out=out,
         )
 
+    def _step(self) -> None:
+        """Emit each slot's pending token, forward it, advance its row."""
+        emit, tok, adv, out, finished = self._emit()
+        logits = self._forward(tok, adv, self._state["next_pos"])
+        self._update(logits, emit, adv, out, finished)
+
+    def _merged_step(self, inputs: tuple, bucket: int) -> tuple:
+        """A pool decode step whose forward also prefills the admission
+        group ``inputs`` = (pixels, pv, ids, mask) into a fresh cache of
+        ``bucket`` columns; returns the prefill's ``(last_logits, cache,
+        media, next_pos)`` for ``_scatter_admit``.  Counts as a step and as
+        a chunk that takes no snapshot."""
+        emit, tok, adv, out, finished = self._emit()
+        positions = self._state["next_pos"]
+        logits, _, *pre = self._pool_forward(adv, lambda cache: self._merged_admit(
+            self.params, tok[:, None], adv[:, None], positions[:, None], cache, self._media,
+            self._icv, *inputs, bucket))
+        self._update(logits[:, -1, :].float(), emit, adv, out, finished)
+        self.steps_run += 1
+        self._chunk_count += 1
+        self.merged_admits += 1
+        return tuple(pre)
+
     # -- harvest -----------------------------------------------------------------
 
     def _snapshot(self) -> _Snapshot:
         """Queue the copy of this chunk's flags, counts and tokens to the host."""
         st = self._state
-        host = self._host[self._chunk_count % len(self._host)]
+        # by the snapshots' own count: a merged step advances the chunk
+        # count without a snapshot
+        host = self._host[self._snapshots % len(self._host)]
+        self._snapshots += 1
         for h, x in zip(host, (st["finished"], st["tok_count"], st["out"])):
             h.copy_(x, non_blocking=True)
         event = None

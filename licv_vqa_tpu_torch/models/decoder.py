@@ -26,6 +26,10 @@ step's own keys and values as their int8 round trip in the compute dtype
 (``decoder.py:399-402``).  Projections go through
 ``ops.int8_matmul.qdot``, so weights may be quantized leaves; blocks of at
 least ``W8A8_MIN_TOKENS`` tokens take w8a8 under ``cfg.w8a8_prefill``.
+
+``merged_decoder_layer`` runs one layer over two token streams at once, a
+pool's decode rows and an admission group's prefill, each projection and
+the MLP one packed matmul (merged admission and the eval chains).
 """
 
 from __future__ import annotations
@@ -276,6 +280,61 @@ def _norm(cfg: DecoderConfig, w, b, x):
     return L.layer_norm(w, b, x, cfg.norm_eps)
 
 
+def _attend(cfg: DecoderConfig, q, k, v, mask, kv_write, flash_valid, bias) -> torch.Tensor:
+    """A layer's attention after its projections, rope and q/k norms: with
+    ``kv_write`` the new K/V rows go into the cache first (the int8 cache's
+    quantized rows, this step attending their round trip, which later
+    steps read back); then the causal flash kernel, the ALiBi flash kernel,
+    the cached split softmax or plain attention, by the gates of
+    ``decoder_layer``.  Returns (B, s, H, Dh)."""
+    s, nh, dh = q.shape[1], cfg.n_heads, cfg.head_dim
+    nkv = cfg.n_kv_heads
+    k_local, v_local = k, v
+    if kv_write is not None:
+        k_cache, v_cache, index = kv_write
+        if isinstance(k_cache, dict):  # int8 cache: write the quantized rows
+            kq, ks = quantize_kv_rows(k)
+            vq, vs = quantize_kv_rows(v)
+            apply_kv_rows(k_cache, v_cache, {"q": kq, "s": ks}, {"q": vq, "s": vs}, index)
+            # this step attends the round trip that later steps read back
+            k_local = dequantize_kv(kq, ks, q.dtype)
+            v_local = dequantize_kv(vq, vs, q.dtype)
+        else:
+            apply_kv_rows(k_cache, v_cache, k, v, index)
+    alibi = cfg.positional == "alibi"
+    self_contained = flash_valid is not None and cfg.attn_logit_softcap is None
+    use_flash = (
+        self_contained and not alibi and L.flash_attention_usable(cfg, s, dh, q.device)
+    )
+    # ALiBi depends on index differences only, so left-padded prefill rows
+    # are fine: q_idx - k_idx equals q_pos - k_pos for every real token
+    use_flash_alibi = self_contained and alibi and flash_alibi_usable(cfg, s, dh, q.device)
+    if alibi and bias is None and not use_flash_alibi:
+        raise ValueError("decoder_layer: an ALiBi layer off the flash branch needs its bias")
+    if use_flash:
+        return L.flash_attention(
+            q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid
+        )
+    if use_flash_alibi:
+        return flash_alibi_attention(
+            q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid,
+            L.alibi_slopes(nh, q.device), float(dh) ** -0.5,
+        )
+    if kv_write is not None and isinstance(k_cache, dict):
+        return _int8_cached_attention(
+            q, k_cache, v_cache, k_local, v_local, mask, index, cfg.attn_logit_softcap
+        )
+    if kv_write is not None:
+        # a per-row index (a tensor) attends every column under its mask:
+        # its written prefix differs by row, and is not read back
+        end = index + s if isinstance(index, int) else mask.shape[-1]
+        return _cached_attention(q, k_cache, v_cache, mask, end, cfg.attn_logit_softcap, bias)
+    return L.dot_product_attention(
+        q, L.repeat_kv(k, nh // nkv), L.repeat_kv(v, nh // nkv),
+        bias=bias, mask=mask, logit_softcap=cfg.attn_logit_softcap,
+    )
+
+
 def decoder_layer(
     cfg: DecoderConfig,
     p: dict,  # one layer's params (no leading L)
@@ -313,50 +372,7 @@ def decoder_layer(
         q = L.rms_norm(p["attn"]["q_norm"], q, cfg.norm_eps)
         k = L.rms_norm(p["attn"]["k_norm"], k, cfg.norm_eps)
 
-    k_local, v_local = k, v
-    if kv_write is not None:
-        k_cache, v_cache, index = kv_write
-        if isinstance(k_cache, dict):  # int8 cache: write the quantized rows
-            kq, ks = quantize_kv_rows(k)
-            vq, vs = quantize_kv_rows(v)
-            apply_kv_rows(k_cache, v_cache, {"q": kq, "s": ks}, {"q": vq, "s": vs}, index)
-            # this step attends the round trip that later steps read back
-            k_local = dequantize_kv(kq, ks, h.dtype)
-            v_local = dequantize_kv(vq, vs, h.dtype)
-        else:
-            apply_kv_rows(k_cache, v_cache, k, v, index)
-    self_contained = flash_valid is not None and cfg.attn_logit_softcap is None
-    use_flash = (
-        self_contained and not alibi and L.flash_attention_usable(cfg, s, dh, h.device)
-    )
-    # ALiBi depends on index differences only, so left-padded prefill rows
-    # are fine: q_idx - k_idx equals q_pos - k_pos for every real token
-    use_flash_alibi = self_contained and alibi and flash_alibi_usable(cfg, s, dh, h.device)
-    if alibi and bias is None and not use_flash_alibi:
-        raise ValueError("decoder_layer: an ALiBi layer off the flash branch needs its bias")
-    if use_flash:
-        attn = L.flash_attention(
-            q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid
-        )
-    elif use_flash_alibi:
-        attn = flash_alibi_attention(
-            q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid,
-            L.alibi_slopes(nh, h.device), float(dh) ** -0.5,
-        )
-    elif kv_write is not None and isinstance(k_cache, dict):
-        attn = _int8_cached_attention(
-            q, k_cache, v_cache, k_local, v_local, mask, index, cfg.attn_logit_softcap
-        )
-    elif kv_write is not None:
-        # a per-row index (a tensor) attends every column under its mask:
-        # its written prefix differs by row, and is not read back
-        end = index + s if isinstance(index, int) else mask.shape[-1]
-        attn = _cached_attention(q, k_cache, v_cache, mask, end, cfg.attn_logit_softcap, bias)
-    else:
-        attn = L.dot_product_attention(
-            q, L.repeat_kv(k, nh // nkv), L.repeat_kv(v, nh // nkv),
-            bias=bias, mask=mask, logit_softcap=cfg.attn_logit_softcap,
-        )
+    attn = _attend(cfg, q, k, v, mask, kv_write, flash_valid, bias)
     h = h + qdot(attn.reshape(b, s, nh * dh), p["attn"]["wo"], a8=a8).to(h.dtype)
 
     x2 = _norm(cfg, p["ln2"], p.get("ln2_b"), h)
@@ -382,6 +398,86 @@ def _add_mlp(h: torch.Tensor, mlp: torch.Tensor, icv_row, site: str) -> torch.Te
     if site == BLOCK_OUTPUT:
         return icv_inject_after_add(h, mlp, row)
     return add_icv_inject(h, mlp, row)
+
+
+def _pack_tokens(x_d: torch.Tensor, x_p: torch.Tensor) -> torch.Tensor:
+    """Two (B, S, D) token streams as ONE (1, T, D) matmul operand: the
+    merged step reads each layer weight once for the decode lane's tokens
+    and the prefill lane's together (JAX decoder.py:513-526)."""
+    d = x_d.shape[-1]
+    return torch.cat([x_d.reshape(1, -1, d), x_p.reshape(1, -1, d)], dim=1)
+
+
+def _unpack_tokens(y: torch.Tensor, shape_d: tuple, shape_p: tuple):
+    t1 = shape_d[0] * shape_d[1]
+    rest = tuple(y.shape[2:])
+    return y[0, :t1].reshape(tuple(shape_d) + rest), y[0, t1:].reshape(tuple(shape_p) + rest)
+
+
+def merged_decoder_layer(
+    cfg: DecoderConfig,
+    p: dict,  # one layer's params (no leading L)
+    h_d: torch.Tensor,  # (B1, 1, D) the decode lane (a pool's rows)
+    h_p: torch.Tensor,  # (B2, S2, D) the prefill lane (an admission group)
+    rope_d: Optional[tuple],  # (cos, sin) per lane; None for ALiBi
+    rope_p: Optional[tuple],
+    mask_d: torch.Tensor,  # decode_cache_view's mask over the pool cache
+    kv_write_d: tuple,  # (k_cache_l, v_cache_l, index): the pool cache, per-row index
+    mask_p: torch.Tensor,  # decode_cache_view's mask over the FRESH prefill cache
+    kv_write_p: tuple,  # (k_cache_l, v_cache_l, 0): the fresh cache
+    flash_valid_p: Optional[torch.Tensor],  # (B2, S2): the prefill lane's flash gate
+    icv_row_d,  # per-lane ICV arguments (see ``_add_mlp``)
+    icv_row_p,
+    bias_d: Optional[torch.Tensor] = None,  # per-lane ALiBi biases (MPT lanes;
+    bias_p: Optional[torch.Tensor] = None,  # None for rope families)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer over both lanes with every projection and the MLP
+    packed into one matmul each (JAX ``merged_decoder_layer``,
+    decoder.py:529-698); returns ``(h_d, h_p)``, each lane's new K/V rows
+    written into its cache in place.
+
+    The matmuls are weight-only: no w8a8 for either lane, as JAX's
+    docstring states (per-row activation quantization would move the
+    decode lane off the plain step's numerics).  Each output row of a
+    packed matmul is its lane's row of the unpacked one in exact
+    arithmetic.  Attention stays per lane (``_attend``): the decode lane
+    attends the pool cache, the prefill lane itself (the flash kernel where
+    its gate passes, else its fresh cache).  The ICV enters each lane
+    through ``_add_mlp`` (one fused launch a lane on the card)."""
+    b1, s1, _ = h_d.shape
+    b2, s2, _ = h_p.shape
+    nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def norm(key, h):
+        return _norm(cfg, p[key], p.get(key + "_b"), h)
+
+    def split(y, heads):
+        return _unpack_tokens(y.reshape(1, -1, heads, dh), (b1, s1), (b2, s2))
+
+    x = _pack_tokens(norm("ln1", h_d), norm("ln1", h_p))
+    q_d, q_p = split(qdot(x, p["attn"]["wq"]), nh)
+    k_d, k_p = split(qdot(x, p["attn"]["wk"]), nkv)
+    v_d, v_p = split(qdot(x, p["attn"]["wv"]), nkv)
+    if cfg.positional == "rope":
+        q_d, k_d = L.apply_rope(q_d, *rope_d), L.apply_rope(k_d, *rope_d)
+        q_p, k_p = L.apply_rope(q_p, *rope_p), L.apply_rope(k_p, *rope_p)
+    if "q_norm" in p["attn"]:  # idefics qk_layer_norms
+        q_d, q_p = (L.rms_norm(p["attn"]["q_norm"], x, cfg.norm_eps) for x in (q_d, q_p))
+        k_d, k_p = (L.rms_norm(p["attn"]["k_norm"], x, cfg.norm_eps) for x in (k_d, k_p))
+    attn_d = _attend(cfg, q_d, k_d, v_d, mask_d, kv_write_d, None, bias_d)
+    attn_p = _attend(cfg, q_p, k_p, v_p, mask_p, kv_write_p, flash_valid_p, bias_p)
+
+    ao = qdot(_pack_tokens(attn_d.reshape(b1, s1, nh * dh), attn_p.reshape(b2, s2, nh * dh)),
+              p["attn"]["wo"])
+    ao_d, ao_p = _unpack_tokens(ao, (b1, s1), (b2, s2))
+    h_d = h_d + ao_d.to(h_d.dtype)
+    h_p = h_p + ao_p.to(h_p.dtype)
+
+    x2 = _pack_tokens(norm("ln2", h_d), norm("ln2", h_p))
+    mlp = L.swiglu_mlp(p["mlp"], x2) if cfg.activation == "silu_glu" else L.gelu_mlp(p["mlp"], x2)
+    mlp_d, mlp_p = _unpack_tokens(mlp, (b1, s1), (b2, s2))
+    return (_add_mlp(h_d, mlp_d, icv_row_d, cfg.injection_site),
+            _add_mlp(h_p, mlp_p, icv_row_p, cfg.injection_site))
 
 
 def alibi_bias_for(cfg: DecoderConfig, positions: torch.Tensor, cache: Optional[dict],

@@ -42,6 +42,7 @@ from .decoder import (
     init_kv_cache,
     init_layer_params,
     logits_from_hidden,
+    merged_decoder_layer,
 )
 from .perceiver import init_perceiver_params, perceiver_forward
 from .vision import init_vision_params, vision_forward
@@ -305,6 +306,15 @@ def precompute_xattn_kv(
 # ---------------------------------------------------------------------------
 
 
+def _xattn_mask(image_latents: torch.Tensor, onehot: torch.Tensor) -> tuple:
+    """``(mask (B, 1, s, Nk) bool, gate (B, s) f32)`` of the gated
+    cross-attention: each token's image one-hot spread over that image's
+    latents, and whether it sees any image."""
+    n_lat = image_latents.shape[1] // onehot.shape[-1]
+    xmask = torch.repeat_interleave(onehot, n_lat, dim=-1) > 0
+    return xmask[:, None, :, :], torch.any(xmask, dim=-1).float()
+
+
 def idefics_forward(
     cfg: IdeficsConfig,
     params: dict,
@@ -341,12 +351,7 @@ def idefics_forward(
     ids = torch.clamp(input_ids, 0, params["embed"].shape[0] - 1).long()
     h = params["embed"][ids].to(t.dtype)
 
-    # cross-attention mask: the per-image one-hot spread over its latents
-    n_lat = image_latents.shape[1] // image_attn_onehot.shape[-1]
-    xmask = torch.repeat_interleave(image_attn_onehot, n_lat, dim=-1) > 0
-    gate = torch.any(xmask, dim=-1).float()  # (B, s)
-    xmask = xmask[:, None, :, :]  # (B, 1, s, Nk)
-
+    xmask, gate = _xattn_mask(image_latents, image_attn_onehot)
     icv = cast_icv(icv_scaled, t.dtype)  # as JAX casts it (idefics.py:424-434)
     if cache is None:
         h = _grouped_train_forward(
@@ -578,3 +583,88 @@ def make_idefics_serving_fns(cfg: IdeficsConfig, eos_token_id: int):
         )
 
     return prefill, decode_step, SERVING_MEDIA_AXES
+
+
+def make_idefics_merged_admit_fn(cfg: IdeficsConfig, eos_token_id: int):
+    """ONE forward of a pool decode step and an admission group's prefill,
+    every decoder projection and the MLP packed over both token streams
+    (``decoder.merged_decoder_layer``), so each layer's weights are read
+    once for both (JAX ``make_idefics_merged_admit_fn``, idefics.py:678-848).
+
+    Contract (``ServingEngine``'s merged admission and the eval chains of
+    ``infer/eval_chain.py``)::
+
+        merged_step(params, dec_tok (B1,1), dec_adv (B1,1), dec_pos (B1,1),
+                    cache, media, icv_scaled,
+                    pixels, pv, ids (B2,S2), mask, cache_len)
+          -> (dec_logits (B1,1,V), cache, pre_last_logits (B2,V) f32,
+              pre_cache, pre_media, pre_next_pos (B2,))
+
+    The decode lane is the serving ``decode_step`` over ``cache`` (written
+    in place, its ``index`` advanced by one: the caller sets its own) and
+    ``media``; the prefill lane is the serving ``prefill``: its own bind
+    (the images encoded, the cross-attention K/V, the one-hots) into a
+    fresh cache of ``cache_len`` columns.  Gated cross-attention runs per
+    lane (their sequence lengths differ); only the decoder layers and the
+    head pack.  The matmuls are weight-only in both lanes."""
+    t = cfg.text
+    interval = cfg.cross_layer_interval
+    n_groups = t.n_layers // interval
+
+    def merged_step(params, dec_tok, dec_adv, dec_pos, cache, media, icv_scaled,
+                    pixels, pv, ids, mask, cache_len):
+        b1 = dec_tok.shape[0]
+        b2, s2 = ids.shape
+        embed = params["embed"]
+
+        # the prefill lane's bind (vision tower, perceiver, image K/V)
+        latents_p = encode_images(cfg, params, pixels)
+        n_img = pixels.shape[1]
+        pvf = pv[:, None, :].float()
+        onehot_p = image_attention_onehot(ids, cfg.image_token_id, eos_token_id, n_img) * pvf
+        step_onehot = last_image_onehot(ids, cfg.image_token_id, n_img) * pvf
+        xkv_p = precompute_xattn_kv(cfg, params, latents_p)
+        pos_p = _positions_from_mask(mask)
+        cache_p = init_kv_cache(t, b2, cache_len, ids.device)
+
+        # per-lane attention views, rope and cross-attention masks
+        index_d, index_p = cache["index"], cache_p["index"]
+        mask_d, _, _ = decode_cache_view(cache, dec_pos, dec_adv, 1)
+        mask_p, _, _ = decode_cache_view(cache_p, pos_p, mask, s2)
+        rope_d = L.rope_cos_sin(dec_pos, t.head_dim, t.rope_theta)
+        rope_p = L.rope_cos_sin(pos_p, t.head_dim, t.rope_theta)
+        so = media["step_onehot"]
+        xmask_d, gate_d = _xattn_mask(media["latents"], so.expand(b1, 1, so.shape[-1]))
+        xmask_p, gate_p = _xattn_mask(latents_p, onehot_p)
+
+        h_d = embed[torch.clamp(dec_tok, 0, embed.shape[0] - 1).long()].to(t.dtype)
+        h_p = embed[torch.clamp(ids, 0, embed.shape[0] - 1).long()].to(t.dtype)
+        icv = cast_icv(icv_scaled, t.dtype)
+        for li in range(t.n_layers):
+            if li % interval == 0 and li // interval < n_groups:
+                g = li // interval
+                xp = L.layer_slice(params["xattn"], g)
+                xkv_d = media["xattn_kv"]
+                h_d = gated_xattn_block(cfg, xp, h_d, media["latents"], xmask_d, gate_d,
+                                        kv=(xkv_d[0][g], xkv_d[1][g]))
+                h_p = gated_xattn_block(cfg, xp, h_p, latents_p, xmask_p, gate_p,
+                                        kv=(xkv_p[0][g], xkv_p[1][g]))
+            icv_arg = _icv_row(icv, li)
+            h_d, h_p = merged_decoder_layer(
+                t, L.layer_slice(params["layers"], li), h_d, h_p, rope_d, rope_p,
+                mask_d, (L.layer_slice(cache["k"], li), L.layer_slice(cache["v"], li), index_d),
+                mask_p, (L.layer_slice(cache_p["k"], li), L.layer_slice(cache_p["v"], li),
+                         index_p),
+                mask, icv_arg, icv_arg,
+            )
+        cache["index"] = index_d + 1
+        cache_p["index"] = index_p + s2
+
+        # the final norm per lane, one head matmul for both lanes' last rows
+        h = torch.cat([h_d, h_p[:, -1:, :]], dim=0)
+        logits = logits_from_hidden(t, params, L.rms_norm(params["final_norm"], h, t.norm_eps))
+        media_p = {"latents": latents_p, "step_onehot": step_onehot, "xattn_kv": xkv_p}
+        return (logits[:b1], cache, logits[b1:, -1, :].float(), cache_p, media_p,
+                pos_p[:, -1] + 1)
+
+    return merged_step

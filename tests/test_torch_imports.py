@@ -4,7 +4,8 @@ imported by ``licv_vqa_tpu_torch``, ``inference_torch.py``, ``train_torch.py``,
 ``tools/exp_w8a8_tuning_torch.py``, ``tools/exp_int4_unpack_torch.py``,
 ``tools/phase3_kernels_torch.py``), the modules of RICE and speculative
 decoding (``models/clip.py``, ``retrieval/rice.py``, ``infer/speculative.py``) and
-the continuous-batching engines (``infer/serving.py``) among them;
+the continuous-batching engines (``infer/serving.py``) and the eval chains
+(``infer/eval_chain.py``) among them;
 and the host modules the port copied give the JAX package's outputs on the
 same inputs."""
 
@@ -69,6 +70,21 @@ def test_the_sweeps_reach_the_serving_engines():
 
     assert serving.ServingEngine and serving.BeamServingEngine
     assert runner.icv_inference_continuous and runner.icl_inference_continuous
+
+
+def test_the_sweeps_reach_the_eval_chains():
+    """The import sweep and the statement check below cover the eval chains
+    and the runner entry points that route ``infer_engine=pooled`` to them."""
+    import pkgutil
+
+    import licv_vqa_tpu_torch as p
+
+    names = {m.name for m in pkgutil.walk_packages(p.__path__, "licv_vqa_tpu_torch.")}
+    assert "licv_vqa_tpu_torch.infer.eval_chain" in names
+    from licv_vqa_tpu_torch.infer import eval_chain, runner
+
+    assert eval_chain.make_idefics_pooled_eval_chain and eval_chain.make_idefics_eval_chain
+    assert runner.icv_inference_pooled and runner.icl_inference_pooled
 
 
 @pytest.mark.parametrize(

@@ -258,8 +258,6 @@ def test_what_is_not_ported_raises_with_its_roadmap_item(tiny):
     cfg, params, _, _ = tiny
     with pytest.raises(NotImplementedError, match="item 16"):
         engine(cfg, params, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        engine(cfg, params, merged_admit_in_run=True)
     with pytest.raises(NotImplementedError, match="item 19"):
         engine(cfg, params, prompt_buckets=(8,)).run_fused()
 

@@ -563,7 +563,7 @@ def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monke
     """Phase 6 on the CPU at tiny size, with the kernel wrappers counted
     where ``qdot`` calls them: every run's counts equal
     ``predicted_quantized_launches`` (the phase checks it and raises), run
-    A's engine run (phase 4d (d)) included."""
+    A's engine run (phase 4d (d)) and pooled chain (phase 4e (d)) included."""
     import importlib
 
     from licv_vqa_tpu_torch.models import decoder as PD
@@ -581,10 +581,13 @@ def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monke
         got = C.quantized_path(torch.device("cpu"), tmp_path / mode, mode, opts, paths,
                                lmm="tiny-idefics")
         # run A adds phase 4d (d): the engine's 2 questions in one admission
-        # and 12 decode steps (5 tokens, chunks of 4, one lagged chunk)
+        # and 12 decode steps (5 tokens, chunks of 4, one lagged chunk); and
+        # phase 4e (d): one chain of the 2 questions, a prologue and 2 + P
+        # merged forwards of two lanes each
         icv_engine = 4 * (1 + 12) if mode == "int8" else 0
+        icv_pooled = 4 * (1 + 2 * (2 + C.MAX_NEW - 1)) if mode == "int8" else 0
         assert got[f"{mode}_matmul"] > 0
-        assert got["icv_inject"] == 4 * 2 * C.MAX_NEW + icv_engine
+        assert got["icv_inject"] == 4 * 2 * C.MAX_NEW + icv_engine + icv_pooled
         assert (got["w8a8_matmul"] > 0) == (mode == "int8")
 
 
@@ -880,3 +883,57 @@ def test_continuous_phase_tie_rules_on_an_altered_static_decode(tmp_path, monkey
     # token are the static decode's along the same first token
     assert float(line.split("max-abs ")[1].split(",")[0]) < 1e-4
     assert float(line.split("the engine's: rel. L2 ")[1].split(";")[0]) < 1e-5
+
+
+def test_pooled_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypatch,
+                                                              one_thread):
+    """Phase 4e on the CPU at tiny size (the card run's gates opened as for
+    4d): in (a) and (b) the ICV, fused ViT and causal flash counts equal
+    ``predicted_pooled_launches`` and the tokens the static beam's (the
+    phase checks both and raises); (a)'s 8 questions run as two chains of
+    4 and then as one of 8, (b)'s 32-shot question in a chain whose
+    prologue and merged forwards take the flash route; (c) merged
+    admission admits into an occupied pool and plain admission never does,
+    both against the prediction of 4d.
+    Then (d) on the int8 build of run A's options, w8a8 off: the int8
+    launches (every packed projection over P·K + 64 rows off the kernel)
+    equal the prediction, no w8a8."""
+    _count_engine_kernels(monkeypatch)
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    monkeypatch.setattr(I8, "w8a8_matmul", _counting(I8.w8a8_matmul))
+    _stub_cuda(monkeypatch, tmp_path)
+    monkeypatch.setattr(C, "N_ICV_Q", 4)
+    monkeypatch.setattr(C, "CONT_ICL_SHOTS", (1, 32))
+    dev = torch.device("cpu")
+    e = C.eval_setup(dev, tmp_path / "eval", [], lmm="tiny-idefics")
+    got = C.pooled_path(e, 0.0)
+    assert got["icv_inject"] > 0 and got["icv_inject"] % 4 == 0
+    # (b)'s 32-shot chain: 1 question, its prologue and 1 + 4 merged forwards
+    assert got["flash_attention_fwd"] == 4 * 6
+
+    mode, opts, _ = C.QUANT_RUNS[0]
+    e8 = C.eval_setup(dev, tmp_path / mode, opts, lmm="tiny-idefics")
+    got8 = C.pooled_int8(e8, opts)
+    assert got8["int8_matmul"] > 0 and got8["w8a8_matmul"] == 0
+
+
+def test_pooled_launch_prediction_at_full_width():
+    """Idefics-9B, one chain of 4 one-image ``test_icv`` questions in the
+    64-token bucket (P = 4, K = 3): 9 binds; the ICV at 32 layers of the
+    prologue and both lanes of 8 merged forwards; under run A's int8 options
+    with w8a8 off, a merged forward launches the int8 kernel for the decode
+    lane's 8 cross-attention blocks (12 rows), the prefill lane's (64 rows),
+    the bind's image K/V, the perceiver's latent projections and the head
+    (13 rows), and none for the 7 packed projections of 32 layers (76 rows)."""
+    from licv_vqa_tpu_torch.models.idefics import IdeficsConfig
+
+    mc = IdeficsConfig.idefics_9b()
+    cpu = torch.device("cpu")
+    got = C.predicted_pooled_launches(mc, [(4, 64, 1)], True, cpu)
+    assert got == {"icv_inject": 32 * (1 + 2 * 8), "vit_attention": 0, "flash_attention_fwd": 0}
+    opts = [o for o in C.QUANT_RUNS[0][1] if o != "lmm.w8a8_prefill=true"]
+    got = C.predicted_pooled_launches(mc, [(4, 64, 1)], False, cpu, opts)
+    pro = C.predicted_quantized_launches(mc, "int8", opts, 1, 64, 1, 3, 1)["int8_matmul"]
+    merged = 8 * 5 + 8 * 5 + 2 * 8 + 6 * 4 + 1
+    assert got["int8_matmul"] == pro + 8 * merged and got["w8a8_matmul"] == 0
