@@ -137,7 +137,8 @@ Phases (any failure exits non-zero before the result lines):
    beam-3 with ``CONT_BEAM_SLOTS`` (4) request groups, (b) ``test_icv``
    greedy with ``CONT_GREEDY_SLOTS`` (8) slots, (c) ``test_icl`` greedy on
    ``CONT_ICL_SHOTS`` (6 requests of 1, 8 and 32 shots: mixed buckets,
-   media buffers 33 images wide) with ``CONT_ICL_SLOTS`` (4) slots.  Each
+   media buffers 33 images wide) with ``CONT_ICL_SLOTS`` (4) slots; a
+   greedy admission into an occupied pool rides a merged forward.  Each
    is run twice (the first warms up); the second's counts of the ICV, the
    fused ViT and the causal flash kernels must equal
    ``predicted_engine_launches`` (32 x (admission prefills + decode steps),
@@ -160,13 +161,21 @@ Phases (any failure exits non-zero before the result lines):
    ``predicted_pooled_launches`` (a chain of n questions: one prologue
    prefill and n + P merged forwards, P = max_new − 1; the ICV 32 x (1 +
    2 x merged forwards) in ``test_icv``), its tokens to the static beam's
-   under the beam near-tie rule, printing s/question beside the static
-   beam's and 4d (a)'s beam engine's, ms a merged forward (CUDA events
-   around each), peak memory and the synchronizing calls inside the
-   chains (predicted 0); (c) ``test_icv`` greedy on 4 questions through
-   ``MERGED_SLOTS`` (3) slots with merged admission
-   (``merged_admit_in_run``) and then plain, each as a 4d configuration,
-   merged admission on every admission into an occupied pool;
+   under ``pooled_near_tie_check`` (where a question differs, the chain's
+   own f32 log-probabilities at the first differing token against the
+   static path's along the same prefix: within twice the static path's
+   own bs-1-to-bs-4 drift, or the two tokens under ``NEAR_TIE`` apart),
+   printing s/question beside the static beam's and 4d (a)'s beam
+   engine's, ms a merged forward (CUDA events around each), peak memory
+   and the synchronizing calls inside the chains (predicted 0); (c)
+   ``test_icv`` greedy on ``MERGED_REQUESTS`` (16) questions through
+   ``CONT_GREEDY_SLOTS`` (8) slots, the CLI's, with merged admission (the
+   engine's own choice on every admission into an occupied pool, as in
+   4d) and then with plain admission, each as a 4d configuration, its
+   tokens under ``drift_tie_check`` (4d (d)'s rule: a differing token's
+   static f32 top-2 gap under ``NEAR_TIE`` or under twice the static
+   path's own drift there between bs 1 and the 16 questions decoded
+   together);
 5. the training path at Idefics-9B full width, through the port's train
    CLI (``licv_vqa_tpu_torch.cli.train.main``) on a synthetic VQAv2 split
    written to a temporary directory: ``trainer=debug`` (4 micro-steps, 2
@@ -2128,7 +2137,9 @@ def predicted_engine_launches(mc, engine, with_icv: bool, dev) -> dict:
     (a bind of the group's images, the tower's layers once; the causal
     flash at every layer where the bucket passes the flash gate) and every
     decode step forwards the whole pool once; the ICV enters every layer
-    of both."""
+    of both.  A merged admission is both in one forward (its prefill lane
+    and its decode lane each take the ICV, and the flash where the
+    bucket passes)."""
     from licv_vqa_tpu_torch.models import layers as L
 
     t = mc.text
@@ -2279,7 +2290,8 @@ def engine_run(e: EvalSetup, tag: str, run, prompts: list, gen_kwargs: dict, icv
     first = f", the first at {spy.first_sync}" if spy.first_sync else ""
     log(f"{tag}: {n} requests, {wall / n:.3f} s/question (static bs=1 {static_s:.3f}), "
         f"{n_tok / wall:.1f} tokens/s; {len(engine.admissions)} admissions "
-        f"{engine.admissions} (size, bucket), {engine.steps_run} decode steps of "
+        f"{engine.admissions} (size, bucket), {engine.merged_admits} of them "
+        f"merged, {engine.steps_run} decode steps of "
         f"{engine.n_rows} rows over {engine.cache_len} cache columns, a step {step}; "
         f"launches {counts} (predicted {want}); peak device memory {peak:.2f} GiB; "
         f"synchronizing CUDA calls inside decode chunks {spy.syncs} (predicted 0){first}")
@@ -2337,6 +2349,48 @@ def continuous_path(e: EvalSetup) -> dict:
     return total
 
 
+def drift_tie_check(e: EvalSetup, tag: str, prompts: list, static: list, engine: list,
+                    icv_scaled, engine_logits=None) -> int:
+    """Greedy engine tokens against the static path's: equal, or first
+    differing where the static decode's f32 top-2 gap is under ``NEAR_TIE``
+    or under twice the static path's own batch drift there (the max-abs
+    difference of its logits for that token between bs 1 and the
+    questions decoded together, ``forced_decode_logits``): a bf16 drift of
+    that size flips the token in a static batch as in the engine.  With
+    ``engine_logits(q, t)`` (``int8_engine_logits``) the engine's own
+    logits for that token are printed against the static path's.  Returns
+    the number of such questions."""
+    n = 0
+    for q, (p, a, t) in enumerate(zip(prompts, static, engine, strict=True)):
+        diff = (a != t).nonzero()
+        if not len(diff):
+            continue
+        at = int(diff[0])
+        want = forced_decode_logits(e, [p], [a[:at]], icv_scaled)[0]
+        # the questions decoded together along the static tokens: the
+        # static path's own batch drift
+        batch = forced_decode_logits(e, prompts, [aj[:at] for aj in static], icv_scaled)[q]
+        drift = float((batch - want).abs().max())
+        top = want.topk(2).values
+        gap = float(top[0] - top[1])
+
+        def rel(x):
+            return float((x - want).norm() / want.norm())
+
+        own = ("" if engine_logits is None else
+               f"; the engine's: rel. L2 {rel(engine_logits(q, at).to(want.device)):.4e}")
+        log(f"{tag}: question {q} differs from the static path at token {at} "
+            f"({a.tolist()} vs {t.tolist()}); the static f32 top-2 gap there {gap:.6f}; "
+            f"the static path's logits there at bs {len(prompts)} against bs 1: max-abs "
+            f"{drift:.4f}, rel. L2 {rel(batch):.4e}{own}; limit: the gap under {NEAR_TIE} "
+            f"or under twice that drift")
+        if not gap < max(NEAR_TIE, 2 * drift):
+            raise AssertionError(f"{tag}: the engine differs from the static path where the "
+                                 f"static path's own batch drift cannot flip the token")
+        n += 1
+    return n
+
+
 def continuous_int8(e: EvalSetup, opts: list) -> dict:
     """Phase 4d (d) on run A's int8 model: ``test_icv`` greedy through the
     engine with ``CONT_GREEDY_SLOTS`` slots.  Inside the decode chunks (the
@@ -2388,36 +2442,8 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
         return out
 
     def check(static, engine):
-        n = 0
-        for q, (p, a, t) in enumerate(zip(prompts, static, engine, strict=True)):
-            diff = (a != t).nonzero()
-            if not len(diff):
-                continue
-            at = int(diff[0])
-            want = forced_decode_logits(e, [p], [a[:at]], e.icv_scaled)[0]
-            got = recorded["logits"](q, at).to(want.device)
-            # the questions decoded together along the static tokens: the
-            # static path's own batch drift
-            batch = forced_decode_logits(e, prompts, [aj[:at] for aj in static],
-                                         e.icv_scaled)[q]
-            drift = float((batch - want).abs().max())
-            top = want.topk(2).values
-            gap = float(top[0] - top[1])
-
-            def rel(x):
-                return float((x - want).norm() / want.norm())
-
-            log(f"continuous int8: question {q} differs from the static path at token {at} "
-                f"({a.tolist()} vs {t.tolist()}); the static f32 top-2 gap there {gap:.6f}; "
-                f"the static path's logits there at bs {len(prompts)} against bs 1: max-abs "
-                f"{drift:.4f}, rel. L2 {rel(batch):.4e}; the engine's: rel. L2 "
-                f"{rel(got):.4e}; limit: the gap under {NEAR_TIE} or under twice that drift")
-            if not gap < max(NEAR_TIE, 2 * drift):
-                raise AssertionError("continuous int8: the engine differs from the static "
-                                     "path where the static path's own batch drift cannot "
-                                     "flip the token")
-            n += 1
-        return n
+        return drift_tie_check(e, "continuous int8", prompts, static, engine, e.icv_scaled,
+                               recorded["logits"])
 
     # the wrapper adds its launches to the module's ``int8_matmul``: the spy
     # carries the count while it stands in
@@ -2451,7 +2477,7 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
 # runs POOLED_ICV_Q questions in chunks of POOL_QUESTIONS
 POOL_QUESTIONS = 4
 POOLED_ICV_Q = 8
-MERGED_SLOTS = 3  # 4 requests through 3 slots: two admissions find the pool occupied
+MERGED_REQUESTS = 16  # (c): through CONT_GREEDY_SLOTS slots, two waves of admissions
 
 
 @contextlib.contextmanager
@@ -2461,15 +2487,23 @@ def chain_spy():
     chain runs) and answers; brackets each merged forward with CUDA events
     (``merged_ms``: their mean interval, after a synchronize) and counts
     the synchronizing CUDA calls that ``set_sync_debug_mode("warn")``
-    reports inside a chain (the first one's source line kept)."""
+    reports inside a chain (the first one's source line kept); keeps, on
+    the device, the live tokens and f32 log-probabilities of every beam
+    transition of a chain, in order (two an iteration: the finalize of the
+    group answered, then all P groups)."""
     import warnings
 
     import torch
 
     from licv_vqa_tpu_torch.infer import eval_chain as EC
 
-    spy = SimpleNamespace(chains=[], outputs=[], merged=0, events=[], syncs=0, first_sync=None)
-    make = EC._make_pooled_chain
+    spy = SimpleNamespace(chains=[], outputs=[], transitions=[], merged=0, events=[], syncs=0,
+                          first_sync=None)
+    make, transition = EC._make_pooled_chain, EC.beam_transition
+
+    def recorded(live_s, live_t, fin_s, fin_t, last_logp, t, **kw):
+        spy.transitions[-1].append((live_t.clone(), last_logp.clone()))
+        return transition(live_s, live_t, fin_s, fin_t, last_logp, t, **kw)
 
     def merged_ms():
         if not spy.events:
@@ -2496,6 +2530,7 @@ def chain_spy():
 
         def spied_chain(params, ids, mask, pixels, valid, icv):
             spy.chains.append((ids.shape[0], ids.shape[-1], pixels.shape[2]))
+            spy.transitions.append([])
             host = (ids.cpu(), mask.cpu())
             if ids.device.type != "cuda":
                 out = chain(params, ids, mask, pixels, valid, icv)
@@ -2516,11 +2551,11 @@ def chain_spy():
 
         return spied_chain
 
-    EC._make_pooled_chain = spied_make
+    EC._make_pooled_chain, EC.beam_transition = spied_make, recorded
     try:
         yield spy
     finally:
-        EC._make_pooled_chain = make
+        EC._make_pooled_chain, EC.beam_transition = make, transition
 
 
 def predicted_pooled_launches(mc, chains: list, with_icv: bool, dev, opts=None,
@@ -2583,25 +2618,89 @@ def predicted_pooled_launches(mc, chains: list, with_icv: bool, dev, opts=None,
     return out
 
 
-def chain_tokens(e: EvalSetup, spy, prompts: list) -> list:
-    """Each prompt's tokens from the chain that answered it: the chain row
-    whose unpadded ids are the prompt's (padding repeats of a question
-    answer as it does)."""
+def chain_answers(e: EvalSetup, spy, prompts: list) -> list:
+    """Each prompt's ``(tokens, chain, row)``: the chain that answered it
+    and the row whose unpadded ids are the prompt's (padding repeats of a
+    question answer as it does)."""
     import torch
 
     out = []
     for prompt in prompts:
         enc = e.bundle.processor.prepare_input([prompt], padding=True, padding_side="left")
         want = torch.from_numpy(enc["input_ids"][0][enc["attention_mask"][0] > 0].astype("int64"))
-        for ids, mask, toks in spy.outputs:
+        for c, (ids, mask, toks) in enumerate(spy.outputs):
             hit = [r for r in range(ids.shape[0]) if torch.equal(
                 ids[r, 0][mask[r, 0] > 0].long(), want)]
             if hit:
-                out.append(toks[hit[0], 0].cpu().long())
+                out.append((toks[hit[0], 0].cpu().long(), c, hit[0]))
                 break
         else:
             raise AssertionError("pooled: a question no chain answered")
     return out
+
+
+def chain_logp(spy, chain: int, row: int, prefix):
+    """(V,) f32: the log-probabilities the chain's search read after
+    question ``row``'s tokens ``prefix`` (``chain_spy``'s transitions).
+    Question r sits in group r mod P from iteration r: at age t < P its
+    step is iteration r + t's transition of all groups, at t = P the
+    finalize of iteration r + P; its beam is the row whose live tokens are
+    ``prefix``.  None where no beam of the chain holds ``prefix``."""
+    p, at = MAX_NEW - 1, len(prefix)
+    calls = spy.transitions[chain]
+    if at < p:
+        live_t, logp = (x[row % p] for x in calls[2 * (row + at) + 1])
+    else:
+        live_t, logp = (x[0] for x in calls[2 * (row + p)])
+    hit = (live_t[:, :at] == prefix.to(live_t)).all(dim=-1).nonzero()
+    return logp[int(hit[0])] if len(hit) else None
+
+
+def pooled_near_tie_check(e: EvalSetup, tag: str, spy, prompts: list, static: list,
+                          icv_scaled) -> int:
+    """Phase 4e's token rule: the pooled chain's tokens against the static
+    beam's at bs 1.  Where a question differs, first at token ``at``, the
+    chain's own f32 log-probabilities at that decision (``chain_logp``,
+    along the static answer's first ``at`` tokens, which the chain's answer
+    shares) are held against the static path's along the same prefix at
+    bs 1 (``forced_decode_logits``): they pass where their max-abs
+    difference is within twice the static path's own drift there between
+    bs 1 and a batch of up to ``POOL_QUESTIONS`` questions (its neighbours
+    in the run's order, along their static answers), or where the two answers' tokens lie under ``NEAR_TIE`` apart in the
+    static log-probabilities.  Returns the number of such questions."""
+    import torch
+
+    answers = chain_answers(e, spy, prompts)
+    n = 0
+    for q, (p, a, (b, chain, row)) in enumerate(zip(prompts, static, answers, strict=True)):
+        diff = (a != b).nonzero()
+        if not len(diff):
+            continue
+        at = int(diff[0])
+        q0 = q - q % POOL_QUESTIONS
+        group = list(range(q0, min(q0 + POOL_QUESTIONS, len(prompts))))
+        want = torch.log_softmax(forced_decode_logits(e, [p], [a[:at]], icv_scaled)[0], -1)
+        batch = torch.log_softmax(forced_decode_logits(
+            e, [prompts[j] for j in group], [static[j][:at] for j in group],
+            icv_scaled)[q - q0], -1)
+        got = chain_logp(spy, chain, row, a[:at])
+        if got is None:
+            raise AssertionError(f"{tag}: question {q}: no beam of the chain holds the static "
+                                 f"answer's first {at} tokens")
+        drift = float((batch - want).abs().max())
+        err = float((got.to(want.device) - want).abs().max())
+        gap = abs(float(want[int(a[at])] - want[int(b[at])]))
+        log(f"{tag}: question {q} differs from the static beam at token {at} ({a.tolist()} "
+            f"vs {b.tolist()}); there the chain's f32 log-probabilities against the static "
+            f"path's at bs 1: max-abs {err:.4f}, the static path's own at bs {len(group)}: "
+            f"{drift:.4f}; the two tokens' static f32 gap {gap:.6f}; limit: within twice that "
+            f"drift, or the gap under {NEAR_TIE}")
+        if not (err <= 2 * drift or gap < NEAR_TIE):
+            raise AssertionError(f"{tag}: the chain's logits at the first differing token "
+                                 f"are off the static path's beyond its own batch drift, "
+                                 f"away from a near tie")
+        n += 1
+    return n
 
 
 def pooled_run(e: EvalSetup, tag: str, run, prompts: list, icv_scaled, counters: dict,
@@ -2609,7 +2708,7 @@ def pooled_run(e: EvalSetup, tag: str, run, prompts: list, icv_scaled, counters:
     """One configuration of phase 4e: ``run()`` (a runner entry point) once
     to warm up, then once counted and timed; its launches against
     ``predicted_pooled_launches``; the static beam path's tokens at bs 1
-    (timed) under the beam near-tie rule.  Returns the launches."""
+    (timed) under ``pooled_near_tie_check``.  Returns the launches."""
     b = e.bundle
     res, wall, counts, peak, spy = counted_run(e, run, counters, chain_spy)
     merged_ms = spy.merged_ms()
@@ -2617,7 +2716,6 @@ def pooled_run(e: EvalSetup, tag: str, run, prompts: list, icv_scaled, counters:
                                      opts)
     n = len(prompts)
     static, static_s = timed_static(e, e.gen_kwargs, prompts, icv_scaled)
-    tokens = chain_tokens(e, spy, prompts)
     fwd = ("not measured (no card)" if merged_ms is None
            else f"{merged_ms:.2f} ms (CUDA events around each)")
     engine = "" if beam_s is None else f", 4d's beam engine {beam_s:.3f}"
@@ -2633,9 +2731,9 @@ def pooled_run(e: EvalSetup, tag: str, run, prompts: list, icv_scaled, counters:
     for k, v in want.items():
         if counts[k] != v:
             raise AssertionError(f"{tag}: {k} launched {counts[k]} != {v}")
-    ties = beam_near_tie_check(e, tag, e.gen_kwargs, prompts, static, tokens, icv_scaled)
+    ties = pooled_near_tie_check(e, tag, spy, prompts, static, icv_scaled)
     log(f"{tag} tokens: {n - ties} of {n} questions equal the static beam's, {ties} differ "
-        f"at a near tie")
+        f"within the rule")
     return counts
 
 
@@ -2653,7 +2751,8 @@ def pooled_path(e: EvalSetup, beam_s: float) -> dict:
     b = e.bundle
     counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
                 "flash_attention_fwd": L.flash_attention}
-    rows = e.val[1:] + synthetic_vqa(POOLED_ICV_Q - len(e.val) + 1, 200, seed=5)
+    more = synthetic_vqa(MERGED_REQUESTS - len(e.val) + 1, 200, seed=5)
+    rows = (e.val[1:] + more)[:POOLED_ICV_Q]
     icv_prompts = [row_prompt(e, r) for r in rows]
     icl_rows = [e.val[q % len(e.val)] for q in range(len(CONT_ICL_SHOTS))]
     icl_shots = [list(range(q, q + n)) for q, n in enumerate(CONT_ICL_SHOTS)]
@@ -2676,25 +2775,48 @@ def pooled_path(e: EvalSetup, beam_s: float) -> dict:
         for k, v in got.items():
             total[k] += v
 
-    # (c) the greedy engine with merged admission, against plain admission
+    # (c) the greedy engine at the CLI's slot count, merged admission (its
+    # own choice) against plain admission
     greedy_kw = dict(e.gen_kwargs, num_beams=1)
-    prompts, rows4 = icv_prompts[:N_ICV_Q], rows[:N_ICV_Q]
+    rows_c = e.val[1:] + more
+    prompts = [row_prompt(e, r) for r in rows_c]
     s_per_q = {}
     for merged in (True, False):
-        tag = f"{'merged' if merged else 'plain'} admission greedy test_icv, {MERGED_SLOTS} slots"
-        got = engine_run(e, tag, lambda m=merged: icv_inference_continuous(
-            rows4, b, e.pm, greedy_kw, e.instruction, e.icv_scaled, False, MERGED_SLOTS,
-            merged_admit_in_run=m), prompts, greedy_kw, e.icv_scaled, counters)
-        eng = got["engine"]
-        log(f"{tag}: merged_admits {eng.merged_admits} of {len(eng.admissions)} admissions")
-        if merged != (eng.merged_admits > 0):
-            raise AssertionError(f"{tag}: merged_admits {eng.merged_admits}")
+        tag = (f"{'merged' if merged else 'plain'} admission greedy test_icv, "
+               f"{CONT_GREEDY_SLOTS} slots")
+        with contextlib.nullcontext() if merged else plain_admission():
+            got = engine_run(e, tag, lambda: icv_inference_continuous(
+                rows_c, b, e.pm, greedy_kw, e.instruction, e.icv_scaled, False,
+                CONT_GREEDY_SLOTS), prompts, greedy_kw, e.icv_scaled, counters,
+                check=lambda static, tokens, tag=tag: drift_tie_check(
+                    e, tag, prompts, static, tokens, e.icv_scaled))
+        if merged != (got["engine"].merged_admits > 0):
+            raise AssertionError(f"{tag}: merged_admits {got['engine'].merged_admits}")
         s_per_q[merged] = got["s_per_q"]
         for k, v in got["counts"].items():
             total[k] += v
     log(f"merged admission: {s_per_q[True]:.3f} s/question against plain admission's "
-        f"{s_per_q[False]:.3f} ({MERGED_SLOTS} slots, {N_ICV_Q} greedy test_icv questions)")
+        f"{s_per_q[False]:.3f} ({CONT_GREEDY_SLOTS} slots, {len(rows_c)} greedy test_icv "
+        f"questions)")
     return total
+
+
+@contextlib.contextmanager
+def plain_admission():
+    """``ServingEngine.from_bundle`` without the merged function inside:
+    every admission plain (4e (c)'s comparison)."""
+    from licv_vqa_tpu_torch.infer.serving import ServingEngine
+
+    make = ServingEngine.__dict__["from_bundle"]
+
+    def plain(cls, bundle, **kw):
+        return make.__func__(cls, bundle, merged_admit_fn=None, **kw)
+
+    ServingEngine.from_bundle = classmethod(plain)
+    try:
+        yield
+    finally:
+        ServingEngine.from_bundle = make
 
 
 def pooled_int8(e: EvalSetup, opts: list) -> dict:
@@ -2707,19 +2829,20 @@ def pooled_int8(e: EvalSetup, opts: list) -> dict:
     a near tie.  The int8 launches against ``predicted_pooled_launches``
     (the packed projections' P·K + bucket rows pass ``KERNEL_MAX_ROWS`` and
     take the scale-on-output route)."""
-    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
     from licv_vqa_tpu_torch.infer.runner import icv_inference_pooled
     from licv_vqa_tpu_torch.models import idefics as I
     from licv_vqa_tpu_torch.models import layers as L
-    from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
     from licv_vqa_tpu_torch.ops import int8_matmul as I8
     from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
 
     b = e.bundle
     mc = b.model_cfg
     mc = dataclasses.replace(mc, text=dataclasses.replace(mc.text, w8a8_prefill=False))
-    _, bind = _wrap_pixel_normalize(*I.make_idefics_forward_fns(mc, b.eos_token_id),
-                                    CLIP_MEAN, CLIP_STD)
+    _, raw_bind = I.make_idefics_forward_fns(mc, b.eos_token_id)
+
+    def bind(params, pixels, *a, **kw):
+        return raw_bind(params, b.model_pixels(pixels), *a, **kw)
+
     e = dataclasses.replace(e, bundle=dataclasses.replace(b, model_cfg=mc, bind_decode=bind))
     opts = [o for o in opts if o != "lmm.w8a8_prefill=true"]
     counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,

@@ -1,16 +1,10 @@
-"""Eval chains of the reference's beam eval (counterpart of
+"""The pooled beam eval chain of the reference's beam eval (counterpart of
 ``licv_vqa_tpu/infer/eval_chain.py``): bs=1 questions, beam-3,
-``max_new_tokens=5`` (reference config/inference.yaml:11,26-30), with the
-next question's prefill packed into a decode forward
-(``models/idefics.py::make_idefics_merged_admit_fn``).
-
-- ``make_idefics_eval_chain`` (overlapped): question i's first beam step
-  also prefills question i+1; a question costs max_new − 1 forwards where
-  ``beam_generate`` takes max_new.
-- ``make_idefics_pooled_eval_chain`` (pooled): P = max_new − 1 question
-  groups of K beam rows each run staggered through one merged forward per
-  iteration, together with the next question's prefill, so one question
-  completes per forward.
+``max_new_tokens=5`` (reference config/inference.yaml:11,26-30).  P =
+max_new − 1 question groups of K beam rows each run staggered through one
+merged forward per iteration, together with the next question's prefill
+(``models/idefics.py::make_idefics_merged_admit_fn``), so one question
+completes per forward where ``beam_generate`` takes max_new.
 
 JAX's ``lax.scan`` becomes a Python loop here.  The pool's cache, media,
 beam state and each iteration's best hypothesis stay in device tensors:
@@ -21,34 +15,20 @@ gather; groups never share a row), held equal on the CPU in f32 by
 ``tests/test_torch_eval_chain.py``.  In bf16 on the card a packed matmul
 may pick other tiles than the static batch's, so a near tie can flip, as
 between two static batch sizes.
+
+JAX's overlapped chain (``make_idefics_eval_chain``: one prefill packed
+into each question's first beam step) is not ported: only JAX's bench
+calls it, and the pooled chain gives the same tokens in fewer forwards
+(ROADMAP Queue 1 item 14a).
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from ..models.decoder import init_kv_cache
-from .decode import (
-    NEG_INF,
-    _beam_gather_cache,
-    _cache_map_batch,
-    _kv_leaves,
-    beam_finalize,
-    beam_transition,
-)
+from .decode import NEG_INF, _beam_gather_cache, _kv_leaves, beam_finalize, beam_transition
 from .serving import _leaves, _map, _not_ported
-
-
-def _transition_kw(eos_token_id, transition_eos_token_id, prompt_len, length_penalty,
-                   min_new_tokens) -> dict:
-    """``beam_transition``'s keywords; the beam-stop token is
-    ``transition_eos_token_id`` where given (JAX's bench passes -1 so that
-    random weights never retire a beam), else the EOS."""
-    stop = eos_token_id if transition_eos_token_id is None else transition_eos_token_id
-    return dict(prompt_len=prompt_len, eos_token_id=stop, length_penalty=length_penalty,
-                min_new_tokens=min_new_tokens)
 
 
 def _first_beam(k: int, device) -> torch.Tensor:
@@ -62,85 +42,6 @@ def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
     return torch.log_softmax(logits.float(), dim=-1)
 
 
-def make_idefics_eval_chain(
-    cfg,
-    eos_token_id: int,
-    *,
-    num_beams: int = 3,
-    max_new_tokens: int = 5,
-    length_penalty: float = 0.0,
-    min_new_tokens: int = 0,
-    transition_eos_token_id: Optional[int] = None,
-    pad_token_id: int = 0,
-):
-    """The overlapped chain (JAX eval_chain.py:46-214)::
-
-        chain(params, ids (N,1,S), mask (N,1,S), pixels (N,1,I,H,W,3),
-              valid (N,1,I), icv) -> (N, 1, max_new) best-beam tokens
-
-    Question 0 prefills plainly; question i's first beam step is the merged
-    forward that also prefills question i+1; the last iteration prefills
-    question 0 again and drops it (every iteration keeps one shape).
-    Pixels are the model's normalised floats.  Tokens past an EOS are
-    ``pad_token_id``, as ``beam_generate`` leaves them."""
-    from ..models.idefics import make_idefics_merged_admit_fn, make_idefics_serving_fns
-
-    if max_new_tokens < 2:
-        raise ValueError("the overlapped chain needs max_new_tokens >= 2")
-    k = int(num_beams)
-    prefill, decode_step, media_axes = make_idefics_serving_fns(cfg, eos_token_id)
-    merged = make_idefics_merged_admit_fn(cfg, eos_token_id)
-
-    @torch.inference_mode()
-    def chain(params, ids, mask, pixels, valid, icv):
-        n, b, s = ids.shape
-        if b != 1:
-            raise ValueError("the eval chain decodes bs=1 questions")
-        dev = ids.device
-        cache_len = s + max_new_tokens + 1
-        kw = _transition_kw(eos_token_id, transition_eos_token_id, s, length_penalty,
-                            min_new_tokens)
-        step_mask = torch.ones((k, 1), dtype=torch.int32, device=dev)
-
-        def rep(x, axis):
-            return torch.repeat_interleave(x, k, dim=axis)
-
-        pend = prefill(params, pixels[0], valid[0], ids[0], mask[0], icv, cache_len)
-        outs = []
-        for i in range(n):
-            last, cache, media, next_pos = pend
-            nxt = (i + 1) % n  # the last iteration wraps to question 0
-            # question i expanded over K beam rows
-            cache = _cache_map_batch(cache, rep)
-            media = {key: _map(lambda x, ax=ax: rep(x, ax), media[key])
-                     for key, (ax, _) in media_axes.items()}
-            pos = rep(next_pos, 0)
-            live = _first_beam(k, dev)[None]
-            hist = torch.full((1, k, max_new_tokens), pad_token_id, dtype=torch.int32, device=dev)
-            state = (live, hist, torch.full_like(live, NEG_INF), hist.clone())
-            logp = _log_softmax(last)[:, None, :].expand(1, k, last.shape[-1])
-
-            for t in range(max_new_tokens - 1):
-                *state, new_beam, new_tok = beam_transition(*state, logp, t, **kw)
-                _beam_gather_cache(cache, new_beam.reshape(-1), s)
-                tok = new_tok.reshape(k, 1)
-                if t == 0:  # merged with question i+1's prefill
-                    logits, cache, *pend = merged(
-                        params, tok, step_mask, pos[:, None], cache, media, icv,
-                        pixels[nxt], valid[nxt], ids[nxt], mask[nxt], cache_len)
-                else:
-                    logits, cache = decode_step(params, tok, step_mask, pos[:, None], cache,
-                                                icv, media)
-                logp = _log_softmax(logits[:, -1]).reshape(1, k, -1)
-                pos = pos + 1
-            state = beam_transition(*state, logp, max_new_tokens - 1, **kw)[:4]
-            outs.append(beam_finalize(*state, prompt_len=s, max_new_tokens=max_new_tokens,
-                                      length_penalty=length_penalty))
-        return torch.stack(outs)
-
-    return chain
-
-
 def _make_pooled_chain(
     text_cfg,
     prefill,
@@ -151,7 +52,6 @@ def _make_pooled_chain(
     max_new_tokens: int,
     length_penalty: float,
     min_new_tokens: int,
-    transition_eos_token_id: Optional[int],
     eos_token_id: int,
     pad_token_id: int = 0,
 ):
@@ -189,8 +89,8 @@ def _make_pooled_chain(
         dev = ids.device
         rows = p * k
         cache_len = s + max_new_tokens + 1
-        kw = _transition_kw(eos_token_id, transition_eos_token_id, s, length_penalty,
-                            min_new_tokens)
+        kw = dict(prompt_len=s, eos_token_id=eos_token_id, length_penalty=length_penalty,
+                  min_new_tokens=min_new_tokens)
 
         # the prologue: question 0's prefill, the first pending admission
         pend = prefill(params, pixels[0], valid[0], ids[0], mask[0], icv, cache_len)
@@ -273,21 +173,23 @@ def make_idefics_pooled_eval_chain(
     max_new_tokens: int = 5,
     length_penalty: float = 0.0,
     min_new_tokens: int = 0,
-    transition_eos_token_id: Optional[int] = None,
     pad_token_id: int = 0,
 ):
-    """The pooled chain for Idefics (JAX eval_chain.py:445-489), with
-    ``make_idefics_eval_chain``'s signature and contract: one question
-    completes per merged forward, where the overlapped chain takes
-    max_new − 1 and ``beam_generate`` max_new."""
+    """The pooled chain for Idefics (JAX eval_chain.py:445-489)::
+
+        chain(params, ids (N,1,S), mask (N,1,S), pixels (N,1,I,H,W,3),
+              valid (N,1,I), icv) -> (N, 1, max_new) best-beam tokens
+
+    Pixels are the model's normalised floats and the ICV its per-layer
+    rows (``pooled_eval_chain`` takes a bundle's raw inputs).  Tokens past
+    an EOS are ``pad_token_id``, as ``beam_generate`` leaves them."""
     from ..models.idefics import make_idefics_merged_admit_fn, make_idefics_serving_fns
 
     prefill, _, media_axes = make_idefics_serving_fns(cfg, eos_token_id)
     return _make_pooled_chain(
         cfg.text, prefill, make_idefics_merged_admit_fn(cfg, eos_token_id), media_axes,
         num_beams=num_beams, max_new_tokens=max_new_tokens, length_penalty=length_penalty,
-        min_new_tokens=min_new_tokens, transition_eos_token_id=transition_eos_token_id,
-        eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+        min_new_tokens=min_new_tokens, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
     )
 
 
@@ -303,3 +205,43 @@ def make_openflamingo_pooled_eval_chain(cfg, eos_token_id: int, **kw):
     merged-admission functions (per-lane ALiBi biases)."""
     raise _not_ported("the OpenFlamingo pooled eval chain (its serving and merged-admission "
                       "functions)", "item 22")
+
+
+def pooled_eval_chain(bundle, generate_kwargs: dict):
+    """The pooled chain of a ``ModelBundle`` at ``generate_kwargs``' beam
+    settings::
+
+        chain(ids (N,1,S), mask (N,1,S), pixels (N,1,I,H,W,3) as the
+              processor emits them, valid (N,1,I), icv) -> (N, 1, max_new)
+
+    The bundle's weights, its pixel normalisation and its ICV layout
+    (``ModelBundle.model_pixels``/``model_icv``) are applied on the device
+    before the loop; the family picks the chain (Idefics2 and OpenFlamingo
+    raise with their ROADMAP items)."""
+    from ..models.idefics import IdeficsConfig
+    from ..models.idefics2 import Idefics2Config
+
+    num_beams = int(generate_kwargs.get("num_beams", 1))
+    max_new = int(generate_kwargs.get("max_new_tokens", 5))
+    if num_beams < 2 or max_new < 2:
+        raise ValueError("the pooled schedule needs num_beams >= 2 and max_new_tokens >= 2 "
+                         "(greedy or 1-token workloads: use infer_engine=continuous)")
+    cfg = bundle.model_cfg
+    if isinstance(cfg, IdeficsConfig):
+        factory = make_idefics_pooled_eval_chain
+    elif isinstance(cfg, Idefics2Config):
+        factory = make_idefics2_pooled_eval_chain
+    else:
+        factory = make_openflamingo_pooled_eval_chain
+    chain = factory(
+        cfg, bundle.eos_token_id, num_beams=num_beams, max_new_tokens=max_new,
+        length_penalty=float(generate_kwargs.get("length_penalty", 0.0)),
+        min_new_tokens=int(generate_kwargs.get("min_new_tokens", 0)),
+        pad_token_id=bundle.pad_token_id,
+    )
+
+    def bundle_chain(ids, mask, pixels, valid, icv_scaled):
+        return chain(bundle.params, ids, mask, bundle.model_pixels(pixels), valid,
+                     bundle.model_icv(icv_scaled))
+
+    return bundle_chain

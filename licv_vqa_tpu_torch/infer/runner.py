@@ -259,12 +259,13 @@ def _icl_prompts(train_ds, val_ds, ice_idx_list, prompt_manager, instruction: st
 
 
 def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_slots: int,
-                    sync_steps: int, merged_admit_in_run: bool = False) -> dict:
+                    sync_steps: int) -> dict:
     """Encode each ``(sample, prompt)`` of ``prompt_iter`` into an engine
     ``Request``, serve them and return ``icv_inference``'s results dict
     (JAX runner.py:329-419).  ``num_beams > 1`` (the reference's beam-3
-    default) takes ``BeamServingEngine``; greedy admissions into an occupied
-    pool ride a merged forward where ``merged_admit_in_run`` asks."""
+    default) takes ``BeamServingEngine``, greedy ``ServingEngine`` (whose
+    admissions into an occupied pool ride a merged forward,
+    ``ServingEngine.from_bundle``)."""
     from .serving import BeamServingEngine, Request, ServingEngine
 
     num_beams = int(generate_kwargs.get("num_beams", 1))
@@ -298,7 +299,7 @@ def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_sl
             length_penalty=float(generate_kwargs.get("length_penalty", 0.0)), **kw,
         )
     else:
-        engine = ServingEngine.from_bundle(bundle, merged_admit_in_run=merged_admit_in_run, **kw)
+        engine = ServingEngine.from_bundle(bundle, **kw)
     for r in requests:
         engine.submit(r)
     tokens = engine.run()
@@ -321,15 +322,13 @@ def icv_inference_continuous(
     progress: bool = True,
     n_slots: int = 8,
     sync_steps: int = 4,
-    merged_admit_in_run: bool = False,
 ) -> dict:
     """``icv_inference`` through the continuous-batching engine: the same
     results, each request's tokens its own bs=1 decode's (in f32), with
     every slot kept busy on ragged workloads."""
 
     return _run_continuous(_icv_prompts(val_ds, prompt_manager, instruction, progress), bundle,
-                           generate_kwargs, icv_scaled, n_slots, sync_steps,
-                           merged_admit_in_run)
+                           generate_kwargs, icv_scaled, n_slots, sync_steps)
 
 
 def icl_inference_continuous(
@@ -359,50 +358,17 @@ def _run_pooled(prompt_iter, bundle, generate_kwargs: dict, icv_scaled,
     """The pooled beam schedule (``infer_engine=pooled``, JAX
     runner.py:495-599): P = max_new − 1 staggered beam groups share every
     merged forward with the next question's prefill
-    (``eval_chain._make_pooled_chain``).
+    (``eval_chain.pooled_eval_chain``, which normalises the pixels and lays
+    out the ICV as the bundle's own forwards do).
 
     Prompts bucket by 64-multiple length and image count; each bucket runs
     in chunks of ``pool_questions`` questions, the last padded by repeating
-    its last question (the extra answers dropped).  Pixels are normalised
-    on the device before a chunk's chain and the ICV is expanded to the
-    bundle's intervention layers, as the static path's bind does; the
-    answers are read back once a chunk.  Each question's tokens are
-    ``beam_generate``'s at bs=1, so the results are the static beam path's
-    in f32."""
-    from ..data.processor import CLIP_MEAN, CLIP_STD
-    from ..models.idefics import IdeficsConfig
-    from ..models.idefics2 import Idefics2Config
-    from ..models.registry import normalize_pixels
-    from .eval_chain import (
-        make_idefics2_pooled_eval_chain,
-        make_idefics_pooled_eval_chain,
-        make_openflamingo_pooled_eval_chain,
-    )
+    its last question (the extra answers dropped); the answers are read
+    back once a chunk.  Each question's tokens are ``beam_generate``'s at
+    bs=1, so the results are the static beam path's in f32."""
+    from .eval_chain import pooled_eval_chain
 
-    num_beams = int(generate_kwargs.get("num_beams", 1))
-    max_new = int(generate_kwargs.get("max_new_tokens", 5))
-    if num_beams < 2 or max_new < 2:
-        raise ValueError("the pooled schedule needs num_beams >= 2 and max_new_tokens >= 2 "
-                         "(greedy or 1-token workloads: use infer_engine=continuous)")
-    cfg = bundle.model_cfg
-    if isinstance(cfg, IdeficsConfig):
-        factory = make_idefics_pooled_eval_chain
-    elif isinstance(cfg, Idefics2Config):
-        factory = make_idefics2_pooled_eval_chain
-    else:
-        factory = make_openflamingo_pooled_eval_chain
-    chain = factory(
-        cfg, bundle.eos_token_id, num_beams=num_beams, max_new_tokens=max_new,
-        length_penalty=float(generate_kwargs.get("length_penalty", 0.0)),
-        min_new_tokens=int(generate_kwargs.get("min_new_tokens", 0)),
-        pad_token_id=bundle.pad_token_id,
-    )
-    if icv_scaled is not None and bundle.intervention_layers is not None:
-        from ..icv.encoder import expand_icv_to_layers
-
-        icv_scaled = expand_icv_to_layers(icv_scaled, bundle.intervention_layers,
-                                          cfg.text.n_layers)
-
+    chain = pooled_eval_chain(bundle, generate_kwargs)
     proc = bundle.processor
     samples, encs = [], []
     for sample, p in prompt_iter:
@@ -435,9 +401,8 @@ def _run_pooled(prompt_iter, bundle, generate_kwargs: dict, icv_scaled,
                 q_ids = encs[qi][0]
                 ids[r, 0, bucket - len(q_ids):] = q_ids
                 mask[r, 0, bucket - len(q_ids):] = 1
-            px = normalize_pixels(torch.from_numpy(pixels).to(dev), CLIP_MEAN, CLIP_STD)
-            out = chain(bundle.params, torch.from_numpy(ids).to(dev),
-                        torch.from_numpy(mask).to(dev), px, torch.from_numpy(pvs).to(dev),
+            out = chain(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                        torch.from_numpy(pixels).to(dev), torch.from_numpy(pvs).to(dev),
                         icv_scaled).cpu().numpy()  # (c, 1, max_new)
             for r, qi in enumerate(chunk[:real]):
                 answers[qi] = bundle.tokenizer.batch_decode([out[r, 0]],

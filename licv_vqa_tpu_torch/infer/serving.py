@@ -15,9 +15,9 @@ in lockstep, and a request enters a free slot the moment one frees:
   (image latents, cross-attention K/V, step one-hot) and decode state into
   the pool's tensors in place (``index_copy_`` and indexed writes, where
   JAX donates buffers);
-- merged admission (the greedy engine, ``merged_admit_fn`` with
-  ``merged_admit_in_run=True``): an admission into an occupied pool runs
-  ONE forward of a pool decode step and the group's prefill, the decoder
+- merged admission (the greedy engine given a ``merged_admit_fn``, as
+  ``from_bundle`` gives it): an admission into an occupied pool runs ONE
+  forward of a pool decode step and the group's prefill, the decoder
   projections packed over both token streams
   (``models/idefics.py::make_idefics_merged_admit_fn``), so the pool keeps
   decoding while a group is admitted; each admitted request's tokens are
@@ -151,7 +151,6 @@ class ServingEngine:
         mesh=None,
         max_images: Optional[int] = None,
         merged_admit_fn: Optional[Callable] = None,
-        merged_admit_in_run: bool = False,
         harvest_lag: int = 1,
         device=None,
     ):
@@ -161,13 +160,12 @@ class ServingEngine:
             raise ValueError(f"harvest_lag must be 0 or 1, got {harvest_lag}")
         self._prefill = prefill_fn
         self._decode = decode_fn
-        # merged admission (chunked prefill): JAX measured it losing in the
-        # host-driven run() and winning only inside its fused loop
-        # (serving.py:145-159), so run() takes it only when
-        # ``merged_admit_in_run`` asks; an admission into an empty pool is
+        # merged admission (chunked prefill) wherever a merged function is
+        # given: on the H100 it saves the pool the forward an admission
+        # would take (JAX's run() leaves it off by default: it lost on the
+        # TPU, serving.py:145-159); an admission into an empty pool is
         # always plain (no decode lane to carry it)
         self._merged_admit = merged_admit_fn
-        self.merged_admit_in_run = bool(merged_admit_in_run)
         self._media_axes = dict(media_axes)
         self._text_cfg = text_cfg
         self.params = params
@@ -270,16 +268,16 @@ class ServingEngine:
     @classmethod
     def from_bundle(cls, bundle, **kw) -> "ServingEngine":
         """The engine of a ``ModelBundle``: the family's serving functions
-        (and, for the greedy engine, its merged admission function), the
+        (and, for the greedy engine, its merged admission function) on the
         bundle's pixel normalisation (raw uint8 pixels normalised on the
-        device) and its subset-layer ICV expansion."""
-        from ..data.processor import CLIP_MEAN, CLIP_STD
+        device) and ICV layout (``ModelBundle.model_pixels``/``model_icv``).
+        The merged forward's matmuls are weight-only, so a bundle whose
+        prefills take w8a8 (``lmm.w8a8_prefill``) keeps plain admission."""
         from ..models.idefics import (
             IdeficsConfig,
             make_idefics_merged_admit_fn,
             make_idefics_serving_fns,
         )
-        from ..models.registry import normalize_pixels
 
         cfg = bundle.model_cfg
         if not isinstance(cfg, IdeficsConfig):
@@ -287,31 +285,24 @@ class ServingEngine:
             raise _not_ported(f"continuous serving of {type(cfg).__name__}", item)
         prefill, decode, axes = make_idefics_serving_fns(cfg, bundle.eos_token_id)
 
-        def norm_prefill(params, pixels, pv, ids, mask, icv, cache_len):
-            return prefill(params, normalize_pixels(pixels, CLIP_MEAN, CLIP_STD), pv, ids,
-                           mask, icv, cache_len)
+        def norm_prefill(params, pixels, *a):
+            return prefill(params, bundle.model_pixels(pixels), *a)
 
         # merged admission for the greedy engine; beam groups keep the
         # plain admission (their step is the beam transition)
-        if not issubclass(cls, BeamServingEngine):
+        if not issubclass(cls, BeamServingEngine) and not cfg.text.w8a8_prefill:
             raw_merged = make_idefics_merged_admit_fn(cfg, bundle.eos_token_id)
 
-            def merged(params, tok, adv, pos, cache, media, icv, pixels, pv, ids, mask,
-                       cache_len):
+            def merged(params, tok, adv, pos, cache, media, icv, pixels, *a):
                 return raw_merged(params, tok, adv, pos, cache, media, icv,
-                                  normalize_pixels(pixels, CLIP_MEAN, CLIP_STD), pv, ids, mask,
-                                  cache_len)
+                                  bundle.model_pixels(pixels), *a)
 
             kw.setdefault("merged_admit_fn", merged)
 
-        icv = kw.pop("icv_scaled", None)
-        if icv is not None and bundle.intervention_layers is not None:
-            from ..icv.encoder import expand_icv_to_layers
-
-            icv = expand_icv_to_layers(icv, bundle.intervention_layers, cfg.text.n_layers)
         return cls(norm_prefill, decode, axes, cfg.text, bundle.params,
                    eos_token_id=bundle.eos_token_id, pad_token_id=bundle.pad_token_id,
-                   icv_scaled=icv, device=bundle.device, **kw)
+                   icv_scaled=bundle.model_icv(kw.pop("icv_scaled", None)),
+                   device=bundle.device, **kw)
 
     # -- public API --------------------------------------------------------------
 
@@ -457,8 +448,7 @@ class ServingEngine:
         admitted_at = self._chunk_count
         mask_t = self._to_device(mask)
         inputs = (self._to_device(pixels), self._to_device(pv), self._to_device(ids), mask_t)
-        merged = (self._merged_admit is not None and self.merged_admit_in_run
-                  and any(s is not None for s in self._slots))
+        merged = self._merged_admit is not None and any(s is not None for s in self._slots)
         if merged:
             last, small, media, next_pos = self._merged_step(inputs, bucket)
         else:

@@ -67,6 +67,10 @@ class ModelBundle:
     hidden_size: int
     n_layers: int  # ICV rows the checkpoint carries (K for subset layers)
     device: torch.device
+    # the processor's pixel statistics (CLIP's or SigLIP's): ``model_pixels``
+    # normalises the raw uint8 pixels it emits on the device
+    pixel_mean: tuple
+    pixel_std: tuple
     # subset-layer intervention (lmm.intervention_layer int/list): the K
     # decoder layers the K ICV rows map to; None when the ICV covers every layer
     intervention_layers: Optional[list] = None
@@ -82,6 +86,23 @@ class ModelBundle:
     @property
     def eos_token_id(self) -> int:
         return self.tokenizer.eos_token_id
+
+    def model_pixels(self, pixels: torch.Tensor) -> torch.Tensor:
+        """The processor's raw uint8 pixels as the model's normalised floats
+        (floats pass through).  The bundle's own forwards do this; the
+        engines and eval chains that call a family's raw functions call it."""
+        return normalize_pixels(pixels, self.pixel_mean, self.pixel_std)
+
+    def model_icv(self, icv_scaled):
+        """The ICV as the model's layers take it: a subset-layer ICV's K rows
+        expanded to per-layer ``(rows, flags)``; a whole-model ICV (or None)
+        as it is."""
+        if icv_scaled is None or self.intervention_layers is None:
+            return icv_scaled
+        from ..icv.encoder import expand_icv_to_layers
+
+        return expand_icv_to_layers(icv_scaled, self.intervention_layers,
+                                    self.model_cfg.text.n_layers)
 
 
 def normalize_pixels(pixels: torch.Tensor, mean, std) -> torch.Tensor:
@@ -253,6 +274,8 @@ def _family_bundle(cfg, model_cfg, name: str, device) -> ModelBundle:
         hidden_size=model_cfg.text.d_model,
         n_layers=n_icv_layers,
         device=torch.device(device),
+        pixel_mean=mean,
+        pixel_std=std,
         intervention_layers=icv_layer_ids,
         head_fn=lambda p, h, _t=model_cfg.text: logits_from_hidden(_t, p, h),
     )
@@ -356,7 +379,8 @@ def _openflamingo_bundle(cfg, model_cfg, name: str, device) -> ModelBundle:
     if isinstance(tokenizer, WhitespaceTokenizer):
         model_cfg = dataclasses.replace(model_cfg, image_token_id=processor.image_token_id)
     train_fwd, bind = make_openflamingo_forward_fns(model_cfg, tokenizer.eos_token_id)
-    train_fwd, bind = _wrap_pixel_normalize(train_fwd, bind, CLIP_MEAN, CLIP_STD)
+    mean, std = CLIP_MEAN, CLIP_STD
+    train_fwd, bind = _wrap_pixel_normalize(train_fwd, bind, mean, std)
     train_fwd, bind, n_icv_layers, icv_layer_ids = _wrap_intervention(
         cfg, model_cfg.text.n_layers, train_fwd, bind
     )
@@ -371,6 +395,8 @@ def _openflamingo_bundle(cfg, model_cfg, name: str, device) -> ModelBundle:
         hidden_size=model_cfg.text.d_model,
         n_layers=n_icv_layers,
         device=torch.device(device),
+        pixel_mean=mean,
+        pixel_std=std,
         intervention_layers=icv_layer_ids,
         head_fn=lambda p, h, _t=model_cfg.text: logits_from_hidden(_t, p, h),
     )

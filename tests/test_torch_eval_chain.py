@@ -1,17 +1,17 @@
-"""Port vs JAX: merged admission's layer and forward, and the overlapped and
-pooled eval chains, on tiny Idefics (CPU, f32).
+"""Port vs JAX: merged admission's layer and forward, and the pooled eval
+chain, on tiny Idefics (CPU, f32).
 
 ``merged_decoder_layer`` and ``make_idefics_merged_admit_fn`` against JAX's
 on the same numpy inputs (both lanes, the ICV on and off, the int8 KV
 cache), within 1e-5.  Every question's tokens from the port's
-``make_idefics_eval_chain`` (overlapped) and ``make_idefics_pooled_eval_chain``
-equal the port's bs=1 ``beam_generate`` through ``bind_images`` (held to
-JAX's in ``tests/test_torch_decode.py``) for several question counts, fewer
-than the pool's P groups among them (JAX ``tests/test_eval_chain.py:29``,
-``:72``), under the ICV, ``min_new_tokens``, a left-padded question, int8
-weights and cache; and the pooled chain equals JAX's in one case.  The
-families not ported and the runner's refusals raise.
-"""
+``make_idefics_pooled_eval_chain`` equal the port's bs=1 ``beam_generate``
+through ``bind_images`` (held to JAX's in ``tests/test_torch_decode.py``)
+for several question counts, fewer than the pool's P groups among them
+(JAX ``tests/test_eval_chain.py:29``, ``:72``), under the ICV,
+``min_new_tokens``, a left-padded question, int8 weights and cache; and
+equal JAX's pooled chain in one case.  A bundle's chain
+(``pooled_eval_chain``) takes its subset-layer ICV as the static runner
+does.  The families not ported and the chain's refusals raise."""
 
 import dataclasses
 
@@ -252,10 +252,11 @@ def icv_rows(cfg, seed):
     return t((rng.normal(size=(cfg.text.n_layers, cfg.text.d_model)) * 0.1).astype(np.float32))
 
 
-@pytest.mark.parametrize("n", [2, 5, 7])
+@pytest.mark.parametrize("n", [1, 2, 4, 5, 7])
 def test_pooled_chain_matches_beam_generate(tiny, n):
-    """P = 3 groups (max_new 4): N = 2 ends inside the warm-up, N = 5 and 7
-    wrap around the drain; the ICV and a left-padded question."""
+    """P = 3 groups (max_new 4): N = 1 and 2 end inside the warm-up, N = 4
+    fills the pool once, N = 5 and 7 wrap around the drain; the ICV and a
+    left-padded question."""
     cfg, params, _, _ = tiny
     qs = questions(cfg, n, 50 + n)
     icv = icv_rows(cfg, n)
@@ -279,14 +280,29 @@ def test_pooled_chain_other_depths_and_min_new(tiny, max_new, min_new):
     torch.testing.assert_close(chain(params, *map(t, qs), None), want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("n", [1, 4])
-def test_overlapped_chain_matches_beam_generate(tiny, n):
-    cfg, params, _, _ = tiny
-    qs = questions(cfg, n, 70 + n)
-    icv = icv_rows(cfg, 70 + n)
-    chain = C.make_idefics_eval_chain(cfg, EOS, num_beams=3, max_new_tokens=4, pad_token_id=PAD)
-    torch.testing.assert_close(chain(params, *map(t, qs), icv),
-                               beam_reference(cfg, params, qs, icv, 4), rtol=0, atol=0)
+def test_bundle_chain_takes_raw_pixels_and_a_subset_layer_icv():
+    """``pooled_eval_chain`` on a bundle with ``lmm.intervention_layer=[1,3]``
+    takes the processor's uint8 pixels and the checkpoint's 2 ICV rows as
+    the static runner's generate does (``ModelBundle.model_pixels`` and
+    ``model_icv``): per question the static beam's tokens at bs 1."""
+    from licv_vqa_tpu_torch.infer.runner import make_generate_fn
+    from tests.test_torch_idefics import tiny_inputs
+    from tests.test_torch_speculative import _tiny_bundle
+
+    bundle = _tiny_bundle(["lmm.intervention_layer=[1,3]"])
+    for key in ("alpha_xattn", "alpha_dense"):  # open the gates: the images count
+        bundle.params["xattn"][key].fill_(0.7)
+    rng = np.random.default_rng(12)
+    ids, mask, _, valid = tiny_inputs(rng, bs=3)
+    pixels = rng.integers(0, 256, size=(3, 2, 28, 28, 3)).astype(np.uint8)
+    icv = t((rng.normal(size=(2, 64)) * 0.5).astype(np.float32))
+    kw = {"num_beams": 3, "max_new_tokens": 4}
+    gen, s = make_generate_fn(bundle, kw), ids.shape[1]
+    want = torch.stack([gen(bundle.params, *(t(x[i:i + 1]) for x in (ids, mask, pixels, valid)),
+                            icv)[:, s:] for i in range(3)])
+    got = C.pooled_eval_chain(bundle, kw)(*(t(x[:, None]) for x in (ids, mask, pixels, valid)),
+                                          icv)
+    torch.testing.assert_close(got, want.to(got.dtype), rtol=0, atol=0)
 
 
 def test_pooled_chain_int8_weights_and_cache(tiny):
@@ -323,6 +339,5 @@ def test_what_the_chains_do_not_take_raises(tiny):
         C.make_idefics2_pooled_eval_chain(cfg, EOS)
     with pytest.raises(NotImplementedError, match="item 22"):
         C.make_openflamingo_pooled_eval_chain(cfg, EOS)
-    for make in (C.make_idefics_pooled_eval_chain, C.make_idefics_eval_chain):
-        with pytest.raises(ValueError, match="max_new_tokens >= 2"):
-            make(cfg, EOS, max_new_tokens=1)
+    with pytest.raises(ValueError, match="max_new_tokens >= 2"):
+        C.make_idefics_pooled_eval_chain(cfg, EOS, max_new_tokens=1)

@@ -83,7 +83,7 @@ def test_the_sweeps_reach_the_eval_chains():
     assert "licv_vqa_tpu_torch.infer.eval_chain" in names
     from licv_vqa_tpu_torch.infer import eval_chain, runner
 
-    assert eval_chain.make_idefics_pooled_eval_chain and eval_chain.make_idefics_eval_chain
+    assert eval_chain.make_idefics_pooled_eval_chain and eval_chain.pooled_eval_chain
     assert runner.icv_inference_pooled and runner.icl_inference_pooled
 
 

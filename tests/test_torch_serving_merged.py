@@ -1,15 +1,14 @@
 """Merged admission in the port's greedy engine (CPU, f32, tiny Idefics).
 
-With ``merged_admit_fn`` and ``merged_admit_in_run=True`` an admission into
-an occupied pool rides one forward of a pool decode step and the group's
-prefill (``models/idefics.py::make_idefics_merged_admit_fn``).  Every
+Given a ``merged_admit_fn``, the engine's admissions into an occupied pool
+ride one forward of a pool decode step and the group's prefill (``models/idefics.py::make_idefics_merged_admit_fn``).  Every
 request's tokens equal plain admission's and the port's bs=1
 ``greedy_generate`` (``tests/test_torch_serving.py::reference``): with the
 ICV and ``min_new`` and slot reuse forcing admissions mid-flight (JAX
 ``tests/test_serving_merged.py:12``), with int8 weights and the int8 KV
 cache (``:91``), with mixed image counts, and against JAX's engine with
 JAX's merged function.  ``from_bundle`` gives the greedy engine the merged
-function and the beam engine none.
+function, unless the bundle's prefills take w8a8, and the beam engine none.
 """
 
 import dataclasses
@@ -36,8 +35,7 @@ from tests.test_torch_serving import (  # noqa: F401  (fixtures)
 
 
 def merged_engine(cfg, params, **kw):
-    return engine(cfg, params, merged_admit_fn=I.make_idefics_merged_admit_fn(cfg, EOS),
-                  merged_admit_in_run=True, **kw)
+    return engine(cfg, params, merged_admit_fn=I.make_idefics_merged_admit_fn(cfg, EOS), **kw)
 
 
 CASES = {
@@ -105,33 +103,43 @@ def test_merged_admission_equals_jax_engine(tiny):
 
 
 def test_run_keeps_plain_admission_unless_asked(tiny):
-    """``merged_admit_fn`` alone changes nothing in ``run()`` (JAX's default);
-    an admission into an empty pool is always plain."""
+    """Without a ``merged_admit_fn`` every admission is plain; with one, an
+    admission into an empty pool still is (one slot: every admission finds
+    the pool empty)."""
     cfg, params, _, _ = tiny
     reqs = requests(cfg, 61, 3)
-    eng = engine(cfg, params, merged_admit_fn=I.make_idefics_merged_admit_fn(cfg, EOS),
-                 n_slots=1, out_cap=8, prompt_buckets=(16,), sync_steps=2)
+    kw = dict(n_slots=1, out_cap=8, prompt_buckets=(16,), sync_steps=2)
+    eng = engine(cfg, params, **kw)
     assert_matches(serve(eng, reqs), cfg, params, reqs)
     assert eng.merged_admits == 0
-    one = merged_engine(cfg, params, n_slots=1, out_cap=8, prompt_buckets=(16,), sync_steps=2)
+    one = merged_engine(cfg, params, **kw)
     assert_matches(serve(one, reqs), cfg, params, reqs)
-    assert one.merged_admits == 0  # one slot: every admission finds the pool empty
+    assert one.merged_admits == 0
 
 
 def test_from_bundle_gives_merged_admission_to_the_greedy_engine_only(monkeypatch):
     """The bundle's engines: the greedy one carries the merged function
-    (with the bundle's pixel normalisation), the beam one none."""
+    (with the bundle's pixel normalisation) and uses it, the beam one
+    none; a bundle whose prefills take w8a8 keeps plain admission (the
+    merged forward is weight-only)."""
     from licv_vqa_tpu_torch.models.registry import build_model
     from licv_vqa_tpu_torch.utils import compose
     from tests.test_torch_cli import MODEL, REPO
 
     monkeypatch.chdir(REPO)
-    cfg = compose("config", "inference", [f"lmm={MODEL}", "device=cpu"])
-    bundle = build_model(cfg, device="cpu")
-    greedy = S.ServingEngine.from_bundle(bundle, n_slots=2, prompt_buckets=(64,))
+
+    def bundle_of(*extra):
+        cfg = compose("config", "inference", [f"lmm={MODEL}", "device=cpu", *extra])
+        return build_model(cfg, device="cpu")
+
+    bundle = bundle_of()
+    greedy = S.ServingEngine.from_bundle(bundle, n_slots=2, out_cap=8, prompt_buckets=(16,),
+                                         sync_steps=2, admit_sizes=(1,))
     beam = S.BeamServingEngine.from_bundle(bundle, n_slots=1, prompt_buckets=(64,))
-    assert greedy._merged_admit is not None and not greedy.merged_admit_in_run
-    assert beam._merged_admit is None
-    on = S.ServingEngine.from_bundle(bundle, n_slots=2, prompt_buckets=(64,),
-                                     merged_admit_in_run=True)
-    assert on.merged_admit_in_run
+    assert greedy._merged_admit is not None and beam._merged_admit is None
+    reqs = [dataclasses.replace(r, pixel_values=np.zeros(r.pixel_values.shape, np.uint8))
+            for r in requests(bundle.model_cfg, 67, 3)]
+    serve(greedy, reqs)
+    assert greedy.merged_admits > 0  # the second request joins the first's pool
+    w8a8 = bundle_of("lmm.quantize=int8", "lmm.w8a8_prefill=true")
+    assert S.ServingEngine.from_bundle(w8a8, n_slots=2)._merged_admit is None

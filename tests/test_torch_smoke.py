@@ -892,9 +892,9 @@ def test_pooled_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypa
     ``predicted_pooled_launches`` and the tokens the static beam's (the
     phase checks both and raises); (a)'s 8 questions run as two chains of
     4 and then as one of 8, (b)'s 32-shot question in a chain whose
-    prologue and merged forwards take the flash route; (c) merged
-    admission admits into an occupied pool and plain admission never does,
-    both against the prediction of 4d.
+    prologue and merged forwards take the flash route; (c) the engine's
+    merged admission admits into an occupied pool and plain admission
+    never does, both against the prediction of 4d.
     Then (d) on the int8 build of run A's options, w8a8 off: the int8
     launches (every packed projection over P·K + 64 rows off the kernel)
     equal the prediction, no w8a8."""
@@ -916,6 +916,51 @@ def test_pooled_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypa
     e8 = C.eval_setup(dev, tmp_path / mode, opts, lmm="tiny-idefics")
     got8 = C.pooled_int8(e8, opts)
     assert got8["int8_matmul"] > 0 and got8["w8a8_matmul"] == 0
+
+
+def test_pooled_phase_tie_rule_on_an_altered_static_decode(tmp_path, monkeypatch, capsys,
+                                                           one_thread):
+    """Phase 4e's token rule where the static tokens differ (on tiny f32 the
+    chain and the static beam agree, so the static decode of question 0 is
+    altered at its second token): the rule finds the chain's beam along the
+    static answer's first token and reads its log-probabilities there,
+    equal to the static decode's at bs 1 in f32 (and the static path's own
+    drift at bs 2 nil), then counts the question or refuses it."""
+    import importlib
+
+    from licv_vqa_tpu_torch.infer.runner import icv_inference_pooled
+    from licv_vqa_tpu_torch.models import layers as PL
+
+    _count_engine_kernels(monkeypatch)
+    _stub_cuda(monkeypatch, tmp_path)
+    dev = torch.device("cpu")
+    e = C.eval_setup(dev, tmp_path / "eval", [], lmm="tiny-idefics")
+    real = C.decoded_tokens
+
+    def altered(*a, **kw):
+        out = real(*a, **kw)
+        out[0] = out[0].clone()
+        out[0][1] = (out[0][1] + 1) % 100
+        return out
+
+    monkeypatch.setattr(C, "decoded_tokens", altered)
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    counters = {"icv_inject": iv.icv_inject, "vit_attention": PL.vit_attention,
+                "flash_attention_fwd": PL.flash_attention}
+    rows = e.val[1:3]
+    try:
+        n = C.pooled_run(e, "pooled", lambda: icv_inference_pooled(
+            rows, e.bundle, e.pm, e.gen_kwargs, e.instruction, e.icv_scaled, False, 2),
+            [C.row_prompt(e, r) for r in rows], e.icv_scaled, counters)
+    except AssertionError as err:
+        assert "near tie" in str(err)
+    else:
+        assert n["icv_inject"] > 0
+    out = capsys.readouterr().out
+    line = next(x for x in out.splitlines() if "pooled: question 0 differs" in x)
+    assert "at token 1 " in line
+    assert float(line.split("max-abs ")[1].split(",")[0]) < 1e-4
+    assert float(line.split("at bs 2: ")[1].split(";")[0]) < 1e-4
 
 
 def test_pooled_launch_prediction_at_full_width():
