@@ -150,7 +150,7 @@ Phases (any failure exits non-zero before the result lines):
    Prints s/question beside the static path's, tokens/s, peak memory, the
    admissions, the decode steps and the synchronizing CUDA calls that
    ``torch.cuda.set_sync_debug_mode("warn")`` reports inside decode chunks
-   (predicted 0; a finding, not a failure); and 4e: the pooled beam eval
+   (one fails the phase); and 4e: the pooled beam eval
    chain (``infer/eval_chain.py``) through ``icv_inference_pooled`` /
    ``icl_inference_pooled`` on the same model: (a) ``test_icv`` beam-3 on
    ``POOLED_ICV_Q`` (8) questions in chunks of ``POOL_QUESTIONS`` (4), then
@@ -167,7 +167,7 @@ Phases (any failure exits non-zero before the result lines):
    own bs-1-to-bs-4 drift, or the two tokens under ``NEAR_TIE`` apart),
    printing s/question beside the static beam's and 4d (a)'s beam
    engine's, ms a merged forward (CUDA events around each), peak memory
-   and the synchronizing calls inside the chains (predicted 0); (c)
+   and the synchronizing calls inside the chains (one fails the phase); (c)
    ``test_icv`` greedy on ``MERGED_REQUESTS`` (16) questions through
    ``CONT_GREEDY_SLOTS`` (8) slots, the CLI's, with merged admission (the
    engine's own choice on every admission into an occupied pool, as in
@@ -236,7 +236,24 @@ Phases (any failure exits non-zero before the result lines):
    kernels against the plain path (rel. L2 within ``REL_L2_TOL``) and both
    against the plain path in f32 (the kernel path no farther from it than
    ``F32_DRIFT_RATIO`` times the plain path; the same argmax, or a tie at
-   bf16's resolution: ``kernel_vs_plain_f32_logits``);
+   bf16's resolution: ``kernel_vs_plain_f32_logits``); then 7b, the
+   engines, merged admission and the pooled chain on the same model, with
+   4d's and 4e's checks (each configuration run twice, the second counted;
+   the tower's bidirectional flash counted with the rest, 27 launches a
+   bind of an admission group or a merged forward's prefill lane; no
+   synchronizing call inside a chunk or a chain): (a) ``test_icv`` beam-3
+   through ``icv_inference_continuous`` on ``IDEFICS2_ENGINE_Q`` (12)
+   questions whose images cycle ``COCO_SIZES``, so their admissions split
+   by NaViT mask shape, ``CONT_BEAM_SLOTS`` (4) request groups; (b)
+   ``test_icv`` greedy on ``MERGED_REQUESTS`` (16) such questions at
+   ``CONT_GREEDY_SLOTS`` (8) slots, merged admission and then plain (4e
+   (c)'s ``merged_vs_plain``); (c) ``test_icl`` beam-3 on
+   ``CONT_ICL_SHOTS`` through the beam engine at ``CONT_ICL_SLOTS`` (4)
+   requests (the causal flash in the 32-shot admissions, 33 images a
+   bind; peak memory printed); (d) the pooled chain of the bundle
+   (``pooled_eval_chain``) on ``POOLED_ICV_Q`` (8) ``test_icv`` questions
+   of ``UNIFORM_SIZE`` (672x672, whole 112-pixel buckets: no padded pixel,
+   no mask) in one chunk, under 4e's token rule;
 8. the OpenFlamingo-9B eval at full width (32 MPT-7B layers, d=4096, ALiBi,
    d_ff 16384, the head tied to the 50432-row table; 24 ViT-L layers at
    d=1024; a 6-layer perceiver; 8 gated cross-attention blocks; random bf16
@@ -1679,6 +1696,28 @@ def vit_per_bind(vc, dev) -> int:
     return vc.n_layers * L.vit_attention_usable(vc.n_patches, vc.d_model // vc.n_heads, dev)
 
 
+def bind_patches(vc, hw) -> int:
+    """Patches an image of ``hw`` (height, width) pixels makes."""
+    return (hw[0] // vc.patch_size) * (hw[1] // vc.patch_size)
+
+
+def tower_launches(vc, n_patches: int, dev) -> dict:
+    """The tower's attention launches in one bind of images of ``n_patches``
+    patches, one call a layer over all the bind's images, by
+    ``vision._vit_layer``'s branches: the bidirectional flash kernel where
+    ``layers.flash_bidir_usable`` holds for the tokens (a SigLIP/NaViT
+    tower from 1024 patches: every Idefics2 image at full width), else the
+    fused ViT kernel where ``layers.vit_attention_usable`` does (Idefics'
+    CLIP tower at 257 tokens)."""
+    from licv_vqa_tpu_torch.models import layers as L
+
+    n = n_patches + int(vc.use_class_token)
+    bidir = L.flash_bidir_usable(n, dev)
+    return {"flash_attention_bidir": vc.n_layers * bidir,
+            "vit_attention": vc.n_layers * (not bidir) * L.vit_attention_usable(
+                n, vc.d_model // vc.n_heads, dev)}
+
+
 def eval_runs(e: EvalSetup) -> dict:
     """path -> (run(rows[, shots]) through the runner entry point, the
     prompt of question q, the number of questions timed)."""
@@ -1846,6 +1885,20 @@ def spec_draft_layers(mc) -> int:
     return max(mc.cross_layer_interval, mc.text.n_layers // 4)
 
 
+def encoded(b, prompts: list) -> tuple:
+    """``(ids, mask, pixels, pixel_valid, kw)`` of ``prompts`` as the
+    runner encodes them, on the bundle's device; ``kw`` holds the
+    ``pixel_attention_mask`` where the processor marks real pixels
+    (Idefics2's NaViT at full width), for the bind."""
+    import torch
+
+    enc = b.processor.prepare_input(prompts, padding=True, padding_side="left")
+    keys = ("input_ids", "attention_mask", "pixel_values", "pixel_valid")
+    kw = {k: torch.from_numpy(enc[k]).to(b.device) for k in ("pixel_attention_mask",)
+          if k in enc}
+    return (*(torch.from_numpy(enc[k]).to(b.device) for k in keys), kw)
+
+
 def top2_gap(e: EvalSetup, prompt: list, prefix, icv_scaled) -> float:
     """The target's f32 gap between its two largest logits after ``prompt``
     and the generated tokens ``prefix``: a prefill of the whole sequence
@@ -1854,15 +1907,13 @@ def top2_gap(e: EvalSetup, prompt: list, prefix, icv_scaled) -> float:
     import torch
 
     b = e.bundle
-    enc = b.processor.prepare_input([prompt], padding=True, padding_side="left")
     dev = b.device
-    ids, mask, px, pv = (torch.from_numpy(enc[k]).to(dev) for k in
-                         ("input_ids", "attention_mask", "pixel_values", "pixel_valid"))
+    ids, mask, px, pv, kw = encoded(b, [prompt])
     ids = torch.cat([ids, prefix[None].to(device=dev, dtype=ids.dtype)], dim=1)
     mask = torch.cat([mask, torch.ones_like(ids[:, mask.shape[1]:])], dim=1)
     pos = torch.clamp(torch.cumsum(mask, -1) - 1, min=0)
     with torch.inference_mode():
-        fwd = b.bind_decode(b.params, px, pv, ids, icv_scaled, ids.shape[1] + 1)
+        fwd = b.bind_decode(b.params, px, pv, ids, icv_scaled, ids.shape[1] + 1, **kw)
         top = fwd(ids, mask, pos, None)[0][0, -1].float().topk(2).values
     return float(top[0] - top[1])
 
@@ -1879,12 +1930,11 @@ def forced_decode_logits(e: EvalSetup, prompts: list, prefixes: list, icv_scaled
 
     b = e.bundle
     dev = b.device
-    enc = b.processor.prepare_input(prompts, padding=True, padding_side="left")
-    ids, mask, px, pv = (torch.from_numpy(enc[k]).to(dev) for k in
-                         ("input_ids", "attention_mask", "pixel_values", "pixel_valid"))
+    ids, mask, px, pv, kw = encoded(b, prompts)
     pos = _positions_from_mask(mask)
     with torch.inference_mode():
-        fwd = b.bind_decode(b.params, px, pv, ids, icv_scaled, ids.shape[1] + MAX_NEW + 1)
+        fwd = b.bind_decode(b.params, px, pv, ids, icv_scaled, ids.shape[1] + MAX_NEW + 1,
+                            **kw)
         logits, cache = fwd(ids, mask, pos, None)
         next_pos = pos[:, -1] + 1
         step_mask = torch.ones((len(prompts), 1), dtype=torch.int32, device=dev)
@@ -2074,20 +2124,33 @@ CONT_ICL_SLOTS = 4
 CONT_ICL_SHOTS = (1, 8, 32, 1, 8, 32)
 
 
+def engine_counters() -> dict:
+    """The engines' and chains' counted kernels (the towers' two and the
+    decoder's causal flash and ICV injection): name -> wrapper."""
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+
+    return {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
+            "flash_attention_bidir": L.flash_attention_bidir,
+            "flash_attention_fwd": L.flash_attention}
+
+
 @contextlib.contextmanager
 def engine_spy():
-    """Records each engine run (the engine and its tokens), counts the
+    """Records each engine run (the engine and its tokens) and each
+    admission group's (height, width) of pixels (``binds``), counts the
     synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode("warn")``
     reports inside its decode chunks (the first one's source line kept) and
     brackets each chunk with CUDA events (``step_ms``: their mean interval
     over the steps, after a synchronize)."""
     import warnings
 
+    import numpy as np
     import torch
 
     from licv_vqa_tpu_torch.infer.serving import ServingEngine
 
-    spy = SimpleNamespace(runs=[], syncs=0, first_sync=None, events=[], steps=0)
+    spy = SimpleNamespace(runs=[], syncs=0, first_sync=None, events=[], steps=0, binds=[])
 
     def step_ms():
         if not spy.events:
@@ -2096,7 +2159,11 @@ def engine_spy():
         return sum(a.elapsed_time(b) for a, b in spy.events) / spy.steps
 
     spy.step_ms = step_ms
-    run, chunk = ServingEngine.run, ServingEngine._chunk
+    run, chunk, admit = ServingEngine.run, ServingEngine._chunk, ServingEngine._admit_group
+
+    def spied_admit(self, group, *a):
+        spy.binds.append(tuple(np.asarray(group[0].pixel_values).shape[1:3]))
+        return admit(self, group, *a)
 
     def spied_run(self, *a, **kw):
         out = run(self, *a, **kw)
@@ -2125,31 +2192,40 @@ def engine_spy():
         return None
 
     ServingEngine.run, ServingEngine._chunk = spied_run, spied_chunk
+    ServingEngine._admit_group = spied_admit
     try:
         yield spy
     finally:
         ServingEngine.run, ServingEngine._chunk = run, chunk
+        ServingEngine._admit_group = admit
 
 
-def predicted_engine_launches(mc, engine, with_icv: bool, dev) -> dict:
-    """The ICV, fused ViT and causal flash launches of one engine run, from
-    its admissions and decode steps: every admission group prefills once
-    (a bind of the group's images, the tower's layers once; the causal
-    flash at every layer where the bucket passes the flash gate) and every
-    decode step forwards the whole pool once; the ICV enters every layer
-    of both.  A merged admission is both in one forward (its prefill lane
-    and its decode lane each take the ICV, and the flash where the
-    bucket passes)."""
+def predicted_engine_launches(mc, engine, binds: list, with_icv: bool, dev) -> dict:
+    """The ICV, tower and causal flash launches of one engine run, from its
+    admissions, their pixels' (height, width) ``binds`` and its decode
+    steps: every admission group prefills once (a bind of the group's
+    images, the tower's layers once, ``tower_launches``; the causal flash
+    at every layer where the bucket passes the flash gate) and every decode
+    step forwards the whole pool once; the ICV enters every layer of both.
+    A merged admission is both in one forward (its prefill lane and its
+    decode lane each take the ICV, and the flash where the bucket
+    passes)."""
     from licv_vqa_tpu_torch.models import layers as L
 
     t = mc.text
     groups = engine.admissions
-    return {
+    if len(binds) != len(groups):
+        raise AssertionError(f"{len(binds)} binds recorded for {len(groups)} admissions")
+    out = {
         "icv_inject": t.n_layers * (len(groups) + engine.steps_run) if with_icv else 0,
-        "vit_attention": vit_per_bind(mc.vision, dev) * len(groups),
+        "vit_attention": 0, "flash_attention_bidir": 0,
         "flash_attention_fwd": t.n_layers * sum(
             L.flash_attention_usable(t, bucket, t.head_dim, dev) for _, bucket in groups),
     }
+    for hw in binds:
+        for k, v in tower_launches(mc.vision, bind_patches(mc.vision, hw), dev).items():
+            out[k] += v
+    return out
 
 
 def engine_tokens(engine_out: dict, n: int, pad: int) -> list:
@@ -2280,7 +2356,8 @@ def engine_run(e: EvalSetup, tag: str, run, prompts: list, gen_kwargs: dict, icv
     res, wall, counts, peak, spy = counted_run(e, run, counters, engine_spy)
     step_ms = spy.step_ms()
     (engine, out), = spy.runs
-    want = predicted_engine_launches(b.model_cfg, engine, icv_scaled is not None, b.device)
+    want = predicted_engine_launches(b.model_cfg, engine, spy.binds, icv_scaled is not None,
+                                     b.device)
     n = len(prompts)
     static, static_s = timed_static(e, gen_kwargs, prompts, icv_scaled)
     tokens = engine_tokens(out, n, b.pad_token_id)
@@ -2301,6 +2378,8 @@ def engine_run(e: EvalSetup, tag: str, run, prompts: list, gen_kwargs: dict, icv
     for k, v in want.items():
         if counts[k] != v:
             raise AssertionError(f"{tag}: {k} launched {counts[k]} != {v}")
+    if spy.syncs:
+        raise AssertionError(f"{tag}: {spy.syncs} synchronizing CUDA calls inside decode chunks")
     if check is not None:
         ties = check(static, tokens)
     elif int(gen_kwargs.get("num_beams", 1)) > 1:
@@ -2310,18 +2389,15 @@ def engine_run(e: EvalSetup, tag: str, run, prompts: list, gen_kwargs: dict, icv
     log(f"{tag} tokens: {n - ties} of {n} requests equal the static path's, {ties} differ "
         f"at a near tie")
     return {"counts": counts, "engine": engine, "tokens": out, "s_per_q": wall / n,
-            "static_s_per_q": static_s}
+            "static_s_per_q": static_s, "binds": spy.binds, "peak_gib": peak}
 
 
 def continuous_path(e: EvalSetup) -> dict:
     """Phase 4d (a)-(c) on phase 4's Idefics-9B.  Returns the launch counts."""
     from licv_vqa_tpu_torch.infer.runner import icl_inference_continuous, icv_inference_continuous
-    from licv_vqa_tpu_torch.models import layers as L
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
 
     b = e.bundle
-    counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
-                "flash_attention_fwd": L.flash_attention}
+    counters = engine_counters()
     rows = e.val[1 : 1 + N_ICV_Q]
     icv_prompts = [icv_prompt(e, q) for q in range(1, 1 + N_ICV_Q)]
     greedy_kw = dict(e.gen_kwargs, num_beams=1)
@@ -2357,7 +2433,7 @@ def drift_tie_check(e: EvalSetup, tag: str, prompts: list, static: list, engine:
     difference of its logits for that token between bs 1 and the
     questions decoded together, ``forced_decode_logits``): a bf16 drift of
     that size flips the token in a static batch as in the engine.  With
-    ``engine_logits(q, t)`` (``int8_engine_logits``) the engine's own
+    ``engine_logits(q, t)`` (``engine_logits_recorder``) the engine's own
     logits for that token are printed against the static path's.  Returns
     the number of such questions."""
     n = 0
@@ -2377,8 +2453,11 @@ def drift_tie_check(e: EvalSetup, tag: str, prompts: list, static: list, engine:
         def rel(x):
             return float((x - want).norm() / want.norm())
 
-        own = ("" if engine_logits is None else
-               f"; the engine's: rel. L2 {rel(engine_logits(q, at).to(want.device)):.4e}")
+        own = ""
+        if engine_logits is not None:
+            got = engine_logits(q, at).to(want.device)
+            own = (f"; the engine's: rel. L2 {rel(got):.4e}; its max-abs "
+                   f"{float((got - want).abs().max()):.4f}")
         log(f"{tag}: question {q} differs from the static path at token {at} "
             f"({a.tolist()} vs {t.tolist()}); the static f32 top-2 gap there {gap:.6f}; "
             f"the static path's logits there at bs {len(prompts)} against bs 1: max-abs "
@@ -2404,12 +2483,10 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
     ``forced_decode_logits``): w8a8 rounds every activation row and the
     int8 KV cache every cached row to 127 steps, so a bf16 drift can move a
     value a whole step, in a static batch as in the engine.  Printed beside it: the engine's logits for that
-    token (``int8_engine_logits``) against the static path's."""
+    token (``engine_logits_recorder``) against the static path's."""
     from licv_vqa_tpu_torch.infer.runner import icv_inference_continuous
     from licv_vqa_tpu_torch.infer.serving import ServingEngine
-    from licv_vqa_tpu_torch.models import layers as L
     from licv_vqa_tpu_torch.ops import int8_matmul as I8
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
 
     b = e.bundle
     kernel, chunk, rows_seen, inside = I8.int8_matmul, ServingEngine._chunk, [], []
@@ -2426,8 +2503,7 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
         finally:
             inside.clear()
 
-    counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
-                "flash_attention_fwd": L.flash_attention, "int8_matmul": counted}
+    counters = dict(engine_counters(), int8_matmul=counted)
     greedy_kw = dict(e.gen_kwargs, num_beams=1)
     rows = e.val[1 : 1 + N_ICV_Q]
     prompts = [icv_prompt(e, q) for q in range(1, 1 + N_ICV_Q)]
@@ -2435,7 +2511,7 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
 
     def run():
         rows_seen.clear()  # the counted run's alone
-        with int8_engine_logits() as rec:
+        with engine_logits_recorder() as rec:
             out = icv_inference_continuous(rows, b, e.pm, greedy_kw, e.instruction,
                                            e.icv_scaled, False, CONT_GREEDY_SLOTS)
         recorded.update(rec)
@@ -2483,14 +2559,14 @@ MERGED_REQUESTS = 16  # (c): through CONT_GREEDY_SLOTS slots, two waves of admis
 @contextlib.contextmanager
 def chain_spy():
     """Records each pooled chain the runner makes and calls: its (questions,
-    bucket, images a question), its prompts (host copies, taken before the
-    chain runs) and answers; brackets each merged forward with CUDA events
-    (``merged_ms``: their mean interval, after a synchronize) and counts
-    the synchronizing CUDA calls that ``set_sync_debug_mode("warn")``
-    reports inside a chain (the first one's source line kept); keeps, on
-    the device, the live tokens and f32 log-probabilities of every beam
-    transition of a chain, in order (two an iteration: the finalize of the
-    group answered, then all P groups)."""
+    bucket, images a question, (height, width) of its pixels), its prompts
+    (host copies, taken before the chain runs) and answers; brackets each
+    merged forward with CUDA events (``merged_ms``: their mean interval,
+    after a synchronize) and counts the synchronizing CUDA calls that
+    ``set_sync_debug_mode("warn")`` reports inside a chain (the first one's
+    source line kept); keeps, on the device, the live tokens and f32
+    log-probabilities of every beam transition of a chain, in order (two an
+    iteration: the finalize of the group answered, then all P groups)."""
     import warnings
 
     import torch
@@ -2529,7 +2605,8 @@ def chain_spy():
         chain = make(text_cfg, prefill, timed_merged, axes, **kw)
 
         def spied_chain(params, ids, mask, pixels, valid, icv):
-            spy.chains.append((ids.shape[0], ids.shape[-1], pixels.shape[2]))
+            spy.chains.append((ids.shape[0], ids.shape[-1], pixels.shape[2],
+                               tuple(pixels.shape[3:5])))
             spy.transitions.append([])
             host = (ids.cpu(), mask.cpu())
             if ids.device.type != "cuda":
@@ -2560,14 +2637,15 @@ def chain_spy():
 
 def predicted_pooled_launches(mc, chains: list, with_icv: bool, dev, opts=None,
                               beams: int = 3) -> dict:
-    """The ICV, fused ViT and causal flash launches of the pooled chains
-    ``chains`` ((questions, bucket, images) each), and with ``opts`` (an
-    int8 build's lmm options) the int8 and w8a8 ones.  A chain of n
-    questions runs one prologue prefill and n + P merged forwards (P =
-    max_new − 1), each of them a bind (the tower's layers once) and a
-    prefill lane; the ICV enters every layer of the prologue and of both
-    lanes of every merged forward, the causal flash every layer of each
-    where the bucket passes the flash gate.  Int8 (``quant_routes``): the
+    """The ICV, tower and causal flash launches of the pooled chains
+    ``chains`` ((questions, bucket, images, (height, width)) each), and
+    with ``opts`` (an int8 Idefics build's lmm options) the int8 and w8a8
+    ones.  A chain of n questions runs one prologue prefill and n + P
+    merged forwards (P = max_new − 1), each of them a bind (the tower's
+    layers once, ``tower_launches``) and a prefill lane; the ICV enters
+    every layer of the prologue and of both lanes of every merged forward,
+    the causal flash every layer of each where the bucket passes the flash
+    gate.  Int8 (``quant_routes``): the
     prologue as ``predicted_quantized_launches``'s prefill; a merged
     forward packs the decoder's 7 projections a layer over P·K + bucket
     rows, weight-only; its cross-attention blocks run per lane (P·K rows at
@@ -2578,15 +2656,16 @@ def predicted_pooled_launches(mc, chains: list, with_icv: bool, dev, opts=None,
     t, v, pc = mc.text, mc.vision, mc.perceiver
     p = MAX_NEW - 1
     rows_d = p * beams
-    groups = t.n_layers // mc.cross_layer_interval
-    vit = vit_per_bind(v, dev)
-    out = dict.fromkeys(("icv_inject", "vit_attention", "flash_attention_fwd"), 0)
+    out = dict.fromkeys(("icv_inject", "vit_attention", "flash_attention_bidir",
+                         "flash_attention_fwd"), 0)
     if opts is not None:
         out.update(int8_matmul=0, w8a8_matmul=0)
         takes, w8a8 = quant_routes(opts)
-    for n, bucket, n_img in chains:
+        groups = t.n_layers // mc.cross_layer_interval
+    for n, bucket, n_img, hw in chains:
         merged = n + p
-        out["vit_attention"] += vit * (1 + merged)
+        for k, binds in tower_launches(v, bind_patches(v, hw), dev).items():
+            out[k] += binds * (1 + merged)
         out["flash_attention_fwd"] += t.n_layers * (1 + merged) * L.flash_attention_usable(
             t, bucket, t.head_dim, dev)
         if with_icv:
@@ -2721,7 +2800,7 @@ def pooled_run(e: EvalSetup, tag: str, run, prompts: list, icv_scaled, counters:
     engine = "" if beam_s is None else f", 4d's beam engine {beam_s:.3f}"
     first = f", the first at {spy.first_sync}" if spy.first_sync else ""
     log(f"{tag}: {n} questions, {wall / n:.3f} s/question (static beam bs=1 {static_s:.3f}"
-        f"{engine}); chains (questions, bucket, images) {spy.chains}, {spy.merged} merged "
+        f"{engine}); chains (questions, bucket, images, pixels) {spy.chains}, {spy.merged} merged "
         f"forwards, a merged forward {fwd}; launches {counts} (predicted {want}); peak "
         f"device memory {peak:.2f} GiB; synchronizing CUDA calls inside the chains "
         f"{spy.syncs} (predicted 0){first}")
@@ -2731,6 +2810,8 @@ def pooled_run(e: EvalSetup, tag: str, run, prompts: list, icv_scaled, counters:
     for k, v in want.items():
         if counts[k] != v:
             raise AssertionError(f"{tag}: {k} launched {counts[k]} != {v}")
+    if spy.syncs:
+        raise AssertionError(f"{tag}: {spy.syncs} synchronizing CUDA calls inside the chains")
     ties = pooled_near_tie_check(e, tag, spy, prompts, static, icv_scaled)
     log(f"{tag} tokens: {n - ties} of {n} questions equal the static beam's, {ties} differ "
         f"within the rule")
@@ -2740,17 +2821,10 @@ def pooled_run(e: EvalSetup, tag: str, run, prompts: list, icv_scaled, counters:
 def pooled_path(e: EvalSetup, beam_s: float) -> dict:
     """Phase 4e (a)-(c) on phase 4's Idefics-9B; ``beam_s`` is 4d (a)'s
     s/question.  Returns the launch counts."""
-    from licv_vqa_tpu_torch.infer.runner import (
-        icl_inference_pooled,
-        icv_inference_continuous,
-        icv_inference_pooled,
-    )
-    from licv_vqa_tpu_torch.models import layers as L
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+    from licv_vqa_tpu_torch.infer.runner import icl_inference_pooled, icv_inference_pooled
 
     b = e.bundle
-    counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
-                "flash_attention_fwd": L.flash_attention}
+    counters = engine_counters()
     more = synthetic_vqa(MERGED_REQUESTS - len(e.val) + 1, 200, seed=5)
     rows = (e.val[1:] + more)[:POOLED_ICV_Q]
     icv_prompts = [row_prompt(e, r) for r in rows]
@@ -2777,27 +2851,46 @@ def pooled_path(e: EvalSetup, beam_s: float) -> dict:
 
     # (c) the greedy engine at the CLI's slot count, merged admission (its
     # own choice) against plain admission
+    for k, v in merged_vs_plain(e, "", e.val[1:] + more, counters).items():
+        total[k] += v
+    return total
+
+
+def merged_vs_plain(e: EvalSetup, prefix: str, rows: list, counters: dict) -> dict:
+    """4e (c) and 7b (b): greedy ``test_icv`` on ``rows`` through the engine
+    at the CLI's ``CONT_GREEDY_SLOTS`` slots, with merged admission (the
+    engine's own choice on every admission into an occupied pool) and then
+    plain (``plain_admission``), each as a 4d configuration under
+    ``drift_tie_check``.  Returns the launch counts of both."""
+    from licv_vqa_tpu_torch.infer.runner import icv_inference_continuous
+
     greedy_kw = dict(e.gen_kwargs, num_beams=1)
-    rows_c = e.val[1:] + more
-    prompts = [row_prompt(e, r) for r in rows_c]
-    s_per_q = {}
+    prompts = [row_prompt(e, r) for r in rows]
+    s_per_q, total, recorded = {}, dict.fromkeys(counters, 0), {}
+
+    def run():
+        with engine_logits_recorder() as rec:
+            out = icv_inference_continuous(rows, e.bundle, e.pm, greedy_kw, e.instruction,
+                                           e.icv_scaled, False, CONT_GREEDY_SLOTS)
+        recorded.update(rec)  # the counted run's, the last
+        return out
+
     for merged in (True, False):
-        tag = (f"{'merged' if merged else 'plain'} admission greedy test_icv, "
+        tag = (f"{prefix}{'merged' if merged else 'plain'} admission greedy test_icv, "
                f"{CONT_GREEDY_SLOTS} slots")
         with contextlib.nullcontext() if merged else plain_admission():
-            got = engine_run(e, tag, lambda: icv_inference_continuous(
-                rows_c, b, e.pm, greedy_kw, e.instruction, e.icv_scaled, False,
-                CONT_GREEDY_SLOTS), prompts, greedy_kw, e.icv_scaled, counters,
-                check=lambda static, tokens, tag=tag: drift_tie_check(
-                    e, tag, prompts, static, tokens, e.icv_scaled))
+            got = engine_run(e, tag, run, prompts, greedy_kw, e.icv_scaled, counters,
+                             check=lambda static, tokens, tag=tag: drift_tie_check(
+                                 e, tag, prompts, static, tokens, e.icv_scaled,
+                                 recorded["logits"]))
         if merged != (got["engine"].merged_admits > 0):
             raise AssertionError(f"{tag}: merged_admits {got['engine'].merged_admits}")
         s_per_q[merged] = got["s_per_q"]
         for k, v in got["counts"].items():
             total[k] += v
-    log(f"merged admission: {s_per_q[True]:.3f} s/question against plain admission's "
-        f"{s_per_q[False]:.3f} ({CONT_GREEDY_SLOTS} slots, {len(rows_c)} greedy test_icv "
-        f"questions)")
+    log(f"{prefix}merged admission: {s_per_q[True]:.3f} s/question against plain "
+        f"admission's {s_per_q[False]:.3f} ({CONT_GREEDY_SLOTS} slots, {len(rows)} greedy "
+        f"test_icv questions)")
     return total
 
 
@@ -2831,9 +2924,7 @@ def pooled_int8(e: EvalSetup, opts: list) -> dict:
     take the scale-on-output route)."""
     from licv_vqa_tpu_torch.infer.runner import icv_inference_pooled
     from licv_vqa_tpu_torch.models import idefics as I
-    from licv_vqa_tpu_torch.models import layers as L
     from licv_vqa_tpu_torch.ops import int8_matmul as I8
-    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
 
     b = e.bundle
     mc = b.model_cfg
@@ -2845,9 +2936,8 @@ def pooled_int8(e: EvalSetup, opts: list) -> dict:
 
     e = dataclasses.replace(e, bundle=dataclasses.replace(b, model_cfg=mc, bind_decode=bind))
     opts = [o for o in opts if o != "lmm.w8a8_prefill=true"]
-    counters = {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
-                "flash_attention_fwd": L.flash_attention, "int8_matmul": I8.int8_matmul,
-                "w8a8_matmul": I8.w8a8_matmul}
+    counters = dict(engine_counters(), int8_matmul=I8.int8_matmul,
+                    w8a8_matmul=I8.w8a8_matmul)
     rows = e.val[1: 1 + N_ICV_Q]
     return pooled_run(
         e, "pooled int8 beam-3 test_icv (w8a8 off)",
@@ -2857,53 +2947,55 @@ def pooled_int8(e: EvalSetup, opts: list) -> dict:
 
 
 @contextlib.contextmanager
-def int8_engine_logits():
+def engine_logits_recorder():
     """Keeps, on the device, the f32 logits of every admission prefill and
-    decode step of the engine runs inside, with each row's token count and
-    its slot's request.  Yields a dict whose ``"logits"(uid, t)`` is the
-    logits vector the engine took token ``t`` of request ``uid`` from."""
+    decode step (plain or merged) of the greedy engine runs inside, with
+    each row's token count and each request's slot and tenure (a slot may
+    hold several requests in turn).  Yields a dict whose
+    ``"logits"(uid, t)`` is the logits vector the engine took token ``t``
+    of request ``uid`` from."""
     from licv_vqa_tpu_torch.infer.serving import ServingEngine
 
-    admit, scatter, forward = (ServingEngine._admit_group, ServingEngine._scatter_admit,
-                               ServingEngine._forward)
-    slot_of, prefills, steps = {}, [], []
+    admit, scatter, update = (ServingEngine._admit_group, ServingEngine._scatter_admit,
+                              ServingEngine._update)
+    # uid -> [slot, its group's prefill, the first and past-the-last step
+    # of its tenure]; slot -> its current request
+    tenure, holder, prefills, steps = {}, {}, [], []
 
     def spied_admit(self, group, slots, bucket):
         for r, slot in zip(group, slots):
-            if slot in slot_of.values():
-                raise AssertionError("int8_engine_logits: a slot held two requests")
-            slot_of[r.uid] = slot
+            if slot in holder:
+                tenure[holder[slot]][3] = len(steps)
+            holder[slot] = r.uid
+            tenure[r.uid] = [slot, len(prefills), len(steps), None]
         return admit(self, group, slots, bucket)
 
     def spied_scatter(self, rows, bucket, last, *a, **kw):
         prefills.append((rows[:, 0].clone(), last.clone()))
         return scatter(self, rows, bucket, last, *a, **kw)
 
-    def spied_forward(self, tok, adv, positions):
-        logits = forward(self, tok, adv, positions)
+    def spied_update(self, logits, emit, adv, *a):
         steps.append((self._state["tok_count"].clone(), adv.clone(), logits.clone()))
-        return logits
+        return update(self, logits, emit, adv, *a)
 
     def logits(uid, t):
-        row = slot_of[uid]
+        row, pre, first, end = tenure[uid]
         if t == 0:
-            for rows, last in prefills:
-                hit = (rows == row).nonzero()
-                if len(hit):
-                    return last[int(hit[0])]
-        for count, adv, lg in steps:  # the step that forwarded token t - 1
+            rows, last = prefills[pre]
+            return last[int((rows == row).nonzero()[0])]
+        for count, adv, lg in steps[first:end]:  # the step that forwarded token t - 1
             if int(adv[row]) == 1 and int(count[row]) == t - 1:
                 return lg[row]
         raise KeyError((uid, t))
 
     ServingEngine._admit_group = spied_admit
     ServingEngine._scatter_admit = spied_scatter
-    ServingEngine._forward = spied_forward
+    ServingEngine._update = spied_update
     try:
         yield {"logits": logits}
     finally:
         ServingEngine._admit_group, ServingEngine._scatter_admit = admit, scatter
-        ServingEngine._forward = forward
+        ServingEngine._update = update
 
 
 # the RICE phase: CLIP ViT-B/32 at its published widths, random f32 weights;
@@ -3269,10 +3361,9 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     log(f"{mode}: peak device memory over the runs {peak:.2f} GiB (the bf16 build's is phase 4's)")
     if mode == "int8":
         total["int8_matmul"] += speculative_int8(e)["int8_matmul"]
-        for k, v in continuous_int8(e, opts).items():
-            total[k] += v
-        for k, v in pooled_int8(e, opts).items():
-            total[k] += v
+        for counts in (continuous_int8(e, opts), pooled_int8(e, opts)):
+            for k, v in counts.items():  # the engines also count the tower's flash
+                total[k] = total.get(k, 0) + v
     if dev.type == "cuda":
         profile_question(lambda: runs["icv"][0](e.val[1:2]), f"{mode} test_icv")
     kernel_vs_plain_logits(e, mode)
@@ -3350,28 +3441,33 @@ IDEFICS2_CHECK_SHOTS = 8
 
 def predicted_idefics2_launches(mc, s_prompt: int, n_patches: int, with_icv: bool,
                                 dev) -> dict:
-    """Launches in ONE bs=1 question (one bind, a prefill of ``s_prompt``
-    tokens, MAX_NEW - 1 beam steps): the tower's flash kernel at every
-    vision layer when ``layers.flash_bidir_usable`` holds for the bind's
-    ``n_patches`` (always at full width: every NaViT image is at least
-    1024 patches); the causal flash kernel at every decoder layer of the
-    prefill when ``layers.flash_attention_usable`` holds (>= 256 tokens:
-    test_icl's prompt, not test_icv's); the ICV injection at every decoder
-    layer of every forward when the ICV is on."""
+    """Launches in ONE bs=1 question (one bind of images of ``n_patches``
+    patches, a prefill of ``s_prompt`` tokens, MAX_NEW - 1 beam steps): the
+    tower's (``tower_launches``: the bidirectional flash kernel at every vision
+    layer, as every NaViT image at full width is at least 1024 patches);
+    the causal flash kernel at every decoder layer of the prefill when
+    ``layers.flash_attention_usable`` holds (>= 256 tokens: test_icl's
+    prompt, not test_icv's); the ICV injection at every decoder layer of
+    every forward when the ICV is on."""
     from licv_vqa_tpu_torch.models import layers as L
 
-    t, v = mc.text, mc.vision
-    bidir = L.flash_bidir_usable(n_patches, dev)
+    t = mc.text
     return {
-        "flash_attention_bidir": v.n_layers * bidir,
-        # the fused short-sequence kernel takes the tower only under 1024
-        # patches, which no NaViT image at full width has
-        "vit_attention": v.n_layers * (not bidir) * L.vit_attention_usable(
-            n_patches, v.d_model // v.n_heads, dev),
+        **tower_launches(mc.vision, n_patches, dev),
         "flash_attention_fwd": t.n_layers * L.flash_attention_usable(
             t, s_prompt, t.head_dim, dev),
         "icv_inject": t.n_layers * MAX_NEW if with_icv else 0,
     }
+
+
+def idefics2_setup(dev, tmp: Path, lmm: str) -> EvalSetup:
+    """Phase 4's set-up for an Idefics2 lmm, its rows' images of COCO's
+    sizes: the ``test_icv`` questions at 640x480, the shots cycling all
+    three."""
+    e = eval_setup(dev, tmp, [], lmm)
+    e.val = synthetic_vqa(N_ICV_Q + 1, 100, seed=1, sizes=COCO_SIZES[:1])
+    e.train = synthetic_vqa(ICL_SHOTS + 8, 500, seed=2, sizes=COCO_SIZES)
+    return e
 
 
 def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
@@ -3382,9 +3478,7 @@ def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
     from licv_vqa_tpu_torch.models import layers as L
     from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
 
-    e = eval_setup(dev, tmp, [], lmm)
-    e.val = synthetic_vqa(N_ICV_Q + 1, 100, seed=1, sizes=COCO_SIZES[:1])
-    e.train = synthetic_vqa(ICL_SHOTS + 8, 500, seed=2, sizes=COCO_SIZES)
+    e = idefics2_setup(dev, tmp, lmm)
     b = e.bundle
     fmt = torch.load(tmp / "icv_cpk" / "icv_cpk.pth", weights_only=False)["lmm_args"]
     if not fmt["layer_format"].endswith(".mlp"):
@@ -3448,7 +3542,108 @@ def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
          (f"{IDEFICS2_CHECK_SHOTS}-shot ICL",
           icl_prompt(e, 1, e.shots[1][:IDEFICS2_CHECK_SHOTS]), None)),
     )
+    for k, v in idefics2_serving_path(e).items():
+        total[k] += v
     return total
+
+
+# phase 7b: the engines, merged admission and the pooled chain on phase 7's
+# Idefics2-8B-base.  (a) and (b) take images cycling COCO_SIZES (three NaViT
+# mask shapes); (d) images of UNIFORM_SIZE, whole 112-pixel buckets, so no
+# pixel is padded and the chain needs no mask
+IDEFICS2_ENGINE_Q = 12
+UNIFORM_SIZE = (672, 672)
+
+
+def idefics2_serving_path(e: EvalSetup) -> dict:
+    """Phase 7b (a)-(d) on phase 7's Idefics2-8B-base, with 4d's and 4e's
+    checks (launches against ``predicted_engine_launches`` and
+    ``predicted_pooled_launches``, no synchronizing call inside a chunk or
+    a chain, the tokens against the static path's).  Returns the launch
+    counts."""
+    from licv_vqa_tpu_torch.infer.runner import icl_inference_continuous, icv_inference_continuous
+
+    b = e.bundle
+    counters = engine_counters()
+    total = dict.fromkeys(counters, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # (a) beam-3 test_icv: the admission groups split by NaViT shape
+    rows = synthetic_vqa(IDEFICS2_ENGINE_Q, 300, seed=7, sizes=COCO_SIZES)
+    got = engine_run(e, "idefics2 continuous beam-3 test_icv", lambda: icv_inference_continuous(
+        rows, b, e.pm, e.gen_kwargs, e.instruction, e.icv_scaled, False, CONT_BEAM_SLOTS),
+        [row_prompt(e, r) for r in rows], e.gen_kwargs, e.icv_scaled, counters)
+    shapes = sorted(set(got["binds"]))
+    log(f"idefics2 continuous beam-3 test_icv: admission groups over the padded pixels "
+        f"{shapes} (height, width)")
+    if len(shapes) < 2:
+        raise AssertionError("idefics2 (a): the admissions saw fewer than two NaViT shapes")
+    add(got["counts"])
+    beam_s = got["s_per_q"]
+
+    # (b) greedy test_icv at the CLI's slots, merged against plain admission
+    add(merged_vs_plain(e, "idefics2 ", synthetic_vqa(MERGED_REQUESTS, 400, seed=8,
+                                                      sizes=COCO_SIZES), counters))
+
+    # (c) beam-3 test_icl of mixed shots: the causal flash in the 32-shot
+    # buckets' admission prefills, 33 images a bind
+    icl_rows = [e.val[q % len(e.val)] for q in range(len(CONT_ICL_SHOTS))]
+    icl_shots = [list(range(q, q + n)) for q, n in enumerate(CONT_ICL_SHOTS)]
+    tag = f"idefics2 continuous beam-3 test_icl {CONT_ICL_SHOTS} shots"
+    got = engine_run(e, tag, lambda: icl_inference_continuous(
+        e.train, icl_rows, icl_shots, b, e.pm, e.gen_kwargs, e.instruction, False,
+        CONT_ICL_SLOTS), [icl_prompt(e, q % len(e.val), s) for q, s in enumerate(icl_shots)],
+        e.gen_kwargs, None, counters)
+    log(f"{tag}: peak device memory {got['peak_gib']:.2f} GiB (a pool of "
+        f"{got['engine'].n_rows} rows over {got['engine'].cache_len} cache columns)")
+    add(got["counts"])
+
+    # (d) the pooled chain on uniform-resolution questions
+    rows = synthetic_vqa(POOLED_ICV_Q, 600, seed=9, sizes=(UNIFORM_SIZE,))
+    add(pooled_run(e, f"idefics2 pooled beam-3 test_icv, one chunk of {POOLED_ICV_Q}",
+                   lambda: uniform_pooled(e, rows),
+                   [row_prompt(e, r) for r in rows], e.icv_scaled, counters, beam_s=beam_s))
+    return total
+
+
+def uniform_pooled(e: EvalSetup, rows: list) -> dict:
+    """``icv_inference_pooled``'s results on ``rows`` of one resolution
+    through the bundle's pooled chain (``eval_chain.pooled_eval_chain``),
+    one chunk.  Idefics2's processor gives every image a pixel mask, which
+    the runner's pooled route refuses (NaViT is engine-only, as in JAX);
+    here every pixel is real, so the mask is dropped once it is checked to
+    be all ones."""
+    import numpy as np
+    import torch
+
+    from licv_vqa_tpu_torch.infer.eval_chain import pooled_eval_chain
+
+    b = e.bundle
+    encs = []
+    for r in rows:
+        enc = b.processor.prepare_input([row_prompt(e, r)], padding=True, padding_side="left")
+        pam = enc.get("pixel_attention_mask")
+        if pam is not None and not pam.all():
+            raise AssertionError("uniform_pooled: a padded pixel")
+        real = enc["attention_mask"][0] > 0
+        encs.append((enc["input_ids"][0][real], enc["pixel_values"][0], enc["pixel_valid"][0]))
+    if len({px.shape for _, px, _ in encs}) != 1:
+        raise AssertionError("uniform_pooled: more than one pixel shape")
+    bucket = max(-(-len(ids) // 64) * 64 for ids, _, _ in encs)
+    ids = np.full((len(encs), 1, bucket), b.pad_token_id, np.int32)
+    mask = np.zeros((len(encs), 1, bucket), np.int32)
+    for i, (q, _, _) in enumerate(encs):  # left padding
+        ids[i, 0, bucket - len(q):] = q
+        mask[i, 0, bucket - len(q):] = 1
+    px = np.stack([x[1] for x in encs])[:, None]
+    pv = np.stack([x[2] for x in encs])[:, None]
+    out = pooled_eval_chain(b, e.gen_kwargs)(
+        *(torch.from_numpy(x).to(b.device) for x in (ids, mask, px, pv)), e.icv_scaled)
+    return {i: {"prediction": b.tokenizer.batch_decode([toks[0]], skip_special_tokens=True)[0]}
+            for i, toks in enumerate(out.cpu().numpy())}
 
 
 def plain_config(mc, f32: bool = False):
@@ -3506,11 +3701,7 @@ def kernel_vs_plain_f32_logits(e: EvalSetup, tag_prefix: str, make_fns, mean, st
              ("plain", plain_bind(plain_config(mc)), b.params),
              ("f32", plain_bind(plain_config(mc, f32=True)), f32_tree(b.params)))
     for tag, prompt, icv in checks:
-        enc = b.processor.prepare_input([prompt], padding=True, padding_side="left")
-        ids, mask, px, pv = (torch.from_numpy(enc[k]).to(b.device) for k in (
-            "input_ids", "attention_mask", "pixel_values", "pixel_valid"))
-        kw = {k: torch.from_numpy(enc[k]).to(b.device) for k in ("pixel_attention_mask",)
-              if k in enc}  # NaViT at full width; the tiny configs keep squares
+        ids, mask, px, pv, kw = encoded(b, [prompt])
         pos = torch.clamp(torch.cumsum(mask, -1) - 1, min=0)
         out = {}
         for path, bind, params in paths:
@@ -4228,7 +4419,8 @@ def main() -> int:
         del m
         free_device_memory()
         counts_q = dict.fromkeys(("int8_matmul", "int4_matmul", "w8a8_matmul", "icv_inject",
-                                  "flash_attention_fwd", "vit_attention"), 0)
+                                  "flash_attention_fwd", "vit_attention",
+                                  "flash_attention_bidir"), 0)
         for mode, opts, paths in QUANT_RUNS:
             for k, v in quantized_path(dev, Path(tmp) / mode, mode, opts, paths).items():
                 counts_q[k] += v

@@ -15,10 +15,11 @@ encoder under ``$CLIP_CPK_DIR``, else ``HashEncoder``), and
 layer-truncated draft (``infer/speculative.py``).
 ``infer_engine=continuous`` runs ``test_icv`` and ``test_icl`` through the
 continuous-batching engines (``infer/serving.py``: greedy, or beam groups;
-``bs`` slots; Idefics only); ``infer_engine=pooled`` through the pooled beam
-schedule (``infer/eval_chain.py``: chunks of ``infer_pool`` questions,
-default 32; beam search only; Idefics-9B's family only).  The JAX CLI's
-mesh (``infer_dp``/``infer_tp``) and the other families' continuous and
+``bs`` slots; Idefics and Idefics2, NaViT images included);
+``infer_engine=pooled`` through the pooled beam schedule
+(``infer/eval_chain.py``: chunks of ``infer_pool`` questions, default 32;
+beam search only; Idefics and Idefics2 at uniform resolution).  The JAX
+CLI's mesh (``infer_dp``/``infer_tp``) and OpenFlamingo's continuous and
 pooled engines are not ported yet and raise.
 
 Examples:
@@ -78,12 +79,6 @@ def _not_ported(cfg) -> None:
     checks = (
         (int(cfg.get("infer_dp", 1)) != 1 or int(cfg.get("infer_tp", 1)) != 1,
          "infer_dp/infer_tp (the serving mesh)", "Queue 1 item 16"),
-        (engine == "continuous" and "idefics2" in name,
-         f"infer_engine=continuous with lmm {name} (Idefics2's serving functions)",
-         "Queue 1 item 13b"),
-        (engine == "pooled" and "idefics2" in name,
-         f"infer_engine=pooled with lmm {name} (Idefics2's serving and merged-admission "
-         "functions)", "Queue 1 item 14b, with item 13b"),
         (served and "flamingo" in name.lower(),
          f"infer_engine={engine} with lmm {name} (OpenFlamingo's serving functions)",
          "Queue 1 item 22"),

@@ -4,7 +4,9 @@
 max_new − 1 question groups of K beam rows each run staggered through one
 merged forward per iteration, together with the next question's prefill
 (``models/idefics.py::make_idefics_merged_admit_fn``), so one question
-completes per forward where ``beam_generate`` takes max_new.
+completes per forward where ``beam_generate`` takes max_new.  Idefics2's
+chain (``make_idefics2_pooled_eval_chain``) runs the same body on its own
+serving and merged functions, whose media are empty.
 
 JAX's ``lax.scan`` becomes a Python loop here.  The pool's cache, media,
 beam state and each iteration's best hypothesis stay in device tensors:
@@ -193,11 +195,29 @@ def make_idefics_pooled_eval_chain(
     )
 
 
-def make_idefics2_pooled_eval_chain(cfg, eos_token_id: int, **kw):
-    """JAX eval_chain.py:492-522: needs Idefics2's serving and
-    merged-admission functions."""
-    raise _not_ported("the Idefics2 pooled eval chain (its serving and merged-admission "
-                      "functions)", "item 14b, with item 13b")
+def make_idefics2_pooled_eval_chain(
+    cfg,
+    eos_token_id: int,
+    *,
+    num_beams: int = 3,
+    max_new_tokens: int = 5,
+    length_penalty: float = 0.0,
+    min_new_tokens: int = 0,
+    pad_token_id: int = 0,
+):
+    """The pooled chain for Idefics2 (JAX eval_chain.py:492-522), with the
+    contract of ``make_idefics_pooled_eval_chain``.  The image latents merge
+    into the prefill's embeddings, so the pool carries no media.  Uniform
+    resolution only: the chain passes no ``pixel_attention_mask`` (NaViT
+    inputs take the engines)."""
+    from ..models.idefics2 import make_idefics2_merged_admit_fn, make_idefics2_serving_fns
+
+    prefill, _, media_axes = make_idefics2_serving_fns(cfg, eos_token_id)
+    return _make_pooled_chain(
+        cfg.text, prefill, make_idefics2_merged_admit_fn(cfg, eos_token_id), media_axes,
+        num_beams=num_beams, max_new_tokens=max_new_tokens, length_penalty=length_penalty,
+        min_new_tokens=min_new_tokens, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+    )
 
 
 def make_openflamingo_pooled_eval_chain(cfg, eos_token_id: int, **kw):
@@ -216,8 +236,8 @@ def pooled_eval_chain(bundle, generate_kwargs: dict):
 
     The bundle's weights, its pixel normalisation and its ICV layout
     (``ModelBundle.model_pixels``/``model_icv``) are applied on the device
-    before the loop; the family picks the chain (Idefics2 and OpenFlamingo
-    raise with their ROADMAP items)."""
+    before the loop; the family picks the chain (OpenFlamingo raises with
+    its ROADMAP item)."""
     from ..models.idefics import IdeficsConfig
     from ..models.idefics2 import Idefics2Config
 

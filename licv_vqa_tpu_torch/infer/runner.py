@@ -282,6 +282,9 @@ def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_sl
             pixel_values=np.asarray(enc["pixel_values"][0]),
             pixel_valid=np.asarray(enc["pixel_valid"][0], bool),
             max_new=max_new, min_new=min_new,
+            # Idefics2's NaViT real-pixel mask: the engine admits by its shape
+            pixel_attention_mask=(np.asarray(enc["pixel_attention_mask"][0])
+                                  if "pixel_attention_mask" in enc else None),
         ))
         samples.append(sample)
 

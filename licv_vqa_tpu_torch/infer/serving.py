@@ -18,10 +18,13 @@ in lockstep, and a request enters a free slot the moment one frees:
 - merged admission (the greedy engine given a ``merged_admit_fn``, as
   ``from_bundle`` gives it): an admission into an occupied pool runs ONE
   forward of a pool decode step and the group's prefill, the decoder
-  projections packed over both token streams
-  (``models/idefics.py::make_idefics_merged_admit_fn``), so the pool keeps
-  decoding while a group is admitted; each admitted request's tokens are
-  those of plain admission;
+  projections packed over both token streams (the family's
+  ``make_*_merged_admit_fn``), so the pool keeps decoding while a group is
+  admitted; each admitted request's tokens are those of plain admission;
+- NaViT variable resolution (Idefics2): a request's
+  ``pixel_attention_mask`` marks its real pixels; requests admit together
+  only where their pixels and masks have one shape, and the group's
+  stacked masks go to its prefill, plain or merged;
 - every ``sync_steps`` decode steps (a chunk, no host read inside) the
   finished flags, counts and token buffer are copied with
   ``non_blocking=True`` into pinned host tensors and a CUDA event is
@@ -37,9 +40,8 @@ two static batch sizes (JAX serving.py:31-37); in f32 the tokens are equal.
 
 Not in this port yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: ``run_fused`` (the whole scheduler on the device, item 19's
-CUDA-graph capture), the serving mesh (``mesh``, item 16) and families
-other than Idefics (Idefics2, its ``pixel_attention_mask`` grouping and
-its merged admission, item 13b; OpenFlamingo, item 22).
+CUDA-graph capture), the serving mesh (``mesh``, item 16) and
+OpenFlamingo's serving and merged admission (item 22).
 """
 
 from __future__ import annotations
@@ -75,8 +77,8 @@ class Request:
     max_new: int
     min_new: int = 0
     pixel_valid: Optional[np.ndarray] = None  # (N_img,) bool; default all on
-    # NaViT variable resolution (Idefics2): no family of this port takes it
-    # yet (ROADMAP Queue 1 item 13b); ``submit`` refuses it
+    # (N_img, H, W) real pixels (NaViT variable resolution): only an engine
+    # whose family takes it (Idefics2) accepts it
     pixel_attention_mask: Optional[np.ndarray] = None
 
 
@@ -127,9 +129,10 @@ class ServingEngine:
     """Continuous-batching greedy pool over one model family.
 
     ``prefill_fn``/``decode_fn``/``media_axes`` come from the family's
-    ``make_*_serving_fns`` (``models/idefics.py``) or via
-    :meth:`from_bundle`; ``media_axes`` maps each media key to its (batch
-    axis, image axis).
+    ``make_*_serving_fns`` (``models/idefics.py``, ``models/idefics2.py``)
+    or via :meth:`from_bundle`; ``media_axes`` maps each media key to its
+    (batch axis, image axis).  ``supports_pixel_attention_mask``: the
+    family's prefill (and merged function) take ``pixel_attention_mask``.
     """
 
     def __init__(
@@ -150,6 +153,7 @@ class ServingEngine:
         icv_scaled=None,
         mesh=None,
         max_images: Optional[int] = None,
+        supports_pixel_attention_mask: bool = False,
         merged_admit_fn: Optional[Callable] = None,
         harvest_lag: int = 1,
         device=None,
@@ -184,6 +188,7 @@ class ServingEngine:
         # its group's true image count and its scatter zero-pads up to the
         # buffer (never attended: the one-hots derive from pixel_valid)
         self.max_images = None if max_images is None else int(max_images)
+        self.supports_pixel_attention_mask = bool(supports_pixel_attention_mask)
         # harvest_lag=1: wait on chunk k's flags only after dispatching
         # chunk k+1 (the readback overlaps the device; a finished slot idles
         # up to 2·sync_steps steps); 0: wait on every chunk's own flags
@@ -272,37 +277,40 @@ class ServingEngine:
         bundle's pixel normalisation (raw uint8 pixels normalised on the
         device) and ICV layout (``ModelBundle.model_pixels``/``model_icv``).
         The merged forward's matmuls are weight-only, so a bundle whose
-        prefills take w8a8 (``lmm.w8a8_prefill``) keeps plain admission."""
-        from ..models.idefics import (
-            IdeficsConfig,
-            make_idefics_merged_admit_fn,
-            make_idefics_serving_fns,
-        )
+        prefills take w8a8 (``lmm.w8a8_prefill``) keeps plain admission.
+        Idefics2's engines take NaViT ``pixel_attention_mask``s."""
+        from ..models import idefics as I
+        from ..models import idefics2 as I2
 
         cfg = bundle.model_cfg
-        if not isinstance(cfg, IdeficsConfig):
-            item = "item 22" if "Flamingo" in type(cfg).__name__ else "item 13b"
-            raise _not_ported(f"continuous serving of {type(cfg).__name__}", item)
-        prefill, decode, axes = make_idefics_serving_fns(cfg, bundle.eos_token_id)
+        if isinstance(cfg, I.IdeficsConfig):
+            serving, merged_fn, pam_ok = (I.make_idefics_serving_fns,
+                                          I.make_idefics_merged_admit_fn, False)
+        elif isinstance(cfg, I2.Idefics2Config):
+            serving, merged_fn, pam_ok = (I2.make_idefics2_serving_fns,
+                                          I2.make_idefics2_merged_admit_fn, True)
+        else:
+            raise _not_ported(f"continuous serving of {type(cfg).__name__}", "item 22")
+        prefill, decode, axes = serving(cfg, bundle.eos_token_id)
 
-        def norm_prefill(params, pixels, *a):
-            return prefill(params, bundle.model_pixels(pixels), *a)
+        def norm_prefill(params, pixels, *a, **k):
+            return prefill(params, bundle.model_pixels(pixels), *a, **k)
 
         # merged admission for the greedy engine; beam groups keep the
         # plain admission (their step is the beam transition)
         if not issubclass(cls, BeamServingEngine) and not cfg.text.w8a8_prefill:
-            raw_merged = make_idefics_merged_admit_fn(cfg, bundle.eos_token_id)
+            raw_merged = merged_fn(cfg, bundle.eos_token_id)
 
-            def merged(params, tok, adv, pos, cache, media, icv, pixels, *a):
+            def merged(params, tok, adv, pos, cache, media, icv, pixels, *a, **k):
                 return raw_merged(params, tok, adv, pos, cache, media, icv,
-                                  bundle.model_pixels(pixels), *a)
+                                  bundle.model_pixels(pixels), *a, **k)
 
             kw.setdefault("merged_admit_fn", merged)
 
         return cls(norm_prefill, decode, axes, cfg.text, bundle.params,
                    eos_token_id=bundle.eos_token_id, pad_token_id=bundle.pad_token_id,
                    icv_scaled=bundle.model_icv(kw.pop("icv_scaled", None)),
-                   device=bundle.device, **kw)
+                   supports_pixel_attention_mask=pam_ok, device=bundle.device, **kw)
 
     # -- public API --------------------------------------------------------------
 
@@ -312,7 +320,7 @@ class ServingEngine:
         if len(request.input_ids) > self.prompt_buckets[-1]:
             raise ValueError(f"prompt length {len(request.input_ids)} exceeds the largest "
                              f"bucket {self.prompt_buckets[-1]}")
-        if request.pixel_attention_mask is not None:
+        if request.pixel_attention_mask is not None and not self.supports_pixel_attention_mask:
             raise ValueError("this engine's model family does not take a "
                              "pixel_attention_mask (NaViT variable resolution is an "
                              "Idefics2 feature)")
@@ -404,9 +412,12 @@ class ServingEngine:
         raise ValueError(f"prompt length {n} exceeds buckets")
 
     def _group_key(self, r: Request):
-        """Requests admitted together share a prompt bucket and a pixel shape
-        (their pixels stack)."""
-        return self._bucket_for(len(r.input_ids)), tuple(np.asarray(r.pixel_values).shape)
+        """Requests admitted together share a prompt bucket, a pixel shape
+        and a pixel mask shape (their pixels and masks stack; JAX
+        serving.py:539-549)."""
+        pam = r.pixel_attention_mask
+        return (self._bucket_for(len(r.input_ids)), tuple(np.asarray(r.pixel_values).shape),
+                None if pam is None else tuple(np.asarray(pam).shape))
 
     def _admit_pending(self) -> None:
         free = [i for i, s in enumerate(self._slots) if s is None]
@@ -448,12 +459,16 @@ class ServingEngine:
         admitted_at = self._chunk_count
         mask_t = self._to_device(mask)
         inputs = (self._to_device(pixels), self._to_device(pv), self._to_device(ids), mask_t)
+        pam = {}  # the group's NaViT masks (one shape: the group key)
+        if group[0].pixel_attention_mask is not None:
+            pam["pixel_attention_mask"] = self._to_device(
+                np.stack([np.asarray(r.pixel_attention_mask) for r in group]))
         merged = self._merged_admit is not None and any(s is not None for s in self._slots)
         if merged:
-            last, small, media, next_pos = self._merged_step(inputs, bucket)
+            last, small, media, next_pos = self._merged_step(inputs, bucket, pam)
         else:
             last, small, media, next_pos = self._prefill(self.params, *inputs, self._icv,
-                                                         bucket)
+                                                         bucket, **pam)
         if self._media is None:
             self._alloc_media(media, pixels.shape[1])
         rows = self._rows(self._to_device(np.asarray(slots, np.int64)))
@@ -478,7 +493,8 @@ class ServingEngine:
     def _alloc_media(self, media: dict, n_img: int) -> None:
         """Per-slot media buffers shaped as the first admission's media, the
         batch axis ``n_rows`` wide and the image axis ``max_images`` (else
-        this group's image count) images wide."""
+        this group's image count) images wide; none for a family whose
+        decode steps take no media (Idefics2's ``{}``)."""
         width = n_img if self.max_images is None else self.max_images
 
         def alloc(ax, img_ax):
@@ -588,17 +604,18 @@ class ServingEngine:
         logits = self._forward(tok, adv, self._state["next_pos"])
         self._update(logits, emit, adv, out, finished)
 
-    def _merged_step(self, inputs: tuple, bucket: int) -> tuple:
+    def _merged_step(self, inputs: tuple, bucket: int, pam: dict) -> tuple:
         """A pool decode step whose forward also prefills the admission
-        group ``inputs`` = (pixels, pv, ids, mask) into a fresh cache of
-        ``bucket`` columns; returns the prefill's ``(last_logits, cache,
-        media, next_pos)`` for ``_scatter_admit``.  Counts as a step and as
-        a chunk that takes no snapshot."""
+        group ``inputs`` = (pixels, pv, ids, mask) (and its NaViT masks,
+        ``pam``) into a fresh cache of ``bucket`` columns; returns the
+        prefill's ``(last_logits, cache, media, next_pos)`` for
+        ``_scatter_admit``.  Counts as a step and as a chunk that takes no
+        snapshot."""
         emit, tok, adv, out, finished = self._emit()
         positions = self._state["next_pos"]
         logits, _, *pre = self._pool_forward(adv, lambda cache: self._merged_admit(
             self.params, tok[:, None], adv[:, None], positions[:, None], cache, self._media,
-            self._icv, *inputs, bucket))
+            self._icv, *inputs, bucket, **pam))
         self._update(logits[:, -1, :].float(), emit, adv, out, finished)
         self.steps_run += 1
         self._chunk_count += 1

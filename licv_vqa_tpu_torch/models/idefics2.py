@@ -12,8 +12,9 @@ SwiGLU modality projection (vision → text width) and an RMSNorm GQA
 perceiver (3 layers, 64 latents), and a Mistral decoder (GQA, 8 KV heads)
 run by ``decoder.forward_hidden``.  Each run of 64 ``<image>`` tokens is
 replaced by that image's 64 latents through a cumsum gather (HF uses
-``masked_scatter``).  The merged-admission and serving functions of the
-JAX module (:418-597) wait for ROADMAP Queue 1 item 13b.
+``masked_scatter``).  The serving functions and the merged admission
+forward (JAX :413-597) carry no per-slot media: the latents merge into the
+prompt's embeddings at prefill, and decode steps never read them.
 """
 
 from __future__ import annotations
@@ -28,10 +29,16 @@ from . import layers as L
 from .config import MLP_OUTPUT, DecoderConfig, VisionConfig
 from .decoder import (
     W8A8_MIN_TOKENS,
+    _icv_row,
+    _norm,
+    _positions_from_mask,
+    cast_icv,
+    decode_cache_view,
     forward_hidden,
     init_decoder_params,
     init_kv_cache,
     logits_from_hidden,
+    merged_decoder_layer,
 )
 from .vision import init_vision_params, vision_forward
 
@@ -281,6 +288,14 @@ def idefics2_forward(
     return logits_from_hidden(cfg.text, params, h), cache
 
 
+def _bound_latents(cfg: Idefics2Config, params: dict, pixel_values, pixel_valid,
+                   pixel_attention_mask):
+    """The bind's latents: the tower, the connector and the perceiver, a
+    padded image slot's latents zeroed."""
+    latents = encode_images2(cfg, params, pixel_values, pixel_attention_mask=pixel_attention_mask)
+    return latents * pixel_valid[:, :, None, None].to(latents.dtype)
+
+
 def make_idefics2_forward_fns(cfg: Idefics2Config, eos_token_id: int):
     """``(train_forward, bind_images)`` with the contracts of
     ``idefics.make_idefics_forward_fns`` (JAX idefics2.py:341-410); both
@@ -290,11 +305,8 @@ def make_idefics2_forward_fns(cfg: Idefics2Config, eos_token_id: int):
     del eos_token_id
 
     def train_forward(params, inputs, icv_scaled, return_hidden=False):
-        latents = encode_images2(
-            cfg, params, inputs["pixel_values"],
-            pixel_attention_mask=inputs.get("pixel_attention_mask"),
-        )
-        latents = latents * inputs["pixel_valid"][:, :, None, None].to(latents.dtype)
+        latents = _bound_latents(cfg, params, inputs["pixel_values"], inputs["pixel_valid"],
+                                 inputs.get("pixel_attention_mask"))
         out, _ = idefics2_forward(
             cfg, params, inputs["input_ids"], inputs["attention_mask"], latents,
             icv_scaled=icv_scaled, remat=True, return_hidden=return_hidden,
@@ -306,10 +318,7 @@ def make_idefics2_forward_fns(cfg: Idefics2Config, eos_token_id: int):
         pixel_attention_mask=None,
     ):
         del prompt_ids
-        latents = encode_images2(
-            cfg, params, pixel_values, pixel_attention_mask=pixel_attention_mask
-        )
-        latents = latents * pixel_valid[:, :, None, None].to(latents.dtype)
+        latents = _bound_latents(cfg, params, pixel_values, pixel_valid, pixel_attention_mask)
 
         def forward_fn(input_ids, attention_mask, positions, cache):
             if cache is None:  # prefill into a fresh cache
@@ -328,3 +337,97 @@ def make_idefics2_forward_fns(cfg: Idefics2Config, eos_token_id: int):
         return forward_fn
 
     return train_forward, bind_images
+
+
+# no per-slot media: the image latents merge into the prompt's embeddings at
+# prefill and never feed a decode step, so the engines scatter nothing
+SERVING_MEDIA_AXES: dict = {}
+
+
+def make_idefics2_serving_fns(cfg: Idefics2Config, eos_token_id: int):
+    """Slot-oriented ``(prefill, decode_step, SERVING_MEDIA_AXES)`` for the
+    continuous-batching engines (JAX ``make_idefics2_serving_fns``,
+    idefics2.py:542-597), with the contract of
+    ``idefics.make_idefics_serving_fns``; ``media`` is ``{}`` both ways.
+    NaViT variable resolution rides the prefill's optional
+    ``pixel_attention_mask`` (the engine passes each admission group's
+    stacked masks; mixed resolutions admit as groups of one shape)."""
+    del eos_token_id  # inline image tokens need no EOS-dependent masking
+
+    def prefill(params, pixel_values, pixel_valid, input_ids, attention_mask, icv_scaled,
+                cache_len, pixel_attention_mask=None):
+        latents = _bound_latents(cfg, params, pixel_values, pixel_valid, pixel_attention_mask)
+        positions = _positions_from_mask(attention_mask)
+        cache = init_kv_cache(cfg.text, input_ids.shape[0], cache_len, input_ids.device)
+        logits, cache = idefics2_forward(
+            cfg, params, input_ids, attention_mask, latents, icv_scaled=icv_scaled, cache=cache,
+            positions=positions, prefill_flash=attention_mask, last_logit_only=True,
+        )
+        return logits[:, -1, :].float(), cache, {}, positions[:, -1] + 1
+
+    def decode_step(params, token_ids, attention_mask, positions, cache, icv_scaled, media):
+        del media
+        return idefics2_forward(cfg, params, token_ids, attention_mask, None,
+                                icv_scaled=icv_scaled, cache=cache, positions=positions)
+
+    return prefill, decode_step, SERVING_MEDIA_AXES
+
+
+def make_idefics2_merged_admit_fn(cfg: Idefics2Config, eos_token_id: int):
+    """ONE forward of a pool decode step and an admission group's prefill,
+    every decoder projection and the MLP packed over both token streams
+    (``decoder.merged_decoder_layer``; JAX ``make_idefics2_merged_admit_fn``,
+    idefics2.py:418-539), with the contract of
+    ``idefics.make_idefics_merged_admit_fn`` plus the prefill lane's
+    optional NaViT ``pixel_attention_mask``; both media dicts are ``{}``.
+
+    The prefill lane's embeddings are its bind (the tower, the connector and
+    the perceiver) merged inline (``merge_image_embeds``); the decode lane
+    has no media.  Rope and the cache view are per lane (the pool's per-row
+    index, the fresh cache's columns from 0); GQA's 8 KV heads and the ICV
+    at the MLP output pass through the packed layer as they are.  Both
+    lanes' last rows go through one head matmul.  Weight-only matmuls."""
+    del eos_token_id
+    t = cfg.text
+
+    def merged_step(params, dec_tok, dec_adv, dec_pos, cache, media, icv_scaled,
+                    pixels, pv, ids, mask, cache_len, pixel_attention_mask=None):
+        del media
+        b1 = dec_tok.shape[0]
+        b2, s2 = ids.shape
+        embed = params["embed"]
+
+        latents = _bound_latents(cfg, params, pixels, pv, pixel_attention_mask)
+        h_p = merge_image_embeds(
+            ids, embed[torch.clamp(ids, 0, embed.shape[0] - 1).long()].to(t.dtype), latents,
+            cfg.image_token_id,
+        )
+        h_d = embed[torch.clamp(dec_tok, 0, embed.shape[0] - 1).long()].to(t.dtype)
+        pos_p = _positions_from_mask(mask)
+        cache_p = init_kv_cache(t, b2, cache_len, ids.device)
+
+        index_d, index_p = cache["index"], cache_p["index"]
+        mask_d, _, _ = decode_cache_view(cache, dec_pos, dec_adv, 1)
+        mask_p, _, _ = decode_cache_view(cache_p, pos_p, mask, s2)
+        rope_d = L.rope_cos_sin(dec_pos, t.head_dim, t.rope_theta)
+        rope_p = L.rope_cos_sin(pos_p, t.head_dim, t.rope_theta)
+        icv = cast_icv(icv_scaled, t.dtype)
+        for li in range(t.n_layers):
+            icv_arg = _icv_row(icv, li)
+            h_d, h_p = merged_decoder_layer(
+                t, L.layer_slice(params["layers"], li), h_d, h_p, rope_d, rope_p,
+                mask_d, (L.layer_slice(cache["k"], li), L.layer_slice(cache["v"], li), index_d),
+                mask_p, (L.layer_slice(cache_p["k"], li), L.layer_slice(cache_p["v"], li),
+                         index_p),
+                mask, icv_arg, icv_arg,
+            )
+        cache["index"] = index_d + 1
+        cache_p["index"] = index_p + s2
+
+        # the final norm per lane, one head matmul for both lanes' last rows
+        h = _norm(t, params["final_norm"], params.get("final_norm_b"),
+                  torch.cat([h_d, h_p[:, -1:, :]], dim=0))
+        logits = logits_from_hidden(t, params, h)
+        return logits[:b1], cache, logits[b1:, -1, :].float(), cache_p, {}, pos_p[:, -1] + 1
+
+    return merged_step

@@ -138,11 +138,12 @@ def navit_position_ids(
     dev = patch_mask.device
     nb_h = patch_mask[:, :, 0].to(torch.int32).sum(dim=1)  # (B,)
     nb_w = patch_mask[:, 0, :].to(torch.int32).sum(dim=1)
-    eps = torch.tensor(1.0 - 1e-6, dtype=torch.float32)
+    # made on the device: a host scalar copied over would synchronize
+    eps = torch.full((), 1.0 - 1e-6, dtype=torch.float32, device=dev)
 
     def frac(n: int, nb: torch.Tensor) -> torch.Tensor:
         ar = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
-        return ar / torch.clamp(nb, min=1)[:, None].to(torch.float32) * eps.to(dev)
+        return ar / torch.clamp(nb, min=1)[:, None].to(torch.float32) * eps
 
     # torch.bucketize(v, arange(1/S, 1, 1/S), right=True) == floor(v·S)
     bh = torch.clamp(torch.floor(frac(grid_h, nb_h) * table_side).long(), 0, table_side - 1)

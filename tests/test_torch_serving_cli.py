@@ -9,9 +9,11 @@ counts), greedy and beam-3 (``tests/test_cli_e2e.py:191`` and ``:298``),
 and JAX's ``inference.py`` writes the same on the same split.  So does
 ``infer_engine=pooled`` (beam-3, chunks of ``infer_pool`` = 3 questions over
 buckets of mixed shot counts: the last chunk of a bucket padded;
-``tests/test_cli_e2e.py:251``).  The serving mesh and the continuous and
-pooled engines of another family raise with their ROADMAP item, and the
-pooled runner refuses greedy decoding and NaViT images.
+``tests/test_cli_e2e.py:251``).  The same three routes on ``lmm=tiny-idefics2``
+(``tests/test_torch_idefics2_cli.py``'s checkpoint and split) write the
+static path's predictions, which are ``inference.py``'s.  The serving mesh
+and OpenFlamingo's continuous and pooled engines raise with their ROADMAP
+item, and the pooled runner refuses greedy decoding and NaViT images.
 """
 
 import json
@@ -22,6 +24,9 @@ import pytest
 import torch
 
 from tests.test_torch_cli import MODEL, _preds, env  # noqa: F401  (fixture)
+from tests.test_torch_idefics2_cli import MODEL as MODEL2
+from tests.test_torch_idefics2_cli import _preds as _preds2
+from tests.test_torch_idefics2_cli import env as env2  # noqa: F401  (fixture)
 from tests.test_torch_serving import _one_thread  # noqa: F401  (autouse fixture)
 
 ICE = [[0], [1, 2, 0], [2], [0, 1, 2]]
@@ -39,9 +44,9 @@ ARGS = [
 ]
 
 
-def _runs(env, names):
+def _runs(env, names, model=MODEL):
     """An ICV checkpoint under each run name (a copy of the fixture's)."""
-    cpk = env / "results" / "model_cpk" / "vqav2" / MODEL
+    cpk = env / "results" / "model_cpk" / "vqav2" / model
     for name in names:
         shutil.copytree(cpk / "torch", cpk / name)
 
@@ -170,12 +175,35 @@ def test_pooled_runner_refuses_greedy_and_navit(env, monkeypatch):  # noqa: F811
                              progress=False)
 
 
+@pytest.mark.parametrize("engine,beams", [("continuous", 1), ("continuous", 3), ("pooled", 3)],
+                         ids=["continuous_greedy", "continuous_beam3", "pooled_beam3"])
+def test_idefics2_served_cli_writes_the_static_predictions(env2, engine, beams):  # noqa: F811
+    """``lmm=tiny-idefics2`` (fixed squares at this size) through the
+    continuous engines and the pooled schedule, on 1- and 3-shot prompts
+    of mixed buckets and image counts: the static path's predictions, and
+    ``inference.py``'s."""
+    import inference as jax_cli
+    from licv_vqa_tpu_torch.cli.inference import main as torch_main
+
+    ice = env2 / "ice_mixed.json"
+    ice.write_text(json.dumps(ICE))
+    args = [f"lmm={MODEL2}" if a.startswith("lmm=") else a for a in ARGS] + [
+        f"ice_idx_list_cache={ice}", f"generate_kwargs.num_beams={beams}", "infer_pool=3"]
+    static, served, jax_run = f"static{beams}", f"{engine}{beams}", f"jax{beams}"
+    _runs(env2, (static, served, jax_run), MODEL2)
+    torch_main(args + [f"run_name={static}", "device=cpu"])
+    torch_main(args + [f"run_name={served}", "device=cpu", f"infer_engine={engine}"])
+    jax_cli.main(args + [f"run_name={jax_run}"])
+    for name in ("icv.json", "icl_shot1.json", "icl_shot3.json"):
+        want = _preds2(env2, static, name)
+        assert len(want) == 4 and any(want), (name, want)
+        assert _preds2(env2, served, name) == want, name
+        assert _preds2(env2, jax_run, name) == want, name
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["infer_engine=pooled", "lmm=tiny-idefics2"], "item 14"),
     (["infer_engine=continuous", "infer_dp=2"], "item 16"),
-    (["infer_engine=continuous", "lmm=tiny-idefics2"], "item 13b"),
     (["infer_engine=continuous", "lmm=tiny-flamingo"], "item 22"),
-    (["infer_engine=pooled", "lmm=tiny-idefics2"], "item 13b"),
     (["infer_engine=pooled", "lmm=tiny-flamingo"], "item 22"),
 ])
 def test_what_the_cli_does_not_serve_raises_with_its_roadmap_item(env, extra, item):  # noqa: F811

@@ -521,6 +521,8 @@ def test_idefics2_phase_counts_match_prediction_on_tiny_idefics2(tmp_path, monke
     monkeypatch.setattr(PL, "flash_bidir_usable", lambda s, device: True)
     monkeypatch.setattr(PL, "flash_attention_usable", lambda cfg, s, dh, device: s >= 256)
     _stub_cuda(monkeypatch, tmp_path)
+    # phase 7b has its own rehearsal (below): these are phase 7's counts
+    monkeypatch.setattr(C, "idefics2_serving_path", lambda e: {})
     got = C.idefics2_path(torch.device("cpu"), tmp_path / "idefics2", lmm="tiny-idefics2")
     # 2 test_icv and 1 test_icl questions: a bind each, 2 vision layers,
     # 4 decoder layers, 5 forwards a question
@@ -926,10 +928,7 @@ def test_pooled_phase_tie_rule_on_an_altered_static_decode(tmp_path, monkeypatch
     static answer's first token and reads its log-probabilities there,
     equal to the static decode's at bs 1 in f32 (and the static path's own
     drift at bs 2 nil), then counts the question or refuses it."""
-    import importlib
-
     from licv_vqa_tpu_torch.infer.runner import icv_inference_pooled
-    from licv_vqa_tpu_torch.models import layers as PL
 
     _count_engine_kernels(monkeypatch)
     _stub_cuda(monkeypatch, tmp_path)
@@ -944,14 +943,11 @@ def test_pooled_phase_tie_rule_on_an_altered_static_decode(tmp_path, monkeypatch
         return out
 
     monkeypatch.setattr(C, "decoded_tokens", altered)
-    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
-    counters = {"icv_inject": iv.icv_inject, "vit_attention": PL.vit_attention,
-                "flash_attention_fwd": PL.flash_attention}
     rows = e.val[1:3]
     try:
         n = C.pooled_run(e, "pooled", lambda: icv_inference_pooled(
             rows, e.bundle, e.pm, e.gen_kwargs, e.instruction, e.icv_scaled, False, 2),
-            [C.row_prompt(e, r) for r in rows], e.icv_scaled, counters)
+            [C.row_prompt(e, r) for r in rows], e.icv_scaled, C.engine_counters())
     except AssertionError as err:
         assert "near tie" in str(err)
     else:
@@ -975,10 +971,88 @@ def test_pooled_launch_prediction_at_full_width():
 
     mc = IdeficsConfig.idefics_9b()
     cpu = torch.device("cpu")
-    got = C.predicted_pooled_launches(mc, [(4, 64, 1)], True, cpu)
-    assert got == {"icv_inject": 32 * (1 + 2 * 8), "vit_attention": 0, "flash_attention_fwd": 0}
+    got = C.predicted_pooled_launches(mc, [(4, 64, 1, (224, 224))], True, cpu)
+    assert got == {"icv_inject": 32 * (1 + 2 * 8), "vit_attention": 0,
+                   "flash_attention_bidir": 0, "flash_attention_fwd": 0}
     opts = [o for o in C.QUANT_RUNS[0][1] if o != "lmm.w8a8_prefill=true"]
-    got = C.predicted_pooled_launches(mc, [(4, 64, 1)], False, cpu, opts)
+    got = C.predicted_pooled_launches(mc, [(4, 64, 1, (224, 224))], False, cpu, opts)
     pro = C.predicted_quantized_launches(mc, "int8", opts, 1, 64, 1, 3, 1)["int8_matmul"]
     merged = 8 * 5 + 8 * 5 + 2 * 8 + 6 * 4 + 1
     assert got["int8_matmul"] == pro + 8 * merged and got["w8a8_matmul"] == 0
+
+
+def test_idefics2_engine_and_chain_launch_prediction_at_full_width():
+    """Idefics2-8B on the card: an admission group of 640x480 images (padded
+    to 672x560, 48x40 patches) or a 672x672 chain's bind takes the
+    bidirectional flash at the tower's 27 layers; a 32-shot bucket's
+    admission the causal flash at 32 layers.  A chain of 8 questions: its
+    prologue and 12 merged forwards, each a bind."""
+    from types import SimpleNamespace
+
+    from licv_vqa_tpu_torch.models.idefics2 import Idefics2Config
+
+    mc, cuda = Idefics2Config.idefics2_8b(), torch.device("cuda")
+    engine = SimpleNamespace(admissions=[(2, 128), (1, 128), (1, 2112)], steps_run=10)
+    got = C.predicted_engine_launches(mc, engine, [(560, 672), (448, 672), (560, 672)], True,
+                                      cuda)
+    assert got == {"icv_inject": 32 * 13, "vit_attention": 0, "flash_attention_bidir": 27 * 3,
+                   "flash_attention_fwd": 32}
+    got = C.predicted_pooled_launches(mc, [(8, 128, 1, (672, 672))], True, cuda)
+    assert got == {"icv_inject": 32 * (1 + 2 * 12), "vit_attention": 0,
+                   "flash_attention_bidir": 27 * 13, "flash_attention_fwd": 0}
+
+
+def test_idefics2_serving_phase_counts_match_prediction_on_tiny_idefics2(tmp_path, monkeypatch,
+                                                                         one_thread):
+    """Phase 7b on the CPU at tiny size, with a NaViT processor (small
+    variable-resolution images) in place of tiny-idefics2's fixed squares
+    and the card run's gates opened (the tower's flash at any length, the
+    causal one at >= 256 tokens): (a)-(d) each check their counts against
+    the family's predictions (the tower's flash a bind), no mask in the
+    chain's uniform images, and the token rules, and raise on a miss;
+    (a)'s admissions split by mask shape; (b) merges and plain does not;
+    the 32-shot request of (c) takes the causal flash."""
+    import importlib
+
+    from licv_vqa_tpu_torch.data.processor import SIGLIP_MEAN, SIGLIP_STD, ImageTransform
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.models import layers as PL
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    for mod, name in ((PL, "flash_attention_bidir"), (PL, "flash_attention"),
+                      (PL, "vit_attention"), (iv, "icv_inject")):
+        monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
+    monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
+    monkeypatch.setattr(PL, "flash_bidir_usable", lambda s, device: True)
+    monkeypatch.setattr(PL, "flash_attention_usable", lambda cfg, s, dh, device: s >= 256)
+    _stub_cuda(monkeypatch, tmp_path)
+    # (width, height) padded to 112x112, 224x224 and 112x112
+    monkeypatch.setattr(C, "COCO_SIZES", ((100, 50), (200, 150), (100, 100)))
+    monkeypatch.setattr(C, "UNIFORM_SIZE", (112, 112))
+    for name, value in (("IDEFICS2_ENGINE_Q", 4), ("MERGED_REQUESTS", 6), ("POOLED_ICV_Q", 4),
+                        ("CONT_ICL_SHOTS", (1, 32))):
+        monkeypatch.setattr(C, name, value)
+    e = C.idefics2_setup(torch.device("cpu"), tmp_path / "idefics2", "tiny-idefics2")
+    e.bundle.processor.image_transform = ImageTransform(
+        28, SIGLIP_MEAN, SIGLIP_STD, variable_resolution=True, min_edge=14, max_edge=224)
+    got = C.idefics2_serving_path(e)
+    assert got["vit_attention"] == 0 and got["flash_attention_bidir"] % 2 == 0
+    assert got["flash_attention_bidir"] > 0 and got["icv_inject"] > 0
+    # (c)'s 32-shot request: one admission of a bucket >= 256, 4 layers
+    assert got["flash_attention_fwd"] == 4
+
+    # the token rules' static logits take the NaViT mask as the runner does:
+    # in f32 they are the engine's own, token for token
+    from licv_vqa_tpu_torch.infer.runner import icv_inference_continuous
+
+    greedy = dict(e.gen_kwargs, num_beams=1)
+    rows = C.synthetic_vqa(1, 0, seed=3, sizes=C.COCO_SIZES[1:2])
+    prompt = C.row_prompt(e, rows[0])
+    assert "pixel_attention_mask" in C.encoded(e.bundle, [prompt])[4]
+    with C.engine_logits_recorder() as rec:
+        icv_inference_continuous(rows, e.bundle, e.pm, greedy, e.instruction, e.icv_scaled,
+                                 False, 2)
+    static = C.decoded_tokens(e, greedy, [prompt], e.icv_scaled)[0]
+    for t in range(3):
+        want = C.forced_decode_logits(e, [prompt], [static[:t]], e.icv_scaled)[0]
+        torch.testing.assert_close(rec["logits"](0, t), want, rtol=0, atol=1e-4)
