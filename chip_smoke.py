@@ -217,7 +217,16 @@ Phases (any failure exits non-zero before the result lines):
    profile of one ``test_icv`` question (device busy share, device time by
    kernel), and holds the test_icv prompt's prefill and first-step logits
    through the kernels against the same weights through their plain
-   versions (rel. L2 within ``REL_L2_TOL``, the same argmax);
+   versions (rel. L2 within ``REL_L2_TOL``, the same argmax).  Then
+   OpenFlamingo-9B (``QUANT_FLAMINGO``: int8 weights, the int8 KV cache
+   under ALiBi, w8a8 prefill; the tied head and the tower bf16), built and
+   quantized the same way: ``test_icv`` (4 questions) and ``test_icl`` (1),
+   the int8, w8a8 and ALiBi flash counts against
+   ``predicted_quantized_launches`` (the family's matmuls:
+   ``quant_matmuls``) and ``prefill_flash``, then one greedy ``test_icv``
+   run through the engine under the int8 cache (``continuous_int8``: the
+   per-row index with the ALiBi bias on the int8 cache; plain admission,
+   as w8a8 prefills keep), the profile and the kernel-vs-plain logits;
 7. the Idefics2-8B-base eval at full width (32 Mistral layers, d=4096, GQA
    8, d_ff 14336; 27 SigLIP layers at d=1152; a 3-layer perceiver; random
    bf16 weights made on the card, ~17 GB), built through the registry and
@@ -269,7 +278,21 @@ Phases (any failure exits non-zero before the result lines):
    forward).  Prints ms per question, peak memory and one profiled question
    per path, then holds the test_icv prompt's and the 32-shot prompt's
    prefill logits through the kernels against the plain path and both
-   against an f32 path, as phase 7 does;
+   against an f32 path, as phase 7 does; then 8b, the engines, merged
+   admission and the pooled chain on the same model, with 4d's and 4e's
+   checks (the fused ViT at 24 layers a bind, the ALiBi flash at 32
+   layers of each admission prefill and each prologue or merged prefill
+   lane of >= 128 tokens, the ICV in both lanes; no synchronizing call
+   inside a chunk or a chain): (a) ``test_icv`` beam-3 on
+   ``OPENFLAMINGO_ENGINE_Q`` (12) questions, ``CONT_BEAM_SLOTS`` request
+   groups; (b) ``merged_vs_plain`` on ``MERGED_REQUESTS`` (16) greedy
+   questions at ``CONT_GREEDY_SLOTS`` slots; (c) ``test_icl`` beam-3 on
+   ``CONT_ICL_SHOTS`` at ``CONT_ICL_SLOTS`` requests (media buffers 33
+   images wide, the ALiBi flash in the 32-shot admissions); (d) the pooled
+   chain through ``icv_inference_pooled`` (``POOLED_ICV_Q`` questions, one
+   chunk) and ``icl_inference_pooled`` (``CONT_ICL_SHOTS`` in chunks of
+   ``POOL_QUESTIONS``: the ALiBi flash in the 32-shot chain's prefill
+   lanes), under 4e's token rule;
 9. the flagship ICV train step of ``tools/bench_train_step_torch.py``
    (Idefics-9B at full width with int8 frozen ``layers`` and ``xattn``, a
    2048-token teacher, a 256-token student, bs=4), in process, under
@@ -2125,14 +2148,33 @@ CONT_ICL_SHOTS = (1, 8, 32, 1, 8, 32)
 
 
 def engine_counters() -> dict:
-    """The engines' and chains' counted kernels (the towers' two and the
-    decoder's causal flash and ICV injection): name -> wrapper."""
+    """The engines' and chains' counted kernels (the towers' two, the
+    decoder's causal and ALiBi flash and the ICV injection): name ->
+    wrapper."""
     from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
     from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
 
     return {"icv_inject": icv_inject, "vit_attention": L.vit_attention,
             "flash_attention_bidir": L.flash_attention_bidir,
-            "flash_attention_fwd": L.flash_attention}
+            "flash_attention_fwd": L.flash_attention,
+            "flash_alibi_attention": FA.flash_alibi_attention}
+
+
+def prefill_flash(t, tokens: int, dev) -> dict:
+    """The decoder's flash launches a layer in a prefill of ``tokens``
+    tokens into an empty cache, by ``decoder._attend``'s branches: the
+    causal kernel for a rope decoder where ``layers.flash_attention_usable``
+    holds, the ALiBi kernel for MPT's where ``flash_alibi.flash_alibi_usable``
+    does."""
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
+
+    alibi = t.positional == "alibi"
+    return {"flash_attention_fwd": int(not alibi and L.flash_attention_usable(
+                t, tokens, t.head_dim, dev)),
+            "flash_alibi_attention": int(alibi and FA.flash_alibi_usable(
+                t, tokens, t.head_dim, dev))}
 
 
 @contextlib.contextmanager
@@ -2209,19 +2251,20 @@ def predicted_engine_launches(mc, engine, binds: list, with_icv: bool, dev) -> d
     step forwards the whole pool once; the ICV enters every layer of both.
     A merged admission is both in one forward (its prefill lane and its
     decode lane each take the ICV, and the flash where the bucket
-    passes)."""
-    from licv_vqa_tpu_torch.models import layers as L
-
+    passes).  The flash is the causal kernel or, for MPT, the ALiBi one
+    (``prefill_flash``)."""
     t = mc.text
     groups = engine.admissions
     if len(binds) != len(groups):
         raise AssertionError(f"{len(binds)} binds recorded for {len(groups)} admissions")
     out = {
         "icv_inject": t.n_layers * (len(groups) + engine.steps_run) if with_icv else 0,
-        "vit_attention": 0, "flash_attention_bidir": 0,
-        "flash_attention_fwd": t.n_layers * sum(
-            L.flash_attention_usable(t, bucket, t.head_dim, dev) for _, bucket in groups),
+        "vit_attention": 0, "flash_attention_bidir": 0, "flash_attention_fwd": 0,
+        "flash_alibi_attention": 0,
     }
+    for _, bucket in groups:
+        for k, v in prefill_flash(t, bucket, dev).items():
+            out[k] += t.n_layers * v
     for hw in binds:
         for k, v in tower_launches(mc.vision, bind_patches(mc.vision, hw), dev).items():
             out[k] += v
@@ -2470,7 +2513,7 @@ def drift_tie_check(e: EvalSetup, tag: str, prompts: list, static: list, engine:
     return n
 
 
-def continuous_int8(e: EvalSetup, opts: list) -> dict:
+def continuous_int8(e: EvalSetup, opts: list, tag: str = "continuous int8") -> dict:
     """Phase 4d (d) on run A's int8 model: ``test_icv`` greedy through the
     engine with ``CONT_GREEDY_SLOTS`` slots.  Inside the decode chunks (the
     admissions excluded) the int8 kernel launches at M = the pool's rows
@@ -2518,7 +2561,7 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
         return out
 
     def check(static, engine):
-        return drift_tie_check(e, "continuous int8", prompts, static, engine, e.icv_scaled,
+        return drift_tie_check(e, tag, prompts, static, engine, e.icv_scaled,
                                recorded["logits"])
 
     # the wrapper adds its launches to the module's ``int8_matmul``: the spy
@@ -2526,7 +2569,7 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
     counted.launches = kernel.launches
     I8.int8_matmul, ServingEngine._chunk = counted, traced_chunk
     try:
-        got = engine_run(e, "continuous int8 greedy test_icv", run, prompts, greedy_kw,
+        got = engine_run(e, f"{tag} greedy test_icv", run, prompts, greedy_kw,
                          e.icv_scaled, counters, check=check)
     finally:
         I8.int8_matmul, ServingEngine._chunk = kernel, chunk
@@ -2540,10 +2583,10 @@ def continuous_int8(e: EvalSetup, opts: list) -> dict:
 
     per_step = launches(2) - launches(1)
     at_m, want = rows_seen.count(m), engine.steps_run * per_step
-    log(f"continuous int8: int8 kernel launches inside decode chunks {len(rows_seen)}, at "
+    log(f"{tag}: int8 kernel launches inside decode chunks {len(rows_seen)}, at "
         f"M = {m} rows {at_m} (want {engine.steps_run} decode steps x {per_step} = {want})")
     if (at_m, len(rows_seen)) != (want, want):
-        raise AssertionError("continuous int8: int8 kernel launches in the decode chunks off "
+        raise AssertionError(f"{tag}: int8 kernel launches in the decode chunks off "
                              "the decode steps")
     return got["counts"]
 
@@ -2644,46 +2687,44 @@ def predicted_pooled_launches(mc, chains: list, with_icv: bool, dev, opts=None,
     merged forwards (P = max_new − 1), each of them a bind (the tower's
     layers once, ``tower_launches``) and a prefill lane; the ICV enters
     every layer of the prologue and of both lanes of every merged forward,
-    the causal flash every layer of each where the bucket passes the flash
-    gate.  Int8 (``quant_routes``): the
-    prologue as ``predicted_quantized_launches``'s prefill; a merged
-    forward packs the decoder's 7 projections a layer over P·K + bucket
-    rows, weight-only; its cross-attention blocks run per lane (P·K rows at
-    one token, the bucket's rows at the bucket's tokens); its bind as the
-    prologue's; the int8 head once over P·K + 1 rows."""
-    from licv_vqa_tpu_torch.models import layers as L
-
+    the causal or ALiBi flash every layer of each where the bucket passes
+    its gate (``prefill_flash``).  Int8 (``quant_routes``, the family's
+    matmuls ``quant_matmuls``): the prologue as
+    ``predicted_quantized_launches``'s prefill; a merged forward packs the
+    decoder's projections over P·K + bucket rows, weight-only; its
+    cross-attention blocks run per lane (P·K rows at one token, the
+    bucket's rows at the bucket's tokens); its bind as the prologue's; the
+    int8 head once over P·K + 1 rows."""
     t, v, pc = mc.text, mc.vision, mc.perceiver
     p = MAX_NEW - 1
     rows_d = p * beams
     out = dict.fromkeys(("icv_inject", "vit_attention", "flash_attention_bidir",
-                         "flash_attention_fwd"), 0)
+                         "flash_attention_fwd", "flash_alibi_attention"), 0)
     if opts is not None:
         out.update(int8_matmul=0, w8a8_matmul=0)
         takes, w8a8 = quant_routes(opts)
-        groups = t.n_layers // mc.cross_layer_interval
+        dec, xat, kv_mms, groups = quant_matmuls(mc)
     for n, bucket, n_img, hw in chains:
         merged = n + p
         for k, binds in tower_launches(v, bind_patches(v, hw), dev).items():
             out[k] += binds * (1 + merged)
-        out["flash_attention_fwd"] += t.n_layers * (1 + merged) * L.flash_attention_usable(
-            t, bucket, t.head_dim, dev)
+        for k, per_layer in prefill_flash(t, bucket, dev).items():
+            out[k] += t.n_layers * (1 + merged) * per_layer
         if with_icv:
             out["icv_inject"] += t.n_layers * (1 + 2 * merged)
         if opts is None:
             continue
         pro = predicted_quantized_launches(mc, "int8", opts, 1, bucket, n_img, beams, 1)
 
-        def xattn(rows, tokens):  # a cross-attention block: wq wo gate up, down
-            return 4 * takes(rows, tokens, t.d_model, True) + takes(rows, tokens, t.d_ff, True)
+        def xattn(rows, tokens):  # a cross-attention block, its K/V bound
+            return sum(takes(rows, tokens, k, True) for k in xat)
 
         n_k, packed = n_img * pc.n_latents, rows_d + bucket
-        int8 = (t.n_layers * (6 * takes(packed, None, t.d_model, True)
-                              + takes(packed, None, t.d_ff, True))
+        int8 = (t.n_layers * sum(takes(packed, None, k, True) for k in dec)
                 + groups * (xattn(rows_d, 1) + xattn(bucket, bucket))
-                + 2 * groups * takes(n_k, n_k, pc.d_model, True))
-        a8 = groups * 5 * w8a8(bucket, True) + 2 * groups * w8a8(n_k, True)
-        if "lmm.quantize_head=true" in opts:
+                + kv_mms * groups * takes(n_k, n_k, pc.d_model, True))
+        a8 = groups * len(xat) * w8a8(bucket, True) + kv_mms * groups * w8a8(n_k, True)
+        if "lmm.quantize_head=true" in opts and not t.tie_embeddings:
             int8 += takes(rows_d + 1, 1, t.d_model, True)
         if "lmm.quantize_vision=true" in opts:
             lat, np_ = pc.n_latents, v.n_patches
@@ -3202,6 +3243,12 @@ QUANT_RUNS = (
     # B: the head left bf16, so this run launches only the int4 kernel
     ("int4", ["lmm.quantize=int4"], ("icv",)),
 )
+# phase 6's OpenFlamingo-9B run: int8 weights, the int8 KV cache under ALiBi
+# and w8a8 prefill (the head stays the tied bf16 table; the tower bf16);
+# test_icl on one question
+QUANT_FLAMINGO = ("int8", ["lmm.quantize=int8", "lmm.kv_cache=int8", "lmm.w8a8_prefill=true"],
+                  ("icv", "icl"))
+QUANT_FLAMINGO_ICL_Q = 1
 
 
 def quant_routes(opts: list) -> tuple:
@@ -3229,6 +3276,26 @@ def quant_routes(opts: list) -> tuple:
     return takes, w8a8
 
 
+def quant_matmuls(mc) -> tuple:
+    """``(decoder layer's in-features, cross-attention block's, the bind's
+    K/V matmuls a block, blocks)`` of a family's quantized matmuls (the
+    in-features decide int4's route).  Idefics: wq wk wv wo, gate up (K =
+    d_model) and down (K = d_ff) a layer; wq wo gate up, down a block, its
+    K/V two matmuls (wk, wv), a block every ``cross_layer_interval``
+    layers.  OpenFlamingo: MPT's wq wk wv wo and up (K = d_model) and down
+    (K = d_ff); wq, wo (K = the block's heads' width), ff up and ff down (K
+    = ``xattn_ff_mult`` · d_model), its K/V one matmul (wkv), a block every
+    ``cross_attn_every_n_layers`` layers."""
+    t = mc.text
+    if hasattr(mc, "cross_attn_every_n_layers"):
+        heads = mc.xattn_heads * mc.xattn_head_dim
+        return ([t.d_model] * 5 + [t.d_ff],
+                [t.d_model, heads, t.d_model, mc.xattn_ff_mult * t.d_model], 1,
+                t.n_layers // mc.cross_attn_every_n_layers)
+    return ([t.d_model] * 6 + [t.d_ff], [t.d_model] * 4 + [t.d_ff], 2,
+            t.n_layers // mc.cross_layer_interval)
+
+
 def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: int,
                                  n_img: int, beams: int, max_new: int) -> dict:
     """Launches of the int8, w8a8 and int4 kernels in ONE generate (bs
@@ -3240,13 +3307,13 @@ def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: i
     a block of at least ``W8A8_MIN_TOKENS`` tokens (the vision tower never:
     ``idefics.encode_images``; the head never), and an int4 weight needs
     K/2 % G == 0.
-    Per forward: 7 projections per decoder layer (wq wk wv wo, gate up:
-    K = d_model; down: K = d_ff) and 5 per cross-attention block with its
-    bound K/V (wq wo gate up, down), one block per ``cross_layer_interval``
-    layers.  The prefill has bs·s_prompt rows and s_prompt tokens; each of
+    Per forward, the family's matmuls (``quant_matmuls``): each decoder
+    layer's projections and each cross-attention block's with its bound
+    K/V.  The prefill has bs·s_prompt rows and s_prompt tokens; each of
     the max_new − 1 beam steps has bs·beams rows and 1 token (the last
-    token needs no forward).  The bind-time K/V (wk wv per block) has
-    bs·n_img·n_latents rows and n_img·n_latents tokens.  The int8 head
+    token needs no forward).  The bind-time K/V (Idefics' wk and wv a
+    block, OpenFlamingo's wkv) has bs·n_img·n_latents rows and
+    n_img·n_latents tokens.  The int8 head
     (``quantize_head``, int8 in either mode) has bs rows at the prefill (its
     last position) and bs·beams per step.  The int8 tower
     (``quantize_vision``) runs 6 projections per layer on bs·n_img·n_patches
@@ -3254,21 +3321,21 @@ def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: i
     n_latents tokens) and 2 on latents and patches together."""
     takes, w8a8 = quant_routes(opts)
     t, v, p = mc.text, mc.vision, mc.perceiver
-    groups = t.n_layers // mc.cross_layer_interval
+    dec, xat, kv_mms, groups = quant_matmuls(mc)
     int8 = mode == "int8"
 
     def stacks(rows: int, tokens: int) -> int:
-        d, f = (takes(rows, tokens, k, int8) for k in (t.d_model, t.d_ff))
-        return t.n_layers * (6 * d + f) + groups * (4 * d + f)
+        return (t.n_layers * sum(takes(rows, tokens, k, int8) for k in dec)
+                + groups * sum(takes(rows, tokens, k, int8) for k in xat))
 
     n_k = n_img * p.n_latents
     n = (stacks(bs * s_prompt, s_prompt) + (max_new - 1) * stacks(bs * beams, 1)
-         + 2 * groups * takes(bs * n_k, n_k, p.d_model, int8))
-    per_stack = t.n_layers * 7 + groups * 5
+         + kv_mms * groups * takes(bs * n_k, n_k, p.d_model, int8))
+    per_stack = t.n_layers * len(dec) + groups * len(xat)
     out = {"int8_matmul": n if int8 else 0, "int4_matmul": 0 if int8 else n,
            "w8a8_matmul": (per_stack * (w8a8(s_prompt, int8) + (max_new - 1) * w8a8(1, int8))
-                           + 2 * groups * w8a8(n_k, int8))}
-    if "lmm.quantize_head=true" in opts:
+                           + kv_mms * groups * w8a8(n_k, int8))}
+    if "lmm.quantize_head=true" in opts and not t.tie_embeddings:
         out["int8_matmul"] += (takes(bs, 1, t.d_model, True)
                                + (max_new - 1) * takes(bs * beams, 1, t.d_model, True))
     if "lmm.quantize_vision=true" in opts:
@@ -3283,25 +3350,34 @@ def predicted_quantized_launches(mc, mode: str, opts: list, bs: int, s_prompt: i
 
 
 def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
-                   lmm: str = "idefics-9B") -> dict:
+                   lmm: str = "idefics-9B", icl_q=None) -> dict:
     """Phase 6, one run: the weight-quantized eval at full width through the
-    runner entry points.  Returns the launch counts of the run."""
+    runner entry points (``icl_q`` questions of ``test_icl`` where given,
+    else ``N_ICL_Q``), then, under
+    int8, Idefics' draft, engine and pooled chain runs, or OpenFlamingo's
+    engine run.  Returns the launch counts of the run."""
     import torch
 
     from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
     from licv_vqa_tpu_torch.ops import int4_matmul as I4
     from licv_vqa_tpu_torch.ops import int8_matmul as I8
     from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
 
     e = eval_setup(dev, tmp, opts, lmm)
     b = e.bundle
+    flamingo = "flamingo" in lmm.lower()
+    tag = f"{mode} {lmm}" if flamingo else mode
     n_layers = b.model_cfg.text.n_layers
     counters = {"int8_matmul": I8.int8_matmul, "int4_matmul": I4.int4_matmul,
                 "w8a8_matmul": I8.w8a8_matmul, "icv_inject": icv_inject,
-                "flash_attention_fwd": L.flash_attention, "vit_attention": L.vit_attention}
+                "flash_attention_fwd": L.flash_attention, "vit_attention": L.vit_attention,
+                "flash_alibi_attention": FA.flash_alibi_attention}
     vit_bind = vit_per_bind(b.model_cfg.vision, b.device)
     beams = int(e.gen_kwargs["num_beams"])
     runs = eval_runs(e)
+    if icl_q is not None:
+        runs["icl"] = runs["icl"][:2] + (icl_q,)
     # warm-up on one question of each path
     runs["icv"][0](e.val[:1])
     if "icl" in paths:
@@ -3311,14 +3387,18 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     total = dict.fromkeys(counters, 0)
     for path in paths:
         run, prompt, n_q = runs[path]
-        want = dict.fromkeys(("int8_matmul", "int4_matmul", "w8a8_matmul"), 0)
+        want = dict.fromkeys(("int8_matmul", "int4_matmul", "w8a8_matmul",
+                              "flash_attention_fwd", "flash_alibi_attention"), 0)
         for q in range(1, 1 + n_q):
             enc = b.processor.prepare_input([prompt(q)], padding=True, padding_side="left")
+            s_prompt = enc["input_ids"].shape[1]
             for k, v in predicted_quantized_launches(
-                b.model_cfg, mode, opts, 1, enc["input_ids"].shape[1],
-                enc["pixel_values"].shape[1], beams, MAX_NEW,
+                b.model_cfg, mode, opts, 1, s_prompt, enc["pixel_values"].shape[1], beams,
+                MAX_NEW,
             ).items():
                 want[k] += v
+            for k, v in prefill_flash(b.model_cfg.text, s_prompt, dev).items():
+                want[k] += n_layers * v
         for fn in counters.values():
             fn.launches = 0
         int_mm = torch._int_mm
@@ -3338,35 +3418,39 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
         finally:
             torch._int_mm = int_mm
         counts = {k: fn.launches for k, fn in counters.items()}
-        log(f"{mode} test_{path}: {n_q} questions, {dt * 1e3:.1f} ms/question; launches "
-            f"{counts} (int8/int4/w8a8 predicted {want}), torch._int_mm calls "
+        log(f"{tag} test_{path}: {n_q} questions, {dt * 1e3:.1f} ms/question; launches "
+            f"{counts} (int8/int4/w8a8/flash predicted {want}), torch._int_mm calls "
             f"{len(int_mm_calls)}; predictions "
             f"{[r['prediction'] for r in res.values()]}, VQA accuracy "
             f"{vqa_accuracy(res, rows, tmp, f'{mode}_{path}'):.2f} (random weights)")
         for k, v in want.items():
             if counts[k] != v:
-                raise AssertionError(f"{mode} test_{path}: {k} launched {counts[k]} != {v}")
+                raise AssertionError(f"{tag} test_{path}: {k} launched {counts[k]} != {v}")
         if int_mm_calls:
-            raise AssertionError(f"{mode} test_{path}: torch._int_mm called on the main path")
+            raise AssertionError(f"{tag} test_{path}: torch._int_mm called on the main path")
         if path == "icv" and counts["icv_inject"] != n_layers * n_q * MAX_NEW:
             raise AssertionError("icv_inject launch count != 32 x forward passes")
         if counts["vit_attention"] != vit_bind * n_q:  # one bind a question
-            raise AssertionError(f"{mode} test_{path}: vit_attention launched "
+            raise AssertionError(f"{tag} test_{path}: vit_attention launched "
                                  f"{counts['vit_attention']} != {vit_bind} x {n_q}")
         if len(res) != n_q or not all(isinstance(r["prediction"], str) for r in res.values()):
-            raise AssertionError(f"{mode} test_{path}: malformed results {res}")
+            raise AssertionError(f"{tag} test_{path}: malformed results {res}")
         for k in total:
             total[k] += counts[k]
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    log(f"{mode}: peak device memory over the runs {peak:.2f} GiB (the bf16 build's is phase 4's)")
+    log(f"{tag}: peak device memory over the runs {peak:.2f} GiB (the bf16 build's is "
+        f"phase {8 if flamingo else 4}'s)")
     if mode == "int8":
-        total["int8_matmul"] += speculative_int8(e)["int8_matmul"]
-        for counts in (continuous_int8(e, opts), pooled_int8(e, opts)):
+        extra = [continuous_int8(e, opts, f"continuous {tag}")]
+        if not flamingo:
+            total["int8_matmul"] += speculative_int8(e)["int8_matmul"]
+            extra.append(pooled_int8(e, opts))
+        for counts in extra:
             for k, v in counts.items():  # the engines also count the tower's flash
                 total[k] = total.get(k, 0) + v
     if dev.type == "cuda":
-        profile_question(lambda: runs["icv"][0](e.val[1:2]), f"{mode} test_icv")
-    kernel_vs_plain_logits(e, mode)
+        profile_question(lambda: runs["icv"][0](e.val[1:2]), f"{tag} test_icv")
+    kernel_vs_plain_logits(e, tag)
     return total
 
 
@@ -3543,7 +3627,7 @@ def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
           icl_prompt(e, 1, e.shots[1][:IDEFICS2_CHECK_SHOTS]), None)),
     )
     for k, v in idefics2_serving_path(e).items():
-        total[k] += v
+        total[k] = total.get(k, 0) + v
     return total
 
 
@@ -3831,6 +3915,82 @@ def openflamingo_path(dev, tmp: Path, lmm: str = "openflamingov2-9B") -> dict:
         (("test_icv", icv_prompt(e, 1), e.icv_scaled),
          (f"{ICL_SHOTS}-shot ICL", icl_prompt(e, 1, e.shots[1]), None)),
     )
+    for k, v in openflamingo_serving_path(e).items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+# phase 8b: the engines, merged admission and the pooled chain on phase 8's
+# OpenFlamingo-9B, on 224x224 images (CLIP's fixed size)
+OPENFLAMINGO_ENGINE_Q = 12
+
+
+def openflamingo_serving_path(e: EvalSetup) -> dict:
+    """Phase 8b (a)-(d) on phase 8's OpenFlamingo-9B, with 4d's and 4e's
+    checks (launches against ``predicted_engine_launches`` and
+    ``predicted_pooled_launches``: the fused ViT at 24 layers a bind, the
+    ALiBi flash at 32 layers of each admission prefill and each prologue or
+    merged prefill lane of >= 128 tokens, the ICV at both lanes; no
+    synchronizing call inside a chunk or a chain; the tokens against the
+    static path's).  Returns the launch counts."""
+    from licv_vqa_tpu_torch.infer.runner import (
+        icl_inference_continuous,
+        icl_inference_pooled,
+        icv_inference_continuous,
+        icv_inference_pooled,
+    )
+    from licv_vqa_tpu_torch.infer.serving import _leaves as tensors
+
+    b = e.bundle
+    counters = engine_counters()
+    total = dict.fromkeys(counters, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # (a) beam-3 test_icv through the engine
+    rows = synthetic_vqa(OPENFLAMINGO_ENGINE_Q, 300, seed=7)
+    got = engine_run(
+        e, "openflamingo continuous beam-3 test_icv", lambda: icv_inference_continuous(
+            rows, b, e.pm, e.gen_kwargs, e.instruction, e.icv_scaled, False, CONT_BEAM_SLOTS),
+        [row_prompt(e, r) for r in rows], e.gen_kwargs, e.icv_scaled, counters)
+    add(got["counts"])
+    beam_s = got["s_per_q"]
+
+    # (b) greedy test_icv at the CLI's slots, merged against plain admission
+    add(merged_vs_plain(e, "openflamingo ", synthetic_vqa(MERGED_REQUESTS, 400, seed=8),
+                        counters))
+
+    # (c) beam-3 test_icl of mixed shots: the ALiBi flash in the 32-shot
+    # admission prefills; media buffers max_images (33) images wide
+    icl_rows = [e.val[q % len(e.val)] for q in range(len(CONT_ICL_SHOTS))]
+    icl_shots = [list(range(q, q + n)) for q, n in enumerate(CONT_ICL_SHOTS)]
+    icl_prompts = [icl_prompt(e, q % len(e.val), s) for q, s in enumerate(icl_shots)]
+    tag = f"openflamingo continuous beam-3 test_icl {CONT_ICL_SHOTS} shots"
+    got = engine_run(e, tag, lambda: icl_inference_continuous(
+        e.train, icl_rows, icl_shots, b, e.pm, e.gen_kwargs, e.instruction, False,
+        CONT_ICL_SLOTS), icl_prompts, e.gen_kwargs, None, counters)
+    eng = got["engine"]
+    media = sum(x.numel() * x.element_size() for x in tensors(eng._media))
+    log(f"{tag}: peak device memory {got['peak_gib']:.2f} GiB (a pool of {eng.n_rows} rows "
+        f"over {eng.cache_len} cache columns; media buffers {eng._media_n_img} images wide, "
+        f"{media / eng.n_rows / 2**20:.1f} MiB a row)")
+    add(got["counts"])
+
+    # (d) the pooled chain: test_icv in one chunk, then test_icl of mixed
+    # shots in chunks (the ALiBi flash in the 32-shot chain's prologue and
+    # merged prefill lanes)
+    rows = synthetic_vqa(POOLED_ICV_Q, 600, seed=9)
+    add(pooled_run(e, f"openflamingo pooled beam-3 test_icv, one chunk of {POOLED_ICV_Q}",
+                   lambda: icv_inference_pooled(rows, b, e.pm, e.gen_kwargs, e.instruction,
+                                                e.icv_scaled, False, POOLED_ICV_Q),
+                   [row_prompt(e, r) for r in rows], e.icv_scaled, counters, beam_s=beam_s))
+    add(pooled_run(e, f"openflamingo pooled beam-3 test_icl {CONT_ICL_SHOTS} shots",
+                   lambda: icl_inference_pooled(e.train, icl_rows, icl_shots, b, e.pm,
+                                                e.gen_kwargs, e.instruction, False,
+                                                POOL_QUESTIONS),
+                   icl_prompts, None, counters, beam_s=beam_s))
     return total
 
 
@@ -4418,13 +4578,16 @@ def main() -> int:
         profile_training(m)
         del m
         free_device_memory()
-        counts_q = dict.fromkeys(("int8_matmul", "int4_matmul", "w8a8_matmul", "icv_inject",
-                                  "flash_attention_fwd", "vit_attention",
-                                  "flash_attention_bidir"), 0)
+        counts_q = {}
         for mode, opts, paths in QUANT_RUNS:
             for k, v in quantized_path(dev, Path(tmp) / mode, mode, opts, paths).items():
-                counts_q[k] += v
+                counts_q[k] = counts_q.get(k, 0) + v
             free_device_memory()
+        mode, opts, paths = QUANT_FLAMINGO
+        for k, v in quantized_path(dev, Path(tmp) / "int8_flamingo", mode, opts, paths,
+                                   lmm="openflamingov2-9B", icl_q=QUANT_FLAMINGO_ICL_Q).items():
+            counts_q[k] = counts_q.get(k, 0) + v
+        free_device_memory()
         counts_i2 = idefics2_path(dev, Path(tmp) / "idefics2")
         free_device_memory()
         counts_of = openflamingo_path(dev, Path(tmp) / "openflamingo")
@@ -4442,7 +4605,8 @@ def main() -> int:
     }
     launches.update({
         "vit_attention_f32": counts["vit_attention_f32"],
-        "flash_alibi_attention": counts_of["flash_alibi_attention"],
+        "flash_alibi_attention": counts_of["flash_alibi_attention"]
+        + counts_q["flash_alibi_attention"],
         "flash_attention_bidir": counts_i2["flash_attention_bidir"],
         "int4_matmul": counts_q["int4_matmul"],
         "w8a8_matmul": counts_q["w8a8_matmul"] + counts_tools["w8a8_matmul"],

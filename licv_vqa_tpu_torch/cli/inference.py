@@ -15,12 +15,11 @@ encoder under ``$CLIP_CPK_DIR``, else ``HashEncoder``), and
 layer-truncated draft (``infer/speculative.py``).
 ``infer_engine=continuous`` runs ``test_icv`` and ``test_icl`` through the
 continuous-batching engines (``infer/serving.py``: greedy, or beam groups;
-``bs`` slots; Idefics and Idefics2, NaViT images included);
+``bs`` slots; every family, Idefics2's NaViT images included);
 ``infer_engine=pooled`` through the pooled beam schedule
 (``infer/eval_chain.py``: chunks of ``infer_pool`` questions, default 32;
-beam search only; Idefics and Idefics2 at uniform resolution).  The JAX
-CLI's mesh (``infer_dp``/``infer_tp``) and OpenFlamingo's continuous and
-pooled engines are not ported yet and raise.
+beam search only; Idefics2 at uniform resolution).  The JAX CLI's mesh
+(``infer_dp``/``infer_tp``) is not ported yet and raises.
 
 Examples:
     python inference_torch.py run_name=vqav2_idefics9b test_icv=true
@@ -73,21 +72,11 @@ def resolve_device(name) -> torch.device:
 
 
 def _not_ported(cfg) -> None:
-    engine = str(cfg.get("infer_engine", "static"))
-    name = str(cfg.lmm.name)
-    served = engine in ("continuous", "pooled")
-    checks = (
-        (int(cfg.get("infer_dp", 1)) != 1 or int(cfg.get("infer_tp", 1)) != 1,
-         "infer_dp/infer_tp (the serving mesh)", "Queue 1 item 16"),
-        (served and "flamingo" in name.lower(),
-         f"infer_engine={engine} with lmm {name} (OpenFlamingo's serving functions)",
-         "Queue 1 item 22"),
-    )
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to licv_vqa_tpu_torch yet (ROADMAP.md {item})"
-            )
+    if int(cfg.get("infer_dp", 1)) != 1 or int(cfg.get("infer_tp", 1)) != 1:
+        raise NotImplementedError(
+            "infer_dp/infer_tp (the serving mesh) is not ported to licv_vqa_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 16)"
+        )
 
 
 def evaluate_vqa(results_dict, model_name, val_ques_path, val_ann_path, post_fn):

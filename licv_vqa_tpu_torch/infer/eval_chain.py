@@ -5,8 +5,10 @@ max_new − 1 question groups of K beam rows each run staggered through one
 merged forward per iteration, together with the next question's prefill
 (``models/idefics.py::make_idefics_merged_admit_fn``), so one question
 completes per forward where ``beam_generate`` takes max_new.  Idefics2's
-chain (``make_idefics2_pooled_eval_chain``) runs the same body on its own
-serving and merged functions, whose media are empty.
+chain (``make_idefics2_pooled_eval_chain``) and OpenFlamingo's
+(``make_openflamingo_pooled_eval_chain``) run the same body on their own
+serving and merged functions (Idefics2's media are empty; OpenFlamingo's
+merged forward carries a per-lane ALiBi bias).
 
 JAX's ``lax.scan`` becomes a Python loop here.  The pool's cache, media,
 beam state and each iteration's best hypothesis stay in device tensors:
@@ -30,7 +32,7 @@ import torch
 
 from ..models.decoder import init_kv_cache
 from .decode import NEG_INF, _beam_gather_cache, _kv_leaves, beam_finalize, beam_transition
-from .serving import _leaves, _map, _not_ported
+from .serving import _leaves, _map
 
 
 def _first_beam(k: int, device) -> torch.Tensor:
@@ -220,11 +222,31 @@ def make_idefics2_pooled_eval_chain(
     )
 
 
-def make_openflamingo_pooled_eval_chain(cfg, eos_token_id: int, **kw):
-    """JAX eval_chain.py:525-554: needs OpenFlamingo's serving and
-    merged-admission functions (per-lane ALiBi biases)."""
-    raise _not_ported("the OpenFlamingo pooled eval chain (its serving and merged-admission "
-                      "functions)", "item 22")
+def make_openflamingo_pooled_eval_chain(
+    cfg,
+    eos_token_id: int,
+    *,
+    num_beams: int = 3,
+    max_new_tokens: int = 5,
+    length_penalty: float = 0.0,
+    min_new_tokens: int = 0,
+    pad_token_id: int = 0,
+):
+    """The pooled chain for OpenFlamingo (JAX eval_chain.py:525-554), with
+    the contract of ``make_idefics_pooled_eval_chain``: the pool carries
+    each group's media (latents, step one-hot, cross-attention K/V) as
+    Idefics' does."""
+    from ..models.openflamingo import (
+        make_openflamingo_merged_admit_fn,
+        make_openflamingo_serving_fns,
+    )
+
+    prefill, _, media_axes = make_openflamingo_serving_fns(cfg, eos_token_id)
+    return _make_pooled_chain(
+        cfg.text, prefill, make_openflamingo_merged_admit_fn(cfg, eos_token_id), media_axes,
+        num_beams=num_beams, max_new_tokens=max_new_tokens, length_penalty=length_penalty,
+        min_new_tokens=min_new_tokens, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+    )
 
 
 def pooled_eval_chain(bundle, generate_kwargs: dict):
@@ -236,10 +258,10 @@ def pooled_eval_chain(bundle, generate_kwargs: dict):
 
     The bundle's weights, its pixel normalisation and its ICV layout
     (``ModelBundle.model_pixels``/``model_icv``) are applied on the device
-    before the loop; the family picks the chain (OpenFlamingo raises with
-    its ROADMAP item)."""
+    before the loop; the family picks the chain."""
     from ..models.idefics import IdeficsConfig
     from ..models.idefics2 import Idefics2Config
+    from ..models.openflamingo import OpenFlamingoConfig
 
     num_beams = int(generate_kwargs.get("num_beams", 1))
     max_new = int(generate_kwargs.get("max_new_tokens", 5))
@@ -247,12 +269,11 @@ def pooled_eval_chain(bundle, generate_kwargs: dict):
         raise ValueError("the pooled schedule needs num_beams >= 2 and max_new_tokens >= 2 "
                          "(greedy or 1-token workloads: use infer_engine=continuous)")
     cfg = bundle.model_cfg
-    if isinstance(cfg, IdeficsConfig):
-        factory = make_idefics_pooled_eval_chain
-    elif isinstance(cfg, Idefics2Config):
-        factory = make_idefics2_pooled_eval_chain
-    else:
-        factory = make_openflamingo_pooled_eval_chain
+    factory = {
+        IdeficsConfig: make_idefics_pooled_eval_chain,
+        Idefics2Config: make_idefics2_pooled_eval_chain,
+        OpenFlamingoConfig: make_openflamingo_pooled_eval_chain,
+    }[type(cfg)]
     chain = factory(
         cfg, bundle.eos_token_id, num_beams=num_beams, max_new_tokens=max_new,
         length_penalty=float(generate_kwargs.get("length_penalty", 0.0)),

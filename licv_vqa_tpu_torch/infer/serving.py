@@ -40,8 +40,7 @@ two static batch sizes (JAX serving.py:31-37); in f32 the tokens are equal.
 
 Not in this port yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: ``run_fused`` (the whole scheduler on the device, item 19's
-CUDA-graph capture), the serving mesh (``mesh``, item 16) and
-OpenFlamingo's serving and merged admission (item 22).
+CUDA-graph capture) and the serving mesh (``mesh``, item 16).
 """
 
 from __future__ import annotations
@@ -129,10 +128,11 @@ class ServingEngine:
     """Continuous-batching greedy pool over one model family.
 
     ``prefill_fn``/``decode_fn``/``media_axes`` come from the family's
-    ``make_*_serving_fns`` (``models/idefics.py``, ``models/idefics2.py``)
-    or via :meth:`from_bundle`; ``media_axes`` maps each media key to its
-    (batch axis, image axis).  ``supports_pixel_attention_mask``: the
-    family's prefill (and merged function) take ``pixel_attention_mask``.
+    ``make_*_serving_fns`` (``models/idefics.py``, ``models/idefics2.py``,
+    ``models/openflamingo.py``) or via :meth:`from_bundle`; ``media_axes``
+    maps each media key to its (batch axis, image axis).
+    ``supports_pixel_attention_mask``: the family's prefill (and merged
+    function) take ``pixel_attention_mask``.
     """
 
     def __init__(
@@ -281,16 +281,16 @@ class ServingEngine:
         Idefics2's engines take NaViT ``pixel_attention_mask``s."""
         from ..models import idefics as I
         from ..models import idefics2 as I2
+        from ..models import openflamingo as OF
 
         cfg = bundle.model_cfg
-        if isinstance(cfg, I.IdeficsConfig):
-            serving, merged_fn, pam_ok = (I.make_idefics_serving_fns,
-                                          I.make_idefics_merged_admit_fn, False)
-        elif isinstance(cfg, I2.Idefics2Config):
-            serving, merged_fn, pam_ok = (I2.make_idefics2_serving_fns,
-                                          I2.make_idefics2_merged_admit_fn, True)
-        else:
-            raise _not_ported(f"continuous serving of {type(cfg).__name__}", "item 22")
+        serving, merged_fn, pam_ok = {
+            I.IdeficsConfig: (I.make_idefics_serving_fns, I.make_idefics_merged_admit_fn, False),
+            I2.Idefics2Config: (I2.make_idefics2_serving_fns, I2.make_idefics2_merged_admit_fn,
+                                True),
+            OF.OpenFlamingoConfig: (OF.make_openflamingo_serving_fns,
+                                    OF.make_openflamingo_merged_admit_fn, False),
+        }[type(cfg)]
         prefill, decode, axes = serving(cfg, bundle.eos_token_id)
 
         def norm_prefill(params, pixels, *a, **k):

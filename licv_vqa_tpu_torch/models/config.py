@@ -2,11 +2,9 @@
 re-declared with torch dtypes.
 
 Both decoder branches are ported: LLaMA's rope / RMSNorm / SwiGLU and MPT's
-ALiBi / bias-free LayerNorm / GELU.  Values outside the JAX config's raise
-``ValueError``, and the one combination the port does not run yet (the int8
-KV cache under ALiBi) raises ``NotImplementedError`` naming its ROADMAP
-item, so a config the port cannot run fails at construction and never
-silently runs a different model.
+ALiBi / bias-free LayerNorm / GELU, each with the int8 KV cache.  Values
+outside the JAX config's raise ``ValueError``, so a config the port cannot
+run fails at construction and never silently runs a different model.
 """
 
 from __future__ import annotations
@@ -18,12 +16,6 @@ import torch
 
 BLOCK_OUTPUT = "block_output"
 MLP_OUTPUT = "mlp_output"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to licv_vqa_tpu_torch yet (ROADMAP.md {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +55,6 @@ class DecoderConfig:
                 raise ValueError(
                     f"{field} must be {'|'.join(allowed)}, got {getattr(self, field)!r}"
                 )
-        if self.positional == "alibi" and self.kv_cache_dtype == "int8":
-            raise _not_ported(
-                "the int8 KV cache under ALiBi (quantized OpenFlamingo)",
-                "Queue 1 item 20",
-            )
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be bf16|int8, got {self.kv_cache_dtype!r}")
         if self.attention_impl not in ("flash", "xla"):

@@ -226,6 +226,7 @@ def _int8_cached_attention(
     mask: torch.Tensor,  # (B, 1, s, S) from decode_cache_view
     index,  # host int, or an int tensor of each row's column
     logit_softcap=None,
+    bias: Optional[torch.Tensor] = None,  # (B, H, s, S) ALiBi over cache columns
 ) -> torch.Tensor:
     """JAX's split softmax over (earlier rows ∥ this step's rows) for the
     int8 cache (``decoder.py:201-330``): the earlier rows stay int8 planes
@@ -234,13 +235,18 @@ def _int8_cached_attention(
     With a host int the earlier rows are the prefix ``[0, index)``; with a
     per-row index they are every column, this step's own masked out of the
     cache part and gathered from ``mask`` for the local part, as JAX's
-    vector-index branch does (``decoder.py:262-276``)."""
+    vector-index branch does (``decoder.py:262-276``).  An ALiBi ``bias``
+    is split the same way and added to both parts' f32 scores after the
+    softcap (``decoder.py:282-310``)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     b, s = q.shape[:2]
     n_rep = q.shape[2] // k_local.shape[2]
+    bias_cache = bias_local = None
     if isinstance(index, int):
         end = index
         mask_cache, mask_local = mask[..., :index], mask[..., index : index + s]
+        if bias is not None:
+            bias_cache, bias_local = bias[..., :index], bias[..., index : index + s]
     else:
         end = mask.shape[-1]
         _, col = _row_columns(index, b, s)
@@ -248,6 +254,10 @@ def _int8_cached_attention(
         new_col = (ar[None, :] >= col[:, :1]) & (ar[None, :] <= col[:, -1:])  # (B, S)
         mask_cache = mask & ~new_col[:, None, None, :]
         mask_local = torch.gather(mask, 3, col[:, None, None, :].expand(b, 1, s, s))
+        if bias is not None:
+            bias_cache = bias
+            bias_local = torch.gather(
+                bias, 3, col[:, None, None, :].expand(b, bias.shape[1], s, s))
 
     def plane(c):
         return L.repeat_kv(c["q"][:, :end], n_rep).float()
@@ -262,6 +272,8 @@ def _int8_cached_attention(
     ], dim=-1)
     if logit_softcap:
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    if bias is not None:
+        scores = scores + torch.cat([bias_cache, bias_local], dim=-1).float()
     scores = scores.masked_fill(~torch.cat([mask_cache, mask_local], dim=-1),
                                 torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
@@ -322,7 +334,7 @@ def _attend(cfg: DecoderConfig, q, k, v, mask, kv_write, flash_valid, bias) -> t
         )
     if kv_write is not None and isinstance(k_cache, dict):
         return _int8_cached_attention(
-            q, k_cache, v_cache, k_local, v_local, mask, index, cfg.attn_logit_softcap
+            q, k_cache, v_cache, k_local, v_local, mask, index, cfg.attn_logit_softcap, bias
         )
     if kv_write is not None:
         # a per-row index (a tensor) attends every column under its mask:

@@ -14,8 +14,17 @@ As in JAX (the open_flamingo convention):
 
 Both forwards are ported: the cached one (prefill + decode) and the grouped
 no-cache train forward, which checkpoints for the backward where JAX's
-``jax.checkpoint`` sits.  The merged-admission and serving functions wait
-for ROADMAP Queue 1 item 22.
+``jax.checkpoint`` sits.  So are the continuous engines' slot-oriented
+serving functions (``make_openflamingo_serving_fns``, per-slot media as
+Idefics-9B's) and the merged admission forward
+(``make_openflamingo_merged_admit_fn``: one pool decode step and one
+admission group's prefill over ``decoder.merged_decoder_layer`` with a
+per-lane ALiBi bias).
+
+The decoder and cross-attention stacks may hold int8 or int4 leaves
+(``lmm.quantize``); under ``w8a8_prefill`` the blocks of at least
+``decoder.W8A8_MIN_TOKENS`` tokens (text or media) take w8a8, the tower
+stays weight-only and the perceiver takes it (JAX :199-224, :262).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from ..ops.int8_matmul import qdot
 from . import layers as L
 from .config import BLOCK_OUTPUT, DecoderConfig, PerceiverConfig, VisionConfig
 from .decoder import (
+    W8A8_MIN_TOKENS,
     _icv_row,
     _positions_from_mask,
     alibi_bias_for,
@@ -40,8 +50,9 @@ from .decoder import (
     init_kv_cache,
     init_layer_params,
     logits_from_hidden,
+    merged_decoder_layer,
 )
-from .idefics import image_attention_onehot, last_image_onehot
+from .idefics import _xattn_mask, image_attention_onehot, last_image_onehot
 from .perceiver import init_perceiver_params, perceiver_forward
 from .vision import init_vision_params, vision_forward
 
@@ -161,11 +172,13 @@ def encode_media(
 ) -> torch.Tensor:
     """(B, N_img, H, W, 3) → latents (B, N_img·n_lat, De).  The tower's
     tokens are post-layernormed with the class token dropped (open_clip's
-    token output)."""
+    token output).  Under ``w8a8_prefill`` the perceiver takes w8a8 and a
+    quantized tower stays weight-only, as in ``idefics.encode_images``."""
     b, n_img = pixel_values.shape[:2]
     flat = pixel_values.reshape((b * n_img,) + tuple(pixel_values.shape[2:]))
-    feats = vision_forward(cfg.vision, params["vision"], flat)[:, 1:, :]
-    latents = perceiver_forward(cfg.perceiver, params["perceiver"], feats)
+    feats = vision_forward(cfg.vision, params["vision"], flat, a8=False)[:, 1:, :]
+    latents = perceiver_forward(cfg.perceiver, params["perceiver"], feats,
+                                a8=cfg.text.w8a8_prefill)
     return latents.reshape(b, n_img * latents.shape[1], latents.shape[2])
 
 
@@ -186,25 +199,29 @@ def flamingo_xattn_block(
     t = cfg.text
     b, s, _ = h.shape
     nh, dh = cfg.xattn_heads, cfg.xattn_head_dim
+    # token-count gates (JAX :223-224): the text block's here, the media's
+    # at its K/V projection
+    a8 = t.w8a8_prefill and s >= W8A8_MIN_TOKENS
     x = L.layer_norm(p["ln_attn"]["w"], p["ln_attn"]["b"], h, t.norm_eps)
-    q = qdot(x, p["wq"]).reshape(b, s, nh, dh)
+    q = qdot(x, p["wq"], a8=a8).reshape(b, s, nh, dh)
     if kv is not None:
         k, v = kv  # decode-invariant media K/V, computed at bind time
     else:
-        kvm = qdot(media, p["wkv"]).reshape(b, -1, 2, nh, dh)  # to_kv's chunk: k first
+        a8_med = t.w8a8_prefill and media.shape[1] >= W8A8_MIN_TOKENS
+        kvm = qdot(media, p["wkv"], a8=a8_med).reshape(b, -1, 2, nh, dh)  # k first
         k, v = kvm[:, :, 0], kvm[:, :, 1]
     # a token before the first <image> has a fully masked row: its uniform
     # (finite) softmax is zeroed by the gate
     attn = L.dot_product_attention(q, k, v, mask=media_mask)
-    attn = qdot(attn.reshape(b, s, nh * dh), p["wo"]).to(h.dtype)
+    attn = qdot(attn.reshape(b, s, nh * dh), p["wo"], a8=a8).to(h.dtype)
     attn = attn * gate[:, :, None].to(attn.dtype)
     h = h + torch.tanh(p["attn_gate"]).to(h.dtype) * attn
 
     x2 = L.layer_norm(p["ln_ff"]["w"], p["ln_ff"]["b"], h, t.norm_eps)
     # open_flamingo's FeedForward: nn.GELU(), exact erf
-    z = F.gelu(qdot(x2, p["ff_up"], preferred_element_type=torch.float32),
+    z = F.gelu(qdot(x2, p["ff_up"], preferred_element_type=torch.float32, a8=a8),
                approximate="none").to(h.dtype)
-    ff = qdot(z, p["ff_down"]).to(h.dtype)
+    ff = qdot(z, p["ff_down"], a8=a8).to(h.dtype)
     return h + torch.tanh(p["ff_gate"]).to(h.dtype) * ff
 
 
@@ -212,13 +229,16 @@ def precompute_xattn_kv(
     cfg: OpenFlamingoConfig, params: dict, media_latents: torch.Tensor
 ) -> tuple:
     """K/V of the media latents for every gated-xattn block, (G, B, Nk, nh,
-    dh) each: decode-invariant, computed once per bind."""
+    dh) each: decode-invariant, computed once per bind (w8a8 by the bind's
+    media token count, JAX :262)."""
     t = cfg.text
     b, n_k = media_latents.shape[:2]
     nh, dh = cfg.xattn_heads, cfg.xattn_head_dim
+    a8 = t.w8a8_prefill and n_k >= W8A8_MIN_TOKENS
     ks, vs = [], []
     for g in range(t.n_layers // cfg.cross_attn_every_n_layers):
-        kv = qdot(media_latents, params["xattn"]["wkv"][g]).reshape(b, n_k, 2, nh, dh)
+        w = L.layer_slice(params["xattn"]["wkv"], g)  # a tensor or a quantized leaf
+        kv = qdot(media_latents, w, a8=a8).reshape(b, n_k, 2, nh, dh)
         ks.append(kv[:, :, 0].to(t.dtype))
         vs.append(kv[:, :, 1].to(t.dtype))
     return torch.stack(ks), torch.stack(vs)
@@ -259,10 +279,7 @@ def openflamingo_forward(
     ids = torch.clamp(input_ids, 0, params["embed"].shape[0] - 1).long()
     h = params["embed"][ids].to(t.dtype)
 
-    n_lat = media_latents.shape[1] // media_onehot.shape[-1]
-    xmask = torch.repeat_interleave(media_onehot, n_lat, dim=-1) > 0
-    gate = torch.any(xmask, dim=-1).float()  # (B, s)
-    xmask = xmask[:, None, :, :]  # (B, 1, s, Nk)
+    xmask, gate = _xattn_mask(media_latents, media_onehot)  # (B, 1, s, Nk), (B, s)
     icv = cast_icv(icv_scaled, t.dtype)
 
     if cache is None:
@@ -344,6 +361,19 @@ def _grouped_train_forward(cfg, params, h, attention_mask, media_latents, xmask,
     return h
 
 
+def bind_media(cfg: OpenFlamingoConfig, params: dict, pixel_values, pixel_valid, ids,
+               eos_token_id: int) -> tuple:
+    """One bind's media: ``(latents, prefill one-hot (B, s, N_img),
+    step one-hot (B, 1, N_img), cross-attention K/V)``, the one-hots
+    masked by ``pixel_valid``."""
+    latents = encode_media(cfg, params, pixel_values)
+    n_img = pixel_values.shape[1]
+    pv = pixel_valid[:, None, :].float()
+    prefill_onehot = image_attention_onehot(ids, cfg.image_token_id, eos_token_id, n_img) * pv
+    step_onehot = last_image_onehot(ids, cfg.image_token_id, n_img) * pv
+    return latents, prefill_onehot, step_onehot, precompute_xattn_kv(cfg, params, latents)
+
+
 def make_openflamingo_forward_fns(cfg: OpenFlamingoConfig, eos_token_id: int):
     """``(train_forward, bind_images)``, as JAX's
     ``make_openflamingo_forward_fns`` (:472-543) and the port's
@@ -366,14 +396,8 @@ def make_openflamingo_forward_fns(cfg: OpenFlamingoConfig, eos_token_id: int):
         return out
 
     def bind_images(params, pixel_values, pixel_valid, prompt_ids, icv_scaled, max_len):
-        latents = encode_media(cfg, params, pixel_values)
-        n_img = pixel_values.shape[1]
-        pv = pixel_valid[:, None, :].float()
-        prefill_onehot = (
-            image_attention_onehot(prompt_ids, cfg.image_token_id, eos_token_id, n_img) * pv
-        )
-        step_onehot = last_image_onehot(prompt_ids, cfg.image_token_id, n_img) * pv
-        xattn_kv = precompute_xattn_kv(cfg, params, latents)
+        latents, prefill_onehot, step_onehot, xattn_kv = bind_media(
+            cfg, params, pixel_values, pixel_valid, prompt_ids, eos_token_id)
         expanded = {1: xattn_kv}  # beam-expanded media K/V, built once per factor
 
         def forward_fn(input_ids, attention_mask, positions, cache):
@@ -399,3 +423,115 @@ def make_openflamingo_forward_fns(cfg: OpenFlamingoConfig, eos_token_id: int):
         return forward_fn
 
     return train_forward, bind_images
+
+
+# per-slot media state the continuous-batching engine keeps for the decode
+# steps: each key's (batch axis, image axis), as ``idefics.SERVING_MEDIA_AXES``
+# (JAX names the batch axis alone, openflamingo.py:546-548)
+SERVING_MEDIA_AXES = {"latents": (0, 1), "step_onehot": (0, 2), "xattn_kv": (1, 2)}
+
+
+def make_openflamingo_serving_fns(cfg: OpenFlamingoConfig, eos_token_id: int):
+    """Slot-oriented ``(prefill, decode_step, SERVING_MEDIA_AXES)`` for the
+    continuous-batching engine (JAX ``make_openflamingo_serving_fns``,
+    openflamingo.py:714-785), with the contract of
+    ``idefics.make_idefics_serving_fns``: every decode step cross-attends
+    the slot's own media, so the engine keeps ``{latents, step_onehot,
+    xattn_kv}`` a slot."""
+
+    def prefill(params, pixel_values, pixel_valid, input_ids, attention_mask,
+                icv_scaled, cache_len):
+        latents, prefill_onehot, step_onehot, xattn_kv = bind_media(
+            cfg, params, pixel_values, pixel_valid, input_ids, eos_token_id)
+        positions = _positions_from_mask(attention_mask)
+        cache = init_kv_cache(cfg.text, input_ids.shape[0], cache_len, input_ids.device)
+        logits, cache = openflamingo_forward(
+            cfg, params, input_ids, attention_mask, latents, prefill_onehot,
+            icv_scaled=icv_scaled, cache=cache, positions=positions, xattn_kv=xattn_kv,
+            last_logit_only=True, prefill_flash=attention_mask,
+        )
+        media = {"latents": latents, "step_onehot": step_onehot, "xattn_kv": xattn_kv}
+        return logits[:, -1, :].float(), cache, media, positions[:, -1] + 1
+
+    def decode_step(params, token_ids, attention_mask, positions, cache, icv_scaled, media):
+        b, s = token_ids.shape
+        so = media["step_onehot"]
+        return openflamingo_forward(
+            cfg, params, token_ids, attention_mask, media["latents"],
+            so.expand(b, s, so.shape[-1]), icv_scaled=icv_scaled, cache=cache,
+            positions=positions, xattn_kv=media["xattn_kv"],
+        )
+
+    return prefill, decode_step, SERVING_MEDIA_AXES
+
+
+def make_openflamingo_merged_admit_fn(cfg: OpenFlamingoConfig, eos_token_id: int):
+    """ONE forward of a pool decode step and an admission group's prefill
+    for the MPT/ALiBi family (JAX ``make_openflamingo_merged_admit_fn``,
+    openflamingo.py:551-711), with the contract of
+    ``idefics.make_idefics_merged_admit_fn``.  Each decoder projection, the
+    MLP and the tied head pack over both token streams
+    (``decoder.merged_decoder_layer``); the gated cross-attention runs per
+    lane BEFORE each layer that closes a group (``li % every == every - 1``,
+    as ``openflamingo_forward``).  The decode lane's ALiBi bias spans the
+    pool cache's columns; the prefill lane's is None wherever the ALiBi
+    flash gate passes (``decoder.alibi_bias_for``: the kernel makes it),
+    else it spans the fresh cache's."""
+    t = cfg.text
+    every = cfg.cross_attn_every_n_layers
+
+    def merged_step(params, dec_tok, dec_adv, dec_pos, cache, media, icv_scaled,
+                    pixels, pv, ids, mask, cache_len):
+        b1 = dec_tok.shape[0]
+        b2, s2 = ids.shape
+        embed = params["embed"]
+
+        # the prefill lane's bind (ViT-L, perceiver, media K/V)
+        latents_p, onehot_p, step_onehot, xkv_p = bind_media(
+            cfg, params, pixels, pv, ids, eos_token_id)
+        pos_p = _positions_from_mask(mask)
+        cache_p = init_kv_cache(t, b2, cache_len, ids.device)
+
+        # per-lane attention views, ALiBi biases and cross-attention masks
+        index_d, index_p = cache["index"], cache_p["index"]
+        mask_d, cache_pos_d, _ = decode_cache_view(cache, dec_pos, dec_adv, 1)
+        mask_p, _, _ = decode_cache_view(cache_p, pos_p, mask, s2)
+        bias_d = L.alibi_bias(t.n_heads, dec_pos, cache_pos_d)
+        bias_p = alibi_bias_for(t, pos_p, cache_p, mask)
+        so = media["step_onehot"]
+        xmask_d, gate_d = _xattn_mask(media["latents"], so.expand(b1, 1, so.shape[-1]))
+        xmask_p, gate_p = _xattn_mask(latents_p, onehot_p)
+
+        h_d = embed[torch.clamp(dec_tok, 0, embed.shape[0] - 1).long()].to(t.dtype)
+        h_p = embed[torch.clamp(ids, 0, embed.shape[0] - 1).long()].to(t.dtype)
+        icv = cast_icv(icv_scaled, t.dtype)
+        for li in range(t.n_layers):
+            if li % every == every - 1:
+                g = li // every
+                xp = L.layer_slice(params["xattn"], g)
+                xkv_d = media["xattn_kv"]
+                h_d = flamingo_xattn_block(cfg, xp, h_d, media["latents"], xmask_d, gate_d,
+                                           kv=(xkv_d[0][g], xkv_d[1][g]))
+                h_p = flamingo_xattn_block(cfg, xp, h_p, latents_p, xmask_p, gate_p,
+                                           kv=(xkv_p[0][g], xkv_p[1][g]))
+            icv_arg = _icv_row(icv, li)
+            h_d, h_p = merged_decoder_layer(
+                t, L.layer_slice(params["layers"], li), h_d, h_p, None, None,
+                mask_d, (L.layer_slice(cache["k"], li), L.layer_slice(cache["v"], li), index_d),
+                mask_p, (L.layer_slice(cache_p["k"], li), L.layer_slice(cache_p["v"], li),
+                         index_p),
+                mask, icv_arg, icv_arg, bias_d=bias_d, bias_p=bias_p,
+            )
+        cache["index"] = index_d + 1
+        cache_p["index"] = index_p + s2
+
+        # the final norm per lane, one read of the tied head for both lanes'
+        # last rows
+        h = torch.cat([h_d, h_p[:, -1:, :]], dim=0)
+        logits = logits_from_hidden(
+            t, params, L.layer_norm(params["final_norm"], params["final_norm_b"], h, t.norm_eps))
+        media_p = {"latents": latents_p, "step_onehot": step_onehot, "xattn_kv": xkv_p}
+        return (logits[:b1], cache, logits[b1:, -1, :].float(), cache_p, media_p,
+                pos_p[:, -1] + 1)
+
+    return merged_step

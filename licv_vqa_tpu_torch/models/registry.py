@@ -477,7 +477,7 @@ def _maybe_quantize(cfg, bundle: ModelBundle) -> ModelBundle:
     the params live on (JAX registry.py:372-443).  ``lmm.quantize_head``
     makes the (D, V) head int8 whatever the stack mode (tied embeddings keep
     the table); ``lmm.quantize_vision`` makes the vision tower, the
-    perceiver (Idefics' ``blocks``, Idefics2's ``layers``) and Idefics2's
+    perceiver (Idefics' and OpenFlamingo's ``blocks``, Idefics2's ``layers``) and Idefics2's
     connector int8.  Embeddings, norms, biases and latents stay as they
     are."""
     q = str(cfg.lmm.get("quantize", "none"))
@@ -522,18 +522,10 @@ def build_model(cfg, device="cuda") -> ModelBundle:
     elif name == "tiny-idefics2":
         model_cfg = Idefics2Config.tiny(dtype=torch.float32)
     elif "openflamingo" in name.lower() or name == "tiny-flamingo":
-        quantized = (str(cfg.lmm.get("quantize", "none")) != "none"
-                     or bool(cfg.lmm.get("w8a8_prefill", False))
-                     or str(cfg.lmm.get("kv_cache", "bf16")) == "int8")
-        if quantized:
-            raise NotImplementedError(
-                "quantized OpenFlamingo (lmm.quantize, lmm.w8a8_prefill, lmm.kv_cache=int8) "
-                "is not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 20)"
-            )
         model_cfg = (OpenFlamingoConfig.tiny(dtype=torch.float32) if name == "tiny-flamingo"
                      else OpenFlamingoConfig.openflamingo_9b())
-        return _openflamingo_bundle(cfg, _apply_lmm_options(cfg, model_cfg), name, device)
     else:
         raise ValueError(f"unknown lmm name: {name}")
-    bundle = _family_bundle(cfg, _apply_lmm_options(cfg, model_cfg), name, device)
-    return _maybe_quantize(cfg, bundle)
+    make = (_openflamingo_bundle if isinstance(model_cfg, OpenFlamingoConfig)
+            else _family_bundle)
+    return _maybe_quantize(cfg, make(cfg, _apply_lmm_options(cfg, model_cfg), name, device))

@@ -11,8 +11,9 @@ for several question counts, fewer than the pool's P groups among them
 ``min_new_tokens``, a left-padded question, int8 weights and cache; and
 equal JAX's pooled chain in one case.  A bundle's chain
 (``pooled_eval_chain``) takes its subset-layer ICV as the static runner
-does.  OpenFlamingo's chain and the chain's refusals raise (Idefics2's
-is ``tests/test_torch_serving_idefics2.py``'s)."""
+does.  The chain's refusals raise (Idefics2's chain is
+``tests/test_torch_serving_idefics2.py``'s, OpenFlamingo's
+``tests/test_torch_serving_openflamingo.py``'s)."""
 
 import dataclasses
 
@@ -336,7 +337,5 @@ def test_pooled_chain_matches_jax_pooled_chain(tiny):
 
 def test_what_the_chains_do_not_take_raises(tiny):
     cfg, _, _, _ = tiny
-    with pytest.raises(NotImplementedError, match="item 22"):
-        C.make_openflamingo_pooled_eval_chain(cfg, EOS)
     with pytest.raises(ValueError, match="max_new_tokens >= 2"):
         C.make_idefics_pooled_eval_chain(cfg, EOS, max_new_tokens=1)

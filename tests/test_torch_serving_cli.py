@@ -10,10 +10,13 @@ and JAX's ``inference.py`` writes the same on the same split.  So does
 ``infer_engine=pooled`` (beam-3, chunks of ``infer_pool`` = 3 questions over
 buckets of mixed shot counts: the last chunk of a bucket padded;
 ``tests/test_cli_e2e.py:251``).  The same three routes on ``lmm=tiny-idefics2``
-(``tests/test_torch_idefics2_cli.py``'s checkpoint and split) write the
-static path's predictions, which are ``inference.py``'s.  The serving mesh
-and OpenFlamingo's continuous and pooled engines raise with their ROADMAP
-item, and the pooled runner refuses greedy decoding and NaViT images.
+(``tests/test_torch_idefics2_cli.py``'s checkpoint and split) and on
+``lmm=tiny-flamingo`` (``tests/test_torch_openflamingo_cli.py``'s
+``checkpoint.pt`` and split) write the static path's predictions, which are
+``inference.py``'s; so does tiny-flamingo's greedy engine with int8 weights
+and the int8 KV cache under ALiBi.  The serving mesh raises with its
+ROADMAP item, and the pooled runner refuses greedy decoding and NaViT
+images.
 """
 
 import json
@@ -27,6 +30,9 @@ from tests.test_torch_cli import MODEL, _preds, env  # noqa: F401  (fixture)
 from tests.test_torch_idefics2_cli import MODEL as MODEL2
 from tests.test_torch_idefics2_cli import _preds as _preds2
 from tests.test_torch_idefics2_cli import env as env2  # noqa: F401  (fixture)
+from tests.test_torch_openflamingo_cli import MODEL as MODEL3
+from tests.test_torch_openflamingo_cli import _preds as _preds3
+from tests.test_torch_openflamingo_cli import env as env3  # noqa: F401  (fixture)
 from tests.test_torch_serving import _one_thread  # noqa: F401  (autouse fixture)
 
 ICE = [[0], [1, 2, 0], [2], [0, 1, 2]]
@@ -201,10 +207,42 @@ def test_idefics2_served_cli_writes_the_static_predictions(env2, engine, beams):
         assert _preds2(env2, jax_run, name) == want, name
 
 
+@pytest.mark.parametrize("engine,beams,quantized", [
+    ("continuous", 1, False), ("continuous", 3, False), ("pooled", 3, False),
+    ("continuous", 1, True),
+], ids=["continuous_greedy", "continuous_beam3", "pooled_beam3", "int8_kv8_continuous_greedy"])
+def test_openflamingo_served_cli_writes_the_static_predictions(env3, engine, beams,  # noqa: F811
+                                                               quantized):
+    """``lmm=tiny-flamingo`` (ALiBi, per-slot media, the cross-attention
+    before each group's last layer) through the continuous engines and the
+    pooled schedule on 1- and 3-shot prompts of mixed buckets and image
+    counts, and the greedy engine with ``lmm.quantize=int8
+    lmm.kv_cache=int8``: the static path's predictions, and
+    ``inference.py``'s under the same options."""
+    import inference as jax_cli
+    from licv_vqa_tpu_torch.cli.inference import main as torch_main
+
+    ice = env3 / "ice_mixed.json"
+    ice.write_text(json.dumps(ICE))
+    args = [f"lmm={MODEL3}" if a.startswith("lmm=") else a for a in ARGS] + [
+        f"ice_idx_list_cache={ice}", f"generate_kwargs.num_beams={beams}", "infer_pool=3",
+        f"lmm.flamingo_checkpoint_dir={env3 / 'flamingo'}"]
+    if quantized:
+        args += ["lmm.quantize=int8", "lmm.kv_cache=int8"]
+    static, served, jax_run = f"static{beams}", f"{engine}{beams}", f"jax{beams}"
+    _runs(env3, (static, served, jax_run), MODEL3)
+    torch_main(args + [f"run_name={static}", "device=cpu"])
+    torch_main(args + [f"run_name={served}", "device=cpu", f"infer_engine={engine}"])
+    jax_cli.main(args + [f"run_name={jax_run}"])
+    for name in ("icv.json", "icl_shot1.json", "icl_shot3.json"):
+        want = _preds3(env3, static, name)
+        assert len(want) == 4 and any(want), (name, want)
+        assert _preds3(env3, served, name) == want, name
+        assert _preds3(env3, jax_run, name) == want, name
+
+
 @pytest.mark.parametrize("extra,item", [
     (["infer_engine=continuous", "infer_dp=2"], "item 16"),
-    (["infer_engine=continuous", "lmm=tiny-flamingo"], "item 22"),
-    (["infer_engine=pooled", "lmm=tiny-flamingo"], "item 22"),
 ])
 def test_what_the_cli_does_not_serve_raises_with_its_roadmap_item(env, extra, item):  # noqa: F811
     from licv_vqa_tpu_torch.cli.inference import main as torch_main

@@ -521,13 +521,16 @@ def test_idefics2_phase_counts_match_prediction_on_tiny_idefics2(tmp_path, monke
     monkeypatch.setattr(PL, "flash_bidir_usable", lambda s, device: True)
     monkeypatch.setattr(PL, "flash_attention_usable", lambda cfg, s, dh, device: s >= 256)
     _stub_cuda(monkeypatch, tmp_path)
-    # phase 7b has its own rehearsal (below): these are phase 7's counts
-    monkeypatch.setattr(C, "idefics2_serving_path", lambda e: {})
+    # phase 7b has its own rehearsal (below): these are phase 7's counts,
+    # and 7b's counters (zero here) join them
+    monkeypatch.setattr(C, "idefics2_serving_path",
+                        lambda e: dict.fromkeys(C.engine_counters(), 0))
     got = C.idefics2_path(torch.device("cpu"), tmp_path / "idefics2", lmm="tiny-idefics2")
     # 2 test_icv and 1 test_icl questions: a bind each, 2 vision layers,
     # 4 decoder layers, 5 forwards a question
     assert got == {"flash_attention_bidir": 2 * 3, "vit_attention": 0,
-                   "flash_attention_fwd": 4 * 1, "icv_inject": 4 * 2 * C.MAX_NEW}
+                   "flash_attention_fwd": 4 * 1, "icv_inject": 4 * 2 * C.MAX_NEW,
+                   "flash_alibi_attention": 0}
 
 
 def test_openflamingo_phase_counts_match_prediction_on_tiny_flamingo(tmp_path, monkeypatch):
@@ -553,12 +556,17 @@ def test_openflamingo_phase_counts_match_prediction_on_tiny_flamingo(tmp_path, m
     for mod in (PD, FA):
         monkeypatch.setattr(mod, "flash_alibi_usable", lambda cfg, s, dh, device: s >= 128)
     _stub_cuda(monkeypatch, tmp_path)
+    # phase 8b has its own rehearsal (below): these are phase 8's counts,
+    # and 8b's counters (zero here) join them
+    monkeypatch.setattr(C, "openflamingo_serving_path",
+                        lambda e: dict.fromkeys(C.engine_counters(), 0))
     got = C.openflamingo_path(torch.device("cpu"), tmp_path / "openflamingo",
                               lmm="tiny-flamingo")
     # 2 test_icv and 1 test_icl questions: a bind each, 2 tower layers, 4
     # decoder layers, 5 forwards a question
     assert got == {"vit_attention": 2 * 3, "flash_alibi_attention": 4 * 1,
-                   "flash_attention_fwd": 0, "icv_inject": 4 * 2 * C.MAX_NEW}
+                   "flash_attention_fwd": 0, "icv_inject": 4 * 2 * C.MAX_NEW,
+                   "flash_attention_bidir": 0}
 
 
 def test_quantized_phase_counts_match_prediction_on_tiny_idefics(tmp_path, monkeypatch):
@@ -973,7 +981,8 @@ def test_pooled_launch_prediction_at_full_width():
     cpu = torch.device("cpu")
     got = C.predicted_pooled_launches(mc, [(4, 64, 1, (224, 224))], True, cpu)
     assert got == {"icv_inject": 32 * (1 + 2 * 8), "vit_attention": 0,
-                   "flash_attention_bidir": 0, "flash_attention_fwd": 0}
+                   "flash_attention_bidir": 0, "flash_attention_fwd": 0,
+                   "flash_alibi_attention": 0}
     opts = [o for o in C.QUANT_RUNS[0][1] if o != "lmm.w8a8_prefill=true"]
     got = C.predicted_pooled_launches(mc, [(4, 64, 1, (224, 224))], False, cpu, opts)
     pro = C.predicted_quantized_launches(mc, "int8", opts, 1, 64, 1, 3, 1)["int8_matmul"]
@@ -996,10 +1005,11 @@ def test_idefics2_engine_and_chain_launch_prediction_at_full_width():
     got = C.predicted_engine_launches(mc, engine, [(560, 672), (448, 672), (560, 672)], True,
                                       cuda)
     assert got == {"icv_inject": 32 * 13, "vit_attention": 0, "flash_attention_bidir": 27 * 3,
-                   "flash_attention_fwd": 32}
+                   "flash_attention_fwd": 32, "flash_alibi_attention": 0}
     got = C.predicted_pooled_launches(mc, [(8, 128, 1, (672, 672))], True, cuda)
     assert got == {"icv_inject": 32 * (1 + 2 * 12), "vit_attention": 0,
-                   "flash_attention_bidir": 27 * 13, "flash_attention_fwd": 0}
+                   "flash_attention_bidir": 27 * 13, "flash_attention_fwd": 0,
+                   "flash_alibi_attention": 0}
 
 
 def test_idefics2_serving_phase_counts_match_prediction_on_tiny_idefics2(tmp_path, monkeypatch,
@@ -1056,3 +1066,114 @@ def test_idefics2_serving_phase_counts_match_prediction_on_tiny_idefics2(tmp_pat
     for t in range(3):
         want = C.forced_decode_logits(e, [prompt], [static[:t]], e.icv_scaled)[0]
         torch.testing.assert_close(rec["logits"](0, t), want, rtol=0, atol=1e-4)
+
+
+def _count_openflamingo_kernels(monkeypatch):
+    """Phase 8's counted wrappers with its card run's gates opened for the
+    CPU: the fused ViT at any length, the ALiBi flash at >= 128 tokens."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.models import layers as PL
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    for mod, name in ((PL, "vit_attention"), (FA, "flash_alibi_attention"),
+                      (PL, "flash_attention"), (PL, "flash_attention_bidir"),
+                      (iv, "icv_inject")):
+        monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
+    monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
+    monkeypatch.setattr(PD, "flash_alibi_attention", FA.flash_alibi_attention)
+    monkeypatch.setattr(PL, "vit_attention_usable", lambda s, dh, device: True)
+    for mod in (PD, FA):
+        monkeypatch.setattr(mod, "flash_alibi_usable", lambda cfg, s, dh, device: s >= 128)
+
+
+def test_openflamingo_engine_and_chain_launch_prediction_at_full_width():
+    """OpenFlamingo-9B on the card: an admission group's bind (224x224, 256
+    patches and the class token) takes the fused ViT at the tower's 24
+    layers; a bucket of >= 128 tokens the ALiBi flash at 32 layers, never
+    the causal one (MPT has no rope).  A chain of 2 32-shot questions
+    (bucket 512, 33 images): its prologue and 6 merged forwards, each a
+    bind and an ALiBi prefill lane."""
+    from types import SimpleNamespace
+
+    from licv_vqa_tpu_torch.models.openflamingo import OpenFlamingoConfig
+
+    mc, cuda = OpenFlamingoConfig.openflamingo_9b(), torch.device("cuda")
+    engine = SimpleNamespace(admissions=[(2, 64), (1, 64), (1, 512)], steps_run=10)
+    got = C.predicted_engine_launches(mc, engine, [(224, 224)] * 3, True, cuda)
+    assert got == {"icv_inject": 32 * 13, "vit_attention": 24 * 3, "flash_attention_bidir": 0,
+                   "flash_attention_fwd": 0, "flash_alibi_attention": 32}
+    got = C.predicted_pooled_launches(mc, [(2, 512, 33, (224, 224))], False, cuda)
+    assert got == {"icv_inject": 0, "vit_attention": 24 * 7, "flash_attention_bidir": 0,
+                   "flash_attention_fwd": 0, "flash_alibi_attention": 32 * 7}
+
+
+def test_quantized_openflamingo_launch_prediction_at_full_width():
+    """Phase 6's OpenFlamingo-9B run a question (bs=1, beam-3, 5 new
+    tokens; w8a8 prefill, the tied head bf16): the int8 kernel at the 4 beam
+    steps, 32 MPT layers x 6 projections and 8 blocks x 4 (wq, wo at K =
+    512, ff up and down); w8a8 at the prefill's and the bind's K/V (one
+    wkv a block), 64 latents an image."""
+    from licv_vqa_tpu_torch.models.openflamingo import OpenFlamingoConfig
+
+    mc = OpenFlamingoConfig.openflamingo_9b()
+    _, opts, _ = C.QUANT_FLAMINGO
+    step = 32 * 6 + 8 * 4
+    assert C.quant_matmuls(mc) == ([4096] * 5 + [16384], [4096, 512, 4096, 16384], 1, 8)
+    for s_prompt, n_img in ((64, 1), (512, 33)):
+        got = C.predicted_quantized_launches(mc, "int8", opts, 1, s_prompt, n_img, 3, 5)
+        assert got == {"int8_matmul": 4 * step, "int4_matmul": 0, "w8a8_matmul": step + 8}
+    got = C.predicted_quantized_launches(mc, "int4", ["lmm.quantize=int4"], 1, 64, 1, 3, 5)
+    assert got == {"int8_matmul": 0, "int4_matmul": 5 * step + 8, "w8a8_matmul": 0}
+
+
+def test_openflamingo_serving_phase_counts_match_prediction_on_tiny_flamingo(
+        tmp_path, monkeypatch, one_thread):
+    """Phase 8b on the CPU at tiny size (tiny-flamingo; the card run's gates
+    opened: the fused ViT at any length, the ALiBi flash at >= 128 tokens):
+    (a)-(d) each check their counts against the family's predictions, no
+    sync and the token rules, and raise on a miss; (b) merges and plain
+    does not; the 32-shot request of (c) and the 32-shot chain of (d) take
+    the ALiBi flash (an admission; a prologue and 1 + P merged prefill
+    lanes), never the causal one."""
+    _count_openflamingo_kernels(monkeypatch)
+    _stub_cuda(monkeypatch, tmp_path)
+    for name, value in (("OPENFLAMINGO_ENGINE_Q", 4), ("MERGED_REQUESTS", 6),
+                        ("POOLED_ICV_Q", 4), ("CONT_ICL_SHOTS", (1, 32))):
+        monkeypatch.setattr(C, name, value)
+    e = C.eval_setup(torch.device("cpu"), tmp_path / "openflamingo", [], lmm="tiny-flamingo")
+    got = C.openflamingo_serving_path(e)
+    assert got["vit_attention"] > 0 and got["vit_attention"] % 2 == 0
+    assert got["flash_attention_fwd"] == 0 and got["flash_attention_bidir"] == 0
+    assert got["icv_inject"] > 0 and got["icv_inject"] % 4 == 0
+    assert got["flash_alibi_attention"] == 4 * (1 + 1 + 1 + C.MAX_NEW - 1)
+
+
+def test_quantized_openflamingo_phase_counts_match_prediction_on_tiny_flamingo(
+        tmp_path, monkeypatch, one_thread):
+    """Phase 6's OpenFlamingo run on the CPU at tiny size (int8 weights, the
+    int8 KV cache under ALiBi, w8a8 prefill), the kernel wrappers counted
+    where ``qdot`` calls them: test_icv and one test_icl question, then the
+    greedy engine under the int8 cache (its int8 launches at the pool's
+    rows against the decode steps); each against
+    ``predicted_quantized_launches`` (the phase raises on a miss)."""
+    import importlib
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.ops import int4_matmul as I4
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    for mod, name in ((I8, "int8_matmul"), (I4, "int4_matmul"), (I8, "w8a8_matmul"),
+                      (iv, "icv_inject")):
+        monkeypatch.setattr(mod, name, _counting(getattr(mod, name)))
+    monkeypatch.setattr(PD, "icv_inject", iv.icv_inject)
+    _stub_cuda(monkeypatch, tmp_path)
+    mode, opts, paths = C.QUANT_FLAMINGO
+    got = C.quantized_path(torch.device("cpu"), tmp_path / "int8_flamingo", mode, opts, paths,
+                           lmm="tiny-flamingo", icl_q=C.QUANT_FLAMINGO_ICL_Q)
+    assert got["int8_matmul"] > 0 and got["w8a8_matmul"] > 0 and got["int4_matmul"] == 0
+    # test_icv's 2 questions, then the engine's one admission and 12 steps
+    assert got["icv_inject"] == 4 * 2 * C.MAX_NEW + 4 * (1 + 12)
