@@ -657,8 +657,8 @@ def kernel_cases(dev, kl_mask=None):
                 # the gradient's partials are summed in a fixed order
                 deterministic=True,
             )
-    for b, s, pad in FLASH_FWD_SHAPES:
-        q, k, v = (randn((b, s, 32, 128)) for _ in range(3))
+    for b, s, pad, h in FLASH_FWD_SHAPES:
+        q, k, v = (randn((b, s, h, 128)) for _ in range(3))
         valid = torch.ones((b, s), dtype=torch.int32, device=dev)
         valid[:, :pad] = 0  # left padding, as the decode prompts are
         # with no pad the segment rule is the causal mask alone: the
@@ -666,12 +666,12 @@ def kernel_cases(dev, kl_mask=None):
         mask = L.segment_causal_mask(valid) if pad else None
         yield Case(
             "flash_attention_fwd",
-            f"({b},{s},32,128) " + (f"left pad {pad}" if pad else "all valid"),
+            f"({b},{s},{h},128) " + (f"left pad {pad}" if pad else "all valid"),
             lambda q=q, k=k, v=v, valid=valid: L.flash_attention(q, k, v, valid),
             lambda q=q, k=k, v=v, valid=valid: L.flash_attention_reference(q, k, v, valid),
             # QK^T and PV over the pairs the segment rule leaves visible
             bytes_moved=4 * q.numel() * 2 + valid.numel() * 4,
-            ops=4 * 32 * 128 * causal_segment_pairs(valid), op_type="bf16",
+            ops=4 * h * 128 * causal_segment_pairs(valid), op_type="bf16",
             library=lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
                 is_causal=mask is None,
@@ -723,8 +723,8 @@ def kernel_cases(dev, kl_mask=None):
                 scale=128 ** -0.5),
             calls=5, rows=rows,
         )
-    for b, s, dh, masked in VIT_SHAPES:
-        q, k, v = (randn((b, s, 16, dh)) for _ in range(3))
+    for b, s, h, dh, masked in VIT_SHAPES:
+        q, k, v = (randn((b, s, h, dh)) for _ in range(3))
         valid = None
         keys = torch.full((b,), float(s), device=dev)
         if masked:
@@ -733,12 +733,12 @@ def kernel_cases(dev, kl_mask=None):
             n = valid.sum(dim=1).float()
             keys = torch.where(n > 0, n, float(s))
         yield Case(
-            "vit_attention", f"({b},{s},16,{dh}) {'masked' if masked else 'all valid'}",
+            "vit_attention", f"({b},{s},{h},{dh}) {'masked' if masked else 'all valid'}",
             lambda q=q, k=k, v=v, valid=valid: L.vit_attention(q, k, v, valid),
             lambda q=q, k=k, v=v, valid=valid: L.vit_attention_reference(q, k, v, valid),
             bytes_moved=4 * q.numel() * 2 + (0 if valid is None else valid.numel() * 4),
             # QK^T and PV over every query and the keys its softmax weighs
-            ops=4 * 16 * dh * s * float(keys.sum()), op_type="bf16",
+            ops=4 * h * dh * s * float(keys.sum()), op_type="bf16",
             library=lambda q=q, k=k, v=v, valid=valid: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=None if valid is None else valid[:, None, None, :]),
@@ -819,7 +819,10 @@ def kernel_cases(dev, kl_mask=None):
 # 32-shot prefill buckets of Idefics-9B (384, 512), its 2048 bucket, the
 # Idefics2 test_icl prefill (2560), and the flagship teacher's call (phase
 # 9: four 2048-token rows, all valid)
-FLASH_FWD_SHAPES = ((1, 384, 57), (1, 512, 39), (1, 2048, 301), (1, 2560, 173), (4, 2048, 0))
+# (B, S, left pad, H): H = 16 is a rank's heads at tp = 2 (phase 11 (b): the
+# 32-shot test_icl prefill)
+FLASH_FWD_SHAPES = ((1, 384, 57, 32), (1, 512, 39, 32), (1, 2048, 301, 32), (1, 2560, 173, 32),
+                    (4, 2048, 0, 32), (1, 512, 39, 16), (1, 2048, 301, 16))
 
 # the causal flash backward's cases: (B, S, H) at Dh 128 and each row's real
 # length, right-padded as the training batches are.  The flagship student
@@ -941,8 +944,10 @@ ALIBI_SHAPES = ((512, 39, "left"), (512, 61, "right"), (2048, 301, "left"),
 # OpenFlamingo's ViT-L (Dh 64) at a test_icv bind and at a 32-shot bind's 33
 # images, Idefics-9B's ViT-H (Dh 80) at a 32-shot bind; a key mask (one row
 # with no valid key); the gate's largest S
-VIT_SHAPES = ((1, 257, 64, False), (33, 257, 64, False), (33, 257, 80, False),
-              (4, 257, 80, True), (2, 1024, 80, True))
+# with H: (B, S, H, Dh, masked); H = 8 is a rank's heads of ViT-H at tp = 2
+# (phase 11 (b) and (d): a 32-shot bind)
+VIT_SHAPES = ((1, 257, 16, 64, False), (33, 257, 16, 64, False), (33, 257, 16, 80, False),
+              (4, 257, 16, 80, True), (2, 1024, 16, 80, True), (33, 257, 8, 80, False))
 # the f32 entry of the fused ViT kernel (csrc/vit_attention_f32.cu): RICE's
 # CLIP ViT-B/32 image tower (S = 50, H = 12, Dh 64), the encoder's batch of
 # 8, a batch of 64, and the batch of 8 under a key mask that hides 7 keys of
@@ -998,11 +1003,17 @@ def bidir_label(s: int, grids, gw) -> str:
 # at a beam step and at prefill (run A, one row); run B's 64-row prefill
 # MLP and its bind-time cross-attention K/V (64 latents of the perceiver's
 # 1280 features)
+# with a rank's shards at tp = 2 (phase 11 (d)'s decode steps): a beam
+# step's column-split projections (N = 4096 / 2, 11008 / 2) and row-split
+# ones (K = 4096 / 2, 11008 / 2; f32 partial sums)
 QUANT_SHAPES = (
     ((3, 4096, 4096), "bf16"), ((3, 4096, 11008), "f32"), ((3, 11008, 4096), "f32"),
-    ((64, 4096, 4096), "bf16"),
+    ((64, 4096, 4096), "bf16"), ((3, 4096, 2048), "bf16"), ((3, 5504, 4096), "f32"),
+    ((3, 4096, 5504), "f32"), ((3, 2048, 4096), "f32"),
 )
-HEAD_SHAPES = (((3, 4096, 32000), "f32"), ((3, 4096, 32002), "f32"), ((1, 4096, 32002), "f32"))
+# with the vocab-sharded head's rank shard at tp = 2 (32002 / 2, phase 11 (d))
+HEAD_SHAPES = (((3, 4096, 32000), "f32"), ((3, 4096, 32002), "f32"), ((1, 4096, 32002), "f32"),
+               ((1, 4096, 16001), "f32"), ((3, 4096, 16001), "f32"))
 # phase 4d (d): a decode step of the engine's 8-row greedy pool (run A)
 ENGINE_INT8_SHAPES = (((8, 4096, 4096), "bf16"), ((8, 4096, 11008), "f32"),
                       ((8, 11008, 4096), "f32"), ((8, 4096, 32002), "f32"))
@@ -1218,6 +1229,11 @@ W8A8_SHAPES = (
     ((512, 4096, 4096), "bf16"), ((512, 4096, 11008), "f32"), ((512, 11008, 4096), "f32"),
     ((64, 1280, 4096), "bf16"), ((321, 1280, 1536), "bf16"),
     ((4096, 4096, 11008), "bf16"), ((4096, 11008, 4096), "bf16"),
+    # a rank's shards at tp = 2 in the 512-token prefill: column-split
+    # projection and MLP-in, row-split output projection and MLP-out
+    # (phase 11 (d) quantizes the row-split ones with the whole row's scale)
+    ((512, 4096, 2048), "bf16"), ((512, 4096, 5504), "f32"), ((512, 2048, 4096), "bf16"),
+    ((512, 5504, 4096), "f32"),
 )
 # the fused w8a8 kernel with its weights cold: run A's 64-token prefill
 # projection and MLP-in, each call on the next of the copies (8 x 16.8 MB
@@ -1527,13 +1543,13 @@ def check_kernels(dev, kl_mask=None) -> dict:
     return out
 
 
-def synthetic_vqa(n: int, offset: int, seed: int, sizes=((224, 224),)):
+def synthetic_vqa(n: int, offset: int, seed: int, sizes=((224, 224),), answers=None):
     """In-memory VQA rows with uint8 images of the (width, height) ``sizes``,
-    cycled."""
+    cycled, and ``answers`` cycled (one-word ones by default)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    answers = ["red", "blue", "two", "cat", "yes", "no"]
+    answers = answers or ["red", "blue", "two", "cat", "yes", "no"]
     rows = []
     for i in range(n):
         ans = answers[i % len(answers)]
@@ -1551,14 +1567,15 @@ def synthetic_vqa(n: int, offset: int, seed: int, sizes=((224, 224),)):
     return rows
 
 
-def write_vqa_split(root: Path, img_root: Path, split: str, n: int, seed: int) -> None:
+def write_vqa_split(root: Path, img_root: Path, split: str, n: int, seed: int,
+                    answers=None) -> None:
     """A VQAv2 split on disk (question, annotation and JPEG files), as
     ``tests/test_cli_e2e.py`` writes one."""
     from PIL import Image
 
     img_root.mkdir(parents=True, exist_ok=True)
     root.mkdir(parents=True, exist_ok=True)
-    rows = synthetic_vqa(n, 100, seed)
+    rows = synthetic_vqa(n, 100, seed, answers=answers)
     for r in rows:
         Image.fromarray(r["image"]).save(img_root / f"COCO_{split}_{r['image_id']:012d}.jpg")
     questions = [{k: r[k] for k in ("question_id", "image_id", "question")} for r in rows]
@@ -1878,6 +1895,7 @@ def main_path(dev, tmp: Path) -> dict:
         f"{'agrees' if a.argmax().item() == b.argmax().item() else 'differs'}")
     if not (torch.isfinite(a).all() and rel <= REL_L2_TOL):
         raise AssertionError("flash path logits disagree with the plain path")
+    PHASE11_REFS["b"] = tp_references(e)
     spec = speculative_path(e, dev, peak)
     rice = rice_path(e, dev, tmp)
     cont = continuous_path(e)
@@ -2284,14 +2302,15 @@ def engine_tokens(engine_out: dict, n: int, pad: int) -> list:
     return out
 
 
-def beam_min_margin(e: EvalSetup, gen_kwargs: dict, prompt: list, icv_scaled) -> float:
+def beam_min_margin(e: EvalSetup, gen_kwargs: dict, prompt: list, icv_scaled, run=None) -> float:
     """The smallest f32 margin of any decision of the static beam search on
     ``prompt`` at bs 1: around rank K and rank 2K of the expanded
     candidates (which beams go on, which EOS candidates may enter the
     finished pool), rank K of the live candidates and of the finished pool,
     and rank 1 of the final hypotheses.  Entries at ``NEG_INF / 2`` or below
     (beams not started, an unfilled pool) are not compared.  A drift of the
-    scores under this margin changes no decision."""
+    scores under this margin changes no decision.  ``run``: the decode to
+    spy on, in place of the static path's on ``prompt``."""
     import torch
 
     from licv_vqa_tpu_torch.infer import decode as D
@@ -2332,7 +2351,7 @@ def beam_min_margin(e: EvalSetup, gen_kwargs: dict, prompt: list, icv_scaled) ->
 
     D.beam_transition, D.beam_finalize = spied_transition, spied_finalize
     try:
-        decoded_tokens(e, gen_kwargs, [prompt], icv_scaled)
+        run() if run is not None else decoded_tokens(e, gen_kwargs, [prompt], icv_scaled)
     finally:
         D.beam_transition, D.beam_finalize = transition, finalize
     return min(margins) if margins else math.inf
@@ -3440,6 +3459,8 @@ def quantized_path(dev, tmp: Path, mode: str, opts: list, paths: tuple,
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"{tag}: peak device memory over the runs {peak:.2f} GiB (the bf16 build's is "
         f"phase {8 if flamingo else 4}'s)")
+    if (mode, opts) == QUANT_RUNS[0][:2] and not flamingo:
+        PHASE11_REFS["d"] = int8_tp_reference(e)
     if mode == "int8":
         extra = [continuous_int8(e, opts, f"continuous {tag}")]
         if not flamingo:
@@ -4028,12 +4049,13 @@ TRAIN_ARGS = [
 ]
 
 
-def write_training_split(tmp: Path) -> None:
+def write_training_split(tmp: Path, answers=None) -> None:
     """The synthetic VQAv2 train and val splits under ``tmp``, with the
     config's paths pointed there."""
     set_env(tmp)
     vqa, coco = tmp / "vqav2_path", tmp / "coco_path" / "mscoco2014"
-    write_vqa_split(vqa, coco / "train2014", "train2014", 2 * TRAIN_BS * TRAIN_MICRO, seed=3)
+    write_vqa_split(vqa, coco / "train2014", "train2014", 2 * TRAIN_BS * TRAIN_MICRO, seed=3,
+                    answers=answers)
     write_vqa_split(vqa, coco / "val2014", "val2014", 4, seed=4)
 
 
@@ -4086,6 +4108,7 @@ def training_path(dev, tmp: Path) -> dict:
         log(f"  {k} launches {counts[k]} (want {per_step} x {TRAIN_MICRO} micro-steps)")
         if counts[k] != per_step * TRAIN_MICRO:
             raise AssertionError(f"{k}: {counts[k]} launches != {per_step} x {TRAIN_MICRO}")
+    PHASE5["want"] = want
 
     state = torch.load(run_dir / "icv_cpk.pth", weights_only=False)
     keys = {"icv_encoder.icv", "icv_encoder.alpha", "use_sigmoid", "lmm_args"}
@@ -4495,6 +4518,735 @@ def _first(tree, n: int):
     return tree[:n]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: distribution (tensor and data parallelism on torch.distributed)
+# ---------------------------------------------------------------------------
+# (a) runs in this process at world size 1 over NCCL; (b)-(d) in
+# PHASE11_WORLD ranks that share the card over gloo (NCCL refuses two ranks
+# on one device), each a subprocess of this script (``--phase11-rank``).
+# Two ranks on one card measure correctness and memory, not multi-GPU speed.
+PHASE11_WORLD = 2
+# (d): run A's int8 model cut to its first layers (two cross-attention blocks)
+TP_INT8_LAYERS = 8
+# (d)'s decode: beam-shaped steps of test_icv (three rows, the first three
+# questions, the ICV on) whose tokens are tp = 1's argmax at every step
+TP_INT8_ROWS = 3
+TP_INT8_STEPS = 3
+# what phase 11 is held to, gathered by the earlier phases: (b) phase 4's
+# encodings, beam tokens and first-step logits; (c) phase 5's batch, loss
+# and gradients; (d) phase 6 run A's cut model's ICL prefill
+PHASE11_REFS: dict = {}
+# phase 5's launch prediction a micro-step, for (a) and (c)
+PHASE5: dict = {}
+ENC_KEYS = ("input_ids", "attention_mask", "pixel_values", "pixel_valid")
+
+
+def encode(bundle, prompt: list) -> dict:
+    """A prompt as the runner's processor encodes it (bs 1, left padding), numpy."""
+    import numpy as np
+
+    enc = bundle.processor.prepare_input([prompt], padding=True, padding_side="left")
+    return {k: np.asarray(enc[k]) for k in ENC_KEYS}
+
+
+def encode_rows(bundle, prompts: list) -> dict:
+    """Prompts as one left-padded batch, numpy."""
+    import numpy as np
+
+    enc = bundle.processor.prepare_input(prompts, padding=True, padding_side="left")
+    return {k: np.asarray(enc[k]) for k in ENC_KEYS}
+
+
+def on_device(enc: dict, dev) -> tuple:
+    import torch
+
+    return tuple(torch.from_numpy(enc[k]).to(dev) for k in ENC_KEYS)
+
+
+def prefill_logits(bind, params, enc: dict, icv, dev):
+    """The last position's f32 logits of a prefill of ``enc``."""
+    import torch
+
+    ids, mask, px, pv = on_device(enc, dev)
+    pos = torch.clamp(torch.cumsum(mask, -1) - 1, min=0)
+    with torch.inference_mode():
+        return bind(params, px, pv, ids, icv, ids.shape[1] + 1)(ids, mask, pos, None)[0][:, -1].float()
+
+
+def tp_references(e: EvalSetup) -> dict:
+    """(b)'s references from phase 4's model: the encodings and static beam
+    tokens (bs 1) of the test_icv questions (ICV on) and of one 32-shot
+    test_icl question, and the first test_icv question's first-step logits.
+    The encodings travel: the ranks' tokenizers have not grown the same
+    vocabulary as phase 4's."""
+    icv_p = [icv_prompt(e, q) for q in range(1, 1 + N_ICV_Q)]
+    icl_p = [icl_prompt(e, 1, e.shots[1])]
+    tokens = (decoded_tokens(e, e.gen_kwargs, icv_p, e.icv_scaled)
+              + decoded_tokens(e, e.gen_kwargs, icl_p, None))
+    encs = [encode(e.bundle, p) for p in icv_p + icl_p]
+    b = e.bundle
+    return {"encs": encs, "tokens": [t.numpy() for t in tokens], "icv": e.icv_scaled.cpu(),
+            "logits": prefill_logits(b.bind_decode, b.params, encs[0], e.icv_scaled,
+                                     b.device).cpu(),
+            "gen_kwargs": e.gen_kwargs, "vit_bind": vit_per_bind(b.model_cfg.vision, b.device)}
+
+
+def first_layers(params: dict, mc, n: int, copy: bool = False) -> tuple:
+    """Idefics params and config cut to the first ``n`` decoder layers and
+    the cross-attention blocks among them (views, or copies so that the
+    rest can go)."""
+    every = mc.cross_layer_interval
+    out = dict(params, layers=_first(params["layers"], n), xattn=_first(params["xattn"], n // every))
+    if copy:
+        for key in ("layers", "xattn"):
+            out[key] = _cloned(out[key])
+    return out, dataclasses.replace(mc, text=dataclasses.replace(mc.text, n_layers=n))
+
+
+def _cloned(tree):
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def cut_bind(bundle, mc):
+    """The bundle's bind for the cut config ``mc`` (pixels normalised as the
+    registry's)."""
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD
+    from licv_vqa_tpu_torch.models import idefics as I
+    from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
+
+    return _wrap_pixel_normalize(*I.make_idefics_forward_fns(mc, bundle.eos_token_id),
+                                 CLIP_MEAN, CLIP_STD)[1]
+
+
+def quant_counters() -> dict:
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    return {"int8_matmul": I8.int8_matmul, "w8a8_matmul": I8.w8a8_matmul}
+
+
+def forced_steps(bind, params, enc: dict, icv, dev, tokens=None) -> tuple:
+    """A prefill of ``enc``'s rows, then ``TP_INT8_STEPS`` decode steps
+    whose tokens are ``tokens[k]`` (each step's argmax where None): the
+    tokens fed and each step's last-position f32 logits, (steps, rows, V)."""
+    import torch
+
+    from licv_vqa_tpu_torch.models.decoder import _positions_from_mask
+
+    ids, mask, px, pv = on_device(enc, dev)
+    pos = _positions_from_mask(mask)
+    fed, logits = [], []
+    with torch.inference_mode():
+        fwd = bind(params, px, pv, ids, icv, ids.shape[1] + TP_INT8_STEPS + 1)
+        lg, cache = fwd(ids, mask, pos, None)
+        nxt, one = pos[:, -1:] + 1, torch.ones_like(mask[:, -1:])
+        for k in range(TP_INT8_STEPS):
+            tok = lg[:, -1].argmax(-1) if tokens is None else tokens[k].to(dev)
+            fed.append(tok.cpu())
+            lg, cache = fwd(tok[:, None].to(ids.dtype), one, nxt, cache)
+            nxt = nxt + 1
+            logits.append(lg[:, -1].float().cpu())
+    return fed, torch.stack(logits)
+
+
+def first_rows(icv, n: int):
+    """An ICV's first ``n`` layers' rows (and host flags), on the host."""
+    return (icv[0][:n].cpu(), icv[1][:n]) if isinstance(icv, tuple) else icv[:n].cpu()
+
+
+def icv_to(icv, dev):
+    return (icv[0].to(dev), icv[1]) if isinstance(icv, tuple) else icv.to(dev)
+
+
+def int8_tp_reference(e: EvalSetup) -> dict:
+    """(d)'s reference: run A's int8 model (every option) cut to
+    ``TP_INT8_LAYERS`` layers at tp = 1: one 32-shot test_icl prefill, its
+    logits and int8/w8a8 launches; then ``TP_INT8_STEPS`` decode steps of
+    ``TP_INT8_ROWS`` test_icv questions, their tokens, logits and launches."""
+    import torch
+
+    b = e.bundle
+    params, mc = first_layers(b.params, b.model_cfg, min(TP_INT8_LAYERS, b.model_cfg.text.n_layers))
+    bind = cut_bind(b, mc)
+    enc = encode(b, icl_prompt(e, 1, e.shots[1]))
+    counters = quant_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    logits = prefill_logits(bind, params, enc, None, b.device)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    log(f"phase 11 (d) reference: int8 {TP_INT8_LAYERS}-layer test_icl prefill at tp=1, "
+        f"{enc['input_ids'].shape[1]} tokens, launches {counts}")
+    enc_icv = encode_rows(b, [row_prompt(e, r) for r in e.val[:TP_INT8_ROWS]])
+    icv = first_rows(e.icv_scaled, mc.text.n_layers)
+    for fn in counters.values():
+        fn.launches = 0
+    fed, steps = forced_steps(bind, params, enc_icv, icv_to(icv, b.device), b.device)
+    torch.cuda.synchronize()
+    step_counts = {k: fn.launches for k, fn in counters.items()}
+    log(f"phase 11 (d) reference: test_icv prefill of {TP_INT8_ROWS} rows x "
+        f"{enc_icv['input_ids'].shape[1]} tokens and {TP_INT8_STEPS} steps at tp=1, tokens "
+        f"{[t.tolist() for t in fed]}, launches {step_counts}")
+    if not step_counts["int8_matmul"]:
+        raise AssertionError("phase 11 (d) reference: the decode steps launched no int8 kernel")
+    return {"enc": enc, "logits": logits.cpu(), "counts": counts, "opts": QUANT_RUNS[0][1],
+            "enc_icv": enc_icv, "icv": icv, "fed": fed, "steps": steps,
+            "step_counts": step_counts}
+
+
+# (c)'s answers: the dp halves of a global batch of two hold answers of
+# different token counts
+DP_ANSWERS = ["red", "two red cats"]
+
+
+def dp_reference(m: TrainInputs) -> dict:
+    """(c)'s reference: a batch of phase 5's configuration collated from a
+    split whose rows 0 and 1 answer with different token counts, its loss
+    and (icv, alpha) gradients on the kernel path in one process."""
+    import torch
+
+    from licv_vqa_tpu_torch.ops.kl import answer_region_mask
+    from licv_vqa_tpu_torch.train.trainer import batch_to_device
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        write_training_split(Path(tmp), answers=DP_ANSWERS)
+        batch = _collated_batch(TRAIN_ARGS, m.bundle.processor)
+    q = batch["query_inputs"]
+    mq = dataclasses.replace(m, batch=batch_to_device(batch, m.bundle.device))
+    loss, grads = loss_and_grads(mq, "kernel")
+    answers = answer_region_mask(torch.from_numpy(q["input_ids"]),
+                                 torch.from_numpy(batch["query_x_length"]),
+                                 m.bundle.pad_token_id).sum(1).tolist()
+    log(f"phase 11 (c) reference: one process, rows' answer tokens {answers}, "
+        f"loss {loss.item():.6e}")
+    if answers[0] == answers[1]:
+        raise AssertionError("phase 11 (c): the dp halves hold equal answer counts")
+    return {"batch": batch, "loss": loss.item(), "grads": [g.cpu() for g in grads]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """This process as rank 0 of a launcher's world of one (NCCL on the card)."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def world_one_path(dev, tmp: Path) -> dict:
+    """Phase 11 (a): the train CLI at ``trainer.strategy=dp`` and the
+    inference CLI at ``infer_dp=1 infer_tp=1``, at world size 1 over NCCL,
+    each against the same CLI run without a launcher on the same split:
+    the losses within 1e-5 relative, the launches phase 5's prediction, the
+    answers equal.  Phases 4's and 5's runs cannot be the references: the
+    whitespace tokenizer's vocabulary grew over other prompts there (phase
+    4) and in a race of the loader's threads (phase 5)."""
+    import torch
+    import torch.distributed as dist
+
+    from licv_vqa_tpu_torch.cli.inference import main as infer_main
+    from licv_vqa_tpu_torch.cli.train import main as train_main
+    from licv_vqa_tpu_torch.utils import compose, get_icv_cpk_path
+
+    write_training_split(tmp)
+    counters = _counters()
+    seen = []
+    init = dist.init_process_group
+
+    def spy_init(*a, **kw):  # the backend the CLI asked for
+        seen.append(kw.get("backend"))
+        return init(*a, **kw)
+
+    # one loader thread: the whitespace tokenizer's vocabulary then grows in
+    # one order, so two runs see the same token ids (phase 5's loader
+    # threads race on it)
+    args = TRAIN_ARGS + ["trainer.strategy=dp", "data_cfg.num_workers=1"]
+    losses = {}
+    for run in ("plain", "world1"):
+        for fn in counters.values():
+            fn.launches = 0
+        dist.init_process_group = spy_init
+        try:
+            with world_of_one() if run == "world1" else contextlib.nullcontext():
+                run_dir = train_main(args + [f"run_name=phase11_{run}"])
+        finally:
+            dist.init_process_group = init
+        torch.cuda.synchronize()
+        rows = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        losses[run] = [r["loss"] for r in rows]
+    counts = {k: fn.launches for k, fn in counters.items()}  # the world-1 run's
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["world1"], losses["plain"], strict=True))
+    log(f"phase 11 (a) train CLI, strategy=dp, world 1 over {seen}: losses {losses['world1']} "
+        f"vs the same CLI without a launcher {losses['plain']}: max rel {rel:.3e} (limit "
+        f"1e-5); launches {counts} (phase 5's prediction a micro-step {PHASE5['want']})")
+    if seen != ["nccl"] or rel > 1e-5:
+        raise AssertionError("phase 11 (a): the dp train CLI at world 1 is not the one-process run")
+    for k, per_step in PHASE5["want"].items():
+        if counts[k] != per_step * TRAIN_MICRO:
+            raise AssertionError(f"phase 11 (a) {k}: {counts[k]} != {per_step} x {TRAIN_MICRO}")
+
+    args = ["lmm=idefics-9B", "device=cuda", "bs=1", "test_icv=true", f"test_num={N_ICV_Q}",
+            f"generate_kwargs.max_new_tokens={MAX_NEW}", "generate_kwargs.num_beams=3",
+            "generate_kwargs.length_penalty=0.0", "data_cfg.task.datasets.max_train_size=-1"]
+    cfg = compose(str(REPO / "config"), "inference", args + ["run_name=x"])
+    g = torch.Generator().manual_seed(0)
+    icv = {"icv_encoder.icv": torch.randn((1, 32, 4096), generator=g) * 0.05,
+           "icv_encoder.alpha": torch.full((1, 32), 0.5), "use_sigmoid": False,
+           "lmm_args": {"total_layers": 32, "intervention_layer": -1,
+                        "layer_format": str(cfg.lmm.layer_format)}}
+    from licv_vqa_tpu_torch.infer import runner
+
+    preds, tokens = {}, {}
+    collect = runner._collect_generate
+    for run in ("plain", "world1"):
+        d = get_icv_cpk_path(cfg.result_dir, str(cfg.lmm.model_name),
+                             cfg.data_cfg.task.datasets.name, run)
+        d.mkdir(parents=True)
+        torch.save(icv, d / "icv_cpk.pth")
+        tokens[run] = []
+
+        def spy_collect(bundle, pending, seen=tokens[run]):  # the generated ids
+            seen.append(pending[0][:, pending[2]:].cpu().tolist())
+            return collect(bundle, pending)
+
+        for fn in counters.values():
+            fn.launches = 0
+        runner._collect_generate = spy_collect
+        try:
+            with world_of_one() if run == "world1" else contextlib.nullcontext():
+                infer_main(args + [f"run_name={run}"] + (["infer_dp=1", "infer_tp=1"]
+                                                         if run == "world1" else []))
+        finally:
+            runner._collect_generate = collect
+        if run == "world1":  # the main path's launches: the world-1 runs'
+            icv_launches = counters["icv_inject"].launches
+            for k, fn in counters.items():
+                counts[k] += fn.launches
+        meta = next((Path(cfg.result_dir) / "inference" / str(cfg.lmm.model_name)
+                     / cfg.data_cfg.task.datasets.name / run / "meta_info").glob("*icv.json"))
+        res = json.loads(meta.read_text())
+        preds[run] = [res[k]["prediction"] for k in sorted(res, key=int)]
+    log(f"phase 11 (a) inference CLI test_icv, infer_dp=1 infer_tp=1 at world 1: tokens "
+        f"{tokens['world1']}, answers {preds['world1']}; without a launcher {tokens['plain']}, "
+        f"{preds['plain']}; ICV launches {icv_launches} (want 32 x {N_ICV_Q * MAX_NEW} forwards)")
+    if (tokens["world1"] != tokens["plain"] or preds["world1"] != preds["plain"]
+            or len(tokens["plain"]) != N_ICV_Q or icv_launches != 32 * N_ICV_Q * MAX_NEW):
+        raise AssertionError("phase 11 (a): the world-1 inference CLI's tokens differ")
+    free_device_memory()
+    return counts
+
+
+def distribution_path(dev, tmp: Path) -> dict:
+    """Phase 11.  Returns the launch counts of (a) and of every rank of (b)-(d)."""
+    import torch
+
+    t0 = time.perf_counter()
+    counts = world_one_path(dev, tmp / "world1")
+    t_a = time.perf_counter() - t0
+    refs = tmp / "phase11_refs.pt"
+    torch.save(dict(PHASE11_REFS, phase5_want=PHASE5["want"]), refs)
+    port = _free_port()
+    procs = []
+    for r in range(PHASE11_WORLD):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(PHASE11_WORLD), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--phase11-rank", str(refs)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO))
+    results = {}
+
+    def pump(r, p):
+        for line in p.stdout:
+            line = line.rstrip("\n")
+            if line.startswith("PHASE11_RANK_RESULT "):
+                results[r] = json.loads(line.split(" ", 1)[1])
+            else:
+                print(f"[rank {r}] {line}", flush=True)
+
+    with ThreadPoolExecutor(PHASE11_WORLD) as pool:
+        for r, p in enumerate(procs):
+            pool.submit(pump, r, p)
+        deadline = time.monotonic() + 400
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        for p in procs:  # every process this phase started stops here
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * PHASE11_WORLD or len(results) != PHASE11_WORLD:
+        raise AssertionError(f"phase 11: rank exit codes {codes}")
+    for r in range(PHASE11_WORLD):
+        for k, v in results[r]["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    log(f"phase 11: (a) {t_a:.1f} s, ranks {time.perf_counter() - t0 - t_a:.1f} s; rank "
+        f"peak device memory {[results[r]['peak_gib'] for r in range(PHASE11_WORLD)]} GiB; "
+        f"launches over (a) and every rank {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11's ranks
+# ---------------------------------------------------------------------------
+
+
+def one_by_one(fn):
+    """``fn()`` on each rank in turn (builds of the full tree: one rank's
+    peak at a time on the shared card)."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def heads_spy():
+    """Record the head counts the flash and the fused ViT kernels see."""
+    from licv_vqa_tpu_torch.models import layers as L
+
+    seen = {"flash": set(), "vit": set()}
+    flash, tower = L._flash_attention_cuda, L._tower_attention_cuda
+
+    def spy_flash(q, *a, **kw):
+        seen["flash"].add(q.shape[2])
+        return flash(q, *a, **kw)
+
+    def spy_tower(fn, *a, **kw):
+        seen.setdefault("vit" if fn == "vit_attention" else fn, set()).add(a[4].shape[2])
+        return tower(fn, *a, **kw)
+
+    @contextlib.contextmanager
+    def cm():
+        L._flash_attention_cuda, L._tower_attention_cuda = spy_flash, spy_tower
+        try:
+            yield seen
+        finally:
+            L._flash_attention_cuda, L._tower_attention_cuda = flash, tower
+
+    return cm()
+
+
+def rank_tp_path(dev, ref: dict) -> dict:
+    """(b): full-width Idefics-9B at tp = 2, beam-3 test_icv on phase 4's
+    questions and one 32-shot test_icl question, from phase 4's encodings."""
+    import torch
+
+    from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, set_current_mesh
+    from licv_vqa_tpu_torch.infer import runner
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.models.registry import build_model
+    from licv_vqa_tpu_torch.ops.icv_inject import icv_inject
+    from licv_vqa_tpu_torch.utils import compose
+
+    mesh = create_mesh(MeshConfig(dp=1, tp=PHASE11_WORLD))
+    set_current_mesh(mesh)
+    cfg = compose(str(REPO / "config"), "inference", [
+        "lmm=idefics-9B", "device=cuda", "run_name=phase11", "bs=1"])
+    b = one_by_one(lambda: build_model(cfg, device=dev, mesh=mesh))
+    n_bytes = sum(x.numel() * x.element_size() for x in _leaves(b.params))
+    log(f"(b) Idefics-9B at tp={mesh.tp}: this rank's shards {n_bytes / 2**30:.2f} GiB")
+    icv = ref["icv"].to(dev)
+    gen = runner.make_generate_fn(b, ref["gen_kwargs"])
+    n_icv = len(ref["encs"]) - 1
+    logits = prefill_logits(b.bind_decode, b.params, ref["encs"][0], icv, dev).cpu()
+    rel = ((logits - ref["logits"]).norm() / ref["logits"].norm()).item()
+    counters = {"icv_inject": icv_inject, "flash_attention_fwd": L.flash_attention,
+                "vit_attention": L.vit_attention}
+    for fn in counters.values():
+        fn.launches = 0
+    got = []
+    with heads_spy() as heads, torch.inference_mode():
+        for q, enc in enumerate(ref["encs"]):
+            ids, mask, px, pv = on_device(enc, dev)
+            out = gen(b.params, ids, mask, px, pv, icv if q < n_icv else None)
+            got.append(out[0, ids.shape[1]:].cpu())
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    want = {"icv_inject": 32 * MAX_NEW * n_icv, "flash_attention_fwd": 32,
+            "vit_attention": ref["vit_bind"] * len(ref["encs"])}
+    differ = [q for q, (a, w) in enumerate(zip(got, ref["tokens"], strict=True))
+              if a.tolist() != list(w)]
+    log(f"(b) first-step logits vs tp=1 (phase 4): rel_l2 {rel:.4e} (limit {REL_L2_TOL}); "
+             f"tokens {[t.tolist() for t in got]}; questions differing from phase 4's {differ}; "
+             f"launches {counts} (want {want}); heads seen {heads}")
+    if not rel <= REL_L2_TOL:
+        raise AssertionError("(b): tp=2 first-step logits disagree with tp=1")
+    if counts != want or heads["flash"] != {16} or heads["vit"] != {8}:
+        raise AssertionError("(b): launches or head counts are not the predicted ones")
+    for q in differ:  # phase 4's near-tie rule, on this rank's own search
+        enc = ref["encs"][q]
+
+        def run(enc=enc, q=q):
+            ids, mask, px, pv = on_device(enc, dev)
+            return gen(b.params, ids, mask, px, pv, icv if q < n_icv else None)
+
+        margin = beam_min_margin(None, None, None, None, run=run)
+        log(f"(b) question {q}: smallest f32 decision margin {margin:.6f} (limit {NEAR_TIE})")
+        if not margin < NEAR_TIE:
+            raise AssertionError("(b): tp=2 beam differs from phase 4's away from a near tie")
+    return counts
+
+
+def rank_dp_path(dev, ref: dict, tmp: Path) -> dict:
+    """(c): phase 5's configuration at dp = 2, each rank one row of the
+    global batch: the loss and the (icv, alpha) gradients against one
+    process's, then one trainer step whose artifact rank 0 alone writes."""
+    import torch
+    import torch.distributed as dist
+
+    from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, set_current_mesh
+    from licv_vqa_tpu_torch.icv.encoder import GlobalICVEncoder
+    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn
+    from licv_vqa_tpu_torch.models.registry import build_model
+    from licv_vqa_tpu_torch.parallel.sharding import all_reduce_dp, dp_row_slice
+    from licv_vqa_tpu_torch.train import trainer as T
+    from licv_vqa_tpu_torch.utils import compose
+
+    mesh = create_mesh(MeshConfig(dp=PHASE11_WORLD, tp=1))
+    set_current_mesh(mesh)
+    b = one_by_one(lambda: build_model(compose(str(REPO / "config"), "train", TRAIN_ARGS),
+                                       device=dev, mesh=mesh))
+
+    def encoder():
+        return GlobalICVEncoder(b.hidden_size, b.n_layers, alpha_init_value=0.5,
+                                use_sigmoid=True, generator=torch.Generator().manual_seed(0),
+                                device=dev)
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    enc = encoder()
+    rows = dp_row_slice(len(ref["batch"]["query_x_length"]))
+    batch = T.batch_to_device(T._take_rows(ref["batch"], rows), dev)
+    loss, _ = icv_loss_fn(enc, torch.tensor(1.0, device=dev), b.params, batch, b.train_forward,
+                          ICVModuleConfig(kl_impl="pallas"), b.pad_token_id, b.head_fn)
+    grads = [all_reduce_dp(g) for g in torch.autograd.grad(loss, (enc.icv, enc.alpha))]
+    loss = all_reduce_dp(loss.detach()).item()
+    rel_loss = abs(loss - ref["loss"]) / abs(ref["loss"])
+    rel = [((g.cpu() - w).norm() / w.norm()).item() for g, w in zip(grads, ref["grads"],
+                                                                   strict=True)]
+    log(f"(c) dp={mesh.dp}, rows {rows}: global loss {loss:.6e} vs one process "
+             f"{ref['loss']:.6e} (rel {rel_loss:.3e}, limit {REL_TOL}); rel_l2 d_icv {rel[0]:.4e}, "
+             f"d_alpha {rel[1]:.4e} (limit {REL_L2_TOL})")
+    if not (rel_loss <= REL_TOL and max(rel) <= REL_L2_TOL):
+        raise AssertionError("(c): the dp loss or gradients disagree with one process's")
+
+    writes = []
+    save = T.save_icv_checkpoint
+
+    def spy_save(*a, **kw):
+        writes.append(1)
+        return save(*a, **kw)
+
+    T.save_icv_checkpoint = spy_save
+    try:
+        tcfg = T.TrainerConfig(strategy="dp", max_epochs=1, checkpoint_every_n_steps=0,
+                               log_every_n_steps=1)
+        trainer = T.Trainer(tcfg, ICVModuleConfig(kl_impl="pallas"), encoder(),
+                            b.train_forward, b.params, b.pad_token_id, head_fn=b.head_fn,
+                            mesh=mesh)
+        state = trainer.fit([ref["batch"]], tmp / "dp_run")
+    finally:
+        T.save_icv_checkpoint = save
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    icv = state.encoder.icv.detach()
+    mine = icv.clone()
+    dist.all_reduce(icv)  # gloo: the ranks' ICVs summed
+    same = bool(torch.equal(icv, mine * PHASE11_WORLD))
+    log(f"(c) one trainer step: artifact writes on this rank {len(writes)}, ranks' ICVs "
+             f"equal {same}; launches {counts} (per step {PHASE5['want']})")
+    if len(writes) != (1 if mesh.dp_index == 0 else 0) or not same:
+        raise AssertionError("(c): the artifact is not rank 0's alone, or the ranks' ICVs differ")
+    for k, per_step in PHASE5["want"].items():
+        if counts[k] != 2 * per_step:
+            raise AssertionError(f"(c) {k}: {counts[k]} != 2 x {per_step}")
+    return counts
+
+
+def rank_int8_path(dev, ref: dict, tmp: Path) -> dict:
+    """(d): run A's options at full width cut to ``TP_INT8_LAYERS`` layers,
+    tp = 2: one test_icl prefill through the kernels, against their plain
+    versions and against tp = 1 (phase 6), and each rank's int8 and w8a8
+    launches against tp = 1's."""
+    import torch
+
+    from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, set_current_mesh
+    from licv_vqa_tpu_torch.models.registry import build_model
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+    from licv_vqa_tpu_torch.parallel.sharding import shard_params
+    from licv_vqa_tpu_torch.utils import compose
+
+    mesh = create_mesh(MeshConfig(dp=1, tp=PHASE11_WORLD))
+    set_current_mesh(mesh)
+    cfg = compose(str(REPO / "config"), "inference", [
+        "lmm=idefics-9B", "device=cuda", "run_name=phase11", "bs=1", *ref["opts"]])
+
+    def build():
+        full = build_model(cfg, device=dev)  # quantized on the card, as phase 6's
+        params, mc = first_layers(full.params, full.model_cfg, TP_INT8_LAYERS, copy=True)
+        full.params = None
+        free_device_memory()
+        return shard_params(params, mesh), mc, full
+
+    params, mc, b = one_by_one(build)
+    bind = cut_bind(b, mc)
+    counters = quant_counters()
+    out = {}
+    kernels = (I8.int8_matmul, I8.w8a8_matmul, I8.w8a8_matmul_prequantized)
+    for path in ("kernel", "plain"):
+        for fn in counters.values():
+            fn.launches = 0
+        if path == "plain":
+            I8.int8_matmul, I8.w8a8_matmul, I8.w8a8_matmul_prequantized = (
+                I8.int8_matmul_reference, I8.w8a8_matmul_reference,
+                I8.w8a8_prequantized_reference)
+        try:
+            out[path] = prefill_logits(bind, params, ref["enc"], None, dev).cpu()
+        finally:
+            I8.int8_matmul, I8.w8a8_matmul, I8.w8a8_matmul_prequantized = kernels
+        torch.cuda.synchronize()
+        if path == "kernel":
+            counts = {k: fn.launches for k, fn in counters.items()}
+    k, p, t1 = out["kernel"], out["plain"], ref["logits"]
+    rel_p = ((k - p).norm() / p.norm()).item()
+    rel_1 = ((k - t1).norm() / t1.norm()).item()
+    log(f"(d) int8 + w8a8 at tp={mesh.tp}, {TP_INT8_LAYERS} layers, test_icl prefill of "
+             f"{ref['enc']['input_ids'].shape[1]} tokens: kernel vs plain rel_l2 {rel_p:.4e}, "
+             f"vs tp=1 rel_l2 {rel_1:.4e} (limit {REL_L2_TOL}), argmax "
+             f"{int(k.argmax())}/{int(p.argmax())}/{int(t1.argmax())}; launches {counts} "
+             f"(tp=1: {ref['counts']})")
+    if not (rel_p <= REL_L2_TOL and rel_1 <= REL_L2_TOL and torch.isfinite(k).all()):
+        raise AssertionError("(d): the tp=2 int8 prefill disagrees")
+    if counts != ref["counts"]:
+        raise AssertionError("(d): the rank's int8/w8a8 launches are not tp=1's")
+    step_counts = int8_tp_steps(bind, params, ref, counters, dev)
+    return {k: counts[k] + step_counts[k] for k in counts}
+
+
+def int8_tp_steps(bind, params, ref: dict, counters: dict, dev) -> dict:
+    """(d)'s decode: tp = 1's test_icv prefill and forced steps at tp = 2,
+    kernel path and plain path; the step logits against each other and
+    against tp = 1's, the rank's int8/w8a8 launches against tp = 1's, and
+    the int8 kernel's (M, K, N) on this rank (column and row shards, the
+    head's vocab shard)."""
+    import torch
+
+    from licv_vqa_tpu_torch.ops import int8_matmul as I8
+
+    kernels = (I8.int8_matmul, I8.w8a8_matmul, I8.w8a8_matmul_prequantized)
+    launch, shapes = I8._launch, set()
+
+    def spy_launch(x, q, *a):  # the int8 wrapper's kernel launch
+        shapes.add((x.shape[0], q.shape[0], q.shape[1]))
+        return launch(x, q, *a)
+
+    icv = icv_to(ref["icv"], dev)
+    out = {}
+    for path in ("kernel", "plain"):
+        for fn in counters.values():
+            fn.launches = 0
+        I8._launch = spy_launch
+        if path == "plain":
+            I8.int8_matmul, I8.w8a8_matmul, I8.w8a8_matmul_prequantized = (
+                I8.int8_matmul_reference, I8.w8a8_matmul_reference,
+                I8.w8a8_prequantized_reference)
+        try:
+            out[path] = forced_steps(bind, params, ref["enc_icv"], icv, dev, ref["fed"])[1]
+        finally:
+            I8.int8_matmul, I8.w8a8_matmul, I8.w8a8_matmul_prequantized = kernels
+            I8._launch = launch
+        torch.cuda.synchronize()
+        if path == "kernel":
+            counts = {k: fn.launches for k, fn in counters.items()}
+    k, p, t1 = out["kernel"], out["plain"], ref["steps"]
+    rel_p = [((a - b).norm() / b.norm()).item() for a, b in zip(k, p, strict=True)]
+    rel_1 = [((a - b).norm() / b.norm()).item() for a, b in zip(k, t1, strict=True)]
+    log(f"(d) test_icv decode at tp=2, {TP_INT8_ROWS} rows, {TP_INT8_STEPS} forced steps: "
+        f"step logits kernel vs plain rel_l2 {[f'{r:.4e}' for r in rel_p]}, vs tp=1 "
+        f"{[f'{r:.4e}' for r in rel_1]} (limit {REL_L2_TOL}), max_abs vs plain "
+        f"{(k - p).abs().max().item():.4e}; launches {counts} (tp=1: {ref['step_counts']}); "
+        f"int8 kernel (M, K, N) {sorted(shapes)}")
+    if not (max(rel_p) <= REL_L2_TOL and max(rel_1) <= REL_L2_TOL and torch.isfinite(k).all()):
+        raise AssertionError("(d): the tp=2 int8 decode steps disagree")
+    if counts != ref["step_counts"] or not counts["int8_matmul"]:
+        raise AssertionError("(d): the rank's decode launches are not tp=1's")
+    return counts
+
+
+def collective_ms(dev) -> dict:
+    """Milliseconds an f32 all-reduce between the ranks takes on the card
+    (mean of 10 after 2 warm-up calls): a beam step's activation (3 x 4096)
+    and a 2300-token prefill's (2300 x 4096)."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for rows in (3, 2300):
+        x = torch.ones((rows, 4096), device=dev)
+        for _ in range(2):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out[f"({rows},4096) f32"] = round((time.perf_counter() - t0) / 10 * 1e3, 3)
+    return out
+
+
+def phase11_rank(refs_path: Path) -> int:
+    """A rank of phase 11 (b)-(d), started by ``distribution_path`` with the
+    launcher's environment; two ranks share the card over gloo."""
+    import torch
+
+    from licv_vqa_tpu_torch.core.distributed import maybe_initialize_distributed
+    from licv_vqa_tpu_torch.core.distributed import shutdown_distributed
+
+    os.chdir(REPO)
+    dev = maybe_initialize_distributed("cuda", backend="gloo")
+    refs = torch.load(refs_path, weights_only=False)
+    PHASE5["want"] = refs["phase5_want"]
+    route_icv(kernels=True)
+    log(f"gloo all-reduce of CUDA tensors between the ranks on one card, ms: "
+        f"{collective_ms(dev)}")
+    counts: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rank_") as tmp:
+        for run in (lambda: rank_tp_path(dev, refs["b"]),
+                    lambda: rank_dp_path(dev, refs["c"], Path(tmp)),
+                    lambda: rank_int8_path(dev, refs["d"], Path(tmp))):
+            for k, v in run().items():
+                counts[k] = counts.get(k, 0) + v
+            free_device_memory()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    shutdown_distributed()
+    print("PHASE11_RANK_RESULT " + json.dumps({"counts": counts, "peak_gib": round(peak, 2)}),
+          flush=True)
+    return 0
+
+
 # the kernels line's rows: (route, source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "icv_inject": ("triton", "licv_vqa_tpu_torch/ops/icv_inject.py",
@@ -4537,6 +5289,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--phase11-rank"]:
+        return phase11_rank(Path(sys.argv[2]))
     # the port's modules: importing them fails outside a checkout
     from licv_vqa_tpu_torch import csrc
 
@@ -4572,6 +5326,7 @@ def main() -> int:
         free_device_memory()
         m = training_inputs(dev)
         grad = gradient_check(m)
+        PHASE11_REFS["c"] = dp_reference(m)
         if not (math.isfinite(grad["loss_kernel"])
                 and max(grad["rel_l2_icv"], grad["rel_l2_alpha"]) <= REL_L2_TOL):
             raise AssertionError("kernel-path gradients disagree with the plain path")
@@ -4596,8 +5351,11 @@ def main() -> int:
     free_device_memory()
     counts_tools = tools_path(dev)
     free_device_memory()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        counts_dist = distribution_path(dev, Path(tmp))
+    free_device_memory()
 
-    phases = (counts, counts_train, counts_q, counts_i2, counts_of, counts_fl)
+    phases = (counts, counts_train, counts_q, counts_i2, counts_of, counts_fl, counts_dist)
     launches = {
         name: sum(c.get(name, 0) for c in phases)
         for name in ("icv_inject", "flash_attention_fwd", "vit_attention", "icv_inject_bwd",
@@ -4609,7 +5367,8 @@ def main() -> int:
         + counts_q["flash_alibi_attention"],
         "flash_attention_bidir": counts_i2["flash_attention_bidir"],
         "int4_matmul": counts_q["int4_matmul"],
-        "w8a8_matmul": counts_q["w8a8_matmul"] + counts_tools["w8a8_matmul"],
+        "w8a8_matmul": counts_q["w8a8_matmul"] + counts_tools["w8a8_matmul"]
+        + counts_dist["w8a8_matmul"],
         "int4_unpack_probe": counts_tools["int4_unpack_probe"],
     })
     kernels = []
@@ -4618,15 +5377,18 @@ def main() -> int:
             # one kernel pair behind one autograd Function: the row sums fwd + bwd
             f, b = summary["masked_kl_fwd"], summary["masked_kl_bwd"]
             row = {
-                "launches": counts_train["masked_kl_fwd"] + counts_train["masked_kl_bwd"],
+                "launches": sum(c[k] for c in (counts_train, counts_dist)
+                                for k in ("masked_kl_fwd", "masked_kl_bwd")),
                 "max_abs_err": max(f["max_abs_err"], b["max_abs_err"]),
                 "ms": f["ms"] + b["ms"], "plain_ms": f["plain_ms"] + b["plain_ms"],
                 "bound_ms": f["bound_ms"] + b["bound_ms"], "bound_by": "bytes",
                 "library_ms": None,
                 "timed_by": f["timed_by"] if f["timed_by"] == b["timed_by"] else "mixed",
-                "fwd": {"launches": counts_train["masked_kl_fwd"], "ms": f["ms"],
+                "fwd": {"launches": counts_train["masked_kl_fwd"] + counts_dist["masked_kl_fwd"],
+                        "ms": f["ms"],
                         "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"]},
-                "bwd": {"launches": counts_train["masked_kl_bwd"], "ms": b["ms"],
+                "bwd": {"launches": counts_train["masked_kl_bwd"] + counts_dist["masked_kl_bwd"],
+                        "ms": b["ms"],
                         "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"]},
             }
         else:

@@ -18,8 +18,14 @@ continuous-batching engines (``infer/serving.py``: greedy, or beam groups;
 ``bs`` slots; every family, Idefics2's NaViT images included);
 ``infer_engine=pooled`` through the pooled beam schedule
 (``infer/eval_chain.py``: chunks of ``infer_pool`` questions, default 32;
-beam search only; Idefics2 at uniform resolution).  The JAX CLI's mesh
-(``infer_dp``/``infer_tp``) is not ported yet and raises.
+beam search only; Idefics2 at uniform resolution).  ``infer_dp`` /
+``infer_tp`` (the JAX CLI's mesh; -1 dp = every rank over tp) run the
+static runner with one process per rank under
+``python -m torch.distributed.run``: each rank on ``cuda:LOCAL_RANK`` (or
+the CPU), over ``nccl`` (``gloo`` on the CPU),
+the eval batches split over dp and the frozen weights over tp; rank 0
+writes ``result.json`` and ``meta_info``.  The engines and the pooled chain
+under a mesh are ROADMAP.md Queue 1 item 16b and raise.
 
 Examples:
     python inference_torch.py run_name=vqav2_idefics9b test_icv=true
@@ -27,6 +33,8 @@ Examples:
     python inference_torch.py test_icl=true use_rice=true few_shot_list='[4]'
     python inference_torch.py test_icv=true infer_engine=continuous bs=8
     python inference_torch.py test_icv=true test_icl=true infer_engine=pooled infer_pool=32
+    python -m torch.distributed.run --standalone --nproc_per_node=2 inference_torch.py \
+        test_icv=true infer_tp=2
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from pathlib import Path
 import torch
 
 from ..api import init_dataset, init_prompt_manager
+from ..core.distributed import is_main_process, maybe_initialize_distributed, shutdown_distributed
+from ..core.mesh import MeshConfig, create_mesh, using_mesh
 from ..infer.runner import (
     icl_inference,
     icl_inference_continuous,
@@ -71,12 +81,17 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
-def _not_ported(cfg) -> None:
-    if int(cfg.get("infer_dp", 1)) != 1 or int(cfg.get("infer_tp", 1)) != 1:
-        raise NotImplementedError(
-            "infer_dp/infer_tp (the serving mesh) is not ported to licv_vqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 16)"
-        )
+def mesh_config(infer_dp: int, infer_tp: int, world_size: int) -> MeshConfig:
+    """The serving mesh of ``infer_dp`` x ``infer_tp`` over the launcher's
+    ranks (JAX inference.py:78-95): ``infer_dp=-1`` takes every rank over
+    tp; the product must be the world size (one process per device)."""
+    tp = max(infer_tp, 1)
+    dp = world_size // tp if infer_dp == -1 else max(infer_dp, 1)
+    if dp * tp != world_size:
+        raise ValueError(
+            f"infer_dp={infer_dp} x infer_tp={infer_tp} needs {dp * tp} ranks, the launcher "
+            f"started {world_size} (python -m torch.distributed.run --nproc_per_node={dp * tp})")
+    return MeshConfig(dp=dp, tp=tp, sp=1)
 
 
 def evaluate_vqa(results_dict, model_name, val_ques_path, val_ann_path, post_fn):
@@ -103,7 +118,26 @@ def main(argv: list[str] | None = None):
     # reproducible ICL shot sampling (random.sample below)
     random.seed(int(cfg.get("seed", 42)))
     device = resolve_device(cfg.get("device"))
-    _not_ported(cfg)
+    infer_dp, infer_tp = int(cfg.get("infer_dp", 1)), int(cfg.get("infer_tp", 1))
+    engine = str(cfg.get("infer_engine", "static"))
+    if (infer_dp, infer_tp) != (1, 1) and engine != "static":
+        raise NotImplementedError(
+            f"infer_engine={engine} under infer_dp/infer_tp (a slot pool sharded over dp) is "
+            "not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 16b)")
+    launched = maybe_initialize_distributed(device.type)
+    try:
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        with using_mesh(create_mesh(mesh_config(infer_dp, infer_tp, world))) as mesh:
+            return _main(cfg, launched or device, mesh, engine)
+    finally:
+        if launched is not None:
+            shutdown_distributed()
+
+
+def _main(cfg, device, mesh, engine: str):
+    main_rank = is_main_process()
     model_name = str(cfg.lmm.model_name)
     result_dir = Path(str(cfg.result_dir))
     dataset_name = cfg.data_cfg.task.datasets.name
@@ -112,8 +146,9 @@ def main(argv: list[str] | None = None):
         result_dir=result_dir, model_name=model_name, dataset_name=dataset_name,
         run_name=cfg.run_name,
     )
-    save_dir.mkdir(parents=True, exist_ok=True)
-    meta_info_dir.mkdir(exist_ok=True)
+    if main_rank:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        meta_info_dir.mkdir(exist_ok=True)
 
     if not metric_file_path.exists():
         result_dict = {}
@@ -139,7 +174,7 @@ def main(argv: list[str] | None = None):
             cfg.lmm["intervention_layer"] = ckpt_layers
         logger.info("ICV loaded from %s", cpk_dir)
 
-    bundle = build_model(cfg, device=device)
+    bundle = build_model(cfg, device=device, mesh=mesh)
     prompt_manager = init_prompt_manager(cfg)
     task_name = str(cfg.data_cfg.task.task_name)
     base_info = f"{datetime.datetime.now()}-cfg.test_num={cfg.test_num}-"
@@ -172,12 +207,12 @@ def main(argv: list[str] | None = None):
             )
             logger.info("%s CIDEr: %s", cfg.run_name, cider)
             result_dict[base_info + tag] = cider
-        metric_file_path.write_text(json.dumps(result_dict, indent=4))
+        if main_rank:
+            metric_file_path.write_text(json.dumps(result_dict, indent=4))
 
     # infer_engine=continuous: the slot-based engines (greedy pools, beam
     # group pools; ``bs`` slots); pooled: the pooled beam schedule
     # (``infer_pool`` questions a chunk); the default stays static
-    engine = str(cfg.get("infer_engine", "static"))
     continuous, pooled = engine == "continuous", engine == "pooled"
     pool_questions = int(cfg.get("infer_pool", 32))
 
@@ -209,7 +244,8 @@ def main(argv: list[str] | None = None):
                 instruction=str(cfg.prompt.instruction), icv_scaled=icv_scaled,
             )
         evaluate_and_store(results, "icv result")
-        (meta_info_dir / f"{base_info}icv.json").write_text(json.dumps(results, indent=4))
+        if main_rank:
+            (meta_info_dir / f"{base_info}icv.json").write_text(json.dumps(results, indent=4))
 
     if cfg.test_icl:
         if cfg.use_rice:
@@ -250,6 +286,8 @@ def main(argv: list[str] | None = None):
                 )
             metric_word = "ACC" if task_name == "vqa" else "CIDEr"
             evaluate_and_store(results, f"ICL shot_num: {shot_num} {metric_word} result")
-            (meta_info_dir / f"icl_shot{shot_num}.json").write_text(json.dumps(results, indent=4))
+            if main_rank:
+                (meta_info_dir / f"icl_shot{shot_num}.json").write_text(
+                    json.dumps(results, indent=4))
 
     return result_dict

@@ -9,12 +9,18 @@ checkpoints under ``steps/``.
 
 ``device`` selects the torch device as in the inference CLI: ``cuda`` by
 default (the shared config's ``tpu``/``gpu`` mean the accelerator), ``cpu``
-for tests.  The mesh strategies, more than one device and
-``data_cfg.loader=grain`` are not ported and raise.
+for tests.  ``trainer.strategy=dp|dp_tp`` (with ``trainer.tp`` and
+``trainer.devices``) runs one process per rank under
+``python -m torch.distributed.run``: each rank computes on
+``cuda:LOCAL_RANK`` (or the CPU), over ``nccl`` (``gloo`` on the CPU), and
+rank 0 writes the artifacts.  Sequence parallelism (``dp_sp``/``dp_tp_sp``)
+and ``data_cfg.loader=grain`` are ROADMAP.md Queue 1 item 16b and raise.
 
 Examples:
     python train_torch.py run_name=vqav2_idefics9b icv_module.icv_lr=1e-3
     python train_torch.py lmm=tiny-idefics trainer=debug data_cfg.bs=2 device=cpu
+    python -m torch.distributed.run --standalone --nproc_per_node=2 train_torch.py \
+        trainer.strategy=dp_tp trainer.tp=2
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import numpy as np
 import torch
 
 from ..api import init_prompt_manager, init_train_dataset
+from ..core.distributed import maybe_initialize_distributed, shutdown_distributed
+from ..core.mesh import create_mesh
 from ..data.collator import collate_icv_batch
 from ..icv.encoder import GlobalICVEncoder
 from ..icv.module import ICVModuleConfig
@@ -60,15 +68,27 @@ def main(argv: list[str] | None = None) -> Path:
             return save_path
     if str(cfg.data_cfg.get("loader", "threads")) != "threads":
         raise NotImplementedError(
-            "data_cfg.loader=grain is not ported to licv_vqa_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 16)"
+            "data_cfg.loader=grain (per-process disjoint shards) is not ported to "
+            "licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 16b)"
         )
     trainer_cfg = TrainerConfig.from_config(cfg.trainer)
     trainer_cfg.check_ported()
     if cfg.get("wandb", False):
         logger.warning("wandb is not wired in the port — metrics.jsonl only")
+    launched = maybe_initialize_distributed(device.type)
+    try:
+        return _train(cfg, launched or device, trainer_cfg, save_path, seed)
+    finally:
+        if launched is not None:
+            shutdown_distributed()
 
-    bundle = build_model(cfg, device=device)
+
+def _train(cfg, device, trainer_cfg, save_path: Path, seed: int) -> Path:
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = create_mesh(trainer_cfg.mesh_config(world))
+    bundle = build_model(cfg, device=device, mesh=mesh)
     prompt_manager = init_prompt_manager(cfg)
     train_ds = init_train_dataset(cfg, prompt_manager, seed=seed)
     bundle.processor.padding_side = "right"  # reference icv_datamodule.py:22
@@ -109,6 +129,7 @@ def main(argv: list[str] | None = None) -> Path:
         pad_token_id=bundle.pad_token_id,
         metrics_hook=metrics_hook,
         head_fn=bundle.head_fn,
+        mesh=mesh,
     )
     trainer.fit(loader, run_dir=save_path, lmm_args=cfg.lmm.to_dict(), use_sigmoid=use_sigmoid)
     logger.info("training complete: %s", save_path)

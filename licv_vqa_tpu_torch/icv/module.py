@@ -15,6 +15,14 @@ the global-norm clip taken jointly over all groups before them, and
 ``optax.MultiSteps`` accumulation: micro-batch gradients are averaged and
 the inner optimizer (and its schedule counter) advances once per
 ``accumulate_grad_batches`` micro-batches.
+
+Over a dp-split batch (``parallel/sharding.py``: each rank its contiguous
+rows of one global batch) the losses divide by the GLOBAL denominators
+(an all-reduce of the ranks' counts), so each rank's loss is its share of
+JAX's global-batch loss; the ``(icv, alpha, T)`` gradients and the logged
+losses are summed over dp, and the clip takes the norm of the summed
+gradients.  Under tp every rank of a group computes the same loss (the
+logits are gathered whole) and the same gradients.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from ..ops.kl import (
     masked_kl_divergence,
     shifted_cross_entropy,
 )
+from ..parallel.sharding import all_reduce_dp, dp_size
 from .encoder import GlobalICVEncoder
 
 
@@ -117,11 +126,14 @@ def icv_loss_fn(
     metrics: dict = {}
     loss = torch.zeros((), dtype=torch.float32, device=stu_logits.device)
 
+    def global_count(w):  # the global batch's denominator (dp), else None
+        return all_reduce_dp(torch.sum(w.float())) if dp_size() > 1 else None
+
     if cfg.hard_loss_weight or cfg.only_hard_loss:
         ids = query_inputs["input_ids"]
         keep = attn if cfg.mask_ce_padding else row_valid[:, None]
         labels = torch.where(keep, ids, torch.full_like(ids, -100))
-        ce = shifted_cross_entropy(stu_logits, labels)
+        ce = shifted_cross_entropy(stu_logits, labels, denom=global_count(labels[:, 1:] != -100))
         metrics["ce_loss"] = ce.detach()
         if cfg.only_hard_loss:
             metrics["loss"] = ce.detach()
@@ -148,7 +160,8 @@ def icv_loss_fn(
                 batch["in_context_length"], batch["query_x_length"], s_stu,
             )
     kl = masked_kl_divergence(
-        stu_logits, tea_aligned, stu_mask, temperature, cfg.kl_eps, impl=cfg.kl_impl
+        stu_logits, tea_aligned, stu_mask, temperature, cfg.kl_eps, impl=cfg.kl_impl,
+        denom=global_count(stu_mask),
     )
     metrics["kl_loss"] = kl.detach()
     loss = loss + kl
@@ -353,6 +366,11 @@ def make_train_step(
         trainable = {"icv": enc.icv, "alpha": enc.alpha, "temperature": state.temperature}
         wrt = {k: p for k, p in trainable.items() if p.requires_grad}
         grads = dict(zip(wrt, torch.autograd.grad(loss, list(wrt.values()), allow_unused=True)))
+        if dp_size() > 1:  # each rank's loss is its share of the global one
+            grads = {k: None if g is None else all_reduce_dp(g) for k, g in grads.items()}
+            for key in ("loss", "kl_loss", "ce_loss"):
+                if key in metrics:
+                    metrics[key] = all_reduce_dp(metrics[key])
         opt_step = state.step // max(int(cfg.accumulate_grad_batches), 1)
         saved_t = state.temperature.detach().clone()
         state.optimizer.update(grads)

@@ -9,8 +9,15 @@ decoding may take a layer-truncated draft (``speculative_draft_layers``,
 ``icl_inference_continuous`` run the same evals through the
 continuous-batching engines (``infer/serving.py``; Idefics only), and
 ``icv_inference_pooled`` and ``icl_inference_pooled`` through the pooled
-beam schedule (``infer/eval_chain.py``; Idefics-9B's family only).  No
-mesh: it waits for ROADMAP Queue 1 item 16.
+beam schedule (``infer/eval_chain.py``; Idefics-9B's family only).
+
+Under a mesh (``core.mesh.current_mesh()``, the CLI's ``infer_dp`` /
+``infer_tp``; JAX runner.py:195-209) every rank tokenizes the whole batch,
+repeats its last row up to a dp multiple, generates its contiguous dp rows
+(on its tp shards of the weights, the logits gathered whole) and gathers
+the dp ranks' tokens, so every rank holds every answer; the CLI's rank 0
+writes them.  The continuous engines and the pooled chain take no mesh
+(their dp slot pool is ROADMAP.md Queue 1 item 16b).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from ..data.prompt import PromptManager
+from ..parallel.sharding import dp_row_slice, dp_size, gather_rows_dp
 from ..utils.log import get_logger
 from .decode import beam_generate, greedy_generate
 
@@ -140,18 +148,22 @@ def _draft_icv(bundle, icv_scaled, draft_layers: int):
 def _dispatch_generate(bundle, gen_fn: Callable, prompts: list[list], icv_scaled):
     """Tokenize, move to the bundle's device and launch one generation;
     returns ``(device_out, rows, prompt_len)``.  The launches are queued on
-    the device stream; nothing is read back until ``_collect_generate``."""
+    the device stream; nothing is read back until ``_collect_generate``.
+    Under dp the batch's last row is repeated up to a dp multiple (the
+    extras discarded) and this rank generates its contiguous rows."""
     enc = bundle.processor.prepare_input(prompts, padding=True, padding_side="left")
     dev = bundle.device
-    ids, mask, px, pv = (
-        torch.from_numpy(np.asarray(enc[key])).to(dev)
-        for key in ("input_ids", "attention_mask", "pixel_values", "pixel_valid")
-    )
-    extra = {}
+    keys = ["input_ids", "attention_mask", "pixel_values", "pixel_valid"]
     if "pixel_attention_mask" in enc:  # NaViT variable resolution
-        extra["pixel_attention_mask"] = torch.from_numpy(
-            np.asarray(enc["pixel_attention_mask"])).to(dev)
-    out = gen_fn(bundle.params, ids, mask, px, pv, icv_scaled, **extra)
+        keys.append("pixel_attention_mask")
+    arrays = [np.asarray(enc[key]) for key in keys]
+    rem = (-len(prompts)) % dp_size()
+    if rem:
+        arrays = [np.concatenate([a, np.repeat(a[-1:], rem, axis=0)]) for a in arrays]
+    rows = dp_row_slice(arrays[0].shape[0])
+    ids, mask, px, pv, *extra = (torch.from_numpy(a[rows]).to(dev) for a in arrays)
+    kw = {"pixel_attention_mask": extra[0]} if extra else {}
+    out = gen_fn(bundle.params, ids, mask, px, pv, icv_scaled, **kw)
     return out, len(prompts), enc["input_ids"].shape[1]
 
 
@@ -159,7 +171,7 @@ def _collect_generate(bundle, pending) -> list[str]:
     """Wait for a ``_dispatch_generate`` handle and decode ONLY the
     continuation (reference inference.py:300-321)."""
     out, rows, prompt_len = pending
-    out = out.cpu().numpy()[:rows]
+    out = gather_rows_dp(out).cpu().numpy()[:rows]
     return bundle.tokenizer.batch_decode(
         [row[prompt_len:] for row in out], skip_special_tokens=True
     )

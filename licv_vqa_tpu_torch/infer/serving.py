@@ -40,7 +40,8 @@ two static batch sizes (JAX serving.py:31-37); in f32 the tokens are equal.
 
 Not in this port yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: ``run_fused`` (the whole scheduler on the device, item 19's
-CUDA-graph capture) and the serving mesh (``mesh``, item 16).
+CUDA-graph capture) and the serving mesh (``mesh``: a slot pool sharded
+over dp, item 16b; the static runner takes ``infer_dp``/``infer_tp``).
 """
 
 from __future__ import annotations
@@ -159,7 +160,7 @@ class ServingEngine:
         device=None,
     ):
         if mesh is not None:
-            raise _not_ported("the serving mesh (a slot pool sharded over dp)", "item 16")
+            raise _not_ported("the serving mesh (a slot pool sharded over dp)", "item 16b")
         if harvest_lag not in (0, 1):
             raise ValueError(f"harvest_lag must be 0 or 1, got {harvest_lag}")
         self._prefill = prefill_fn

@@ -30,6 +30,15 @@ least ``W8A8_MIN_TOKENS`` tokens take w8a8 under ``cfg.w8a8_prefill``.
 ``merged_decoder_layer`` runs one layer over two token streams at once, a
 pool's decode rows and an admission group's prefill, each projection and
 the MLP one packed matmul (merged admission and the eval chains).
+
+Under tensor parallelism (``parallel/sharding.py``) a layer's params are
+this rank's shards: ``wq``/``wk``/``wv`` hold its heads' columns (GQA stays
+per rank: 32/8 heads are 16/4 at tp = 2), ``wo`` their rows, and the MLP
+its columns of ``d_ff``.  The head counts come from the projections'
+shapes, the ALiBi slopes are the rank's slice of all heads' slopes, the KV
+cache holds the rank's KV heads, and the two row-split products are summed
+over tp (``qdot_row``) before the residual adds, so the ICV edit sees the
+whole residual on every rank.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ..ops.flash_alibi import flash_alibi_attention, flash_alibi_usable
 from ..ops.icv_inject import add_icv_inject, icv_inject, icv_inject_after_add
 from ..ops.int8_matmul import qdot
 from ..ops.quantize import dequantize_kv, quantize_kv_rows
+from ..parallel.sharding import copy_to_tp, gather_from_tp, local_heads, qdot_row
 from . import layers as L
 from .config import BLOCK_OUTPUT, MLP_OUTPUT, DecoderConfig
 
@@ -116,8 +126,9 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, device) -> dict:
     all rows in lockstep, and keeping it on the host means their loops never
     read a device value back.  Speculative decoding replaces it with a
     ``(B,)`` int tensor, each row's own next column (``decode_cache_view``
-    takes both, as JAX's does, decoder.py:133-170)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    takes both, as JAX's does, decoder.py:133-170).  Under tp it holds this
+    rank's KV heads."""
+    shape = (cfg.n_layers, batch, max_len, local_heads(cfg.n_kv_heads), cfg.head_dim)
 
     def kv():
         if cfg.kv_cache_dtype == "int8":
@@ -298,9 +309,9 @@ def _attend(cfg: DecoderConfig, q, k, v, mask, kv_write, flash_valid, bias) -> t
     quantized rows, this step attending their round trip, which later
     steps read back); then the causal flash kernel, the ALiBi flash kernel,
     the cached split softmax or plain attention, by the gates of
-    ``decoder_layer``.  Returns (B, s, H, Dh)."""
-    s, nh, dh = q.shape[1], cfg.n_heads, cfg.head_dim
-    nkv = cfg.n_kv_heads
+    ``decoder_layer``.  Returns (B, s, H, Dh) over the rank's heads."""
+    s, nh, dh = q.shape[1], q.shape[2], cfg.head_dim
+    nkv = k.shape[2]
     k_local, v_local = k, v
     if kv_write is not None:
         k_cache, v_cache, index = kv_write
@@ -330,7 +341,7 @@ def _attend(cfg: DecoderConfig, q, k, v, mask, kv_write, flash_valid, bias) -> t
     if use_flash_alibi:
         return flash_alibi_attention(
             q, L.repeat_kv(k_local, nh // nkv), L.repeat_kv(v_local, nh // nkv), flash_valid,
-            L.alibi_slopes(nh, q.device), float(dh) ** -0.5,
+            L.local_alibi_slopes(cfg.n_heads, q.device), float(dh) ** -0.5,
         )
     if kv_write is not None and isinstance(k_cache, dict):
         return _int8_cached_attention(
@@ -367,15 +378,15 @@ def decoder_layer(
     layers take ``bias`` over the same key columns as ``mask``; it may be
     None only where the ALiBi flash branch is taken."""
     b, s, d = h.shape
-    nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     # a token-count gate: prefill and bind blocks run w8a8, decode steps
     # keep the weight-only routes
     a8 = cfg.w8a8_prefill and s >= W8A8_MIN_TOKENS
 
-    x = _norm(cfg, p["ln1"], p.get("ln1_b"), h)
-    q = qdot(x, p["attn"]["wq"], a8=a8).reshape(b, s, nh, dh)
-    k = qdot(x, p["attn"]["wk"], a8=a8).reshape(b, s, nkv, dh)
-    v = qdot(x, p["attn"]["wv"], a8=a8).reshape(b, s, nkv, dh)
+    x = copy_to_tp(_norm(cfg, p["ln1"], p.get("ln1_b"), h))
+    q = qdot(x, p["attn"]["wq"], a8=a8).reshape(b, s, -1, dh)
+    k = qdot(x, p["attn"]["wk"], a8=a8).reshape(b, s, -1, dh)
+    v = qdot(x, p["attn"]["wv"], a8=a8).reshape(b, s, -1, dh)
     alibi = cfg.positional == "alibi"
     if not alibi:
         q = L.apply_rope(q, cos, sin)
@@ -385,7 +396,7 @@ def decoder_layer(
         k = L.rms_norm(p["attn"]["k_norm"], k, cfg.norm_eps)
 
     attn = _attend(cfg, q, k, v, mask, kv_write, flash_valid, bias)
-    h = h + qdot(attn.reshape(b, s, nh * dh), p["attn"]["wo"], a8=a8).to(h.dtype)
+    h = h + qdot_row(attn.reshape(b, s, -1), p["attn"]["wo"], a8=a8).to(h.dtype)
 
     x2 = _norm(cfg, p["ln2"], p.get("ln2_b"), h)
     mlp = (L.swiglu_mlp(p["mlp"], x2, a8=a8) if cfg.activation == "silu_glu"
@@ -458,18 +469,18 @@ def merged_decoder_layer(
     through ``_add_mlp`` (one fused launch a lane on the card)."""
     b1, s1, _ = h_d.shape
     b2, s2, _ = h_p.shape
-    nh, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
 
     def norm(key, h):
         return _norm(cfg, p[key], p.get(key + "_b"), h)
 
-    def split(y, heads):
-        return _unpack_tokens(y.reshape(1, -1, heads, dh), (b1, s1), (b2, s2))
+    def split(y):
+        return _unpack_tokens(y.reshape(1, y.shape[1], -1, dh), (b1, s1), (b2, s2))
 
-    x = _pack_tokens(norm("ln1", h_d), norm("ln1", h_p))
-    q_d, q_p = split(qdot(x, p["attn"]["wq"]), nh)
-    k_d, k_p = split(qdot(x, p["attn"]["wk"]), nkv)
-    v_d, v_p = split(qdot(x, p["attn"]["wv"]), nkv)
+    x = copy_to_tp(_pack_tokens(norm("ln1", h_d), norm("ln1", h_p)))
+    q_d, q_p = split(qdot(x, p["attn"]["wq"]))
+    k_d, k_p = split(qdot(x, p["attn"]["wk"]))
+    v_d, v_p = split(qdot(x, p["attn"]["wv"]))
     if cfg.positional == "rope":
         q_d, k_d = L.apply_rope(q_d, *rope_d), L.apply_rope(k_d, *rope_d)
         q_p, k_p = L.apply_rope(q_p, *rope_p), L.apply_rope(k_p, *rope_p)
@@ -479,8 +490,8 @@ def merged_decoder_layer(
     attn_d = _attend(cfg, q_d, k_d, v_d, mask_d, kv_write_d, None, bias_d)
     attn_p = _attend(cfg, q_p, k_p, v_p, mask_p, kv_write_p, flash_valid_p, bias_p)
 
-    ao = qdot(_pack_tokens(attn_d.reshape(b1, s1, nh * dh), attn_p.reshape(b2, s2, nh * dh)),
-              p["attn"]["wo"])
+    ao = qdot_row(_pack_tokens(attn_d.reshape(b1, s1, -1), attn_p.reshape(b2, s2, -1)),
+                  p["attn"]["wo"])
     ao_d, ao_p = _unpack_tokens(ao, (b1, s1), (b2, s2))
     h_d = h_d + ao_d.to(h_d.dtype)
     h_p = h_p + ao_p.to(h_p.dtype)
@@ -516,10 +527,13 @@ def _positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
 
 def logits_from_hidden(cfg: DecoderConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     """Hidden → vocab logits (f32).  ``params["lm_head"]`` may be an int8
-    leaf (``lmm.quantize_head``); tied embeddings keep the bf16 table."""
+    leaf (``lmm.quantize_head``); tied embeddings keep the bf16 table.
+    Under tp the head holds this rank's (padded) vocab slice, and the
+    logits are gathered whole before any consumer sees them."""
     if cfg.tie_embeddings:
         return (h @ params["embed"].T).float()
-    return qdot(h, params["lm_head"], preferred_element_type=torch.float32)
+    part = qdot(copy_to_tp(h), params["lm_head"], preferred_element_type=torch.float32)
+    return gather_from_tp(part, cfg.vocab_size)
 
 
 def _icv_row(icv, li: int):

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.int8_matmul import qdot
+from ..parallel.sharding import copy_to_tp, qdot_row
 from . import layers as L
 from .config import BLOCK_OUTPUT, DecoderConfig, PerceiverConfig, VisionConfig
 from .decoder import (
@@ -252,26 +253,29 @@ def gated_xattn_block(
     gate: torch.Tensor,  # (B, S) 1.0 where the token attends ≥1 image
     kv: Optional[tuple] = None,  # precomputed (k, v) each (B, Nk, nh, dh)
 ) -> torch.Tensor:
+    """Under tp the block computes its rank's heads (``wq``/``wk``/``wv``
+    columns, ``wo`` rows) and MLP columns; the gate multiplies the output
+    summed over tp."""
     t = cfg.text
     b, s, d = h.shape
-    nh, dh = t.n_heads, t.head_dim
+    dh = t.head_dim
     a8 = t.w8a8_prefill and s >= W8A8_MIN_TOKENS  # token-count gates
-    x = L.rms_norm(p["ln1"], h, t.norm_eps)
-    q = qdot(x, p["attn"]["wq"], a8=a8).reshape(b, s, nh, dh)
+    x = copy_to_tp(L.rms_norm(p["ln1"], h, t.norm_eps))
+    q = qdot(x, p["attn"]["wq"], a8=a8).reshape(b, s, -1, dh)
     if "q_norm" in p["attn"]:
         q = L.rms_norm(p["attn"]["q_norm"], q, t.norm_eps)
     if kv is not None:
         k, v = kv  # decode-invariant image K/V, k_norm applied at bind time
     else:
         a8_img = t.w8a8_prefill and image_latents.shape[1] >= W8A8_MIN_TOKENS
-        k = qdot(image_latents, p["attn"]["wk"], a8=a8_img).reshape(b, -1, nh, dh)
-        v = qdot(image_latents, p["attn"]["wv"], a8=a8_img).reshape(b, -1, nh, dh)
+        k = qdot(image_latents, p["attn"]["wk"], a8=a8_img).reshape(b, image_latents.shape[1], -1, dh)
+        v = qdot(image_latents, p["attn"]["wv"], a8=a8_img).reshape(b, image_latents.shape[1], -1, dh)
         if "k_norm" in p["attn"]:
             k = L.rms_norm(p["attn"]["k_norm"], k, t.norm_eps)
     # a token before the first <image> has a fully masked row: the softmax
     # over finfo.min scores is uniform (finite) and the gate zeroes it
     attn = L.dot_product_attention(q, k, v, mask=img_mask)
-    attn = qdot(attn.reshape(b, s, nh * dh), p["attn"]["wo"], a8=a8).to(h.dtype)
+    attn = qdot_row(attn.reshape(b, s, -1), p["attn"]["wo"], a8=a8).to(h.dtype)
     attn = attn * gate[:, :, None].to(attn.dtype)
     h = h + torch.tanh(p["alpha_xattn"]).to(h.dtype) * attn
     mlp = L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], h, t.norm_eps), a8=a8)
@@ -283,17 +287,18 @@ def precompute_xattn_kv(
 ) -> tuple:
     """K/V projections of the image latents for EVERY gated-xattn block,
     (G, B, Nk, nh, dh) each, with k_norm applied.  The latents never change
-    during decode, so these matmuls run once per bind."""
+    during decode, so these matmuls run once per bind.  Under tp: the
+    rank's heads."""
     t = cfg.text
     b, n_k = image_latents.shape[:2]
-    nh, dh = t.n_heads, t.head_dim
+    dh = t.head_dim
     a8 = t.w8a8_prefill and n_k >= W8A8_MIN_TOKENS
     ks, vs = [], []
     n_groups = t.n_layers // cfg.cross_layer_interval
     for g in range(n_groups):
         attn = L.layer_slice(params["xattn"]["attn"], g)
-        k = qdot(image_latents, attn["wk"], a8=a8).reshape(b, n_k, nh, dh)
-        v = qdot(image_latents, attn["wv"], a8=a8).reshape(b, n_k, nh, dh)
+        k = qdot(image_latents, attn["wk"], a8=a8).reshape(b, n_k, -1, dh)
+        v = qdot(image_latents, attn["wv"], a8=a8).reshape(b, n_k, -1, dh)
         if "k_norm" in attn:
             k = L.rms_norm(attn["k_norm"], k, t.norm_eps)
         ks.append(k.to(t.dtype))

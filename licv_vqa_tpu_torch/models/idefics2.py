@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from ..ops.int8_matmul import qdot
+from ..parallel.sharding import copy_to_tp, qdot_row
 from . import layers as L
 from .config import MLP_OUTPUT, DecoderConfig, VisionConfig
 from .decoder import (
@@ -163,20 +164,24 @@ def _perceiver_layer(
     cfg: Idefics2PerceiverCfg, p: dict, latents: torch.Tensor, context: torch.Tensor,
     kv_mask: Optional[torch.Tensor] = None, a8: bool = False,
 ) -> torch.Tensor:
+    """One perceiver layer; under tp its rank's heads (GQA per rank) and
+    MLP columns, each row-split product summed over tp."""
     b, nl, _ = latents.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     a8_lat = a8 and nl >= W8A8_MIN_TOKENS  # token-count gates (w8a8)
     a8_kv = a8 and nl + context.shape[1] >= W8A8_MIN_TOKENS
     lat = L.rms_norm(p["lat_norm"], latents, cfg.norm_eps)
     ctx = L.rms_norm(p["ctx_norm"], context, cfg.norm_eps)
-    kv_in = torch.cat([ctx, lat], dim=1)
-    q = qdot(lat, p["wq"], a8=a8_lat).reshape(b, nl, nh, hd)
-    k = qdot(kv_in, p["wk"], a8=a8_kv).reshape(b, -1, nkv, hd)
-    v = qdot(kv_in, p["wv"], a8=a8_kv).reshape(b, -1, nkv, hd)
+    kv_in = copy_to_tp(torch.cat([ctx, lat], dim=1))
+    lat = copy_to_tp(lat)
+    q = qdot(lat, p["wq"], a8=a8_lat).reshape(b, nl, -1, hd)
+    k = qdot(kv_in, p["wk"], a8=a8_kv).reshape(b, kv_in.shape[1], -1, hd)
+    v = qdot(kv_in, p["wv"], a8=a8_kv).reshape(b, kv_in.shape[1], -1, hd)
+    n_rep = q.shape[2] // k.shape[2]
     attn = L.dot_product_attention(
-        q, L.repeat_kv(k, nh // nkv), L.repeat_kv(v, nh // nkv), mask=kv_mask
+        q, L.repeat_kv(k, n_rep), L.repeat_kv(v, n_rep), mask=kv_mask
     )
-    latents = latents + qdot(attn.reshape(b, nl, nh * hd), p["wo"], a8=a8_lat).to(latents.dtype)
+    latents = latents + qdot_row(attn.reshape(b, nl, -1), p["wo"], a8=a8_lat).to(latents.dtype)
     x = L.rms_norm(p["post_norm"], latents, cfg.norm_eps)
     return latents + L.swiglu_mlp(p["mlp"], x, a8=a8_lat)
 

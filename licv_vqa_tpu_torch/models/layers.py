@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.int8_matmul import qdot
+from ..parallel.sharding import copy_to_tp, qdot_row, tp_slice
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -101,9 +102,17 @@ def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
     return torch.cat([pow2slopes(closest), extra])
 
 
+def local_alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """The slopes of this rank's heads: those of all ``n_heads``, sliced to
+    the rank's ``[r·H/tp, (r+1)·H/tp)`` under tp (as JAX's ring slices
+    them, parallel/ring.py:86-91); all of them at tp = 1."""
+    return tp_slice(alibi_slopes(n_heads, device))
+
+
 def alibi_bias(n_heads: int, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    """ALiBi additive bias (B, H, Sq, Sk) f32: ``-slope_h · (q_pos − k_pos)``."""
-    slopes = alibi_slopes(n_heads, q_pos.device)
+    """ALiBi additive bias (B, H, Sq, Sk) f32: ``-slope_h · (q_pos − k_pos)``
+    over this rank's heads of ``n_heads`` (``local_alibi_slopes``)."""
+    slopes = local_alibi_slopes(n_heads, q_pos.device)
     rel = (q_pos[:, :, None] - k_pos[:, None, :]).float()  # (B, Sq, Sk)
     return -slopes[None, :, None, None] * rel[:, None, :, :]
 
@@ -618,19 +627,25 @@ def causal_mask(
 
 
 def swiglu_mlp(p: dict, x: torch.Tensor, a8: bool = False) -> torch.Tensor:
-    """Weights may be quantized leaves (``ops.int8_matmul.qdot``)."""
+    """Weights may be quantized leaves (``ops.int8_matmul.qdot``).  Under tp
+    ``w_gate``/``w_up`` hold this rank's columns of ``d_ff`` and ``w_down``
+    their rows: one all-reduce, after ``w_down``."""
+    x = copy_to_tp(x)
     gate = qdot(x, p["w_gate"], preferred_element_type=torch.float32, a8=a8)
     up = qdot(x, p["w_up"], preferred_element_type=torch.float32, a8=a8)
     h = (F.silu(gate) * up).to(x.dtype)
-    return qdot(h, p["w_down"], preferred_element_type=torch.float32, a8=a8).to(x.dtype)
+    return qdot_row(h, p["w_down"], preferred_element_type=torch.float32, a8=a8).to(x.dtype)
 
 
 def gelu_mlp(p: dict, x: torch.Tensor, a8: bool = False) -> torch.Tensor:
+    """MPT's MLP, tp as ``swiglu_mlp``; a converted ``b_up`` (replicated by
+    JAX's rules) adds its local columns, ``b_down`` the summed output."""
+    x = copy_to_tp(x)
     h = qdot(x, p["w_up"], preferred_element_type=torch.float32, a8=a8)
     if "b_up" in p:
-        h = h + p["b_up"].float()
+        h = h + tp_slice(p["b_up"]).float()
     h = F.gelu(h, approximate="none").to(x.dtype)
-    out = qdot(h, p["w_down"], preferred_element_type=torch.float32, a8=a8)
+    out = qdot_row(h, p["w_down"], preferred_element_type=torch.float32, a8=a8)
     if "b_down" in p:
         out = out + p["b_down"].float()
     return out.to(x.dtype)

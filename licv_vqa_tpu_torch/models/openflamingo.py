@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.int8_matmul import qdot
+from ..parallel.sharding import copy_to_tp, qdot_row, tp_slice
 from . import layers as L
 from .config import BLOCK_OUTPUT, DecoderConfig, PerceiverConfig, VisionConfig
 from .decoder import (
@@ -196,24 +197,30 @@ def flamingo_xattn_block(
     gate: torch.Tensor,  # (B, S) 1.0 where the token attends an image
     kv: Optional[tuple] = None,  # precomputed (k, v) each (B, Nk, nh, dh)
 ) -> torch.Tensor:
+    """Under tp the block computes its rank's heads: ``wq`` holds their
+    columns and ``wo`` their rows (summed over tp before the gate), while
+    ``wkv`` and the feed-forward replicate by JAX's rules, so the rank's
+    K/V heads are sliced from the whole projection and the feed-forward
+    runs whole on every rank."""
     t = cfg.text
     b, s, _ = h.shape
     nh, dh = cfg.xattn_heads, cfg.xattn_head_dim
     # token-count gates (JAX :223-224): the text block's here, the media's
     # at its K/V projection
     a8 = t.w8a8_prefill and s >= W8A8_MIN_TOKENS
-    x = L.layer_norm(p["ln_attn"]["w"], p["ln_attn"]["b"], h, t.norm_eps)
-    q = qdot(x, p["wq"], a8=a8).reshape(b, s, nh, dh)
+    x = copy_to_tp(L.layer_norm(p["ln_attn"]["w"], p["ln_attn"]["b"], h, t.norm_eps))
+    q = qdot(x, p["wq"], a8=a8).reshape(b, s, -1, dh)
     if kv is not None:
         k, v = kv  # decode-invariant media K/V, computed at bind time
     else:
         a8_med = t.w8a8_prefill and media.shape[1] >= W8A8_MIN_TOKENS
         kvm = qdot(media, p["wkv"], a8=a8_med).reshape(b, -1, 2, nh, dh)  # k first
+        kvm = tp_slice(kvm, dim=3)
         k, v = kvm[:, :, 0], kvm[:, :, 1]
     # a token before the first <image> has a fully masked row: its uniform
     # (finite) softmax is zeroed by the gate
     attn = L.dot_product_attention(q, k, v, mask=media_mask)
-    attn = qdot(attn.reshape(b, s, nh * dh), p["wo"], a8=a8).to(h.dtype)
+    attn = qdot_row(attn.reshape(b, s, -1), p["wo"], a8=a8).to(h.dtype)
     attn = attn * gate[:, :, None].to(attn.dtype)
     h = h + torch.tanh(p["attn_gate"]).to(h.dtype) * attn
 
@@ -230,7 +237,8 @@ def precompute_xattn_kv(
 ) -> tuple:
     """K/V of the media latents for every gated-xattn block, (G, B, Nk, nh,
     dh) each: decode-invariant, computed once per bind (w8a8 by the bind's
-    media token count, JAX :262)."""
+    media token count, JAX :262).  Under tp: the rank's heads, sliced from
+    the replicated ``wkv``'s output."""
     t = cfg.text
     b, n_k = media_latents.shape[:2]
     nh, dh = cfg.xattn_heads, cfg.xattn_head_dim
@@ -238,7 +246,7 @@ def precompute_xattn_kv(
     ks, vs = [], []
     for g in range(t.n_layers // cfg.cross_attn_every_n_layers):
         w = L.layer_slice(params["xattn"]["wkv"], g)  # a tensor or a quantized leaf
-        kv = qdot(media_latents, w, a8=a8).reshape(b, n_k, 2, nh, dh)
+        kv = tp_slice(qdot(media_latents, w, a8=a8).reshape(b, n_k, 2, nh, dh), dim=3)
         ks.append(kv[:, :, 0].to(t.dtype))
         vs.append(kv[:, :, 1].to(t.dtype))
     return torch.stack(ks), torch.stack(vs)

@@ -32,6 +32,7 @@ from ..data.processor import (
 from ..data.tokenizer import WhitespaceTokenizer, load_hf_tokenizer
 from ..utils.config import InterpolationError
 from ..ops.quantize import quantize_array, quantize_layer_stack
+from ..parallel.sharding import shard_params
 from ..utils.log import get_logger
 from .convert import (
     _cast_tree,
@@ -510,8 +511,12 @@ def _maybe_quantize(cfg, bundle: ModelBundle) -> ModelBundle:
     return bundle
 
 
-def build_model(cfg, device="cuda") -> ModelBundle:
-    """``cfg`` is the composed top-level config (needs ``cfg.lmm``)."""
+def build_model(cfg, device="cuda", mesh=None) -> ModelBundle:
+    """``cfg`` is the composed top-level config (needs ``cfg.lmm``).  Under
+    a ``mesh`` with tp > 1 every process builds, converts and quantizes the
+    full tree once, then keeps only its rank's shard of each leaf the
+    sharding rules split (``parallel.sharding.shard_params``, leaf by leaf,
+    so the full tree's memory goes as it is sharded)."""
     name = str(cfg.lmm.name)
     if name == "idefics-9b":
         model_cfg = IdeficsConfig.idefics_9b()
@@ -528,4 +533,6 @@ def build_model(cfg, device="cuda") -> ModelBundle:
         raise ValueError(f"unknown lmm name: {name}")
     make = (_openflamingo_bundle if isinstance(model_cfg, OpenFlamingoConfig)
             else _family_bundle)
-    return _maybe_quantize(cfg, make(cfg, _apply_lmm_options(cfg, model_cfg), name, device))
+    bundle = _maybe_quantize(cfg, make(cfg, _apply_lmm_options(cfg, model_cfg), name, device))
+    shard_params(bundle.params, mesh)
+    return bundle

@@ -18,6 +18,11 @@ OpenFlamingo's ViT-L) take the fused short-sequence kernel
 JAX keeps it opt-in (``LICV_VIT_FUSED_ATTN=0`` turns it off; ROADMAP Queue
 3), and only under a key mask; the rest take the plain
 ``dot_product_attention`` with the layer's mask.
+
+Under tp (``parallel/sharding.py``) a layer computes its rank's heads and
+columns of the MLP: ``wq``/``wk``/``wv``/``w1`` and their biases hold the
+rank's columns, ``wo``/``w2`` their rows, summed over tp before ``bo``/``b2``
+(replicated) are added.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.int8_matmul import qdot
+from ..parallel.sharding import copy_to_tp, qdot_row
 from . import layers as L
 from .config import VisionConfig
 from .decoder import W8A8_MIN_TOKENS
@@ -95,12 +101,12 @@ def _vit_layer(
     ``mask`` (vision.py:102-110) and would attend a causal one
     bidirectionally (ROADMAP Queue 3, reference behaviour not to copy)."""
     b, s, d = h.shape
-    nh, dh = cfg.n_heads, d // cfg.n_heads
-    x = L.layer_norm(p["ln1"]["w"], p["ln1"]["b"], h, cfg.norm_eps)
+    dh = d // cfg.n_heads
+    x = copy_to_tp(L.layer_norm(p["ln1"]["w"], p["ln1"]["b"], h, cfg.norm_eps))
     a = p["attn"]
-    q = (qdot(x, a["wq"], a8=a8) + a["bq"]).reshape(b, s, nh, dh)
-    k = (qdot(x, a["wk"], a8=a8) + a["bk"]).reshape(b, s, nh, dh)
-    v = (qdot(x, a["wv"], a8=a8) + a["bv"]).reshape(b, s, nh, dh)
+    q = (qdot(x, a["wq"], a8=a8) + a["bq"]).reshape(b, s, -1, dh)
+    k = (qdot(x, a["wk"], a8=a8) + a["bk"]).reshape(b, s, -1, dh)
+    v = (qdot(x, a["wv"], a8=a8) + a["bv"]).reshape(b, s, -1, dh)
     if L.flash_bidir_usable(s, h.device):
         # never builds the (B, H, S, S) f32 scores (7.8 GB a layer for a
         # 32-shot prompt's 33 images of 1920 patches); invalid rows differ
@@ -112,9 +118,9 @@ def _vit_layer(
         attn = L.vit_attention(q, k, v, valid)
     else:
         attn = L.dot_product_attention(q, k, v, mask=mask)
-    h = h + (qdot(attn.reshape(b, s, d), a["wo"], a8=a8) + a["bo"]).to(h.dtype)
+    h = h + (qdot_row(attn.reshape(b, s, -1), a["wo"], a8=a8) + a["bo"]).to(h.dtype)
 
-    x2 = L.layer_norm(p["ln2"]["w"], p["ln2"]["b"], h, cfg.norm_eps)
+    x2 = copy_to_tp(L.layer_norm(p["ln2"]["w"], p["ln2"]["b"], h, cfg.norm_eps))
     m = p["mlp"]
     z = (qdot(x2, m["w1"], a8=a8) + m["b1"]).float()
     if cfg.activation == "quick_gelu":  # OpenAI CLIP: x·σ(1.702x)
@@ -122,7 +128,7 @@ def _vit_layer(
     else:
         z = F.gelu(z, approximate="tanh" if cfg.activation == "gelu_tanh" else "none")
     z = z.to(h.dtype)
-    return h + (qdot(z, m["w2"], a8=a8) + m["b2"]).to(h.dtype)
+    return h + (qdot_row(z, m["w2"], a8=a8) + m["b2"]).to(h.dtype)
 
 
 def navit_position_ids(

@@ -175,13 +175,16 @@ _W8A8_STAGE_K = 128
 _W8A8_MAX_SPLITS = 8
 
 
-def quantize_act_rows(x: torch.Tensor):
+def quantize_act_rows(x: torch.Tensor, absmax: torch.Tensor | None = None):
     """Dynamic per-row symmetric int8 quantization of activations:
     ``(int8 plane, f32 scale (..., 1))`` with ``scale = absmax · f32(1/127)``
     over the contraction dim, as JAX computes it under jit; all-zero rows
-    get a floor scale."""
+    get a floor scale.  ``absmax`` (f32, (..., 1)): the rows' absmax where
+    ``x`` holds only part of each row (a row split over tp takes the whole
+    row's, ``parallel.sharding.qdot_row``); by default ``x``'s own."""
     xf = x.float()
-    absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    if absmax is None:
+        absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
     scale = torch.clamp(absmax, min=1e-8) * INV_127
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q.to(torch.int8), scale
@@ -348,7 +351,9 @@ class _FrozenWeightMatmul(torch.autograd.Function):
         return (gy.float() @ w.T).to(ctx.x_dtype), None, None
 
 
-def _frozen(x, matmul, dense_weight):
+def frozen_weight_matmul(x, matmul, dense_weight):
+    """``matmul(x)``, differentiable with respect to ``x`` where it needs a
+    gradient (``dense_weight()`` gives the weight for the backward)."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _FrozenWeightMatmul.apply(x, matmul, dense_weight)
     return matmul(x)
@@ -373,7 +378,7 @@ def qdot(x: torch.Tensor, w, preferred_element_type=None, a8: bool = False) -> t
         k2, n = packed.shape[-2:]
         k, kg = 2 * k2, s.shape[-3]
         if packed.dim() == 2 and int4_matmul_usable(m, k, n, k // kg):
-            y = _frozen(
+            y = frozen_weight_matmul(
                 x.reshape(m, k),
                 lambda xv: int4_matmul(xv, packed, s.reshape(kg, n), k // kg, out_dtype),
                 lambda: dequantize_int4(w, torch.float32),
@@ -385,9 +390,11 @@ def qdot(x: torch.Tensor, w, preferred_element_type=None, a8: bool = False) -> t
     k, n = q.shape
     xm = x.reshape(m, k)
     if a8:
-        y = _frozen(xm, lambda xv: w8a8_matmul(xv, q, s, out_dtype), lambda: q.float() * s)
+        y = frozen_weight_matmul(xm, lambda xv: w8a8_matmul(xv, q, s, out_dtype),
+                                 lambda: q.float() * s)
     elif m <= KERNEL_MAX_ROWS:
-        y = _frozen(xm, lambda xv: int8_matmul(xv, q, s, out_dtype), lambda: q.float() * s)
+        y = frozen_weight_matmul(xm, lambda xv: int8_matmul(xv, q, s, out_dtype),
+                                 lambda: q.float() * s)
     else:
         # scale-on-output: the per-column scale commutes with the contraction
         y = ((xm @ q.to(x.dtype)).float() * s.reshape(1, -1)).to(out_dtype)

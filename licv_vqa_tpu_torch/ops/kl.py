@@ -7,6 +7,12 @@ teacher positions at ``in_context_length``.  So the teacher row for student
 position ``t`` is ``t - query_x_length + in_context_length``: one gather,
 then a weighted mean over the student mask (the reference's boolean masking,
 icv_src/icv_module.py:107-148, without shape-dynamic tensors).
+
+Over a dp-split batch the caller passes ``denom``, the GLOBAL batch's
+weight count (JAX ``ops/kl.py:82-83``, ``:103`` divide by it): each rank's
+value is then its share of the global mean, and the shares sum to it.  A
+mean of per-rank means would be another loss wherever ranks hold different
+numbers of answer tokens.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ def masked_kl_divergence(
     temperature,
     eps: float = 1e-6,
     impl: str = "xla",  # "xla" | "pallas"
+    denom=None,  # the global Σmask over a dp-split batch (module docstring)
 ) -> torch.Tensor:
     """``mean_masked[ Σ_V p_tea (log(p_tea+ε) − log(p_stu+ε)) ] · T²`` in f32.
 
@@ -61,14 +68,14 @@ def masked_kl_divergence(
     if impl == "pallas":
         from .masked_kl_kernel import masked_kl_pallas
 
-        return masked_kl_pallas(stu, tea, mask, eps=eps) * (t * t)
+        return masked_kl_pallas(stu, tea, mask, eps=eps, denom=denom) * (t * t)
     if impl != "xla":
         raise ValueError(f"masked_kl_divergence: impl must be xla or pallas, got {impl!r}")
     p_stu = torch.softmax(stu, dim=-1)
     p_tea = torch.softmax(tea, dim=-1)
     per_pos = torch.sum(p_tea * (torch.log(p_tea + eps) - torch.log(p_stu + eps)), dim=-1)
     w = mask.float()
-    denom = torch.clamp(torch.sum(w), min=1.0)
+    denom = torch.clamp(torch.sum(w) if denom is None else denom, min=1.0)
     return (torch.sum(per_pos * w) / denom) * (t * t)
 
 
@@ -76,6 +83,7 @@ def shifted_cross_entropy(
     logits: torch.Tensor,  # (B, S, V)
     labels: torch.Tensor,  # (B, S) int; ignore_index = ignore
     ignore_index: int = -100,
+    denom=None,  # the global count of positions not ignored (dp)
 ) -> torch.Tensor:
     """HF-convention causal LM loss: ``logits[:, :-1]`` vs ``labels[:, 1:]``,
     mean over the positions not ignored."""
@@ -86,4 +94,4 @@ def shifted_cross_entropy(
     logp = torch.log_softmax(lg, dim=-1)
     nll = -torch.gather(logp, -1, lb_safe[:, :, None])[:, :, 0]
     w = valid.float()
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w) if denom is None else denom, min=1.0)

@@ -301,9 +301,12 @@ def masked_kl_pallas(
     teacher_scaled: torch.Tensor,  # (B, S, V) aligned, scaled
     mask: torch.Tensor,  # (B, S) bool
     eps: float = 1e-6,
+    denom=None,  # the mean's denominator where it is not this mask's Σ
 ) -> torch.Tensor:
     """Masked mean of per-row KLs (×T² applied by the caller).  The name
-    keeps the JAX function's, so ``kl_impl=pallas`` reads the same."""
+    keeps the JAX function's, so ``kl_impl=pallas`` reads the same.
+    ``denom`` (a dp-split batch): the global batch's mask count, so the
+    ranks' values sum to the global mean."""
     b, s, v = student_scaled.shape
     n = b * s
     stu2d = student_scaled.reshape(n, v).float()
@@ -313,7 +316,7 @@ def masked_kl_pallas(
     if tea2d.stride(-1) != 1:
         tea2d = tea2d.contiguous()
     w = mask.reshape(n).float()
-    denom = torch.clamp(torch.sum(w), min=1.0)
+    denom = torch.clamp(torch.sum(w) if denom is None else denom, min=1.0)
     kl = _RowwiseKL.apply(stu2d, tea2d, w, float(eps))
     # weighted mean as a dot, so the backward sees per-row cotangents w/Σw
     return torch.dot(kl, w) / denom

@@ -1,4 +1,4 @@
-"""The training loop: one device, an eager train step, the epochs
+"""The training loop: an eager train step per rank, the epochs
 (counterpart of ``licv_vqa_tpu/train/trainer.py``).
 
 Kept from JAX: epochs, ``limit_train_batches``, gradient accumulation, step
@@ -6,8 +6,20 @@ checkpoints every ``checkpoint_every_n_steps`` micro-batches with resume
 (seed+epoch fast-forward through the batches already trained, or the
 loader's own iterator state where it has one), the preemption save, the
 metrics hook, a ``torch.profiler`` trace of ``profile_steps`` steps, and
-the final ``icv_cpk.pth``.  Not ported: the mesh (dp/tp/sp), multi-host and
-the grain loader (ROADMAP.md Queue 1 item 16); asking for them raises.
+the final ``icv_cpk.pth``.
+
+The mesh (``strategy=dp|dp_tp``, ``tp``, ``devices``): one process per rank
+(``python -m torch.distributed.run``), JAX's single-process semantics.  Every
+rank builds the same seed-ordered global batch from the threaded loader,
+zero-pads it to a dp multiple (``_pad_batch_to_multiple``: padded rows are
+inert in both losses) and takes its contiguous dp rows; under ``dp_tp`` the
+frozen weights are this rank's Megatron shards.  The loss and the
+gradients are the global batch's (``icv/module.py``), so every rank holds
+the same ``(icv, alpha)``; rank 0 alone writes the step checkpoints, the
+metrics, the profile and the artifact.  The preemption flag is the global
+OR over the ranks every ``preempt_sync_every_n_steps`` micro-steps.
+Sequence parallelism (``dp_sp``/``dp_tp_sp``) and the grain loader are
+ROADMAP.md Queue 1 item 16b and raise.
 """
 
 from __future__ import annotations
@@ -20,16 +32,38 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..core.distributed import PreemptionGuard, is_main_process
+from ..core.distributed import PreemptionGuard, is_main_process, sync_should_stop
+from ..core.mesh import Mesh, MeshConfig, create_mesh, using_mesh
 from ..icv.encoder import GlobalICVEncoder
 from ..icv.module import ICVModuleConfig, TrainState, init_train_state, make_train_step
+from ..parallel.sharding import dp_row_slice
 from ..utils.log import get_logger
 from ..utils.profiling import StepTimer, trace
 from .checkpoint import StepCheckpointer, save_icv_checkpoint
 
 logger = get_logger("train")
 
-_NOT_PORTED = "is not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 16)"
+_NOT_PORTED = "is not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 16b)"
+STRATEGIES = ("dp", "dp_tp")
+
+
+def _pad_batch_to_multiple(batch, multiple: int):
+    """Zero-pad every leaf's batch dim to a dp multiple (JAX
+    ``_pad_batch_to_multiple``, train/trainer.py:40-58): the padded rows
+    have an all-zero attention mask, which both losses leave out."""
+    if isinstance(batch, dict):
+        return {k: _pad_batch_to_multiple(v, multiple) for k, v in batch.items()}
+    x = np.asarray(batch)
+    rem = (-x.shape[0]) % multiple
+    if multiple <= 1 or rem == 0:
+        return x
+    return np.pad(x, [(0, rem)] + [(0, 0)] * (x.ndim - 1))
+
+
+def _take_rows(batch, rows: slice):
+    if isinstance(batch, dict):
+        return {k: _take_rows(v, rows) for k, v in batch.items()}
+    return batch[rows]
 
 
 @dataclasses.dataclass
@@ -46,6 +80,10 @@ class TrainerConfig:
     accumulate_grad_batches: int = 1
     checkpoint_every_n_steps: int = 200
     limit_train_batches: int = -1
+    # how often (in micro-steps) the ranks OR their preemption flags: the
+    # sync is a collective, so its cadence is a function of the step alone
+    # (JAX train/trainer.py:122-128); one process checks every step
+    preempt_sync_every_n_steps: int = 8
     profile_steps: int = 0  # >0: torch.profiler trace of steps [2, 2+N)
 
     @classmethod
@@ -56,10 +94,23 @@ class TrainerConfig:
         return cls(**{k: cfg[k] for k in cfg.keys() if k in known})
 
     def check_ported(self) -> None:
-        if self.strategy != "dp" or self.tp != 1 or self.sp != 1:
-            raise NotImplementedError(f"trainer.strategy={self.strategy} (tp/sp) {_NOT_PORTED}")
-        if self.devices not in (-1, 0, 1):
-            raise NotImplementedError(f"trainer.devices={self.devices} (data parallel) {_NOT_PORTED}")
+        if "sp" in self.strategy or self.sp != 1:
+            raise NotImplementedError(
+                f"trainer.strategy={self.strategy} (sequence parallelism) {_NOT_PORTED}")
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"trainer.strategy must be one of {STRATEGIES}, got {self.strategy!r}")
+
+    def mesh_config(self, world_size: int) -> MeshConfig:
+        """dp x tp over the launcher's ranks: ``devices`` -1 (or 0) takes
+        the world size, any other count must equal it; ``tp`` counts under
+        ``dp_tp`` only."""
+        if self.devices not in (-1, 0) and self.devices != world_size:
+            raise ValueError(
+                f"trainer.devices={self.devices} but the launcher started {world_size} "
+                "process(es): one process per device (python -m torch.distributed.run "
+                f"--nproc_per_node={self.devices})")
+        tp = self.tp if "tp" in self.strategy else 1
+        return MeshConfig(dp=-1, tp=tp, sp=1)
 
 
 def batch_to_device(batch, device):
@@ -80,8 +131,16 @@ class Trainer:
         pad_token_id: int,
         metrics_hook: Optional[Callable[[int, dict], None]] = None,
         head_fn: Optional[Callable] = None,  # gather-before-head teacher path
+        mesh: Optional[Mesh] = None,
     ):
+        """``mesh``: the caller's (``core.mesh.create_mesh``), whose
+        ``model_params`` are already this rank's shards
+        (``models/registry.py``); None is one process, which ``trainer_cfg``
+        must then ask for (and a launched world of more ranks raises)."""
         trainer_cfg.check_ported()
+        if mesh is None:
+            mesh = create_mesh(trainer_cfg.mesh_config(1), world_size=1, rank=0)
+        self.mesh = mesh
         self.cfg = trainer_cfg
         self.module_cfg = dataclasses.replace(
             module_cfg,
@@ -103,6 +162,13 @@ class Trainer:
         lmm_args: Optional[dict] = None,
         use_sigmoid: bool = False,
     ) -> TrainState:
+        """Train over ``loader``; the trainer's mesh is the current one
+        (``core.mesh.using_mesh``) while it runs."""
+        with using_mesh(self.mesh):
+            return self._fit(loader, Path(run_dir), lmm_args, use_sigmoid)
+
+    def _fit(self, loader, run_dir: Path, lmm_args: Optional[dict],
+             use_sigmoid: bool) -> TrainState:
         cfg = self.cfg
         steps_per_epoch = len(loader)
         if cfg.limit_train_batches and cfg.limit_train_batches > 0:
@@ -120,7 +186,6 @@ class Trainer:
             self.module_cfg = mcfg
 
         state = init_train_state(self.encoder, mcfg, total_steps)
-        run_dir = Path(run_dir)
         ckpt = StepCheckpointer(run_dir / "steps")
         resume_step, saved = ckpt.restore(map_location=self.device)
         restored_loader = False
@@ -136,9 +201,16 @@ class Trainer:
                 restored_loader = True
 
         step_fn = make_train_step(self.forward_fn, mcfg, self.pad_token_id, self.head_fn)
+        main = is_main_process()
+        dp = self.mesh.dp
+        sync_every = max(1, cfg.preempt_sync_every_n_steps) if self.mesh.world_size > 1 else 1
 
         def loader_snapshot():
             return loader.get_state() if hasattr(loader, "get_state") else None
+
+        def save(step, loader_state):  # one writer: the state is the same on every rank
+            if main:
+                ckpt.save(step, state.state_dict(), loader_state=loader_state)
 
         micro_step = state.step
         start_micro = micro_step
@@ -163,14 +235,12 @@ class Trainer:
                 bi = -1
                 while True:
                     # checked BEFORE the next batch is pulled, so a saved
-                    # iterator state replays exactly the untrained rest
-                    if guard.should_stop:
+                    # iterator state replays exactly the untrained rest;
+                    # every rank ORs the flags on the same steps
+                    if micro_step % sync_every == 0 and sync_should_stop(guard.should_stop):
                         logger.warning("preemption requested — checkpointing at micro %d", micro_step)
                         ffwd = not restored_loader and epoch == epoch_start and (bi + 1) < offset
-                        ckpt.save(
-                            micro_step, state.state_dict(),
-                            loader_state=None if ffwd else loader_snapshot(),
-                        )
+                        save(micro_step, None if ffwd else loader_snapshot())
                         done = True
                         break
                     if micro_step >= total_micro:
@@ -185,9 +255,11 @@ class Trainer:
                         break
                     if not restored_loader and epoch == epoch_start and bi < offset:
                         continue  # fast-forward through batches already trained
-                    if cfg.profile_steps > 0 and micro_step == 2:
+                    if cfg.profile_steps > 0 and micro_step == 2 and main:
                         profiler_ctx = trace(run_dir / "profile")
                         profiler_ctx.__enter__()
+                    batch = _pad_batch_to_multiple(batch, dp)
+                    batch = _take_rows(batch, dp_row_slice(len(batch["query_x_length"])))
                     metrics = step_fn(state, self.model_params, batch_to_device(batch, self.device))
                     micro_step = state.step
                     timer.tick()
@@ -195,11 +267,11 @@ class Trainer:
                         profiler_ctx.__exit__(None, None, None)
                         profiler_ctx = None
                         logger.info("profiler trace written to %s", run_dir / "profile")
-                    if micro_step % max(1, cfg.log_every_n_steps) == 0:
+                    if micro_step % max(1, cfg.log_every_n_steps) == 0 and main:
                         self._log(metrics, timer, epoch, micro_step, total_micro,
                                   (micro_step - start_micro) / max(time.time() - t0, 1e-6))
                     if cfg.checkpoint_every_n_steps > 0 and micro_step % cfg.checkpoint_every_n_steps == 0:
-                        ckpt.save(micro_step, state.state_dict(), loader_state=loader_snapshot())
+                        save(micro_step, loader_snapshot())
         finally:
             if profiler_ctx is not None:
                 profiler_ctx.__exit__(None, None, None)
@@ -207,7 +279,7 @@ class Trainer:
 
         # the final artifact with the reference's key contract, rank 0 only
         # (reference @rank_zero_only postprocess, train.py:88)
-        if is_main_process():
+        if main:
             save_icv_checkpoint(
                 run_dir, state.encoder.icv, state.encoder.alpha, use_sigmoid=use_sigmoid,
                 lmm_args=lmm_args or {}, temperature=float(state.temperature),

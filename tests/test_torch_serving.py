@@ -254,12 +254,14 @@ def test_beam_engine_guards(tiny):
         engine(cfg, params, 2, merged_admit_fn=lambda *a: None)
 
 
-def test_what_is_not_ported_raises_with_its_roadmap_item(tiny):
+@pytest.mark.parametrize("what,item", [("mesh", "item 16b"), ("run_fused", "item 19")])
+def test_what_is_not_ported_raises_with_its_roadmap_item(tiny, what, item):
     cfg, params, _, _ = tiny
-    with pytest.raises(NotImplementedError, match="item 16"):
-        engine(cfg, params, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 19"):
-        engine(cfg, params, prompt_buckets=(8,)).run_fused()
+    with pytest.raises(NotImplementedError, match=item):
+        if what == "mesh":
+            engine(cfg, params, mesh=object())
+        else:
+            engine(cfg, params, prompt_buckets=(8,)).run_fused()
 
 
 def test_submit_guards(tiny):

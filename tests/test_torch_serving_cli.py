@@ -242,7 +242,9 @@ def test_openflamingo_served_cli_writes_the_static_predictions(env3, engine, bea
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["infer_engine=continuous", "infer_dp=2"], "item 16"),
+    (["infer_engine=continuous", "infer_dp=2"], "item 16b"),
+    (["infer_engine=continuous", "infer_tp=2"], "item 16b"),
+    (["infer_engine=pooled", "infer_dp=2"], "item 16b"),
 ])
 def test_what_the_cli_does_not_serve_raises_with_its_roadmap_item(env, extra, item):  # noqa: F811
     from licv_vqa_tpu_torch.cli.inference import main as torch_main

@@ -147,11 +147,13 @@ def test_alibi_and_vit_cases_cover_phase_8_and_bound_the_visible_pairs(cases):
     assert bool(c.rows.all()) and c.bound()[1] == "operations"
     vit = {label for name, label in cases if name == "vit_attention"}
     assert vit == {"(1,257,16,64) all valid", "(33,257,16,64) all valid",
-                   "(33,257,16,80) all valid", "(4,257,16,80) masked", "(2,1024,16,80) masked"}
-    for label, dh in (("(33,257,16,64) all valid", 64), ("(33,257,16,80) all valid", 80)):
+                   "(33,257,16,80) all valid", "(4,257,16,80) masked", "(2,1024,16,80) masked",
+                   "(33,257,8,80) all valid"}  # the last: a rank's heads at tp = 2
+    for label, h, dh in (("(33,257,16,64) all valid", 16, 64),
+                         ("(33,257,16,80) all valid", 16, 80), ("(33,257,8,80) all valid", 8, 80)):
         c = cases["vit_attention", label]
-        assert c.bytes_moved == 4 * 33 * 257 * 16 * dh * 2
-        assert c.ops == 4 * 16 * dh * 33 * 257 ** 2
+        assert c.bytes_moved == 4 * 33 * 257 * h * dh * 2
+        assert c.ops == 4 * h * dh * 33 * 257 ** 2
         assert c.bound()[1] == "bytes" and c.rows is None
 
 
@@ -296,12 +298,12 @@ def test_mean_ratio_takes_the_worst_output(monkeypatch):
     assert C.mean_ratio(lambda: got, lambda: want) == pytest.approx(0.05)
 
 
-@pytest.mark.parametrize("b,s,dh,masked", C.VIT_SHAPES)
-def test_vit_case_holds_the_mean_limit_on_cpu(cases, b, s, dh, masked, monkeypatch):
+@pytest.mark.parametrize("b,s,h,dh,masked", C.VIT_SHAPES)
+def test_vit_case_holds_the_mean_limit_on_cpu(cases, b, s, h, dh, masked, monkeypatch):
     """Every fused-ViT case (and no other) carries the mean-error limit;
     on CPU tensors the wrapper takes the plain version, so it reads 0."""
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    c = cases["vit_attention", f"({b},{s},16,{dh}) {'masked' if masked else 'all valid'}"]
+    c = cases["vit_attention", f"({b},{s},{h},{dh}) {'masked' if masked else 'all valid'}"]
     assert c.mean_tol == C.VIT_MEAN_TOL
     assert all(other.mean_tol is None for (name, _), other in cases.items()
                if name != "vit_attention")

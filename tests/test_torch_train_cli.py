@@ -73,12 +73,15 @@ def test_port_train_cli_artifact_rerun_resume_and_jax_eval(env):  # noqa: F811
     assert len(acc) == 1 and 0.0 <= acc[0]["overall"] <= 100.0
 
 
-def test_port_train_cli_refuses_what_is_not_ported(env):  # noqa: F811
+@pytest.mark.parametrize("extra", [
+    ["trainer.strategy=dp_sp", "trainer.sp=2"], ["trainer.strategy=dp_tp_sp", "trainer.tp=2"],
+    ["data_cfg.loader=grain"],
+])
+def test_port_train_cli_refuses_what_is_not_ported(env, extra):  # noqa: F811
     import train_torch
 
-    for extra in ("trainer.strategy=dp_tp", "trainer.devices=2", "data_cfg.loader=grain"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            train_torch.main(TRAIN + ["run_name=refused", extra])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
+        train_torch.main(TRAIN + ["run_name=refused", *extra])
 
 
 def test_port_train_cli_preemption_saves_a_step_checkpoint(env, monkeypatch):  # noqa: F811
