@@ -326,6 +326,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import importlib
 import math
 import os
 import subprocess
@@ -3649,6 +3650,7 @@ def idefics2_path(dev, tmp: Path, lmm: str = "idefics2-8B-base") -> dict:
     )
     for k, v in idefics2_serving_path(e).items():
         total[k] = total.get(k, 0) + v
+    PHASE11_REFS.setdefault("g", {})[lmm] = sp_family_reference(e, lmm)
     return total
 
 
@@ -3938,6 +3940,7 @@ def openflamingo_path(dev, tmp: Path, lmm: str = "openflamingov2-9B") -> dict:
     )
     for k, v in openflamingo_serving_path(e).items():
         total[k] = total.get(k, 0) + v
+    PHASE11_REFS.setdefault("g", {})[lmm] = sp_family_reference(e, lmm)
     return total
 
 
@@ -4385,12 +4388,37 @@ def flagship_train_path(dev, shape: str = "flagship") -> dict:
                              top=10, what="one train step")
         if mode == FLAGSHIP_MODES[0]:
             grad = flagship_gradient_check(tool, shape, mode, params, batch, dev)
+            PHASE11_REFS["f"] = flagship_teacher_reference(shape, mc, params, batch, dev)
         del step, state, params, batch
         free_device_memory()
     if not (math.isfinite(grad["loss_kernel"])
             and max(grad["rel_l2_icv"], grad["rel_l2_alpha"]) <= REL_L2_TOL):
         raise AssertionError("flagship: kernel-path gradients disagree with the plain path")
     return total
+
+
+def flagship_teacher_reference(shape: str, mc, params, batch, dev) -> dict:
+    """(f)'s reference: the flagship teacher's post-norm hidden states in
+    one process (the causal flash kernel at every layer), no gradient, and
+    that forward's peak device memory."""
+    import torch
+
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.models.idefics import make_idefics_forward_fns
+
+    forward = make_idefics_forward_fns(mc, eos_token_id=2)[0]
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash = L.flash_attention.launches
+    with torch.no_grad():
+        hidden = forward(params, batch["inputs"], None, return_hidden=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    flash = L.flash_attention.launches - flash
+    log(f"phase 11 (f) reference: flagship teacher forward {tuple(hidden.shape)} in one "
+        f"process, {flash} flash launches, peak device memory {peak:.2f} GiB")
+    return {"shape": shape, "inputs": {k: v.cpu() for k, v in batch["inputs"].items()},
+            "hidden": hidden.cpu(), "peak_gib": round(peak, 2)}
 
 
 def flagship_gradient_check(tool, shape: str, mode: str, params, batch, dev) -> dict:
@@ -4519,11 +4547,14 @@ def _first(tree, n: int):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: distribution (tensor and data parallelism on torch.distributed)
+# phase 11: distribution (tensor, data and sequence parallelism on
+# torch.distributed)
 # ---------------------------------------------------------------------------
-# (a) runs in this process at world size 1 over NCCL; (b)-(d) in
+# (a) runs in this process at world size 1 over NCCL; (b)-(g) in
 # PHASE11_WORLD ranks that share the card over gloo (NCCL refuses two ranks
 # on one device), each a subprocess of this script (``--phase11-rank``).
+# (e)-(g) run at sp = PHASE11_WORLD: ring attention, its exchange staged
+# through the host under gloo.
 # Two ranks on one card measure correctness and memory, not multi-GPU speed.
 PHASE11_WORLD = 2
 # (d): run A's int8 model cut to its first layers (two cross-attention blocks)
@@ -4534,8 +4565,12 @@ TP_INT8_ROWS = 3
 TP_INT8_STEPS = 3
 # what phase 11 is held to, gathered by the earlier phases: (b) phase 4's
 # encodings, beam tokens and first-step logits; (c) phase 5's batch, loss
-# and gradients; (d) phase 6 run A's cut model's ICL prefill
+# and gradients, which (e) is held to as well; (d) phase 6 run A's cut
+# model's ICL prefill; (f) phase 9's flagship teacher forward; (g) phases
+# 7's and 8's models cut to SP_FAMILY_LAYERS, one 32-shot teacher forward
 PHASE11_REFS: dict = {}
+# (g)'s depth: two of OpenFlamingo's cross-attention groups
+SP_FAMILY_LAYERS = 8
 # phase 5's launch prediction a micro-step, for (a) and (c)
 PHASE5: dict = {}
 ENC_KEYS = ("input_ids", "attention_mask", "pixel_values", "pixel_valid")
@@ -4883,7 +4918,7 @@ def distribution_path(dev, tmp: Path) -> dict:
     with ThreadPoolExecutor(PHASE11_WORLD) as pool:
         for r, p in enumerate(procs):
             pool.submit(pump, r, p)
-        deadline = time.monotonic() + 400
+        deadline = time.monotonic() + 600
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
                 break
@@ -4899,8 +4934,10 @@ def distribution_path(dev, tmp: Path) -> dict:
         for k, v in results[r]["counts"].items():
             counts[k] = counts.get(k, 0) + v
     log(f"phase 11: (a) {t_a:.1f} s, ranks {time.perf_counter() - t0 - t_a:.1f} s; rank "
-        f"peak device memory {[results[r]['peak_gib'] for r in range(PHASE11_WORLD)]} GiB; "
-        f"launches over (a) and every rank {counts}")
+        f"peak device memory {[results[r]['peak_gib'] for r in range(PHASE11_WORLD)]} GiB over "
+        f"(b)-(d), {[results[r]['sp_peak_gib'] for r in range(PHASE11_WORLD)]} GiB in (f)'s "
+        f"forward ({PHASE11_REFS['f']['peak_gib']} GiB in one process); launches over (a) and "
+        f"every rank {counts}")
     return counts
 
 
@@ -5196,6 +5233,300 @@ def int8_tp_steps(bind, params, ref: dict, counters: dict, dev) -> dict:
     return counts
 
 
+def family_cut(bundle, n: int, copy: bool = False) -> tuple:
+    """An Idefics2 or OpenFlamingo bundle's model cut to its first ``n``
+    decoder layers (and OpenFlamingo's cross-attention groups among them):
+    ``(params, train_forward)``, the forward normalising raw pixels as the
+    registry's does; the cut leaves views, or copies so that the rest can
+    go."""
+    from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD, SIGLIP_MEAN, SIGLIP_STD
+    from licv_vqa_tpu_torch.models import idefics2, openflamingo
+    from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
+
+    mc = bundle.model_cfg
+    n = min(n, mc.text.n_layers)
+    params = dict(bundle.params, layers=_first(bundle.params["layers"], n))
+    if "idefics2" in bundle.name:
+        make, mean, std = idefics2.make_idefics2_forward_fns, SIGLIP_MEAN, SIGLIP_STD
+    else:
+        make, mean, std = openflamingo.make_openflamingo_forward_fns, CLIP_MEAN, CLIP_STD
+        params["xattn"] = _first(bundle.params["xattn"], n // mc.cross_attn_every_n_layers)
+    if copy:
+        for key in ("layers", "xattn"):
+            if key in params:
+                params[key] = _cloned(params[key])
+    cut = dataclasses.replace(mc, text=dataclasses.replace(mc.text, n_layers=n))
+    fwd = _wrap_pixel_normalize(*make(cut, bundle.eos_token_id), mean, std)[0]
+    return params, fwd
+
+
+def tower_counters() -> dict:
+    from licv_vqa_tpu_torch.models import layers as L
+    from licv_vqa_tpu_torch.ops import flash_alibi as FA
+
+    return {"flash_attention_fwd": L.flash_attention,
+            "flash_alibi_attention": FA.flash_alibi_attention,
+            "flash_attention_bidir": L.flash_attention_bidir, "vit_attention": L.vit_attention}
+
+
+def sp_family_reference(e: EvalSetup, lmm: str) -> dict:
+    """(g)'s reference from phase 7's or 8's model: its first
+    ``SP_FAMILY_LAYERS`` layers, one 32-shot teacher forward in one process
+    through the flash kernels, right-padded to an even length as the
+    trainer pads it for sp = 2: the inputs, the post-norm hidden states and
+    the launches."""
+    import numpy as np
+    import torch
+
+    from licv_vqa_tpu_torch.train.trainer import _pad_seq_to_multiple, batch_to_device
+
+    b = e.bundle
+    enc = b.processor.prepare_input([icl_prompt(e, 1, e.shots[1])], padding=True,
+                                    padding_side="right")
+    inputs = {k: np.asarray(v) for k, v in enc.items()
+              if k in ENC_KEYS + ("pixel_attention_mask",)}
+    inputs = _pad_seq_to_multiple(inputs, PHASE11_WORLD, b.pad_token_id)
+    params, forward = family_cut(b, SP_FAMILY_LAYERS)
+    counters = tower_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    with torch.no_grad():
+        hidden = forward(params, batch_to_device(inputs, b.device), None, return_hidden=True)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches - before[k] for k, fn in counters.items()}
+    log(f"phase 11 (g) reference: {lmm} cut to {SP_FAMILY_LAYERS} layers, {ICL_SHOTS}-shot "
+        f"teacher of {int(inputs['attention_mask'].sum())} tokens padded to "
+        f"{inputs['input_ids'].shape[1]}, one process, launches {counts}")
+    return {"inputs": inputs, "hidden": hidden.cpu(), "counts": counts}
+
+
+def sp_mesh():
+    """The dp 1 x sp ``PHASE11_WORLD`` mesh of (e)-(g), made current."""
+    from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, set_current_mesh
+
+    mesh = create_mesh(MeshConfig(dp=1, tp=1, sp=PHASE11_WORLD))
+    set_current_mesh(mesh)
+    return mesh
+
+
+def odd_teacher(batch: dict, pad_id: int) -> dict:
+    """``batch`` with its teacher one column shorter (a trailing column of
+    pads dropped) or longer (one of pads added): an odd length, which the
+    trainer pads back to an sp multiple.  Every real token stays."""
+    import numpy as np
+
+    tea = dict(batch["inputs"])
+    ids, mask = tea["input_ids"], tea["attention_mask"]
+    if ids.shape[1] % 2 == 0:
+        if not mask[:, -1].any():
+            ids, mask = ids[:, :-1], mask[:, :-1]
+        else:
+            ids = np.pad(ids, [(0, 0), (0, 1)], constant_values=pad_id)
+            mask = np.pad(mask, [(0, 0), (0, 1)])
+    tea.update(input_ids=np.ascontiguousarray(ids), attention_mask=np.ascontiguousarray(mask))
+    return dict(batch, inputs=tea)
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def rank_sp_train_path(dev, ref: dict, mesh, tmp: Path) -> dict:
+    """(e): phase 5's configuration at ``dp_sp``, sp = 2, on (c)'s batch
+    with its teacher made odd in length: the loss and the (icv, alpha)
+    gradients against one process's, each ICV launch on the rank's chunk,
+    no flash launch; then one trainer step, which pads the sequences and
+    whose artifact rank 0 alone writes."""
+    import torch
+    import torch.distributed as dist
+
+    from licv_vqa_tpu_torch.icv.encoder import GlobalICVEncoder
+    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn, reduce_gradients
+    from licv_vqa_tpu_torch.models.registry import build_model
+    from licv_vqa_tpu_torch.train import trainer as T
+    from licv_vqa_tpu_torch.utils import compose
+
+    # the module (``licv_vqa_tpu_torch.ops`` re-exports the function under its name)
+    I = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    b = one_by_one(lambda: build_model(compose(str(REPO / "config"), "train", TRAIN_ARGS),
+                                       device=dev, mesh=mesh))
+
+    def encoder():
+        return GlobalICVEncoder(b.hidden_size, b.n_layers, alpha_init_value=0.5,
+                                use_sigmoid=True, generator=torch.Generator().manual_seed(0),
+                                device=dev)
+
+    batch = odd_teacher(ref["batch"], b.pad_token_id)
+    padded = T._pad_seq_to_multiple(batch, mesh.sp, b.pad_token_id)
+    lengths = {k: (batch[k]["input_ids"].shape[1], padded[k]["input_ids"].shape[1])
+               for k in ("query_inputs", "inputs")}
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    chunks, launch = set(), I._icv_inject_triton
+
+    def spy(x, *a, **kw):  # the ICV kernel's tokens a launch
+        chunks.add(x.shape[1])
+        return launch(x, *a, **kw)
+
+    I._icv_inject_triton = spy
+    writes, save = [], T.save_icv_checkpoint
+
+    def spy_save(*a, **kw):
+        writes.append(1)
+        return save(*a, **kw)
+
+    T.save_icv_checkpoint = spy_save
+    try:
+        enc = encoder()
+        loss, _ = icv_loss_fn(enc, torch.tensor(1.0, device=dev), b.params,
+                              T.batch_to_device(padded, dev), b.train_forward,
+                              ICVModuleConfig(kl_impl="pallas"), b.pad_token_id, b.head_fn)
+        grads = reduce_gradients(dict(zip(("icv", "alpha"),
+                                          torch.autograd.grad(loss, (enc.icv, enc.alpha)))))
+        loss = loss.item()
+        tcfg = T.TrainerConfig(strategy="dp_sp", sp=mesh.sp, max_epochs=1,
+                               checkpoint_every_n_steps=0, log_every_n_steps=1)
+        state = T.Trainer(tcfg, ICVModuleConfig(kl_impl="pallas"), encoder(), b.train_forward,
+                          b.params, b.pad_token_id, head_fn=b.head_fn, mesh=mesh,
+                          ).fit([batch], tmp / "sp_run")
+    finally:
+        I._icv_inject_triton = launch
+        T.save_icv_checkpoint = save
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    rel_loss = abs(loss - ref["loss"]) / abs(ref["loss"])
+    rel = [rel_l2(grads[k], w) for k, w in zip(("icv", "alpha"), ref["grads"], strict=True)]
+    want = dict(PHASE5["want"], flash_attention_fwd=0, flash_attention_bwd=0)
+    chunk = padded["query_inputs"]["input_ids"].shape[1] // mesh.sp
+    icv = state.encoder.icv.detach()
+    mine = icv.clone()
+    dist.all_reduce(icv)
+    same = bool(torch.equal(icv, mine * PHASE11_WORLD))
+    log(f"(e) dp_sp, sp={mesh.sp}, chunk {mesh.sp_index}: lengths (given, padded) {lengths}; "
+        f"loss {loss:.6e} vs one process {ref['loss']:.6e} (rel {rel_loss:.3e}, limit {REL_TOL}); "
+        f"rel_l2 d_icv {rel[0]:.4e}, d_alpha {rel[1]:.4e} (limit {REL_L2_TOL}); ICV kernel "
+        f"tokens a launch {sorted(chunks)} (the student's chunk {chunk}); one trainer step: "
+        f"artifact writes on this rank {len(writes)}, ranks' ICVs equal {same}; launches "
+        f"{counts} (per step {want})")
+    if lengths["inputs"][0] % 2 == 0 or lengths["inputs"][1] % mesh.sp:
+        raise AssertionError("(e): the teacher was not odd, or not padded to an sp multiple")
+    if not (rel_loss <= REL_TOL and max(rel) <= REL_L2_TOL):
+        raise AssertionError("(e): the sp loss or gradients disagree with one process's")
+    if chunks != {chunk}:
+        raise AssertionError(f"(e): ICV launches over {sorted(chunks)} tokens, not the chunk")
+    if len(writes) != (1 if mesh.rank == 0 else 0) or not same:
+        raise AssertionError("(e): the artifact is not rank 0's alone, or the ranks' ICVs differ")
+    for k, per_step in want.items():
+        if counts[k] != 2 * per_step:
+            raise AssertionError(f"(e) {k}: {counts[k]} != 2 x {per_step}")
+    return counts
+
+
+def rank_sp_flagship_path(dev, ref: dict, mesh) -> dict:
+    """(f): the flagship teacher (int8 Idefics-9B, bs 4, 2048 tokens; the
+    bench tool's weights) forward at sp = 2, no gradient: the gathered
+    hidden states against one process's, no flash launch, and the rank's
+    peak device memory beside the one process's."""
+    import torch
+
+    from licv_vqa_tpu_torch.models.idefics import make_idefics_forward_fns
+
+    tool = bench_tool()
+    mc, *_, quantize = tool.shape_config(ref["shape"], FLAGSHIP_MODES[0])
+    params = one_by_one(lambda: tool.build_params(mc, quantize, dev))
+    forward = make_idefics_forward_fns(mc, eos_token_id=2)[0]
+    inputs = {k: v.to(dev) for k, v in ref["inputs"].items()}
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hidden = forward(params, inputs, None, return_hidden=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    counts = {k: fn.launches for k, fn in counters.items()}
+    rel = rel_l2(hidden, ref["hidden"])
+    want_vit = vit_per_bind(mc.vision, dev)
+    log(f"(f) flagship teacher forward {tuple(hidden.shape)} at sp={mesh.sp}, chunk "
+        f"{mesh.sp_index}: gathered hidden vs one process rel_l2 {rel:.4e} (limit {REL_L2_TOL}); "
+        f"{wall:.2f} s (host clock, two ranks on one card over gloo); peak device memory "
+        f"{peak:.2f} GiB on this rank, {ref['peak_gib']:.2f} GiB in one process; launches "
+        f"{counts} (vit_attention {want_vit}, no flash)")
+    if not (rel <= REL_L2_TOL and torch.isfinite(hidden).all()):
+        raise AssertionError("(f): the sp teacher's hidden states disagree with one process's")
+    if counts["flash_attention_fwd"] or counts["vit_attention"] != want_vit:
+        raise AssertionError("(f): launches are not the predicted ones")
+    return dict(counts, sp_peak_gib=round(peak, 2))
+
+
+def rank_sp_family_path(dev, ref: dict, mesh, lmm: str) -> dict:
+    """(g): ``lmm`` cut to ``SP_FAMILY_LAYERS`` layers, one 32-shot teacher
+    forward at sp = 2 against one process's (phase 7's or 8's model): the
+    gathered hidden states, the towers' launches those of one process (the
+    towers run whole on every sp rank), no decoder flash launch."""
+    import torch
+
+    from licv_vqa_tpu_torch.models.registry import build_model
+    from licv_vqa_tpu_torch.train.trainer import batch_to_device
+    from licv_vqa_tpu_torch.utils import compose
+
+    cfg = compose(str(REPO / "config"), "inference", [
+        f"lmm={lmm}", "device=cuda", "run_name=phase11", "bs=1"])
+
+    def build():
+        full = build_model(cfg, device=dev)
+        cut = family_cut(full, SP_FAMILY_LAYERS, copy=True)
+        full.params = None
+        free_device_memory()
+        return cut
+
+    params, forward = one_by_one(build)
+    counters = tower_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        hidden = forward(params, batch_to_device(ref["inputs"], dev), None, return_hidden=True)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    rel = rel_l2(hidden, ref["hidden"])
+    want = dict(ref["counts"], flash_attention_fwd=0, flash_alibi_attention=0)
+    log(f"(g) {lmm}, {SP_FAMILY_LAYERS} layers, {ICL_SHOTS}-shot teacher "
+        f"{tuple(hidden.shape)} at sp={mesh.sp}, chunk {mesh.sp_index}: gathered hidden vs one "
+        f"process rel_l2 {rel:.4e} (limit {REL_L2_TOL}); launches {counts} (want {want})")
+    if not (rel <= REL_L2_TOL and torch.isfinite(hidden).all()):
+        raise AssertionError(f"(g) {lmm}: the sp teacher's hidden states disagree")
+    if counts != want:
+        raise AssertionError(f"(g) {lmm}: launches are not the predicted ones")
+    return counts
+
+
+def ring_ms(dev, mesh) -> dict:
+    """Milliseconds one ``ring_shift`` of (f)'s K/V chunk takes between the
+    ranks (mean of 3 after a warm-up): (2, 4, 1024, 32, 128) bf16, 64 MiB,
+    staged through the host under gloo."""
+    import torch
+
+    from licv_vqa_tpu_torch.parallel.ring import ring_shift, sequence_ring
+
+    s = 1024 * mesh.sp
+    ring = sequence_ring(torch.zeros((4, s), dtype=torch.int32, device=dev),
+                         torch.ones((4, s), dtype=torch.int32, device=dev))
+    x = torch.ones((2, 4, 1024, 32, 128), dtype=torch.bfloat16, device=dev)
+    ring_shift(x, ring)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        y = ring_shift(x, ring)
+    torch.cuda.synchronize()
+    if not torch.equal(y, x):
+        raise AssertionError("ring_shift: the chunk came back changed")
+    return {"(2,4,1024,32,128) bf16": round((time.perf_counter() - t0) / 3 * 1e3, 3)}
+
+
 def collective_ms(dev) -> dict:
     """Milliseconds an f32 all-reduce between the ranks takes on the card
     (mean of 10 after 2 warm-up calls): a beam step's activation (3 x 4096)
@@ -5218,7 +5549,7 @@ def collective_ms(dev) -> dict:
 
 
 def phase11_rank(refs_path: Path) -> int:
-    """A rank of phase 11 (b)-(d), started by ``distribution_path`` with the
+    """A rank of phase 11 (b)-(g), started by ``distribution_path`` with the
     launcher's environment; two ranks share the card over gloo."""
     import torch
 
@@ -5240,10 +5571,25 @@ def phase11_rank(refs_path: Path) -> int:
             for k, v in run().items():
                 counts[k] = counts.get(k, 0) + v
             free_device_memory()
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        t0 = time.perf_counter()
+        mesh = sp_mesh()
+        log(f"sp={mesh.sp}: ring_shift between the ranks on one card over gloo, ms: "
+            f"{ring_ms(dev, mesh)} (collective_ms beside it: {collective_ms(dev)})")
+        sp_peak = None
+        for run in (lambda: rank_sp_train_path(dev, refs["c"], mesh, Path(tmp)),
+                    lambda: rank_sp_flagship_path(dev, refs["f"], mesh),
+                    *(lambda lmm=lmm: rank_sp_family_path(dev, refs["g"][lmm], mesh, lmm)
+                      for lmm in refs["g"])):
+            res = run()
+            sp_peak = res.pop("sp_peak_gib", sp_peak)
+            for k, v in res.items():
+                counts[k] = counts.get(k, 0) + v
+            free_device_memory()
+        log(f"(e)-(g): {time.perf_counter() - t0:.1f} s")
     shutdown_distributed()
-    print("PHASE11_RANK_RESULT " + json.dumps({"counts": counts, "peak_gib": round(peak, 2)}),
-          flush=True)
+    print("PHASE11_RANK_RESULT " + json.dumps({"counts": counts, "peak_gib": round(peak, 2),
+                                               "sp_peak_gib": sp_peak}), flush=True)
     return 0
 
 
@@ -5365,7 +5711,8 @@ def main() -> int:
         "vit_attention_f32": counts["vit_attention_f32"],
         "flash_alibi_attention": counts_of["flash_alibi_attention"]
         + counts_q["flash_alibi_attention"],
-        "flash_attention_bidir": counts_i2["flash_attention_bidir"],
+        "flash_attention_bidir": counts_i2["flash_attention_bidir"]
+        + counts_dist.get("flash_attention_bidir", 0),
         "int4_matmul": counts_q["int4_matmul"],
         "w8a8_matmul": counts_q["w8a8_matmul"] + counts_tools["w8a8_matmul"]
         + counts_dist["w8a8_matmul"],

@@ -9,18 +9,21 @@ checkpoints under ``steps/``.
 
 ``device`` selects the torch device as in the inference CLI: ``cuda`` by
 default (the shared config's ``tpu``/``gpu`` mean the accelerator), ``cpu``
-for tests.  ``trainer.strategy=dp|dp_tp`` (with ``trainer.tp`` and
-``trainer.devices``) runs one process per rank under
-``python -m torch.distributed.run``: each rank computes on
+for tests.  ``trainer.strategy=dp|dp_tp|dp_sp|dp_tp_sp`` (with
+``trainer.tp``, ``trainer.sp`` and ``trainer.devices``) runs one process per
+rank under ``python -m torch.distributed.run``: each rank computes on
 ``cuda:LOCAL_RANK`` (or the CPU), over ``nccl`` (``gloo`` on the CPU), and
-rank 0 writes the artifacts.  Sequence parallelism (``dp_sp``/``dp_tp_sp``)
-and ``data_cfg.loader=grain`` are ROADMAP.md Queue 1 item 16b and raise.
+rank 0 writes the artifacts.  ``data_cfg.loader=grain`` reads through
+``train/grain_loader.py`` (as ``train.py`` does), unsharded on every rank:
+each rank builds the one global batch and takes its rows.
 
 Examples:
     python train_torch.py run_name=vqav2_idefics9b icv_module.icv_lr=1e-3
     python train_torch.py lmm=tiny-idefics trainer=debug data_cfg.bs=2 device=cpu
     python -m torch.distributed.run --standalone --nproc_per_node=2 train_torch.py \
         trainer.strategy=dp_tp trainer.tp=2
+    python -m torch.distributed.run --standalone --nproc_per_node=2 train_torch.py \
+        trainer.strategy=dp_sp trainer.sp=2
 """
 
 from __future__ import annotations
@@ -66,13 +69,11 @@ def main(argv: list[str] | None = None) -> Path:
         if (save_path / marker).exists():
             logger.info("%s exists — exiting", save_path / marker)
             return save_path
-    if str(cfg.data_cfg.get("loader", "threads")) != "threads":
-        raise NotImplementedError(
-            "data_cfg.loader=grain (per-process disjoint shards) is not ported to "
-            "licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 16b)"
-        )
+    loader_kind = str(cfg.data_cfg.get("loader", "threads"))
+    if loader_kind not in ("threads", "grain"):
+        raise ValueError(f"data_cfg.loader must be threads or grain, got {loader_kind!r}")
     trainer_cfg = TrainerConfig.from_config(cfg.trainer)
-    trainer_cfg.check_ported()
+    trainer_cfg.check_strategy()
     if cfg.get("wandb", False):
         logger.warning("wandb is not wired in the port — metrics.jsonl only")
     launched = maybe_initialize_distributed(device.type)
@@ -92,14 +93,32 @@ def _train(cfg, device, trainer_cfg, save_path: Path, seed: int) -> Path:
     prompt_manager = init_prompt_manager(cfg)
     train_ds = init_train_dataset(cfg, prompt_manager, seed=seed)
     bundle.processor.padding_side = "right"  # reference icv_datamodule.py:22
-    loader = DataLoader(
-        train_ds,
-        batch_size=int(cfg.data_cfg.bs),
-        collate_fn=functools.partial(collate_icv_batch, processor=bundle.processor),
-        shuffle=True,
-        seed=seed,
-        num_workers=int(cfg.data_cfg.num_workers),
-    )
+    collate = functools.partial(collate_icv_batch, processor=bundle.processor)
+    if str(cfg.data_cfg.get("loader", "threads")) == "grain":
+        from ..train.grain_loader import GrainDataLoader
+
+        loader = GrainDataLoader(
+            train_ds,
+            batch_size=int(cfg.data_cfg.bs),
+            collate_fn=collate,
+            shuffle=True,
+            seed=seed,
+            num_workers=int(cfg.data_cfg.num_workers),
+            num_epochs=1,  # the Trainer drives epochs by re-iterating
+            # one global batch a step on every rank, split by the trainer:
+            # JAX's single-process order
+            shard_index=0,
+            shard_count=1,
+        )
+    else:
+        loader = DataLoader(
+            train_ds,
+            batch_size=int(cfg.data_cfg.bs),
+            collate_fn=collate,
+            shuffle=True,
+            seed=seed,
+            num_workers=int(cfg.data_cfg.num_workers),
+        )
 
     enc_cfg = cfg.icv_module.icv_encoder
     use_sigmoid = bool(enc_cfg.get("use_sigmoid", False))

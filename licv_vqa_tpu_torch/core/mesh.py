@@ -9,15 +9,19 @@ axes and their order are JAX's:
 - ``dp``: data parallel (batch rows);
 - ``tp``: tensor parallel (Megatron column / row shards of the frozen
   weights, one all-reduce per projection pair);
-- ``sp``: sequence parallel, not ported (ROADMAP.md Queue 1 item 16b):
-  asking for ``sp > 1`` raises.
+- ``sp``: sequence parallel (the train forwards' ring attention,
+  ``parallel/ring.py``): each sp rank computes its ``S/sp`` tokens of the
+  same batch rows.
 
 The dp×tp×sp layout keeps JAX's device order (``create_mesh`` reshapes the
-device list to ``(dp, tp, sp)``): tp varies fastest, so rank
-``r = d·tp + t``.  ``current_mesh()`` is the mesh the model code reads (the
-tp group of the projections, the dp group of the loss); ``using_mesh`` sets
-it for a run (the CLIs, ``Trainer.fit``) and ``set_current_mesh`` for good
-(the tests' ranks); ``None`` means one process and no collectives.
+device list to ``(dp, tp, sp)``): sp varies fastest, then tp, so rank
+``r = (d·tp + t)·sp + s`` (at sp = 1, ``r = d·tp + t``).
+``current_mesh()`` is the mesh the model code reads (the tp group of the
+projections, the sp group of the ring and the hidden-state gather, the dp
+group of the loss, the gradient group of the ``(icv, alpha)`` sums);
+``using_mesh`` sets it for a run (the CLIs, ``Trainer.fit``) and
+``set_current_mesh`` for good (the tests' ranks); ``None`` means one
+process and no collectives.
 """
 
 from __future__ import annotations
@@ -31,8 +35,6 @@ AXIS_DP = "dp"
 AXIS_TP = "tp"
 AXIS_SP = "sp"
 MESH_AXES = (AXIS_DP, AXIS_TP, AXIS_SP)
-
-_SP_NOT_PORTED = "sequence parallelism (sp > 1) is not ported (ROADMAP.md Queue 1 item 16b)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +61,15 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a dp×tp mesh and the process groups it joins:
-    ``tp_group`` (the ranks that share its batch rows and split its
-    weights) and ``dp_group`` (the ranks that hold its weight shard and
-    split the batch).  A group of one rank is ``None``: its collectives
-    are no-ops."""
+    """This rank's place in a dp×tp×sp mesh and the process groups it
+    joins: ``tp_group`` (the ranks that share its batch rows and tokens and
+    split its weights), ``sp_group`` (the ranks that share its rows and
+    weight shard and split the tokens: the ring and the hidden-state
+    gather), ``dp_group`` (the ranks that hold its weight shard and tokens
+    and split the batch: the loss's denominators) and ``grad_group`` (the
+    ranks that hold its weight shard: dp × sp, the ``(icv, alpha)``
+    gradient sums).  A group of one rank is ``None``: its collectives are
+    no-ops."""
 
     dp: int
     tp: int
@@ -72,17 +78,46 @@ class Mesh:
     tp_index: int
     tp_group: Any = None
     dp_group: Any = None
+    sp: int = 1
+    sp_index: int = 0
+    sp_group: Any = None
+    grad_group: Any = None
 
     @property
     def world_size(self) -> int:
-        return self.dp * self.tp
+        return self.dp * self.tp * self.sp
 
 
-def rank_coords(rank: int, dp: int, tp: int) -> tuple[int, int]:
-    """``(dp_index, tp_index)`` of ``rank`` in JAX's device order (tp fastest)."""
-    if not 0 <= rank < dp * tp:
-        raise ValueError(f"rank {rank} outside a {dp}x{tp} mesh")
-    return rank // tp, rank % tp
+def mesh_rank(d: int, t: int, s: int, tp: int, sp: int) -> int:
+    """The rank at mesh coordinates ``(d, t, s)``: JAX's device order."""
+    return (d * tp + t) * sp + s
+
+
+def rank_coords(rank: int, dp: int, tp: int, sp: int = 1) -> tuple[int, int, int]:
+    """``(dp_index, tp_index, sp_index)`` of ``rank`` in JAX's device order
+    (sp fastest, then tp)."""
+    if not 0 <= rank < dp * tp * sp:
+        raise ValueError(f"rank {rank} outside a {dp}x{tp}x{sp} mesh")
+    return rank // (tp * sp), (rank // sp) % tp, rank % sp
+
+
+def group_members(dp: int, tp: int, sp: int) -> dict:
+    """Every process group of a dp×tp×sp mesh as lists of global ranks, in
+    the order ``create_mesh`` creates them: ``tp`` (one a (dp, sp) index),
+    ``dp`` (one a (tp, sp) index), and at sp > 1 ``sp`` (one a (dp, tp)
+    index) and ``grad`` (one a tp index: its dp × sp ranks)."""
+    out = {
+        "tp": [[mesh_rank(d, t, s, tp, sp) for t in range(tp)]
+               for d in range(dp) for s in range(sp)],
+        "dp": [[mesh_rank(d, t, s, tp, sp) for d in range(dp)]
+               for t in range(tp) for s in range(sp)],
+    }
+    if sp > 1:
+        out["sp"] = [[mesh_rank(d, t, s, tp, sp) for s in range(sp)]
+                     for d in range(dp) for t in range(tp)]
+        out["grad"] = [[mesh_rank(d, t, s, tp, sp) for d in range(dp) for s in range(sp)]
+                       for t in range(tp)]
+    return out
 
 
 def create_mesh(config: Optional[MeshConfig] = None, world_size: Optional[int] = None,
@@ -100,31 +135,27 @@ def create_mesh(config: Optional[MeshConfig] = None, world_size: Optional[int] =
     if rank is None:
         rank = dist.get_rank() if initialized else 0
     dp, tp, sp = config.resolve(world_size)
-    if sp != 1:
-        raise NotImplementedError(_SP_NOT_PORTED)
     if world_size > 1 and not initialized:
         raise RuntimeError(
             f"a mesh of {world_size} ranks needs an initialised torch.distributed "
             "default group (core.distributed.maybe_initialize_distributed)")
     if initialized and dist.get_world_size() != world_size:
         raise ValueError(f"mesh of {world_size} ranks in a world of {dist.get_world_size()}")
-    d, t = rank_coords(rank, dp, tp)
-    tp_group = dp_group = None
+    d, t, s = rank_coords(rank, dp, tp, sp)
+    groups = {"tp": None, "dp": None, "sp": None, "grad": None}
     if world_size > 1:
         # new_group is collective over the whole world: every rank creates
         # every group, in one order
-        for di in range(dp):
-            ranks = [di * tp + ti for ti in range(tp)]
-            g = dist.new_group(ranks) if tp > 1 else None
-            if di == d:
-                tp_group = g
-        for ti in range(tp):
-            ranks = [di * tp + ti for di in range(dp)]
-            g = dist.new_group(ranks) if dp > 1 else None
-            if ti == t:
-                dp_group = g
-    return Mesh(dp=dp, tp=tp, rank=rank, dp_index=d, tp_index=t,
-                tp_group=tp_group, dp_group=dp_group)
+        for name, member_lists in group_members(dp, tp, sp).items():
+            for members in member_lists:
+                g = dist.new_group(members) if len(members) > 1 else None
+                if rank in members:
+                    groups[name] = g
+        if sp == 1:
+            groups["grad"] = groups["dp"]
+    return Mesh(dp=dp, tp=tp, rank=rank, dp_index=d, tp_index=t, tp_group=groups["tp"],
+                dp_group=groups["dp"], sp=sp, sp_index=s, sp_group=groups["sp"],
+                grad_group=groups["grad"])
 
 
 _current: Optional[Mesh] = None

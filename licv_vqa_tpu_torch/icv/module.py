@@ -22,7 +22,13 @@ rows of one global batch) the losses divide by the GLOBAL denominators
 JAX's global-batch loss; the ``(icv, alpha, T)`` gradients and the logged
 losses are summed over dp, and the clip takes the norm of the summed
 gradients.  Under tp every rank of a group computes the same loss (the
-logits are gathered whole) and the same gradients.
+logits are gathered whole) and the same gradients.  Under sp every rank of
+a group computes the same loss too (the post-norm hidden is gathered whole
+before the head, ``parallel/ring.py``), but the ``(icv, alpha)`` gradient
+of each is the part its chunk of tokens carries, so those are summed over
+dp × sp; the temperature enters after the gather, its gradient is whole on
+every sp rank and is summed over dp alone.  The clip then sees JAX's global
+norm.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from ..ops.kl import (
     masked_kl_divergence,
     shifted_cross_entropy,
 )
-from ..parallel.sharding import all_reduce_dp, dp_size
+from ..parallel.sharding import all_reduce_dp, all_reduce_grad, dp_size, sp_size
 from .encoder import GlobalICVEncoder
 
 
@@ -347,6 +353,16 @@ def decay_temperature(state: TrainState, cfg: ICVModuleConfig) -> None:
         t.copy_(torch.clamp(t * cfg.decay_ratio, min=cfg.min_temperature))
 
 
+def reduce_gradients(grads: dict) -> dict:
+    """A rank's ``{icv, alpha, temperature}`` gradients made the global
+    batch's (None stays None): ``(icv, alpha)`` summed over dp × sp (one
+    part a token chunk), the temperature over dp alone (it enters after
+    the hidden-state gather, so it is whole on every sp rank)."""
+    return {k: None if g is None else (all_reduce_dp if k == "temperature"
+                                       else all_reduce_grad)(g)
+            for k, g in grads.items()}
+
+
 def make_train_step(
     forward_fn: Callable,
     cfg: ICVModuleConfig,
@@ -366,8 +382,8 @@ def make_train_step(
         trainable = {"icv": enc.icv, "alpha": enc.alpha, "temperature": state.temperature}
         wrt = {k: p for k, p in trainable.items() if p.requires_grad}
         grads = dict(zip(wrt, torch.autograd.grad(loss, list(wrt.values()), allow_unused=True)))
-        if dp_size() > 1:  # each rank's loss is its share of the global one
-            grads = {k: None if g is None else all_reduce_dp(g) for k, g in grads.items()}
+        if dp_size() > 1 or sp_size() > 1:  # each rank's loss is its share of the global one
+            grads = reduce_gradients(grads)
             for key in ("loss", "kl_loss", "ce_loss"):
                 if key in metrics:
                     metrics[key] = all_reduce_dp(metrics[key])

@@ -53,6 +53,7 @@ from ..ops.flash_alibi import flash_alibi_attention, flash_alibi_usable
 from ..ops.icv_inject import add_icv_inject, icv_inject, icv_inject_after_add
 from ..ops.int8_matmul import qdot
 from ..ops.quantize import dequantize_kv, quantize_kv_rows
+from ..parallel.ring import SeqRing, gather_sequence, ring_self_attention, sequence_ring
 from ..parallel.sharding import copy_to_tp, gather_from_tp, local_heads, qdot_row
 from . import layers as L
 from .config import BLOCK_OUTPUT, MLP_OUTPUT, DecoderConfig
@@ -303,15 +304,23 @@ def _norm(cfg: DecoderConfig, w, b, x):
     return L.layer_norm(w, b, x, cfg.norm_eps)
 
 
-def _attend(cfg: DecoderConfig, q, k, v, mask, kv_write, flash_valid, bias) -> torch.Tensor:
+def _attend(cfg: DecoderConfig, q, k, v, mask, kv_write, flash_valid, bias,
+            ring: Optional[SeqRing] = None) -> torch.Tensor:
     """A layer's attention after its projections, rope and q/k norms: with
     ``kv_write`` the new K/V rows go into the cache first (the int8 cache's
     quantized rows, this step attending their round trip, which later
     steps read back); then the causal flash kernel, the ALiBi flash kernel,
     the cached split softmax or plain attention, by the gates of
-    ``decoder_layer``.  Returns (B, s, H, Dh) over the rank's heads."""
+    ``decoder_layer``.  A no-cache block split over sp (``ring``) takes
+    ring attention ahead of every other branch, as JAX's does
+    (decoder.py:425-455): it makes the mask and the ALiBi bias per chunk.
+    Returns (B, s, H, Dh) over the rank's heads."""
     s, nh, dh = q.shape[1], q.shape[2], cfg.head_dim
     nkv = k.shape[2]
+    if ring is not None and kv_write is None:
+        return ring_self_attention(q, k, v, ring, n_heads=cfg.n_heads,
+                                   alibi=cfg.positional == "alibi",
+                                   logit_softcap=cfg.attn_logit_softcap)
     k_local, v_local = k, v
     if kv_write is not None:
         k_cache, v_cache, index = kv_write
@@ -369,6 +378,7 @@ def decoder_layer(
     kv_write: Optional[tuple] = None,  # (k_cache_l, v_cache_l, index: int or (B,) tensor)
     flash_valid: Optional[torch.Tensor] = None,  # (B, s): enables the flash path
     bias: Optional[torch.Tensor] = None,  # (B, H, s, Sk) f32 ALiBi bias
+    ring: Optional[SeqRing] = None,  # the no-cache block's split over sp
 ) -> torch.Tensor:
     """One pre-norm layer, LLaMA's or MPT's (``cfg.positional``).  With
     ``kv_write`` the new K/V rows go into the cache in place (see the module
@@ -376,7 +386,9 @@ def decoder_layer(
     prefill into an EMPTY cache, or the no-cache train forward), so the
     flash kernels attend the local keys and ignore the cache mask.  ALiBi
     layers take ``bias`` over the same key columns as ``mask``; it may be
-    None only where the ALiBi flash branch is taken."""
+    None only where the ALiBi flash branch or the ring is taken.  Under
+    ``ring`` ``h`` is this rank's chunk of the sequence and ``cos``/``sin``
+    the chunk's (from the whole rows' positions); ``mask`` is unused."""
     b, s, d = h.shape
     dh = cfg.head_dim
     # a token-count gate: prefill and bind blocks run w8a8, decode steps
@@ -395,7 +407,7 @@ def decoder_layer(
         q = L.rms_norm(p["attn"]["q_norm"], q, cfg.norm_eps)
         k = L.rms_norm(p["attn"]["k_norm"], k, cfg.norm_eps)
 
-    attn = _attend(cfg, q, k, v, mask, kv_write, flash_valid, bias)
+    attn = _attend(cfg, q, k, v, mask, kv_write, flash_valid, bias, ring)
     h = h + qdot_row(attn.reshape(b, s, -1), p["attn"]["wo"], a8=a8).to(h.dtype)
 
     x2 = _norm(cfg, p["ln2"], p.get("ln2_b"), h)
@@ -574,18 +586,28 @@ def forward_hidden(
     Without a cache: the causal mask from ``attention_mask``, which also
     gates the flash branch (a self-contained block); ``remat`` checkpoints
     each layer for the backward (``jax.checkpoint(body)``, :795-796), when
-    autograd is recording.  With one: this block's K/V are written into it
-    in place at ``cache["index"]``, and ``prefill_flash`` (the attention
-    mask) marks a prefill into an EMPTY cache, which enables the flash
-    kernel."""
+    autograd is recording.  Under a mesh with sp > 1 the positions come
+    from the whole rows, each rank runs the layers on its chunk with ring
+    attention (no dense mask or ALiBi bias is built, JAX :744-757) and the
+    post-norm hidden is gathered whole over sp.  With a cache: this
+    block's K/V are written into it in place at ``cache["index"]``, and
+    ``prefill_flash`` (the attention mask) marks a prefill into an EMPTY
+    cache, which enables the flash kernel."""
     icv = cast_icv(icv_scaled, cfg.dtype)
     h = inputs_embeds
     s = h.shape[1]
+    ring = None
     if cache is None:
         if positions is None:
             positions = _positions_from_mask(attention_mask)
-        mask = L.causal_mask(positions, positions, attention_mask.bool())
-        flash_valid, index = attention_mask, None
+        ring = sequence_ring(positions, attention_mask)
+        if ring is None:
+            mask = L.causal_mask(positions, positions, attention_mask.bool())
+            flash_valid = attention_mask
+        else:
+            h, positions = ring.take(h), ring.take(positions)
+            mask = flash_valid = None
+        index = None
     else:
         if positions is None:
             raise ValueError("positions required when decoding with a cache")
@@ -595,7 +617,7 @@ def forward_hidden(
     cos = sin = bias = None
     if cfg.positional == "rope":
         cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    else:
+    elif ring is None:
         bias = alibi_bias_for(cfg, positions, cache, flash_valid)
     remat = remat and cache is None and torch.is_grad_enabled()
     for li in range(cfg.n_layers):
@@ -607,7 +629,7 @@ def forward_hidden(
         def layer_fn(hh, icv_arg, p_l=p_l, kv_write=kv_write):
             return decoder_layer(
                 cfg, p_l, hh, cos, sin, mask, icv_arg, kv_write=kv_write,
-                flash_valid=flash_valid, bias=bias,
+                flash_valid=flash_valid, bias=bias, ring=ring,
             )
 
         icv_arg = _icv_row(icv, li)
@@ -617,7 +639,8 @@ def forward_hidden(
             h = layer_fn(h, icv_arg)
     if cache is not None:
         cache["index"] = index + s
-    return _norm(cfg, params["final_norm"], params.get("final_norm_b"), h), cache
+    h = _norm(cfg, params["final_norm"], params.get("final_norm_b"), h)
+    return gather_sequence(h, ring), cache
 
 
 def causal_lm_forward(

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.int8_matmul import qdot
+from ..parallel.ring import gather_sequence, sequence_ring
 from ..parallel.sharding import copy_to_tp, qdot_row
 from . import layers as L
 from .config import BLOCK_OUTPUT, DecoderConfig, PerceiverConfig, VisionConfig
@@ -346,7 +347,11 @@ def idefics_forward(
 
     Without one: the grouped train forward (JAX :508-577), ``cache`` comes
     back None; ``return_hidden`` gives the post-norm hidden states in place
-    of the logits."""
+    of the logits.  Under a mesh with sp > 1 everything that reads the
+    whole row (positions, the image one-hot the caller made) is computed
+    before the rank takes its chunk of the embeddings, the one-hot's mask
+    and gate; the layers run on the chunk with ring attention and the
+    post-norm hidden is gathered whole over sp."""
     t = cfg.text
     interval = cfg.cross_layer_interval
     n_groups = t.n_layers // interval
@@ -359,11 +364,15 @@ def idefics_forward(
     xmask, gate = _xattn_mask(image_latents, image_attn_onehot)
     icv = cast_icv(icv_scaled, t.dtype)  # as JAX casts it (idefics.py:424-434)
     if cache is None:
+        positions = _positions_from_mask(attention_mask)
+        ring = sequence_ring(positions, attention_mask)
+        if ring is not None:
+            h, xmask, gate = ring.take(h), ring.take(xmask, dim=2), ring.take(gate)
         h = _grouped_train_forward(
-            cfg, params, h, attention_mask, image_latents, xmask, gate, icv,
-            cfg.remat_mode if remat and torch.is_grad_enabled() else "none",
+            cfg, params, h, attention_mask, positions, image_latents, xmask, gate, icv,
+            cfg.remat_mode if remat and torch.is_grad_enabled() else "none", ring,
         )
-        h = L.rms_norm(params["final_norm"], h, t.norm_eps)
+        h = gather_sequence(L.rms_norm(params["final_norm"], h, t.norm_eps), ring)
         if return_hidden:
             return h, None
         return logits_from_hidden(t, params, h), None
@@ -410,12 +419,15 @@ def _save_weight_matmuls(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask, gate, icv, mode):
+def _grouped_train_forward(cfg, params, h, attention_mask, positions, image_latents, xmask,
+                           gate, icv, mode, ring=None):
     """The no-cache decoder stack as JAX's grouped scan: per group, one
     gated cross-attention block then ``interval`` decoder layers.
     ``torch.utils.checkpoint`` stands where ``jax.checkpoint`` does
     (JAX idefics.py:545-574).  The flash branch is gated on the attention
-    mask as the JAX train forward gates it."""
+    mask as the JAX train forward gates it; under ``ring`` (``h``, ``xmask``
+    and ``gate`` the rank's chunk) the layers take ring attention and the
+    rope angles of the chunk's positions."""
     t = cfg.text
     interval = cfg.cross_layer_interval
     n_groups = t.n_layers // interval
@@ -426,8 +438,11 @@ def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask,
         )
     if mode not in ("both", "inner", "outer", "policy", "none"):
         raise ValueError(f"remat_mode must be both|inner|outer|none|policy, got {mode!r}")
-    positions = _positions_from_mask(attention_mask)
-    mask = L.causal_mask(positions, positions, attention_mask.bool())
+    if ring is None:
+        mask = L.causal_mask(positions, positions, attention_mask.bool())
+        flash_valid = attention_mask
+    else:
+        positions, mask, flash_valid = ring.take(positions), None, None
     cos, sin = L.rope_cos_sin(positions, t.head_dim, t.rope_theta)
 
     def run(fn, *args):
@@ -449,7 +464,7 @@ def _grouped_train_forward(cfg, params, h, attention_mask, image_latents, xmask,
 
             def layer_fn(hh, icv_arg, p_l=p_l):
                 return decoder_layer(
-                    t, p_l, hh, cos, sin, mask, icv_arg, flash_valid=attention_mask
+                    t, p_l, hh, cos, sin, mask, icv_arg, flash_valid=flash_valid, ring=ring
                 )
 
             icv_arg = _icv_row(icv, li)

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.int8_matmul import qdot
+from ..parallel.ring import gather_sequence, sequence_ring
 from ..parallel.sharding import copy_to_tp, qdot_row, tp_slice
 from . import layers as L
 from .config import BLOCK_OUTPUT, DecoderConfig, PerceiverConfig, VisionConfig
@@ -279,7 +280,11 @@ def openflamingo_forward(
     bias spans the cache's columns.  ``prefill_flash`` (the attention mask)
     marks a prefill into an EMPTY cache, which lets the ALiBi flash kernel
     run.  Without one: the grouped train forward; ``cache`` comes back
-    None and ``return_hidden`` gives the post-norm hidden states."""
+    None and ``return_hidden`` gives the post-norm hidden states.  Under a
+    mesh with sp > 1 the rank takes its chunk of the embeddings and of the
+    one-hot's mask and gate after the caller built the one-hot over the
+    whole rows; the layers take ring attention (which makes the ALiBi bias
+    per chunk) and the post-norm hidden is gathered whole over sp."""
     t = cfg.text
     every = cfg.cross_attn_every_n_layers
     n_groups = t.n_layers // every
@@ -290,10 +295,15 @@ def openflamingo_forward(
     xmask, gate = _xattn_mask(media_latents, media_onehot)  # (B, 1, s, Nk), (B, s)
     icv = cast_icv(icv_scaled, t.dtype)
 
+    ring = None
     if cache is None:
+        positions = _positions_from_mask(attention_mask)
+        ring = sequence_ring(positions, attention_mask)
+        if ring is not None:
+            h, xmask, gate = ring.take(h), ring.take(xmask, dim=2), ring.take(gate)
         h = _grouped_train_forward(
-            cfg, params, h, attention_mask, media_latents, xmask, gate, icv,
-            remat and torch.is_grad_enabled(),
+            cfg, params, h, attention_mask, positions, media_latents, xmask, gate, icv,
+            remat and torch.is_grad_enabled(), ring,
         )
     else:
         index = cache["index"]
@@ -315,7 +325,8 @@ def openflamingo_forward(
                 flash_valid=prefill_flash, bias=bias,
             )
         cache["index"] = index + s
-    h = L.layer_norm(params["final_norm"], params["final_norm_b"], h, t.norm_eps)
+    h = gather_sequence(L.layer_norm(params["final_norm"], params["final_norm_b"], h,
+                                     t.norm_eps), ring)
     if cache is None and return_hidden:
         return h, None
     if last_logit_only:
@@ -323,14 +334,16 @@ def openflamingo_forward(
     return logits_from_hidden(t, params, h), cache
 
 
-def _grouped_train_forward(cfg, params, h, attention_mask, media_latents, xmask, gate, icv,
-                           remat: bool):
+def _grouped_train_forward(cfg, params, h, attention_mask, positions, media_latents, xmask,
+                           gate, icv, remat: bool, ring=None):
     """The no-cache stack as JAX's grouped scan: per group, ``every - 1``
     layers, the gated cross-attention, then the group's last layer.  Under
     ``remat`` it checkpoints where ``jax.checkpoint`` sits: the group, each
     of its first ``every - 1`` layers and the cross-attention (the last
     layer is not checkpointed on its own, as in JAX).  The flash branch is
-    gated on the attention mask as JAX's train forward gates it."""
+    gated on the attention mask as JAX's train forward gates it; under
+    ``ring`` (``h``, ``xmask`` and ``gate`` the rank's chunk) the layers
+    take ring attention, and no dense mask or bias is built."""
     t = cfg.text
     every = cfg.cross_attn_every_n_layers
     n_groups = t.n_layers // every
@@ -339,9 +352,12 @@ def _grouped_train_forward(cfg, params, h, attention_mask, media_latents, xmask,
             f"openflamingo train forward needs n_layers ({t.n_layers}) divisible by "
             f"cross_attn_every_n_layers ({every})"
         )
-    positions = _positions_from_mask(attention_mask)
-    mask = L.causal_mask(positions, positions, attention_mask.bool())
-    bias = alibi_bias_for(t, positions, None, attention_mask)
+    if ring is None:
+        mask = L.causal_mask(positions, positions, attention_mask.bool())
+        bias = alibi_bias_for(t, positions, None, attention_mask)
+        flash_valid = attention_mask
+    else:
+        mask = bias = flash_valid = None
 
     def run(fn, *args):
         return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
@@ -351,7 +367,8 @@ def _grouped_train_forward(cfg, params, h, attention_mask, media_latents, xmask,
 
         def layer_fn(hh, icv_arg):
             return decoder_layer(
-                t, p_l, hh, None, None, mask, icv_arg, flash_valid=attention_mask, bias=bias
+                t, p_l, hh, None, None, mask, icv_arg, flash_valid=flash_valid, bias=bias,
+                ring=ring,
             )
 
         return layer_fn

@@ -1,3 +1,4 @@
-"""Tensor and data parallelism on ``torch.distributed`` (counterpart of
-``licv_vqa_tpu/parallel``; the ring attention of ``parallel/ring.py`` is
-ROADMAP.md Queue 1 item 16b)."""
+"""Tensor, data and sequence parallelism on ``torch.distributed``
+(counterpart of ``licv_vqa_tpu/parallel``): the sharding rules and the
+Megatron collectives (``sharding.py``), the ring attention over the sp axis
+(``ring.py``)."""

@@ -381,6 +381,21 @@ def all_reduce_dp(x: torch.Tensor) -> torch.Tensor:
     return _all_reduce_f32(x.detach(), current_mesh().dp_group).to(x.dtype)
 
 
+def sp_size() -> int:
+    mesh = current_mesh()
+    return 1 if mesh is None else mesh.sp
+
+
+def all_reduce_grad(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dp × sp (f32, no gradient): the ``(icv, alpha)`` gradients,
+    each sp rank's the part its chunk of tokens carries.  At sp = 1 it is
+    ``all_reduce_dp``."""
+    mesh = current_mesh()
+    if mesh is None or mesh.dp * mesh.sp == 1:
+        return x
+    return _all_reduce_f32(x.detach(), mesh.grad_group).to(x.dtype)
+
+
 def dp_row_slice(n_rows: int) -> slice:
     """This rank's contiguous rows of a global batch of ``n_rows`` (a dp
     multiple)."""

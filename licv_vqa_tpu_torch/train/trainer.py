@@ -8,18 +8,21 @@ loader's own iterator state where it has one), the preemption save, the
 metrics hook, a ``torch.profiler`` trace of ``profile_steps`` steps, and
 the final ``icv_cpk.pth``.
 
-The mesh (``strategy=dp|dp_tp``, ``tp``, ``devices``): one process per rank
-(``python -m torch.distributed.run``), JAX's single-process semantics.  Every
-rank builds the same seed-ordered global batch from the threaded loader,
+The mesh (``strategy=dp|dp_tp|dp_sp|dp_tp_sp``, ``tp``, ``sp``,
+``devices``): one process per rank (``python -m torch.distributed.run``),
+JAX's single-process semantics.  Every rank builds the same seed-ordered
+global batch from its loader (the threaded one or grain's, both unsharded),
 zero-pads it to a dp multiple (``_pad_batch_to_multiple``: padded rows are
-inert in both losses) and takes its contiguous dp rows; under ``dp_tp`` the
-frozen weights are this rank's Megatron shards.  The loss and the
-gradients are the global batch's (``icv/module.py``), so every rank holds
-the same ``(icv, alpha)``; rank 0 alone writes the step checkpoints, the
-metrics, the profile and the artifact.  The preemption flag is the global
-OR over the ranks every ``preempt_sync_every_n_steps`` micro-steps.
-Sequence parallelism (``dp_sp``/``dp_tp_sp``) and the grain loader are
-ROADMAP.md Queue 1 item 16b and raise.
+inert in both losses), right-pads its token and mask leaves to an sp
+multiple (``_pad_seq_to_multiple``, after the dp padding as JAX's order
+is) and takes its contiguous dp rows whole; under ``dp_tp*`` the frozen
+weights are this rank's Megatron shards, and under ``*sp`` the train
+forwards take the rank's chunk of the sequence and run ring attention
+(``parallel/ring.py``).  The loss and the gradients are the global
+batch's (``icv/module.py``), so every rank holds the same ``(icv, alpha)``;
+rank 0 alone writes the step checkpoints, the metrics, the profile and the
+artifact.  The preemption flag is the global OR over the ranks every
+``preempt_sync_every_n_steps`` micro-steps.
 """
 
 from __future__ import annotations
@@ -43,8 +46,7 @@ from .checkpoint import StepCheckpointer, save_icv_checkpoint
 
 logger = get_logger("train")
 
-_NOT_PORTED = "is not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 16b)"
-STRATEGIES = ("dp", "dp_tp")
+STRATEGIES = ("dp", "dp_tp", "dp_sp", "dp_tp_sp")
 
 
 def _pad_batch_to_multiple(batch, multiple: int):
@@ -58,6 +60,30 @@ def _pad_batch_to_multiple(batch, multiple: int):
     if multiple <= 1 or rem == 0:
         return x
     return np.pad(x, [(0, rem)] + [(0, 0)] * (x.ndim - 1))
+
+
+def _is_seq_leaf(key: str, x) -> bool:
+    """A (B, S) token or mask leaf (JAX ``_is_seq_leaf``,
+    train/trainer.py:74-79)."""
+    return key in ("input_ids", "attention_mask") and getattr(x, "ndim", 0) == 2
+
+
+def _pad_seq_to_multiple(batch, sp: int, pad_token_id: int, _key: str = ""):
+    """Right-pad every (B, S) token and mask leaf (of ``inputs`` and
+    ``query_inputs`` alike, each to its own length) to an sp multiple, the
+    ids with ``pad_token_id`` and the masks with 0 (JAX
+    ``_pad_seq_to_multiple``, train/trainer.py:82-103): loss-neutral, the
+    answer mask leaves pad ids out and attention mask-0 keys."""
+    if isinstance(batch, dict):
+        return {k: _pad_seq_to_multiple(v, sp, pad_token_id, k) for k, v in batch.items()}
+    if sp <= 1 or not _is_seq_leaf(_key, batch):
+        return batch
+    x = np.asarray(batch)
+    rem = (-x.shape[1]) % sp
+    if rem == 0:
+        return x
+    fill = pad_token_id if _key == "input_ids" else 0
+    return np.pad(x, [(0, 0), (0, rem)], constant_values=fill)
 
 
 def _take_rows(batch, rows: slice):
@@ -93,24 +119,23 @@ class TrainerConfig:
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: cfg[k] for k in cfg.keys() if k in known})
 
-    def check_ported(self) -> None:
-        if "sp" in self.strategy or self.sp != 1:
-            raise NotImplementedError(
-                f"trainer.strategy={self.strategy} (sequence parallelism) {_NOT_PORTED}")
+    def check_strategy(self) -> None:
         if self.strategy not in STRATEGIES:
             raise ValueError(f"trainer.strategy must be one of {STRATEGIES}, got {self.strategy!r}")
 
     def mesh_config(self, world_size: int) -> MeshConfig:
-        """dp x tp over the launcher's ranks: ``devices`` -1 (or 0) takes
-        the world size, any other count must equal it; ``tp`` counts under
-        ``dp_tp`` only."""
+        """dp x tp x sp over the launcher's ranks: ``devices`` -1 (or 0)
+        takes the world size, any other count must equal it; ``tp`` counts
+        under a strategy with tp, ``sp`` under one with sp (JAX
+        train/trainer.py:176-192), and they must divide the world."""
         if self.devices not in (-1, 0) and self.devices != world_size:
             raise ValueError(
                 f"trainer.devices={self.devices} but the launcher started {world_size} "
                 "process(es): one process per device (python -m torch.distributed.run "
                 f"--nproc_per_node={self.devices})")
         tp = self.tp if "tp" in self.strategy else 1
-        return MeshConfig(dp=-1, tp=tp, sp=1)
+        sp = self.sp if "sp" in self.strategy else 1
+        return MeshConfig(dp=-1, tp=tp, sp=sp)
 
 
 def batch_to_device(batch, device):
@@ -137,7 +162,7 @@ class Trainer:
         ``model_params`` are already this rank's shards
         (``models/registry.py``); None is one process, which ``trainer_cfg``
         must then ask for (and a launched world of more ranks raises)."""
-        trainer_cfg.check_ported()
+        trainer_cfg.check_strategy()
         if mesh is None:
             mesh = create_mesh(trainer_cfg.mesh_config(1), world_size=1, rank=0)
         self.mesh = mesh
@@ -259,6 +284,7 @@ class Trainer:
                         profiler_ctx = trace(run_dir / "profile")
                         profiler_ctx.__enter__()
                     batch = _pad_batch_to_multiple(batch, dp)
+                    batch = _pad_seq_to_multiple(batch, self.mesh.sp, self.pad_token_id)
                     batch = _take_rows(batch, dp_row_slice(len(batch["query_x_length"])))
                     metrics = step_fn(state, self.model_params, batch_to_device(batch, self.device))
                     micro_step = state.step

@@ -8,7 +8,12 @@ one tiny HF-layout Idefics checkpoint under ``MODEL_CPK_DIR`` that every
 run converts (as ``tests/test_torch_cli.py`` writes it);
 ``train_torch.py`` at ``trainer.strategy=dp_tp trainer.tp=2`` must write
 one ``icv_cpk.pth`` and one line of metrics a step, from rank 0.  The three
-launches run at once, beside the in-process runs.
+launches run at once, beside the in-process runs.  ``train_torch.py`` at
+``trainer.strategy=dp_sp trainer.sp=2`` (two ranks, each half of every
+row's tokens) must write the ``icv_cpk.pth`` of ``train.py`` at the same
+strategy (its two virtual devices) within 1e-5, from the same converted
+checkpoint and JAX's initial ICV (``tests/torch_train_from_init.py``), with
+one writer.
 """
 
 import json
@@ -16,6 +21,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,12 +33,27 @@ ICL = [
 ]
 
 
-@pytest.fixture()
-def weights(env):  # noqa: F811
+def write_tiny_checkpoint(env) -> None:
+    """One tiny HF-layout Idefics checkpoint under ``MODEL_CPK_DIR``."""
     from safetensors.torch import save_file
 
     from tests.test_idefics_parity import _tiny_hf_idefics
 
+    model_dir = env / "cpk" / "tiny-idefics"
+    model_dir.mkdir(parents=True)
+    sd = _tiny_hf_idefics().state_dict()
+    save_file({k: v.detach().clone().contiguous() for k, v in sd.items()},
+              str(model_dir / "model.safetensors"))
+
+
+@pytest.fixture()
+def checkpoint(env):  # noqa: F811
+    write_tiny_checkpoint(env)
+    return env
+
+
+@pytest.fixture()
+def weights(env):  # noqa: F811
     # every question carries words of its own, so the whitespace tokenizer
     # (whose vocab grows as it encodes) holds a word for each of the model's
     # 110 ids before the first answer is decoded, in every process alike
@@ -42,18 +63,14 @@ def weights(env):  # noqa: F811
             q["question"] += " " + " ".join(f"{f.stem[-10:]}{q['question_id']}w{j}"
                                             for j in range(40))
         f.write_text(json.dumps(qs))
-    model_dir = env / "cpk" / "tiny-idefics"
-    model_dir.mkdir(parents=True)
-    sd = _tiny_hf_idefics().state_dict()
-    save_file({k: v.detach().clone().contiguous() for k, v in sd.items()},
-              str(model_dir / "model.safetensors"))
+    write_tiny_checkpoint(env)
     return env
 
 
-def _launch(script: str, args: list, log):
+def _launch(script: str, args: list, log, **env):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
            str(REPO / script), *args, "device=cpu"]
-    return subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+    return subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1", **env),
                             stdout=log, stderr=subprocess.STDOUT)
 
 
@@ -121,3 +138,45 @@ def test_train_devices_the_launcher_did_not_start_raises(env):  # noqa: F811
     with pytest.raises(ValueError, match="launcher started 1"):
         train_torch.main(COMMON + ["trainer=debug", "trainer.devices=2", "device=cpu",
                                    "run_name=refused"])
+
+
+def jax_initial_icv(path) -> None:
+    """JAX's initial ICV of tiny-idefics (4 x 64: ``encoder.init`` on
+    ``PRNGKey(0)``, as its ``Trainer`` draws it) saved to ``path``."""
+    import jax
+
+    from licv_vqa_tpu.icv.encoder import GlobalICVEncoder
+
+    np.save(path, np.asarray(GlobalICVEncoder(64, 4).init(jax.random.PRNGKey(0))["icv"]))
+
+
+def test_sp_train_cli_matches_jax(checkpoint):
+    env = checkpoint
+    import train as jax_train
+
+    init = env / "icv_init.npy"
+    jax_initial_icv(init)
+    train = COMMON + ["trainer=debug", "data_cfg.bs=2", "data_cfg.num_workers=1",
+                      "trainer.log_every_n_steps=1", "icv_module.icv_lr=1e-2",
+                      "trainer.strategy=dp_sp", "trainer.sp=2"]
+    with open(env / "sp_train.log", "w") as log:
+        proc = _launch("tests/torch_train_from_init.py", train + ["run_name=sp_port"], log,
+                       ICV_INIT=str(init))
+        try:
+            jax_train.main(train + ["run_name=sp_jax", "trainer.devices=2"])
+            assert proc.wait(timeout=300) == 0, (env / "sp_train.log").read_text()[-4000:]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+
+    runs = env / "results" / "model_cpk" / "vqav2" / "tiny-idefics"
+    port = torch.load(runs / "sp_port" / "icv_cpk.pth", weights_only=False)
+    want = torch.load(runs / "sp_jax" / "icv_cpk.pth", weights_only=False)
+    for key in ("icv_encoder.icv", "icv_encoder.alpha"):
+        torch.testing.assert_close(torch.as_tensor(port[key]), torch.as_tensor(want[key]),
+                                   rtol=0, atol=1e-5)
+    moved = (torch.as_tensor(port["icv_encoder.icv"])[0] - torch.from_numpy(np.load(init)))
+    assert moved.abs().max() > 1e-3  # trained, not the initial rows
+    assert sorted(p.name for p in (runs / "sp_port").glob("*.pth")) == ["icv_cpk.pth"]
+    lines = (runs / "sp_port" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(x)["step"] for x in lines] == [1, 2, 3, 4]  # one writer

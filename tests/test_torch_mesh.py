@@ -1,6 +1,7 @@
 """Port vs JAX: the mesh, the sharding rules and the explicit shards (CPU).
 
-``MeshConfig.resolve`` and the rank order against JAX's; ``param_specs``
+``MeshConfig.resolve``, the rank order and every process group's ranks at
+dp × tp × sp against JAX's (its ``create_mesh`` device array); ``param_specs``
 against JAX's ``param_specs`` leaf for leaf on the tiny trees of all three
 families in bf16, int8 and int4 (a spec is a tuple of axis names in the
 port, a ``PartitionSpec`` in JAX); every leaf the rules shard held as a
@@ -24,7 +25,7 @@ from licv_vqa_tpu.core.mesh import MeshConfig as JxMeshConfig
 from licv_vqa_tpu.core.mesh import create_mesh as jx_create_mesh
 from licv_vqa_tpu.ops.quantize import dequantize_int4 as jx_dequantize_int4
 from licv_vqa_tpu.parallel.sharding import param_specs as jx_param_specs
-from licv_vqa_tpu_torch.core.mesh import Mesh, MeshConfig, create_mesh, rank_coords
+from licv_vqa_tpu_torch.core.mesh import Mesh, MeshConfig, create_mesh, group_members, rank_coords
 from licv_vqa_tpu_torch.models import registry as pt_registry
 from licv_vqa_tpu_torch.models.weights import params_from_jax
 from licv_vqa_tpu_torch.ops.quantize import is_any_quantized_leaf
@@ -37,6 +38,7 @@ from tests import test_torch_openflamingo as T3
 @pytest.mark.parametrize("cfg,n", [
     ((-1, 1, 1), 8), ((-1, 2, 1), 8), ((4, 2, 1), 8), ((2, -1, 1), 8), ((1, 2, -1), 8),
     ((-1, 3, 1), 8), ((-1, -1, 1), 8), ((2, 2, 1), 8), ((1, 1, 1), 1),
+    ((-1, 2, 2), 8), ((2, -1, 2), 8), ((1, 1, -1), 8), ((-1, 1, 3), 8), ((2, 2, 2), 8),
 ])
 def test_mesh_config_resolve_matches_jax(cfg, n):
     try:
@@ -48,23 +50,53 @@ def test_mesh_config_resolve_matches_jax(cfg, n):
     assert MeshConfig(*cfg).resolve(n) == want
 
 
-def test_rank_order_is_jax_device_order():
+MESH_SHAPES = [(4, 2, 1), (2, 2, 2), (1, 2, 4), (2, 1, 4), (8, 1, 1), (1, 1, 8)]
+
+
+def _jax_ranks(dp: int, tp: int, sp: int) -> np.ndarray:
+    """JAX's ``create_mesh`` device array over 8 virtual devices, as ranks."""
+    mesh = jx_create_mesh(JxMeshConfig(dp=dp, tp=tp, sp=sp), jax.devices()[:8])
+    return np.vectorize(lambda d: d.id - jax.devices()[0].id)(mesh.devices)
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_rank_order_is_jax_device_order(shape):
     """JAX reshapes the device list to (dp, tp, sp): device ``i`` sits at
-    the mesh coordinates the port gives rank ``i`` (tp fastest)."""
-    mesh = jx_create_mesh(JxMeshConfig(dp=4, tp=2), jax.devices()[:8])
-    for d in range(4):
-        for t in range(2):
-            rank = mesh.devices[d, t, 0].id - jax.devices()[0].id
-            assert rank_coords(rank, 4, 2) == (d, t)
+    the mesh coordinates the port gives rank ``i`` (sp fastest, then tp)."""
+    ranks = _jax_ranks(*shape)
+    for idx in np.ndindex(*shape):
+        assert rank_coords(int(ranks[idx]), *shape) == idx
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_groups_are_jax_mesh_slices(shape):
+    """Each process group is a slice of JAX's device array: tp the ranks
+    of one (dp, sp) index, dp of one (tp, sp), sp of one (dp, tp), and the
+    gradient group the dp × sp ranks of one tp index."""
+    ranks = _jax_ranks(*shape)
+    dp, tp, sp = shape
+    groups = group_members(*shape)
+    want = {
+        "tp": [ranks[d, :, s] for d in range(dp) for s in range(sp)],
+        "dp": [ranks[:, t, s] for t in range(tp) for s in range(sp)],
+    }
+    if sp > 1:
+        want["sp"] = [ranks[d, t, :] for d in range(dp) for t in range(tp)]
+        want["grad"] = [ranks[:, t, :].reshape(-1) for t in range(tp)]
+    assert set(groups) == set(want)
+    for name, lists in want.items():
+        assert groups[name] == [list(map(int, x)) for x in lists], name
 
 
 def test_one_process_mesh_and_sp_raise():
+    """One process: a mesh of one rank has no groups; a mesh of more ranks,
+    sp included, raises without a default group."""
     mesh = create_mesh(MeshConfig(dp=-1, tp=1))
-    assert (mesh.dp, mesh.tp, mesh.tp_group, mesh.dp_group) == (1, 1, None, None)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        create_mesh(MeshConfig(dp=1, tp=1, sp=2), world_size=2, rank=0)
-    with pytest.raises(RuntimeError, match="initialised"):
-        create_mesh(MeshConfig(dp=1, tp=2), world_size=2, rank=0)
+    assert (mesh.dp, mesh.tp, mesh.sp, mesh.tp_group, mesh.dp_group, mesh.sp_group) == (
+        1, 1, 1, None, None, None)
+    for cfg in (MeshConfig(dp=1, tp=2), MeshConfig(dp=1, tp=1, sp=2)):
+        with pytest.raises(RuntimeError, match="initialised"):
+            create_mesh(cfg, world_size=2, rank=0)
 
 
 @pytest.mark.parametrize("over", [{}, {"strategy": "dp_tp", "tp": 2}, {"devices": 2}])

@@ -278,3 +278,131 @@ def dp_train(rank: int, world: int, setup: dict, tmp: str) -> dict:
                         "steps": sorted(p.name for p in (run / "steps").glob("step_*.pt")),
                         "artifact": sorted(p.name for p in run.glob("*.pth"))}
     return out
+
+
+def use_sp_mesh(dp: int, tp: int, sp: int, cache: dict):
+    """The ``(dp, tp, sp)`` mesh, created once a layout (``new_group`` is
+    collective: every rank creates the same meshes in the same order)."""
+    from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, set_current_mesh
+
+    key = (dp, tp, sp)
+    if key not in cache:
+        cache[key] = create_mesh(MeshConfig(dp=dp, tp=tp, sp=sp))
+    set_current_mesh(cache[key])
+    return cache[key]
+
+
+def ring_cases(rank: int, world: int, cases: dict) -> dict:
+    """Each case's ``ring_self_attention`` on this rank's rows, heads and
+    chunk of the whole ``(q, k, v, positions, valid)``: the output, and
+    where ``grad`` the gradients of ``Σ valid · out²`` (summed over the
+    ranks by the ring's backward), with the rank's coordinates."""
+    import torch
+
+    from licv_vqa_tpu_torch.parallel.ring import ring_self_attention, sequence_ring
+
+    meshes: dict = {}
+    out = {}
+    for name, c in cases.items():
+        mesh = use_sp_mesh(*c["mesh"], meshes)
+        dtype = getattr(torch, c["dtype"])
+        b = c["q"].shape[0] // mesh.dp
+        rows = slice(mesh.dp_index * b, (mesh.dp_index + 1) * b)
+        pos = torch.from_numpy(c["pos"][rows])
+        valid = torch.from_numpy(c["valid"][rows])
+        ring = sequence_ring(pos, valid)
+
+        def local(x, heads_per_rank):
+            x = ring.take(torch.from_numpy(x[rows]))
+            h0 = mesh.tp_index * heads_per_rank
+            return x[:, :, h0:h0 + heads_per_rank].to(dtype).contiguous()
+
+        h, kvh = c["q"].shape[2] // mesh.tp, c["k"].shape[2] // mesh.tp
+        q, k, v = local(c["q"], h), local(c["k"], kvh), local(c["v"], kvh)
+        if c["grad"]:
+            for x in (q, k, v):
+                x.requires_grad_(True)
+        o = ring_self_attention(q, k, v, ring, n_heads=c["q"].shape[2], **c["kw"])
+        res = {"out": o.detach().float().numpy(), "coords": (mesh.dp_index, mesh.tp_index,
+                                                             mesh.sp_index)}
+        if c["grad"]:
+            w = ring.take(valid)[:, :, None, None].float()
+            loss = torch.sum(w * o.float() ** 2)
+            res["grads"] = [g.numpy() for g in torch.autograd.grad(loss, (q, k, v))]
+        out[name] = res
+    return out
+
+
+def sp_train(rank: int, world: int, setup: dict, tmp: str) -> dict:
+    """The port's ``Trainer`` over ``world`` ranks at ``dp_sp`` (sp = 2,
+    dp = world/2) and ``dp_tp_sp`` (tp = 2, sp = 2): the final ``(icv,
+    alpha, temperature)``, rank 0's logged losses and the artifacts; then a
+    resume of the ``dp_sp`` run from its first step checkpoint."""
+    import torch.distributed as dist
+
+    out = {}
+
+    def fit(strategy, tp, run):
+        setup["log"] = []
+        state = _trainer(setup, strategy, tp, sp=2).fit(ListLoader(setup["batches"]), run)
+        return {"icv": state.encoder.icv.detach().numpy().copy(),
+                "alpha": state.encoder.alpha.detach().numpy().copy(),
+                "temperature": float(state.temperature.detach()), "losses": list(setup["log"]),
+                "step": state.step, "artifact": sorted(p.name for p in run.glob("*.pth"))}
+
+    for strategy, tp in (("dp_sp", 1), ("dp_tp_sp", 2)):
+        out[strategy] = fit(strategy, tp, Path(tmp) / strategy)
+        dist.barrier()
+    run = Path(tmp) / "dp_sp"
+    if rank == 0:
+        (run / "icv_cpk.pth").unlink()
+        (run / "steps" / f"step_{len(setup['batches'])}.pt").unlink()
+    dist.barrier()
+    out["resumed"] = fit("dp_sp", 1, run)
+    return out
+
+
+def sp_losses(rank: int, world: int, cases: dict) -> dict:
+    """Each case's ``icv_loss_fn`` at dp 1 × sp ``world`` on its family's
+    tiny model: the batch padded to an sp multiple by the trainer's
+    ``_pad_seq_to_multiple``, the loss and the ``(icv, alpha,
+    temperature)`` gradients reduced as the train step reduces them."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from licv_vqa_tpu_torch.icv.encoder import GlobalICVEncoder
+    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, icv_loss_fn, reduce_gradients
+    from licv_vqa_tpu_torch.models.weights import params_from_jax
+    from licv_vqa_tpu_torch.train.trainer import _pad_seq_to_multiple, batch_to_device
+
+    meshes: dict = {}
+    out = {}
+    for name, c in cases.items():
+        use_sp_mesh(1, 1, world, meshes)
+        cfg = c["cfg"]
+        if c.get("remat_mode"):
+            cfg = dataclasses.replace(cfg, remat_mode=c["remat_mode"])
+        fwd = _bind_fn(c["family"])(cfg, c["eos"])[0]
+        params = params_from_jax(c["params"], torch.float32)
+        enc = GlobalICVEncoder(cfg.text.d_model, cfg.text.n_layers, **c["enc_kw"])
+        enc.load_params({k: np.array(v) for k, v in c["enc"].items()})
+        temp = torch.tensor(c["temperature"], requires_grad=True)
+        batch = batch_to_device(_pad_seq_to_multiple(c["batch"], world, c["pad"]), "cpu")
+        head = functools.partial(_head, cfg.text)
+        loss, _ = icv_loss_fn(enc, temp, params, batch, fwd, ICVModuleConfig(**c["module_kw"]),
+                              c["pad"], head)
+        names = ("icv", "alpha", "temperature")
+        grads = reduce_gradients(dict(zip(names, torch.autograd.grad(
+            loss, (enc.icv, enc.alpha, temp)))))
+        out[name] = {"loss": float(loss.detach()),
+                     "lengths": [batch[k]["input_ids"].shape[1] for k in ("query_inputs", "inputs")],
+                     **{k: grads[k].numpy() for k in names}}
+    return out
+
+
+def _head(text_cfg, params, hidden):
+    from licv_vqa_tpu_torch.models import decoder
+
+    return decoder.logits_from_hidden(text_cfg, params, hidden)

@@ -72,17 +72,13 @@ def shape_config(shape: str, mode: str):
     return dataclasses.replace(cfg, remat_mode=mode), s_tea, s_stu, bs, quantize
 
 
-def _build(shape: str, mode: str, device):
-    """``(step, state, params, batch, meta)`` of one shape and remat mode on
-    ``device``, as the JAX tool's ``_build``."""
+def build_params(cfg, quantize: bool, device):
+    """The tool's frozen weights: Idefics params drawn from a seed-0
+    generator on ``device``, ``layers`` and ``xattn`` int8 under
+    ``quantize``."""
     import torch
 
-    from licv_vqa_tpu_torch.icv.encoder import GlobalICVEncoder
-    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, init_train_state, make_train_step
-    from licv_vqa_tpu_torch.models.idefics import init_idefics_params, make_idefics_forward_fns
-
-    device = torch.device(device)
-    cfg, s_tea, s_stu, bs, quantize = shape_config(shape, mode)
+    from licv_vqa_tpu_torch.models.idefics import init_idefics_params
 
     params = init_idefics_params(torch.Generator(device).manual_seed(0), cfg, device)
     if quantize:
@@ -90,6 +86,21 @@ def _build(shape: str, mode: str, device):
 
         params["layers"] = quantize_layer_stack(params["layers"])
         params["xattn"] = quantize_layer_stack(params["xattn"])
+    return params
+
+
+def _build(shape: str, mode: str, device):
+    """``(step, state, params, batch, meta)`` of one shape and remat mode on
+    ``device``, as the JAX tool's ``_build``."""
+    import torch
+
+    from licv_vqa_tpu_torch.icv.encoder import GlobalICVEncoder
+    from licv_vqa_tpu_torch.icv.module import ICVModuleConfig, init_train_state, make_train_step
+    from licv_vqa_tpu_torch.models.idefics import make_idefics_forward_fns
+
+    device = torch.device(device)
+    cfg, s_tea, s_stu, bs, quantize = shape_config(shape, mode)
+    params = build_params(cfg, quantize, device)
 
     train_forward, _ = make_idefics_forward_fns(cfg, eos_token_id=2)
     t = cfg.text
