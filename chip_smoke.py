@@ -1901,6 +1901,7 @@ def main_path(dev, tmp: Path) -> dict:
     rice = rice_path(e, dev, tmp)
     cont = continuous_path(e)
     pooled = pooled_path(e, cont["beam_s_per_q"])
+    PHASE11_REFS["h"] = serving_references(e)
     return {
         "icv_inject": (counts["icv_inject", "test_icv"] + counts["icv_inject", "test_icl"]
                        + spec["icv_inject"] + cont["icv_inject"] + pooled["icv_inject"]),
@@ -3014,7 +3015,9 @@ def engine_logits_recorder():
     each row's token count and each request's slot and tenure (a slot may
     hold several requests in turn).  Yields a dict whose
     ``"logits"(uid, t)`` is the logits vector the engine took token ``t``
-    of request ``uid`` from."""
+    of request ``uid`` from, and ``"holds"(uid)`` whether this rank holds
+    its slot (under dp another rank may: ``"logits"`` then raises
+    ``KeyError``)."""
     from licv_vqa_tpu_torch.infer.serving import ServingEngine
 
     admit, scatter, update = (ServingEngine._admit_group, ServingEngine._scatter_admit,
@@ -3028,7 +3031,10 @@ def engine_logits_recorder():
             if slot in holder:
                 tenure[holder[slot]][3] = len(steps)
             holder[slot] = r.uid
-            tenure[r.uid] = [slot, len(prefills), len(steps), None]
+            # the slot's row on this rank (under dp another rank may hold it)
+            row = slot - self._slot0
+            tenure[r.uid] = [row if 0 <= row < self._local_slots else None, len(prefills),
+                             len(steps), None]
         return admit(self, group, slots, bucket)
 
     def spied_scatter(self, rows, bucket, last, *a, **kw):
@@ -3041,6 +3047,8 @@ def engine_logits_recorder():
 
     def logits(uid, t):
         row, pre, first, end = tenure[uid]
+        if row is None:
+            raise KeyError((uid, "held by another rank"))
         if t == 0:
             rows, last = prefills[pre]
             return last[int((rows == row).nonzero()[0])]
@@ -3049,11 +3057,14 @@ def engine_logits_recorder():
                 return lg[row]
         raise KeyError((uid, t))
 
+    def holds(uid):
+        return tenure[uid][0] is not None
+
     ServingEngine._admit_group = spied_admit
     ServingEngine._scatter_admit = spied_scatter
     ServingEngine._update = spied_update
     try:
-        yield {"logits": logits}
+        yield {"logits": logits, "holds": holds}
     finally:
         ServingEngine._admit_group, ServingEngine._scatter_admit = admit, scatter
         ServingEngine._update = update
@@ -3941,6 +3952,8 @@ def openflamingo_path(dev, tmp: Path, lmm: str = "openflamingov2-9B") -> dict:
     for k, v in openflamingo_serving_path(e).items():
         total[k] = total.get(k, 0) + v
     PHASE11_REFS.setdefault("g", {})[lmm] = sp_family_reference(e, lmm)
+    if lmm == H_FAMILY:
+        PHASE11_REFS["h"]["family"] = family_serving_reference(e)
     return total
 
 
@@ -4550,11 +4563,12 @@ def _first(tree, n: int):
 # phase 11: distribution (tensor, data and sequence parallelism on
 # torch.distributed)
 # ---------------------------------------------------------------------------
-# (a) runs in this process at world size 1 over NCCL; (b)-(g) in
-# PHASE11_WORLD ranks that share the card over gloo (NCCL refuses two ranks
-# on one device), each a subprocess of this script (``--phase11-rank``).
-# (e)-(g) run at sp = PHASE11_WORLD: ring attention, its exchange staged
-# through the host under gloo.
+# (a) runs in this process at world size 1 over NCCL (the static and the
+# engine CLI runs); (b)-(h) in PHASE11_WORLD ranks that share the card over
+# gloo (NCCL refuses two ranks on one device), each a subprocess of this
+# script (``--phase11-rank``).  (e)-(g) run at sp = PHASE11_WORLD: ring
+# attention, its exchange staged through the host under gloo.  (h) runs the
+# serving engines and the pooled chain at dp or tp = PHASE11_WORLD.
 # Two ranks on one card measure correctness and memory, not multi-GPU speed.
 PHASE11_WORLD = 2
 # (d): run A's int8 model cut to its first layers (two cross-attention blocks)
@@ -4567,7 +4581,9 @@ TP_INT8_STEPS = 3
 # encodings, beam tokens and first-step logits; (c) phase 5's batch, loss
 # and gradients, which (e) is held to as well; (d) phase 6 run A's cut
 # model's ICL prefill; (f) phase 9's flagship teacher forward; (g) phases
-# 7's and 8's models cut to SP_FAMILY_LAYERS, one 32-shot teacher forward
+# 7's and 8's models cut to SP_FAMILY_LAYERS, one 32-shot teacher forward;
+# (h) phase 4's engine and chain runs in one process and phase 8's cut
+# model's greedy engine run
 PHASE11_REFS: dict = {}
 # (g)'s depth: two of OpenFlamingo's cross-attention groups
 SP_FAMILY_LAYERS = 8
@@ -4730,6 +4746,132 @@ def int8_tp_reference(e: EvalSetup) -> dict:
             "step_counts": step_counts}
 
 
+# (h): the serving engines and the pooled chain over the ranks.  Greedy
+# requests of ragged lengths through H_GREEDY_SLOTS slots at tp = 2: later
+# groups admit into an occupied pool (merged); beam-3 test_icv through CONT_BEAM_SLOTS
+# groups and the pooled chain in chunks of POOL_QUESTIONS at dp = 2 (each
+# rank half the groups, a chunk each); OpenFlamingo cut to
+# SP_FAMILY_LAYERS layers, greedy at dp = 2: H_FAMILY_Q requests of ragged
+# lengths through H_FAMILY_SLOTS slots, half the slots on each rank, so
+# that the harvest gathered over dp frees slots for later admissions
+H_GREEDY_Q = 8
+H_GREEDY_SLOTS = 4
+H_FAMILY_Q = 8
+H_FAMILY_SLOTS = 4
+H_FAMILY = "openflamingov2-9B"
+
+
+def engine_reference(e: EvalSetup, tag: str, requests: list, gen_kwargs: dict, icv_scaled,
+                     n_slots: int, merged: bool) -> dict:
+    """One process's engine run of ``requests`` (``runner.serve_requests``;
+    plain admission unless ``merged``): the requests as field dicts, the
+    tokens (and a greedy run's f32 logits of each token), admissions,
+    decode steps and merged admissions."""
+    import torch
+
+    from licv_vqa_tpu_torch.infer import runner
+
+    greedy = int(gen_kwargs.get("num_beams", 1)) == 1
+    with engine_spy() as spy, contextlib.nullcontext() if merged else plain_admission(), \
+            engine_logits_recorder() if greedy else contextlib.nullcontext() as rec:
+        tokens = runner.serve_requests(e.bundle, requests, gen_kwargs, icv_scaled, n_slots)
+        # a greedy run's f32 logits of every token (the token rule's)
+        logits = {r.uid: [rec["logits"](r.uid, t).cpu() for t in range(len(tokens[r.uid]))]
+                  for r in requests} if greedy else None
+    torch.cuda.synchronize()
+    (engine, _), = spy.runs
+    log(f"phase 11 (h) reference, {tag}: one process, {len(requests)} requests, "
+        f"{n_slots} slots, admissions {engine.admissions} ({engine.merged_admits} merged), "
+        f"{engine.steps_run} steps, tokens {[tokens[r.uid].tolist() for r in requests]}")
+    if merged != (engine.merged_admits > 0):
+        raise AssertionError(f"(h) reference {tag}: merged_admits {engine.merged_admits}")
+    return {"requests": [dataclasses.asdict(r) for r in requests], "tokens": tokens,
+            "logits": logits, "admissions": list(engine.admissions),
+            "steps_run": engine.steps_run,
+            "merged_admits": engine.merged_admits, "gen_kwargs": gen_kwargs,
+            "icv": None if icv_scaled is None else icv_to(icv_scaled, "cpu"),
+            "n_slots": n_slots}
+
+
+def serving_references(e: EvalSetup) -> dict:
+    """(h)'s references on phase 4's Idefics-9B, one process, with the
+    engine configurations of 4d and 4e: beam-3 ``test_icv`` (the ICV on)
+    through ``CONT_BEAM_SLOTS`` groups, greedy ``test_icv`` through
+    ``H_GREEDY_SLOTS`` slots with merged admission, and the pooled chain on
+    ``POOLED_ICV_Q`` questions in chunks of ``POOL_QUESTIONS``.  The
+    requests and encodings travel (the ranks' tokenizers have not grown
+    this vocabulary)."""
+    import torch
+
+    from licv_vqa_tpu_torch.infer import runner
+    from licv_vqa_tpu_torch.infer.eval_chain import pooled_eval_chain
+
+    b = e.bundle
+    icv_p = [icv_prompt(e, q) for q in range(1, 1 + N_ICV_Q)]
+    greedy_kw = dict(e.gen_kwargs, num_beams=1)
+    rows = synthetic_vqa(H_GREEDY_Q, 700, seed=11)
+    out = {
+        "beam": engine_reference(e, "beam-3 test_icv", runner.encode_requests(
+            b, icv_p, e.gen_kwargs), e.gen_kwargs, e.icv_scaled, CONT_BEAM_SLOTS, False),
+        # ragged answer lengths (2 to MAX_NEW tokens): slots free while
+        # others decode, so later groups admit into an occupied pool
+        "greedy": engine_reference(e, "merged greedy test_icv", [
+            dataclasses.replace(r, max_new=2 + i % (MAX_NEW - 1)) for i, r in enumerate(
+                runner.encode_requests(b, [row_prompt(e, r) for r in rows], greedy_kw))],
+            greedy_kw, e.icv_scaled, H_GREEDY_SLOTS, True),
+    }
+    encs = runner.encode_questions(b, [row_prompt(e, r) for r in synthetic_vqa(
+        POOLED_ICV_Q, 800, seed=12)])
+    tokens = runner.pooled_tokens(pooled_eval_chain(b, e.gen_kwargs), encs, POOL_QUESTIONS,
+                                  MAX_NEW, b.pad_token_id, b.device, e.icv_scaled)
+    torch.cuda.synchronize()
+    log(f"phase 11 (h) reference, pooled beam-3 test_icv: one process, {len(encs)} questions "
+        f"in chunks of {POOL_QUESTIONS}, tokens {tokens.tolist()}")
+    out["pooled"] = {"encs": encs, "tokens": tokens, "gen_kwargs": e.gen_kwargs,
+                     "icv": e.icv_scaled.cpu()}
+    return out
+
+
+def cut_bundle(bundle, n: int, copy: bool = False):
+    """An Idefics2 or OpenFlamingo bundle with its model cut to the first
+    ``n`` decoder layers (and OpenFlamingo's cross-attention groups among
+    them; views, or copies so that the rest can go): the engines'
+    ``from_bundle`` take it as a model of its own."""
+    mc = bundle.model_cfg
+    n = min(n, mc.text.n_layers)
+    params = dict(bundle.params, layers=_first(bundle.params["layers"], n))
+    if "xattn" in bundle.params:
+        params["xattn"] = _first(bundle.params["xattn"], n // mc.cross_attn_every_n_layers)
+    if copy:
+        for key in ("layers", "xattn"):
+            if key in params:
+                params[key] = _cloned(params[key])
+    cut = dataclasses.replace(mc, text=dataclasses.replace(mc.text, n_layers=n))
+    return dataclasses.replace(bundle, model_cfg=cut, params=params, n_layers=n)
+
+
+def family_serving_reference(e: EvalSetup) -> dict:
+    """(h)'s family reference: phase 8's model cut to ``SP_FAMILY_LAYERS``
+    layers, greedy ``test_icv`` (the ICV's first rows) of ``H_FAMILY_Q``
+    requests of ragged answer lengths through ``H_FAMILY_SLOTS`` slots,
+    plain admission, one process: later groups admit into freed slots."""
+    from licv_vqa_tpu_torch.infer import runner
+
+    b = cut_bundle(e.bundle, SP_FAMILY_LAYERS)
+    cut = dataclasses.replace(e, bundle=b)
+    greedy_kw = dict(e.gen_kwargs, num_beams=1)
+    rows = synthetic_vqa(H_FAMILY_Q, 900, seed=13)
+    icv = first_rows(e.icv_scaled, SP_FAMILY_LAYERS)
+    requests = [dataclasses.replace(r, max_new=2 + i % (MAX_NEW - 1)) for i, r in enumerate(
+        runner.encode_requests(b, [row_prompt(e, r) for r in rows], greedy_kw))]
+    ref = engine_reference(cut, f"{H_FAMILY} cut to {SP_FAMILY_LAYERS} layers, greedy "
+                           "test_icv", requests, greedy_kw, icv_to(icv, b.device),
+                           H_FAMILY_SLOTS, False)
+    if len(ref["admissions"]) < 2:
+        raise AssertionError("(h) family reference: no admission into a freed slot")
+    return ref
+
+
 # (c)'s answers: the dp halves of a global batch of two hold answers of
 # different token counts
 DP_ANSWERS = ["red", "two red cats"]
@@ -4884,12 +5026,71 @@ def world_one_path(dev, tmp: Path) -> dict:
     if (tokens["world1"] != tokens["plain"] or preds["world1"] != preds["plain"]
             or len(tokens["plain"]) != N_ICV_Q or icv_launches != 32 * N_ICV_Q * MAX_NEW):
         raise AssertionError("phase 11 (a): the world-1 inference CLI's tokens differ")
+    for k, v in world_one_engine(cfg, args, icv).items():
+        counts[k] = counts.get(k, 0) + v
     free_device_memory()
     return counts
 
 
+def world_one_engine(cfg, args: list, icv: dict, mc=None) -> dict:
+    """Phase 11 (a), the serving engine: the inference CLI's
+    ``infer_engine=continuous`` beam-3 test_icv (``CONT_BEAM_SLOTS`` slots)
+    at ``infer_dp=1 infer_tp=1``, world size 1 over NCCL, against the same
+    CLI without a launcher: the engine's tokens and the answers equal, no
+    synchronizing call inside a decode chunk (``engine_spy``; under the
+    ranks' gloo the rule cannot hold), the launches
+    ``predicted_engine_launches`` of ``mc`` (default Idefics-9B's
+    configuration).  Returns the world-1 run's launches."""
+    import torch
+
+    from licv_vqa_tpu_torch.cli.inference import main as infer_main
+    from licv_vqa_tpu_torch.models.idefics import IdeficsConfig
+    from licv_vqa_tpu_torch.utils import get_icv_cpk_path
+
+    mc = IdeficsConfig.idefics_9b() if mc is None else mc
+    args = [a for a in args if not a.startswith("bs=")] + [
+        f"bs={CONT_BEAM_SLOTS}", "infer_engine=continuous"]
+    counters = engine_counters()
+    got = {}
+    for run in ("plain_engine", "world1_engine"):
+        d = get_icv_cpk_path(cfg.result_dir, str(cfg.lmm.model_name),
+                             cfg.data_cfg.task.datasets.name, run)
+        d.mkdir(parents=True)
+        torch.save(icv, d / "icv_cpk.pth")
+        for fn in counters.values():
+            fn.launches = 0
+        world1 = run == "world1_engine"
+        with engine_spy() as spy, world_of_one() if world1 else contextlib.nullcontext():
+            infer_main(args + [f"run_name={run}"] + (["infer_dp=1", "infer_tp=1"] if world1
+                                                     else []))
+        torch.cuda.synchronize()
+        (engine, out), = spy.runs
+        meta = next((Path(cfg.result_dir) / "inference" / str(cfg.lmm.model_name)
+                     / cfg.data_cfg.task.datasets.name / run / "meta_info").glob("*icv.json"))
+        res = json.loads(meta.read_text())
+        got[run] = {"tokens": {k: v.tolist() for k, v in out.items()}, "syncs": spy.syncs,
+                    "preds": [res[k]["prediction"] for k in sorted(res, key=int)],
+                    "counts": {k: fn.launches for k, fn in counters.items()},
+                    "want": predicted_engine_launches(mc, engine, spy.binds, True,
+                                                      engine.device),
+                    "step_ms": spy.step_ms(), "mesh": engine.mesh}
+    a, b = got["world1_engine"], got["plain_engine"]
+    log(f"phase 11 (a) inference CLI infer_engine=continuous beam-3 test_icv, {CONT_BEAM_SLOTS} "
+        f"slots, infer_dp=1 infer_tp=1 at world 1 (NCCL on the card; engine mesh "
+        f"dp={a['mesh'].dp} tp={a['mesh'].tp}): tokens {a['tokens']}, answers {a['preds']}; "
+        f"without a launcher {b['tokens']}, {b['preds']}; synchronizing calls inside decode "
+        f"chunks {a['syncs']} (predicted 0); a pool step {ms_text(a['step_ms'])}; launches "
+        f"{a['counts']} (predicted {a['want']})")
+    if a["tokens"] != b["tokens"] or a["preds"] != b["preds"] or len(a["preds"]) != N_ICV_Q:
+        raise AssertionError("phase 11 (a): the world-1 engine's tokens differ")
+    if a["syncs"] or a["counts"] != a["want"]:
+        raise AssertionError("phase 11 (a): the world-1 engine synchronized inside a chunk, "
+                             "or its launches are not the predicted ones")
+    return a["counts"]
+
+
 def distribution_path(dev, tmp: Path) -> dict:
-    """Phase 11.  Returns the launch counts of (a) and of every rank of (b)-(d)."""
+    """Phase 11.  Returns the launch counts of (a) and of every rank of (b)-(h)."""
     import torch
 
     t0 = time.perf_counter()
@@ -4935,7 +5136,8 @@ def distribution_path(dev, tmp: Path) -> dict:
             counts[k] = counts.get(k, 0) + v
     log(f"phase 11: (a) {t_a:.1f} s, ranks {time.perf_counter() - t0 - t_a:.1f} s; rank "
         f"peak device memory {[results[r]['peak_gib'] for r in range(PHASE11_WORLD)]} GiB over "
-        f"(b)-(d), {[results[r]['sp_peak_gib'] for r in range(PHASE11_WORLD)]} GiB in (f)'s "
+        f"(b)-(d) and (h) at dp=2, {[results[r]['sp_peak_gib'] for r in range(PHASE11_WORLD)]} "
+        f"GiB in (f)'s "
         f"forward ({PHASE11_REFS['f']['peak_gib']} GiB in one process); launches over (a) and "
         f"every rank {counts}")
     return counts
@@ -4985,9 +5187,10 @@ def heads_spy():
     return cm()
 
 
-def rank_tp_path(dev, ref: dict) -> dict:
+def rank_tp_path(dev, ref: dict, ref_h: dict) -> dict:
     """(b): full-width Idefics-9B at tp = 2, beam-3 test_icv on phase 4's
-    questions and one 32-shot test_icl question, from phase 4's encodings."""
+    questions and one 32-shot test_icl question, from phase 4's encodings;
+    then (h)'s greedy engine with merged admission on the same shards."""
     import torch
 
     from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, set_current_mesh
@@ -5043,6 +5246,243 @@ def rank_tp_path(dev, ref: dict) -> dict:
         log(f"(b) question {q}: smallest f32 decision margin {margin:.6f} (limit {NEAR_TIE})")
         if not margin < NEAR_TIE:
             raise AssertionError("(b): tp=2 beam differs from phase 4's away from a near tie")
+    for k, v in rank_engine_run("Idefics-9B merged greedy test_icv", b, ref_h["greedy"],
+                                dev).items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def ms_text(ms) -> str:
+    return "not measured (no card)" if ms is None else f"{ms:.2f} ms"
+
+
+def request_inputs(req: dict, dev) -> tuple:
+    """A request's (or a pooled question's) unpadded encodings at bs 1 on
+    the device: ``(ids, mask, pixels, valid)``."""
+    import numpy as np
+    import torch
+
+    ids = torch.from_numpy(np.ascontiguousarray(req["input_ids"])[None]).to(dev)
+    px = torch.from_numpy(np.ascontiguousarray(req["pixel_values"])[None]).to(dev)
+    pv = (torch.ones((1, px.shape[1]), dtype=torch.bool) if req.get("pixel_valid") is None
+          else torch.from_numpy(np.asarray(req["pixel_valid"], bool)[None]))
+    return ids, torch.ones_like(ids), px, pv.to(dev)
+
+
+def serving_tie_check(tag: str, b, beam: bool, reqs: list, got, want, gen_kwargs: dict, icv,
+                      dev, rec=None, want_logits=None) -> int:
+    """(h)'s token rule, this rank's tokens ``got`` against one process's
+    ``want`` (request by request, both keyed by ``reqs``' uids or indices):
+    equal, or, where a request differs, beam: the rank's own static search
+    on it took a decision at an f32 margin under ``NEAR_TIE``
+    (``beam_min_margin``); greedy: ``drift_tie_check``'s rule on the two
+    engines' own logits (``rec``, ``engine_logits_recorder``; one
+    process's ``want_logits[uid][t]``) at the first differing token t:
+
+    - the rank's token t is the argmax of its engine's logits there (EOS
+      suppressed under ``min_new``, as the engine's emit): the harvest put
+      this request's row there, not another's;
+    - those logits are within rel. L2 ``REL_L2_TOL`` of one process's
+      engine's, as (b) bounds tp = 2's first-step logits against tp = 1's:
+      a forward on wrong rows or media moves the whole vector;
+    - one process's f32 top-2 gap there is under ``NEAR_TIE`` or under
+      twice the layout's drift: the largest max-abs difference between the
+      two engines' logits where their tokens agree (every token before the
+      first difference, in every request this rank holds).  At the
+      differing token itself that difference is at least half the gap
+      whenever each engine took its own argmax, so it cannot serve.
+
+    A request whose slot another dp rank holds is that rank's to judge: each
+    rank holds every request's gathered tokens, and each request one slot.
+    Returns the number of requests that differ."""
+    import numpy as np
+
+    from licv_vqa_tpu_torch.infer import runner
+
+    def first_diff(a, g):
+        m = min(len(a), len(g))
+        return next((i for i in range(m) if a[i] != g[i]), m)
+
+    drift = 0.0
+    if not beam:  # the layout's drift where the engines' tokens agree
+        for key, _ in reqs:
+            if rec["holds"](key):
+                for t in range(first_diff(np.asarray(want[key]), np.asarray(got[key]))):
+                    d = (rec["logits"](key, t).float().cpu() - want_logits[key][t].float())
+                    drift = max(drift, float(d.abs().max()))
+    n = 0
+    for key, req in reqs:
+        a, g = np.asarray(want[key]), np.asarray(got[key])
+        if a.shape == g.shape and bool((a == g).all()):
+            continue
+        if beam:
+            gen = runner.make_generate_fn(b, gen_kwargs)
+            ids, mask, px, pv = request_inputs(req, dev)
+            margin = beam_min_margin(None, None, None, None, run=lambda: gen(
+                b.params, ids, mask, px, pv, icv))
+            what, ok = (f"the static beam's smallest f32 decision margin {margin:.6f} (limit "
+                        f"{NEAR_TIE})", margin < NEAR_TIE)
+        elif not rec["holds"](key):
+            what, ok = "its slot is another dp rank's, which judges it", True
+        else:
+            at = first_diff(a, g)
+            if at == min(len(a), len(g)):
+                raise AssertionError(f"(h) {tag}: request {key}: one answer is a prefix of "
+                                     "the other")
+            mine, ref = rec["logits"](key, at).float().cpu(), want_logits[key][at].float()
+            lg = mine.clone()
+            if at < int(req.get("min_new", 0)):
+                lg[b.eos_token_id] = -math.inf
+            own = int(lg.argmax())
+            if own != int(g[at]):
+                raise AssertionError(
+                    f"(h) {tag}: request {key}'s token {at} is {int(g[at])}, its engine's "
+                    f"argmax there {own}: the harvest misplaced a row")
+            top = ref.topk(2).values
+            gap, rel = float(top[0] - top[1]), rel_l2(mine, ref)
+            what = (f"at token {at}, the rank's token its engine's argmax; its logits there "
+                    f"against one process's engine's: rel. L2 {rel:.4e} (limit {REL_L2_TOL}); "
+                    f"one process's f32 top-2 gap there {gap:.6f}, the layout's drift (max-abs "
+                    f"where the tokens agree) {drift:.4f} (limit: the gap under {NEAR_TIE} or "
+                    f"under twice the drift)")
+            ok = rel <= REL_L2_TOL and gap < max(NEAR_TIE, 2 * drift)
+        log(f"(h) {tag}: request {key} differs from one process's ({a.tolist()} vs "
+            f"{g.tolist()}); {what}")
+        if not ok:
+            raise AssertionError(f"(h) {tag}: tokens differ from one process's away from a "
+                                 "near tie")
+        n += 1
+    return n
+
+
+def rank_engine_run(tag: str, b, ref: dict, dev) -> dict:
+    """(h): one process's engine run ``ref`` (``engine_reference``) again on
+    this rank's current mesh through ``runner.serve_requests``: the first
+    admission one process's, merged admissions wherever one process merged
+    and dp = 1, and the admissions, decode steps and merged admissions one
+    process's where the tokens are (the schedule follows them); the rank's launches
+    ``predicted_engine_launches`` of its own run (every rank prefills every
+    admission group and forwards its own rows at every step); the tokens
+    under ``serving_tie_check``.  Logs the rank's peak memory and ms a pool
+    step (over gloo: correctness and memory only)."""
+    import torch
+
+    from licv_vqa_tpu_torch.core.mesh import current_mesh
+    from licv_vqa_tpu_torch.infer import runner
+    from licv_vqa_tpu_torch.infer.serving import Request
+
+    mesh = current_mesh()
+    reqs = [Request(**r) for r in ref["requests"]]
+    icv = None if ref["icv"] is None else icv_to(ref["icv"], dev)
+    counters = engine_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    beam = int(ref["gen_kwargs"].get("num_beams", 1)) > 1
+    with engine_spy() as spy, (contextlib.nullcontext() if beam
+                               else engine_logits_recorder()) as rec:
+        t0 = time.perf_counter()
+        tokens = runner.serve_requests(b, reqs, ref["gen_kwargs"], icv, ref["n_slots"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    (engine, _), = spy.runs
+    want = predicted_engine_launches(b.model_cfg, engine, spy.binds, icv is not None, dev)
+    step_ms = spy.step_ms()
+    ties = serving_tie_check(tag, b, beam, [(r["uid"], r) for r in ref["requests"]], tokens,
+                             ref["tokens"], ref["gen_kwargs"], icv, dev, rec, ref["logits"])
+    n = len(reqs)
+    log(f"(h) {tag} at dp={mesh.dp} tp={mesh.tp}: this rank's {engine.n_rows} of "
+        f"{engine.n_rows * mesh.dp} pool rows (slots from {engine._slot0}), {n} requests in "
+        f"{wall:.2f} s; admissions {engine.admissions} ({engine.merged_admits} merged; one "
+        f"process {ref['admissions']}, {ref['merged_admits']}), {engine.steps_run} steps (one "
+        f"process {ref['steps_run']}); a pool step {ms_text(step_ms)} (CUDA events, over gloo: "
+        f"not a speed); peak device memory {peak:.2f} GiB; launches {counts} (predicted "
+        f"{want}); synchronizing calls inside chunks {spy.syncs} (gloo stages through the "
+        f"host; (a) holds the rule at world 1); tokens: {n - ties} of {n} equal one "
+        f"process's, {ties} differ at a near tie")
+    # the schedule follows the tokens (a request frees its slot at its EOS):
+    # held whole to one process's where every request's tokens are one
+    # process's; the first admission comes before any token
+    schedule = (engine.admissions, engine.steps_run, engine.merged_admits)
+    if (set(tokens) != set(ref["tokens"]) or engine.admissions[:1] != ref["admissions"][:1]
+            or (engine.merged_admits > 0) != (ref["merged_admits"] > 0 and mesh.dp == 1)
+            or (not ties and schedule != (ref["admissions"], ref["steps_run"],
+                                          ref["merged_admits"]))):
+        raise AssertionError(f"(h) {tag}: the schedule is not one process's")
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"(h) {tag}: {k} launched {counts[k]} != {v}")
+    return counts
+
+
+def rank_pooled_run(tag: str, b, ref: dict, dev) -> dict:
+    """(h): one process's pooled chain run ``ref`` again on this rank's
+    current mesh (``runner.pooled_tokens``: this dp rank's whole chunks, the tokens
+    gathered over dp); the launches ``predicted_pooled_launches`` of the
+    chains this rank ran; the tokens under ``serving_tie_check`` (beam)."""
+    import torch
+
+    from licv_vqa_tpu_torch.core.mesh import current_mesh
+    from licv_vqa_tpu_torch.infer import runner
+    from licv_vqa_tpu_torch.infer.eval_chain import pooled_eval_chain
+
+    mesh = current_mesh()
+    icv = ref["icv"].to(dev)
+    counters = engine_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with chain_spy() as spy:
+        t0 = time.perf_counter()
+        tokens = runner.pooled_tokens(pooled_eval_chain(b, ref["gen_kwargs"]), ref["encs"],
+                                      POOL_QUESTIONS, MAX_NEW, b.pad_token_id, dev, icv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    want = predicted_pooled_launches(b.model_cfg, spy.chains, True, dev)
+    reqs = [(q, {"input_ids": ids, "pixel_values": px, "pixel_valid": pv})
+            for q, (ids, px, pv) in enumerate(ref["encs"])]
+    ties = serving_tie_check(tag, b, True, reqs, tokens, ref["tokens"], ref["gen_kwargs"], icv,
+                             dev)
+    n = len(reqs)
+    log(f"(h) {tag} at dp={mesh.dp}: this rank's chains (questions, bucket, images, pixels) "
+        f"{spy.chains}, {n} questions in {wall:.2f} s, a merged forward {ms_text(spy.merged_ms())} "
+        f"(over gloo: not a speed); peak device memory {peak:.2f} GiB; launches {counts} "
+        f"(predicted {want}); tokens: {n - ties} of {n} equal one process's, {ties} differ "
+        f"at a near tie")
+    chunks = runner.pooled_chunks(ref["encs"], POOL_QUESTIONS)
+    d, n_c = mesh.dp_index, len(chunks)
+    mine = [(len(c), bucket) for bucket, c, _ in chunks[d * n_c // mesh.dp:(d + 1) * n_c // mesh.dp]]
+    if tokens.shape != ref["tokens"].shape or [c[:2] for c in spy.chains] != mine:
+        raise AssertionError(f"(h) {tag}: not this rank's chunks, or malformed tokens")
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"(h) {tag}: {k} launched {counts[k]} != {v}")
+    return counts
+
+
+def rank_serving_dp_path(dev, ref: dict) -> dict:
+    """(h) at dp = 2: full-width Idefics-9B whole on each rank; beam-3
+    test_icv through the engine, one group pool split over the ranks, then
+    the pooled chain, a chunk a rank."""
+    from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, set_current_mesh
+    from licv_vqa_tpu_torch.models.registry import build_model
+    from licv_vqa_tpu_torch.utils import compose
+
+    mesh = create_mesh(MeshConfig(dp=PHASE11_WORLD, tp=1))
+    set_current_mesh(mesh)
+    cfg = compose(str(REPO / "config"), "inference", [
+        "lmm=idefics-9B", "device=cuda", "run_name=phase11", "bs=1"])
+    b = one_by_one(lambda: build_model(cfg, device=dev, mesh=mesh))
+    counts = rank_engine_run("Idefics-9B beam-3 test_icv", b, ref["beam"], dev)
+    for k, v in rank_pooled_run("Idefics-9B pooled beam-3 test_icv", b, ref["pooled"],
+                                dev).items():
+        counts[k] += v
     return counts
 
 
@@ -5235,29 +5675,20 @@ def int8_tp_steps(bind, params, ref: dict, counters: dict, dev) -> dict:
 
 def family_cut(bundle, n: int, copy: bool = False) -> tuple:
     """An Idefics2 or OpenFlamingo bundle's model cut to its first ``n``
-    decoder layers (and OpenFlamingo's cross-attention groups among them):
-    ``(params, train_forward)``, the forward normalising raw pixels as the
-    registry's does; the cut leaves views, or copies so that the rest can
-    go."""
+    decoder layers (``cut_bundle``): ``(params, train_forward)``, the
+    forward normalising raw pixels as the registry's does; the cut leaves
+    views, or copies so that the rest can go."""
     from licv_vqa_tpu_torch.data.processor import CLIP_MEAN, CLIP_STD, SIGLIP_MEAN, SIGLIP_STD
     from licv_vqa_tpu_torch.models import idefics2, openflamingo
     from licv_vqa_tpu_torch.models.registry import _wrap_pixel_normalize
 
-    mc = bundle.model_cfg
-    n = min(n, mc.text.n_layers)
-    params = dict(bundle.params, layers=_first(bundle.params["layers"], n))
+    cut = cut_bundle(bundle, n, copy)
     if "idefics2" in bundle.name:
         make, mean, std = idefics2.make_idefics2_forward_fns, SIGLIP_MEAN, SIGLIP_STD
     else:
         make, mean, std = openflamingo.make_openflamingo_forward_fns, CLIP_MEAN, CLIP_STD
-        params["xattn"] = _first(bundle.params["xattn"], n // mc.cross_attn_every_n_layers)
-    if copy:
-        for key in ("layers", "xattn"):
-            if key in params:
-                params[key] = _cloned(params[key])
-    cut = dataclasses.replace(mc, text=dataclasses.replace(mc.text, n_layers=n))
-    fwd = _wrap_pixel_normalize(*make(cut, bundle.eos_token_id), mean, std)[0]
-    return params, fwd
+    return cut.params, _wrap_pixel_normalize(*make(cut.model_cfg, bundle.eos_token_id), mean,
+                                             std)[0]
 
 
 def tower_counters() -> dict:
@@ -5463,11 +5894,13 @@ def rank_sp_flagship_path(dev, ref: dict, mesh) -> dict:
     return dict(counts, sp_peak_gib=round(peak, 2))
 
 
-def rank_sp_family_path(dev, ref: dict, mesh, lmm: str) -> dict:
+def rank_sp_family_path(dev, ref: dict, mesh, lmm: str, ref_h=None) -> dict:
     """(g): ``lmm`` cut to ``SP_FAMILY_LAYERS`` layers, one 32-shot teacher
     forward at sp = 2 against one process's (phase 7's or 8's model): the
     gathered hidden states, the towers' launches those of one process (the
-    towers run whole on every sp rank), no decoder flash launch."""
+    towers run whole on every sp rank), no decoder flash launch.  With
+    ``ref_h`` (``family_serving_reference``), then (h)'s greedy engine on
+    the same cut model at dp = 2."""
     import torch
 
     from licv_vqa_tpu_torch.models.registry import build_model
@@ -5479,12 +5912,13 @@ def rank_sp_family_path(dev, ref: dict, mesh, lmm: str) -> dict:
 
     def build():
         full = build_model(cfg, device=dev)
-        cut = family_cut(full, SP_FAMILY_LAYERS, copy=True)
+        cut = cut_bundle(full, SP_FAMILY_LAYERS, copy=True)
         full.params = None
         free_device_memory()
         return cut
 
-    params, forward = one_by_one(build)
+    cut = one_by_one(build)
+    params, forward = family_cut(cut, SP_FAMILY_LAYERS)
     counters = tower_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -5501,6 +5935,13 @@ def rank_sp_family_path(dev, ref: dict, mesh, lmm: str) -> dict:
         raise AssertionError(f"(g) {lmm}: the sp teacher's hidden states disagree")
     if counts != want:
         raise AssertionError(f"(g) {lmm}: launches are not the predicted ones")
+    if ref_h is not None:
+        from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, using_mesh
+
+        with using_mesh(create_mesh(MeshConfig(dp=PHASE11_WORLD, tp=1))):
+            for k, v in rank_engine_run(f"{lmm} cut to {SP_FAMILY_LAYERS} layers, greedy "
+                                        "test_icv", cut, ref_h, dev).items():
+                counts[k] = counts.get(k, 0) + v
     return counts
 
 
@@ -5549,8 +5990,10 @@ def collective_ms(dev) -> dict:
 
 
 def phase11_rank(refs_path: Path) -> int:
-    """A rank of phase 11 (b)-(g), started by ``distribution_path`` with the
-    launcher's environment; two ranks share the card over gloo."""
+    """A rank of phase 11 (b)-(h), started by ``distribution_path`` with the
+    launcher's environment; two ranks share the card over gloo.  (h) rides
+    on (b)'s tp shards and (g)'s cut OpenFlamingo, and builds Idefics-9B
+    whole at dp = 2 after (d)."""
     import torch
 
     from licv_vqa_tpu_torch.core.distributed import maybe_initialize_distributed
@@ -5565,9 +6008,10 @@ def phase11_rank(refs_path: Path) -> int:
         f"{collective_ms(dev)}")
     counts: dict = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rank_") as tmp:
-        for run in (lambda: rank_tp_path(dev, refs["b"]),
+        for run in (lambda: rank_tp_path(dev, refs["b"], refs["h"]),
                     lambda: rank_dp_path(dev, refs["c"], Path(tmp)),
-                    lambda: rank_int8_path(dev, refs["d"], Path(tmp))):
+                    lambda: rank_int8_path(dev, refs["d"], Path(tmp)),
+                    lambda: rank_serving_dp_path(dev, refs["h"])):
             for k, v in run().items():
                 counts[k] = counts.get(k, 0) + v
             free_device_memory()
@@ -5579,7 +6023,9 @@ def phase11_rank(refs_path: Path) -> int:
         sp_peak = None
         for run in (lambda: rank_sp_train_path(dev, refs["c"], mesh, Path(tmp)),
                     lambda: rank_sp_flagship_path(dev, refs["f"], mesh),
-                    *(lambda lmm=lmm: rank_sp_family_path(dev, refs["g"][lmm], mesh, lmm)
+                    *(lambda lmm=lmm: rank_sp_family_path(
+                        dev, refs["g"][lmm], mesh, lmm,
+                        refs["h"]["family"] if lmm == H_FAMILY else None)
                       for lmm in refs["g"])):
             res = run()
             sp_peak = res.pop("sp_peak_gib", sp_peak)
@@ -5710,7 +6156,7 @@ def main() -> int:
     launches.update({
         "vit_attention_f32": counts["vit_attention_f32"],
         "flash_alibi_attention": counts_of["flash_alibi_attention"]
-        + counts_q["flash_alibi_attention"],
+        + counts_q["flash_alibi_attention"] + counts_dist.get("flash_alibi_attention", 0),
         "flash_attention_bidir": counts_i2["flash_attention_bidir"]
         + counts_dist.get("flash_attention_bidir", 0),
         "int4_matmul": counts_q["int4_matmul"],

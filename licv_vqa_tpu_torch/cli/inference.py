@@ -19,13 +19,13 @@ continuous-batching engines (``infer/serving.py``: greedy, or beam groups;
 ``infer_engine=pooled`` through the pooled beam schedule
 (``infer/eval_chain.py``: chunks of ``infer_pool`` questions, default 32;
 beam search only; Idefics2 at uniform resolution).  ``infer_dp`` /
-``infer_tp`` (the JAX CLI's mesh; -1 dp = every rank over tp) run the
-static runner with one process per rank under
-``python -m torch.distributed.run``: each rank on ``cuda:LOCAL_RANK`` (or
-the CPU), over ``nccl`` (``gloo`` on the CPU),
-the eval batches split over dp and the frozen weights over tp; rank 0
-writes ``result.json`` and ``meta_info``.  The engines and the pooled chain
-under a mesh are ROADMAP.md Queue 1 item 16b and raise.
+``infer_tp`` (the JAX CLI's mesh; -1 dp = every rank over tp) run every
+engine with one process per rank under ``python -m torch.distributed.run``:
+each rank on ``cuda:LOCAL_RANK`` (or the CPU), over ``nccl`` (``gloo`` on
+the CPU), the frozen weights split over tp and, over dp, the static
+runner's eval batches, the continuous engines' slot pool (``bs`` rounded
+up to a dp multiple) or the pooled chain's chunks; rank 0 writes
+``result.json`` and ``meta_info``.
 
 Examples:
     python inference_torch.py run_name=vqav2_idefics9b test_icv=true
@@ -35,6 +35,8 @@ Examples:
     python inference_torch.py test_icv=true test_icl=true infer_engine=pooled infer_pool=32
     python -m torch.distributed.run --standalone --nproc_per_node=2 inference_torch.py \
         test_icv=true infer_tp=2
+    python -m torch.distributed.run --standalone --nproc_per_node=4 inference_torch.py \
+        test_icv=true infer_engine=continuous infer_dp=2 infer_tp=2
 """
 
 from __future__ import annotations
@@ -120,10 +122,6 @@ def main(argv: list[str] | None = None):
     device = resolve_device(cfg.get("device"))
     infer_dp, infer_tp = int(cfg.get("infer_dp", 1)), int(cfg.get("infer_tp", 1))
     engine = str(cfg.get("infer_engine", "static"))
-    if (infer_dp, infer_tp) != (1, 1) and engine != "static":
-        raise NotImplementedError(
-            f"infer_engine={engine} under infer_dp/infer_tp (a slot pool sharded over dp) is "
-            "not ported to licv_vqa_tpu_torch yet (ROADMAP.md Queue 1 item 16b)")
     launched = maybe_initialize_distributed(device.type)
     try:
         import torch.distributed as dist

@@ -7,17 +7,19 @@ extra rows are discarded (reference inference.py:264-267).  Greedy
 decoding may take a layer-truncated draft (``speculative_draft_layers``,
 ``infer/speculative.py``).  ``icv_inference_continuous`` and
 ``icl_inference_continuous`` run the same evals through the
-continuous-batching engines (``infer/serving.py``; Idefics only), and
+continuous-batching engines (``infer/serving.py``), and
 ``icv_inference_pooled`` and ``icl_inference_pooled`` through the pooled
-beam schedule (``infer/eval_chain.py``; Idefics-9B's family only).
+beam schedule (``infer/eval_chain.py``), each for the three families.
 
 Under a mesh (``core.mesh.current_mesh()``, the CLI's ``infer_dp`` /
 ``infer_tp``; JAX runner.py:195-209) every rank tokenizes the whole batch,
 repeats its last row up to a dp multiple, generates its contiguous dp rows
 (on its tp shards of the weights, the logits gathered whole) and gathers
 the dp ranks' tokens, so every rank holds every answer; the CLI's rank 0
-writes them.  The continuous engines and the pooled chain take no mesh
-(their dp slot pool is ROADMAP.md Queue 1 item 16b).
+writes them.  The continuous runners shard the engines' slot pool over dp
+(``n_slots`` rounded up to a dp multiple, JAX runner.py:381-383); the
+pooled runner gives each dp rank whole chunks, contiguous across dp, and
+gathers the answers over dp.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.mesh import current_mesh
 from ..data.prompt import PromptManager
-from ..parallel.sharding import dp_row_slice, dp_size, gather_rows_dp
+from ..parallel.sharding import all_reduce_dp, dp_row_slice, dp_size, gather_rows_dp
 from ..utils.log import get_logger
 from .decode import beam_generate, greedy_generate
 
@@ -270,26 +273,19 @@ def _icl_prompts(train_ds, val_ds, ice_idx_list, prompt_manager, instruction: st
         yield sample, p
 
 
-def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_slots: int,
-                    sync_steps: int) -> dict:
-    """Encode each ``(sample, prompt)`` of ``prompt_iter`` into an engine
-    ``Request``, serve them and return ``icv_inference``'s results dict
-    (JAX runner.py:329-419).  ``num_beams > 1`` (the reference's beam-3
-    default) takes ``BeamServingEngine``, greedy ``ServingEngine`` (whose
-    admissions into an occupied pool ride a merged forward,
-    ``ServingEngine.from_bundle``)."""
-    from .serving import BeamServingEngine, Request, ServingEngine
+def encode_requests(bundle, prompts, generate_kwargs: dict) -> list:
+    """Each prompt encoded as the processor does at bs 1 (left padding
+    dropped) into an engine ``Request`` (uid its index) at
+    ``generate_kwargs``' ``max_new_tokens``/``min_new_tokens``."""
+    from .serving import Request
 
-    num_beams = int(generate_kwargs.get("num_beams", 1))
     max_new = int(generate_kwargs.get("max_new_tokens", 5))
     min_new = int(generate_kwargs.get("min_new_tokens", 0))
-    proc = bundle.processor
-
-    samples, requests = [], []
-    for idx, (sample, p) in enumerate(prompt_iter):
-        enc = proc.prepare_input([p], padding=True, padding_side="left")
+    out = []
+    for idx, p in enumerate(prompts):
+        enc = bundle.processor.prepare_input([p], padding=True, padding_side="left")
         mask = np.asarray(enc["attention_mask"][0], bool)
-        requests.append(Request(
+        out.append(Request(
             uid=idx, input_ids=np.asarray(enc["input_ids"][0])[mask],
             pixel_values=np.asarray(enc["pixel_values"][0]),
             pixel_valid=np.asarray(enc["pixel_valid"][0], bool),
@@ -298,12 +294,30 @@ def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_sl
             pixel_attention_mask=(np.asarray(enc["pixel_attention_mask"][0])
                                   if "pixel_attention_mask" in enc else None),
         ))
-        samples.append(sample)
+    return out
 
-    # 64-multiple prompt buckets over the observed lengths
+
+def serve_requests(bundle, requests: list, generate_kwargs: dict, icv_scaled, n_slots: int,
+                   sync_steps: int = 4) -> dict:
+    """``{uid: generated ids}`` of ``requests`` through the bundle's
+    continuous engine (JAX runner.py:329-419).  ``num_beams > 1`` (the
+    reference's beam-3 default) takes ``BeamServingEngine``, greedy
+    ``ServingEngine`` (whose admissions into an occupied pool ride a merged
+    forward at dp = 1, ``ServingEngine.from_bundle``).  Prompt buckets are
+    64-multiples over the requests' lengths and the media buffers as wide
+    as the widest request's images.  Under the current mesh the pool is
+    sharded over dp, ``n_slots`` rounded up to a dp multiple (JAX
+    runner.py:381-383)."""
+    from .serving import BeamServingEngine, ServingEngine
+
+    num_beams = int(generate_kwargs.get("num_beams", 1))
+    max_new = int(generate_kwargs.get("max_new_tokens", 5))
     buckets = tuple(sorted({-(-len(r.input_ids) // 64) * 64 for r in requests})) or (64,)
+    mesh = current_mesh()
+    if mesh is not None:
+        n_slots = -(-n_slots // mesh.dp) * mesh.dp
     kw = dict(
-        icv_scaled=icv_scaled, n_slots=n_slots, out_cap=max(max_new, 1),
+        icv_scaled=icv_scaled, n_slots=n_slots, out_cap=max(max_new, 1), mesh=mesh,
         prompt_buckets=buckets, sync_steps=sync_steps,
         # mixed-shot ICL: the media buffers carry the widest request's images
         max_images=max((r.pixel_values.shape[0] for r in requests), default=None),
@@ -317,8 +331,20 @@ def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_sl
         engine = ServingEngine.from_bundle(bundle, **kw)
     for r in requests:
         engine.submit(r)
-    tokens = engine.run()
+    return engine.run()
 
+
+def _run_continuous(prompt_iter, bundle, generate_kwargs: dict, icv_scaled, n_slots: int,
+                    sync_steps: int) -> dict:
+    """Serve each ``(sample, prompt)`` of ``prompt_iter`` as a request
+    (``encode_requests``, ``serve_requests``) and return
+    ``icv_inference``'s results dict."""
+    samples, prompts = [], []
+    for sample, p in prompt_iter:
+        samples.append(sample)
+        prompts.append(p)
+    tokens = serve_requests(bundle, encode_requests(bundle, prompts, generate_kwargs),
+                            generate_kwargs, icv_scaled, n_slots, sync_steps)
     results = {}
     for idx, sample in enumerate(samples):
         text = bundle.tokenizer.batch_decode([tokens[idx]], skip_special_tokens=True)[0]
@@ -368,6 +394,73 @@ def icl_inference_continuous(
         bundle, generate_kwargs, None, n_slots, sync_steps)
 
 
+def encode_questions(bundle, prompts) -> list:
+    """Each prompt's unpadded ``(ids, pixels, valid)`` for the pooled chain
+    (``pooled_tokens``); NaViT inputs raise (JAX's rule: the engines take
+    them)."""
+    out = []
+    for p in prompts:
+        enc = bundle.processor.prepare_input([p], padding=True, padding_side="left")
+        if "pixel_attention_mask" in enc:
+            raise ValueError("NaViT variable resolution is engine-only; use "
+                             "infer_engine=continuous")
+        mask = np.asarray(enc["attention_mask"][0], bool)
+        out.append((np.asarray(enc["input_ids"][0])[mask], np.asarray(enc["pixel_values"][0]),
+                    np.asarray(enc["pixel_valid"][0], bool)))
+    return out
+
+
+def pooled_chunks(encs: list, pool_questions: int) -> list:
+    """The pooled runner's chunks: question indices by (64-multiple length,
+    image count) bucket, in chunks of ``pool_questions``, the last of a
+    bucket padded by repeating its last question; ``[(bucket, indices,
+    real count)]`` in bucket order."""
+    buckets: dict = {}  # (64-multiple length, image count) -> question indices
+    for idx, (ids, px, _) in enumerate(encs):
+        buckets.setdefault((max(-(-len(ids) // 64) * 64, 64), px.shape[0]), []).append(idx)
+    out = []
+    for (bucket, _), idxs in sorted(buckets.items()):
+        c = min(int(pool_questions), len(idxs))
+        for lo in range(0, len(idxs), c):
+            chunk = idxs[lo: lo + c]
+            out.append((bucket, chunk + [chunk[-1]] * (c - len(chunk)), len(chunk)))
+    return out
+
+
+def pooled_tokens(chain, encs: list, pool_questions: int, max_new: int, pad_id: int, device,
+                  icv_scaled=None) -> np.ndarray:
+    """Every question's ``(max_new,)`` tokens through the pooled chain
+    ``chain(ids, mask, pixels, valid, icv)`` (``eval_chain``'s contract),
+    ``encs`` each question's unpadded ``(ids, pixels, valid)``.  Under
+    the current mesh dp rank ``d`` runs whole chunks
+    ``[d·C/dp, (d+1)·C/dp)`` of the ``C`` chunks, each the one-process
+    chunk's questions in its shape, and the tokens are gathered over dp
+    (one all-reduce of a zero-filled buffer): every rank returns every
+    question's."""
+    mesh = current_mesh()
+    chunks = pooled_chunks(encs, pool_questions)
+    dp, d = (1, 0) if mesh is None else (mesh.dp, mesh.dp_index)
+    mine = chunks[d * len(chunks) // dp: (d + 1) * len(chunks) // dp]
+    out = torch.zeros((len(encs), max_new), dtype=torch.int32, device=device)
+    for bucket, chunk, real in mine:
+        c = len(chunk)
+        ids = np.full((c, 1, bucket), pad_id, np.int32)
+        mask = np.zeros((c, 1, bucket), np.int32)
+        pixels = np.stack([encs[qi][1] for qi in chunk])[:, None]
+        pvs = np.stack([encs[qi][2] for qi in chunk])[:, None]
+        for r, qi in enumerate(chunk):  # left padding
+            q_ids = encs[qi][0]
+            ids[r, 0, bucket - len(q_ids):] = q_ids
+            mask[r, 0, bucket - len(q_ids):] = 1
+        got = chain(torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device),
+                    torch.from_numpy(pixels).to(device), torch.from_numpy(pvs).to(device),
+                    icv_scaled)  # (c, 1, max_new)
+        out[torch.as_tensor(chunk[:real], device=device)] = got[:real, 0].to(torch.int32)
+    if dp > 1:
+        out = all_reduce_dp(out)
+    return out.cpu().numpy()
+
+
 def _run_pooled(prompt_iter, bundle, generate_kwargs: dict, icv_scaled,
                 pool_questions: int) -> dict:
     """The pooled beam schedule (``infer_engine=pooled``, JAX
@@ -379,54 +472,26 @@ def _run_pooled(prompt_iter, bundle, generate_kwargs: dict, icv_scaled,
     Prompts bucket by 64-multiple length and image count; each bucket runs
     in chunks of ``pool_questions`` questions, the last padded by repeating
     its last question (the extra answers dropped); the answers are read
-    back once a chunk.  Each question's tokens are ``beam_generate``'s at
-    bs=1, so the results are the static beam path's in f32."""
+    back once, after every chunk (``pooled_tokens``: under a mesh each dp
+    rank's whole chunks, on its tp shards).  Each question's tokens are
+    ``beam_generate``'s at bs=1, so the results are the static beam path's
+    in f32."""
     from .eval_chain import pooled_eval_chain
 
     chain = pooled_eval_chain(bundle, generate_kwargs)
-    proc = bundle.processor
-    samples, encs = [], []
+    samples, prompts = [], []
     for sample, p in prompt_iter:
-        enc = proc.prepare_input([p], padding=True, padding_side="left")
-        if "pixel_attention_mask" in enc:
-            raise ValueError("NaViT variable resolution is engine-only; use "
-                             "infer_engine=continuous")
-        mask = np.asarray(enc["attention_mask"][0], bool)
-        encs.append((np.asarray(enc["input_ids"][0])[mask], np.asarray(enc["pixel_values"][0]),
-                     np.asarray(enc["pixel_valid"][0], bool)))
         samples.append(sample)
-
-    buckets: dict = {}  # (64-multiple length, image count) -> question indices
-    for idx, (ids, px, _) in enumerate(encs):
-        buckets.setdefault((max(-(-len(ids) // 64) * 64, 64), px.shape[0]), []).append(idx)
-
-    dev, pad_id = bundle.device, bundle.pad_token_id
-    answers: dict = {}
-    for (bucket, n_img), idxs in sorted(buckets.items()):
-        c = min(int(pool_questions), len(idxs))
-        for lo in range(0, len(idxs), c):
-            chunk = idxs[lo: lo + c]
-            real = len(chunk)
-            chunk = chunk + [chunk[-1]] * (c - real)
-            ids = np.full((c, 1, bucket), pad_id, np.int32)
-            mask = np.zeros((c, 1, bucket), np.int32)
-            pixels = np.stack([encs[qi][1] for qi in chunk])[:, None]
-            pvs = np.stack([encs[qi][2] for qi in chunk])[:, None]
-            for r, qi in enumerate(chunk):  # left padding
-                q_ids = encs[qi][0]
-                ids[r, 0, bucket - len(q_ids):] = q_ids
-                mask[r, 0, bucket - len(q_ids):] = 1
-            out = chain(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
-                        torch.from_numpy(pixels).to(dev), torch.from_numpy(pvs).to(dev),
-                        icv_scaled).cpu().numpy()  # (c, 1, max_new)
-            for r, qi in enumerate(chunk[:real]):
-                answers[qi] = bundle.tokenizer.batch_decode([out[r, 0]],
-                                                            skip_special_tokens=True)[0]
-
+        prompts.append(p)
+    encs = encode_questions(bundle, prompts)
+    tokens = pooled_tokens(chain, encs, pool_questions,
+                           int(generate_kwargs.get("max_new_tokens", 5)), bundle.pad_token_id,
+                           bundle.device, icv_scaled)
     results = {}
     for idx, sample in enumerate(samples):
         row = {k: v for k, v in sample.items() if k != "image"}
-        results[idx] = {"prediction": answers[idx], **row}
+        text = bundle.tokenizer.batch_decode([tokens[idx]], skip_special_tokens=True)[0]
+        results[idx] = {"prediction": text, **row}
     return results
 
 

@@ -38,14 +38,28 @@ row's bf16 logits may differ (cuBLAS and the kernels pick tiles by M), so
 argmax near-ties can flip between the engine and a static batch, as between
 two static batch sizes (JAX serving.py:31-37); in f32 the tokens are equal.
 
+Under a mesh (``mesh``: a ``core.mesh.Mesh`` of one process a rank, JAX
+serving.py:171-181) the slot pool is sharded over dp: rank ``d`` holds
+global slots ``[d·n/dp, (d+1)·n/dp)`` (a beam engine's whole groups) of
+the cache, the slot state and the media.  Every rank runs the same host
+scheduler over the global slots, so submissions, admissions and decode
+steps are the one-process engine's; each rank prefills an admission group
+whole (JAX's prefill lane is replicated over dp) and scatters only the rows
+it holds, steps its own rows at every step, and gathers each harvest's
+snapshot over dp in one all-reduce, so every rank returns every request's
+tokens.  tp runs through the same mesh (the model code's tp rules, the
+pool's KV heads this rank's).  Merged admission needs dp = 1 (JAX
+serving.py:160): under dp > 1 admission is plain.
+
 Not in this port yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: ``run_fused`` (the whole scheduler on the device, item 19's
-CUDA-graph capture) and the serving mesh (``mesh``: a slot pool sharded
-over dp, item 16b; the static runner takes ``infer_dp``/``infer_tp``).
+CUDA-graph capture) and ``run_online`` across ranks (item 30: its ranks
+would need one front end feeding every rank the same arrivals).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -54,7 +68,9 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..core.mesh import using_mesh
 from ..models.decoder import init_kv_cache
+from ..parallel.sharding import gather_rows_dp
 from ..utils.log import get_logger
 from .decode import NEG_INF, _kv_leaves, _take_rows, _topk, _topk_2k_two_stage
 
@@ -133,7 +149,9 @@ class ServingEngine:
     ``models/openflamingo.py``) or via :meth:`from_bundle`; ``media_axes``
     maps each media key to its (batch axis, image axis).
     ``supports_pixel_attention_mask``: the family's prefill (and merged
-    function) take ``pixel_attention_mask``.
+    function) take ``pixel_attention_mask``.  ``mesh``: the dp × tp mesh
+    whose dp axis shards the pool (``n_slots`` a dp multiple; see the
+    module docstring), with ``params`` this rank's tp shards.
     """
 
     def __init__(
@@ -159,25 +177,33 @@ class ServingEngine:
         harvest_lag: int = 1,
         device=None,
     ):
-        if mesh is not None:
-            raise _not_ported("the serving mesh (a slot pool sharded over dp)", "item 16b")
         if harvest_lag not in (0, 1):
             raise ValueError(f"harvest_lag must be 0 or 1, got {harvest_lag}")
         self._prefill = prefill_fn
         self._decode = decode_fn
+        self.mesh = mesh
+        self.n_slots = int(n_slots)
+        self._dp = 1 if mesh is None else mesh.dp
+        if self.n_slots % self._dp:
+            raise ValueError(f"n_slots={self.n_slots} must divide over dp={self._dp} (each "
+                             "rank holds whole slots, a beam engine's whole groups)")
+        # this rank's slots: [_slot0, _slot0 + _local_slots)
+        self._local_slots = self.n_slots // self._dp
+        self._slot0 = (0 if mesh is None else mesh.dp_index) * self._local_slots
         # merged admission (chunked prefill) wherever a merged function is
-        # given: on the H100 it saves the pool the forward an admission
-        # would take (JAX's run() leaves it off by default: it lost on the
-        # TPU, serving.py:145-159); an admission into an empty pool is
-        # always plain (no decode lane to carry it)
-        self._merged_admit = merged_admit_fn
+        # given and dp = 1: on the H100 it saves the pool the forward an
+        # admission would take (JAX's run() leaves it off by default: it
+        # lost on the TPU, serving.py:145-159); an admission into an empty
+        # pool is always plain (no decode lane to carry it).  Under dp > 1
+        # the prefill lane would be replicated and the decode lane local:
+        # plain admission, as JAX's (serving.py:160)
+        self._merged_admit = merged_admit_fn if self._dp == 1 else None
         self._media_axes = dict(media_axes)
         self._text_cfg = text_cfg
         self.params = params
         self.device = torch.device(device) if device is not None else _leaves(params)[0].device
         self.eos_token_id = int(eos_token_id)
         self.pad_token_id = int(pad_token_id)
-        self.n_slots = int(n_slots)
         self.out_cap = int(out_cap)
         self.prompt_buckets = tuple(sorted(int(b) for b in prompt_buckets))
         self.sync_steps = int(sync_steps)
@@ -201,7 +227,8 @@ class ServingEngine:
         self._state = None
         self._host = None  # pinned snapshot buffers, one per outstanding chunk
         self._snapshots = 0  # snapshots taken (the ring's cursor)
-        self._ensure_pool()
+        with self._mesh_scope():  # the pool's KV heads are the mesh's tp rank's
+            self._ensure_pool()
         self._queue: deque[Request] = deque()
         self._slots: list[Optional[_Slot]] = [None] * self.n_slots
         self.steps_run = 0  # decode steps dispatched
@@ -222,17 +249,20 @@ class ServingEngine:
 
     @property
     def n_rows(self) -> int:
-        return self.n_slots
+        """Pool rows this rank holds (all of them in one process)."""
+        return self._local_slots
 
     @torch.inference_mode()
     def _ensure_pool(self) -> None:
-        """(Re-)allocate the pool's device tensors if released."""
+        """(Re-)allocate the pool's device tensors if released.  The host
+        snapshots hold every rank's rows (the dp gather's)."""
         if self._cache is None:
             self._cache = self._init_cache()
             self._state = self._init_state()
             watched = (self._state["finished"], self._state["tok_count"], self._state["out"])
             pin = self.device.type == "cuda"
-            self._host = [tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+            self._host = [tuple(torch.empty((x.shape[0] * self._dp, *x.shape[1:]),
+                                            dtype=x.dtype, pin_memory=pin)
                                 for x in watched) for _ in range(self.harvest_lag + 1)]
 
     def release_pool(self) -> None:
@@ -349,7 +379,10 @@ class ServingEngine:
         """Serve until :meth:`stop`, sleeping briefly when idle.  ``submit``
         may be called from other threads meanwhile (deque appends are
         atomic; the loop reads the queue every iteration).  ``stop()``
-        finishes everything submitted, then returns."""
+        finishes everything submitted, then returns.  One process only."""
+        if self.mesh is not None and self.mesh.world_size > 1:
+            raise _not_ported("run_online across ranks (one front end feeding every rank "
+                              "the same arrivals)", "item 30")
         return self._serve(online=True, on_complete=on_complete, idle_sleep_s=idle_sleep_s)
 
     def stop(self) -> None:
@@ -360,8 +393,16 @@ class ServingEngine:
         raise _not_ported("run_fused (the whole scheduler on the device, a replayed CUDA "
                           "graph)", "item 19")
 
-    @torch.inference_mode()
+    def _mesh_scope(self):
+        """The engine's mesh made current (the model code's tp rules and the
+        harvest's dp gather read it); no change without one."""
+        return contextlib.nullcontext() if self.mesh is None else using_mesh(self.mesh)
+
     def _serve(self, online: bool, on_complete, idle_sleep_s: float = 0.002) -> dict:
+        with self._mesh_scope(), torch.inference_mode():
+            return self._serve_loop(online, on_complete, idle_sleep_s)
+
+    def _serve_loop(self, online: bool, on_complete, idle_sleep_s: float) -> dict:
         self._ensure_pool()
         results: dict = {}
         t0 = time.perf_counter()
@@ -472,10 +513,20 @@ class ServingEngine:
                                                          bucket, **pam)
         if self._media is None:
             self._alloc_media(media, pixels.shape[1])
-        rows = self._rows(self._to_device(np.asarray(slots, np.int64)))
-        self._scatter_admit(rows, bucket, last, small, media, next_pos,
-                            self._to_device(max_new), self._to_device(min_new))
-        self._admit_state(rows, mask_t)
+        # the group's requests whose slots this rank holds (all in one process)
+        mine = [i for i, s in enumerate(slots)
+                if self._slot0 <= s < self._slot0 + self._local_slots]
+        if mine:
+            if len(mine) < adm:
+                last, small, media, next_pos, mask_t = self._take_requests(
+                    self._to_device(np.asarray(mine, np.int64)), last, small, media, next_pos,
+                    mask_t)
+                max_new, min_new = max_new[mine], min_new[mine]
+            local = np.asarray([slots[i] - self._slot0 for i in mine], np.int64)
+            rows = self._rows(self._to_device(local))
+            self._scatter_admit(rows, bucket, last, small, media, next_pos,
+                                self._to_device(max_new), self._to_device(min_new))
+            self._admit_state(rows, mask_t)
         self.admissions.append((adm, bucket))
         if self._clock_t0 is not None:  # online admission clock
             adm_now = time.perf_counter() - self._clock_t0
@@ -485,8 +536,22 @@ class ServingEngine:
             self._slots[s] = _Slot(r, len(r.input_ids), admitted_at)
 
     def _rows(self, slots: torch.Tensor) -> torch.Tensor:
-        """(adm, rows a slot) pool rows of the admitted slots."""
+        """(adm, rows a slot) local pool rows of the admitted (local) slots."""
         return slots[:, None]
+
+    def _take_requests(self, take: torch.Tensor, last, small, media, next_pos, mask):
+        """The prefill outputs of the group's requests ``take`` (the ones
+        whose slots this rank holds): the K/V planes by their batch axis 1,
+        every other cache leaf and the media by their batch axis."""
+        def rows(ax):
+            return lambda x: x.index_select(ax, take)
+
+        small = dict(small, k=_map(rows(1), small["k"]), v=_map(rows(1), small["v"]),
+                     pos=small["pos"].index_select(0, take),
+                     valid=small["valid"].index_select(0, take))
+        media = {key: _map(rows(ax), media[key]) for key, (ax, _) in self._media_axes.items()}
+        return (last.index_select(0, take), small, media, next_pos.index_select(0, take),
+                mask.index_select(0, take))
 
     def _admit_state(self, rows: torch.Tensor, mask: torch.Tensor) -> None:
         """Engine-specific state of the admitted rows (the beam pools')."""
@@ -625,14 +690,25 @@ class ServingEngine:
 
     # -- harvest -----------------------------------------------------------------
 
+    def _watched(self) -> tuple:
+        """``(finished, tok_count, out)`` of every pool row: this rank's, or
+        under dp every rank's in global row order, packed into one int32
+        buffer and gathered in one all-reduce (``gather_rows_dp``)."""
+        st = self._state
+        watched = (st["finished"], st["tok_count"], st["out"])
+        if self._dp == 1:
+            return watched
+        packed = gather_rows_dp(torch.cat([st["finished"].to(torch.int32)[:, None],
+                                           st["tok_count"][:, None], st["out"]], dim=1))
+        return packed[:, 0].bool(), packed[:, 1].contiguous(), packed[:, 2:].contiguous()
+
     def _snapshot(self) -> _Snapshot:
         """Queue the copy of this chunk's flags, counts and tokens to the host."""
-        st = self._state
         # by the snapshots' own count: a merged step advances the chunk
         # count without a snapshot
         host = self._host[self._snapshots % len(self._host)]
         self._snapshots += 1
-        for h, x in zip(host, (st["finished"], st["tok_count"], st["out"])):
+        for h, x in zip(host, self._watched()):
             h.copy_(x, non_blocking=True)
         event = None
         if self.device.type == "cuda":
@@ -641,7 +717,7 @@ class ServingEngine:
         return _Snapshot(host, event, self._chunk_count)
 
     def _harvest_row(self, i: int) -> int:
-        """Pool row that carries slot ``i``'s result."""
+        """Global pool row that carries slot ``i``'s result."""
         return i
 
     def _harvest(self, snap: _Snapshot, now: Optional[float] = None) -> dict:
@@ -693,6 +769,10 @@ class BeamServingEngine(ServingEngine):
     PADDED batch length (HF semantics, batching-dependent).  The two agree
     at the reference's ``length_penalty=0.0``; at another value the engine
     matches an unpadded bs=1 run.
+
+    Under a mesh the groups divide over dp (JAX serving.py:1213-1257): a
+    rank holds whole groups, so the transition and the tail permutation
+    stay on its rows.
     """
 
     def __init__(self, prefill_fn, decode_fn, media_axes, text_cfg, params, *,
@@ -712,7 +792,8 @@ class BeamServingEngine(ServingEngine):
 
     @property
     def n_rows(self) -> int:
-        return self.n_groups * self.num_beams
+        """Pool rows this rank holds: its whole groups of ``num_beams``."""
+        return self._local_slots * self.num_beams
 
     def run_fused(self) -> dict:
         raise NotImplementedError(
@@ -722,7 +803,7 @@ class BeamServingEngine(ServingEngine):
 
     def _init_state(self) -> dict:
         st = super()._init_state()
-        g, k, dev = self.n_groups, self.num_beams, self.device
+        g, k, dev = self._local_slots, self.num_beams, self.device
         st.update(
             plen=torch.zeros((self.n_rows,), dtype=torch.int32, device=dev),  # lp divisor
             beam_live=torch.full((g, k), NEG_INF, dtype=torch.float32, device=dev),
@@ -770,7 +851,7 @@ class BeamServingEngine(ServingEngine):
         st = self._state
         eos, pad = self.eos_token_id, self.pad_token_id
         k, cap, lp = self.num_beams, self.out_cap, self.length_penalty
-        g, rows = self.n_groups, self.n_rows
+        g, rows = self._local_slots, self.n_rows  # this rank's groups and rows
         dev = st["out"].device
         emit = st["active"][::k] & ~st["finished"][::k]  # (G,) live groups
         t = st["tok_count"][::k]

@@ -8,7 +8,11 @@ one tiny HF-layout Idefics checkpoint under ``MODEL_CPK_DIR`` that every
 run converts (as ``tests/test_torch_cli.py`` writes it);
 ``train_torch.py`` at ``trainer.strategy=dp_tp trainer.tp=2`` must write
 one ``icv_cpk.pth`` and one line of metrics a step, from rank 0.  The three
-launches run at once, beside the in-process runs.  ``train_torch.py`` at
+launches run at once, beside the in-process runs.  The serving engines over
+ranks: ``infer_engine=continuous`` beam-3 at ``infer_dp=2 infer_tp=2``
+(four ranks) must write the static beam path's predictions and JAX's
+``inference.py``'s at the same mesh, and ``infer_engine=pooled`` at
+``infer_dp=2`` one process's.  ``train_torch.py`` at
 ``trainer.strategy=dp_sp trainer.sp=2`` (two ranks, each half of every
 row's tokens) must write the ``icv_cpk.pth`` of ``train.py`` at the same
 strategy (its two virtual devices) within 1e-5, from the same converted
@@ -67,9 +71,9 @@ def weights(env):  # noqa: F811
     return env
 
 
-def _launch(script: str, args: list, log, **env):
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
-           str(REPO / script), *args, "device=cpu"]
+def _launch(script: str, args: list, log, nproc: int = 2, **env):
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(REPO / script), *args, "device=cpu"]
     return subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1", **env),
                             stdout=log, stderr=subprocess.STDOUT)
 
@@ -121,6 +125,55 @@ def test_multi_process_clis_match_jax_and_one_process(weights):
     assert steps == [1, 2, 3, 4]  # one writer
     state = torch.load(run / "icv_cpk.pth", weights_only=False)
     assert state["icv_encoder.icv"].shape == (1, 4, 64)
+
+
+def test_serving_engines_over_ranks_match_the_static_beam_and_jax(weights):
+    """``infer_engine=continuous`` beam-3 at ``infer_dp=2 infer_tp=2`` (four
+    ranks: the group pool over dp, the weights over tp) writes the static
+    beam path's predictions and JAX's ``inference.py`` at the same mesh
+    (``tests/test_cli_e2e.py:206-248``); ``infer_engine=pooled`` at
+    ``infer_dp=2`` (each rank whole chunks of 2) writes one process's
+    pooled predictions, which are the static beam's.  One ``result.json``
+    and ``meta_info`` each, from rank 0."""
+    env = weights
+    import inference as jax_cli
+    from licv_vqa_tpu_torch.cli.inference import main as torch_main
+
+    cache = env / "ice_idx.json"
+    cache.write_text(json.dumps([[0, 1]] * 5))
+    args = COMMON + ICL + [f"ice_idx_list_cache={cache}", "generate_kwargs.num_beams=3"]
+    cont = ["infer_engine=continuous", "infer_dp=2", "infer_tp=2"]
+    pooled = ["infer_engine=pooled", "infer_pool=2"]
+    logs = {name: open(env / f"{name}.log", "w") for name in ("cont", "pooled")}
+    procs = {
+        "cont": _launch("inference_torch.py", args + cont + ["run_name=cont_dp2tp2"],
+                        logs["cont"], nproc=4),
+        "pooled": _launch("inference_torch.py", args + pooled + ["run_name=pooled_dp2",
+                                                                 "infer_dp=2"], logs["pooled"]),
+    }
+    try:
+        jax_cli.main(args + cont + ["run_name=jax_cont"])
+        torch_main(args + ["run_name=static_beam", "device=cpu"])
+        torch_main(args + pooled + ["run_name=pooled_one", "device=cpu"])
+        for name, p in procs.items():
+            assert p.wait(timeout=300) == 0, (env / f"{name}.log").read_text()[-4000:]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        for f in logs.values():
+            f.close()
+
+    want = _preds(env, "static_beam")
+    assert len(want) == 5 and all(want), want
+    assert _preds(env, "jax_cont") == want
+    assert _preds(env, "cont_dp2tp2") == want
+    assert _preds(env, "pooled_one") == want
+    assert _preds(env, "pooled_dp2") == want
+    for run in ("cont_dp2tp2", "pooled_dp2"):
+        d = env / "results" / "inference" / "tiny-idefics" / "vqav2" / run
+        assert (d / "result.json").exists()
+        assert sorted(p.name for p in (d / "meta_info").iterdir()) == ["icl_shot2.json"]
 
 
 @pytest.mark.parametrize("extra", [["infer_dp=3"], ["infer_dp=2", "infer_tp=2"]])

@@ -14,9 +14,9 @@ buckets of mixed shot counts: the last chunk of a bucket padded;
 ``lmm=tiny-flamingo`` (``tests/test_torch_openflamingo_cli.py``'s
 ``checkpoint.pt`` and split) write the static path's predictions, which are
 ``inference.py``'s; so does tiny-flamingo's greedy engine with int8 weights
-and the int8 KV cache under ALiBi.  The serving mesh raises with its
-ROADMAP item, and the pooled runner refuses greedy decoding and NaViT
-images.
+and the int8 KV cache under ALiBi.  The pooled runner refuses greedy
+decoding and NaViT images.  The engines over ranks (``infer_dp`` /
+``infer_tp``) are ``tests/test_torch_dist_cli.py``'s.
 """
 
 import json
@@ -239,15 +239,3 @@ def test_openflamingo_served_cli_writes_the_static_predictions(env3, engine, bea
         assert len(want) == 4 and any(want), (name, want)
         assert _preds3(env3, served, name) == want, name
         assert _preds3(env3, jax_run, name) == want, name
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["infer_engine=continuous", "infer_dp=2"], "item 16b"),
-    (["infer_engine=continuous", "infer_tp=2"], "item 16b"),
-    (["infer_engine=pooled", "infer_dp=2"], "item 16b"),
-])
-def test_what_the_cli_does_not_serve_raises_with_its_roadmap_item(env, extra, item):  # noqa: F811
-    from licv_vqa_tpu_torch.cli.inference import main as torch_main
-
-    with pytest.raises(NotImplementedError, match=item):
-        torch_main(ARGS + ["run_name=refused", "device=cpu", *extra])

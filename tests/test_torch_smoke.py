@@ -5,11 +5,13 @@ predict (rehearsed at tiny size), and the kernel lines that
 ``tools/mutation_check_torch_kernels.py`` breaks (so a change to a kernel
 cannot silently leave the mutation check with nothing to break)."""
 
+import functools
 import importlib.util
 import sys
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -967,6 +969,134 @@ def test_pooled_phase_tie_rule_on_an_altered_static_decode(tmp_path, monkeypatch
     assert "at token 1 " in line
     assert float(line.split("max-abs ")[1].split(",")[0]) < 1e-4
     assert float(line.split("at bs 2: ")[1].split(";")[0]) < 1e-4
+
+
+def test_serving_distribution_phase_on_tiny_idefics(tmp_path, monkeypatch, one_thread):
+    """Phase 11 (h) on the CPU at tiny size: the references of phases 4
+    and 8 (``serving_references``: beam-3 and merged greedy engine runs and
+    the pooled chain, one process; ``family_serving_reference``: greedy on
+    tiny-flamingo cut to 2 of its 4 layers), then two gloo ranks
+    (``smoke_serving_rank``) run them again through the phase's own rank
+    functions, beam, pooled and the family at dp = 2 and merged greedy at
+    tp = 2, which hold the tokens, the schedule and each rank's launches to
+    one process's and raise."""
+    from tests.torch_dist_common import run_ranks, smoke_serving_rank
+
+    _count_engine_kernels(monkeypatch)
+    _stub_cuda(monkeypatch, tmp_path)
+    e = C.eval_setup(torch.device("cpu"), tmp_path / "eval", [], lmm="tiny-idefics")
+    refs = C.serving_references(e)
+    assert refs["greedy"]["merged_admits"] > 0 and refs["beam"]["merged_admits"] == 0
+    monkeypatch.setattr(C, "SP_FAMILY_LAYERS", 2)
+    refs["family"] = C.family_serving_reference(C.eval_setup(
+        torch.device("cpu"), tmp_path / "flamingo", [], lmm="tiny-flamingo"))
+    torch.save(refs, tmp_path / "refs.pt")
+    ranks = run_ranks(smoke_serving_rank, 2, tmp_path, str(tmp_path / "refs.pt"),
+                      ["lmm=tiny-idefics", "device=cpu", "run_name=phase11", "bs=1"],
+                      ["lmm=tiny-flamingo", "device=cpu", "run_name=phase11", "bs=1"], 2)
+    for got in ranks:
+        for run in ("beam", "pooled", "greedy", "family"):
+            assert got[run]["icv_inject"] > 0 and got[run]["vit_attention"] > 0, run
+    # every rank prefills every admission group and every chain its own
+    for run in ("beam", "greedy", "family"):
+        assert ranks[0][run] == ranks[1][run], run
+    assert ranks[0]["family"]["icv_inject"] % 2 == 0  # 2 layers a forward
+    # more requests than slots: later groups admit into slots the gathered
+    # harvest freed
+    assert len(refs["family"]["admissions"]) > 1
+    # the family run again with the dp gather's token rows misplaced: the
+    # rank holding a misplaced request refuses it
+    assert any(got["misplaced"] and "misplaced a row" in got["misplaced"] for got in ranks), \
+        [got["misplaced"] for got in ranks]
+
+    # the beam rule where a rank's tokens differ (here one process's altered
+    # at the second token): it reads the static search's margin there and
+    # counts a near tie or refuses
+    ref = refs["beam"]
+    want = dict(ref["tokens"])
+    uid = ref["requests"][0]["uid"]
+    want[uid] = want[uid].copy()
+    want[uid][1] = (want[uid][1] + 1) % 100
+    try:
+        n = C.serving_tie_check("beam", e.bundle, True, [(uid, ref["requests"][0])],
+                                ref["tokens"], want, ref["gen_kwargs"], ref["icv"],
+                                torch.device("cpu"))
+    except AssertionError as err:
+        assert "near tie" in str(err)
+    else:
+        assert n == 1
+
+
+# the greedy token rule on made-up logits over 8 tokens (EOS 0): one
+# process took 2 at token 1 (top-2 gap 0.1 over token 4), the rank 4;
+# (token 0's bump: the layout's drift where the tokens agree, token 1's
+# logits: the rank's there, min_new, what the rule says)
+GREEDY_RULE_CASES = {
+    "drift_covers_the_gap": (0.06, {4: 6.05}, 0, None),
+    "drift_under_half_the_gap": (0.01, {4: 6.05}, 0, "near tie"),
+    "the_whole_vector_off": (2.0, {4: 9.0}, 0, "near tie"),
+    "not_the_ranks_argmax": (0.06, {}, 0, "misplaced a row"),
+    "eos_suppressed_under_min_new": (0.06, {4: 6.05, 0: 6.3}, 2, None),
+    "eos_not_suppressed": (0.06, {4: 6.05, 0: 6.3}, 1, "misplaced a row"),
+}
+
+
+@pytest.mark.parametrize("case", list(GREEDY_RULE_CASES))
+def test_serving_greedy_token_rule(case):
+    """(h)'s greedy rule at a rank's first differing token: its token the
+    argmax of its engine's logits there (EOS suppressed under ``min_new``),
+    those logits within rel. L2 ``REL_L2_TOL`` of one process's, and one
+    process's top-2 gap under ``NEAR_TIE`` or twice the layout's drift
+    where the tokens agree; a request another rank holds is that rank's."""
+    bump, rank1, min_new, raises = GREEDY_RULE_CASES[case]
+    one = [torch.full((8,), 5.0), torch.full((8,), 5.0)]
+    one[0][1], one[1][2], one[1][4] = 6.0, 6.0, 5.9
+    mine = [one[0].clone(), one[1].clone()]
+    mine[0][3] += bump
+    for k, v in rank1.items():
+        mine[1][k] = v
+    rec = {"logits": lambda uid, t: mine[t], "holds": lambda uid: uid == "u"}
+    reqs = [("u", {"min_new": min_new}), ("v", {"min_new": 0})]
+    got = {"u": np.array([1, 4, 3]), "v": np.array([1, 4])}
+    want = {"u": np.array([1, 2, 3]), "v": np.array([1, 2])}  # "v": another rank's
+    run = functools.partial(C.serving_tie_check, case, SimpleNamespace(eos_token_id=0), False,
+                            reqs, got, want, {}, None, torch.device("cpu"), rec,
+                            {"u": one, "v": one})
+    if raises is None:
+        assert run() == 2
+    else:
+        with pytest.raises(AssertionError, match=raises):
+            run()
+
+
+def test_world_one_engine_phase_on_tiny_idefics(tmp_path, monkeypatch, one_thread):
+    """Phase 11 (a)'s engine run on the CPU at tiny size: the inference
+    CLI's ``infer_engine=continuous`` beam-3 at ``infer_dp=1 infer_tp=1``
+    in a launcher's world of one (gloo here), against the same CLI without
+    a launcher: the phase holds the tokens, the answers and the launches
+    (and, on the card, the synchronizing calls) and raises."""
+    from licv_vqa_tpu_torch.models.idefics import IdeficsConfig
+    from licv_vqa_tpu_torch.utils import compose
+
+    _count_engine_kernels(monkeypatch)
+    _stub_cuda(monkeypatch, tmp_path)
+    C.set_env(tmp_path)
+    args = ["lmm=tiny-idefics", "device=cpu", "bs=1", "test_icv=true",
+            f"test_num={C.N_ICV_Q}", f"generate_kwargs.max_new_tokens={C.MAX_NEW}",
+            "generate_kwargs.num_beams=3", "generate_kwargs.length_penalty=0.0",
+            "data_cfg.task.datasets.max_train_size=-1"]
+    C.write_training_split(tmp_path)
+    cfg = compose(str(C.REPO / "config"), "inference", args + ["run_name=x"])
+    g = torch.Generator().manual_seed(0)
+    icv = {"icv_encoder.icv": torch.randn((1, 4, 64), generator=g) * 0.05,
+           "icv_encoder.alpha": torch.full((1, 4), 0.5), "use_sigmoid": False,
+           "lmm_args": {"total_layers": 4, "intervention_layer": -1,
+                        "layer_format": str(cfg.lmm.layer_format)}}
+    got = C.world_one_engine(cfg, args, icv, IdeficsConfig.tiny(dtype=torch.float32))
+    # 2 requests, one admission group, 4 layers: the ICV in the prefill and
+    # every step
+    assert got["icv_inject"] > 0 and got["icv_inject"] % 4 == 0
+    assert got["vit_attention"] == 2
 
 
 def test_pooled_launch_prediction_at_full_width():

@@ -15,6 +15,7 @@ import multiprocessing as mp
 import os
 import pickle
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -43,18 +44,25 @@ def _rank_entry(fn, rank: int, world: int, tmp: str, args: tuple) -> None:
 
 class Ranks:
     """``world`` spawned ranks running ``fn``; ``wait()`` returns their
-    results in rank order (the parent may work meanwhile)."""
+    results in rank order (the parent may work meanwhile).  Each process
+    starts from a thread of its own: ``start()`` hands a spawned child its
+    arguments only once the child has imported the parent's main module,
+    so starting them in turn would hold the parent for every child's
+    start-up."""
 
     def __init__(self, fn, world: int, tmp_path, *args, timeout: float = 240.0):
         ctx = mp.get_context("spawn")
         self.tmp = tempfile.mkdtemp(dir=str(tmp_path), prefix="ranks_")
         self.procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, self.tmp, args))
                       for r in range(world)]
-        for p in self.procs:
-            p.start()
+        self.starters = [threading.Thread(target=p.start) for p in self.procs]
+        for t in self.starters:
+            t.start()
         self.deadline = time.monotonic() + timeout
 
     def wait(self) -> list:
+        for t in self.starters:
+            t.join()
         procs = self.procs
         try:
             while any(p.is_alive() for p in procs):
@@ -406,3 +414,160 @@ def _head(text_cfg, params, hidden):
     from licv_vqa_tpu_torch.models import decoder
 
     return decoder.logits_from_hidden(text_cfg, params, hidden)
+
+
+def _serving_fns(family: str, cfg, eos: int, merged: bool):
+    """``(prefill, decode, media_axes, merged_admit_fn or None)`` of a family."""
+    from licv_vqa_tpu_torch.models import idefics, idefics2, openflamingo
+
+    mod, name = {"idefics": (idefics, "idefics"), "idefics2": (idefics2, "idefics2"),
+                 "openflamingo": (openflamingo, "openflamingo")}[family]
+    prefill, decode, axes = getattr(mod, f"make_{name}_serving_fns")(cfg, eos)
+    fn = getattr(mod, f"make_{name}_merged_admit_fn")(cfg, eos) if merged else None
+    return prefill, decode, axes, fn
+
+
+def _pooled_chain(family: str, cfg, eos: int, pad: int, max_new: int):
+    from licv_vqa_tpu_torch.infer import eval_chain
+
+    return getattr(eval_chain, f"make_{family}_pooled_eval_chain")(
+        cfg, eos, num_beams=3, max_new_tokens=max_new, pad_token_id=pad)
+
+
+def serve_case(c: dict, mesh=None) -> dict:
+    """One serving case on ``mesh`` (None: one process).  ``kind`` "engine":
+    the greedy or beam engine over ``c["requests"]`` (dicts of ``Request``
+    fields), its tokens, admissions, decode steps, merged admissions and
+    local rows; "pooled": ``runner.pooled_tokens`` through the family's
+    pooled chain over ``c["encs"]``.  The numpy params (JAX's layout) are
+    carried over and tp-sharded for ``mesh``."""
+    import torch
+
+    from licv_vqa_tpu_torch.infer import runner
+    from licv_vqa_tpu_torch.infer.serving import BeamServingEngine, Request, ServingEngine
+    from licv_vqa_tpu_torch.models.weights import params_from_jax
+    from licv_vqa_tpu_torch.ops.quantize import quantize_layer_stack
+    from licv_vqa_tpu_torch.parallel.sharding import shard_params
+
+    params = params_from_jax(c["params"], torch.float32)
+    if c.get("int8"):  # int8 decoder (and cross-attention) weights, the port's quantizer
+        params = dict(params, **{k: quantize_layer_stack(params[k])
+                                 for k in ("layers", "xattn") if k in params})
+    params = shard_params(params, mesh)
+    icv = None if c.get("icv") is None else torch.from_numpy(c["icv"])
+    cfg, eos, pad = c["cfg"], c["eos"], c["pad"]
+    if c["kind"] == "pooled":
+        chain = _pooled_chain(c["family"], cfg, eos, pad, c["max_new"])
+        return {"tokens": runner.pooled_tokens(
+            lambda ids, mask, px, pv, icv_: chain(params, ids, mask, px, pv, icv_), c["encs"],
+            c["pool"], c["max_new"], pad, torch.device("cpu"), icv)}
+    prefill, decode, axes, merged = _serving_fns(c["family"], cfg, eos, c.get("merged", False))
+    kw = dict(c["engine_kw"], eos_token_id=eos, pad_token_id=pad, icv_scaled=icv, mesh=mesh,
+              supports_pixel_attention_mask=c["family"] == "idefics2")
+    if c["beams"] > 1:
+        eng = BeamServingEngine(prefill, decode, axes, cfg.text, params,
+                                num_beams=c["beams"], **kw)
+    else:
+        eng = ServingEngine(prefill, decode, axes, cfg.text, params, merged_admit_fn=merged,
+                            **kw)
+    for r in c["requests"]:
+        eng.submit(Request(**r))
+    got = eng.run()
+    return {"tokens": got, "admissions": list(eng.admissions), "steps_run": eng.steps_run,
+            "merged_admits": eng.merged_admits, "n_rows": eng.n_rows}
+
+
+def serving_suite(rank: int, world: int, cases: dict) -> dict:
+    """Each case's ``serve_case`` on its ``(dp, tp)`` mesh of the ``world``
+    ranks, in one spawn."""
+    meshes: dict = {}
+    return {name: serve_case(c, use_sp_mesh(c["dp"], c["tp"], 1, meshes))
+            for name, c in cases.items()}
+
+
+def _counting(fn):
+    def wrapper(*a, **k):
+        wrapper.launches += 1
+        return fn(*a, **k)
+    wrapper.launches = 0
+    return wrapper
+
+
+def count_engine_kernels() -> None:
+    """``chip_smoke.py``'s counted wrappers with the gates of its card run
+    opened for the CPU (the fused ViT at any length, the causal flash at
+    >= 256 tokens), and the CUDA memory and synchronize calls stubbed: the
+    phases' launch predictions hold on tiny CPU models."""
+    import importlib
+
+    import torch
+
+    from licv_vqa_tpu_torch.models import decoder as PD
+    from licv_vqa_tpu_torch.models import layers as PL
+
+    iv = importlib.import_module("licv_vqa_tpu_torch.ops.icv_inject")
+    for mod, name in ((PL, "vit_attention"), (PL, "flash_attention"), (iv, "icv_inject")):
+        setattr(mod, name, _counting(getattr(mod, name)))
+    PD.icv_inject = iv.icv_inject
+    PL.vit_attention_usable = lambda s, dh, device: True
+    PL.flash_attention_usable = lambda cfg, s, dh, device: s >= 256
+    for name in ("synchronize", "reset_peak_memory_stats", "max_memory_allocated"):
+        setattr(torch.cuda, name, lambda *a: 0)
+
+
+def smoke_serving_rank(rank: int, world: int, refs_path: str, cfg_args: list,
+                       family_args: list, family_layers: int) -> dict:
+    """``chip_smoke.py`` phase 11 (h) on tiny CPU models in a gloo rank:
+    the engine run of ``refs["beam"]`` and the pooled chain of
+    ``refs["pooled"]`` at dp = ``world``, then the greedy engine of
+    ``refs["greedy"]`` (merged admission) on tp = ``world`` shards, then
+    ``refs["family"]`` on the family model cut to ``family_layers`` layers
+    at dp = ``world``, each held to the parent's one-process references by
+    the phase's own checks (which raise); their launch counts, and under
+    ``"misplaced"`` what the checks raised on the family run again with its
+    harvest's rows misplaced by the dp gather (None: nothing)."""
+    import torch
+
+    import chip_smoke as C
+    from licv_vqa_tpu_torch.core.mesh import MeshConfig, create_mesh, set_current_mesh
+    from licv_vqa_tpu_torch.models.registry import build_model
+    from licv_vqa_tpu_torch.parallel.sharding import shard_params
+    from licv_vqa_tpu_torch.utils import compose
+
+    count_engine_kernels()
+    refs = torch.load(refs_path, weights_only=False)
+    dev = torch.device("cpu")
+    b = build_model(compose(str(C.REPO / "config"), "inference", cfg_args), device=dev)
+    out = {}
+    mesh = create_mesh(MeshConfig(dp=world, tp=1))
+    set_current_mesh(mesh)
+    out["beam"] = C.rank_engine_run("beam", b, refs["beam"], dev)
+    out["pooled"] = C.rank_pooled_run("pooled", b, refs["pooled"], dev)
+    mesh = create_mesh(MeshConfig(dp=1, tp=world))
+    set_current_mesh(mesh)
+    shard_params(b.params, mesh)
+    out["greedy"] = C.rank_engine_run("greedy", b, refs["greedy"], dev)
+    fam = build_model(compose(str(C.REPO / "config"), "inference", family_args), device=dev)
+    mesh = create_mesh(MeshConfig(dp=world, tp=1))
+    set_current_mesh(mesh)
+    cut = C.cut_bundle(fam, family_layers, copy=True)
+    out["family"] = C.rank_engine_run("family", cut, refs["family"], dev)
+    # a planted fault: the harvest's dp gather puts each row's tokens one
+    # row down (the flags and counts in place); the token rule refuses it
+    from licv_vqa_tpu_torch.infer import serving
+
+    gather = serving.gather_rows_dp
+
+    def misplaced(x):
+        x = gather(x)
+        return torch.cat([x[:, :2], x[:, 2:].roll(1, 0)], dim=1)
+
+    serving.gather_rows_dp = misplaced
+    try:
+        C.rank_engine_run("family, rows misplaced", cut, refs["family"], dev)
+        out["misplaced"] = None
+    except AssertionError as err:
+        out["misplaced"] = str(err)
+    finally:
+        serving.gather_rows_dp = gather
+    return out
